@@ -1,0 +1,131 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, from the sources in this checkout only, into
+``_build/`` (listed in ``.gitignore``), keyed by a hash of the sources so a
+fresh checkout or an edited kernel rebuilds and an unchanged one does not.
+
+Nothing here touches CUDA or runs ``nvcc`` when the module is imported: the
+CPU tests import every module of the package.
+
+Each C entry point returns the ``cudaError_t`` of its launches (0 = ok);
+:func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional
+
+PKG_ROOT = Path(__file__).resolve().parent.parent
+CSRC = PKG_ROOT / "csrc"
+BUILD_DIR = PKG_ROOT / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# dtype codes shared with csrc/conv_tile.cuh
+DTYPE_F32, DTYPE_BF16 = 0, 1
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument lists of the C entry points (pointers and the stream as void*,
+# or ctypes would pass them as 32-bit ints)
+SIGNATURES: Dict[str, List] = {
+    # x, w, y, B, H, W, Cin, Cout, dtype, stream
+    "conv3x3_nhwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, k1, g1, b1, k2, a1 (scratch), y2, B, H, W, C1, C2, dtype, stream
+    "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def sources() -> List[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    cands = [Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+             / "nvcc"]
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(Path(found))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into _build/libkernels_<hash>.so unless present."""
+    global _build_log
+    so = BUILD_DIR / f"libkernels_{source_hash()}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
+    cus = [str(p) for p in sources() if p.suffix == ".cu"]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    _build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{_build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def build_log() -> str:
+    """nvcc's output (including -Xptxas=-v register/smem lines) of the
+    build this process ran; empty when the library was already built."""
+    return _build_log
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call. Raises if it cannot be."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def dtype_code(dtype) -> int:
+    import torch
+    codes = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
+    if dtype not in codes:
+        raise ValueError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

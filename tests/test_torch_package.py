@@ -1,0 +1,85 @@
+"""The port package: jax-free imports, lazy kernel build, CPU routing.
+
+The import check runs in a subprocess, because this test process already
+holds jax (tests/conftest.py imports it)."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from robust_object_detection_tpu_torch import kernels
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "robust_object_detection_tpu_torch"
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import torch
+torch.set_num_threads(1)
+import robust_object_detection_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+from robust_object_detection_tpu_torch.ops.conv3x3 import conv3x3
+y = conv3x3(torch.zeros(1, 4, 4, 2), torch.ones(3, 3, 2, 5))
+heavy = sorted(m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2"))
+print(json.dumps({"modules": names, "heavy": heavy, "shape": list(y.shape),
+                  "launches": conv3x3.launches}))
+"""
+
+
+def test_package_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["heavy"] == []
+    assert out["shape"] == [1, 4, 4, 5] and out["launches"] == 0
+    expected = {f"robust_object_detection_tpu_torch.{m}" for m in (
+        "kernels", "core.config", "ops.image", "ops.corrupt", "ops.conv3x3",
+        "ops.yolo_front", "ops.nms", "models.layers", "models.yolov8",
+        "models.convert", "train.detector", "eval.fused_sweep")}
+    assert expected <= set(out["modules"])
+
+
+def test_no_module_imports_jax():
+    for p in PKG.rglob("*.py"):
+        src = p.read_text()
+        for mod in ("jax", "flax", "optax"):
+            assert f"import {mod}" not in src, p
+            assert f"from {mod}" not in src, p
+
+
+def test_kernel_sources_and_hash():
+    names = [p.name for p in kernels.sources()]
+    assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh"} <= set(names)
+    assert kernels.source_hash() == kernels.source_hash()
+    for p in kernels.sources():
+        if p.suffix == ".cu":
+            # every kernel source names the TPU kernel it replaces
+            assert "Replaces: robust_object_detection_tpu/ops/" in \
+                p.read_text(), p
+    assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.nvcc_path()
+
+
+def test_dtype_codes():
+    assert kernels.dtype_code(torch.float32) == kernels.DTYPE_F32
+    assert kernels.dtype_code(torch.bfloat16) == kernels.DTYPE_BF16
+    with pytest.raises(ValueError):
+        kernels.dtype_code(torch.float16)

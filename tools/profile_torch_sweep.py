@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's 4-pass sweep goes, on one CUDA card.
+
+    python3 tools/profile_torch_sweep.py [--images 64] [--batch 8]
+
+Runs the cell of chip_smoke.py (YOLOv8m nc=6, seeded random weights, bf16,
+a 1024 canvas, synthetic 768x1024 images) and measures, in one process:
+
+  1. per batch, CUDA events (median of 10 calls after 3 warm-ups): the
+     fused step (4 passes), one predict pass, and its parts: the forward,
+     decode and multi-label NMS;
+  2. the unprofiled sweep, 3 runs: wall seconds and image-passes per second;
+  3. one sweep under torch.profiler: its wall time, and from that same run
+     the device's busy time (union of its kernel and memcpy intervals) and
+     idle share; kernel launches and the host time spent in the launch
+     API; device time by kernel group.
+
+The device-time table by kernel goes to --out. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (synthetic_samples, time_ms)
+
+LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx"}
+
+
+def kernel_group(name: str) -> str:
+    m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d)>", name)
+    if m:
+        return "K2-f yolo_front" if m.group(1) == "2" else "K3-f conv3x3"
+    low = name.lower()
+    if low.startswith(("memcpy", "memset")):
+        return "memcpy/memset"
+    if "bn_fw" in low or "batch_norm" in low:
+        return "cuDNN batch norm"
+    if any(t in low for t in ("xmma", "implicit_gemm", "nvjet", "cutlass",
+                              "gemm", "conv")):
+        return "cuDNN/cuBLAS conv"
+    return "other (elementwise, reduce, topk, gather)"
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--images", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "chiprun_out" / "profile_torch_sweep.txt")
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from robust_object_detection_tpu_torch import kernels
+    from robust_object_detection_tpu_torch.eval import fused_sweep as FS
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import image as image_ops
+    from robust_object_detection_tpu_torch.ops import nms as nms_ops
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 1
+    size, bs = chip_smoke.IMG_SIZE, args.batch
+    dev = torch.device("cuda", 0)
+    print(chip_smoke.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"]))
+    kernels.build()
+    model = Y.create(6, "m", torch.bfloat16, dev,
+                     torch.Generator().manual_seed(chip_smoke.SEED))
+    predict = D.make_predict_step(size)
+    images, samples = chip_smoke.synthetic_samples(args.images)
+
+    def loader(sample):
+        return images[sample.image_id]
+
+    # 1. per-batch parts, CUDA events
+    import numpy as np
+    batch = torch.from_numpy(np.stack(
+        [images[s.image_id] for s in samples[:bs]])).to(dev)
+    step = FS.make_fused_step(predict, None, chip_smoke.NATIVE_HW, size)
+    gen = torch.Generator(dev).manual_seed(chip_smoke.SEED)
+    canvas, _, _ = image_ops.letterbox(batch.float(), size)
+    with torch.inference_mode():
+        x = canvas / 255.0
+        outs = model(x)
+        boxes, scores = Y.decode(outs, size)
+        n, c = scores.shape[1:]
+        parts = {
+            "fused step (4 passes)": lambda: step(model, None, batch, gen),
+            "predict (1 pass)": lambda: predict(model, canvas),
+            "forward": lambda: model(x),
+            "decode": lambda: Y.decode(outs, size),
+            "multi-label NMS": lambda: nms_ops.multilabel_nms(
+                boxes, scores, min(30000, n * c), 300, 0.7, 0.001),
+        }
+        per_batch = {k: chip_smoke.time_ms(fn) for k, fn in parts.items()}
+    for k, ms in per_batch.items():
+        print(f"[batch {bs}] {k}: {ms} ms")
+
+    # 2. unprofiled sweeps (the first batch of a run warms the allocator)
+    FS.run_fused_sweep(predict, model, None, None, samples[:bs], size, bs,
+                       load_image=loader)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = FS.run_fused_sweep(predict, model, None, None, samples, size,
+                                 bs, load_image=loader)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    passes = out["images_evaluated"]
+    rates = [passes / w for w in walls]
+    print(f"[sweep] {args.images} images x 4 passes, batch {bs}: wall s "
+          f"{walls}, images/s {rates}")
+
+    # 3. one profiled sweep: wall and device busy time from the same run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        FS.run_fused_sweep(predict, model, None, None, samples, size, bs,
+                           load_image=loader)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = prof.events()
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not dev_ev:
+        raise RuntimeError("the profiler recorded no device events")
+    busy_ms = union_us((e.time_range.start, e.time_range.end)
+                       for e in dev_ev) / 1e3
+    launches = [e for e in events if e.name in LAUNCH_APIS]
+    launch_ms = sum(e.time_range.elapsed_us() for e in launches) / 1e3
+    by_kernel: dict = {}
+    for e in dev_ev:
+        tot, cnt = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    groups: dict = {}
+    for name, (ms, cnt) in by_kernel.items():
+        g = groups.setdefault(kernel_group(name), [0.0, 0])
+        g[0] += ms
+        g[1] += cnt
+    forwards = 4 * math.ceil(args.images / bs)
+    print(f"[profiled sweep] wall {prof_wall * 1e3} ms, device busy "
+          f"{busy_ms} ms, idle share {1 - busy_ms / (prof_wall * 1e3)}; "
+          f"{len(launches)} kernel launches, {launch_ms} ms host time in "
+          f"the launch API; {forwards} forwards")
+    for g, (ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profiled sweep] {g}: {ms} ms device, {cnt} kernels, "
+              f"{ms / forwards} ms per forward")
+
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "w") as f:
+        for name, (ms, cnt) in sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1][0]):
+            f.write(f"{ms:12.3f} ms {cnt:7d}  {name[:160]}\n")
+    print(json.dumps({
+        "per_batch_ms": per_batch, "sweep_wall_s": walls,
+        "sweep_images_per_sec": rates,
+        "median_images_per_sec": statistics.median(rates),
+        "profiled_wall_ms": prof_wall * 1e3, "device_busy_ms": busy_ms,
+        "kernel_launches": len(launches), "launch_api_ms": launch_ms,
+        "device_ms_by_group": {g: v[0] for g, v in groups.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
