@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path, the 4-pass robustness sweep, once at full
-width: YOLOv8m (nc=6, seeded random weights, bf16, eval mode) at a 1024
-canvas over 64 synthetic 768x1024 images in batches of 8. Phases:
+Drives the port's two paths once each at full width, with seeded random
+weights: the serving path, the 4-pass robustness sweep (YOLOv8m, nc=6,
+bf16, eval mode, 1024 canvas, 64 synthetic 768x1024 images in batches of
+8), and the training path, ``bench.py``'s workload (YOLOv8m trained at
+1024 px, batch 16, 80 ground-truth boxes per image in 600 slots, the
+Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm outputs and
+f32 statistics). Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
   2. build: compiles the kernels of csrc/ with nvcc from this checkout;
-  3. kernels: each hand-written kernel against its plain PyTorch version
-     at the main path's shapes (f32 with TF32 off: max abs err <=
+  3. kernels: the eval kernels (K3-f, K2-f) against their plain PyTorch
+     versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
      (median of 10 calls after 3 warm-ups) of both, and the kernels'
      refusal of CUDA tensors they do not take;
@@ -19,7 +23,22 @@ canvas over 64 synthetic 768x1024 images in batches of 8. Phases:
      against the same weights on the CPU (plain versions) at 128 px;
   5. the sweep: launch counters zeroed just before it and read just after
      (front 1 and conv3x3 4 per forward, x 4 passes x batches), finite
-     per-variant mAPs, detections per image, images/sec.
+     per-variant mAPs, detections per image, images/sec;
+  6. training kernels: K3-b (conv3x3 wgrad) and K3-f as dX, K2-f in train
+     mode, K2-b and K1 against their plain versions at the training
+     shapes, in f32 with TF32 off and in bf16, timed the same way, and
+     their refusal of bad CUDA inputs (tolerances in phase_train_kernels);
+  7. train-step model check: one YOLOv8m f32 train step at 128 px, batch
+     2, no corruption, on the card (kernels, TF32 off) and on the CPU
+     (plain versions) from the same weights and batch: loss within 1e-4
+     relative, every parameter's gradient within 1e-3 x max|ref| of its
+     leaf;
+  8. training: 1 warm-up step, then 5 timed steps with the launch
+     counters zeroed just before and read just after (per step: K1 1,
+     front train forward 1, front backward 1, conv3x3 8 = 4 forward + 4
+     dX, conv3x3 wgrad 4); finite loss and grad norm every step, moved
+     BatchNorm running statistics and EMA; step ms (median), images/s and
+     peak device memory.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. The line before the last is the kernel summary
@@ -42,6 +61,10 @@ BATCH = 8
 N_IMAGES = 64
 NATIVE_HW = (768, 1024)
 SEED = 0
+TRAIN_BATCH = 16       # bench.py's train workload
+MAX_BOXES = 600
+GT_PER_IMAGE = 80
+TRAIN_STEPS = 5
 
 # the fields of a clean val-split sample that run_fused_sweep reads
 Sample = namedtuple("Sample", "image_path image_id width height "
@@ -271,6 +294,321 @@ def phase_sweep(dev):
     return launches
 
 
+def check(name, out, ref, tol, log):
+    """max abs err of out vs the f32 reference within tol x max|ref|."""
+    err, scale = max_err(out, ref)
+    log.append(f"{name} {err} (max|ref| {scale}, tol {tol * scale})")
+    require(math.isfinite(err) and err <= tol * scale,
+            f"{name}: error {err} > {tol} x {scale}")
+    return err
+
+
+def phase_train_kernels(dev):
+    """Each training kernel vs its plain version at the train path's
+    shapes. Tolerances: f32 outputs 1e-4 x max|ref| (f32 sums in another
+    order); f32 sums over B x H x W (weight gradients, BN statistics and
+    their gradients) 1e-3 x max|ref| (~1e6-term sums in another order);
+    bf16 2e-2 x max|ref|. The bf16 K3 kernels are held against the plain
+    version in f32 on the same bf16 values; the bf16 front against the
+    plain front in bf16, which rounds y1, a1 and y2 where the kernels do:
+    the pre-BN y1 of a 1024 px batch has channels whose spread is a few
+    bf16 steps of their mean, so the gradient of k1 through BN1 is a
+    different function of bf16-rounded and of exact y1 (the f32 plain
+    front on bf16 inputs differs from the bf16 one by 5% of max|dk1| at
+    (2, 256, 256) on the CPU and by 55% at the training shape on the
+    card). K1: clean and blur bit-exact, lowres and noise within
+    1 LSB (the plain version replays the kernel's noise bits; the
+    transcendentals differ by ulps), noise on a mid-grey image with mean
+    -0.5 +- 0.5 (the truncation to integers takes 0.5 off a symmetric
+    noise) and std 15 +- 0.5. Timings as phase_kernels; the plain
+    versions run under PyTorch's default flags."""
+    import torch
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+
+    g = torch.Generator(dev).manual_seed(SEED + 1)
+    results = {}
+
+    # K3-b and K3-f as dX: C2f_0 bottleneck convs, (16, 256, 256, 48) -> 48
+    x = torch.randn(TRAIN_BATCH, 256, 256, 48, device=dev, generator=g)
+    dy = torch.randn(TRAIN_BATCH, 256, 256, 48, device=dev, generator=g)
+    k = torch.randn(3, 3, 48, 48, device=dev, generator=g) * 0.1
+    wg = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+        name = str(dtype).split(".")[-1]
+        xd, dyd, kd = x.to(dtype), dy.to(dtype), k.to(dtype)
+        log = []
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            err = check(f"conv3x3_wgrad {name}", C.conv3x3_wgrad(xd, dyd),
+                        C.conv3x3_wgrad_reference(xd.float(), dyd.float()),
+                        tol, log)
+            kflip = kd.flip(0, 1).transpose(2, 3).contiguous()
+            check(f"conv3x3 dX {name}", C.conv3x3(dyd, kflip),
+                  C.conv3x3_reference(dyd.float(), kflip.float()),
+                  1e-4 if dtype == torch.float32 else 1e-2, log)
+        again = C.conv3x3_wgrad(xd, dyd)
+        require(torch.equal(again, C.conv3x3_wgrad(xd, dyd)),
+                "conv3x3_wgrad is not deterministic")
+        ms = time_ms(lambda: C.conv3x3_wgrad(xd, dyd))
+        plain_ms = time_ms(lambda: C.conv3x3_wgrad_reference(xd, dyd))
+        print(f"[train-kernels] {'; '.join(log)}; wgrad kernel {ms} ms "
+              f"plain {plain_ms} ms (cuDNN)")
+        wg[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["conv3x3_wgrad"] = wg
+    del x, dy
+
+    # K2-f train + K2-b: the front, (16, 1024, 1024, 3) -> 48 -> 96
+    xf = torch.rand(TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3, device=dev,
+                    generator=g)
+    k1 = torch.randn(3, 3, 3, 48, device=dev, generator=g) * 0.2
+    k2 = torch.randn(3, 3, 48, 96, device=dev, generator=g) * 0.1
+    sc1 = torch.rand(48, device=dev, generator=g) + 0.5
+    bi1 = torch.randn(48, device=dev, generator=g) * 0.1
+    cot = (torch.randn(TRAIN_BATCH, IMG_SIZE // 4, IMG_SIZE // 4, 96,
+                       device=dev, generator=g),
+           *(torch.randn(c, device=dev, generator=g) * 0.1
+             for c in (48, 48, 96, 96)))
+    fwd, bwd = {}, {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        name = str(dtype).split(".")[-1]
+        stol = 1e-3 if dtype == torch.float32 else tol
+        xd = xf.to(dtype)
+        params = [t.clone().requires_grad_() for t in (k1, sc1, bi1, k2)]
+        rparams = [t.clone().requires_grad_() for t in (k1, sc1, bi1, k2)]
+        cots = (cot[0].to(dtype), *cot[1:])
+        log = []
+        out = TF.front_fused(xd, *params)
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            ref = TF.front_fused_reference(xd, *rparams)
+            err = check(f"front train y2 {name}", out[0], ref[0], tol, log)
+            for i, s in enumerate(("mean1", "var1", "mean2", "var2")):
+                check(f"{s} {name}", out[i + 1], ref[i + 1], stol, log)
+            grads = torch.autograd.grad(out, params, cots)
+            rgrads = torch.autograd.grad(ref, rparams, cots)
+        gerr = max(check(f"d{n} {name}", a, b, stol, log) for n, a, b in
+                   zip(("k1", "sc1", "bi1", "k2"), grads, rgrads))
+        del out, ref, grads, rgrads
+        with torch.no_grad():
+            ms = time_ms(lambda: TF.front_fused(xd, *params))
+            plain_ms = time_ms(lambda: TF.front_fused_reference(xd, *params))
+        out = TF.front_fused(xd, *params)
+        pout = TF.front_fused_reference(xd, *params)
+        bms = time_ms(lambda: torch.autograd.grad(out, params, cots,
+                                                  retain_graph=True))
+        bplain = time_ms(lambda: torch.autograd.grad(pout, params, cots,
+                                                     retain_graph=True))
+        del out, pout
+        print(f"[train-kernels] {'; '.join(log)}; front train forward "
+              f"kernel {ms} ms plain {plain_ms} ms; backward kernel {bms} "
+              f"ms plain {bplain} ms (autograd of the plain front, cuDNN)")
+        fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain)
+    results["yolo_front_train"] = fwd
+    results["yolo_front_bwd"] = bwd
+    del xf, cot
+
+    # K1: (16, 1024, 1024, 3) f32, all four branches, one mid-grey image
+    img = torch.floor(torch.rand(TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
+                                 device=dev, generator=g) * 256)
+    img[1] = 128.0
+    choice = torch.arange(TRAIN_BATCH, device=dev, dtype=torch.int32) % 4
+    seeds = torch.randint(0, 2 ** 30, (TRAIN_BATCH,), device=dev,
+                          generator=g, dtype=torch.int32)
+    out, _ = FC.fused_random_corruption(img, None, choice=choice,
+                                        seeds=seeds)
+    ref = FC.fused_corruption_reference(img, choice, seeds)
+    diff = (out - ref).abs().amax((1, 2, 3))
+    per_branch = [diff[choice == c].max().item() for c in range(4)]
+    noise = out[1] - 128.0
+    nmean, nstd = noise.mean().item(), noise.std().item()
+    ms = time_ms(lambda: FC.fused_random_corruption(img, None, choice=choice,
+                                                    seeds=seeds))
+    plain_ms = time_ms(lambda: FC.fused_corruption_reference(img, choice,
+                                                             seeds))
+    print(f"[train-kernels] corrupt f32 (16,1024,1024,3): max abs diff by "
+          f"branch (clean, noise, blur, lowres) {per_branch}; mid-grey "
+          f"noise mean {nmean} std {nstd}; kernel {ms} ms plain {plain_ms} "
+          f"ms")
+    require(per_branch[0] == 0 and per_branch[2] == 0,
+            f"corrupt clean/blur not bit-exact: {per_branch}")
+    require(per_branch[1] <= 1 and per_branch[3] <= 1,
+            f"corrupt noise/lowres beyond 1 LSB: {per_branch}")
+    require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
+            f"noise mean {nmean} std {nstd}")
+    results["corrupt"] = {"float32": dict(max_abs_err=max(per_branch),
+                                          ms=ms, plain_ms=plain_ms)}
+    del img, out, ref
+
+    # the new wrappers refuse CUDA tensors they do not take
+    small = torch.zeros(1, 8, 8, 4, device=dev)
+    counters = (C.conv3x3_wgrad, TF.front_fused, FC.fused_random_corruption)
+    before = [f.launches for f in counters]
+    bad = (lambda: C.conv3x3_wgrad(small, small.half()),
+           lambda: C.conv3x3_wgrad(small[:, :, ::2], small[:, :, ::2]),
+           lambda: TF.front_fused(torch.zeros(1, 9, 8, 3, device=dev),
+                                  k1, sc1, bi1, k2),
+           lambda: FC.fused_random_corruption(
+               torch.zeros(1, 9, 8, 3, device=dev), None, choice=[0],
+               seeds=[0]))
+    refused = 0
+    for fn in bad:
+        try:
+            fn()
+        except ValueError:
+            refused += 1
+    require(refused == len(bad), f"only {refused}/{len(bad)} bad CUDA "
+            f"inputs were refused")
+    require([f.launches for f in counters] == before,
+            "a refused call launched a kernel")
+    print(f"[train-kernels] bad CUDA inputs refused: {refused}/{len(bad)}")
+    torch.cuda.synchronize()
+    return results
+
+
+def detection_batch(rng, n: int, size: int, per_image: int, max_boxes: int):
+    """uint8 images and padded GT as bench.py builds them."""
+    import numpy as np
+    images = rng.randint(0, 255, (n, size, size, 3), dtype=np.uint8)
+    gb = np.zeros((n, max_boxes, 4), np.float32)
+    gc = np.full((n, max_boxes), -1, np.int64)
+    for i in range(n):
+        xy = rng.rand(per_image, 2) * (size - size * 100 // 1024)
+        wh = rng.rand(per_image, 2) * (size * 60 // 1024) + 8
+        gb[i, :per_image] = np.concatenate([xy, xy + wh], 1)
+        gc[i, :per_image] = rng.randint(0, 6, per_image)
+    return images, gb, gc
+
+
+def phase_train_model_check(dev):
+    """One YOLOv8m f32 train step (no corruption, no HSV/flip) on the card
+    (kernels, TF32 off) and on the CPU (plain versions), same weights and
+    batch: loss within 1e-4 relative, each parameter's gradient within
+    1e-3 x max|ref| of its leaf."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 2), 2, 128,
+                                     8, 16)
+    tx, _ = D.make_optimizer()
+    step = D.make_train_step(128, CorruptionConfig(), augment=False)
+    res = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Y.create(6, "m", torch.float32, device,
+                         torch.Generator().manual_seed(SEED), train=True)
+        state = D.init_state(model, tx)
+        # the gradients as backward leaves them (the optimizer's foreach
+        # nesterov update adds the momentum into .grad in place on CUDA)
+        grads = {}
+        for n, p in model.named_parameters():
+            if p.requires_grad:
+                p.register_post_accumulate_grad_hook(
+                    lambda p, n=n: grads.__setitem__(n, p.grad.detach().cpu()))
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            m = step(state, torch.from_numpy(images).to(device),
+                     torch.from_numpy(gb).to(device),
+                     torch.from_numpy(gc).to(device),
+                     torch.Generator(device).manual_seed(SEED))
+        res[name] = (m, grads)
+    (mc, gcard), (mr, gref) = res["card"], res["cpu"]
+    loss_rel = abs(mc["loss"].item() - mr["loss"].item()) / abs(
+        mr["loss"].item())
+    require(gcard.keys() == gref.keys(), "gradient leaves differ")
+    worst, worst_name = 0.0, ""
+    for n, r in gref.items():
+        e = ((gcard[n] - r).abs().max() / (r.abs().max() + 1e-12)).item()
+        if e > worst:
+            worst, worst_name = e, n
+    print(f"[train-model] YOLOv8m f32 128px train step card vs CPU: loss "
+          f"{mc['loss'].item()} vs {mr['loss'].item()} (rel {loss_rel}, "
+          f"tol 1e-4); num_fg {mc['num_fg'].item()} vs "
+          f"{mr['num_fg'].item()}; worst gradient rel err {worst} at "
+          f"{worst_name} over {len(gref)} leaves (tol 1e-3)")
+    require(loss_rel <= 1e-4, f"train-step loss differs by {loss_rel}")
+    require(math.isfinite(worst) and worst <= 1e-3,
+            f"gradient {worst_name} differs by {worst} x max|ref|")
+
+
+def phase_training(dev):
+    """The training slice through the port's entry points; returns the
+    launch counts of the timed steps."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    model = Y.create(6, "m", torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED), train=True,
+                     bn_dtype=torch.bfloat16)
+    tx, _ = D.make_optimizer()
+    state = D.init_state(model, tx)
+    step = D.make_train_step(IMG_SIZE, CorruptionConfig(), augment=True,
+                             base_augment=True)
+    images, gb, gc = detection_batch(np.random.RandomState(SEED),
+                                     TRAIN_BATCH, IMG_SIZE, GT_PER_IMAGE,
+                                     MAX_BOXES)
+    images, gb, gc = (torch.from_numpy(a).to(dev) for a in (images, gb, gc))
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    m = step(state, images, gb, gc, gen)          # warm-up, off the count
+    torch.cuda.synchronize()
+    require(math.isfinite(m["loss"].item()), "warm-up loss not finite")
+    bn = model.model[2].m[0].cv1.bn
+    stats0 = (bn.running_mean.clone(), bn.running_var.clone(),
+              model.model[0].bn.running_var.clone())
+    ema0 = {n: e.clone() for n, e in state.ema.items()}
+
+    counters = {"corrupt": FC.fused_random_corruption,
+                "yolo_front_train": TF.front_fused,
+                "yolo_front_bwd": TF.front_fused_backward,
+                "conv3x3": C.conv3x3, "conv3x3_wgrad": C.conv3x3_wgrad}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, images, gb, gc, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: v.item() for k, v in m.items()}
+        print(f"[train] step {i}: {vals}")
+        require(math.isfinite(vals["loss"]) and
+                math.isfinite(vals["grad_norm"]),
+                f"step {i}: loss or grad_norm not finite")
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    per_step = {"corrupt": 1, "yolo_front_train": 1, "yolo_front_bwd": 1,
+                "conv3x3": 8, "conv3x3_wgrad": 4}
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"[train] launches {launches} expected {expect}")
+    require(launches == expect, f"launch counts {launches} != {expect}")
+    moved = [not torch.equal(a, b) for a, b in zip(
+        stats0, (bn.running_mean, bn.running_var,
+                 model.model[0].bn.running_var))]
+    ema_moved = sum(not torch.equal(ema0[n], e) for n, e in state.ema.items())
+    print(f"[train] BN running stats moved {moved}; EMA leaves moved "
+          f"{ema_moved}/{len(ema0)}")
+    require(all(moved), "BatchNorm running statistics did not move")
+    require(ema_moved > 0, "the EMA did not move")
+    ms = statistics.median(times)
+    print(f"[train] YOLOv8m bf16 1024px batch {TRAIN_BATCH}, augment + "
+          f"HSV/flip: step ms {times} median {ms} = "
+          f"{TRAIN_BATCH / (ms / 1e3)} images/s; peak memory "
+          f"{peak} bytes ({peak / 2 ** 30} GiB)")
+    return launches
+
+
 def main() -> int:
     import torch
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -300,17 +638,30 @@ def main() -> int:
     kres = phase_kernels(dev)
     phase_model_check(dev)
     launches = phase_sweep(dev)
+    kres.update(phase_train_kernels(dev))
+    phase_train_model_check(dev)
+    train_launches = phase_training(dev)
+    for name, n in train_launches.items():
+        launches[name] = launches.get(name, 0) + n
 
     src = "robust_object_detection_tpu_torch/csrc/"
     ref = "robust_object_detection_tpu/ops/"
     summary = []
-    for name, source, replaces in (
-            ("conv3x3", src + "conv3x3.cu", ref + "pallas_conv.py:37"),
-            ("yolo_front", src + "yolo_front.cu",
-             ref + "pallas_yolo_front.py:109")):
-        r = kres[name]["bfloat16"]
-        summary.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+    for name, source, replaces, dtype in (
+            ("conv3x3", "conv3x3.cu", "pallas_conv.py:37", "bfloat16"),
+            ("yolo_front", "yolo_front.cu", "pallas_yolo_front.py:109",
+             "bfloat16"),
+            ("conv3x3_wgrad", "conv3x3_wgrad.cu", "pallas_conv.py:62",
+             "bfloat16"),
+            ("yolo_front_train", "yolo_front.cu", "pallas_yolo_front.py:109",
+             "bfloat16"),
+            ("yolo_front_bwd", "yolo_front_bwd.cu",
+             "pallas_yolo_front.py:200", "bfloat16"),
+            ("corrupt", "corrupt.cu", "pallas_corrupt.py:52", "float32")):
+        r = kres[name][dtype]
+        summary.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": ref + replaces,
+                        "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": summary}))

@@ -3,7 +3,8 @@
 // Replaces: robust_object_detection_tpu/ops/pallas_conv.py, _conv3x3_kernel
 // (public entry conv3x3_planes), the forward of the YOLOv8 C2f_0 bottleneck
 // convs (48 -> 48 channels at 256x256 for a 1024 canvas, 4 calls per
-// forward).
+// forward) and, with the filter flipped spatially and transposed, their
+// input gradient (4 more calls per train step), as _bwd does on the TPU.
 //
 // On the TPU the kernel existed to keep a 48-channel tensor out of XLA's
 // 128-lane-padded NHWC layout, hence its (B, H, C, W) planes layout and
@@ -25,7 +26,7 @@
 extern "C" int conv3x3_nhwc(const void* x, const void* w, void* y, int B,
                             int H, int W, int Cin, int Cout, int dtype,
                             void* stream) {
-  return rodt::launch_conv3x3_dtype<1>(dtype, x, w, y, nullptr, nullptr, B,
+  return rodt::launch_conv3x3_dtype<1>(dtype, x, w, y, rodt::ConvOpts(), B,
                                        H, W, Cin, Cout,
                                        static_cast<cudaStream_t>(stream));
 }

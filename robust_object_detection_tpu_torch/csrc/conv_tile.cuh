@@ -1,6 +1,15 @@
 // Shared tiled direct 3x3 convolution (pad 1, stride 1 or 2), NHWC in and
-// out, HWIO filter, f32 accumulation, optional folded-BN + SiLU epilogue.
-// Used by conv3x3.cu (K3-f) and yolo_front.cu (K2-f).
+// out, HWIO filter, f32 accumulation, with optional pieces:
+//   * an input transform a = round(silu(x * in_scale + in_bias)) applied
+//     while staging (train-mode BN + SiLU of the layer below, whose batch
+//     statistics exist only after that layer covered the whole batch);
+//     the zero padding stays zero in a-space;
+//   * an output epilogue y = silu(y * out_scale + out_bias) (eval BN fold);
+//   * a statistics epilogue: per-block per-channel sum and sum of squares
+//     of the STORED (rounded) outputs, as deterministic partials
+//     stats[2][P][Cout], P = B * tiles; finalize_partials_kernel reduces
+//     them.
+// Used by conv3x3.cu (K3-f) and yolo_front.cu (K2-f, eval and train).
 //
 // One block computes a TILE x TILE output tile for CO_T output channels of
 // one image. Input channels are staged CI_T at a time: the block copies the
@@ -24,6 +33,7 @@ constexpr int TILE = 16;     // output tile is TILE x TILE pixels
 constexpr int CO_T = 16;     // output channels per block
 constexpr int CI_T = 8;      // input channels staged per pass
 constexpr int THREADS = 256; // 64 pixel groups x 4 channel groups
+constexpr float BN_EPS = 1e-3f;  // flax BatchNorm epsilon
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -37,16 +47,65 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+// v rounded to T and back (the value a T tensor would hold)
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+__device__ __forceinline__ float silu(float z) {
+  return z / (1.f + expf(-z));
+}
 
-// y[b, oy, ox, co] = sum_{ky,kx,ci} x[b, oy*S-1+ky, ox*S-1+kx, ci]
+struct ConvOpts {
+  const float* in_scale = nullptr;   // input transform (with in_bias)
+  const float* in_bias = nullptr;
+  const float* out_scale = nullptr;  // output epilogue (with out_bias)
+  const float* out_bias = nullptr;
+  float* stats = nullptr;            // [2][P][Cout] partials
+};
+
+// For a 256-thread block laid out as tid = pg * 4 + cg (cg: 4 channels
+// cg*4..cg*4+3), sum s[4] and ss[4] over the 64 pixel groups in a fixed
+// order and write them to part[0][p][c0 + .] and part[1][p][c0 + .]
+// (channels >= C skipped). Every thread of the block must call it.
+__device__ __forceinline__ void block_channel_partials(
+    float s[4], float ss[4], float* part, size_t P, size_t p, int c0,
+    int C) {
+  __shared__ float red[2][THREADS / 32][16];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {  // same cg, other pixel groups
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+      ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], off);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      red[0][warp][lane * 4 + k] = s[k];
+      red[1][warp][lane * 4 + k] = ss[k];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int which = threadIdx.x >> 4, c = threadIdx.x & 15;
+    float t = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) t += red[which][w][c];
+    if (c0 + c < C) part[(which * P + p) * C + c0 + c] = t;
+  }
+}
+
+// y[b, oy, ox, co] = sum_{ky,kx,ci} a[b, oy*S-1+ky, ox*S-1+kx, ci]
 //                                   * w[ky, kx, ci, co]
-// and, when scale != nullptr, y = silu(y * scale[co] + bias[co]).
-template <typename T, int S>
+// with a = x, or the input transform of x; then the optional epilogues.
+// STATS (o.stats set) is a template flag so that the convs without the
+// statistics epilogue keep its registers free (119 vs 80 a thread).
+template <typename T, int S, bool STATS>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ y, const float* __restrict__ scale,
-                    const float* __restrict__ bias, int H, int W, int Cin,
-                    int Cout, int Ho, int Wo, int tiles_x) {
+                    T* __restrict__ y, ConvOpts o, int H, int W, int Cin,
+                    int Cout, int Ho, int Wo, int tiles_x, int n_tiles) {
   constexpr int IN_T = (TILE - 1) * S + 3;  // input patch side
   __shared__ float s_in[CI_T][IN_T][IN_T];
   __shared__ __align__(16) float s_w[9][CI_T][CO_T];
@@ -79,8 +138,12 @@ conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int iy = pix / IN_T, ix = pix % IN_T;
       const int gy = iy0 + iy, gx = ix0 + ix;
       float v = 0.f;
-      if (c < nci && gy >= 0 && gy < H && gx >= 0 && gx < W)
+      if (c < nci && gy >= 0 && gy < H && gx >= 0 && gx < W) {
         v = to_f(xb[((size_t)gy * W + gx) * Cin + ci0 + c]);
+        if (o.in_scale != nullptr)
+          v = round_to<T>(
+              silu(v * o.in_scale[ci0 + c] + o.in_bias[ci0 + c]));
+      }
       s_in[c][iy][ix] = v;
     }
     for (int idx = tid; idx < 9 * CI_T * CO_T; idx += THREADS) {
@@ -113,6 +176,7 @@ conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, ss[4] = {0.f, 0.f, 0.f, 0.f};
   const int ox = ox0 + tx;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -124,47 +188,120 @@ conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int co = co0 + cg * 4 + k;
       if (co >= Cout) continue;
       float v = acc[j][k];
-      if (scale != nullptr) {
-        v = v * scale[co] + bias[co];
-        v = v / (1.f + expf(-v));  // silu
+      if (o.out_scale != nullptr)
+        v = silu(v * o.out_scale[co] + o.out_bias[co]);
+      const T t = from_f<T>(v);
+      yp[co] = t;
+      if (STATS) {
+        const float r = to_f(t);
+        s[k] += r;
+        ss[k] = fmaf(r, r, ss[k]);
       }
-      yp[co] = from_f<T>(v);
     }
   }
+  if (STATS)
+    block_channel_partials(s, ss, o.stats, (size_t)gridDim.z * n_tiles,
+                           (size_t)b * n_tiles + blockIdx.x, co0, Cout);
 }
 
 inline int out_size(int n, int stride) { return (n - 1) / stride + 1; }
 
+inline int tile_count(int Ho, int Wo) {
+  return ((Ho + TILE - 1) / TILE) * ((Wo + TILE - 1) / TILE);
+}
+
 // Enqueues one conv on `stream`; returns cudaGetLastError() after it.
 template <typename T, int S>
 inline int launch_conv3x3(const void* x, const void* w, void* y,
-                          const float* scale, const float* bias, int B, int H,
-                          int W, int Cin, int Cout, cudaStream_t stream) {
+                          const ConvOpts& o, int B, int H, int W, int Cin,
+                          int Cout, cudaStream_t stream) {
   const int Ho = out_size(H, S), Wo = out_size(W, S);
   const int tiles_x = (Wo + TILE - 1) / TILE;
-  const int tiles_y = (Ho + TILE - 1) / TILE;
-  dim3 grid(tiles_x * tiles_y, (Cout + CO_T - 1) / CO_T, B);
-  conv3x3_tile_kernel<T, S><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      scale, bias, H, W, Cin, Cout, Ho, Wo, tiles_x);
+  const int n_tiles = tile_count(Ho, Wo);
+  dim3 grid(n_tiles, (Cout + CO_T - 1) / CO_T, B);
+  if (o.stats != nullptr)
+    conv3x3_tile_kernel<T, S, true><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<T*>(y), o, H, W, Cin, Cout, Ho, Wo, tiles_x, n_tiles);
+  else
+    conv3x3_tile_kernel<T, S, false><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<T*>(y), o, H, W, Cin, Cout, Ho, Wo, tiles_x, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int S>
 inline int launch_conv3x3_dtype(int dtype, const void* x, const void* w,
-                                void* y, const float* scale,
-                                const float* bias, int B, int H, int W,
-                                int Cin, int Cout, cudaStream_t stream) {
+                                void* y, const ConvOpts& o, int B, int H,
+                                int W, int Cin, int Cout,
+                                cudaStream_t stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || B > 65535 ||
       (Cout + CO_T - 1) / CO_T > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_F32)
-    return launch_conv3x3<float, S>(x, w, y, scale, bias, B, H, W, Cin, Cout,
-                                    stream);
+    return launch_conv3x3<float, S>(x, w, y, o, B, H, W, Cin, Cout, stream);
   if (dtype == DTYPE_BF16)
-    return launch_conv3x3<__nv_bfloat16, S>(x, w, y, scale, bias, B, H, W,
-                                            Cin, Cout, stream);
+    return launch_conv3x3<__nv_bfloat16, S>(x, w, y, o, B, H, W, Cin, Cout,
+                                            stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Reduces [2][P][C] partials per channel in a fixed order (f64 sums, so a
+// repeated run gives identical bits). One block per channel.
+//   sums != nullptr: sums[0][c], sums[1][c] = the two f32 totals;
+//   mean != nullptr: mean = s / n, var = max(0, ss / n - mean^2) (flax's
+//     fast variance), and when scale != nullptr also the BN fold
+//     g = scale * rsqrt(var + eps), h = bias - mean * g.
+// (static: every .cu that includes this header gets its own copy.)
+static __global__ void __launch_bounds__(THREADS)
+finalize_partials_kernel(const float* __restrict__ part, int P, int C,
+                         float n, float* sums, float* mean, float* var,
+                         const float* scale, const float* bias, float* g,
+                         float* h) {
+  __shared__ double red[2][THREADS];
+  const int c = blockIdx.x;
+  double s = 0.0, ss = 0.0;
+  for (int p = threadIdx.x; p < P; p += THREADS) {
+    s += part[(size_t)p * C + c];
+    ss += part[((size_t)P + p) * C + c];
+  }
+  red[0][threadIdx.x] = s;
+  red[1][threadIdx.x] = ss;
+  __syncthreads();
+  for (int k = THREADS / 2; k > 0; k >>= 1) {
+    if (threadIdx.x < k) {
+      red[0][threadIdx.x] += red[0][threadIdx.x + k];
+      red[1][threadIdx.x] += red[1][threadIdx.x + k];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const float fs = static_cast<float>(red[0][0]);
+  const float fss = static_cast<float>(red[1][0]);
+  if (sums != nullptr) {
+    sums[c] = fs;
+    sums[C + c] = fss;
+  }
+  if (mean != nullptr) {
+    const float m = fs / n;
+    const float v = fmaxf(0.f, fss / n - m * m);
+    mean[c] = m;
+    var[c] = v;
+    if (scale != nullptr) {
+      const float gg = scale[c] / sqrtf(v + BN_EPS);
+      g[c] = gg;
+      h[c] = bias[c] - m * gg;
+    }
+  }
+}
+
+inline int launch_finalize(const float* part, int P, int C, float n,
+                           float* sums, float* mean, float* var,
+                           const float* scale, const float* bias, float* g,
+                           float* h, cudaStream_t stream) {
+  finalize_partials_kernel<<<C, THREADS, 0, stream>>>(
+      part, P, C, n, sums, mean, var, scale, bias, g, h);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rodt

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+process per file, all started together) and linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, from the sources in this checkout only, into
 ``_build/`` (listed in ``.gitignore``), keyed by a hash of the sources so a
 fresh checkout or an edited kernel rebuilds and an unchanged one does not.
@@ -31,18 +32,30 @@ BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# dtype codes shared with csrc/conv_tile.cuh
+# dtype codes and the conv output tile side, shared with csrc/conv_tile.cuh
 DTYPE_F32, DTYPE_BF16 = 0, 1
+TILE = 16
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument lists of the C entry points (pointers and the stream as void*,
 # or ctypes would pass them as 32-bit ints)
 SIGNATURES: Dict[str, List] = {
     # x, w, y, B, H, W, Cin, Cout, dtype, stream
     "conv3x3_nhwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dy, part (scratch), dk, B, H, W, Cin, Cout, n_chunks, dtype, stream
+    "conv3x3_wgrad_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, k1, g1, b1, k2, a1 (scratch), y2, B, H, W, C1, C2, dtype, stream
     "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
+    # x, k1, sc1, bi1, k2, y1, y2, stats1, stats2 (scratch), mean1, var1,
+    # g1, b1, mean2, var2, B, H, W, C1, C2, dtype, stream
+    "yolo_front_train_nhwc": [_P] * 15 + [_I] * 6 + [_P],
+    # x, k2, y1, y2, dy2, sc1, mean1, var1, g1, b1, mean2, dmean1, dvar1,
+    # dmean2, dvar2, dy1, gpart, wpart, vecs (scratch), dk1, dk2, dsc1,
+    # dbi1, B, H, W, C1, C2, chunks1, chunks2, dtype, stream
+    "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P],
+    # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, stream
+    "corrupt_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -76,19 +89,45 @@ def nvcc_path() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into _build/libkernels_<hash>.so unless present."""
+    """Compile csrc/*.cu into _build/libkernels_<hash>.so unless present:
+    one nvcc per source, all started together, then one link."""
     global _build_log
     so = BUILD_DIR / f"libkernels_{source_hash()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{so.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for cu in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{cu.stem}.{tag}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-I", str(CSRC), "-o", str(obj),
+               str(cu)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], False
+    for obj, proc in jobs:
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        logs.append(out)
+        failed |= proc.returncode != 0
     tmp = so.with_name(so.name + f".{os.getpid()}.tmp")
-    cus = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cus]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    _build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{_build_log}")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                              *(str(o) for o, _ in jobs)],
+                             capture_output=True, text=True, timeout=600)
+        logs.append(res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    _build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{_build_log}")
     os.replace(tmp, so)
     return so
 
@@ -129,3 +168,15 @@ def dtype_code(dtype) -> int:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def tile_count(h: int, w: int) -> int:
+    """TILE x TILE output tiles of an h x w conv output (conv_tile.cuh)."""
+    return -(-h // TILE) * -(-w // TILE)
+
+
+def wgrad_chunks(cin: int, cout: int) -> int:
+    """Pixel chunks of a weight-gradient launch (conv_wgrad.cuh): enough
+    blocks (chunks x 16-wide channel tiles) to fill the card's SMs a few
+    times. Fixed for a shape, so a repeated run sums in the same order."""
+    return max(1, -(-512 // (-(-cin // 16) * -(-cout // 16))))

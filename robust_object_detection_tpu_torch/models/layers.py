@@ -5,10 +5,19 @@ Modules take and return NCHW-indexed tensors; on the card they stay in
 channels_last memory, so the NHWC kernels get their inputs with a
 permute and no copy. Conventions, as in the reference:
 
-  * conv weights are stored in the module's ``dtype`` (bf16 for the eval
-    path), so a forward casts no weight, and convs compute in it,
-  * BatchNorm (eps 1e-3; flax momentum 0.97 == torch momentum 0.03) and the
-    activation run in float32, so every ConvBnAct returns float32,
+  * ``dtype`` is the conv compute type; conv weights are stored in
+    ``param_dtype`` (default ``dtype``: the eval path keeps bf16 weights
+    and casts none per forward; a trainer keeps float32 master weights,
+    cast to ``dtype`` in every forward as flax's ``nn.Conv(dtype=...)``
+    does, so SGD updates do not vanish in bf16 rounding),
+  * eval BatchNorm (eps 1e-3) and the activation run in float32 from the
+    running statistics, so every eval ConvBnAct returns float32,
+  * train BatchNorm has flax semantics (:func:`bn_train`): f32 batch
+    statistics with the biased fast variance, running statistics updated
+    as 0.97 * running + 0.03 * batch (torch's BatchNorm2d would update the
+    running variance with the unbiased one), normalisation in f32, output
+    and SiLU in ``bn_dtype`` (bf16 under the reference's
+    ``bn_dtype_scope(jnp.bfloat16)``),
   * symmetric ``k // 2`` padding, as torch's Conv2d(padding=k//2).
 
 Module and attribute names follow Ultralytics (``conv``/``bn``, ``cv1``/
@@ -17,11 +26,16 @@ Module and attribute names follow Ultralytics (``conv``/``bn``, ``cv1``/
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3
+from ..ops.yolo_front import batch_stats
+
+MOMENTUM = 0.97   # flax BatchNorm momentum (torch momentum 0.03)
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -32,45 +46,76 @@ def from_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
+                   var: torch.Tensor) -> None:
+    """flax's running-statistics update from one batch's statistics."""
+    with torch.no_grad():
+        bn.running_mean.mul_(MOMENTUM).add_(mean.detach() * (1 - MOMENTUM))
+        bn.running_var.mul_(MOMENTUM).add_(var.detach() * (1 - MOMENTUM))
+
+
+def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d,
+             out_dtype: torch.dtype) -> torch.Tensor:
+    """Train-mode BatchNorm over (N, H, W) of NCHW y, flax semantics: f32
+    statistics (fast variance, clamped), running update, ((y - mean) *
+    (rsqrt(var + eps) * scale) + bias) in f32, cast to out_dtype."""
+    mean, var = batch_stats(y, (0, 2, 3))
+    update_running(bn, mean, var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    yn = ((y.float() - mean[:, None, None]) * mul[:, None, None]
+          + bn.bias[:, None, None])
+    return yn.to(out_dtype)
+
+
 class ConvBnAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU (Ultralytics ``Conv``).
 
     hand_kernel=True routes a 3x3 stride-1 conv through ops.conv3x3 (the
-    K3-f kernel on the card); every other conv is ``F.conv2d``, as the
-    reference leaves them to XLA."""
+    K3-f kernel on the card, with K3-f / K3-b in its backward); every other
+    conv is ``F.conv2d``, as the reference leaves them to XLA. Train or
+    eval BatchNorm follows the module's ``training`` flag."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  act: bool = True, dtype: torch.dtype = torch.float32,
-                 hand_kernel: bool = False):
+                 hand_kernel: bool = False,
+                 param_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         if hand_kernel and (k, s) != (3, 1):
             raise ValueError("hand_kernel covers 3x3 stride-1 convs only")
-        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False, dtype=dtype)
+        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False,
+                              dtype=param_dtype or dtype)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = act
         self.hand_kernel = hand_kernel
+        self.dtype = dtype
+        self.bn_dtype = bn_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        wd = self.conv.weight
-        xd = x.to(wd.dtype)
-        if self.hand_kernel:
+        xd = x.to(self.dtype)
+        w = self.conv.weight
+        if self.hand_kernel:     # conv3x3 casts an f32 master itself
             y = from_nhwc(conv3x3(to_nhwc(xd),
-                                  wd.permute(2, 3, 1, 0).contiguous()))
+                                  w.permute(2, 3, 1, 0).contiguous()))
         else:
-            y = F.conv2d(xd, wd, None, self.conv.stride, self.conv.padding)
-        y = self.bn(y.float())
+            y = F.conv2d(xd, w.to(self.dtype), None, self.conv.stride,
+                         self.conv.padding)
+        if self.training:
+            y = bn_train(y, self.bn, self.bn_dtype)
+        else:
+            y = self.bn(y.float())
         return F.silu(y) if self.act else y
 
 
 class Bottleneck(nn.Module):
-    """YOLO residual bottleneck: two 3x3 convs + optional shortcut."""
+    """YOLO residual bottleneck: two 3x3 convs + optional shortcut.
+    ``**kw`` (dtype, param_dtype, bn_dtype) go to every ConvBnAct."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True,
-                 dtype: torch.dtype = torch.float32,
-                 hand_kernel: bool = False):
+                 hand_kernel: bool = False, **kw):
         super().__init__()
-        self.cv1 = ConvBnAct(c1, c2, 3, dtype=dtype, hand_kernel=hand_kernel)
-        self.cv2 = ConvBnAct(c2, c2, 3, dtype=dtype, hand_kernel=hand_kernel)
+        self.cv1 = ConvBnAct(c1, c2, 3, hand_kernel=hand_kernel, **kw)
+        self.cv2 = ConvBnAct(c2, c2, 3, hand_kernel=hand_kernel, **kw)
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -84,14 +129,13 @@ class C2f(nn.Module):
     cv2 fuses the (2+n) chunks."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
-                 dtype: torch.dtype = torch.float32,
-                 hand_kernel: bool = False):
+                 hand_kernel: bool = False, **kw):
         super().__init__()
         self.c = c2 // 2
-        self.cv1 = ConvBnAct(c1, 2 * self.c, 1, dtype=dtype)
-        self.cv2 = ConvBnAct((2 + n) * self.c, c2, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(c1, 2 * self.c, 1, **kw)
+        self.cv2 = ConvBnAct((2 + n) * self.c, c2, 1, **kw)
         self.m = nn.ModuleList(
-            Bottleneck(self.c, self.c, shortcut, dtype, hand_kernel)
+            Bottleneck(self.c, self.c, shortcut, hand_kernel, **kw)
             for _ in range(n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -104,12 +148,11 @@ class C2f(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling (fast): 3 chained 5x5 stride-1 max-pools."""
 
-    def __init__(self, c1: int, c2: int, k: int = 5,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, c1: int, c2: int, k: int = 5, **kw):
         super().__init__()
         c_ = c1 // 2
-        self.cv1 = ConvBnAct(c1, c_, 1, dtype=dtype)
-        self.cv2 = ConvBnAct(c_ * 4, c2, 1, dtype=dtype)
+        self.cv1 = ConvBnAct(c1, c_, 1, **kw)
+        self.cv2 = ConvBnAct(c_ * 4, c2, 1, **kw)
         self.k = k
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

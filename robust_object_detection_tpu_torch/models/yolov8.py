@@ -1,5 +1,5 @@
 """YOLOv8 detector family (counterpart of
-robust_object_detection_tpu/models/yolov8.py), eval path.
+robust_object_detection_tpu/models/yolov8.py), eval and train.
 
 The module tree is the Ultralytics DetectionModel's: ``self.model`` is a
 ModuleList indexed like the yolov8 yaml (0-9 backbone, 10-21 neck, 22 the
@@ -7,14 +7,18 @@ Detect head), so ``state_dict`` keys (``model.{i}.…``) match a real
 ``yolov8*.pt`` and models/convert.py maps the JAX variables onto them.
 
 The input is NHWC in [0, 1], as in the reference. P1/P2 (layers 0 and 1)
-always run through ops.yolo_front.front_inference (the K2-f kernel on the
-card), and BN2 + SiLU follow in torch, as the reference does after its
-fused front. The 3x3 convs of the first C2f (layer 2) run through
-ops.conv3x3 (K3-f). ``dtype`` is the conv compute type: bf16 convs with
-f32 BatchNorm and an f32 head output and decode, as
-``create(6, "m", dtype=jnp.bfloat16)`` in the reference. The conv weights
-are stored in ``dtype`` (the reference keeps f32 and casts them in every
-call; casting once gives the same bf16 values).
+always run through the fused front of ops.yolo_front (K2-f on the card):
+``front_inference`` in eval mode, ``front_fused`` (K2-f train forward,
+K2-b backward) in train mode, which returns the batch statistics the
+running statistics are updated from; BN2 + SiLU follow in torch, as the
+reference does after its fused front. The 3x3 convs of the first C2f
+(layer 2) run through ops.conv3x3 (K3-f, and K3-b in the backward).
+``dtype`` is the conv compute type: bf16 convs with f32 BatchNorm
+statistics and an f32 head output and decode, as ``create(6, "m",
+dtype=jnp.bfloat16)`` in the reference. :func:`create` stores the conv
+weights in ``dtype`` for eval (the reference keeps f32 and casts them in
+every call; casting once gives the same bf16 values) and in float32 for
+training (master weights, cast in every forward as the reference does).
 """
 
 from __future__ import annotations
@@ -28,9 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.yolo_front import fold_bn, front_inference
+from ..ops.yolo_front import fold_bn, front_fused, front_inference
 from .layers import (C2f, SPPF, ConvBnAct, from_nhwc, scale_channels,
-                     scale_depth, upsample2x)
+                     scale_depth, update_running, upsample2x)
 
 # (depth_multiple, width_multiple, max_channels) per size variant.
 VARIANTS: Dict[str, Tuple[float, float, int]] = {
@@ -93,23 +97,27 @@ class Head(nn.Module):
     per level a box branch (cv2) to 4*REG_MAX DFL logits and a class branch
     (cv3) to nc logits. The final 1x1 convs run in f32."""
 
-    def __init__(self, nc: int, ch: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, nc: int, ch: Sequence[int], **kw):
         super().__init__()
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
-            nn.Sequential(ConvBnAct(x, c2, 3, dtype=dtype),
-                          ConvBnAct(c2, c2, 3, dtype=dtype),
+            nn.Sequential(ConvBnAct(x, c2, 3, **kw),
+                          ConvBnAct(c2, c2, 3, **kw),
                           nn.Conv2d(c2, 4 * REG_MAX, 1)) for x in ch)
         self.cv3 = nn.ModuleList(
-            nn.Sequential(ConvBnAct(x, c3, 3, dtype=dtype),
-                          ConvBnAct(c3, c3, 3, dtype=dtype),
+            nn.Sequential(ConvBnAct(x, c3, 3, **kw),
+                          ConvBnAct(c3, c3, 3, **kw),
                           nn.Conv2d(c3, nc, 1)) for x in ch)
         self.dfl = DFL()
 
+    @staticmethod
+    def _branch(seq: nn.Sequential, f: torch.Tensor) -> torch.Tensor:
+        return seq[2](seq[1](seq[0](f)).float())
+
     def forward(self, feats):
-        return [(self.cv2[i](f), self.cv3[i](f)) for i, f in enumerate(feats)]
+        return [(self._branch(self.cv2[i], f), self._branch(self.cv3[i], f))
+                for i, f in enumerate(feats)]
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -117,11 +125,19 @@ def _hwio(w: torch.Tensor) -> torch.Tensor:
 
 
 class YoloV8(nn.Module):
-    def __init__(self, cfg: YoloConfig, dtype: torch.dtype = torch.float32):
+    """``dtype``: conv compute type; ``param_dtype``: conv weight storage
+    (default ``dtype``); ``bn_dtype``: train-mode BatchNorm output and
+    activation type (models/layers.py)."""
+
+    def __init__(self, cfg: YoloConfig, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
+        self.bn_dtype = bn_dtype
         c, n = cfg.width, cfg.depth
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, bn_dtype=bn_dtype)
         self.model = nn.ModuleList([
             ConvBnAct(3, c(64), 3, 2, **kw),                          # 0 P1
             ConvBnAct(c(64), c(128), 3, 2, **kw),                     # 1 P2
@@ -145,22 +161,34 @@ class YoloV8(nn.Module):
             ConvBnAct(c(512), c(512), 3, 2, **kw),                    # 19
             Concat(),                                                 # 20
             C2f(c(1024) + c(512), c(1024), n(3), **kw),               # 21
-            Head(cfg.num_classes, (c(256), c(512), c(1024)), dtype),  # 22
+            Head(cfg.num_classes, (c(256), c(512), c(1024)), **kw),  # 22
         ])
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
-        """Layers 0-1: fused P1/P2 (K2-f), then BN2 + SiLU in torch.
+        """Layers 0-1: fused P1/P2 (K2-f; train mode: batch statistics and
+        the running-statistics update), then BN2 + SiLU in torch.
         x (B, H, W, 3) in [0, 1] -> activated P2, NCHW view of NHWC."""
         p1, p2 = self.model[0], self.model[1]
-        dtype = p1.conv.weight.dtype
-        y2 = front_inference(
-            x.to(dtype).contiguous(), _hwio(p1.conv.weight),
-            p1.bn.weight, p1.bn.bias, _hwio(p2.conv.weight),
-            (p1.bn.running_mean, p2.bn.running_mean),
-            (p1.bn.running_var, p2.bn.running_var))
-        g2, b2 = fold_bn(p2.bn.weight, p2.bn.bias, p2.bn.running_mean,
-                         p2.bn.running_var)
-        return from_nhwc(F.silu(y2.float() * g2 + b2).to(dtype))
+        dtype = self.dtype
+        xd = x.to(dtype).contiguous()
+        if self.training:
+            y2, m1, v1, m2, v2 = front_fused(
+                xd, _hwio(p1.conv.weight), p1.bn.weight, p1.bn.bias,
+                _hwio(p2.conv.weight))
+            update_running(p1.bn, m1, v1)
+            update_running(p2.bn, m2, v2)
+            bn_dtype = self.bn_dtype
+        else:
+            y2 = front_inference(
+                xd, _hwio(p1.conv.weight.to(dtype)), p1.bn.weight,
+                p1.bn.bias, _hwio(p2.conv.weight.to(dtype)),
+                (p1.bn.running_mean, p2.bn.running_mean),
+                (p1.bn.running_var, p2.bn.running_var))
+            m2, v2 = p2.bn.running_mean, p2.bn.running_var
+            bn_dtype = torch.float32
+        g2, b2 = fold_bn(p2.bn.weight, p2.bn.bias, m2, v2)
+        z = (y2.float() * g2 + b2).to(bn_dtype)
+        return from_nhwc(F.silu(z).to(dtype))
 
     def backbone(self, x: torch.Tensor):
         """CSPDarknet: (P3, P4, P5) at strides 8/16/32."""
@@ -213,13 +241,18 @@ def init_weights(model: YoloV8, generator: torch.Generator) -> YoloV8:
 def create(num_classes: int = 6, variant: str = "m",
            dtype: torch.dtype = torch.float32,
            device: Optional[torch.device] = None,
-           generator: Optional[torch.Generator] = None) -> YoloV8:
-    """A YOLOv8 in eval mode on `device`, randomly initialised from
-    `generator` (seed 0 when None)."""
+           generator: Optional[torch.Generator] = None,
+           train: bool = False,
+           bn_dtype: torch.dtype = torch.float32) -> YoloV8:
+    """A YOLOv8 on `device`, randomly initialised from `generator` (seed 0
+    when None). train=False: eval mode, conv weights stored in `dtype`;
+    train=True: train mode, float32 master weights, train-mode BatchNorm
+    output in `bn_dtype`."""
     gen = generator or torch.Generator().manual_seed(0)
-    model = init_weights(YoloV8(YoloConfig(num_classes, variant), dtype),
-                         gen)
-    return model.to(device).eval()
+    model = YoloV8(YoloConfig(num_classes, variant), dtype,
+                   param_dtype=torch.float32 if train else dtype,
+                   bn_dtype=bn_dtype)
+    return init_weights(model, gen).to(device).train(train)
 
 
 # ── Anchors and decode ───────────────────────────────────────────────────

@@ -15,8 +15,8 @@ card, so the blur here is written as shifted multiply-adds over the
 kernel's non-zero taps (9 for the 0-degree kernel): plain f32 arithmetic on
 any device, with no dependence on backend precision flags.
 
-``random_corruption_fast`` (the K1 Pallas kernel) belongs to training and
-is not ported yet.
+The training-time corruption (the reference's ``random_corruption_fast``,
+the K1 Pallas kernel) is ops/fused_corrupt.py.
 """
 
 from __future__ import annotations

@@ -46,8 +46,9 @@ def test_package_imports_without_jax():
     assert out["shape"] == [1, 4, 4, 5] and out["launches"] == 0
     expected = {f"robust_object_detection_tpu_torch.{m}" for m in (
         "kernels", "core.config", "ops.image", "ops.corrupt", "ops.conv3x3",
-        "ops.yolo_front", "ops.nms", "models.layers", "models.yolov8",
-        "models.convert", "train.detector", "eval.fused_sweep")}
+        "ops.yolo_front", "ops.nms", "ops.fused_corrupt", "ops.boxes",
+        "models.layers", "models.yolov8", "models.convert", "train.detector",
+        "train.detection", "train.augment", "eval.fused_sweep")}
     assert expected <= set(out["modules"])
 
 
@@ -61,7 +62,9 @@ def test_no_module_imports_jax():
 
 def test_kernel_sources_and_hash():
     names = [p.name for p in kernels.sources()]
-    assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh"} <= set(names)
+    assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh",
+            "conv3x3_wgrad.cu", "yolo_front_bwd.cu", "corrupt.cu",
+            "conv_wgrad.cuh"} <= set(names)
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
         if p.suffix == ".cu":

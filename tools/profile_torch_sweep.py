@@ -39,9 +39,19 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def kernel_group(name: str) -> str:
-    m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d)>", name)
+    m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d)", name)
     if m:
         return "K2-f yolo_front" if m.group(1) == "2" else "K3-f conv3x3"
+    m = re.search(r"wgrad_partial_kernel<[^,>]+, (\d)", name)
+    if m:
+        return "K2-b yolo_front_bwd" if m.group(1) == "2" else \
+            "K3-b conv3x3_wgrad"
+    if re.search(r"front_da1_kernel|bn_chain_kernel|stat_cotangent", name):
+        return "K2-b yolo_front_bwd"
+    if re.search(r"finalize_partials_kernel|sum_chunks_kernel", name):
+        return "hand-kernel partial sums (K2-f, K2-b, K3-b)"
+    if "corrupt_kernel" in name:
+        return "K1 corrupt"
     low = name.lower()
     if low.startswith(("memcpy", "memset")):
         return "memcpy/memset"
@@ -50,7 +60,11 @@ def kernel_group(name: str) -> str:
     if any(t in low for t in ("xmma", "implicit_gemm", "nvjet", "cutlass",
                               "gemm", "conv")):
         return "cuDNN/cuBLAS conv"
-    return "other (elementwise, reduce, topk, gather)"
+    if "elementwise" in low:
+        return "PyTorch elementwise"
+    if "reduce" in low:
+        return "PyTorch reductions"
+    return "other (topk, sort, gather, scatter, ...)"
 
 
 def union_us(intervals) -> float:
