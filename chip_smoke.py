@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths once each at full width, with seeded random
-weights: the serving path, the 4-pass robustness sweep (YOLOv8m, nc=6,
-bf16, eval mode, 1024 canvas, 64 synthetic 768x1024 images in batches of
-8), and the training path, ``bench.py``'s workload (YOLOv8m trained at
-1024 px, batch 16, 80 ground-truth boxes per image in 600 slots, the
-Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm outputs and
-f32 statistics). Phases:
+Drives the port's three paths once each at full width, with seeded random
+weights: the serving path, the 4-pass robustness sweep (nc=6, bf16, eval
+mode, 1024 canvas, 64 synthetic 768x1024 images in batches of 8), once
+with YOLOv8m and once with RT-DETR-L, and the training path, ``bench.py``'s
+workload (YOLOv8m trained at 1024 px, batch 16, 80 ground-truth boxes per
+image in 600 slots, the Augmented mode with HSV + flip, bf16 convs with
+bf16 BatchNorm outputs and f32 statistics). Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -38,7 +38,29 @@ f32 statistics). Phases:
      front train forward 1, front backward 1, conv3x3 8 = 4 forward + 4
      dX, conv3x3 wgrad 4); finite loss and grad norm every step, moved
      BatchNorm running statistics and EMA; step ms (median), images/s and
-     peak device memory.
+     peak device memory;
+  9. RT-DETR-L kernels: K4-f (the HGNetv2 stem) and K5 forward
+     (multi-scale deformable attention) against their plain versions at
+     the sweep's shapes and at one odd shape each, f32 with TF32 off and
+     bf16 (tolerances in phase_rtdetr_kernels), timed as above, cuDNN's
+     time for each conv stage of the stem beside it, and the refusal of
+     bad CUDA inputs;
+ 10. RT-DETR-L model check: f32 at 128 px on the card (kernels, TF32 off)
+     against the same weights on the CPU (plain versions): the same
+     selected anchors, last-layer logits and boxes within 2e-3 x max|ref|,
+     the same decoded scores;
+ 11. the RT-DETR-L sweep: as phase 5 with the NMS-free predict step;
+     per forward K4-f 1, K5 6 and K3-f 6 launches; images/sec and peak
+     memory.
+
+Every kernel's line in the summary also carries ``bound_ms``, the least
+time the card could take for the same work: the larger of the bytes the
+function must move (inputs once, outputs once; for the gather of K5 the
+distinct rows this run's taps touch) over 3.35 TB/s and its operations
+over the card's peak for the type (989 TFLOP/s bf16 on the tensor cores,
+67 TFLOP/s f32), and ``library_ms``, the time of the one PyTorch call
+that computes the same function where there is one (a cuDNN convolution
+or its filter gradient), timed here and used nowhere in the port.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. The line before the last is the kernel summary
@@ -53,7 +75,6 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import namedtuple
 from pathlib import Path
 
 IMG_SIZE = 1024
@@ -66,9 +87,9 @@ MAX_BOXES = 600
 GT_PER_IMAGE = 80
 TRAIN_STEPS = 5
 
-# the fields of a clean val-split sample that run_fused_sweep reads
-Sample = namedtuple("Sample", "image_path image_id width height "
-                              "boxes_xyxy classes")
+# the card's published peaks (H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -99,6 +120,25 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def work(dtype: str, nbytes: float, flops: float, library_ms=None) -> dict:
+    """The bound's inputs for one kernel run: the bytes it must move, its
+    operations, the type whose peak applies; and the library call's ms."""
+    return dict(bytes=nbytes, flops=flops, peak=PEAK_FLOPS[dtype],
+                library_ms=library_ms)
+
+
+def bound(w: dict):
+    """(bound_ms, bound_by) of a :func:`work` record."""
+    t_bytes = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = w["flops"] / w["peak"] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def esize(dtype) -> int:
+    import torch
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def max_err(out, ref):
     """(max abs error, max |ref|) of out against the f32 reference."""
     return ((out.float() - ref).abs().max().item(),
@@ -108,6 +148,7 @@ def max_err(out, ref):
 def phase_kernels(dev):
     """Each kernel vs its plain version at the main path's shapes."""
     import torch
+    import torch.nn.functional as F
     from robust_object_detection_tpu_torch.ops import conv3x3 as C
     from robust_object_detection_tpu_torch.ops import yolo_front as TF
 
@@ -126,13 +167,19 @@ def phase_kernels(dev):
         err, scale = max_err(out, ref)
         ms = time_ms(lambda: C.conv3x3(xd, kd))
         plain_ms = time_ms(lambda: C.conv3x3_reference(xd, kd))
+        xv, kv = xd.permute(0, 3, 1, 2), kd.permute(3, 2, 0, 1)
+        lib_ms = time_ms(lambda: F.conv2d(xv, kv, padding=1))
         name = str(dtype).split(".")[-1]
         print(f"[kernels] conv3x3 {name} (8,256,256,48)->48: max_abs_err "
               f"{err} (max|ref| {scale}, tol {tol * scale}) kernel {ms} ms "
-              f"plain {plain_ms} ms (cuDNN, default flags)")
+              f"plain {plain_ms} ms (cuDNN, default flags, with its layout "
+              f"copies) library {lib_ms} ms (F.conv2d alone)")
         require(math.isfinite(err) and err <= tol * scale,
                 f"conv3x3 {name} error {err} > {tol} x {scale}")
-        conv[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        conv[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          **work(name, (x.numel() * 2 + k.numel())
+                                 * esize(dtype),
+                                 2 * k.numel() * x.numel() // 48, lib_ms))
     results["conv3x3"] = conv
 
     # K2-f: front, (8, 1024, 1024, 3) -> 48 -> 96
@@ -163,7 +210,8 @@ def phase_kernels(dev):
               f"kernel {ms} ms plain {plain_ms} ms (cuDNN, default flags)")
         require(math.isfinite(err) and err <= tol * scale,
                 f"yolo_front {name} error {err} > {tol} x {scale}")
-        front[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        front[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           **front_work(name, BATCH, esize(dtype)))
     results["yolo_front"] = front
 
     # the kernels refuse CUDA tensors they do not take, and launch nothing
@@ -183,6 +231,21 @@ def phase_kernels(dev):
     print("[kernels] bad CUDA inputs refused: 3/3")
     torch.cuda.synchronize()
     return results
+
+
+def front_work(dtype: str, batch: int, elt: int, backward: bool = False):
+    """The YOLO front at (batch, 1024, 1024, 3) -> 48 -> 96. Forward: reads
+    x, writes y2 (y1 / a1 stays inside). Backward: reads x, y1, y2 and dy2;
+    dX of P2, then the two filter gradients. No one PyTorch call computes
+    either."""
+    px1 = batch * (IMG_SIZE // 2) ** 2
+    px2 = batch * (IMG_SIZE // 4) ** 2
+    f1, f2 = 2 * 27 * 48 * px1, 2 * 9 * 48 * 96 * px2
+    x_b, y1_b, y2_b = batch * IMG_SIZE ** 2 * 3 * elt, px1 * 48 * elt, \
+        px2 * 96 * elt
+    if backward:
+        return work(dtype, x_b + y1_b + 2 * y2_b, 2 * f2 + f1)
+    return work(dtype, x_b + y2_b + (27 * 48 + 9 * 48 * 96) * elt, f1 + f2)
 
 
 def phase_model_check(dev):
@@ -214,6 +277,7 @@ def phase_model_check(dev):
 def synthetic_samples(n: int):
     """n in-memory 768x1024 uint8 images with 1-5 GT boxes each."""
     import numpy as np
+    from robust_object_detection_tpu_torch.data.pipeline import Sample
 
     rng = np.random.RandomState(SEED)
     h, w = NATIVE_HW
@@ -231,20 +295,15 @@ def synthetic_samples(n: int):
     return images, samples
 
 
-def phase_sweep(dev):
-    """The 4-pass sweep through the port's entry points; returns the
-    launch counts of its run."""
+def run_sweep(dev, tag, title, model, predict, counters, per_forward):
+    """One 4-pass sweep through the port's entry points with `predict`:
+    warm-up batch, launch counters zeroed just before the sweep and read
+    just after, finite mAPs, images/s and peak memory. Returns the launch
+    counts and the detections of one more fused step (not counted)."""
     import numpy as np
     import torch
     from robust_object_detection_tpu_torch.eval import fused_sweep as FS
-    from robust_object_detection_tpu_torch.models import yolov8 as Y
-    from robust_object_detection_tpu_torch.ops import conv3x3 as C
-    from robust_object_detection_tpu_torch.ops import yolo_front as TF
-    from robust_object_detection_tpu_torch.train import detector as D
 
-    model = Y.create(6, "m", torch.bfloat16, dev,
-                     torch.Generator().manual_seed(SEED))
-    predict = D.make_predict_step(IMG_SIZE)
     images, samples = synthetic_samples(N_IMAGES)
 
     def loader(sample):
@@ -255,39 +314,56 @@ def phase_sweep(dev):
                        BATCH, load_image=loader)
     torch.cuda.synchronize()
 
-    C.conv3x3.launches = 0
-    TF.front_inference.launches = 0
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = FS.run_fused_sweep(predict, model, None, None, samples, IMG_SIZE,
                              BATCH, seed=SEED, load_image=loader)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"conv3x3": C.conv3x3.launches,
-                "yolo_front": TF.front_inference.launches}
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
 
     forwards = 4 * math.ceil(N_IMAGES / BATCH)
-    expect = {"conv3x3": 4 * forwards, "yolo_front": forwards}
-    print(f"[sweep] launches {launches} expected {expect}")
+    expect = {k: n * forwards for k, n in per_forward.items()}
+    print(f"[{tag}] launches {launches} expected {expect}")
     require(launches == expect, f"launch counts {launches} != {expect}")
     require(out["images_evaluated"] == 4 * N_IMAGES, "images_evaluated")
     for variant, summary in out["corrupted"].items():
         m50, m5095 = summary["mAP50"], summary["mAP50_95"]
-        print(f"[sweep] {variant}: mAP50 {m50} mAP50-95 {m5095}")
+        print(f"[{tag}] {variant}: mAP50 {m50} mAP50-95 {m5095}")
         require(all(math.isfinite(v) and 0.0 <= v <= 1.0
                     for v in (m50, m5095)), f"{variant} mAP not finite")
     rate = out["images_evaluated"] / elapsed
-    print(f"[sweep] YOLOv8m bf16 1024px, {N_IMAGES} images 768x1024 x 4 "
-          f"passes, batch {BATCH}: {elapsed} s, {rate} images/s "
-          f"(host scoring included)")
+    print(f"[{tag}] {title} bf16 1024px, {N_IMAGES} images 768x1024 x 4 "
+          f"passes, batch {BATCH}: {elapsed} s, {rate} images/s (host "
+          f"scoring included); peak memory {peak} bytes "
+          f"({peak / 2 ** 30} GiB)")
 
-    # detections per image per pass, from one more fused step (not counted)
     step = FS.make_fused_step(predict, None, NATIVE_HW, IMG_SIZE)
     batch = torch.from_numpy(np.stack([images[s.image_id]
                                        for s in samples[:BATCH]])).to(dev)
-    boxes, scores, _, valid = step(
-        model, None, batch, torch.Generator(dev).manual_seed(SEED))
-    require(bool(torch.isfinite(boxes).all() and torch.isfinite(scores).all()),
-            "non-finite detections")
+    dets = step(model, None, batch, torch.Generator(dev).manual_seed(SEED))
+    require(bool(torch.isfinite(dets[0]).all()
+                 and torch.isfinite(dets[1]).all()), "non-finite detections")
+    return launches, dets
+
+
+def phase_sweep(dev):
+    """The YOLOv8m sweep; returns the launch counts of its run."""
+    import torch
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    model = Y.create(6, "m", torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED))
+    launches, (_, _, _, valid) = run_sweep(
+        dev, "sweep", "YOLOv8m", model, D.make_predict_step(IMG_SIZE),
+        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference},
+        {"conv3x3": 4, "yolo_front": 1})
     per_img = valid.sum(-1).float().mean(-1).tolist()
     print(f"[sweep] detections per image by pass (Clean, Noise, Blur, "
           f"LowRes): {per_img}")
@@ -352,9 +428,16 @@ def phase_train_kernels(dev):
                 "conv3x3_wgrad is not deterministic")
         ms = time_ms(lambda: C.conv3x3_wgrad(xd, dyd))
         plain_ms = time_ms(lambda: C.conv3x3_wgrad_reference(xd, dyd))
+        xv, dyv = xd.permute(0, 3, 1, 2), dyd.permute(0, 3, 1, 2)
+        lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+            xv, (48, 48, 3, 3), dyv, padding=1))
         print(f"[train-kernels] {'; '.join(log)}; wgrad kernel {ms} ms "
-              f"plain {plain_ms} ms (cuDNN)")
-        wg[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+              f"plain {plain_ms} ms (cuDNN, with its layout copies) library "
+              f"{lib_ms} ms (torch.nn.grad.conv2d_weight alone)")
+        wg[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        **work(name, (x.numel() + dy.numel()) * esize(dtype)
+                               + k.numel() * 4,
+                               2 * k.numel() * x.numel() // 48, lib_ms))
     results["conv3x3_wgrad"] = wg
     del x, dy
 
@@ -402,8 +485,10 @@ def phase_train_kernels(dev):
         print(f"[train-kernels] {'; '.join(log)}; front train forward "
               f"kernel {ms} ms plain {plain_ms} ms; backward kernel {bms} "
               f"ms plain {bplain} ms (autograd of the plain front, cuDNN)")
-        fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain)
+        fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **front_work(name, TRAIN_BATCH, esize(dtype)))
+        bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain,
+                         **front_work(name, TRAIN_BATCH, esize(dtype), True))
     results["yolo_front_train"] = fwd
     results["yolo_front_bwd"] = bwd
     del xf, cot
@@ -436,8 +521,11 @@ def phase_train_kernels(dev):
             f"corrupt noise/lowres beyond 1 LSB: {per_branch}")
     require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
             f"noise mean {nmean} std {nstd}")
-    results["corrupt"] = {"float32": dict(max_abs_err=max(per_branch),
-                                          ms=ms, plain_ms=plain_ms)}
+    # reads and writes the batch once; per element about 2 x 9 operations
+    # in the blurred quarter, 10 in the noised and 8 in the low-res one
+    results["corrupt"] = {"float32": dict(
+        max_abs_err=max(per_branch), ms=ms, plain_ms=plain_ms,
+        **work("float32", 2 * img.numel() * 4, img.numel() // 4 * 36))}
     del img, out, ref
 
     # the new wrappers refuse CUDA tensors they do not take
@@ -609,6 +697,284 @@ def phase_training(dev):
     return launches
 
 
+RTDETR_LEVELS = ((128, 128), (64, 64), (32, 32))   # P3, P4, P5 at 1024 px
+RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS = 300, 8, 32, 4
+
+
+def stem_inputs(g, b, h, w, dev):
+    """Random HGStem parameters (cm 32) and an image batch in [0, 1]."""
+    import torch
+    cm = 32
+
+    def rn(*shape, scale):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    def ru(c):
+        return torch.rand(c, device=dev, generator=g) + 0.5
+
+    x = torch.rand(b, h, w, 3, device=dev, generator=g)
+    kers = [rn(3, 3, 3, cm, scale=0.2), rn(2, 2, cm, cm // 2, scale=0.2),
+            rn(2, 2, cm // 2, cm, scale=0.2), rn(3, 3, 2 * cm, cm, scale=0.1)]
+    sizes = (cm, cm // 2, cm)
+    affine = [(ru(c), rn(c, scale=0.1)) for c in sizes]
+    means = [rn(c, scale=0.1) for c in sizes]
+    variances = [ru(c) for c in sizes]
+    return x, kers, affine, means, variances
+
+
+def stem_args(x, kers, affine, means, variances, dtype):
+    k1, k2a, k2b, k3 = (k.to(dtype) for k in kers)
+    (s1, b1), (s2a, b2a), (s2b, b2b) = affine
+    return (x.to(dtype), k1, s1, b1, k2a, s2a, b2a, k2b, s2b, b2b, k3, means,
+            variances)
+
+
+def deform_inputs(g, shapes, b, q, heads, dh, points, dev):
+    """Values, sampling locations in [-0.1, 1.1] (some taps fall outside
+    the maps) and softmaxed attention weights."""
+    import torch
+    hw = sum(h * w for h, w in shapes)
+    n_l = len(shapes)
+    values = torch.randn(b, hw, heads, dh, device=dev, generator=g)
+    loc = torch.rand(b, q, heads, n_l, points, 2, device=dev,
+                     generator=g) * 1.2 - 0.1
+    attn = torch.softmax(torch.randn(b, q, heads, n_l * points, device=dev,
+                                     generator=g), -1)
+    return values, loc, attn.reshape(b, q, heads, n_l, points)
+
+
+def phase_rtdetr_kernels(dev):
+    """K4-f and K5 forward vs their plain versions, at the RT-DETR-L
+    sweep's shapes and at one odd shape each. Tolerances: f32 (TF32 off)
+    1e-4 x max|ref| (f32 sums in another order); bf16 K4-f 2e-2 x max|ref|
+    against the f32 chain on the same bf16 values (the kernel stores a1,
+    a2a, a2b and y3 in bf16: three roundings deep); bf16 K5 1e-2 x
+    max|ref| (one rounding of the f32 sum)."""
+    import torch
+    import torch.nn.functional as F
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import stem as ST
+
+    g = torch.Generator(dev).manual_seed(SEED + 3)
+    results = {}
+
+    # K4-f: (8, 1024, 1024, 3) -> (8, 256, 256, 32), and H != W
+    stem = {}
+    for shape in ((BATCH, IMG_SIZE, IMG_SIZE), (2, 36, 52)):
+        raw = stem_inputs(g, *shape, dev)
+        main = shape[0] == BATCH
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            name = str(dtype).split(".")[-1]
+            args = stem_args(*raw, dtype)
+            out = ST.stem_fused_inference(*args)
+            with torch.backends.cudnn.flags(allow_tf32=False):
+                ref = ST.stem_reference(*(a.float() if torch.is_tensor(a)
+                                          else a for a in args))
+            log = []
+            err = check(f"hgstem {name} {shape}", out, ref, tol, log)
+            if not main:
+                print(f"[rtdetr-kernels] {log[0]}")
+                continue
+            ms = time_ms(lambda: ST.stem_fused_inference(*args))
+            plain_ms = time_ms(lambda: ST.stem_reference(*args))
+            # cuDNN's time for each conv stage alone (channels-last views,
+            # default flags): there is no one call for the chain
+            b, h, w = shape
+            stages = {}
+            for stage, cin, k, side, stride, pad in (
+                    ("stem1", 3, args[1], h, 2, 1),
+                    ("stem2a", 32, args[4], h // 2 + 1, 1, 0),
+                    ("stem2b", 16, args[7], h // 2 + 1, 1, 0),
+                    ("stem3", 64, args[10], h // 2, 2, 1)):
+                xs = torch.rand(b, side, side, cin, device=dev,
+                                generator=g).to(dtype).permute(0, 3, 1, 2)
+                kv = k.permute(3, 2, 0, 1)
+                stages[stage] = time_ms(lambda: F.conv2d(
+                    xs, kv, stride=stride, padding=pad))
+            print(f"[rtdetr-kernels] {log[0]}; kernel {ms} ms plain "
+                  f"{plain_ms} ms (cuDNN convs + elementwise, default "
+                  f"flags); cuDNN alone per conv stage {stages} (sum "
+                  f"{sum(stages.values())} ms; no single library call "
+                  f"computes the chain)")
+            px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
+            flops = 2 * (27 * 32 + 128 * 16 + 64 * 32) * px2 \
+                + 2 * 576 * 32 * px4
+            nbytes = (b * h * w * 3 + px4 * 32
+                      + sum(k.numel() for k in raw[1])) * esize(dtype)
+            stem[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              **work(name, nbytes, flops))
+        del raw, args, out, ref
+    results["hgstem"] = stem
+
+    # K5 forward: values (8, 21504, 8, 32), 300 queries, 3 levels x 4
+    # points; and non-square levels with a Q that divides nothing
+    deform = {}
+    for shapes, b, q, heads, dh, pts in (
+            (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
+             RTDETR_POINTS),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+        values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
+                                          dev)
+        main = b == BATCH
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            name = str(dtype).split(".")[-1]
+            vd = values.to(dtype)
+            out = DF.ms_deform_attn_slots(vd, shapes, loc, attn)
+            ref = DF.ms_deform_attn_ref(vd.float(), shapes, loc, attn)
+            log = []
+            err = check(f"ms_deform_attn {name} levels {shapes} Q {q}", out,
+                        ref, tol, log)
+            if not main:
+                print(f"[rtdetr-kernels] {log[0]}")
+                continue
+            ms = time_ms(lambda: DF.ms_deform_attn_slots(vd, shapes, loc,
+                                                         attn))
+            plain_ms = time_ms(lambda: DF.ms_deform_attn_ref(vd, shapes, loc,
+                                                             attn))
+            # what this run's data needs: the distinct (batch, cell, head)
+            # rows its in-map taps touch, once each, and 2 operations per
+            # in-map tap and channel
+            idx, wgt = DF.tap_geometry(loc, shapes)
+            live = wgt != 0
+            hw = values.shape[1]
+            bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1)
+            hi = torch.arange(heads, device=dev).view(1, 1, heads, 1, 1, 1)
+            rows = torch.unique(((bi * hw + idx) * heads + hi)[live]).numel()
+            taps = int(live.sum().item())
+            nbytes = rows * dh * esize(dtype) + (loc.numel() + attn.numel()) \
+                * 4 + out.numel() * esize(dtype)
+            print(f"[rtdetr-kernels] {log[0]}; kernel {ms} ms plain "
+                  f"{plain_ms} ms (torch.gather + elementwise); {taps} "
+                  f"in-map taps touch {rows} distinct rows of "
+                  f"{dh * esize(dtype)} bytes; no single PyTorch call "
+                  f"computes it")
+            deform[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                **work(name, nbytes, 2 * taps * dh))
+        del values, loc, attn
+    results["ms_deform_attn"] = deform
+
+    # the wrappers refuse CUDA tensors they do not take
+    raw = stem_inputs(g, 1, 8, 8, dev)
+    args = stem_args(*raw, torch.float32)
+    values, loc, attn = deform_inputs(g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, dev)
+    shapes = ((4, 4), (2, 2))
+    counters = (ST.stem_fused_inference, DF.ms_deform_attn_slots)
+    before = [f.launches for f in counters]
+    bad = (lambda: ST.stem_fused_inference(args[0][:, :6], *args[1:]),
+           lambda: ST.stem_fused_inference(args[0].half(), *args[1:]),
+           lambda: ST.stem_fused_inference(args[0][:, :, ::2], *args[1:]),
+           lambda: DF.ms_deform_attn_slots(values.half(), shapes, loc, attn),
+           lambda: DF.ms_deform_attn_slots(values, ((4, 4), (2, 3)), loc,
+                                           attn),
+           lambda: DF.ms_deform_attn_slots(
+               values.clone().requires_grad_(), shapes, loc, attn))
+    refused = 0
+    for fn in bad:
+        try:
+            fn()
+        except (ValueError, NotImplementedError):
+            refused += 1
+    require(refused == len(bad), f"only {refused}/{len(bad)} bad CUDA "
+            f"inputs were refused")
+    require([f.launches for f in counters] == before,
+            "a refused call launched a kernel")
+    print(f"[rtdetr-kernels] bad CUDA inputs refused: {refused}/{len(bad)}")
+    torch.cuda.synchronize()
+    return results
+
+
+def selected_anchors(model, x):
+    """One forward of an RT-DETR; returns (outputs, the anchor index of
+    every selected query (B, Q)), read off the encoder score head."""
+    import torch
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+
+    seen = []
+    dec = model.model[28]
+    hook = dec.enc_score_head.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        outs = model(x)
+    finally:
+        hook.remove()
+    scores = seen[0].amax(-1)
+    size = x.shape[1]
+    _, valid = R.build_anchors([(size // s, size // s) for s in (8, 16, 32)])
+    scores = scores.masked_fill(~torch.from_numpy(valid).to(scores.device),
+                                -1e4)
+    return outs, R.top_k(scores, min(dec.cfg.queries, scores.shape[1]))[1]
+
+
+def phase_rtdetr_model_check(dev):
+    """RT-DETR-L f32 on the card (hand kernels, TF32 off) vs the same
+    weights on the CPU (plain versions), 2 x 128 x 128 input (336 anchors,
+    300 queries). Queries are matched by their anchor: near-tied encoder
+    scores may come out in another order on the two devices, which moves
+    rows and nothing else. Last-layer logits and boxes within 2e-3 x
+    max|ref|; decoded scores (sorted) within 2e-3."""
+    import torch
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+
+    gpu = R.create(6, torch.float32, dev, torch.Generator().manual_seed(SEED))
+    cpu = R.create(6, torch.float32, torch.device("cpu"),
+                   torch.Generator().manual_seed(SEED))
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+        outs, sel = selected_anchors(gpu, x.to(dev))
+        refs, rsel = selected_anchors(cpu, x)
+    sel = sel.cpu()
+    worst = 0.0
+    for b in range(x.shape[0]):
+        require(set(sel[b].tolist()) == set(rsel[b].tolist()),
+                f"image {b}: the card selected other anchors than the CPU")
+        rows, rrows = torch.argsort(sel[b]), torch.argsort(rsel[b])
+        for key in ("logits", "boxes"):
+            o, r = outs[key][-1, b].cpu()[rows], refs[key][-1, b][rrows]
+            require(o.shape == r.shape and bool(torch.isfinite(o).all()),
+                    f"{key}: shape or non-finite values")
+            err, scale = max_err(o, r)
+            worst = max(worst, err / scale)
+    s_card = R.postprocess({k: v.cpu() for k, v in outs.items()}, 128)[1]
+    s_cpu = R.postprocess(refs, 128)[1]
+    s_err = (s_card - s_cpu).abs().max().item()
+    moved = int((sel != rsel).sum().item())
+    print(f"[rtdetr-model] RT-DETR-L f32 128px card vs CPU: same anchors "
+          f"selected ({moved} of {sel.numel()} in another order); "
+          f"last-layer logits / boxes max rel err {worst} (tol 2e-3); top-"
+          f"{s_cpu.shape[1]} decoded scores max abs err {s_err} (tol 2e-3)")
+    require(math.isfinite(worst) and worst <= 2e-3,
+            f"card outputs differ from the CPU reference by {worst}")
+    require(s_err <= 2e-3, f"decoded scores differ by {s_err}")
+
+
+def phase_rtdetr_sweep(dev):
+    """The RT-DETR-L sweep (NMS-free predict step); returns the launch
+    counts of its run."""
+    import torch
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import stem as ST
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    model = R.create(6, torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED))
+    launches, (boxes, scores, classes, valid) = run_sweep(
+        dev, "rtdetr-sweep", "RT-DETR-L", model,
+        RT.make_predict_step(IMG_SIZE),
+        {"hgstem": ST.stem_fused_inference,
+         "ms_deform_attn": DF.ms_deform_attn_slots, "conv3x3": C.conv3x3},
+        {"hgstem": 1, "ms_deform_attn": 6, "conv3x3": 6})
+    require(boxes.shape == (4, BATCH, 300, 4) and bool(valid.all()),
+            "the NMS-free decode returns all 300 queries, valid")
+    require(bool(((scores > 0) & (scores < 1)).all()
+                 and ((classes >= 0) & (classes < 6)).all()),
+            "scores outside (0, 1) or classes outside 0..5")
+    print(f"[rtdetr-sweep] score range by pass (Clean, Noise, Blur, LowRes): "
+          f"{[(s.min().item(), s.max().item()) for s in scores]}")
+    return launches
+
+
 def main() -> int:
     import torch
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -641,8 +1007,14 @@ def main() -> int:
     kres.update(phase_train_kernels(dev))
     phase_train_model_check(dev)
     train_launches = phase_training(dev)
-    for name, n in train_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    kres.update(phase_rtdetr_kernels(dev))
+    phase_rtdetr_model_check(dev)
+    rtdetr_launches = phase_rtdetr_sweep(dev)
+    # conv3x3 runs on all three paths; each count comes from its own path's
+    # run, zeroed just before it
+    for path in (train_launches, rtdetr_launches):
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
 
     src = "robust_object_detection_tpu_torch/csrc/"
     ref = "robust_object_detection_tpu/ops/"
@@ -657,13 +1029,19 @@ def main() -> int:
              "bfloat16"),
             ("yolo_front_bwd", "yolo_front_bwd.cu",
              "pallas_yolo_front.py:200", "bfloat16"),
-            ("corrupt", "corrupt.cu", "pallas_corrupt.py:52", "float32")):
+            ("corrupt", "corrupt.cu", "pallas_corrupt.py:52", "float32"),
+            ("hgstem", "hgstem.cu", "pallas_stem.py:170", "bfloat16"),
+            ("ms_deform_attn", "ms_deform_attn.cu", "deform.py:798",
+             "bfloat16")):
         r = kres[name][dtype]
+        bound_ms, bound_by = bound(r)
         summary.append({"name": name, "route": "cuda", "source": src + source,
                         "replaces": ref + replaces,
                         "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,23 @@
 """robust_object_detection_tpu_torch — the PyTorch + CUDA port.
 
 The JAX package ``robust_object_detection_tpu`` is the reference; this
-package reproduces its robustness-evaluation path (corrupt -> letterbox ->
-YOLOv8 -> multi-label NMS -> COCO mAP) in PyTorch, with the Pallas kernels
-of that path rewritten as CUDA C++ for Hopper (``csrc/``, built and bound by
-``kernels/``). It imports ``torch`` and never ``jax``; the only code it
-shares with the reference is the jax-free host side
-(``eval.coco_map``, ``data.pipeline``, ``data.visdrone``,
-``data.synthetic``).
+package reproduces, in PyTorch, its robustness-evaluation path (corrupt ->
+letterbox -> detector -> decode -> COCO mAP) for YOLOv8 (multi-label NMS)
+and RT-DETR-L (NMS-free top-k), and the YOLOv8 train step, with the Pallas
+kernels of those paths rewritten as CUDA C++ for Hopper (``csrc/``, built
+and bound by ``kernels/``). It imports ``torch`` and never ``jax``, and
+nothing of the reference package: the host code it needs
+(``eval.coco_map``, ``native``, ``data.pipeline.Sample`` /
+``load_image_rgb``, ``data.visdrone``'s class tables) is its own copy.
 
 Layout mirrors the reference: ``core/`` (config), ``ops/`` (image,
-corruption, the kernel wrappers, NMS), ``models/`` (YOLOv8 + weight
-conversion), ``train/`` (the predict step), ``eval/`` (the fused sweep).
+corruption, the kernel wrappers, NMS), ``models/`` (YOLOv8, RT-DETR-L and
+weight conversion), ``train/`` (train and predict steps), ``eval/`` (the
+fused sweep and the scorer), ``native/`` (the scorer's C++ matcher),
+``data/`` (sample record, class tables).
+
+Entry points (``models.*.create``) put a model on the CUDA card unless the
+caller names another device; without a card they raise.
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,17 @@
 // Shared tiled direct 3x3 convolution (pad 1, stride 1 or 2), NHWC in and
 // out, HWIO filter, f32 accumulation, with optional pieces:
-//   * an input transform a = round(silu(x * in_scale + in_bias)) applied
-//     while staging (train-mode BN + SiLU of the layer below, whose batch
-//     statistics exist only after that layer covered the whole batch);
+//   * an input transform a = round(act(x * in_scale + in_bias)) applied
+//     while staging (train-mode BN + activation of the layer below, whose
+//     batch statistics exist only after that layer covered the whole batch);
 //     the zero padding stays zero in a-space;
-//   * an output epilogue y = silu(y * out_scale + out_bias) (eval BN fold);
+//   * an output epilogue y = act(y * out_scale + out_bias) (eval BN fold);
+//     act is a template parameter, SiLU (the YOLO front) or ReLU (HGStem);
 //   * a statistics epilogue: per-block per-channel sum and sum of squares
 //     of the STORED (rounded) outputs, as deterministic partials
 //     stats[2][P][Cout], P = B * tiles; finalize_partials_kernel reduces
 //     them.
-// Used by conv3x3.cu (K3-f) and yolo_front.cu (K2-f, eval and train).
+// Used by conv3x3.cu (K3-f), yolo_front.cu (K2-f, eval and train) and
+// hgstem.cu (K4-f: stem1 and stem3).
 //
 // One block computes a TILE x TILE output tile for CO_T output channels of
 // one image. Input channels are staged CI_T at a time: the block copies the
@@ -53,6 +55,11 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 __device__ __forceinline__ float silu(float z) {
   return z / (1.f + expf(-z));
+}
+constexpr int ACT_SILU = 0;
+constexpr int ACT_RELU = 1;
+template <int ACT> __device__ __forceinline__ float activate(float z) {
+  return ACT == ACT_RELU ? fmaxf(z, 0.f) : silu(z);
 }
 
 struct ConvOpts {
@@ -101,7 +108,7 @@ __device__ __forceinline__ void block_channel_partials(
 // with a = x, or the input transform of x; then the optional epilogues.
 // STATS (o.stats set) is a template flag so that the convs without the
 // statistics epilogue keep its registers free (119 vs 80 a thread).
-template <typename T, int S, bool STATS>
+template <typename T, int S, bool STATS, int ACT>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     T* __restrict__ y, ConvOpts o, int H, int W, int Cin,
@@ -142,7 +149,7 @@ conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
         v = to_f(xb[((size_t)gy * W + gx) * Cin + ci0 + c]);
         if (o.in_scale != nullptr)
           v = round_to<T>(
-              silu(v * o.in_scale[ci0 + c] + o.in_bias[ci0 + c]));
+              activate<ACT>(v * o.in_scale[ci0 + c] + o.in_bias[ci0 + c]));
       }
       s_in[c][iy][ix] = v;
     }
@@ -189,7 +196,7 @@ conv3x3_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (co >= Cout) continue;
       float v = acc[j][k];
       if (o.out_scale != nullptr)
-        v = silu(v * o.out_scale[co] + o.out_bias[co]);
+        v = activate<ACT>(v * o.out_scale[co] + o.out_bias[co]);
       const T t = from_f<T>(v);
       yp[co] = t;
       if (STATS) {
@@ -211,7 +218,7 @@ inline int tile_count(int Ho, int Wo) {
 }
 
 // Enqueues one conv on `stream`; returns cudaGetLastError() after it.
-template <typename T, int S>
+template <typename T, int S, int ACT>
 inline int launch_conv3x3(const void* x, const void* w, void* y,
                           const ConvOpts& o, int B, int H, int W, int Cin,
                           int Cout, cudaStream_t stream) {
@@ -220,17 +227,17 @@ inline int launch_conv3x3(const void* x, const void* w, void* y,
   const int n_tiles = tile_count(Ho, Wo);
   dim3 grid(n_tiles, (Cout + CO_T - 1) / CO_T, B);
   if (o.stats != nullptr)
-    conv3x3_tile_kernel<T, S, true><<<grid, THREADS, 0, stream>>>(
+    conv3x3_tile_kernel<T, S, true, ACT><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<T*>(y), o, H, W, Cin, Cout, Ho, Wo, tiles_x, n_tiles);
   else
-    conv3x3_tile_kernel<T, S, false><<<grid, THREADS, 0, stream>>>(
+    conv3x3_tile_kernel<T, S, false, ACT><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<T*>(y), o, H, W, Cin, Cout, Ho, Wo, tiles_x, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S>
+template <int S, int ACT = ACT_SILU>
 inline int launch_conv3x3_dtype(int dtype, const void* x, const void* w,
                                 void* y, const ConvOpts& o, int B, int H,
                                 int W, int Cin, int Cout,
@@ -239,10 +246,11 @@ inline int launch_conv3x3_dtype(int dtype, const void* x, const void* w,
       (Cout + CO_T - 1) / CO_T > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DTYPE_F32)
-    return launch_conv3x3<float, S>(x, w, y, o, B, H, W, Cin, Cout, stream);
+    return launch_conv3x3<float, S, ACT>(x, w, y, o, B, H, W, Cin, Cout,
+                                         stream);
   if (dtype == DTYPE_BF16)
-    return launch_conv3x3<__nv_bfloat16, S>(x, w, y, o, B, H, W, Cin, Cout,
-                                            stream);
+    return launch_conv3x3<__nv_bfloat16, S, ACT>(x, w, y, o, B, H, W, Cin,
+                                                 Cout, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,8 +4,8 @@ robust_object_detection_tpu/eval/fused_sweep.py).
 Clean uint8 images go to the device once per batch; there each batch
 becomes the four variants Clean / Noise sigma 15 / Blur k9 / LowRes 0.5x,
 each variant is letterboxed and detected, and only the fixed-capacity
-detection tensors come back to the host for COCO mAP (the reference's
-host scorer, eval/coco_map.py, reused as is).
+detection tensors come back to the host for COCO mAP (eval/coco_map.py,
+the port's copy of the reference's host scorer).
 
 This is the 4-pass sweep the reference runs without a U-Net. The restored
 stream (U-Net over the corrupted variants, 8 passes) is not ported yet:
@@ -27,13 +27,12 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from robust_object_detection_tpu.data.pipeline import load_image_rgb
-from robust_object_detection_tpu.data.visdrone import CLASS_NAMES
-from robust_object_detection_tpu.eval import coco_map
-
 from ..core.config import CorruptionConfig
+from ..data.pipeline import load_image_rgb
+from ..data.visdrone import CLASS_NAMES
 from ..ops import corrupt as corrupt_ops
 from ..ops import image as image_ops
+from . import coco_map
 
 TESTSET_VARIANTS = ("Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")
 
@@ -45,7 +44,8 @@ def make_fused_step(predict_fn: Callable, unet_model,
     """Build the per-batch sweep step for one native image size.
 
     predict_fn(det_state, canvas (B, S, S, 3) f32 in [0, 255]) ->
-    (boxes, scores, classes, valid) (train.detector.make_predict_step).
+    (boxes, scores, classes, valid) (train.detector.make_predict_step for
+    YOLOv8, train.rtdetr.make_predict_step for RT-DETR).
 
     Returns step(det_state, unet_vars, clean_u8 (B, H, W, 3), key) ->
     (boxes (4, B, K, 4) canvas coords, scores (4, B, K), classes (4, B, K),

@@ -56,6 +56,12 @@ SIGNATURES: Dict[str, List] = {
     "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P],
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, stream
     "corrupt_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
+    # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
+    # (scratch), y3, B, H, W, dtype, stream
+    "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
+    # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
+    # NH, DH, L, P, dtype, stream
+    "ms_deform_attn_fwd": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

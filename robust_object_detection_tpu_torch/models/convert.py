@@ -1,11 +1,12 @@
-"""JAX (flax) YOLOv8 variables -> the port's ``state_dict``.
+"""JAX (flax) YOLOv8 and RT-DETR variables -> the port's ``state_dict``.
 
-The port keeps the Ultralytics key layout (``model.{i}.…``), so this is the
-exact inverse of the reference's ``models/pretrained.import_yolov8``: conv
-kernels HWIO -> OIHW, BatchNorm ``scale/bias`` + ``batch_stats``
-``mean/var`` -> ``weight/bias/running_mean/running_var``. Inputs are nested
-dicts of numpy arrays (``jax.device_get`` of the flax variables), so this
-module needs no jax.
+The port keeps the Ultralytics key layout (``model.{i}.…``), so these are
+the exact inverses of the reference's ``models/pretrained.import_yolov8``
+and ``import_rtdetr``: conv kernels HWIO -> OIHW, dense kernels (in, out)
+-> (out, in), BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` ->
+``weight/bias/running_mean/running_var``, flax per-head attention kernels
+-> torch's packed ``in_proj``. Inputs are nested dicts of numpy arrays
+(``jax.device_get`` of the flax variables), so this module needs no jax.
 """
 
 from __future__ import annotations
@@ -97,4 +98,142 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping,
         sd[f"model.{tkey}.bias"] = _t(p["bias"])
     sd["model.22.dfl.conv.weight"] = torch.arange(
         REG_MAX, dtype=torch.float32).view(1, REG_MAX, 1, 1)
+    return sd
+
+
+# ── RT-DETR-L ────────────────────────────────────────────────────────────
+
+def _conv_bn(sd, tkey: str, params: Mapping, stats: Mapping, path: Path_,
+             conv_scope: Tuple[str, ...] = ("Conv_0",)) -> None:
+    """ConvBnAct (kernel under Conv_0) or Conv2x2Pad (kernel at the root,
+    conv_scope=()) -> ``{tkey}.conv`` + ``{tkey}.bn``."""
+    p, st = _get(params, path), _get(stats, path)
+    sd[f"model.{tkey}.conv.weight"] = _oihw(_get(p, conv_scope)["kernel"])
+    _bn(sd, f"{tkey}.bn", p["BatchNorm_0"], st["BatchNorm_0"])
+
+
+def _bn(sd, tkey: str, p: Mapping, st: Mapping) -> None:
+    sd[f"model.{tkey}.weight"] = _t(p["scale"])
+    sd[f"model.{tkey}.bias"] = _t(p["bias"])
+    sd[f"model.{tkey}.running_mean"] = _t(st["mean"])
+    sd[f"model.{tkey}.running_var"] = _t(st["var"])
+    sd[f"model.{tkey}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _dense(sd, tkey: str, p: Mapping) -> None:
+    sd[f"model.{tkey}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"model.{tkey}.bias"] = _t(p["bias"])
+
+
+def _ln(sd, tkey: str, p: Mapping) -> None:
+    sd[f"model.{tkey}.weight"] = _t(p["scale"])
+    sd[f"model.{tkey}.bias"] = _t(p["bias"])
+
+
+def _mha(sd, tkey: str, p: Mapping) -> None:
+    """flax MultiHeadDotProductAttention (query/key/value kernels (c,
+    heads, dh), out kernel (heads, dh, c)) -> torch's packed in_proj (3c,
+    c) and out_proj (c, c); head-major on both sides."""
+    c = np.asarray(p["query"]["kernel"]).shape[0]
+    ws = [np.asarray(p[n]["kernel"]).reshape(c, c).T
+          for n in ("query", "key", "value")]
+    bs = [np.asarray(p[n]["bias"]).reshape(c)
+          for n in ("query", "key", "value")]
+    sd[f"model.{tkey}.in_proj_weight"] = _t(np.concatenate(ws, 0))
+    sd[f"model.{tkey}.in_proj_bias"] = _t(np.concatenate(bs, 0))
+    sd[f"model.{tkey}.out_proj.weight"] = _t(
+        np.asarray(p["out"]["kernel"]).reshape(c, c).T)
+    sd[f"model.{tkey}.out_proj.bias"] = _t(p["out"]["bias"])
+
+
+def _hgblock(sd, t: str, params, stats, f: Path_, light: bool,
+             n: int = 6) -> None:
+    for j in range(n):
+        if light:
+            _conv_bn(sd, f"{t}.m.{j}.conv1", params, stats,
+                     f + (f"LightConv_{j}", "ConvBnAct_0"))
+            _conv_bn(sd, f"{t}.m.{j}.conv2", params, stats,
+                     f + (f"LightConv_{j}", "ConvBnAct_1"))
+        else:
+            _conv_bn(sd, f"{t}.m.{j}", params, stats, f + (f"ConvBnAct_{j}",))
+    off = 0 if light else n
+    _conv_bn(sd, f"{t}.sc", params, stats, f + (f"ConvBnAct_{off}",))
+    _conv_bn(sd, f"{t}.ec", params, stats, f + (f"ConvBnAct_{off + 1}",))
+
+
+def _repc3(sd, t: str, params, stats, f: Path_, n: int = 3) -> None:
+    _conv_bn(sd, f"{t}.cv1", params, stats, f + ("cv1",))
+    _conv_bn(sd, f"{t}.cv2", params, stats, f + ("cv2",))
+    for j in range(n):
+        _conv_bn(sd, f"{t}.m.{j}.conv1", params, stats,
+                 f + (f"m{j}", "conv1"))
+        _conv_bn(sd, f"{t}.m.{j}.conv2", params, stats,
+                 f + (f"m{j}", "conv2"))
+
+
+def _mlp(sd, t: str, p: Mapping, n: int = 3) -> None:
+    for j in range(n):
+        _dense(sd, f"{t}.layers.{j}", p[f"Dense_{j}"])
+
+
+def rtdetr_from_jax_variables(params: Mapping, batch_stats: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """Flax RT-DETR-L ``params`` / ``batch_stats`` -> the port's
+    state_dict (f32 tensors on the CPU; ``RTDETR.load_state_dict`` takes it
+    strictly). The table of ``import_rtdetr``, read the other way."""
+    sd: Dict[str, torch.Tensor] = {}
+    P, S = params, batch_stats
+    B = ("HGNetV2L_0",)
+    st = B + ("HGStem_0",)
+    _conv_bn(sd, "0.stem1", P, S, st + ("stem1",))
+    _conv_bn(sd, "0.stem2a", P, S, st + ("stem2a",), conv_scope=())
+    _conv_bn(sd, "0.stem2b", P, S, st + ("stem2b",), conv_scope=())
+    _conv_bn(sd, "0.stem3", P, S, st + ("stem3",))
+    _conv_bn(sd, "0.stem4", P, S, st + ("stem4",))
+    for t, blk, light in (("1", 0, False), ("3", 1, False), ("5", 2, True),
+                          ("6", 3, True), ("7", 4, True), ("9", 5, True)):
+        _hgblock(sd, t, P, S, B + (f"HGBlock_{blk}",), light)
+    for t, i in (("2", 0), ("4", 1), ("8", 2)):
+        _conv_bn(sd, t, P, S, B + (f"ConvBnAct_{i}",))
+    E = ("encoder",)
+    for t, name in (("10", "proj2"), ("12", "lateral0"), ("14", "proj1"),
+                    ("17", "lateral1"), ("19", "proj0"), ("22", "down0"),
+                    ("25", "down1")):
+        _conv_bn(sd, t, P, S, E + (name,))
+    for t, name in (("16", "fpn0"), ("21", "fpn1"), ("24", "pan0"),
+                    ("27", "pan1")):
+        _repc3(sd, t, P, S, E + (name,))
+    aifi = _get(P, E + ("aifi",))
+    _mha(sd, "11.ma", aifi["ma"])
+    _dense(sd, "11.fc1", aifi["fc1"])
+    _dense(sd, "11.fc2", aifi["fc2"])
+    _ln(sd, "11.norm1", aifi["norm1"])
+    _ln(sd, "11.norm2", aifi["norm2"])
+    D = "28"
+    for i in range(3):
+        sd[f"model.{D}.input_proj.{i}.0.weight"] = _oihw(
+            P[f"dec_proj{i}"]["Conv_0"]["kernel"])
+        _bn(sd, f"{D}.input_proj.{i}.1", P[f"dec_proj{i}"]["BatchNorm_0"],
+            S[f"dec_proj{i}"]["BatchNorm_0"])
+    _dense(sd, f"{D}.enc_output.0", P["enc_output"])
+    _ln(sd, f"{D}.enc_output.1", P["enc_norm"])
+    _dense(sd, f"{D}.enc_score_head", P["enc_score"])
+    _mlp(sd, f"{D}.enc_bbox_head", P["enc_bbox"])
+    sd[f"model.{D}.denoising_class_embed.weight"] = _t(
+        P["dn_class_embed"]["embedding"])
+    _mlp(sd, f"{D}.query_pos_head", P["query_pos"], n=2)
+    li = 0
+    while f"layer{li}" in P:
+        t, lp = f"{D}.decoder.layers.{li}", P[f"layer{li}"]
+        _mha(sd, f"{t}.self_attn", lp["self_attn"])
+        for sub in ("sampling_offsets", "attention_weights", "value_proj",
+                    "output_proj"):
+            _dense(sd, f"{t}.cross_attn.{sub}", lp["cross_attn"][sub])
+        for sub in ("norm1", "norm2", "norm3"):
+            _ln(sd, f"{t}.{sub}", lp[sub])
+        _dense(sd, f"{t}.linear1", lp["linear1"])
+        _dense(sd, f"{t}.linear2", lp["linear2"])
+        _dense(sd, f"{D}.dec_score_head.{li}", P[f"dec_score{li}"])
+        _mlp(sd, f"{D}.dec_bbox_head.{li}", P[f"dec_bbox{li}"])
+        li += 1
     return sd

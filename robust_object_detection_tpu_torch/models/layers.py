@@ -21,12 +21,13 @@ permute and no copy. Conventions, as in the reference:
   * symmetric ``k // 2`` padding, as torch's Conv2d(padding=k//2).
 
 Module and attribute names follow Ultralytics (``conv``/``bn``, ``cv1``/
-``cv2``/``m``), so ``state_dict`` keys match a real YOLOv8 checkpoint.
+``cv2``/``m``), so ``state_dict`` keys match a real YOLOv8 / RT-DETR
+checkpoint.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,23 @@ from ..ops.conv3x3 import conv3x3
 from ..ops.yolo_front import batch_stats
 
 MOMENTUM = 0.97   # flax BatchNorm momentum (torch momentum 0.03)
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """The device an entry point builds its model on: the one the caller
+    names, else the CUDA card. Without a card it raises; the port does not
+    carry on on the CPU unless asked to (``device="cpu"``)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card (torch.cuda.is_available() is False): the port "
+            "runs on the card unless the caller asks for another device; "
+            "pass device='cpu' to run the plain versions on the CPU")
+    return torch.device("cuda")
+
+
+ACTIVATIONS = {"silu": F.silu, "relu": F.relu}
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +86,9 @@ def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d,
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d(bias=False) + BatchNorm + SiLU (Ultralytics ``Conv``).
+    """Conv2d(bias=False) + BatchNorm + activation (Ultralytics ``Conv``):
+    SiLU by default, ``act_fn="relu"`` for the HGNetv2 blocks, ``act=False``
+    for none. ``groups`` makes it grouped or depthwise (plain ``F.conv2d``).
 
     hand_kernel=True routes a 3x3 stride-1 conv through ops.conv3x3 (the
     K3-f kernel on the card, with K3-f / K3-b in its backward); every other
@@ -79,14 +99,16 @@ class ConvBnAct(nn.Module):
                  act: bool = True, dtype: torch.dtype = torch.float32,
                  hand_kernel: bool = False,
                  param_dtype: Optional[torch.dtype] = None,
-                 bn_dtype: torch.dtype = torch.float32):
+                 bn_dtype: torch.dtype = torch.float32, groups: int = 1,
+                 act_fn: str = "silu"):
         super().__init__()
-        if hand_kernel and (k, s) != (3, 1):
-            raise ValueError("hand_kernel covers 3x3 stride-1 convs only")
-        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, bias=False,
-                              dtype=param_dtype or dtype)
+        if hand_kernel and (k, s, groups) != (3, 1, 1):
+            raise ValueError("hand_kernel covers dense 3x3 stride-1 convs "
+                             "only")
+        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=groups,
+                              bias=False, dtype=param_dtype or dtype)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
-        self.act = act
+        self.act = ACTIVATIONS[act_fn] if act else None
         self.hand_kernel = hand_kernel
         self.dtype = dtype
         self.bn_dtype = bn_dtype
@@ -99,12 +121,12 @@ class ConvBnAct(nn.Module):
                                   w.permute(2, 3, 1, 0).contiguous()))
         else:
             y = F.conv2d(xd, w.to(self.dtype), None, self.conv.stride,
-                         self.conv.padding)
+                         self.conv.padding, 1, self.conv.groups)
         if self.training:
             y = bn_train(y, self.bn, self.bn_dtype)
         else:
             y = self.bn(y.float())
-        return F.silu(y) if self.act else y
+        return self.act(y) if self.act else y
 
 
 class Bottleneck(nn.Module):

@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.yolo_front import fold_bn, front_fused, front_inference
-from .layers import (C2f, SPPF, ConvBnAct, from_nhwc, scale_channels,
-                     scale_depth, update_running, upsample2x)
+from .layers import (C2f, SPPF, ConvBnAct, from_nhwc, resolve_device,
+                     scale_channels, scale_depth, update_running, upsample2x)
 
 # (depth_multiple, width_multiple, max_channels) per size variant.
 VARIANTS: Dict[str, Tuple[float, float, int]] = {
@@ -244,10 +244,12 @@ def create(num_classes: int = 6, variant: str = "m",
            generator: Optional[torch.Generator] = None,
            train: bool = False,
            bn_dtype: torch.dtype = torch.float32) -> YoloV8:
-    """A YOLOv8 on `device`, randomly initialised from `generator` (seed 0
-    when None). train=False: eval mode, conv weights stored in `dtype`;
-    train=True: train mode, float32 master weights, train-mode BatchNorm
-    output in `bn_dtype`."""
+    """A YOLOv8 on `device` (None: the CUDA card; raises when there is
+    none), randomly initialised from `generator` (seed 0 when None).
+    train=False: eval mode, conv weights stored in `dtype`; train=True:
+    train mode, float32 master weights, train-mode BatchNorm output in
+    `bn_dtype`."""
+    device = resolve_device(device)
     gen = generator or torch.Generator().manual_seed(0)
     model = YoloV8(YoloConfig(num_classes, variant), dtype,
                    param_dtype=torch.float32 if train else dtype,

@@ -10,6 +10,9 @@ and NMS order would flip on 1e-6 differences of f32 summation order; the
 class-head output convs are therefore scaled up (kernels x SCALE, biases
 ~N(0, 1)) so score gaps lie far above f32 noise, while scores stay below
 saturation (sigmoid at 1.0 would tie too).
+
+The same sweep with the RT-DETR-L predict step (NMS-free top-k) is held
+against the reference's at the end of the file.
 """
 
 import numpy as np
@@ -23,12 +26,16 @@ from robust_object_detection_tpu.data import convert as dconvert
 from robust_object_detection_tpu.data import pipeline as pipe
 from robust_object_detection_tpu.data import synthetic
 from robust_object_detection_tpu.eval import fused_sweep as jfs
+from robust_object_detection_tpu.models import rtdetr as jr
 from robust_object_detection_tpu.models import yolov8 as jy
 from robust_object_detection_tpu.train import detector as jdet
+from robust_object_detection_tpu.train import rtdetr as jrt
 from robust_object_detection_tpu_torch.eval import fused_sweep as tfs
 from robust_object_detection_tpu_torch.models import convert
+from robust_object_detection_tpu_torch.models import rtdetr as tr
 from robust_object_detection_tpu_torch.models import yolov8 as ty
 from robust_object_detection_tpu_torch.train import detector as tdet
+from robust_object_detection_tpu_torch.train import rtdetr as trt
 
 torch.set_num_threads(1)
 
@@ -127,3 +134,89 @@ def test_run_fused_sweep_device_noise_and_loader(setup):
     assert out["images_evaluated"] == 12
     for variant in tfs.TESTSET_VARIANTS:
         assert 0.0 <= out["corrupted"][variant]["mAP50"] <= 1.0
+
+
+# ── the sweep with the RT-DETR-L predict step ────────────────────────────
+
+@pytest.fixture(scope="module")
+def rtdetr_setup():
+    """JAX RT-DETR-L (f32, 64 px canvas) with re-drawn BN statistics and
+    biases, converted to the port; both predict steps keep 40 queries."""
+    jmodel = jr.create(6)
+    v = jax.device_get(jr.init_variables(jmodel, jax.random.key(0), IMG))
+    rng = np.random.RandomState(0)
+
+    def redraw(tree):
+        out = {}
+        for k, x in tree.items():
+            if isinstance(x, dict):
+                out[k] = redraw(x)
+            elif k == "var":
+                out[k] = (1 + rng.rand(*x.shape) * 0.5).astype(np.float32)
+            elif k in ("mean", "bias"):
+                out[k] = (np.asarray(x) + rng.randn(*x.shape) * 0.1).astype(
+                    np.float32)
+            else:
+                out[k] = np.asarray(x)
+        return out
+
+    v = redraw(v)
+    state = jrt.RtdetrTrainState(v["params"], v["batch_stats"], v["params"],
+                                 None, jnp.asarray(0))
+    tmodel = tr.RTDETR(tr.RtDetrConfig(6)).eval()
+    tmodel.load_state_dict(convert.rtdetr_from_jax_variables(
+        v["params"], v["batch_stats"]))
+    return (state, jrt.make_predict_step(jmodel, IMG, max_det=40), tmodel,
+            trt.make_predict_step(IMG, max_det=40))
+
+
+def test_rtdetr_fused_step_matches_reference(rtdetr_setup):
+    """Same detections per variant: NMS-free, so every query comes back
+    valid; scores (sorted, hence robust to near-ties) within 1e-5, and
+    where neighbouring scores are more than 1e-5 apart (the order is then
+    certain) the same classes, and boxes within 1e-2 px."""
+    state, jpredict, tmodel, tpredict = rtdetr_setup
+    b, h, w = 2, 32, 48
+    rng = np.random.RandomState(1)
+    clean = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    noise = rng.normal(0, 15, (b, h, w, 3)).astype(np.float32)
+    jstep = jfs.make_fused_step(jpredict, None, (h, w), IMG, host_noise=True)
+    ref = jax.device_get(jstep(state, None, jnp.asarray(clean),
+                               jnp.asarray(noise)))
+    tstep = tfs.make_fused_step(tpredict, None, (h, w), IMG, host_noise=True)
+    out = [t.numpy() for t in tstep(tmodel, None, torch.from_numpy(clean),
+                                    torch.from_numpy(noise))]
+    assert out[0].shape == ref[0].shape == (4, b, 40, 4)
+    np.testing.assert_array_equal(out[3], ref[3])           # valid
+    assert out[3].all()
+    np.testing.assert_allclose(out[1], ref[1], atol=1e-5, rtol=0)
+    gap = np.abs(np.diff(ref[1], axis=-1))
+    sure = np.ones(ref[1].shape, bool)
+    sure[..., 1:] &= gap > 1e-5
+    sure[..., :-1] &= gap > 1e-5
+    assert sure.mean() > 0.5
+    np.testing.assert_array_equal(out[2][sure], ref[2][sure])
+    np.testing.assert_allclose(out[0][sure], ref[0][sure], atol=1e-2, rtol=0)
+
+
+def test_rtdetr_run_fused_sweep_matches_reference(rtdetr_setup, tmp_path):
+    state, jpredict, tmodel, tpredict = rtdetr_setup
+    split = synthetic.make_det_split(tmp_path / "raw", n_images=3,
+                                     size_range=((32, 33), (48, 49)))
+    dconvert.convert_det_to_coco(split, tmp_path / "coco", "val")
+    samples = pipe.index_coco(tmp_path / "coco", "val")
+    ref = jfs.run_fused_sweep(jpredict, state, None, None, samples, IMG,
+                              batch_size=2,
+                              mt19937_rng=jfs.frozen_noise_rng())
+    out = tfs.run_fused_sweep(tpredict, tmodel, None, None, samples, IMG,
+                              batch_size=2,
+                              mt19937_rng=tfs.frozen_noise_rng())
+    assert out["images_evaluated"] == ref["images_evaluated"] == 3 * 4
+    assert out["corrupted"].keys() == ref["corrupted"].keys()
+    for variant in tfs.TESTSET_VARIANTS:
+        o, r = out["corrupted"][variant], ref["corrupted"][variant]
+        assert o.keys() == r.keys()                     # same mAP keys
+        assert o["per_class_ap50"].keys() == r["per_class_ap50"].keys()
+        assert o["images"] == r["images"] == 3
+        for k in ("mAP50", "mAP50_95"):
+            assert abs(o[k] - r[k]) <= 1e-3, (variant, k, o[k], r[k])

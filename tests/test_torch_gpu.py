@@ -18,7 +18,9 @@ import torch
 
 from robust_object_detection_tpu_torch.core.config import CorruptionConfig
 from robust_object_detection_tpu_torch.ops import conv3x3 as C
+from robust_object_detection_tpu_torch.ops import deform as DF
 from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+from robust_object_detection_tpu_torch.ops import stem as ST
 from robust_object_detection_tpu_torch.ops import yolo_front as TF
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
@@ -252,3 +254,166 @@ def test_training_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
                                    None, CorruptionConfig(), [0], [0])
     assert (C.conv3x3_wgrad.launches, TF.front_fused.launches,
             FC.fused_random_corruption.launches) == before
+
+
+# ── RT-DETR-L serving kernels: K4-f, K5 forward ──────────────────────────
+
+def _stem_inputs(g, b, h, w, device, dtype):
+    cm = 32
+    x = torch.rand(b, h, w, 3, generator=g).to(device, dtype)
+    ks = [_rand(g, *shape, scale=sc).to(device, dtype) for shape, sc in (
+        ((3, 3, 3, cm), 0.2), ((2, 2, cm, cm // 2), 0.2),
+        ((2, 2, cm // 2, cm), 0.2), ((3, 3, 2 * cm, cm), 0.1))]
+    sizes = (cm, cm // 2, cm)
+    sc = [(torch.rand(c, generator=g) + 0.5).to(device) for c in sizes]
+    bi = [_rand(g, c, scale=0.1).to(device) for c in sizes]
+    means = [_rand(g, c, scale=0.1).to(device) for c in sizes]
+    var = [(torch.rand(c, generator=g) + 0.5).to(device) for c in sizes]
+    return (x, ks[0], sc[0], bi[0], ks[1], sc[1], bi[1], ks[2], sc[2], bi[2],
+            ks[3], means, var)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(1, 1024, 1024), (2, 36, 52), (3, 4, 8)])
+def test_stem_kernel_matches_plain(cuda, dtype, tol, shape):
+    """K4-f against the plain chain in f32 on the same values (bf16: the
+    kernel stores a1, a2a, a2b and y3 in bf16, three roundings deep)."""
+    b, h, w = shape
+    args = _stem_inputs(torch.Generator().manual_seed(6), b, h, w, cuda,
+                        dtype)
+    before = ST.stem_fused_inference.launches
+    out = ST.stem_fused_inference(*args)
+    torch.cuda.synchronize()
+    assert ST.stem_fused_inference.launches == before + 1
+    assert out.shape == (b, h // 4, w // 4, 32) and out.dtype == dtype
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ref = ST.stem_reference(*(a.float() if torch.is_tensor(a) else a
+                                  for a in args))
+    assert _rel_err(out, ref) <= tol
+
+
+def _deform_inputs(g, shapes, b, q, heads, dh, p, device, dtype, lo=-0.2,
+                   hi=1.2):
+    hw = sum(h * w for h, w in shapes)
+    n_l = len(shapes)
+    values = _rand(g, b, hw, heads, dh).to(device, dtype)
+    loc = (torch.rand(b, q, heads, n_l, p, 2, generator=g) * (hi - lo)
+           + lo).to(device)
+    attn = torch.softmax(_rand(g, b, q, heads, n_l * p), -1).reshape(
+        b, q, heads, n_l, p).to(device)
+    return values, shapes, loc, attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", [
+    (((128, 128), (64, 64), (32, 32)), 2, 300, 8, 32, 4),
+    (((6, 10), (3, 5)), 1, 7, 3, 32, 2),
+    (((5, 7), (3, 3), (2, 1), (1, 1)), 2, 13, 2, 8, 8),
+    (((9, 4),), 1, 5, 1, 48, 3)])
+def test_deform_kernel_matches_plain(cuda, dtype, tol, case):
+    """K5 forward against the plain gather version in f32 on the same
+    values (f32: the same products, another summation order; bf16: one
+    rounding of the f32 sum), taps outside the maps included."""
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(7), shapes, b, q, heads, dh, p, cuda,
+        dtype)
+    before = DF.ms_deform_attn_slots.launches
+    out = DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert DF.ms_deform_attn_slots.launches == before + 1
+    assert out.shape == (b, q, heads, dh) and out.dtype == dtype
+    ref = DF.ms_deform_attn_ref(values.float(), shapes, loc, attn)
+    assert _rel_err(out, ref) <= tol
+    perm = torch.randperm(q, generator=torch.Generator().manual_seed(0))
+    outp = DF.ms_deform_attn_slots(values, shapes, loc[:, perm].contiguous(),
+                                   attn[:, perm].contiguous())
+    assert torch.equal(outp, out[:, perm])      # any query order, same bits
+
+
+@pytest.mark.gpu
+def test_rtdetr_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
+    g = torch.Generator().manual_seed(8)
+    args = _stem_inputs(g, 1, 8, 8, cuda, torch.float32)
+    values, shapes, loc, attn = _deform_inputs(
+        g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, cuda, torch.float32)
+    before = (ST.stem_fused_inference.launches,
+              DF.ms_deform_attn_slots.launches)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ST.stem_fused_inference(args[0][:, :6], *args[1:])
+    with pytest.raises(ValueError, match="dtype"):
+        ST.stem_fused_inference(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="device"):
+        ST.stem_fused_inference(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="float32 loc"):
+        DF.ms_deform_attn_slots(values.half(), shapes, loc, attn)
+    with pytest.raises(ValueError, match="contiguous"):
+        DF.ms_deform_attn_slots(values, shapes, loc.transpose(1, 2)
+                                .contiguous().transpose(1, 2), attn)
+    with pytest.raises(NotImplementedError, match="backward"):
+        DF.ms_deform_attn_slots(values.requires_grad_(), shapes, loc, attn)
+    with torch.no_grad():                       # no graph asked for: fine
+        DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    assert (ST.stem_fused_inference.launches,
+            DF.ms_deform_attn_slots.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_create_without_a_device_lands_on_the_card(cuda):
+    from robust_object_detection_tpu_torch.models import rtdetr as TR
+    from robust_object_detection_tpu_torch.models import yolov8 as TY
+    for model in (TY.create(6, "n"), TR.create(6)):
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
+        assert not model.training
+
+
+def _forward_with_anchor_ids(model, x):
+    """(outputs, the anchor index of every selected query (B, Q)), the
+    latter read off the encoder score head with a hook."""
+    from robust_object_detection_tpu_torch.models import rtdetr as TR
+    seen = []
+    dec = model.model[28]
+    hook = dec.enc_score_head.register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        outs = model(x)
+    finally:
+        hook.remove()
+    size = x.shape[1]
+    _, valid = TR.build_anchors([(size // s, size // s) for s in (8, 16, 32)])
+    scores = seen[0].amax(-1).masked_fill(
+        ~torch.from_numpy(valid).to(x.device), -1e4)
+    return outs, TR.top_k(scores, min(dec.cfg.queries, scores.shape[1]))[1]
+
+
+@pytest.mark.gpu
+def test_rtdetr_forward_goes_through_the_kernels(cuda):
+    """One f32 RT-DETR-L forward at 128 px on the card: 1 stem, 6 conv3x3
+    and 6 deformable-attention launches; the same anchors selected as with
+    the same weights on the CPU (plain versions), and, query matched to
+    query by its anchor (near-tied encoder scores may swap rows), every
+    layer's logits and boxes within 2e-3 x max|ref|."""
+    from robust_object_detection_tpu_torch.models import rtdetr as TR
+    gpu = TR.create(6, generator=torch.Generator().manual_seed(0))
+    cpu = TR.create(6, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    counters = (ST.stem_fused_inference, C.conv3x3, DF.ms_deform_attn_slots)
+    before = [f.launches for f in counters]
+    with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+        out, sel = _forward_with_anchor_ids(gpu, x.to(cuda))
+        ref, rsel = _forward_with_anchor_ids(cpu, x)
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 6, 6]
+    sel = sel.cpu()
+    for b in range(2):
+        assert set(sel[b].tolist()) == set(rsel[b].tolist())
+        rows, rrows = torch.argsort(sel[b]), torch.argsort(rsel[b])
+        for k in ("logits", "boxes"):
+            assert _rel_err(out[k][:, b].cpu()[:, rows],
+                            ref[k][:, b][:, rrows]) <= 2e-3, k
+        for k in ("enc_logits", "enc_boxes"):
+            assert _rel_err(out[k][b].cpu()[rows], ref[k][b][rrows]) <= 2e-3

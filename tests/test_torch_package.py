@@ -5,6 +5,7 @@ holds jax (tests/conftest.py imports it)."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,7 +31,8 @@ for n in names:
 from robust_object_detection_tpu_torch.ops.conv3x3 import conv3x3
 y = conv3x3(torch.zeros(1, 4, 4, 2), torch.ones(3, 3, 2, 5))
 heavy = sorted(m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2"))
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
+                                      "robust_object_detection_tpu"))
 print(json.dumps({"modules": names, "heavy": heavy, "shape": list(y.shape),
                   "launches": conv3x3.launches}))
 """
@@ -48,23 +50,34 @@ def test_package_imports_without_jax():
         "kernels", "core.config", "ops.image", "ops.corrupt", "ops.conv3x3",
         "ops.yolo_front", "ops.nms", "ops.fused_corrupt", "ops.boxes",
         "models.layers", "models.yolov8", "models.convert", "train.detector",
-        "train.detection", "train.augment", "eval.fused_sweep")}
+        "train.detection", "train.augment", "eval.fused_sweep",
+        "eval.coco_map", "native", "data.visdrone", "data.pipeline",
+        "ops.stem", "ops.deform", "models.rtdetr", "train.rtdetr")}
     assert expected <= set(out["modules"])
 
 
 def test_no_module_imports_jax():
-    for p in PKG.rglob("*.py"):
+    """No module of the port, nor the scripts that drive it, imports jax or
+    anything of the reference package (a docstring may name a counterpart
+    file; an import line may not name the package)."""
+    files = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + list((ROOT / "tools").glob("profile_torch_*.py")))
+    assert len(files) > 20
+    ref_import = re.compile(
+        r"^\s*(from|import)\s+(.*\s)?robust_object_detection_tpu[.\s]", re.M)
+    for p in files:
         src = p.read_text()
         for mod in ("jax", "flax", "optax"):
             assert f"import {mod}" not in src, p
             assert f"from {mod}" not in src, p
+        assert not ref_import.search(src), p
 
 
 def test_kernel_sources_and_hash():
     names = [p.name for p in kernels.sources()]
     assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh",
             "conv3x3_wgrad.cu", "yolo_front_bwd.cu", "corrupt.cu",
-            "conv_wgrad.cuh"} <= set(names)
+            "conv_wgrad.cuh", "hgstem.cu", "ms_deform_attn.cu"} <= set(names)
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
         if p.suffix == ".cu":

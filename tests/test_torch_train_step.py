@@ -207,7 +207,7 @@ def test_schedule_matches_reference():
 
 
 def test_weight_decay_only_on_conv_weights():
-    model = TY.create(6, "n", train=True)
+    model = TY.create(6, "n", device="cpu", train=True)
     opt, sched = TDet.make_optimizer()[0](model)
     decay, no_decay = opt.param_groups
     assert decay["weight_decay"] == 5e-4 and no_decay["weight_decay"] == 0.0
@@ -221,7 +221,7 @@ def test_augmented_step_runs_on_the_cpu():
     K1, then the step; no kernel launches on the CPU; finite metrics; the
     running statistics and the EMA move."""
     images, gb, gc = _batch(1)
-    model = TY.create(6, "n", train=True,
+    model = TY.create(6, "n", device="cpu", train=True,
                       generator=torch.Generator().manual_seed(0))
     state = TDet.init_state(model, TDet.make_optimizer(warmup_steps=1)[0])
     step = TDet.make_train_step(IMG, CorruptionConfig(), augment=True,

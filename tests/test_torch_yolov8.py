@@ -98,7 +98,8 @@ def test_anchor_points_equal_reference():
 def test_create_matches_reference_init_statistics():
     """Seeded init follows the flax one: lecun-normal kernels, unit BN,
     class-logit bias -4.6."""
-    m = ty.create(6, "n", generator=torch.Generator().manual_seed(0))
+    m = ty.create(6, "n", device="cpu",
+                  generator=torch.Generator().manual_seed(0))
     w = m.model[4].m[0].cv1.conv.weight
     fan_in = w[0].numel()
     assert abs(w.std().item() * np.sqrt(fan_in) - 1.0) < 0.1
@@ -112,9 +113,10 @@ def test_bf16_model_stores_conv_weights_cast_once():
     """A bf16 model holds its conv weights in bf16, equal to the f32
     model's weights cast, so a forward casts no weight; BN and the head's
     output convs stay f32."""
-    m16 = ty.create(6, "n", dtype=torch.bfloat16,
+    m16 = ty.create(6, "n", device="cpu", dtype=torch.bfloat16,
                     generator=torch.Generator().manual_seed(3))
-    m32 = ty.create(6, "n", generator=torch.Generator().manual_seed(3))
+    m32 = ty.create(6, "n", device="cpu",
+                    generator=torch.Generator().manual_seed(3))
     sd16, sd32 = m16.state_dict(), m32.state_dict()
     for key in ("model.0.conv.weight", "model.2.m.0.cv1.conv.weight",
                 "model.22.cv2.0.1.conv.weight"):
@@ -126,7 +128,7 @@ def test_bf16_model_stores_conv_weights_cast_once():
 
 
 def test_bf16_model_keeps_f32_head_outputs():
-    m = ty.create(6, "n", dtype=torch.bfloat16)
+    m = ty.create(6, "n", device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
         outs = m(torch.rand(1, IMG, IMG, 3))
     assert all(b.dtype == torch.float32 and c.dtype == torch.float32

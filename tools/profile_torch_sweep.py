@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's 4-pass sweep goes, on one CUDA card.
 
-    python3 tools/profile_torch_sweep.py [--images 64] [--batch 8]
+    python3 tools/profile_torch_sweep.py [--model yolo|rtdetr] [--images 64]
+                                         [--batch 8]
 
-Runs the cell of chip_smoke.py (YOLOv8m nc=6, seeded random weights, bf16,
-a 1024 canvas, synthetic 768x1024 images) and measures, in one process:
+Runs a sweep of chip_smoke.py (YOLOv8m or RT-DETR-L, nc=6, seeded random
+weights, bf16, a 1024 canvas, synthetic 768x1024 images) and measures, in
+one process:
 
   1. per batch, CUDA events (median of 10 calls after 3 warm-ups): the
-     fused step (4 passes), one predict pass, and its parts: the forward,
-     decode and multi-label NMS;
+     fused step (4 passes), one predict pass, and its parts: the forward
+     and the decode (YOLO: box decode, then multi-label NMS; RT-DETR: the
+     NMS-free top-k);
   2. the unprofiled sweep, 3 runs: wall seconds and image-passes per second;
   3. one sweep under torch.profiler: its wall time, and from that same run
      the device's busy time (union of its kernel and memcpy intervals) and
@@ -39,9 +42,15 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def kernel_group(name: str) -> str:
-    m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d)", name)
-    if m:
+    m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
+    if m:       # stride, then the activation (1: ReLU, the HGNetv2 stem)
+        if m.group(2) == "1":
+            return "K4-f hgstem"
         return "K2-f yolo_front" if m.group(1) == "2" else "K3-f conv3x3"
+    if re.search(r"conv2x2_relu_kernel|pool2x2_kernel", name):
+        return "K4-f hgstem"
+    if "ms_deform_attn_kernel" in name:
+        return "K5 ms_deform_attn"
     m = re.search(r"wgrad_partial_kernel<[^,>]+, (\d)", name)
     if m:
         return "K2-b yolo_front_bwd" if m.group(1) == "2" else \
@@ -60,8 +69,11 @@ def kernel_group(name: str) -> str:
     if any(t in low for t in ("xmma", "implicit_gemm", "nvjet", "cutlass",
                               "gemm", "conv")):
         return "cuDNN/cuBLAS conv"
-    if "elementwise" in low:
+    if "elementwise" in low or "catarray" in low or "upsample" in low:
         return "PyTorch elementwise"
+    if "layer_norm" in low or "softmax" in low or "attention" in low \
+            or "fmha" in low or "flash" in low:
+        return "PyTorch attention / layer norm / softmax"
     if "reduce" in low:
         return "PyTorch reductions"
     return "other (topk, sort, gather, scatter, ...)"
@@ -82,11 +94,14 @@ def union_us(intervals) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("yolo", "rtdetr"), default="yolo")
     ap.add_argument("--images", type=int, default=64)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "profile_torch_sweep.txt")
     args = ap.parse_args()
+    if args.model == "rtdetr" and args.out == ap.get_default("out"):
+        args.out = args.out.with_name("profile_torch_sweep_rtdetr.txt")
 
     import torch
     from torch.autograd import DeviceType
@@ -94,10 +109,12 @@ def main() -> int:
 
     from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.eval import fused_sweep as FS
+    from robust_object_detection_tpu_torch.models import rtdetr as R
     from robust_object_detection_tpu_torch.models import yolov8 as Y
     from robust_object_detection_tpu_torch.ops import image as image_ops
     from robust_object_detection_tpu_torch.ops import nms as nms_ops
     from robust_object_detection_tpu_torch.train import detector as D
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
@@ -107,9 +124,13 @@ def main() -> int:
     print(chip_smoke.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"]))
     kernels.build()
-    model = Y.create(6, "m", torch.bfloat16, dev,
-                     torch.Generator().manual_seed(chip_smoke.SEED))
-    predict = D.make_predict_step(size)
+    seeded = torch.Generator().manual_seed(chip_smoke.SEED)
+    if args.model == "yolo":
+        model = Y.create(6, "m", torch.bfloat16, dev, seeded)
+        predict = D.make_predict_step(size)
+    else:
+        model = R.create(6, torch.bfloat16, dev, seeded)
+        predict = RT.make_predict_step(size)
     images, samples = chip_smoke.synthetic_samples(args.images)
 
     def loader(sample):
@@ -125,16 +146,20 @@ def main() -> int:
     with torch.inference_mode():
         x = canvas / 255.0
         outs = model(x)
-        boxes, scores = Y.decode(outs, size)
-        n, c = scores.shape[1:]
         parts = {
             "fused step (4 passes)": lambda: step(model, None, batch, gen),
             "predict (1 pass)": lambda: predict(model, canvas),
             "forward": lambda: model(x),
-            "decode": lambda: Y.decode(outs, size),
-            "multi-label NMS": lambda: nms_ops.multilabel_nms(
-                boxes, scores, min(30000, n * c), 300, 0.7, 0.001),
         }
+        if args.model == "yolo":
+            boxes, scores = Y.decode(outs, size)
+            n, c = scores.shape[1:]
+            parts["decode"] = lambda: Y.decode(outs, size)
+            parts["multi-label NMS"] = lambda: nms_ops.multilabel_nms(
+                boxes, scores, min(30000, n * c), 300, 0.7, 0.001)
+        else:
+            parts["decode (NMS-free top-k)"] = lambda: R.postprocess(
+                outs, size, 300)
         per_batch = {k: chip_smoke.time_ms(fn) for k, fn in parts.items()}
     for k, ms in per_batch.items():
         print(f"[batch {bs}] {k}: {ms} ms")
@@ -196,7 +221,7 @@ def main() -> int:
                                       key=lambda kv: -kv[1][0]):
             f.write(f"{ms:12.3f} ms {cnt:7d}  {name[:160]}\n")
     print(json.dumps({
-        "per_batch_ms": per_batch, "sweep_wall_s": walls,
+        "model": args.model, "per_batch_ms": per_batch, "sweep_wall_s": walls,
         "sweep_images_per_sec": rates,
         "median_images_per_sec": statistics.median(rates),
         "profiled_wall_ms": prof_wall * 1e3, "device_busy_ms": busy_ms,
