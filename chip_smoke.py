@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths once each at full width, with seeded random
+Drives the port's four paths once each at full width, with seeded random
 weights: the serving path, the 4-pass robustness sweep (nc=6, bf16, eval
 mode, 1024 canvas, 64 synthetic 768x1024 images in batches of 8), once
 with YOLOv8m and once with RT-DETR-L, and the training path, ``bench.py``'s
-workload (YOLOv8m trained at 1024 px, batch 16, 80 ground-truth boxes per
-image in 600 slots, the Augmented mode with HSV + flip, bf16 convs with
-bf16 BatchNorm outputs and f32 statistics). Phases:
+two workloads (YOLOv8m trained at 1024 px, batch 16, and RT-DETR-L at
+batch 8 with contrastive denoising; 80 ground-truth boxes per image in 600
+slots, the Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm
+outputs and f32 statistics). Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -51,7 +52,23 @@ bf16 BatchNorm outputs and f32 statistics). Phases:
      the same decoded scores;
  11. the RT-DETR-L sweep: as phase 5 with the NMS-free predict step;
      per forward K4-f 1, K5 6 and K3-f 6 launches; images/sec and peak
-     memory.
+     memory;
+ 12. RT-DETR-L training kernels: K4-f in train mode, K4-b (the stem's
+     backward), K5 backward and K6 (the auction matcher) against their
+     plain versions at the train step's shapes and at one odd shape each,
+     f32 with TF32 off and bf16 where the kernel takes it (tolerances in
+     phase_rtdetr_train_kernels; K6 by equality), timed as above, cuDNN's
+     time for each stage of the stem's backward beside K4-b;
+ 13. RT-DETR-L train-step model check: forward, loss and backward of one
+     f32 batch at 128 px on the card (kernels, TF32 off) and on the CPU
+     (plain versions), same weights, batch and denoising queries; every
+     assignment the card's matcher made is solved again by the plain
+     version on the CPU from the same cost tensor and must be equal;
+ 14. RT-DETR-L training: 1 warm-up step, then 5 timed steps with the
+     launch counters zeroed just before and read just after (per step: K1
+     1, K4-f train 1, K4-b 1, K3-f 12 = 6 forward + 6 dX, K3-b 6, K5
+     forward 6, K5 backward 6, K6 7); finite loss and grad norm, moved
+     running statistics and EMA; step ms, images/s, peak memory.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -86,6 +103,7 @@ TRAIN_BATCH = 16       # bench.py's train workload
 MAX_BOXES = 600
 GT_PER_IMAGE = 80
 TRAIN_STEPS = 5
+RTDETR_TRAIN_BATCH = 8  # bench.py's RT-DETR workload
 
 # the card's published peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -143,6 +161,22 @@ def max_err(out, ref):
     """(max abs error, max |ref|) of out against the f32 reference."""
     return ((out.float() - ref).abs().max().item(),
             ref.abs().max().item())
+
+
+def require_refused(tag, bad, counters) -> None:
+    """Every call of `bad` raises ValueError and launches no kernel."""
+    before = [f.launches for f in counters]
+    refused = 0
+    for fn in bad:
+        try:
+            fn()
+        except ValueError:
+            refused += 1
+    require(refused == len(bad), f"only {refused}/{len(bad)} bad CUDA "
+            f"inputs were refused")
+    require([f.launches for f in counters] == before,
+            "a refused call launched a kernel")
+    print(f"[{tag}] bad CUDA inputs refused: {refused}/{len(bad)}")
 
 
 def phase_kernels(dev):
@@ -215,20 +249,12 @@ def phase_kernels(dev):
     results["yolo_front"] = front
 
     # the kernels refuse CUDA tensors they do not take, and launch nothing
-    refused = 0
-    before = (C.conv3x3.launches, TF.front_inference.launches)
-    for bad in (lambda: C.conv3x3(x[:, :, ::2], k),
-                lambda: C.conv3x3(x.half(), k.half()),
-                lambda: TF.front_inference(xf[:, :1023], k1, sc1, bi1, k2,
-                                           means, variances)):
-        try:
-            bad()
-        except ValueError:
-            refused += 1
-    require(refused == 3, f"only {refused}/3 bad CUDA inputs were refused")
-    require((C.conv3x3.launches, TF.front_inference.launches) == before,
-            "a refused call launched a kernel")
-    print("[kernels] bad CUDA inputs refused: 3/3")
+    require_refused("kernels", (
+        lambda: C.conv3x3(x[:, :, ::2], k),
+        lambda: C.conv3x3(x.half(), k.half()),
+        lambda: TF.front_inference(xf[:, :1023], k1, sc1, bi1, k2, means,
+                                   variances)),
+        (C.conv3x3, TF.front_inference))
     torch.cuda.synchronize()
     return results
 
@@ -531,7 +557,6 @@ def phase_train_kernels(dev):
     # the new wrappers refuse CUDA tensors they do not take
     small = torch.zeros(1, 8, 8, 4, device=dev)
     counters = (C.conv3x3_wgrad, TF.front_fused, FC.fused_random_corruption)
-    before = [f.launches for f in counters]
     bad = (lambda: C.conv3x3_wgrad(small, small.half()),
            lambda: C.conv3x3_wgrad(small[:, :, ::2], small[:, :, ::2]),
            lambda: TF.front_fused(torch.zeros(1, 9, 8, 3, device=dev),
@@ -539,17 +564,7 @@ def phase_train_kernels(dev):
            lambda: FC.fused_random_corruption(
                torch.zeros(1, 9, 8, 3, device=dev), None, choice=[0],
                seeds=[0]))
-    refused = 0
-    for fn in bad:
-        try:
-            fn()
-        except ValueError:
-            refused += 1
-    require(refused == len(bad), f"only {refused}/{len(bad)} bad CUDA "
-            f"inputs were refused")
-    require([f.launches for f in counters] == before,
-            "a refused call launched a kernel")
-    print(f"[train-kernels] bad CUDA inputs refused: {refused}/{len(bad)}")
+    require_refused("train-kernels", bad, counters)
     torch.cuda.synchronize()
     return results
 
@@ -859,26 +874,13 @@ def phase_rtdetr_kernels(dev):
     values, loc, attn = deform_inputs(g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, dev)
     shapes = ((4, 4), (2, 2))
     counters = (ST.stem_fused_inference, DF.ms_deform_attn_slots)
-    before = [f.launches for f in counters]
     bad = (lambda: ST.stem_fused_inference(args[0][:, :6], *args[1:]),
            lambda: ST.stem_fused_inference(args[0].half(), *args[1:]),
            lambda: ST.stem_fused_inference(args[0][:, :, ::2], *args[1:]),
            lambda: DF.ms_deform_attn_slots(values.half(), shapes, loc, attn),
            lambda: DF.ms_deform_attn_slots(values, ((4, 4), (2, 3)), loc,
-                                           attn),
-           lambda: DF.ms_deform_attn_slots(
-               values.clone().requires_grad_(), shapes, loc, attn))
-    refused = 0
-    for fn in bad:
-        try:
-            fn()
-        except (ValueError, NotImplementedError):
-            refused += 1
-    require(refused == len(bad), f"only {refused}/{len(bad)} bad CUDA "
-            f"inputs were refused")
-    require([f.launches for f in counters] == before,
-            "a refused call launched a kernel")
-    print(f"[rtdetr-kernels] bad CUDA inputs refused: {refused}/{len(bad)}")
+                                           attn))
+    require_refused("rtdetr-kernels", bad, counters)
     torch.cuda.synchronize()
     return results
 
@@ -975,6 +977,495 @@ def phase_rtdetr_sweep(dev):
     return launches
 
 
+def stem_train_params(g, dev):
+    """Random HGStem parameters in stem_fused's order (f32 masters)."""
+    _, kers, affine, _, _ = stem_inputs(g, 1, 4, 4, dev)
+    (s1, b1), (s2a, b2a), (s2b, b2b) = affine
+    return [kers[0], s1, b1, kers[1], s2a, b2a, kers[2], s2b, b2b, kers[3]]
+
+
+STEM_PARAMS = ("k1", "sc1", "bi1", "k2a", "sc2a", "bi2a", "k2b", "sc2b",
+               "bi2b", "k3")
+
+
+def stem_work(dtype: str, b: int, h: int, w: int, elt: int, backward: bool):
+    """The train-mode stem at (b, h, w, 3). Forward: reads x, writes y3 and
+    the four tensors the backward needs (y1, y2a, y2b, concat). Backward:
+    reads x, those four, y3 and dy3; dX + dW of stem3 and of the two 2x2
+    convs, dW of stem1."""
+    px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
+    f1, f2 = 2 * 27 * 32 * px2, 2 * 128 * 16 * px2
+    f3 = 2 * 576 * 32 * px4
+    saved = (b * h * w * 3 + px2 * (32 + 16 + 32 + 64) + px4 * 32) * elt
+    if backward:
+        return work(dtype, saved + px4 * 32 * elt, f1 + 2 * (2 * f2 + f3))
+    return work(dtype, saved, f1 + 2 * f2 + f3)
+
+
+def phase_rtdetr_train_kernels(dev):
+    """K4-f train, K4-b, K5 backward and K6 vs their plain versions at the
+    RT-DETR-L train step's shapes and at one odd shape each. Tolerances,
+    each x max|ref|: K4-f train y3 1e-4 in f32 (TF32 off) and 2e-2 in bf16,
+    its eight batch statistics 1e-3 and 2e-2 (sums over B x H x W); K4-b's
+    ten gradients 1e-3 in f32 and 8e-2 in bf16 (0.25 at the odd bf16
+    shape, whose sums run over 936 pixels only; its f32 check holds the
+    edges), against the autograd of the plain chain in the same dtype,
+    which rounds the stored tensors where the kernels do (a last-bit
+    difference of a stored bf16 y flips roundings four tensors down the
+    chain); K4-b twice gives identical bits. K5 backward against the
+    autograd of the plain gather version in f32 on the same values:
+    d(values) 1e-4 in f32 (f32 atomics: another order every run) and 2e-2
+    in bf16 (one rounding of the f32 sum), d(loc) and d(attn) 1e-4 and
+    1e-3, and the same bits for d(loc) and d(attn) under a permutation of
+    the queries. K6: the same assignment
+    and capped flags as the plain round loop + greedy completion, by
+    equality, on costs that converge, on a batch built to hit the round
+    cap (as many valid GTs as queries) and with an image without GT."""
+    import torch
+    import torch.nn.functional as F
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import stem as ST
+
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    results = {}
+
+    # K4-f train and K4-b: (8, 1024, 1024, 3), and H != W
+    fwd, bwd = {}, {}
+    params = stem_train_params(g, dev)
+    for shape in ((RTDETR_TRAIN_BATCH, IMG_SIZE, IMG_SIZE), (2, 36, 52)):
+        b, h, w = shape
+        main = b == RTDETR_TRAIN_BATCH
+        x = torch.rand(b, h, w, 3, device=dev, generator=g)
+        cots = [torch.randn(b, h // 4, w // 4, 32, device=dev, generator=g)]
+        cots += [torch.randn(c, device=dev, generator=g) * 0.1
+                 for c in (32, 16, 32, 32) * 2]
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            name = str(dtype).split(".")[-1]
+            stol = 1e-3 if dtype == torch.float32 else tol
+            gtol = 1e-3 if dtype == torch.float32 else 8e-2
+            if dtype == torch.bfloat16 and not main:
+                gtol = 0.25      # 936 pixels: each flipped rounding shows
+            xd = x.to(dtype)
+            ps = [t.clone().requires_grad_() for t in params]
+            rs = [t.clone().requires_grad_() for t in params]
+            cd = [cots[0].to(dtype)] + cots[1:]
+            log = []
+            out = ST.stem_fused(xd, *ps)
+            flat = (out[0], *out[1], *out[2])
+            with torch.backends.cudnn.flags(allow_tf32=False):
+                ref = ST.stem_train_reference(xd, *rs)
+                rflat = (ref[0], *ref[1], *ref[2])
+                err = check(f"hgstem train y3 {name} {shape}", flat[0],
+                            rflat[0].float(), tol, log)
+                for i in range(8):
+                    check(f"{'mean' if i < 4 else 'var'}{i % 4} {name}",
+                          flat[1 + i], rflat[1 + i], stol, log)
+                grads = torch.autograd.grad(flat, ps, cd, retain_graph=True)
+                rgrads = torch.autograd.grad(rflat, rs, cd)
+            gerr = max(check(f"d{n} {name}", a, r, gtol, log)
+                       for n, a, r in zip(STEM_PARAMS, grads, rgrads))
+            again = torch.autograd.grad(flat, ps, cd)
+            require(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                    "K4-b is not deterministic")
+            del out, flat, ref, rflat, grads, rgrads, again
+            if not main:
+                print(f"[rtdetr-train-kernels] {'; '.join(log)}")
+                continue
+            with torch.no_grad():
+                ms = time_ms(lambda: ST.stem_fused(xd, *ps))
+                plain_ms = time_ms(lambda: ST.stem_train_reference(xd, *ps))
+            out = ST.stem_fused(xd, *ps)
+            flat = (out[0], *out[1], *out[2])
+            bms = time_ms(lambda: torch.autograd.grad(flat, ps, cd,
+                                                      retain_graph=True))
+            del out, flat
+            pout = ST.stem_train_reference(xd, *ps)
+            pflat = (pout[0], *pout[1], *pout[2])
+            bplain = time_ms(lambda: torch.autograd.grad(pflat, ps, cd,
+                                                         retain_graph=True))
+            del pout, pflat
+            # cuDNN alone, stage by stage (channels-last views, default
+            # flags): no one call computes the chain's backward
+            stages = {}
+            for stage, cin, cout, k, side, stride, pad, need_dx in (
+                    ("stem1", 3, 32, 3, h, 2, 1, False),
+                    ("stem2a", 32, 16, 2, h // 2 + 1, 1, 0, True),
+                    ("stem2b", 16, 32, 2, h // 2 + 1, 1, 0, True),
+                    ("stem3", 64, 32, 3, h // 2, 2, 1, True)):
+                xs = torch.rand(b, side, side, cin, device=dev,
+                                generator=g).to(dtype).permute(0, 3, 1, 2)
+                kv = torch.randn(cout, cin, k, k, device=dev,
+                                 generator=g).to(dtype)
+                dys = torch.randn_like(F.conv2d(xs, kv, stride=stride,
+                                                padding=pad))
+                t = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                    xs, kv.shape, dys, stride=stride, padding=pad))
+                if need_dx:
+                    t += time_ms(lambda: torch.nn.grad.conv2d_input(
+                        xs.shape, kv, dys, stride=stride, padding=pad))
+                stages[stage] = t
+                del xs, dys
+            print(f"[rtdetr-train-kernels] {'; '.join(log)}; K4-f train "
+                  f"kernel {ms} ms plain {plain_ms} ms (cuDNN convs + "
+                  f"elementwise); K4-b kernel {bms} ms plain {bplain} ms "
+                  f"(autograd of the plain chain); cuDNN alone per stage "
+                  f"(conv2d_weight + conv2d_input) {stages} (sum "
+                  f"{sum(stages.values())} ms; no single library call "
+                  f"computes either)")
+            fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **stem_work(name, b, h, w, esize(dtype), False))
+            bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain,
+                             **stem_work(name, b, h, w, esize(dtype), True))
+        del x, cots
+    results["hgstem_train"] = fwd
+    results["hgstem_bwd"] = bwd
+    torch.cuda.empty_cache()
+
+    # K5 backward: values (8, 21504, 8, 32), 300 + 128 queries, 3 levels x
+    # 4 points; and non-square levels with a Q that divides nothing
+    dbwd = {}
+    q_train = RTDETR_QUERIES + 2 * 2 * 32
+    for shapes, b, q, heads, dh, pts in (
+            (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
+             RTDETR_DH, RTDETR_POINTS),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+        values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
+                                          dev)
+        dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
+        main = b == RTDETR_TRAIN_BATCH
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            name = str(dtype).split(".")[-1]
+            vd, dd = values.to(dtype), dout.to(dtype)
+            dv, dloc, dattn = DF.ms_deform_attn_backward(vd, shapes, loc,
+                                                         attn, dd)
+            leaves = [t.clone().requires_grad_()
+                      for t in (vd.float(), loc, attn)]
+            rdv, rdloc, rdattn = torch.autograd.grad(
+                DF.ms_deform_attn_ref(leaves[0], shapes, leaves[1],
+                                      leaves[2]), leaves, dd.float())
+            log = []
+            ltol = 1e-4 if dtype == torch.float32 else 1e-3
+            err = check(f"ms_deform_attn bwd d(values) {name} levels "
+                        f"{shapes} Q {q}", dv, rdv, tol, log)
+            err = max(err, check(f"d(loc) {name}", dloc, rdloc, ltol, log),
+                      check(f"d(attn) {name}", dattn, rdattn, ltol, log))
+            perm = torch.randperm(q, device=dev, generator=g)
+            _, ploc, pattn = DF.ms_deform_attn_backward(
+                vd, shapes, loc[:, perm].contiguous(),
+                attn[:, perm].contiguous(), dd[:, perm].contiguous())
+            require(torch.equal(ploc, dloc[:, perm])
+                    and torch.equal(pattn, dattn[:, perm]),
+                    "d(loc) / d(attn) change bits with the query order")
+            del leaves, rdv, rdloc, rdattn, ploc, pattn
+            if not main:
+                print(f"[rtdetr-train-kernels] {'; '.join(log)}")
+                continue
+            ms = time_ms(lambda: DF.ms_deform_attn_backward(vd, shapes, loc,
+                                                            attn, dd))
+            leaves = [t.clone().requires_grad_() for t in (vd, loc, attn)]
+            pout = DF.ms_deform_attn_ref(leaves[0], shapes, leaves[1],
+                                         leaves[2])
+            plain_ms = time_ms(lambda: torch.autograd.grad(
+                pout, leaves, dd, retain_graph=True))
+            del leaves, pout
+            # what this run's data needs: the distinct value rows its
+            # in-map taps touch read once, d(values) written once, and 4
+            # operations per in-map tap and channel
+            idx, wgt = DF.tap_geometry(loc, shapes)
+            live = wgt != 0
+            hw = values.shape[1]
+            bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1)
+            hi = torch.arange(heads, device=dev).view(1, 1, heads, 1, 1, 1)
+            rows = torch.unique(((bi * hw + idx) * heads + hi)[live]).numel()
+            taps = int(live.sum().item())
+            elt = esize(dtype)
+            nbytes = (rows * dh + values.numel() + 2 * dout.numel()) * elt \
+                + 2 * (loc.numel() + attn.numel()) * 4
+            print(f"[rtdetr-train-kernels] {'; '.join(log)}; kernel {ms} ms "
+                  f"(zero fill, atomics and cast of the f32 d(values) "
+                  f"included) plain {plain_ms} ms (autograd of torch.gather "
+                  f"+ elementwise); {taps} in-map taps, {rows} distinct "
+                  f"rows; no single PyTorch call computes it")
+            dbwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              **work(name, nbytes, 4 * taps * dh))
+            del idx, wgt, live
+        del values, loc, attn, dout
+    results["ms_deform_attn_bwd"] = dbwd
+    torch.cuda.empty_cache()
+
+    # K6: cost (8, 300, 300), 80 valid GTs an image (the train step's);
+    # the same with 300 valid GTs, which hits the 16-round cap so that the
+    # greedy completion runs; and Q 7, M 5 with an image without GT
+    auction = {}
+    cases = (("train", 8, 300, 300, 80, False), ("capped", 8, 300, 300, 300,
+                                                 False),
+             ("odd", 3, 7, 5, 3, True))
+    for tag, b, q, m, n_valid, empty_image in cases:
+        cost = torch.rand(b, q, m, device=dev, generator=g) * 4
+        valid = torch.zeros(b, m, dtype=torch.bool, device=dev)
+        valid[:, :n_valid] = True
+        if empty_image:
+            valid[0] = False
+        cost = torch.where(valid[:, None, :], cost,
+                           torch.full_like(cost, AS.BIG))
+        owner, capped = AS.auction_assignment(cost, valid, max_rounds=16)
+        powner, pcapped = AS.auction_assignment_plain(cost, valid,
+                                                      max_rounds=16)
+        same = bool(torch.equal(owner, powner)
+                    and torch.equal(capped, pcapped))
+        n_capped = int(capped.sum().item())
+        matched = (owner >= 0).sum(1).tolist()
+        print(f"[rtdetr-train-kernels] auction {tag} (B {b}, Q {q}, M {m}, "
+              f"{n_valid} valid): equal to the plain version {same}; capped "
+              f"images {n_capped}; matched per image {matched}")
+        require(same, f"auction {tag}: kernel and plain version differ")
+        if tag == "capped":
+            require(n_capped == b, "the capped case did not hit the cap")
+            cms = time_ms(lambda: AS.auction_assignment(cost, valid,
+                                                        max_rounds=16))
+            print(f"[rtdetr-train-kernels] auction capped: kernel {cms} ms "
+                  f"(16 rounds, then {q} greedy picks an image)")
+        if tag != "train":
+            continue
+        ms = time_ms(lambda: AS.auction_assignment(cost, valid,
+                                                   max_rounds=16))
+        plain_ms = time_ms(lambda: AS.auction_assignment_plain(
+            cost, valid, max_rounds=16), iters=3, warmup=1)
+        print(f"[rtdetr-train-kernels] auction train shape: kernel {ms} ms "
+              f"(transpose of the cost included) plain {plain_ms} ms (a "
+              f"tensor pass and a host sync per round); no single PyTorch "
+              f"call computes it")
+        # reads the cost once, writes the assignment; a dozen compares per
+        # (GT, query) pair and round at most
+        auction["float32"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            **work("float32", cost.numel() * 4 + valid.numel() + b * q * 4,
+                   16 * 4 * n_valid * q * b))
+    results["auction"] = auction
+
+    # the new wrappers refuse CUDA tensors they do not take
+    x = torch.rand(1, 8, 8, 3, device=dev, generator=g)
+    values, loc, attn = deform_inputs(g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, dev)
+    cost = torch.zeros(1, 4, 3, device=dev)
+    valid = torch.ones(1, 3, dtype=torch.bool, device=dev)
+    counters = (ST.stem_fused, ST.stem_fused_backward,
+                DF.ms_deform_attn_backward, AS.auction_assignment)
+    bad = (lambda: ST.stem_fused(x[:, :6], *params),
+           lambda: ST.stem_fused(x.half(), *params),
+           lambda: ST.stem_fused(x, params[0].cpu(), *params[1:]),
+           lambda: DF.ms_deform_attn_backward(values, ((4, 4), (2, 2)), loc,
+                                              attn, values[:, :2]),
+           lambda: AS.auction_assignment(cost.double(), valid),
+           lambda: AS.auction_assignment(cost, valid[:, :2]),
+           lambda: AS.auction_assignment(cost, valid.cpu()))
+    require_refused("rtdetr-train-kernels", bad, counters)
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_rtdetr_train_model_check(dev):
+    """Forward, loss and backward of one RT-DETR-L f32 train batch at 128
+    px, batch 2, on the card (kernels, TF32 off) and on the CPU (plain
+    versions): the same weights, images, boxes and denoising queries (drawn
+    once on the CPU). The encoder score kernel is zeroed, so every valid
+    anchor scores exactly its bias and both devices select the same
+    anchors in the same order (near-tied scores would reorder the queries,
+    and the auction's eps-optimal result depends on their order).
+
+    Card and CPU costs differ by f32 noise, which can flip a near-tied
+    match and with it a tenth of the loss's gradient. So the card runs
+    first with its own matcher (K6) and the CPU run takes the card's seven
+    assignments instead of solving its own; every one of them is also
+    solved again by the plain version on the CPU from the card's own cost
+    tensor and must be equal.
+
+    What is held: the loss within 2e-3 relative; those assignments; the
+    gradients by direction and size: through ~120 train-mode BatchNorms
+    f32 noise grows to ~1e-3 of
+    the deep pre-activations, which flips that share of the ReLU masks and
+    moves every leaf's gradient by a few per cent in L2 (card vs CPU as
+    CPU vs the JAX reference, tests/test_torch_rtdetr_train_step.py), so:
+    global cosine >= 0.99, and for each leaf that carries more than 1e-4
+    of the gradient's norm a relative L2 error <= 0.15."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    size, nb = 128, 2
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 5), nb, size,
+                                     8, 16)
+    x = torch.from_numpy(images).float() / 255.0
+    gb, gc = torch.from_numpy(gb), torch.from_numpy(gc)
+    gt_n = RT.to_norm_cxcywh(gb, size)
+    dn, dn_gt, dn_active = RT.build_dn_queries(
+        gt_n, gc, torch.Generator().manual_seed(SEED), max_gt=8)
+
+    solved = []
+    solve = RT.auction_assignment
+
+    def recording(cost, valid, **kw):
+        owner, capped = solve(cost, valid, **kw)
+        solved.append((cost, valid, owner, capped, kw))
+        return owner, capped
+
+    def replaying(cost, valid, **kw):
+        _, _, owner, capped, _ = solved[replaying.calls]
+        replaying.calls += 1
+        return owner.to(cost.device), capped.to(cost.device)
+
+    replaying.calls = 0
+
+    res = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = R.create(6, torch.float32, device,
+                         torch.Generator().manual_seed(SEED), train=True)
+        with torch.no_grad():
+            model.model[28].enc_score_head.weight.zero_()
+        to = lambda t: t.to(device)
+        RT.auction_assignment = recording if name == "card" else replaying
+        try:
+            with torch.backends.cudnn.flags(allow_tf32=False):
+                outs = model(to(x), {k: to(v) for k, v in dn.items()})
+                loss, metrics = RT.rtdetr_loss(outs, to(gb), to(gc), size)
+                for li in range(outs["dn_logits"].shape[0]):
+                    loss = loss + RT.dn_loss(
+                        outs["dn_logits"][li], outs["dn_boxes"][li],
+                        to(dn_gt), to(dn_active), to(gt_n), to(gc))
+                loss.backward()
+        finally:
+            RT.auction_assignment = solve
+        res[name] = (loss.item(), {k: v.item() for k, v in metrics.items()},
+                     {n: p.grad.detach().cpu().double()
+                      for n, p in model.named_parameters()})
+    (lc, mc, gcard), (lr, mr, gref) = res["card"], res["cpu"]
+    require(len(solved) == 7 and replaying.calls == 7,
+            f"{len(solved)} matchings on the card, {replaying.calls} on the "
+            f"CPU, not 7")
+    for i, (cost, valid, owner, capped, kw) in enumerate(solved):
+        powner, pcapped = AS.auction_assignment(cost.cpu(), valid.cpu(), **kw)
+        require(torch.equal(owner.cpu(), powner)
+                and torch.equal(capped.cpu(), pcapped),
+                f"matching {i}: K6 and the plain version differ on the "
+                f"card's cost tensor")
+    loss_rel = abs(lc - lr) / abs(lr)
+    require(gcard.keys() == gref.keys(), "gradient leaves differ")
+    norms = {n: r.norm().item() for n, r in gref.items()}
+    total = math.sqrt(sum(v * v for v in norms.values()))
+    dot = sum((gcard[n] * r).sum().item() for n, r in gref.items())
+    card_total = math.sqrt(sum(g.norm().item() ** 2 for g in gcard.values()))
+    cos = dot / (total * card_total)
+    worst, worst_name, significant = 0.0, "", 0
+    for n, r in gref.items():
+        if norms[n] <= 1e-4 * total:
+            continue
+        significant += 1
+        e = ((gcard[n] - r).norm() / norms[n]).item()
+        if e > worst:
+            worst, worst_name = e, n
+    print(f"[rtdetr-train-model] RT-DETR-L f32 128px train batch card vs "
+          f"CPU: loss {lc} vs {lr} (rel {loss_rel}, tol 2e-3); metrics {mc} "
+          f"vs {mr}; 7 matchings of K6 equal to the plain version on the "
+          f"card's costs (capped image-matchings {mc['matcher_capped']}); "
+          f"gradient cosine {cos} (>= 0.99), norm {card_total} vs {total}; "
+          f"worst relative L2 error {worst} at {worst_name} over "
+          f"{significant} significant of {len(gref)} leaves (tol 0.15)")
+    require(loss_rel <= 2e-3, f"train loss differs by {loss_rel}")
+    require(math.isfinite(cos) and cos >= 0.99,
+            f"gradient cosine {cos} < 0.99")
+    require(abs(card_total - total) <= 0.05 * total, "gradient norms differ")
+    require(math.isfinite(worst) and worst <= 0.15,
+            f"gradient {worst_name} differs by {worst} in L2")
+
+
+def phase_rtdetr_training(dev):
+    """The RT-DETR-L training slice through the port's entry points;
+    returns the launch counts of the timed steps."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import stem as ST
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    nb = RTDETR_TRAIN_BATCH
+    model = R.create(6, torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED), train=True,
+                     bn_dtype=torch.bfloat16)
+    tx, _ = RT.make_optimizer()
+    state = RT.init_state(model, tx)
+    step = RT.make_train_step(IMG_SIZE, CorruptionConfig(), augment=True,
+                              base_augment=True)
+    images, gb, gc = detection_batch(np.random.RandomState(SEED), nb,
+                                     IMG_SIZE, GT_PER_IMAGE, MAX_BOXES)
+    images, gb, gc = (torch.from_numpy(a).to(dev) for a in (images, gb, gc))
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    m = step(state, images, gb, gc, gen)          # warm-up, off the count
+    torch.cuda.synchronize()
+    require(math.isfinite(m["loss"].item()), "warm-up loss not finite")
+    bns = (model.model[0].stem1.bn, model.model[0].stem3.bn,
+           model.model[1].m[0].bn, model.model[28].input_proj[0][1])
+    stats0 = [(bn.running_mean.clone(), bn.running_var.clone())
+              for bn in bns]
+    ema0 = {n: e.clone() for n, e in state.ema.items()}
+
+    counters = {"corrupt": FC.fused_random_corruption,
+                "hgstem_train": ST.stem_fused,
+                "hgstem_bwd": ST.stem_fused_backward,
+                "conv3x3": C.conv3x3, "conv3x3_wgrad": C.conv3x3_wgrad,
+                "ms_deform_attn": DF.ms_deform_attn_slots,
+                "ms_deform_attn_bwd": DF.ms_deform_attn_backward,
+                "auction": AS.auction_assignment}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, images, gb, gc, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: v.item() for k, v in m.items()}
+        print(f"[rtdetr-train] step {i}: {vals}")
+        require(math.isfinite(vals["loss"]) and
+                math.isfinite(vals["grad_norm"]),
+                f"step {i}: loss or grad_norm not finite")
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    per_step = {"corrupt": 1, "hgstem_train": 1, "hgstem_bwd": 1,
+                "conv3x3": 12, "conv3x3_wgrad": 6, "ms_deform_attn": 6,
+                "ms_deform_attn_bwd": 6, "auction": 7}
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"[rtdetr-train] launches {launches} expected {expect}")
+    require(launches == expect, f"launch counts {launches} != {expect}")
+    moved = [not torch.equal(a, bn.running_mean)
+             and not torch.equal(b, bn.running_var)
+             for (a, b), bn in zip(stats0, bns)]
+    ema_moved = sum(not torch.equal(ema0[n], e) for n, e in state.ema.items())
+    no_grad = [n for n, p in model.named_parameters() if p.grad is None]
+    print(f"[rtdetr-train] BN running stats moved {moved}; EMA leaves moved "
+          f"{ema_moved}/{len(ema0)}; parameters without a gradient "
+          f"{len(no_grad)}")
+    require(all(moved), "BatchNorm running statistics did not move")
+    require(ema_moved > 0, "the EMA did not move")
+    require(not no_grad, f"parameters without a gradient: {no_grad[:5]}")
+    ms = statistics.median(times)
+    print(f"[rtdetr-train] RT-DETR-L bf16 1024px batch {nb}, augment + "
+          f"HSV/flip + CDN (428 queries): step ms {times} median {ms} = "
+          f"{nb / (ms / 1e3)} images/s; peak memory {peak} bytes "
+          f"({peak / 2 ** 30} GiB)")
+    return launches
+
+
 def main() -> int:
     import torch
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1010,9 +1501,12 @@ def main() -> int:
     kres.update(phase_rtdetr_kernels(dev))
     phase_rtdetr_model_check(dev)
     rtdetr_launches = phase_rtdetr_sweep(dev)
-    # conv3x3 runs on all three paths; each count comes from its own path's
-    # run, zeroed just before it
-    for path in (train_launches, rtdetr_launches):
+    kres.update(phase_rtdetr_train_kernels(dev))
+    phase_rtdetr_train_model_check(dev)
+    rtdetr_train_launches = phase_rtdetr_training(dev)
+    # a kernel may run on several paths; each count comes from its own
+    # path's run, zeroed just before it
+    for path in (train_launches, rtdetr_launches, rtdetr_train_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1032,7 +1526,13 @@ def main() -> int:
             ("corrupt", "corrupt.cu", "pallas_corrupt.py:52", "float32"),
             ("hgstem", "hgstem.cu", "pallas_stem.py:170", "bfloat16"),
             ("ms_deform_attn", "ms_deform_attn.cu", "deform.py:798",
-             "bfloat16")):
+             "bfloat16"),
+            ("hgstem_train", "hgstem.cu", "pallas_stem.py:170", "bfloat16"),
+            ("hgstem_bwd", "hgstem_bwd.cu", "pallas_stem.py:601",
+             "bfloat16"),
+            ("ms_deform_attn_bwd", "ms_deform_attn.cu", "deform.py:901",
+             "bfloat16"),
+            ("auction", "auction.cu", "assignment.py:113", "float32")):
         r = kres[name][dtype]
         bound_ms, bound_by = bound(r)
         summary.append({"name": name, "route": "cuda", "source": src + source,

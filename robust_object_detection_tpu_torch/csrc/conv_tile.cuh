@@ -103,6 +103,43 @@ __device__ __forceinline__ void block_channel_partials(
   }
 }
 
+// For a 256-thread block laid out as tid = pg * 4 + cg, a thread holding
+// s[CPT], ss[CPT] of channels cg*CPT .. cg*CPT+CPT-1: sum over the 64 pixel
+// groups in a fixed order and write part[0][p][.] and part[1][p][.] of
+// part[2][P][4 CPT] (the 2x2 convs of hgstem.cu and hgstem_bwd.cu, whose
+// blocks own all 16 or 32 channels). Every thread of the block must call
+// it.
+template <int CPT>
+__device__ __forceinline__ void block_partials(float s[CPT], float ss[CPT],
+                                               float* part, size_t P,
+                                               size_t p) {
+  constexpr int C = 4 * CPT;
+  __shared__ float red[2][THREADS / 32][C];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {  // same cg, other pixel groups
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+      ss[k] += __shfl_xor_sync(0xffffffffu, ss[k], off);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      red[0][warp][lane * CPT + k] = s[k];
+      red[1][warp][lane * CPT + k] = ss[k];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * C) {
+    const int which = threadIdx.x / C, c = threadIdx.x % C;
+    float t = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) t += red[which][w][c];
+    part[(which * P + p) * C + c] = t;
+  }
+}
+
 // y[b, oy, ox, co] = sum_{ky,kx,ci} a[b, oy*S-1+ky, ox*S-1+kx, ci]
 //                                   * w[ky, kx, ci, co]
 // with a = x, or the input transform of x; then the optional epilogues.

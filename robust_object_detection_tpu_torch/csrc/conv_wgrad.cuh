@@ -2,10 +2,15 @@
 //   dk[ky, kx, ci, co] = sum_{b, oy, ox} a[b, oy*S-1+ky, ox*S-1+kx, ci]
 //                                        * e[b, oy, ox, co]
 // with a = x (zero outside the image) or the input transform
-// round(silu(x * in_scale + in_bias)), and e = d or the statistics fold
+// round(act(x * in_scale + in_bias)) (act a template parameter, SiLU or
+// ReLU), and e = d or the statistics fold
 // round(d + dsum + 2 * y * dsq) of a train-mode BatchNorm that follows the
 // conv (the mean / sum-of-squares cotangents of its batch statistics).
-// Used by conv3x3_wgrad.cu (K3-b) and yolo_front_bwd.cu (K2-b).
+// Used by conv3x3_wgrad.cu (K3-b), yolo_front_bwd.cu (K2-b) and
+// hgstem_bwd.cu (K4-b; its 2x2 convs with zero pad right/bottom are the
+// taps ky, kx in {1, 2} of this 3x3 pad-1 gradient). Also holds the two
+// tiny per-channel kernels of a train-mode BN's backward that K2-b and
+// K4-b share.
 //
 // On the TPU the grid runs in order and one output block accumulates dk
 // across grid steps. Here blocks run in parallel, so the reduction over
@@ -48,7 +53,7 @@ struct WgradSmem {
   static constexpr int N = (X + D > RED) ? X + D : RED;
 };
 
-template <typename T, int S, int CI_W>
+template <typename T, int S, int CI_W, int ACT>
 __global__ void __launch_bounds__(THREADS)
 wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ d,
                      WgradOpts o, float* __restrict__ part, int H, int W,
@@ -90,7 +95,8 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ d,
       if (gc < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
         v = to_f(x[(((size_t)b * H + gy) * W + gx) * Cin + gc]);
         if (o.in_scale != nullptr)
-          v = round_to<T>(silu(v * o.in_scale[gc] + o.in_bias[gc]));
+          v = round_to<T>(
+              activate<ACT>(v * o.in_scale[gc] + o.in_bias[gc]));
       }
       s_x[idx] = v;
     }
@@ -161,7 +167,7 @@ static __global__ void sum_chunks_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-template <typename T, int S>
+template <typename T, int S, int ACT>
 inline int launch_wgrad_t(const void* x, const void* d, const WgradOpts& o,
                           float* part, float* dk, int B, int H, int W,
                           int Cin, int Cout, int n_chunks,
@@ -173,12 +179,12 @@ inline int launch_wgrad_t(const void* x, const void* d, const WgradOpts& o,
   const int co_tiles = (Cout + WG_CO - 1) / WG_CO;
   if (Cin <= 4) {
     dim3 grid(n_chunks, co_tiles, (Cin + 3) / 4);
-    wgrad_partial_kernel<T, S, 4><<<grid, THREADS, 0, stream>>>(
+    wgrad_partial_kernel<T, S, 4, ACT><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(d), o, part, H, W,
         Cin, Cout, Ho, Wo, tiles_x, tiles_per_img, n_tiles, n_chunks);
   } else {
     dim3 grid(n_chunks, co_tiles, (Cin + 15) / 16);
-    wgrad_partial_kernel<T, S, 16><<<grid, THREADS, 0, stream>>>(
+    wgrad_partial_kernel<T, S, 16, ACT><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(d), o, part, H, W,
         Cin, Cout, Ho, Wo, tiles_x, tiles_per_img, n_tiles, n_chunks);
   }
@@ -190,7 +196,7 @@ inline int launch_wgrad_t(const void* x, const void* d, const WgradOpts& o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int ACT = ACT_SILU>
 inline int launch_wgrad(int stride, const void* x, const void* d,
                         const WgradOpts& o, float* part, float* dk, int B,
                         int H, int W, int Cin, int Cout, int n_chunks,
@@ -200,12 +206,45 @@ inline int launch_wgrad(int stride, const void* x, const void* d,
       (Cin + 3) / 4 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (stride == 1)
-    return launch_wgrad_t<T, 1>(x, d, o, part, dk, B, H, W, Cin, Cout,
+    return launch_wgrad_t<T, 1, ACT>(x, d, o, part, dk, B, H, W, Cin, Cout,
                                 n_chunks, stream);
   if (stride == 2)
-    return launch_wgrad_t<T, 2>(x, d, o, part, dk, B, H, W, Cin, Cout,
+    return launch_wgrad_t<T, 2, ACT>(x, d, o, part, dk, B, H, W, Cin, Cout,
                                 n_chunks, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The cotangent of a batch-statistics pair (mean, var) of n values as the
+// per-element terms of e = d + ds + 2 y dss.
+static __global__ void stat_cotangent_kernel(const float* dmean,
+                                             const float* dvar,
+                                             const float* mean, float n,
+                                             int C, float* ds, float* dss) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    ds[c] = dmean[c] / n - 2.f * mean[c] * dvar[c] / n;
+    dss[c] = dvar[c] / n;
+  }
+}
+
+// Folded-BN backward (pallas_stem._bn_chain). sums = (dg, db), the
+// gradients by the fold g = sc * rsqrt(var + eps), b = bi - mean * g.
+static __global__ void bn_chain_kernel(const float* sums, const float* sc,
+                                       const float* mean, const float* var,
+                                       float n, const float* dmean_in,
+                                       const float* dvar_in, int C,
+                                       float* dsc, float* dbi, float* ds,
+                                       float* dss) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const float dgc = sums[c], dbc = sums[C + c];
+    const float r = 1.f / sqrtf(var[c] + BN_EPS);
+    dsc[c] = dgc * r - dbc * mean[c] * r;
+    dbi[c] = dbc;
+    const float dm = -dbc * sc[c] * r + dmean_in[c];
+    const float dv = (dgc - dbc * mean[c]) * sc[c] * (-0.5f) * r * r * r
+                     + dvar_in[c];
+    ds[c] = dm / n - 2.f * mean[c] * dv / n;
+    dss[c] = dv / n;
+  }
 }
 
 }  // namespace rodt

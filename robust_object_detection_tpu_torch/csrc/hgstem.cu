@@ -1,9 +1,9 @@
 // K4-f: the HGNetv2 stem (HGStem) from the image to stem3's output, NHWC,
-// eval mode.
+// eval mode (hgstem_nhwc) and train mode (hgstem_train_nhwc).
 //
 // Replaces: robust_object_detection_tpu/ops/pallas_stem.py, _stem1_kernel,
-// _conv2x2_kernel (twice), _assemble_kernel and _stem3_kernel (public entry
-// stem_fused_inference):
+// _conv2x2_kernel (twice), _assemble_kernel and _stem3_kernel (public
+// entries stem_fused_inference and stem_fused):
 //   stem1   conv3x3 stride 2 pad 1, 3 -> 32, BN1 (eps 1e-3) + ReLU   -> a1
 //   stem2a  conv2x2 (zero pad right/bottom, VALID), 32 -> 16, BN + ReLU
 //   stem2b  conv2x2 (same padding), 16 -> 32, BN + ReLU             -> a2b
@@ -39,6 +39,18 @@
 // accumulator. (The TPU kernels store the pre-BN y and apply BN + ReLU
 // while reading: the same math with one rounding moved.)
 //
+// Train mode: every BN uses the statistics of its own batch, which exist
+// only once the conv below it has covered the whole batch. So each conv
+// stores its raw (pre-BN) output in the working dtype and emits per-block
+// sum / sum-of-squares partials of the stored values from its epilogue; a
+// one-block-per-channel pass reduces them in a fixed order into mean, the
+// clamped fast variance and the fold (g, b); the next stage applies
+// relu(g * y + b), rounded to the working dtype, while it stages its input.
+// The pool and the concat read y1 and y2b through the same folds
+// (assemble_train_kernel). y1, y2a, y2b and the concat stay in memory: the
+// backward (hgstem_bwd.cu) reads them. Nine launches, no atomics, so the
+// statistics are the same bits from run to run.
+//
 // What bounds it on the H100: 40 GFLOP at (8, 1024, 1024, 3) against
 // about 84 MB that must move (x and y3 in bf16), so operations; with plain
 // CUDA cores the 2x2 convs and stem3 dominate. Tensor cores are later work.
@@ -52,12 +64,15 @@ namespace rodt {
 // One block: a TILE x TILE pixel tile of one image, all COUT channels.
 // 256 threads = 64 pixel groups x 4 channel groups; a thread accumulates
 // 4 pixels x COUT/4 channels. ldo is the channel stride of y.
-template <typename T, int CIN, int COUT>
+// TRAIN: (g, b) is instead the fold of the BN BELOW this conv, applied with
+// ReLU (rounded to T) while staging x; the raw sum is stored and its
+// per-block channel sums / sums of squares go to stats[2][P][COUT].
+template <typename T, int CIN, int COUT, bool TRAIN>
 __global__ void __launch_bounds__(THREADS)
 conv2x2_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const float* __restrict__ g, const float* __restrict__ b,
-                    T* __restrict__ y, int H, int W, int ldo, int off,
-                    int tiles_x) {
+                    T* __restrict__ y, float* __restrict__ stats, int H,
+                    int W, int ldo, int off, int tiles_x) {
   constexpr int IN_T = TILE + 1;
   constexpr int CPT = COUT / 4;  // channels per thread
   static_assert(CPT % 4 == 0, "COUT must be a multiple of 16");
@@ -80,7 +95,10 @@ conv2x2_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int iy = pix / IN_T, ix = pix % IN_T;
     const int gy = oy0 + iy, gx = ox0 + ix;
     float v = 0.f;
-    if (gy < H && gx < W) v = to_f(xb[((size_t)gy * W + gx) * CIN + c]);
+    if (gy < H && gx < W) {
+      v = to_f(xb[((size_t)gy * W + gx) * CIN + c]);
+      if (TRAIN) v = round_to<T>(fmaxf(v * g[c] + b[c], 0.f));
+    }
     s_in[c][iy][ix] = v;
   }
   for (int idx = tid; idx < 4 * CIN * COUT; idx += THREADS)
@@ -119,6 +137,9 @@ conv2x2_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
+  float s[CPT], ss[CPT];
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) s[k] = ss[k] = 0.f;
   const int ox = ox0 + tx;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -127,10 +148,53 @@ conv2x2_relu_kernel(const T* __restrict__ x, const T* __restrict__ w,
     T* yp = y + (((size_t)bi * H + oy) * W + ox) * ldo + off + cg * CPT;
 #pragma unroll
     for (int k = 0; k < CPT; ++k) {
-      const int co = cg * CPT + k;
-      yp[k] = from_f<T>(fmaxf(acc[j][k] * g[co] + b[co], 0.f));
+      if (TRAIN) {
+        const T t = from_f<T>(acc[j][k]);
+        yp[k] = t;
+        const float r = to_f(t);
+        s[k] += r;
+        ss[k] = fmaf(r, r, ss[k]);
+      } else {
+        const int co = cg * CPT + k;
+        yp[k] = from_f<T>(fmaxf(acc[j][k] * g[co] + b[co], 0.f));
+      }
     }
   }
+  if (TRAIN)
+    block_partials<CPT>(s, ss, stats, (size_t)gridDim.y * gridDim.x,
+                        (size_t)bi * gridDim.x + blockIdx.x);
+}
+
+// Train mode: cat[..., 0:32] = 2x2 stride-1 max (zero pad right/bottom) of
+// a1 = round(relu(g1 y1 + b1)); cat[..., 32:64] = round(relu(g2b y2b +
+// b2b)). One thread per (pixel, channel < C).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+assemble_train_kernel(const T* __restrict__ y1, const T* __restrict__ y2b,
+                      const float* __restrict__ g1,
+                      const float* __restrict__ b1,
+                      const float* __restrict__ g2b,
+                      const float* __restrict__ b2b, T* __restrict__ cat,
+                      int H, int W, int C, size_t total) {
+  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int c = (int)(i % C);
+  const size_t pix = i / C;
+  const int xq = (int)(pix % W);
+  const int yq = (int)((pix / W) % H);
+  const bool right = xq + 1 < W, below = yq + 1 < H;
+  const size_t row = (size_t)W * C;
+  const float g = g1[c], b = b1[c];
+  auto a1 = [&](size_t at) {
+    return round_to<T>(fmaxf(to_f(y1[at]) * g + b, 0.f));
+  };
+  float m = a1(i);
+  m = fmaxf(m, right ? a1(i + C) : 0.f);
+  m = fmaxf(m, below ? a1(i + row) : 0.f);
+  m = fmaxf(m, (right && below) ? a1(i + row + C) : 0.f);
+  cat[pix * 2 * C + c] = from_f<T>(m);
+  cat[pix * 2 * C + C + c] =
+      from_f<T>(fmaxf(to_f(y2b[i]) * g2b[c] + b2b[c], 0.f));
 }
 
 // y[b, i, j, c] (channel stride ldo) = max over dy, dx in {0, 1} of
@@ -162,20 +226,58 @@ inline int launch_mid_stages(const void* a1, const void* k2a,
                              int H2, int W2, cudaStream_t st) {
   const int tiles_x = (W2 + TILE - 1) / TILE;
   dim3 grid(tile_count(H2, W2), B);
-  conv2x2_relu_kernel<T, 32, 16><<<grid, THREADS, 0, st>>>(
+  conv2x2_relu_kernel<T, 32, 16, false><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(a1), static_cast<const T*>(k2a), g2a, b2a,
-      static_cast<T*>(a2a), H2, W2, 16, 0, tiles_x);
+      static_cast<T*>(a2a), nullptr, H2, W2, 16, 0, tiles_x);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  conv2x2_relu_kernel<T, 16, 32><<<grid, THREADS, 0, st>>>(
+  conv2x2_relu_kernel<T, 16, 32, false><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(a2a), static_cast<const T*>(k2b), g2b, b2b,
-      static_cast<T*>(cat), H2, W2, 64, 32, tiles_x);
+      static_cast<T*>(cat), nullptr, H2, W2, 64, 32, tiles_x);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const size_t total = (size_t)B * H2 * W2 * 32;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
   pool2x2_kernel<T><<<blocks, THREADS, 0, st>>>(
       static_cast<const T*>(a1), static_cast<T*>(cat), H2, W2, 32, 64,
+      total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Train mode, the stages between stem1 and stem3. v: the statistics
+// buffer of hgstem_train_nhwc (slot layout there).
+template <typename T>
+inline int launch_mid_stages_train(const void* y1, const void* k2a,
+                                   const float* sc2a, const float* bi2a,
+                                   const void* k2b, const float* sc2b,
+                                   const float* bi2b, void* y2a, void* y2b,
+                                   void* cat, float* stats, float* v, int B,
+                                   int H2, int W2, cudaStream_t st) {
+  const int tiles_x = (W2 + TILE - 1) / TILE;
+  const int n_tiles = tile_count(H2, W2);
+  const float n = (float)B * H2 * W2;
+  dim3 grid(n_tiles, B);
+  conv2x2_relu_kernel<T, 32, 16, true><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(y1), static_cast<const T*>(k2a), v + 2 * 32,
+      v + 3 * 32, static_cast<T*>(y2a), stats, H2, W2, 16, 0, tiles_x);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = launch_finalize(stats, B * n_tiles, 16, n, nullptr, v + 4 * 32,
+                        v + 5 * 32, sc2a, bi2a, v + 6 * 32, v + 7 * 32, st);
+  if (err != 0) return err;
+  conv2x2_relu_kernel<T, 16, 32, true><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(y2a), static_cast<const T*>(k2b), v + 6 * 32,
+      v + 7 * 32, static_cast<T*>(y2b), stats, H2, W2, 32, 0, tiles_x);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = launch_finalize(stats, B * n_tiles, 32, n, nullptr, v + 8 * 32,
+                        v + 9 * 32, sc2b, bi2b, v + 10 * 32, v + 11 * 32, st);
+  if (err != 0) return err;
+  const size_t total = (size_t)B * H2 * W2 * 32;
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  assemble_train_kernel<T><<<blocks, THREADS, 0, st>>>(
+      static_cast<const T*>(y1), static_cast<const T*>(y2b), v + 2 * 32,
+      v + 3 * 32, v + 10 * 32, v + 11 * 32, static_cast<T*>(cat), H2, W2, 32,
       total);
   return static_cast<int>(cudaGetLastError());
 }
@@ -218,4 +320,53 @@ extern "C" int hgstem_nhwc(const void* x, const void* k1, const void* g1,
   // instantiation is stem1's, reused
   return rodt::launch_conv3x3_dtype<2, rodt::ACT_RELU>(
       dtype, cat, k3, y3, rodt::ConvOpts(), B, H2, W2, 64, 32, st);
+}
+
+// Train-mode forward. x and the filters as hgstem_nhwc; sc*, bi* the BN
+// affines, f32. Outputs in the working dtype, all pre-BN: y1 (B, H/2, W/2,
+// 32), y2a (.., 16), y2b (.., 32), y3 (B, H/4, W/4, 32), and cat (B, H/2,
+// W/2, 64) = [pool(a1), a2b]. stats: scratch of 2 * B *
+// tile_count(H/2, W/2) * 32 floats. vecs: 14 slots of 32 floats, written
+// here: per BN (1, 2a, 2b) mean, var and the fold g, b in slots 4 i .. 4 i +
+// 3 (BN2a fills 16 of each), then mean3, var3 in slots 12, 13.
+extern "C" int hgstem_train_nhwc(
+    const void* x, const void* k1, const void* sc1, const void* bi1,
+    const void* k2a, const void* sc2a, const void* bi2a, const void* k2b,
+    const void* sc2b, const void* bi2b, const void* k3, void* y1, void* y2a,
+    void* y2b, void* cat, void* y3, void* stats, void* vecs, int B, int H,
+    int W, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
+  float* v = static_cast<float*>(vecs);
+  float* sp = static_cast<float*>(stats);
+  rodt::ConvOpts p1;
+  p1.stats = sp;
+  int err = rodt::launch_conv3x3_dtype<2, rodt::ACT_RELU>(
+      dtype, x, k1, y1, p1, B, H, W, 3, 32, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(sp, B * rodt::tile_count(H2, W2), 32,
+                              (float)B * H2 * W2, nullptr, v, v + 32, f(sc1),
+                              f(bi1), v + 2 * 32, v + 3 * 32, st);
+  if (err != 0) return err;
+  if (dtype == rodt::DTYPE_F32)
+    err = rodt::launch_mid_stages_train<float>(
+        y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp,
+        v, B, H2, W2, st);
+  else
+    err = rodt::launch_mid_stages_train<__nv_bfloat16>(
+        y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp,
+        v, B, H2, W2, st);
+  if (err != 0) return err;
+  rodt::ConvOpts p3;
+  p3.stats = sp;
+  err = rodt::launch_conv3x3_dtype<2, rodt::ACT_RELU>(
+      dtype, cat, k3, y3, p3, B, H2, W2, 64, 32, st);
+  if (err != 0) return err;
+  return rodt::launch_finalize(sp, B * rodt::tile_count(H4, W4), 32,
+                               (float)B * H4 * W4, nullptr, v + 12 * 32,
+                               v + 13 * 32, nullptr, nullptr, nullptr,
+                               nullptr, st);
 }

@@ -143,34 +143,8 @@ front_da1_kernel(const T* __restrict__ dy2, const T* __restrict__ y2,
                          (size_t)b * n_tiles + blockIdx.x, c10, C1);
 }
 
-// Step 1: the BN2 statistics cotangent.
-__global__ void stat_cotangent_kernel(const float* dmean, const float* dvar,
-                                      const float* mean, float n, int C,
-                                      float* ds, float* dss) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    ds[c] = dmean[c] / n - 2.f * mean[c] * dvar[c] / n;
-    dss[c] = dvar[c] / n;
-  }
-}
-
-// Step 4: folded-BN backward (pallas_stem._bn_chain). sums = (dg, db).
-__global__ void bn_chain_kernel(const float* sums, const float* sc,
-                                const float* mean, const float* var,
-                                float n, const float* dmean_in,
-                                const float* dvar_in, int C, float* dsc,
-                                float* dbi, float* ds, float* dss) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float dgc = sums[c], dbc = sums[C + c];
-    const float r = 1.f / sqrtf(var[c] + BN_EPS);
-    dsc[c] = dgc * r - dbc * mean[c] * r;
-    dbi[c] = dbc;
-    const float dm = -dbc * sc[c] * r + dmean_in[c];
-    const float dv = (dgc - dbc * mean[c]) * sc[c] * (-0.5f) * r * r * r
-                     + dvar_in[c];
-    ds[c] = dm / n - 2.f * mean[c] * dv / n;
-    dss[c] = dv / n;
-  }
-}
+// Steps 1 and 4 are stat_cotangent_kernel and bn_chain_kernel of
+// conv_wgrad.cuh.
 
 template <typename T>
 int front_bwd(const void* x, const void* k2, const void* y1, const void* y2,

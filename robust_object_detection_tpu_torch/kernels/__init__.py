@@ -59,9 +59,22 @@ SIGNATURES: Dict[str, List] = {
     # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
     # (scratch), y3, B, H, W, dtype, stream
     "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
+    # x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3, y1, y2a, y2b,
+    # cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, dtype, stream
+    "hgstem_train_nhwc": [_P] * 18 + [_I] * 4 + [_P],
+    # x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
+    # dstat, dcat, da1p, dy2b, dy2a, dy1, gpart, wpart, work (scratch), dk1,
+    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype, stream
+    "hgstem_bwd_nhwc": [_P] * 28 + [_I] * 8 + [_P],
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
     # NH, DH, L, P, dtype, stream
     "ms_deform_attn_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # values, loc, attn, dout, dv (f32, zeroed), dloc, dattn, levels, B, HW,
+    # Q, NH, DH, L, P, dtype, stream
+    "ms_deform_attn_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # value (B, M, Q), valid, owner, capped, B, Q, M, eps, max_rounds,
+    # complete_greedy, stream
+    "auction_assign": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""RT-DETR-L, eval path (counterpart of
+"""RT-DETR-L, eval and train forward (counterpart of
 robust_object_detection_tpu/models/rtdetr.py): HGNetv2-L backbone, hybrid
 encoder (AIFI + CCFF), two-stage query selection, six deformable-attention
 decoder layers with iterative box refinement. Decoding is NMS-free.
@@ -13,13 +13,14 @@ The input is NHWC in [0, 1], as in the reference; inside, modules take and
 return NCHW-indexed tensors. Kernels on the path:
 
   * :class:`HGStem` always runs stem1..stem3 through ops.stem (K4-f on the
-    card, its plain version on the CPU), then BN3 + ReLU in f32 and the
-    1x1 stem4;
+    card, its plain version on the CPU; in train mode ``stem_fused`` with
+    batch statistics, whose backward is K4-b), then BN3 + ReLU in f32 and
+    the 1x1 stem4;
   * the dense 3x3 stage-1 :class:`HGBlock` (48 -> 48, six convs) runs its
-    convs through ops.conv3x3 (K3-f), in NHWC (the reference's planes
-    layout is TPU lane padding);
+    convs through ops.conv3x3 (K3-f, and K3-f / K3-b in its backward), in
+    NHWC (the reference's planes layout is TPU lane padding);
   * every :class:`MSDeformAttn` runs ops.deform.ms_deform_attn_slots (K5
-    forward), six a forward.
+    forward, K5 backward under autograd), six a forward.
 
 ``dtype`` is the compute type of the convs and of the matmuls the
 reference runs in it (flax ``Dense(dtype=...)``, attention); BatchNorm,
@@ -32,8 +33,17 @@ reference's fused stage-1 block normalises an f32 accumulator), and K5
 rounds its f32 sum to bf16 once (the reference casts its f32 result in the
 output projection). In f32 the two models differ by summation order only.
 
-Only the eval forward with ``dn=None`` is ported: training (contrastive
-denoising queries, the matcher, the losses, K4-b, K5 backward) is not.
+Train mode (``model.train()``, built by ``create(..., train=True)`` with
+float32 master weights): every BatchNorm takes its batch statistics with
+flax semantics (layers.bn_train), its output in ``bn_dtype``; ``dn``
+(contrastive denoising queries, train/rtdetr.build_dn_queries) prepends
+the denoising queries, masks the decoder self-attention and adds
+``dn_logits`` / ``dn_boxes`` to the outputs. The decoder's inputs after
+query selection and the reference boxes between layers are detached, as
+the reference's ``stop_gradient``s. Row permutations are ``torch.gather``,
+whose backward is a scatter-add: right for a permutation, and left to
+PyTorch (the reference writes the inverse gather by hand only because
+XLA's scatter serialises on a TPU).
 """
 
 from __future__ import annotations
@@ -48,8 +58,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.deform import ms_deform_attn_slots
-from ..ops.stem import stem_fused_inference
-from .layers import ConvBnAct, from_nhwc, resolve_device, upsample2x
+from ..ops.stem import stem_fused, stem_fused_inference
+from .layers import (ConvBnAct, bn_train, from_nhwc, resolve_device,
+                     update_running, upsample2x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +97,13 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps)
 
 
-def attention(mha: nn.MultiheadAttention, q, k, v,
-              dtype: torch.dtype) -> torch.Tensor:
+def attention(mha: nn.MultiheadAttention, q, k, v, dtype: torch.dtype,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flax ``MultiHeadDotProductAttention(dtype=dtype)`` on the packed
     parameters of an nn.MultiheadAttention: q, k, v (B, N, C) -> (B, N, C)
-    in dtype. Outside every TPU kernel in the reference, so the product
-    itself is PyTorch's."""
+    in dtype; ``mask`` (B, 1, N, N) bool, True = may attend (flax's and
+    ``scaled_dot_product_attention``'s convention). Outside every TPU
+    kernel in the reference, so the product itself is PyTorch's."""
     c, heads = mha.embed_dim, mha.num_heads
     w, b = mha.in_proj_weight.to(dtype), mha.in_proj_bias.to(dtype)
 
@@ -99,7 +111,8 @@ def attention(mha: nn.MultiheadAttention, q, k, v,
         y = F.linear(x.to(dtype), w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
         return y.reshape(*y.shape[:2], heads, c // heads).transpose(1, 2)
 
-    o = F.scaled_dot_product_attention(proj(q, 0), proj(k, 1), proj(v, 2))
+    o = F.scaled_dot_product_attention(proj(q, 0), proj(k, 1), proj(v, 2),
+                                       attn_mask=mask)
     o = o.transpose(1, 2).reshape(*q.shape[:2], c)
     return F.linear(o, mha.out_proj.weight.to(dtype),
                     mha.out_proj.bias.to(dtype))
@@ -127,6 +140,7 @@ class Conv2x2Pad(nn.Module):
 
     def __init__(self, c1: int, c2: int, dtype: torch.dtype):
         super().__init__()
+        # dtype: the storage type of the weight
         self.conv = nn.Conv2d(c1, c2, 2, 1, 0, bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
 
@@ -136,22 +150,42 @@ class HGStem(nn.Module):
     (pool first) -> 3x3/2 -> 1x1. stem1..stem3 run as one fused op
     (ops.stem: K4-f on the card, the plain version on the CPU) that
     returns stem3's output before its BN; BN3 + ReLU in f32 and the 1x1
-    stem4 follow here. x (B, H, W, 3) NHWC in [0, 1] -> NCHW view of an
-    NHWC tensor (B, c2, H/4, W/4)."""
+    stem4 follow here. In train mode the fused op is ``stem_fused`` (K4-f
+    train, K4-b in its backward): it returns the four batch means and
+    variances, from which the running statistics are updated here and
+    with which y3 is normalised. x (B, H, W, 3) NHWC in [0, 1] -> NCHW
+    view of an NHWC tensor (B, c2, H/4, W/4)."""
 
-    def __init__(self, cm: int, c2: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, cm: int, c2: int, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
-        self.stem1 = ConvBnAct(3, cm, 3, 2, act_fn="relu", dtype=dtype)
-        self.stem2a = Conv2x2Pad(cm, cm // 2, dtype)
-        self.stem2b = Conv2x2Pad(cm // 2, cm, dtype)
-        self.stem3 = ConvBnAct(2 * cm, cm, 3, 2, act_fn="relu", dtype=dtype)
-        self.stem4 = ConvBnAct(cm, c2, 1, act_fn="relu", dtype=dtype)
+        self.dtype, self.bn_dtype = dtype, bn_dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, bn_dtype=bn_dtype)
+        self.stem1 = ConvBnAct(3, cm, 3, 2, act_fn="relu", **kw)
+        self.stem2a = Conv2x2Pad(cm, cm // 2, param_dtype or dtype)
+        self.stem2b = Conv2x2Pad(cm // 2, cm, param_dtype or dtype)
+        self.stem3 = ConvBnAct(2 * cm, cm, 3, 2, act_fn="relu", **kw)
+        self.stem4 = ConvBnAct(cm, c2, 1, act_fn="relu", **kw)
+
+    def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        s1, s2a, s2b, s3 = self.stem1, self.stem2a, self.stem2b, self.stem3
+        y3, means, variances = stem_fused(
+            x.to(self.dtype).contiguous(), _hwio(s1.conv.weight),
+            s1.bn.weight, s1.bn.bias, _hwio(s2a.conv.weight), s2a.bn.weight,
+            s2a.bn.bias, _hwio(s2b.conv.weight), s2b.bn.weight, s2b.bn.bias,
+            _hwio(s3.conv.weight))
+        for m, mean, var in zip((s1, s2a, s2b, s3), means, variances):
+            update_running(m.bn, mean, var)
+        # BN3 + ReLU with the reference's association: normalise in f32,
+        # then the affine, then the cast
+        yn = (y3.float() - means[3]) * torch.rsqrt(variances[3] + s3.bn.eps)
+        yn = yn * s3.bn.weight + s3.bn.bias
+        return self.stem4(F.relu(from_nhwc(yn.to(self.bn_dtype))))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("the train-mode stem (batch "
-                                      "statistics, K4-b) is not ported yet")
+            return self._forward_train(x)
         dtype = self.dtype
         s1, s2a, s2b, s3 = self.stem1, self.stem2a, self.stem2b, self.stem3
         y3 = stem_fused_inference(
@@ -359,9 +393,10 @@ class DecoderLayer(nn.Module):
         self.linear2 = nn.Linear(cfg.ffn, c)
         self.norm3 = nn.LayerNorm(c)
 
-    def forward(self, query, ref_boxes, memory, shapes, query_pos):
+    def forward(self, query, ref_boxes, memory, shapes, query_pos,
+                attn_mask=None):
         q = query + query_pos
-        sa = attention(self.self_attn, q, q, query, self.dtype)
+        sa = attention(self.self_attn, q, q, query, self.dtype, attn_mask)
         query = layer_norm(query + sa, self.norm1)
         ca = self.cross_attn(query + query_pos, ref_boxes, memory, shapes)
         query = layer_norm(query + ca, self.norm2)
@@ -410,21 +445,40 @@ def permute_rows(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
         order.shape + (1,) * (x.dim() - 2)).expand(-1, -1, *x.shape[2:]))
 
 
+def dn_attention_mask(group_ids: torch.Tensor, total: int) -> torch.Tensor:
+    """Self-attention mask of contrastive denoising: (B, 1, total, total)
+    bool, True = may attend. A denoising slot attends its own group and the
+    matching queries; matching queries attend only each other; an empty
+    slot (group -1) only itself, so no row is fully masked."""
+    b, d = group_ids.shape
+    q_gid = torch.full((b, total - d), -2, dtype=group_ids.dtype,
+                       device=group_ids.device)        # matching queries
+    gid = torch.cat([group_ids, q_gid], 1)             # (B, total)
+    same = gid[:, :, None] == gid[:, None, :]
+    valid = gid[:, None, :] != -1                      # empty dn: no keys
+    dn_sees_match = (gid[:, :, None] >= 0) & (gid[:, None, :] == -2)
+    diag = torch.eye(total, dtype=torch.bool, device=gid.device)[None]
+    return ((same & valid) | dn_sees_match | diag)[:, None]
+
+
 class RTDETRDecoder(nn.Module):
     """Layer 28: per-level input projections, two-stage query selection,
     the decoder layers and their per-layer score / box heads."""
 
-    def __init__(self, cfg: RtDetrConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: RtDetrConfig, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         c, nc = cfg.hidden, cfg.num_classes
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.bn_dtype = cfg, dtype, bn_dtype
         self.input_proj = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(c, c, 1, bias=False, dtype=dtype),
+            nn.Sequential(nn.Conv2d(c, c, 1, bias=False,
+                                    dtype=param_dtype or dtype),
                           nn.BatchNorm2d(c, eps=1e-3, momentum=0.03))
             for _ in range(cfg.levels))
         self.decoder = Decoder(cfg, dtype)
-        # one row more than the classes (the reference's table): unused in
-        # eval, present so the parameter set is whole
+        # one row more than the classes (the reference's table): the
+        # content of the denoising queries, row nc for an empty slot
         self.denoising_class_embed = nn.Embedding(nc + 1, c)
         self.query_pos_head = MLP(4, 2 * c, c, 2, dtype)
         self.enc_output = nn.Sequential(nn.Linear(c, c), nn.LayerNorm(c))
@@ -435,10 +489,19 @@ class RTDETRDecoder(nn.Module):
         self.dec_bbox_head = nn.ModuleList(
             MLP(c, c, 4, 3, dtype) for _ in range(cfg.dec_layers))
 
-    def forward(self, feats) -> Dict[str, torch.Tensor]:
+    def _project(self, proj: nn.Sequential, f: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(f.to(self.dtype), proj[0].weight.to(self.dtype))
+        if self.training:
+            return bn_train(y, proj[1], self.bn_dtype)
+        return proj[1](y.float())
+
+    def forward(self, feats, dn: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """dn (training): classes (B, D) int, boxes (B, D, 4) noised
+        normalised cxcywh, group_ids (B, D) int, -1 = empty slot. With it
+        the outputs gain dn_logits / dn_boxes (L, B, D, ...)."""
         cfg, dtype = self.cfg, self.dtype
-        levels = [proj[1](F.conv2d(f.to(dtype), proj[0].weight.to(dtype))
-                          .float())
+        levels = [self._project(proj, f)
                   for proj, f in zip(self.input_proj, feats)]
         shapes = tuple((f.shape[2], f.shape[3]) for f in levels)
         flat = torch.cat([f.flatten(2).permute(0, 2, 1) for f in levels], 1)
@@ -455,10 +518,21 @@ class RTDETRDecoder(nn.Module):
         # top-k query selection (clamped for tiny maps)
         _, topi = top_k(enc_logits.amax(-1),
                         min(cfg.queries, enc_logits.shape[1]))
-        content = permute_rows(mem, topi)
+        # the encoder's auxiliary-loss targets keep their gradients; the
+        # decoder's inputs are detached (two-stage query selection)
+        content = permute_rows(mem, topi).detach()
         enc_topk_logits = permute_rows(enc_logits, topi)
         enc_topk_boxes = permute_rows(enc_boxes, topi)
-        ref = enc_topk_boxes
+        ref = enc_topk_boxes.detach()
+
+        n_dn, attn_mask = 0, None
+        if dn is not None:
+            n_dn = dn["classes"].shape[1]
+            dn_content = self.denoising_class_embed(
+                dn["classes"].long().clamp(0, cfg.num_classes))
+            content = torch.cat([dn_content.float(), content], 1)
+            ref = torch.cat([dn["boxes"].float(), ref], 1)
+            attn_mask = dn_attention_mask(dn["group_ids"], content.shape[1])
 
         inv = None
         if cfg.spatial_sort and content.shape[1] > 1:
@@ -470,6 +544,14 @@ class RTDETRDecoder(nn.Module):
             inv = torch.argsort(order, 1)
             content = permute_rows(content, order)
             ref = permute_rows(ref, order)
+            if attn_mask is not None:     # rows and columns alike
+                total = order.shape[1]
+                attn_mask = torch.gather(
+                    attn_mask, 2,
+                    order[:, None, :, None].expand(-1, -1, -1, total))
+                attn_mask = torch.gather(
+                    attn_mask, 3,
+                    order[:, None, None, :].expand(-1, -1, total, -1))
 
         def unperm(x):
             return x if inv is None else permute_rows(x, inv)
@@ -480,29 +562,42 @@ class RTDETRDecoder(nn.Module):
         query = content
         for li, layer in enumerate(self.decoder.layers):
             query_pos = self.query_pos_head(ref)
-            query = layer(query, ref, memory, shapes, query_pos)
+            query = layer(query, ref, memory, shapes, query_pos, attn_mask)
             delta = self.dec_bbox_head[li](query)
-            ref = torch.sigmoid(delta + inverse_sigmoid(ref))
+            new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))
             layers_logits.append(unperm(self.dec_score_head[li](query)))
-            layers_boxes.append(unperm(ref))
-        return {"enc_logits": enc_topk_logits, "enc_boxes": enc_topk_boxes,
-                "logits": torch.stack(layers_logits),
-                "boxes": torch.stack(layers_boxes)}
+            layers_boxes.append(unperm(new_ref))
+            ref = new_ref.detach()
+        logits = torch.stack(layers_logits)          # (L, B, D + Q, nc)
+        boxes = torch.stack(layers_boxes)
+        out = {"enc_logits": enc_topk_logits, "enc_boxes": enc_topk_boxes,
+               "logits": logits[:, :, n_dn:], "boxes": boxes[:, :, n_dn:]}
+        if dn is not None:
+            out["dn_logits"] = logits[:, :, :n_dn]
+            out["dn_boxes"] = boxes[:, :, :n_dn]
+        return out
 
 
 class RTDETR(nn.Module):
     """x (B, S, S, 3) NHWC in [0, 1] -> dict: enc_logits (B, Q, nc),
     enc_boxes (B, Q, 4) sigmoid cxcywh of the selected anchors; logits (L,
-    B, Q, nc), boxes (L, B, Q, 4) per decoder layer; all f32."""
+    B, Q, nc), boxes (L, B, Q, 4) per decoder layer; with ``dn`` also
+    dn_logits (L, B, D, nc) and dn_boxes (L, B, D, 4); all f32.
+
+    ``dtype``: conv and matmul compute type; ``param_dtype``: conv weight
+    storage (default ``dtype``; a trainer keeps float32 masters);
+    ``bn_dtype``: train-mode BatchNorm output."""
 
     def __init__(self, cfg: RtDetrConfig = RtDetrConfig(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 bn_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         c = cfg.hidden
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, bn_dtype=bn_dtype)
         self.model = nn.ModuleList([
-            HGStem(32, 48, dtype),                                     # 0
+            HGStem(32, 48, **kw),                                      # 0
             HGBlock(48, 48, 128, 3, **kw),                             # 1
             ConvBnAct(128, 128, 3, 2, act=False, groups=128, **kw),    # 2
             HGBlock(128, 96, 512, 3, **kw),                            # 3 P3
@@ -532,7 +627,7 @@ class RTDETR(nn.Module):
             ConvBnAct(c, c, 3, 2, **kw),                               # 25
             nn.Identity(),                                             # 26
             RepC3(2 * c, c, **kw),                                     # 27
-            RTDETRDecoder(cfg, dtype),                                 # 28
+            RTDETRDecoder(cfg, **kw),                                  # 28
         ])
 
     def backbone(self, x: torch.Tensor):
@@ -556,8 +651,10 @@ class RTDETR(nn.Module):
         o5 = m[27](torch.cat([m[25](o4), lat5], 1))
         return t3, o4, o5
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.model[28](self.encoder(self.backbone(x)))
+    def forward(self, x: torch.Tensor,
+                dn: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+        return self.model[28](self.encoder(self.backbone(x)), dn)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -598,14 +695,19 @@ def init_weights(model: RTDETR, generator: torch.Generator) -> RTDETR:
 
 def create(num_classes: int = 6, dtype: torch.dtype = torch.float32,
            device: Optional[torch.device] = None,
-           generator: Optional[torch.Generator] = None) -> RTDETR:
-    """An RT-DETR-L in eval mode on `device` (None: the CUDA card; raises
-    when there is none), randomly initialised from `generator` (seed 0
-    when None), conv weights stored in `dtype`."""
+           generator: Optional[torch.Generator] = None, train: bool = False,
+           bn_dtype: torch.dtype = torch.float32) -> RTDETR:
+    """An RT-DETR-L on `device` (None: the CUDA card; raises when there is
+    none), randomly initialised from `generator` (seed 0 when None).
+    train=False: eval mode, conv weights stored in `dtype`; train=True:
+    train mode, float32 master weights, train-mode BatchNorm output in
+    `bn_dtype`."""
     device = resolve_device(device)
     gen = generator or torch.Generator().manual_seed(0)
-    model = RTDETR(RtDetrConfig(num_classes=num_classes), dtype)
-    return init_weights(model, gen).to(device).eval()
+    model = RTDETR(RtDetrConfig(num_classes=num_classes), dtype,
+                   param_dtype=torch.float32 if train else dtype,
+                   bn_dtype=bn_dtype)
+    return init_weights(model, gen).to(device).train(train)
 
 
 def postprocess(outputs: Dict[str, torch.Tensor], img_size: int,

@@ -1,5 +1,5 @@
-"""Multi-scale deformable attention, forward (counterpart of ops/deform.py
-``ms_deform_attn_slots`` / ``ms_deform_attn_ref``).
+"""Multi-scale deformable attention, forward and backward (counterpart of
+ops/deform.py ``ms_deform_attn_slots`` / ``ms_deform_attn_ref``).
 
 For every (batch, query, head): over L levels x P points, bilinear-sample
 the level's value map at ``loc`` (normalised [0, 1]; pixel coordinate
@@ -13,11 +13,15 @@ dh channels are one contiguous row.)
 :func:`ms_deform_attn_slots` launches ``ms_deform_attn_fwd`` of
 ``csrc/ms_deform_attn.cu`` (K5 forward) on CUDA tensors and runs
 :func:`ms_deform_attn_ref`, the plain gather version, on CPU tensors. Any
-other device, dtype, layout or shape raises. There is no backward yet:
-on CUDA, inputs that require a gradient raise ``NotImplementedError``
-rather than return a result without a graph.
+other device, dtype, layout or shape raises. On CUDA it is a
+``torch.autograd.Function`` whose backward launches ``ms_deform_attn_bwd``
+(K5 backward, :func:`ms_deform_attn_backward`); on the CPU the backward is
+autograd through the plain version's ``torch.gather``.
 
-Both versions sum in f32 and return values' dtype (one rounding).
+Both versions sum in f32 and return values' dtype (one rounding). The
+kernel's d(values) is summed with f32 atomics into a zeroed f32 buffer and
+cast once, so its last bits vary from run to run; d(loc) and d(attn) use
+no atomics and are the same bits for any query order.
 """
 
 from __future__ import annotations
@@ -119,30 +123,18 @@ def _check(values, shapes, loc, attn) -> None:
                          f"{values.device}")
 
 
-def ms_deform_attn_slots(values: torch.Tensor,
-                         shapes: Sequence[Tuple[int, int]],
-                         loc: torch.Tensor,
-                         attn: torch.Tensor) -> torch.Tensor:
-    """values (B, HW, heads, dh) f32 or bf16, the levels of ``shapes``
-    ((H_l, W_l), ...) flattened row-major and concatenated; loc (B, Q,
-    heads, L, P, 2) f32 in [0, 1]; attn (B, Q, heads, L, P) f32. Returns
-    (B, Q, heads, dh) in values' dtype. Any query order gives the same
-    result, bit for bit."""
-    _check(values, shapes, loc, attn)
-    if values.device.type == "cpu":
-        return ms_deform_attn_ref(values, shapes, loc, attn)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (values, loc, attn)):
-        raise NotImplementedError(
-            "the backward of ms_deform_attn_slots (K5 backward) is not "
-            "ported yet: call it under torch.no_grad() / inference_mode()")
-    b, hw, n_h, dh = values.shape
-    q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
+def _levels_arg(shapes):
     levels, start = [], 0
     for h, w in shapes:
         levels += [h, w, start]
         start += h * w
-    levels = (ctypes.c_int * len(levels))(*levels)
+    return (ctypes.c_int * len(levels))(*levels)
+
+
+def _forward_cuda(values, shapes, loc, attn) -> torch.Tensor:
+    b, hw, n_h, dh = values.shape
+    q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
+    levels = _levels_arg(shapes)
     out = torch.empty((b, q, n_h, dh), dtype=values.dtype,
                       device=values.device)
     lib = kernels.load()
@@ -155,6 +147,74 @@ def ms_deform_attn_slots(values: torch.Tensor,
     kernels.check(err, "ms_deform_attn_fwd")
     ms_deform_attn_slots.launches += 1
     return out
+
+
+def ms_deform_attn_backward(values, shapes, loc, attn, dout):
+    """K5 backward on the card: values (B, HW, heads, dh), loc, attn as
+    :func:`ms_deform_attn_slots` takes them and dout (B, Q, heads, dh) ->
+    (d values in values' dtype, d loc f32, d attn f32). CUDA tensors only:
+    on the CPU the backward is the autograd of :func:`ms_deform_attn_ref`."""
+    _check(values, shapes, loc, attn)
+    if values.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_backward launches K5 backward on "
+                         f"a CUDA card, got {values.device}")
+    b, hw, n_h, dh = values.shape
+    q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
+    if tuple(dout.shape) != (b, q, n_h, dh) or dout.device != values.device:
+        raise ValueError(f"ms_deform_attn_backward takes dout "
+                         f"{(b, q, n_h, dh)} on values' device, got "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    dout = dout.to(values.dtype).contiguous()
+    levels = _levels_arg(shapes)
+    dv = torch.zeros(values.shape, dtype=torch.float32, device=values.device)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    lib = kernels.load()
+    with torch.cuda.device(values.device):
+        err = lib.ms_deform_attn_bwd(
+            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            dout.data_ptr(), dv.data_ptr(), dloc.data_ptr(),
+            dattn.data_ptr(), ctypes.addressof(levels), b, hw, q, n_h, dh,
+            n_l, n_p, kernels.dtype_code(values.dtype),
+            kernels.stream_ptr(values.device))
+    kernels.check(err, "ms_deform_attn_bwd")
+    ms_deform_attn_backward.launches += 1
+    return dv.to(values.dtype), dloc, dattn
+
+
+ms_deform_attn_backward.launches = 0
+
+
+class _MsDeformAttn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, values, loc, attn, shapes):
+        ctx.save_for_backward(values, loc, attn)
+        ctx.shapes = shapes
+        return _forward_cuda(values, shapes, loc, attn)
+
+    @staticmethod
+    def backward(ctx, dout):
+        values, loc, attn = ctx.saved_tensors
+        dv, dloc, dattn = ms_deform_attn_backward(values, ctx.shapes, loc,
+                                                  attn, dout)
+        return dv, dloc, dattn, None
+
+
+def ms_deform_attn_slots(values: torch.Tensor,
+                         shapes: Sequence[Tuple[int, int]],
+                         loc: torch.Tensor,
+                         attn: torch.Tensor) -> torch.Tensor:
+    """values (B, HW, heads, dh) f32 or bf16, the levels of ``shapes``
+    ((H_l, W_l), ...) flattened row-major and concatenated; loc (B, Q,
+    heads, L, P, 2) f32 in [0, 1]; attn (B, Q, heads, L, P) f32. Returns
+    (B, Q, heads, dh) in values' dtype. Any query order gives the same
+    result, bit for bit. Differentiable in values, loc and attn."""
+    _check(values, shapes, loc, attn)
+    if values.device.type == "cpu":
+        return ms_deform_attn_ref(values, shapes, loc, attn)
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    return _MsDeformAttn.apply(values, loc, attn, shapes)
 
 
 ms_deform_attn_slots.launches = 0

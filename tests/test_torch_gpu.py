@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from robust_object_detection_tpu_torch.core.config import CorruptionConfig
+from robust_object_detection_tpu_torch.ops import assignment as AS
 from robust_object_detection_tpu_torch.ops import conv3x3 as C
 from robust_object_detection_tpu_torch.ops import deform as DF
 from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
@@ -354,10 +355,10 @@ def test_rtdetr_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         DF.ms_deform_attn_slots(values, shapes, loc.transpose(1, 2)
                                 .contiguous().transpose(1, 2), attn)
-    with pytest.raises(NotImplementedError, match="backward"):
-        DF.ms_deform_attn_slots(values.requires_grad_(), shapes, loc, attn)
-    with torch.no_grad():                       # no graph asked for: fine
-        DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    with pytest.raises(ValueError, match="CUDA card"):
+        DF.ms_deform_attn_backward(values.cpu(), shapes, loc.cpu(),
+                                   attn.cpu(), values.cpu()[:, :3])
+    DF.ms_deform_attn_slots(values, shapes, loc, attn)
     assert (ST.stem_fused_inference.launches,
             DF.ms_deform_attn_slots.launches) == (before[0], before[1] + 1)
 
@@ -417,3 +418,194 @@ def test_rtdetr_forward_goes_through_the_kernels(cuda):
                             ref[k][:, b][:, rrows]) <= 2e-3, k
         for k in ("enc_logits", "enc_boxes"):
             assert _rel_err(out[k][b].cpu()[rows], ref[k][b][rrows]) <= 2e-3
+
+
+# ── RT-DETR-L training kernels: K4-f train, K4-b, K5 backward, K6 ────────
+
+def _stem_train_inputs(g, b, h, w, device):
+    args = _stem_inputs(g, b, h, w, device, torch.float32)
+    return args[0], [t for t in args[1:11]]
+
+
+def _stem_loss(out):
+    """Every output of the train-mode stem feeds the loss (y3 through BN3 +
+    ReLU as the model uses it, the statistics directly, as
+    tests/test_pallas_stem.py does), so every statistics cotangent of K4-b
+    is exercised."""
+    y3, means, variances = out
+    wts = (torch.arange(y3.numel(), device=y3.device).view(y3.shape) % 7
+           - 3).float()
+    a3 = torch.relu((y3.float() - means[3]) * torch.rsqrt(variances[3]
+                                                          + 1e-3))
+    loss = (a3 * wts).mean()
+    for i, (m, v) in enumerate(zip(means, variances)):
+        loss = loss + 0.1 * (i + 1) * m.sum() + 0.05 * (i + 1) * (v * v).sum()
+    return loss
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(2, 256, 256), (2, 36, 52), (3, 4, 8)])
+def test_stem_train_forward_matches_plain(cuda, dtype, tol, shape):
+    """K4-f train against the plain chain in f32 on the same values: y3
+    within tol x max|ref| (bf16: four stored tensors deep), the eight batch
+    statistics within 1e-3 (f32) or tol; a second run gives the same
+    bits."""
+    b, h, w = shape
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(9), b, h, w,
+                                   cuda)
+    before = ST.stem_fused.launches
+    y3, means, variances = ST.stem_fused(x.to(dtype), *params)
+    torch.cuda.synchronize()
+    assert ST.stem_fused.launches == before + 1
+    assert y3.shape == (b, h // 4, w // 4, 32) and y3.dtype == dtype
+    rparams = [p.to(dtype).float() if p.dim() == 4 else p for p in params]
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ry3, rmeans, rvars = ST.stem_train_reference(x.to(dtype).float(),
+                                                     *rparams)
+    assert _rel_err(y3, ry3) <= tol
+    for o, r in zip((*means, *variances), (*rmeans, *rvars)):
+        assert _rel_err(o, r) <= (1e-3 if dtype == torch.float32 else tol)
+    again = ST.stem_fused(x.to(dtype), *params)
+    assert torch.equal(again[0], y3)
+    assert all(torch.equal(a, m) for a, m in zip(again[1], means))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 8e-2)])
+@pytest.mark.parametrize("shape", [(2, 128, 128), (2, 36, 52)])
+def test_stem_train_backward_matches_plain(cuda, dtype, tol, shape):
+    """K4-b against the autograd of the plain chain in the same dtype (f32
+    with TF32 off; bf16, which rounds the stored tensors where the kernels
+    do): each of the ten gradients within tol x max|ref| (sums over B x H x
+    W; in bf16 a last-bit difference of a stored y flips roundings four
+    tensors down the chain, 4.4% on dk1 at 936 pixels); a second run gives
+    identical bits (no atomics)."""
+    b, h, w = shape
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(10), b, h,
+                                   w, cuda)
+    x = x.to(dtype)
+    ps = [p.clone().requires_grad_() for p in params]
+    before = ST.stem_fused_backward.launches
+    _stem_loss(ST.stem_fused(x, *ps)).backward()
+    torch.cuda.synchronize()
+    assert ST.stem_fused_backward.launches == before + 1
+    rs = [p.clone().requires_grad_() for p in params]
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        _stem_loss(ST.stem_train_reference(x, *rs)).backward()
+    for i, (p, r) in enumerate(zip(ps, rs)):
+        assert _rel_err(p.grad, r.grad) <= tol, i
+    ps2 = [p.clone().requires_grad_() for p in params]
+    _stem_loss(ST.stem_fused(x, *ps2)).backward()
+    assert all(torch.equal(a.grad, c.grad) for a, c in zip(ps, ps2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", [
+    (((128, 128), (64, 64), (32, 32)), 2, 428, 8, 32, 4),
+    (((6, 10), (3, 5)), 1, 7, 3, 32, 2),
+    (((5, 7), (3, 3), (2, 1), (1, 1)), 2, 13, 2, 8, 8),
+    (((9, 4),), 1, 5, 1, 48, 3)])
+def test_deform_backward_matches_plain(cuda, dtype, tol, case):
+    """K5 backward against the autograd of the plain gather version in f32
+    on the same values: d(values) (f32 atomics, cast once), d(loc) and
+    d(attn) within tol x max|ref|; d(loc) and d(attn), which use no
+    atomics, keep their bits under a permutation of the queries."""
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(11), shapes, b, q, heads, dh, p, cuda,
+        dtype)
+    dout = _rand(torch.Generator().manual_seed(12), b, q, heads, dh).to(
+        cuda, dtype)
+    leaves = [t.clone().requires_grad_() for t in (values, loc, attn)]
+    before = DF.ms_deform_attn_backward.launches
+    DF.ms_deform_attn_slots(leaves[0], shapes, leaves[1],
+                            leaves[2]).backward(dout)
+    torch.cuda.synchronize()
+    assert DF.ms_deform_attn_backward.launches == before + 1
+    assert leaves[0].grad.dtype == dtype
+    refs = [t.float().clone().requires_grad_() for t in (values, loc, attn)]
+    DF.ms_deform_attn_ref(refs[0], shapes, refs[1], refs[2]).backward(
+        dout.float())
+    for name, l, r in zip(("values", "loc", "attn"), leaves, refs):
+        assert _rel_err(l.grad, r.grad) <= tol, name
+    perm = torch.randperm(q, generator=torch.Generator().manual_seed(0)).to(
+        cuda)
+    _, dloc, dattn = DF.ms_deform_attn_backward(
+        values, shapes, loc[:, perm].contiguous(), attn[:, perm].contiguous(),
+        dout[:, perm].contiguous())
+    assert torch.equal(dloc, leaves[1].grad[:, perm])
+    assert torch.equal(dattn, leaves[2].grad[:, perm])
+
+
+def _auction_case(name):
+    g = torch.Generator().manual_seed(13)
+    if name == "normal":        # distinct costs: the auction converges
+        b, q, m, n_valid = 4, 300, 300, 80
+        cost = torch.rand(b, q, m, generator=g) * 4
+    elif name == "odd":
+        b, q, m, n_valid = 3, 7, 5, 3
+        cost = torch.rand(b, q, m, generator=g) * 4
+    elif name == "capped":      # as many GTs as queries: the last few
+        b, q, m, n_valid = 8, 300, 300, 300     # fight past the round cap
+        cost = torch.rand(b, q, m, generator=g) * 4
+    else:                       # more valid GTs than queries
+        b, q, m, n_valid = 2, 6, 9, 9
+        cost = torch.rand(b, q, m, generator=g)
+    valid = torch.zeros(b, m, dtype=torch.bool)
+    valid[:, :n_valid] = True
+    valid[0] = False            # an image with no valid GT
+    cost = torch.where(valid[:, None, :], cost, torch.full_like(cost, AS.BIG))
+    return cost, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["normal", "odd", "capped", "crowded"])
+@pytest.mark.parametrize("max_rounds", [16, 150])
+def test_auction_kernel_equals_plain(cuda, name, max_rounds):
+    """K6 against the plain round loop + greedy completion on the same
+    costs: the same assignment and the same capped flags, by equality."""
+    cost, valid = _auction_case(name)
+    before = AS.auction_assignment.launches
+    owner, capped = AS.auction_assignment(cost.to(cuda), valid.to(cuda),
+                                          max_rounds=max_rounds)
+    torch.cuda.synchronize()
+    assert AS.auction_assignment.launches == before + 1
+    ref_owner, ref_capped = AS.auction_assignment(cost, valid,
+                                                  max_rounds=max_rounds)
+    assert owner.dtype == torch.int32 and capped.dtype == torch.bool
+    assert torch.equal(capped.cpu(), ref_capped)
+    assert torch.equal(owner.cpu(), ref_owner)
+    if name == "capped" and max_rounds == 16:
+        assert bool(ref_capped[1:].all())       # the greedy branch ran
+    raw, _ = AS.auction_assignment(cost.to(cuda), valid.to(cuda),
+                                   max_rounds=max_rounds,
+                                   complete_greedy=False)
+    ref_raw, _ = AS.auction_assignment_ref(cost, valid, 0.005, max_rounds)
+    assert torch.equal(raw.cpu(), ref_raw)
+
+
+@pytest.mark.gpu
+def test_rtdetr_train_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(14), 1, 8,
+                                   8, cuda)
+    before = (ST.stem_fused.launches, AS.auction_assignment.launches)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ST.stem_fused(x[:, :6], *params)
+    with pytest.raises(ValueError, match="dtype"):
+        ST.stem_fused(x.half(), *params)
+    with pytest.raises(ValueError, match="device"):
+        ST.stem_fused(x, params[0].cpu(), *params[1:])
+    cost = torch.zeros(1, 4, 3, device=cuda)
+    valid = torch.ones(1, 3, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="float32 cost"):
+        AS.auction_assignment(cost.double(), valid)
+    with pytest.raises(ValueError, match="does not match"):
+        AS.auction_assignment(cost, valid[:, :2])
+    with pytest.raises(ValueError, match="one device"):
+        AS.auction_assignment(cost, valid.cpu())
+    assert (ST.stem_fused.launches, AS.auction_assignment.launches) == before

@@ -52,7 +52,8 @@ def test_package_imports_without_jax():
         "models.layers", "models.yolov8", "models.convert", "train.detector",
         "train.detection", "train.augment", "eval.fused_sweep",
         "eval.coco_map", "native", "data.visdrone", "data.pipeline",
-        "ops.stem", "ops.deform", "models.rtdetr", "train.rtdetr")}
+        "ops.stem", "ops.deform", "models.rtdetr", "train.rtdetr",
+        "ops.assignment")}
     assert expected <= set(out["modules"])
 
 
@@ -77,7 +78,8 @@ def test_kernel_sources_and_hash():
     names = [p.name for p in kernels.sources()]
     assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh",
             "conv3x3_wgrad.cu", "yolo_front_bwd.cu", "corrupt.cu",
-            "conv_wgrad.cuh", "hgstem.cu", "ms_deform_attn.cu"} <= set(names)
+            "conv_wgrad.cuh", "hgstem.cu", "ms_deform_attn.cu",
+            "hgstem_bwd.cu", "auction.cu"} <= set(names)
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
         if p.suffix == ".cu":
@@ -99,3 +101,30 @@ def test_dtype_codes():
     assert kernels.dtype_code(torch.bfloat16) == kernels.DTYPE_BF16
     with pytest.raises(ValueError):
         kernels.dtype_code(torch.float16)
+
+
+def test_every_c_entry_point_has_a_signature():
+    """Each ``extern "C"`` function of csrc/ is bound with its argument
+    types (a pointer passed without them would be cut to 32 bits)."""
+    found = set()
+    for p in kernels.sources():
+        found |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
+    assert found == set(kernels.SIGNATURES)
+    assert {"hgstem_train_nhwc", "hgstem_bwd_nhwc", "ms_deform_attn_bwd",
+            "auction_assign"} <= found
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_rtdetr_create_without_a_device_means_the_card(train):
+    """``create()`` with no device resolves to the CUDA card, for the
+    trainer's model too, and raises where there is none; it carries on on
+    the CPU only when asked to."""
+    from robust_object_detection_tpu_torch.models import rtdetr as TR
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TR.create(6, train=train)
+    model = TR.create(6, device="cpu", train=train)
+    assert model.training == train
+    assert model.model[0].stem1.conv.weight.dtype == torch.float32
+    assert model.model[28].input_proj[0][0].weight.dtype == torch.float32

@@ -127,5 +127,9 @@ def test_stem_refuses_bad_inputs():
         TS.stem_fused_inference(t(x)[:, :, ::2], *p, ms, vs)
     with pytest.raises(ValueError, match="HWIO"):
         TS.stem_fused_inference(t(x), p[0], p[1], p[2], p[6], *p[4:], ms, vs)
-    with pytest.raises(NotImplementedError):
-        TR.HGStem(CM, 48).train()(t(x))
+    # train mode is ported: batch statistics, running statistics updated
+    stem = TR.HGStem(CM, 48).train()
+    rv = stem.stem2a.bn.running_var.clone()
+    out = stem(t(x))
+    assert out.shape == (x.shape[0], 48, x.shape[1] // 4, x.shape[2] // 4)
+    assert not torch.equal(rv, stem.stem2a.bn.running_var)

@@ -41,24 +41,37 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx"}
 
 
-def kernel_group(name: str) -> str:
+def kernel_group(name: str, rtdetr: bool = False) -> str:
+    """The group of a device kernel by its name. `rtdetr`: the stride-2
+    weight gradients and the BN-chain kernels belong to K4-b (the HGNetv2
+    stem's backward), not to K2-b (the YOLO front's)."""
     m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
     if m:       # stride, then the activation (1: ReLU, the HGNetv2 stem)
         if m.group(2) == "1":
             return "K4-f hgstem"
         return "K2-f yolo_front" if m.group(1) == "2" else "K3-f conv3x3"
-    if re.search(r"conv2x2_relu_kernel|pool2x2_kernel", name):
+    if re.search(r"conv2x2_relu_kernel|pool2x2_kernel|assemble_train_kernel",
+                 name):
         return "K4-f hgstem"
+    if re.search(r"stem3_dx_kernel|assemble_bwd_kernel|conv2x2_dx_kernel",
+                 name):
+        return "K4-b hgstem_bwd"
+    if "ms_deform_attn_bwd_kernel" in name:
+        return "K5 bwd ms_deform_attn"
     if "ms_deform_attn_kernel" in name:
         return "K5 ms_deform_attn"
-    m = re.search(r"wgrad_partial_kernel<[^,>]+, (\d)", name)
-    if m:
-        return "K2-b yolo_front_bwd" if m.group(1) == "2" else \
-            "K3-b conv3x3_wgrad"
+    if "auction_kernel" in name:
+        return "K6 auction"
+    front_bwd = "K4-b hgstem_bwd" if rtdetr else "K2-b yolo_front_bwd"
+    m = re.search(r"wgrad_partial_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
+    if m:       # stride, then the input transform's activation (1: ReLU)
+        if m.group(1) == "2" or m.group(2) == "1":
+            return front_bwd
+        return "K3-b conv3x3_wgrad"
     if re.search(r"front_da1_kernel|bn_chain_kernel|stat_cotangent", name):
-        return "K2-b yolo_front_bwd"
+        return front_bwd
     if re.search(r"finalize_partials_kernel|sum_chunks_kernel", name):
-        return "hand-kernel partial sums (K2-f, K2-b, K3-b)"
+        return "hand-kernel partial sums (K2-f, K2-b, K3-b, K4-f, K4-b)"
     if "corrupt_kernel" in name:
         return "K1 corrupt"
     low = name.lower()

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's train step goes, on one CUDA card.
 
-    python3 tools/profile_torch_train.py [--steps 5]
+    python3 tools/profile_torch_train.py [--model yolo|rtdetr] [--steps 5]
 
-Runs the training cell of chip_smoke.py (bench.py's workload: YOLOv8m,
-seeded random weights, 1024 px, batch 16, 80 GT boxes per image in 600
-slots, augment + HSV/flip, bf16 convs and BatchNorm outputs) and measures,
-in one process:
+Runs a training cell of chip_smoke.py (bench.py's workloads, seeded random
+weights, 1024 px, 80 GT boxes per image in 600 slots, augment + HSV/flip,
+bf16 convs and BatchNorm outputs: YOLOv8m at batch 16, or with --model
+rtdetr RT-DETR-L at batch 8 with contrastive denoising, AdamW and the
+auction matcher) and measures, in one process:
 
   1. the unprofiled step, --steps steps after one warm-up: host wall ms
      per step (each ends in a synchronize), images/s, peak device memory;
@@ -39,6 +40,7 @@ from tools.profile_torch_sweep import (LAUNCH_APIS, kernel_group,  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", choices=("yolo", "rtdetr"), default="yolo")
     ap.add_argument("--out", type=Path, default=None,
                     help="write the per-kernel table here (default: its "
                          "first 30 lines to stdout)")
@@ -52,8 +54,10 @@ def main() -> int:
     from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.core.config import \
         CorruptionConfig
+    from robust_object_detection_tpu_torch.models import rtdetr as R
     from robust_object_detection_tpu_torch.models import yolov8 as Y
     from robust_object_detection_tpu_torch.train import detector as D
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
@@ -63,15 +67,25 @@ def main() -> int:
     print(S.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]))
     kernels.build()
-    model = Y.create(6, "m", torch.bfloat16, dev,
-                     torch.Generator().manual_seed(S.SEED), train=True,
-                     bn_dtype=torch.bfloat16)
-    state = D.init_state(model, D.make_optimizer()[0])
-    step = D.make_train_step(S.IMG_SIZE, CorruptionConfig(), augment=True,
-                             base_augment=True)
+    rtdetr = args.model == "rtdetr"
+    seeded = torch.Generator().manual_seed(S.SEED)
+    if rtdetr:
+        n_batch = S.RTDETR_TRAIN_BATCH
+        model = R.create(6, torch.bfloat16, dev, seeded, train=True,
+                         bn_dtype=torch.bfloat16)
+        state = RT.init_state(model, RT.make_optimizer()[0])
+        step = RT.make_train_step(S.IMG_SIZE, CorruptionConfig(),
+                                  augment=True, base_augment=True)
+    else:
+        n_batch = S.TRAIN_BATCH
+        model = Y.create(6, "m", torch.bfloat16, dev, seeded, train=True,
+                         bn_dtype=torch.bfloat16)
+        state = D.init_state(model, D.make_optimizer()[0])
+        step = D.make_train_step(S.IMG_SIZE, CorruptionConfig(),
+                                 augment=True, base_augment=True)
     batch = [torch.from_numpy(a).to(dev) for a in S.detection_batch(
-        np.random.RandomState(S.SEED), S.TRAIN_BATCH, S.IMG_SIZE,
-        S.GT_PER_IMAGE, S.MAX_BOXES)]
+        np.random.RandomState(S.SEED), n_batch, S.IMG_SIZE, S.GT_PER_IMAGE,
+        S.MAX_BOXES)]
     gen = torch.Generator(dev).manual_seed(S.SEED)
 
     # 1. unprofiled steps
@@ -86,8 +100,9 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     ms = statistics.median(walls)
-    print(f"[train] step ms {walls} median {ms} = "
-          f"{S.TRAIN_BATCH / (ms / 1e3)} images/s; peak memory {peak} bytes")
+    print(f"[train] {args.model} batch {n_batch}: step ms {walls} median "
+          f"{ms} = {n_batch / (ms / 1e3)} images/s; peak memory {peak} "
+          f"bytes")
 
     # 2. one profiled step: wall and device busy time from the same run
     with profile(activities=[ProfilerActivity.CPU,
@@ -110,7 +125,7 @@ def main() -> int:
         by_kernel[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
     groups: dict = {}
     for name, (k_ms, cnt) in by_kernel.items():
-        g = groups.setdefault(kernel_group(name), [0.0, 0])
+        g = groups.setdefault(kernel_group(name, rtdetr), [0.0, 0])
         g[0] += k_ms
         g[1] += cnt
     print(f"[profiled step] wall {prof_wall} ms, device busy {busy_ms} ms, "
@@ -129,7 +144,8 @@ def main() -> int:
         args.out.write_text("\n".join(table) + "\n")
     print(json.dumps({
         "step_ms": walls, "median_step_ms": ms,
-        "images_per_sec": S.TRAIN_BATCH / (ms / 1e3), "peak_bytes": peak,
+        "model": args.model, "batch": n_batch,
+        "images_per_sec": n_batch / (ms / 1e3), "peak_bytes": peak,
         "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
         "kernel_launches": len(launches), "launch_api_ms": launch_ms,
         "device_ms_by_group": {g: v[0] for g, v in groups.items()}}))
