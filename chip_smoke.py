@@ -58,7 +58,9 @@ outputs and f32 statistics). Phases:
      plain versions at the train step's shapes and at one odd shape each,
      f32 with TF32 off and bf16 where the kernel takes it (tolerances in
      phase_rtdetr_train_kernels; K6 by equality), timed as above, cuDNN's
-     time for each stage of the stem's backward beside K4-b;
+     time for each stage of the stem's backward beside K4-b; and the
+     kernels this step shares with earlier paths at its own shapes (K5
+     forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8);
  13. RT-DETR-L train-step model check: forward, loss and backward of one
      f32 batch at 128 px on the card (kernels, TF32 off) and on the CPU
      (plain versions), same weights, batch and denoising queries; every
@@ -405,6 +407,56 @@ def check(name, out, ref, tol, log):
     return err
 
 
+def check_conv3x3_backward(C, xd, dyd, kd, tol, log):
+    """K3-b and K3-f as dX on one (x, dy, k) against the plain versions in
+    f32 on the same values, and K3-b twice for the same bits; returns K3-b's
+    max abs error."""
+    import torch
+    name = str(xd.dtype).split(".")[-1]
+    shape = tuple(xd.shape)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        err = check(f"conv3x3_wgrad {name} {shape}", C.conv3x3_wgrad(xd, dyd),
+                    C.conv3x3_wgrad_reference(xd.float(), dyd.float()),
+                    tol, log)
+        kflip = kd.flip(0, 1).transpose(2, 3).contiguous()
+        check(f"conv3x3 dX {name} {shape}", C.conv3x3(dyd, kflip),
+              C.conv3x3_reference(dyd.float(), kflip.float()),
+              1e-4 if xd.dtype == torch.float32 else 1e-2, log)
+    again = C.conv3x3_wgrad(xd, dyd)
+    require(torch.equal(again, C.conv3x3_wgrad(xd, dyd)),
+            "conv3x3_wgrad is not deterministic")
+    return err
+
+
+def check_corrupt(FC, g, dev, batch):
+    """K1 on (batch, 1024, 1024, 3) f32, all four branches, image 1
+    mid-grey: clean and blur bit-exact, lowres and noise within 1 LSB of
+    the plain version, the noise's mean -0.5 +- 0.5 and std 15 +- 0.5.
+    Returns (img, choice, seeds, per-branch max abs diff, noise mean,
+    noise std)."""
+    import torch
+    img = torch.floor(torch.rand(batch, IMG_SIZE, IMG_SIZE, 3, device=dev,
+                                 generator=g) * 256)
+    img[1] = 128.0
+    choice = torch.arange(batch, device=dev, dtype=torch.int32) % 4
+    seeds = torch.randint(0, 2 ** 30, (batch,), device=dev, generator=g,
+                          dtype=torch.int32)
+    out, _ = FC.fused_random_corruption(img, None, choice=choice,
+                                        seeds=seeds)
+    ref = FC.fused_corruption_reference(img, choice, seeds)
+    diff = (out - ref).abs().amax((1, 2, 3))
+    per_branch = [diff[choice == c].max().item() for c in range(4)]
+    noise = out[1] - 128.0
+    nmean, nstd = noise.mean().item(), noise.std().item()
+    require(per_branch[0] == 0 and per_branch[2] == 0,
+            f"corrupt clean/blur not bit-exact: {per_branch}")
+    require(per_branch[1] <= 1 and per_branch[3] <= 1,
+            f"corrupt noise/lowres beyond 1 LSB: {per_branch}")
+    require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
+            f"noise mean {nmean} std {nstd}")
+    return img, choice, seeds, per_branch, nmean, nstd
+
+
 def phase_train_kernels(dev):
     """Each training kernel vs its plain version at the train path's
     shapes. Tolerances: f32 outputs 1e-4 x max|ref| (f32 sums in another
@@ -441,17 +493,7 @@ def phase_train_kernels(dev):
         name = str(dtype).split(".")[-1]
         xd, dyd, kd = x.to(dtype), dy.to(dtype), k.to(dtype)
         log = []
-        with torch.backends.cudnn.flags(allow_tf32=False):
-            err = check(f"conv3x3_wgrad {name}", C.conv3x3_wgrad(xd, dyd),
-                        C.conv3x3_wgrad_reference(xd.float(), dyd.float()),
-                        tol, log)
-            kflip = kd.flip(0, 1).transpose(2, 3).contiguous()
-            check(f"conv3x3 dX {name}", C.conv3x3(dyd, kflip),
-                  C.conv3x3_reference(dyd.float(), kflip.float()),
-                  1e-4 if dtype == torch.float32 else 1e-2, log)
-        again = C.conv3x3_wgrad(xd, dyd)
-        require(torch.equal(again, C.conv3x3_wgrad(xd, dyd)),
-                "conv3x3_wgrad is not deterministic")
+        err = check_conv3x3_backward(C, xd, dyd, kd, tol, log)
         ms = time_ms(lambda: C.conv3x3_wgrad(xd, dyd))
         plain_ms = time_ms(lambda: C.conv3x3_wgrad_reference(xd, dyd))
         xv, dyv = xd.permute(0, 3, 1, 2), dyd.permute(0, 3, 1, 2)
@@ -520,19 +562,8 @@ def phase_train_kernels(dev):
     del xf, cot
 
     # K1: (16, 1024, 1024, 3) f32, all four branches, one mid-grey image
-    img = torch.floor(torch.rand(TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
-                                 device=dev, generator=g) * 256)
-    img[1] = 128.0
-    choice = torch.arange(TRAIN_BATCH, device=dev, dtype=torch.int32) % 4
-    seeds = torch.randint(0, 2 ** 30, (TRAIN_BATCH,), device=dev,
-                          generator=g, dtype=torch.int32)
-    out, _ = FC.fused_random_corruption(img, None, choice=choice,
-                                        seeds=seeds)
-    ref = FC.fused_corruption_reference(img, choice, seeds)
-    diff = (out - ref).abs().amax((1, 2, 3))
-    per_branch = [diff[choice == c].max().item() for c in range(4)]
-    noise = out[1] - 128.0
-    nmean, nstd = noise.mean().item(), noise.std().item()
+    img, choice, seeds, per_branch, nmean, nstd = check_corrupt(
+        FC, g, dev, TRAIN_BATCH)
     ms = time_ms(lambda: FC.fused_random_corruption(img, None, choice=choice,
                                                     seeds=seeds))
     plain_ms = time_ms(lambda: FC.fused_corruption_reference(img, choice,
@@ -541,18 +572,12 @@ def phase_train_kernels(dev):
           f"branch (clean, noise, blur, lowres) {per_branch}; mid-grey "
           f"noise mean {nmean} std {nstd}; kernel {ms} ms plain {plain_ms} "
           f"ms")
-    require(per_branch[0] == 0 and per_branch[2] == 0,
-            f"corrupt clean/blur not bit-exact: {per_branch}")
-    require(per_branch[1] <= 1 and per_branch[3] <= 1,
-            f"corrupt noise/lowres beyond 1 LSB: {per_branch}")
-    require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
-            f"noise mean {nmean} std {nstd}")
     # reads and writes the batch once; per element about 2 x 9 operations
     # in the blurred quarter, 10 in the noised and 8 in the low-res one
     results["corrupt"] = {"float32": dict(
         max_abs_err=max(per_branch), ms=ms, plain_ms=plain_ms,
         **work("float32", 2 * img.numel() * 4, img.numel() // 4 * 36))}
-    del img, out, ref
+    del img
 
     # the new wrappers refuse CUDA tensors they do not take
     small = torch.zeros(1, 8, 8, 4, device=dev)
@@ -989,17 +1014,23 @@ STEM_PARAMS = ("k1", "sc1", "bi1", "k2a", "sc2a", "bi2a", "k2b", "sc2b",
 
 
 def stem_work(dtype: str, b: int, h: int, w: int, elt: int, backward: bool):
-    """The train-mode stem at (b, h, w, 3). Forward: reads x, writes y3 and
-    the four tensors the backward needs (y1, y2a, y2b, concat). Backward:
-    reads x, those four, y3 and dy3; dX + dW of stem3 and of the two 2x2
-    convs, dW of stem1."""
+    """The train-mode stem at (b, h, w, 3) as a function: the forward reads
+    x and the filters and writes y3 (and 8 statistics vectors); its VJP
+    reads x, y3, the filters and dy3 and writes the f32 filter and affine
+    gradients. What either keeps in between (y1, y2a, y2b, the concat) is
+    this implementation's choice and no part of the bound. Operations: the
+    four convs forward; backward dW of all four and dX of three (none into
+    the image)."""
     px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
     f1, f2 = 2 * 27 * 32 * px2, 2 * 128 * 16 * px2
     f3 = 2 * 576 * 32 * px4
-    saved = (b * h * w * 3 + px2 * (32 + 16 + 32 + 64) + px4 * 32) * elt
+    n_filters = 27 * 32 + 2 * 128 * 16 + 576 * 32
     if backward:
-        return work(dtype, saved + px4 * 32 * elt, f1 + 2 * (2 * f2 + f3))
-    return work(dtype, saved, f1 + 2 * f2 + f3)
+        nbytes = (b * h * w * 3 + 2 * px4 * 32 + n_filters) * elt \
+            + (n_filters + 6 * 32) * 4
+        return work(dtype, nbytes, f1 + 2 * (2 * f2 + f3))
+    nbytes = (b * h * w * 3 + px4 * 32 + n_filters) * elt + 8 * 32 * 4
+    return work(dtype, nbytes, f1 + 2 * f2 + f3)
 
 
 def phase_rtdetr_train_kernels(dev):
@@ -1020,11 +1051,17 @@ def phase_rtdetr_train_kernels(dev):
     the queries. K6: the same assignment
     and capped flags as the plain round loop + greedy completion, by
     equality, on costs that converge, on a batch built to hit the round
-    cap (as many valid GTs as queries) and with an image without GT."""
+    cap (as many valid GTs as queries) and with an image without GT. The
+    kernels of earlier paths that this step also launches are held at the
+    shapes it gives them: K5 forward at 428 queries (1e-4 / 1e-2), K3-b and
+    K3-f as dX at (8, 256, 256, 48) and K1 at (8, 1024, 1024, 3), with the
+    tolerances of phase_train_kernels."""
     import torch
     import torch.nn.functional as F
     from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
     from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
     from robust_object_detection_tpu_torch.ops import stem as ST
 
     g = torch.Generator(dev).manual_seed(SEED + 4)
@@ -1161,6 +1198,12 @@ def phase_rtdetr_train_kernels(dev):
             if not main:
                 print(f"[rtdetr-train-kernels] {'; '.join(log)}")
                 continue
+            # the forward at this path's 428 queries (the sweep's 300 are
+            # held in phase_rtdetr_kernels), same tolerances as there
+            check(f"ms_deform_attn fwd {name} Q {q}",
+                  DF.ms_deform_attn_slots(vd, shapes, loc, attn),
+                  DF.ms_deform_attn_ref(vd.float(), shapes, loc, attn),
+                  1e-4 if dtype == torch.float32 else 1e-2, log)
             ms = time_ms(lambda: DF.ms_deform_attn_backward(vd, shapes, loc,
                                                             attn, dd))
             leaves = [t.clone().requires_grad_() for t in (vd, loc, attn)]
@@ -1192,6 +1235,29 @@ def phase_rtdetr_train_kernels(dev):
             del idx, wgt, live
         del values, loc, attn, dout
     results["ms_deform_attn_bwd"] = dbwd
+    torch.cuda.empty_cache()
+
+    # the kernels this path shares with the YOLOv8m train step, at its own
+    # batch of 8: K3-b and K3-f as dX on the stage-1 HGBlock's convs,
+    # (8, 256, 256, 48) -> 48 (the forward at this shape is held in
+    # phase_kernels), and K1 on (8, 1024, 1024, 3); tolerances as in
+    # phase_train_kernels, no timing
+    x = torch.randn(RTDETR_TRAIN_BATCH, 256, 256, 48, device=dev, generator=g)
+    dy = torch.randn(RTDETR_TRAIN_BATCH, 256, 256, 48, device=dev,
+                     generator=g)
+    k = torch.randn(3, 3, 48, 48, device=dev, generator=g) * 0.1
+    log = []
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+        check_conv3x3_backward(C, x.to(dtype), dy.to(dtype), k.to(dtype),
+                               tol, log)
+    print(f"[rtdetr-train-kernels] {'; '.join(log)}")
+    del x, dy
+    img, _, _, per_branch, nmean, nstd = check_corrupt(FC, g, dev,
+                                                       RTDETR_TRAIN_BATCH)
+    print(f"[rtdetr-train-kernels] corrupt f32 {tuple(img.shape)}: max abs "
+          f"diff by branch (clean, noise, blur, lowres) {per_branch}; "
+          f"mid-grey noise mean {nmean} std {nstd}")
+    del img
     torch.cuda.empty_cache()
 
     # K6: cost (8, 300, 300), 80 valid GTs an image (the train step's);
@@ -1287,11 +1353,23 @@ def phase_rtdetr_train_model_check(dev):
     moves every leaf's gradient by a few per cent in L2 (card vs CPU as
     CPU vs the JAX reference, tests/test_torch_rtdetr_train_step.py), so:
     global cosine >= 0.99, and for each leaf that carries more than 1e-4
-    of the gradient's norm a relative L2 error <= 0.15."""
+    of the gradient's norm a relative L2 error <= 0.15. This phase holds
+    the wiring on the card (which wrapper gets which tensors), not the
+    last digits: that no term of the gradient is missing is shown without
+    the noise, in float64, by the CPU test named above (every leaf within
+    1e-6 of the reference), and each kernel is held against its plain
+    version at this path's shapes in phase_rtdetr_train_kernels. A control
+    is printed beside it: the card once more with the plain versions in
+    the wrappers' place, whose distance from the CPU run is f32 noise
+    alone."""
     import numpy as np
     import torch
+    from robust_object_detection_tpu_torch.models import layers as L
     from robust_object_detection_tpu_torch.models import rtdetr as R
     from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import stem as ST
     from robust_object_detection_tpu_torch.train import rtdetr as RT
 
     size, nb = 128, 2
@@ -1318,14 +1396,26 @@ def phase_rtdetr_train_model_check(dev):
 
     replaying.calls = 0
 
+    # the control: the card again with every wrapper replaced by its plain
+    # version, so its distance from the CPU run is f32 noise alone
+    plain = ((R, "stem_fused", ST.stem_train_reference),
+             (L, "conv3x3", C.conv3x3_reference),
+             (R, "ms_deform_attn_slots", DF.ms_deform_attn_ref))
+    kernel_versions = [(mod, attr, getattr(mod, attr))
+                       for mod, attr, _ in plain]
+
     res = {}
-    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+    for name, device in (("card", dev), ("cpu", torch.device("cpu")),
+                         ("card-plain", dev)):
         model = R.create(6, torch.float32, device,
                          torch.Generator().manual_seed(SEED), train=True)
         with torch.no_grad():
             model.model[28].enc_score_head.weight.zero_()
         to = lambda t: t.to(device)
         RT.auction_assignment = recording if name == "card" else replaying
+        replaying.calls = 0
+        for mod, attr, fn in plain if name == "card-plain" else ():
+            setattr(mod, attr, fn)
         try:
             with torch.backends.cudnn.flags(allow_tf32=False):
                 outs = model(to(x), {k: to(v) for k, v in dn.items()})
@@ -1337,13 +1427,16 @@ def phase_rtdetr_train_model_check(dev):
                 loss.backward()
         finally:
             RT.auction_assignment = solve
+            for mod, attr, fn in kernel_versions:
+                setattr(mod, attr, fn)
+        require(len(solved) == 7
+                and replaying.calls == (0 if name == "card" else 7),
+                f"{name}: {len(solved)} matchings solved, "
+                f"{replaying.calls} replayed, not 7")
         res[name] = (loss.item(), {k: v.item() for k, v in metrics.items()},
                      {n: p.grad.detach().cpu().double()
                       for n, p in model.named_parameters()})
     (lc, mc, gcard), (lr, mr, gref) = res["card"], res["cpu"]
-    require(len(solved) == 7 and replaying.calls == 7,
-            f"{len(solved)} matchings on the card, {replaying.calls} on the "
-            f"CPU, not 7")
     for i, (cost, valid, owner, capped, kw) in enumerate(solved):
         powner, pcapped = AS.auction_assignment(cost.cpu(), valid.cpu(), **kw)
         require(torch.equal(owner.cpu(), powner)
@@ -1354,24 +1447,29 @@ def phase_rtdetr_train_model_check(dev):
     require(gcard.keys() == gref.keys(), "gradient leaves differ")
     norms = {n: r.norm().item() for n, r in gref.items()}
     total = math.sqrt(sum(v * v for v in norms.values()))
-    dot = sum((gcard[n] * r).sum().item() for n, r in gref.items())
-    card_total = math.sqrt(sum(g.norm().item() ** 2 for g in gcard.values()))
-    cos = dot / (total * card_total)
-    worst, worst_name, significant = 0.0, "", 0
-    for n, r in gref.items():
-        if norms[n] <= 1e-4 * total:
-            continue
-        significant += 1
-        e = ((gcard[n] - r).norm() / norms[n]).item()
-        if e > worst:
-            worst, worst_name = e, n
+
+    def against_cpu(grads):
+        """(cosine, norm, worst relative L2 error over the significant
+        leaves, its name, their count) of grads against the CPU run's."""
+        dot = sum((grads[n] * r).sum().item() for n, r in gref.items())
+        size = math.sqrt(sum(g.norm().item() ** 2 for g in grads.values()))
+        errs = {n: ((grads[n] - r).norm() / norms[n]).item()
+                for n, r in gref.items() if norms[n] > 1e-4 * total}
+        name = max(errs, key=errs.get)
+        return dot / (total * size), size, errs[name], name, len(errs)
+
+    cos, card_total, worst, worst_name, significant = against_cpu(gcard)
+    pcos, _, pworst, pworst_name, _ = against_cpu(res["card-plain"][2])
     print(f"[rtdetr-train-model] RT-DETR-L f32 128px train batch card vs "
           f"CPU: loss {lc} vs {lr} (rel {loss_rel}, tol 2e-3); metrics {mc} "
           f"vs {mr}; 7 matchings of K6 equal to the plain version on the "
           f"card's costs (capped image-matchings {mc['matcher_capped']}); "
           f"gradient cosine {cos} (>= 0.99), norm {card_total} vs {total}; "
           f"worst relative L2 error {worst} at {worst_name} over "
-          f"{significant} significant of {len(gref)} leaves (tol 0.15)")
+          f"{significant} significant of {len(gref)} leaves (tol 0.15); "
+          f"control, the card with the plain versions vs CPU: loss "
+          f"{res['card-plain'][0]}, cosine {pcos}, worst relative L2 error "
+          f"{pworst} at {pworst_name}")
     require(loss_rel <= 2e-3, f"train loss differs by {loss_rel}")
     require(math.isfinite(cos) and cos >= 0.99,
             f"gradient cosine {cos} < 0.99")

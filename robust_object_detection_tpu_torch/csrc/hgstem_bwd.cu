@@ -32,8 +32,13 @@
 // pixels. Every cross-block sum goes through fixed-order partials, never
 // float atomics, so a repeated run gives identical bits.
 //
-// What bounds it on the H100: about 77 GFLOP useful at (8, 1024, 1024, 3)
-// on the CUDA cores against under 2 GB of traffic, so operations.
+// What bounds it on the H100: operations. As a function it must move x, y3
+// and dy3 (about 0.12 GB in bf16 at (8, 1024, 1024, 3)) and do about 77
+// GFLOP, so even at the tensor cores' peak the arithmetic takes longer than
+// the bytes. This version runs the arithmetic on the CUDA cores and moves
+// about 2 GB more (the saved y1, y2a, y2b and concat, and the dcat, dy2b,
+// dy2a, dy1 scratch); the two 2x2 filter gradients are computed as full 3x3
+// gradients (2.25x their work) to reuse conv_wgrad.cuh unchanged.
 
 #include "conv_wgrad.cuh"
 
