@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths once each at full width, with seeded random
+Drives the port's five paths once each at full width, with seeded random
 weights: the serving path, the 4-pass robustness sweep (nc=6, bf16, eval
 mode, 1024 canvas, 64 synthetic 768x1024 images in batches of 8), once
 with YOLOv8m and once with RT-DETR-L, and the training path, ``bench.py``'s
 two workloads (YOLOv8m trained at 1024 px, batch 16, and RT-DETR-L at
 batch 8 with contrastive denoising; 80 ground-truth boxes per image in 600
 slots, the Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm
-outputs and f32 statistics). Phases:
+outputs and f32 statistics); and the decoder's sampling workload through
+each generation of the deformable-attention op family. Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -70,7 +71,25 @@ outputs and f32 statistics). Phases:
      launch counters zeroed just before and read just after (per step: K1
      1, K4-f train 1, K4-b 1, K3-f 12 = 6 forward + 6 dX, K3-b 6, K5
      forward 6, K5 backward 6, K6 7); finite loss and grad norm, moved
-     running statistics and EMA; step ms, images/s, peak memory.
+     running statistics and EMA; step ms, images/s, peak memory;
+ 15. the earlier generations' kernels: K5-g2 forward and backward (the
+     sorted-tap deformable attention, both layouts of the value maps) and
+     K5-g1 (``stamp_scatter``, and ``bilinear_sample``'s three gradients
+     through it) against their plain versions at the RT-DETR-L decoder's
+     shapes (300 and 428 queries; each of the three levels for K5-g1) and
+     at one odd shape, f32 and bf16 values (tolerances in
+     phase_sorted_kernels); every backward twice for identical bits; timed
+     as above with the tap sort inside the timed call, ``torch.sort`` alone
+     beside it; the one library call for K5-g1 (``scatter_add_`` into
+     zeros) and, for the record, ``grid_sample`` forward + backward beside
+     ``bilinear_sample``; the refusal of bad CUDA inputs;
+ 16. the generations' path: six forward + backward calls (one per decoder
+     layer, 428 queries, values (8, 21504, 8, 32), bf16 then f32) of
+     ``ms_deform_attn``, of ``ms_deform_attn_t`` and of the per-level
+     composition over ``bilinear_sample``, launch counters zeroed just
+     before and read just after (K5-g2 forward 12, K5-g2 backward 12,
+     K5-g1 18 per dtype), each output and gradient held against
+     ``ms_deform_attn_slots`` (K5) on the same inputs; ms per call.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -79,7 +98,8 @@ distinct rows this run's taps touch) over 3.35 TB/s and its operations
 over the card's peak for the type (989 TFLOP/s bf16 on the tensor cores,
 67 TFLOP/s f32), and ``library_ms``, the time of the one PyTorch call
 that computes the same function where there is one (a cuDNN convolution
-or its filter gradient), timed here and used nowhere in the port.
+or its filter gradient; ``scatter_add_`` for K5-g1), timed here and used
+nowhere in the port.
 
 Any failed check raises, so the script exits non-zero and prints no
 result. The line before the last is the kernel summary
@@ -874,13 +894,8 @@ def phase_rtdetr_kernels(dev):
             # what this run's data needs: the distinct (batch, cell, head)
             # rows its in-map taps touch, once each, and 2 operations per
             # in-map tap and channel
-            idx, wgt = DF.tap_geometry(loc, shapes)
-            live = wgt != 0
-            hw = values.shape[1]
-            bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1)
-            hi = torch.arange(heads, device=dev).view(1, 1, heads, 1, 1, 1)
-            rows = torch.unique(((bi * hw + idx) * heads + hi)[live]).numel()
-            taps = int(live.sum().item())
+            rows, taps = touched_rows(DF, loc, shapes, values.shape[1],
+                                      heads)
             nbytes = rows * dh * esize(dtype) + (loc.numel() + attn.numel()) \
                 * 4 + out.numel() * esize(dtype)
             print(f"[rtdetr-kernels] {log[0]}; kernel {ms} ms plain "
@@ -1215,13 +1230,8 @@ def phase_rtdetr_train_kernels(dev):
             # what this run's data needs: the distinct value rows its
             # in-map taps touch read once, d(values) written once, and 4
             # operations per in-map tap and channel
-            idx, wgt = DF.tap_geometry(loc, shapes)
-            live = wgt != 0
-            hw = values.shape[1]
-            bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1, 1)
-            hi = torch.arange(heads, device=dev).view(1, 1, heads, 1, 1, 1)
-            rows = torch.unique(((bi * hw + idx) * heads + hi)[live]).numel()
-            taps = int(live.sum().item())
+            rows, taps = touched_rows(DF, loc, shapes, values.shape[1],
+                                      heads)
             elt = esize(dtype)
             nbytes = (rows * dh + values.numel() + 2 * dout.numel()) * elt \
                 + 2 * (loc.numel() + attn.numel()) * 4
@@ -1232,7 +1242,6 @@ def phase_rtdetr_train_kernels(dev):
                   f"rows; no single PyTorch call computes it")
             dbwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               **work(name, nbytes, 4 * taps * dh))
-            del idx, wgt, live
         del values, loc, attn, dout
     results["ms_deform_attn_bwd"] = dbwd
     torch.cuda.empty_cache()
@@ -1564,6 +1573,389 @@ def phase_rtdetr_training(dev):
     return launches
 
 
+def touched_rows(DF, loc, shapes, hw, heads):
+    """(distinct (batch, cell, head) value rows the in-map taps of `loc`
+    touch, number of in-map taps): what a run's data makes a gather read."""
+    import torch
+    b = loc.shape[0]
+    idx, wgt = DF.tap_geometry(loc, shapes)
+    live = wgt != 0
+    bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1, 1, 1)
+    hi = torch.arange(heads, device=loc.device).view(1, 1, heads, 1, 1, 1)
+    rows = torch.unique(((bi * hw + idx) * heads + hi)[live]).numel()
+    return rows, int(live.sum().item())
+
+
+def grid_sample_level(F, v, sx, sy):
+    """``bilinear_sample(v, sx, sy)`` as one ``grid_sample`` call: v (B, H,
+    W, heads, dh) as (B * heads, dh, H, W), the samples as a (B * heads, Q,
+    P, 2) grid in [-1, 1] (pixel = (g + 1) * size / 2 - 0.5). Returns (B,
+    Q, heads, P, dh)."""
+    import torch
+    b, h, w, heads, dh = v.shape
+    q, p = sx.shape[1], sx.shape[3]
+    vm = v.permute(0, 3, 4, 1, 2).reshape(b * heads, dh, h, w)
+    grid = torch.stack([(sx + 0.5) * (2.0 / w) - 1, (sy + 0.5) * (2.0 / h)
+                        - 1], -1).permute(0, 2, 1, 3, 4).reshape(
+        b * heads, q, p, 2).to(v.dtype)
+    out = F.grid_sample(vm, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)           # (B*heads, dh, Q, P)
+    return out.reshape(b, heads, dh, q, p).permute(0, 3, 1, 4, 2)
+
+
+def phase_sorted_kernels(dev):
+    """K5-g2 forward and backward (both layouts) and K5-g1 vs their plain
+    versions, at the RT-DETR-L decoder's shapes and at one odd shape
+    (levels (6, 10) and (3, 5), 7 queries, samples outside the maps, tap
+    counts that are no multiple of 32, maps under 2048 cells). Tolerances,
+    each x max|ref|. K5-g2 forward: 1e-4 for f32 and for bf16 values alike
+    (the out is f32, so both are the plain version's f32 products summed in
+    another order). K5-g2 backward against the plain backward in f32 on the
+    same values: d(values) 1e-4 in f32 and 1e-2 in bf16 (one rounding of
+    the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3. K5-g1 against
+    ``index_add_``: 1e-4 (f32 only; the same terms, perhaps in another
+    order); ``bilinear_sample`` against the autograd of its plain version
+    in f32: out 1e-4, d(v) 1e-4 in f32 and 1e-2 for a bf16 map, d(sx) and
+    d(sy) 1e-4 and 1e-3. Every backward runs twice and must return the same
+    bits. ``grid_sample`` computes ``bilinear_sample``'s function and is
+    timed beside it; its f32 output must agree within 1e-4."""
+    import torch
+    import torch.nn.functional as F
+    from robust_object_detection_tpu_torch.ops import deform as DF
+
+    g = torch.Generator(dev).manual_seed(SEED + 5)
+    results = {}
+    tag = "[sorted-kernels]"
+    q_train = RTDETR_QUERIES + 2 * 2 * 32
+
+    fwd, bwd = {}, {}
+    for shapes, b, q, heads, dh, pts in (
+            (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
+             RTDETR_POINTS),
+            (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
+             RTDETR_DH, RTDETR_POINTS),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+        values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
+                                          dev)
+        dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
+        hw = values.shape[1]
+        timed = q == q_train
+        if timed:
+            rows, taps = touched_rows(DF, loc, shapes, hw, heads)
+            # the library's sort alone, on this run's keys
+            idx, _ = DF.tap_geometry(loc, shapes)
+            t = q * len(shapes) * pts * 4
+            sb = (t - 1).bit_length()
+            keys = ((idx.permute(0, 2, 1, 3, 4, 5).reshape(b * heads, t)
+                     << sb) | torch.arange(t, device=dev)).int()
+            sort_ms = time_ms(lambda: torch.sort(keys, dim=-1))
+            print(f"{tag} torch.sort alone on the int32 keys "
+                  f"{tuple(keys.shape)}: {sort_ms} ms")
+            del idx, keys
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            name = str(dtype).split(".")[-1]
+            elt = esize(dtype)
+            vd = values.to(dtype)
+            ltol = 1e-4 if dtype == torch.float32 else 1e-3
+            ref = DF.ms_deform_attn_ref(vd.float(), shapes, loc, attn)
+            rdv, rdloc, rdattn = DF.ms_deform_attn_backward_ref(
+                vd.float(), shapes, loc, attn, dout)
+            for transposed in (False, True):
+                layout = "values_t" if transposed else "values"
+                entry = DF.ms_deform_attn_t if transposed \
+                    else DF.ms_deform_attn
+                given = DF.values_to_t(vd) if transposed else vd
+                log = []
+                out = entry(given, shapes, loc, attn)
+                require(out.dtype == torch.float32, "K5-g2 out is not f32")
+                ferr = check(f"ms_deform_attn_sorted {layout} {name} levels "
+                             f"{shapes} Q {q}", out, ref, 1e-4, log)
+                grads = DF.ms_deform_attn_sorted_backward(
+                    given, shapes, loc, attn, dout, transposed)
+                require(grads[0].dtype == dtype
+                        and grads[0].shape == given.shape,
+                        "K5-g2 d(values) is not in values' dtype and layout")
+                dv = DF.values_from_t(grads[0]) if transposed else grads[0]
+                berr = max(check(f"bwd d(values) {name}", dv, rdv, tol, log),
+                           check(f"d(loc) {name}", grads[1], rdloc, ltol,
+                                 log),
+                           check(f"d(attn) {name}", grads[2], rdattn, ltol,
+                                 log))
+                again = DF.ms_deform_attn_sorted_backward(
+                    given, shapes, loc, attn, dout, transposed)
+                require(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                        f"K5-g2 backward ({layout}, {name}) is not "
+                        f"deterministic")
+                del out, grads, again, dv
+                if not timed:
+                    print(f"{tag} {'; '.join(log)}; second backward: "
+                          f"identical bits")
+                    continue
+                ms = time_ms(lambda: entry(given, shapes, loc, attn))
+                bms = time_ms(lambda: DF.ms_deform_attn_sorted_backward(
+                    given, shapes, loc, attn, dout, transposed))
+                print(f"{tag} {'; '.join(log)}; second backward: identical "
+                      f"bits; forward kernel {ms} ms; backward {bms} ms "
+                      f"(taps kernel + torch.sort + d(values) kernel)")
+                if transposed:
+                    continue
+                plain_ms = time_ms(lambda: DF.ms_deform_attn_ref(
+                    vd, shapes, loc, attn))
+                bplain = time_ms(lambda: DF.ms_deform_attn_backward_ref(
+                    vd, shapes, loc, attn, dout))
+                print(f"{tag} {name} plain forward {plain_ms} ms "
+                      f"(torch.gather + elementwise), plain backward "
+                      f"{bplain} ms (gather + index_add_); {taps} in-map "
+                      f"taps touch {rows} distinct rows of {dh * elt} bytes")
+                io = (loc.numel() + attn.numel() + dout.numel()) * 4
+                fwd[name] = dict(max_abs_err=ferr, ms=ms, plain_ms=plain_ms,
+                                 **work(name, rows * dh * elt + io,
+                                        2 * taps * dh))
+                bwd[name] = dict(
+                    max_abs_err=berr, ms=bms, plain_ms=bplain,
+                    **work(name, (rows * dh + values.numel()) * elt + 2 * io
+                           - dout.numel() * 4, 4 * taps * dh))
+            del vd, ref, rdv, rdloc, rdattn
+        del values, loc, attn, dout
+    results["ms_deform_attn_sorted"] = fwd
+    results["ms_deform_attn_sorted_bwd"] = bwd
+    torch.cuda.empty_cache()
+
+    # K5-g1, one level at a time: the three RT-DETR-L levels at 428 and 300
+    # queries (T = Q * 4 points * 4 taps), and (6, 10) with 7 queries
+    stamp = {}
+    cases = [(BATCH, q, RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS, h, w)
+             for q in (q_train, RTDETR_QUERIES) for h, w in RTDETR_LEVELS]
+    for b, q, heads, dh, pts, h, w in cases + [(2, 7, 3, 32, 2, 6, 10)]:
+        hw = h * w
+        sx = torch.rand(b, q, heads, pts, device=dev, generator=g) \
+            * (w * 1.2) - 0.1 * w - 0.5
+        sy = torch.rand(b, q, heads, pts, device=dev, generator=g) \
+            * (h * 1.2) - 0.1 * h - 0.5
+        idx = DF.tap_geometry(
+            torch.stack([(sx + 0.5) / w, (sy + 0.5) / h], -1)[:, :, :, None],
+            ((h, w),))[0]                              # (B,Q,heads,1,P,4)
+        idx = idx.permute(0, 2, 1, 3, 4, 5).reshape(b, heads, -1).int()
+        t = idx.shape[-1]
+        gw = torch.randn(b, heads, dh, t, device=dev, generator=g)
+        log = []
+        dv = DF.stamp_scatter(idx, gw, hw)
+        err = check(f"stamp_scatter f32 hw {hw} T {t} rows {b * heads}", dv,
+                    DF.stamp_scatter_ref(idx, gw, hw), 1e-4, log)
+        require(torch.equal(DF.stamp_scatter(idx, gw, hw), dv),
+                "K5-g1 is not deterministic")
+        wide = idx.long()[:, :, None, :].expand(-1, -1, dh, -1)
+
+        def library():
+            return torch.zeros(b, heads, dh, hw, device=dev).scatter_add_(
+                3, wide, gw)
+        check("scatter_add_", library(), dv, 1e-4, log)
+
+        # bilinear_sample's three gradients through the kernel
+        v = torch.randn(b, h, w, heads, dh, device=dev, generator=g)
+        cot = torch.randn(b, q, heads, pts, dh, device=dev, generator=g)
+        level_ms = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            name = str(dtype).split(".")[-1]
+            stol = 1e-4 if dtype == torch.float32 else 1e-3
+            leaves = [x.clone().requires_grad_()
+                      for x in (v.to(dtype), sx, sy)]
+            refs = [x.clone().requires_grad_()
+                    for x in (v.to(dtype).float(), sx, sy)]
+            out = DF.bilinear_sample(*leaves)
+            rout = DF.bilinear_sample_ref(*refs)
+            grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            rgrads = torch.autograd.grad(rout, refs, cot)
+            check(f"bilinear_sample {name} out", out, rout.detach(), 1e-4,
+                  log)
+            check(f"d(v) {name}", grads[0], rgrads[0], tol, log)
+            check(f"d(sx) {name}", grads[1], rgrads[1], stol, log)
+            check(f"d(sy) {name}", grads[2], rgrads[2], stol, log)
+            again = torch.autograd.grad(out, leaves, cot)
+            require(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                    f"bilinear_sample's backward ({name}) is not "
+                    f"deterministic")
+            lib_out = grid_sample_level(F, leaves[0], sx, sy)
+            if dtype == torch.float32:
+                check("grid_sample f32 out", lib_out, rout.detach(), 1e-4,
+                      log)
+            if q == q_train:
+                def ours():
+                    o = DF.bilinear_sample(*leaves)
+                    return torch.autograd.grad(o, leaves, cot)
+
+                def theirs():
+                    o = grid_sample_level(F, leaves[0], leaves[1], leaves[2])
+                    return torch.autograd.grad(o, leaves, cot.to(o.dtype))
+                level_ms[name] = (time_ms(ours), time_ms(theirs))
+            del leaves, refs, out, rout, grads, rgrads, again, lib_out
+        if q != q_train:
+            print(f"{tag} {'; '.join(log)}; second runs: identical bits")
+            continue
+        ms = time_ms(lambda: DF.stamp_scatter(idx, gw, hw))
+        plain_ms = time_ms(lambda: DF.stamp_scatter_ref(idx, gw, hw))
+        lib_ms = time_ms(library)
+        print(f"{tag} {'; '.join(log)}; second runs: identical bits; "
+              f"stamp_scatter {ms} ms (key packing + torch.sort + kernel) "
+              f"plain {plain_ms} ms (index_add_ with its layout copies) "
+              f"library {lib_ms} ms (zeros + scatter_add_); bilinear_sample "
+              f"forward + backward vs grid_sample forward + backward, ms: "
+              f"{level_ms}")
+        if hw == RTDETR_LEVELS[0][0] * RTDETR_LEVELS[0][1]:
+            stamp["float32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **work("float32", (idx.numel() + gw.numel() + dv.numel()) * 4,
+                       gw.numel(), lib_ms))
+        del idx, gw, dv, wide, v, cot
+    results["stamp_scatter"] = stamp
+    torch.cuda.empty_cache()
+
+    # the new wrappers refuse CUDA tensors they do not take
+    shapes = ((4, 4), (2, 2))
+    values, loc, attn = deform_inputs(g, shapes, 1, 3, 2, 8, 2, dev)
+    idx = torch.zeros(1, 2, 5, dtype=torch.int32, device=dev)
+    gw = torch.zeros(1, 2, 8, 5, device=dev)
+    counters = (DF.ms_deform_attn_sorted_forward,
+                DF.ms_deform_attn_sorted_backward, DF.stamp_scatter)
+    bad = (lambda: DF.ms_deform_attn(values.half(), shapes, loc, attn),
+           lambda: DF.ms_deform_attn_t(values, shapes, loc, attn),
+           lambda: DF.ms_deform_attn_t(values.permute(0, 2, 3, 1), shapes,
+                                       loc, attn),
+           lambda: DF.ms_deform_attn(values, ((4, 4), (2, 3)), loc, attn),
+           lambda: DF.ms_deform_attn_sorted_backward(values, shapes, loc,
+                                                     attn, values[:, :2]),
+           lambda: DF.stamp_scatter(idx, gw.double(), 16),
+           lambda: DF.stamp_scatter(idx[:, :, :4], gw, 16),
+           lambda: DF.stamp_scatter(idx.cpu(), gw, 16),
+           lambda: DF.bilinear_sample(values.reshape(1, 4, 5, 2, 8),
+                                      loc[..., 0, :, 0].double(),
+                                      loc[..., 0, :, 1]))
+    require_refused("sorted-kernels", bad, counters)
+    torch.cuda.synchronize()
+    return results
+
+
+DECODER_LAYERS = 6
+
+
+def phase_deform_generations(dev):
+    """The RT-DETR-L decoder's sampling workload (6 layers, batch 8, 428
+    queries, 8 heads x 32, 3 levels x 4 points) through the public entry
+    point of each earlier generation, forward and backward: ms_deform_attn,
+    ms_deform_attn_t and the per-level composition over bilinear_sample.
+    Every output and gradient is held against ms_deform_attn_slots (K5) on
+    the same inputs: f32 within 1e-4 x max|ref|; bf16 values at K5's bf16
+    bar, out 1e-2 (K5 rounds its out to bf16, these return f32), d(values)
+    2e-2 (two bf16 roundings of f32 sums taken in another order), d(loc)
+    and d(attn) 1e-3. Returns the launch counts of the run."""
+    import torch
+    from robust_object_detection_tpu_torch.ops import deform as DF
+
+    shapes = RTDETR_LEVELS
+    b, q, heads, dh, pts = (RTDETR_TRAIN_BATCH, RTDETR_QUERIES + 2 * 2 * 32,
+                            RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS)
+    counters = {"ms_deform_attn_sorted": DF.ms_deform_attn_sorted_forward,
+                "ms_deform_attn_sorted_bwd":
+                    DF.ms_deform_attn_sorted_backward,
+                "stamp_scatter": DF.stamp_scatter}
+    total = {k: 0 for k in counters}
+
+    def per_level(values, loc, attn):
+        out, off = 0, 0
+        for l, (h, w) in enumerate(shapes):
+            v = values[:, off:off + h * w].reshape(b, h, w, heads, dh)
+            sampled = DF.bilinear_sample(v, loc[..., l, :, 0] * w - 0.5,
+                                         loc[..., l, :, 1] * h - 0.5)
+            out = out + (sampled * attn[..., l, :, None]).sum(-2)
+            off += h * w
+        return out
+
+    generations = (
+        ("ms_deform_attn", lambda v: v, lambda d: d,
+         lambda v, l, a: DF.ms_deform_attn(v, shapes, l, a)),
+        ("ms_deform_attn_t", DF.values_to_t, DF.values_from_t,
+         lambda v, l, a: DF.ms_deform_attn_t(v, shapes, l, a)),
+        ("bilinear_sample x 3 levels", lambda v: v, lambda d: d, per_level))
+
+    def slots(v, l, a):
+        return DF.ms_deform_attn_slots(v, shapes, l, a)
+
+    def leaves_of(values, loc, attn):
+        return [t.clone().requires_grad_() for t in (values, loc, attn)]
+
+    def run(fn, leaves, dout):
+        out = fn(*leaves)
+        out.backward(dout.to(out.dtype))
+        return [out.detach()] + [t.grad for t in leaves]
+
+    def timed_layers(fn, lay, layers):
+        """fn forward + backward on every layer: (results, ms per call);
+        the leaves are laid out and cloned before the clock starts."""
+        todo = [(leaves_of(lay(v), l, a), d) for v, l, a, d in layers]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [run(fn, leaves, d) for leaves, d in todo]
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t0) * 1e3 / len(layers)
+
+    for dtype, tols in ((torch.bfloat16, (1e-2, 2e-2, 1e-3, 1e-3)),
+                        (torch.float32, (1e-4,) * 4)):
+        name = str(dtype).split(".")[-1]
+        g = torch.Generator(dev).manual_seed(SEED + 6)
+        layers = []
+        for _ in range(DECODER_LAYERS):
+            values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh,
+                                              pts, dev)
+            dout = torch.randn(b, q, heads, dh, device=dev,
+                               generator=g).to(dtype)
+            layers.append((values.to(dtype), loc, attn, dout))
+        del values
+        # every generation and the yardstick once at full depth, off the
+        # count: the allocator then holds the blocks the counted run needs
+        for _, lay, _, fn in generations + (("", lambda v: v, None, slots),):
+            timed_layers(fn, lay, layers)
+        # the yardstick (K5) on the same inputs, before the count starts
+        refs, k5_ms = timed_layers(slots, lambda v: v, layers)
+
+        for f in counters.values():
+            f.launches = 0
+        outs, ms = {}, {}
+        for gen, lay, unlay, fn in generations:
+            got, ms[gen] = timed_layers(fn, lay, layers)
+            outs[gen] = [[o, unlay(dv), dl, da] for o, dv, dl, da in got]
+            del got
+        launches = {k: f.launches for k, f in counters.items()}
+        expect = {"ms_deform_attn_sorted": 2 * DECODER_LAYERS,
+                  "ms_deform_attn_sorted_bwd": 2 * DECODER_LAYERS,
+                  "stamp_scatter": len(shapes) * DECODER_LAYERS}
+        print(f"[generations] {name}: launches {launches} expected {expect}")
+        require(launches == expect, f"launch counts {launches} != {expect}")
+        for k, n in launches.items():
+            total[k] += n
+
+        ms["ms_deform_attn_slots (K5)"] = k5_ms
+        for gen, got in outs.items():
+            log = []
+            for layer_out, layer_ref in zip(got, refs):
+                require(layer_out[0].dtype == torch.float32
+                        and layer_out[1].dtype == dtype,
+                        f"{gen}: out must be f32 and d(values) {name}")
+                for what, o, r, tol in zip(("out", "d(values)", "d(loc)",
+                                            "d(attn)"), layer_out, layer_ref,
+                                           tols):
+                    require(bool(torch.isfinite(o).all()),
+                            f"{gen} {what} is not finite")
+                    check(f"{what}", o, r.float(), tol, log)
+            print(f"[generations] {name} {gen} vs K5, layer 0: "
+                  f"{'; '.join(log[:4])}; {DECODER_LAYERS} layers passed")
+        print(f"[generations] {name} values {tuple(layers[0][0].shape)} Q "
+              f"{q}: ms per forward + backward call (host clock over "
+              f"{DECODER_LAYERS} calls): {ms}")
+        del layers, refs, outs
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1602,9 +1994,12 @@ def main() -> int:
     kres.update(phase_rtdetr_train_kernels(dev))
     phase_rtdetr_train_model_check(dev)
     rtdetr_train_launches = phase_rtdetr_training(dev)
+    kres.update(phase_sorted_kernels(dev))
+    generation_launches = phase_deform_generations(dev)
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
-    for path in (train_launches, rtdetr_launches, rtdetr_train_launches):
+    for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
+                 generation_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 
@@ -1630,7 +2025,13 @@ def main() -> int:
              "bfloat16"),
             ("ms_deform_attn_bwd", "ms_deform_attn.cu", "deform.py:901",
              "bfloat16"),
-            ("auction", "auction.cu", "assignment.py:113", "float32")):
+            ("auction", "auction.cu", "assignment.py:113", "float32"),
+            ("ms_deform_attn_sorted", "ms_deform_attn_sorted.cu",
+             "deform.py:398", "bfloat16"),
+            ("ms_deform_attn_sorted_bwd", "ms_deform_attn_sorted.cu",
+             "deform.py:524", "bfloat16"),
+            ("stamp_scatter", "stamp_scatter.cu", "deform.py:170",
+             "float32")):
         r = kres[name][dtype]
         bound_ms, bound_by = bound(r)
         summary.append({"name": name, "route": "cuda", "source": src + source,

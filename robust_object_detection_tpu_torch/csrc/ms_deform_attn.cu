@@ -54,16 +54,9 @@
 // the dV buffer (B x HW x NH x DH x 4 bytes) on top of the gathered rows.
 
 #include "conv_tile.cuh"
+#include "deform_levels.cuh"
 
 namespace rodt {
-
-constexpr int MAX_LEVELS = 4;
-
-struct Levels {
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
-};
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -230,16 +223,6 @@ inline int launch_ms_deform_bwd(const void* values, const void* loc,
       static_cast<float*>(dv), static_cast<float*>(dloc),
       static_cast<float*>(dattn), lv, n_warps, HW, Q, NH, DH, L, P);
   return static_cast<int>(cudaGetLastError());
-}
-
-inline bool fill_levels(Levels& lv, const int* levels, int L) {
-  if (L <= 0 || L > MAX_LEVELS) return false;
-  for (int l = 0; l < MAX_LEVELS; ++l) {
-    lv.h[l] = l < L ? levels[3 * l] : 1;
-    lv.w[l] = l < L ? levels[3 * l + 1] : 1;
-    lv.start[l] = l < L ? levels[3 * l + 2] : 0;
-  }
-  return true;
 }
 
 template <typename T>

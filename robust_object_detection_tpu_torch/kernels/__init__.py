@@ -75,6 +75,17 @@ SIGNATURES: Dict[str, List] = {
     # value (B, M, Q), valid, owner, capped, B, Q, M, eps, max_rounds,
     # complete_greedy, stream
     "auction_assign": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
+    # keys (sorted), gw, dv, rows, T, HW, DH, sb, key_bytes, stream
+    "stamp_scatter_sorted": [_P] * 3 + [_I] * 6 + [_P],
+    # values, loc, attn, out (f32), levels, B, HW, Q, NH, DH, L, P, dtype,
+    # transposed, stream
+    "ms_deform_attn_sorted_fwd": [_P] * 5 + [_I] * 9 + [_P],
+    # values, loc, attn, dout, dloc, dattn, keys, coef, levels, B, HW, Q, NH,
+    # DH, L, P, dtype, transposed, sb, key_bytes, stream
+    "ms_deform_attn_sorted_taps": [_P] * 9 + [_I] * 11 + [_P],
+    # keys (sorted), coef, dout, dv, B, HW, Q, NH, DH, taps_per_q, dtype,
+    # transposed, sb, key_bytes, stream
+    "ms_deform_attn_sorted_dvalues": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

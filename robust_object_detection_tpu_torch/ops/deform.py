@@ -22,6 +22,25 @@ Both versions sum in f32 and return values' dtype (one rounding). The
 kernel's d(values) is summed with f32 atomics into a zeroed f32 buffer and
 cast once, so its last bits vary from run to run; d(loc) and d(attn) use
 no atomics and are the same bits for any query order.
+
+The two earlier generations of the reference's op family are here too, with
+the reference's signatures and layouts:
+
+* :func:`bilinear_sample` (one level, pixel coordinates) with the
+  reference's custom backward: the forward and d(sx), d(sy) are gathers and
+  elementwise products, d(v) is :func:`stamp_scatter` (K5-g1,
+  ``csrc/stamp_scatter.cu``; plain version :func:`stamp_scatter_ref`);
+* :func:`ms_deform_attn` (values (B, HW, heads, dh)) and
+  :func:`ms_deform_attn_t` (values_t (B, heads, dh, HW)), the sorted-tap
+  generation (K5-g2, ``csrc/ms_deform_attn_sorted.cu``). They return f32
+  whatever values' dtype. Their backward sorts the taps by destination cell
+  (one ``torch.sort`` of packed keys) and sums d(values) segment by segment
+  in a fixed order: no atomics, the same bits on every run, in values' dtype
+  and layout. Plain versions: :func:`ms_deform_attn_ref` in f32 and
+  :func:`ms_deform_attn_backward_ref`.
+
+On CPU tensors every entry point runs its plain version; on CUDA tensors it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -36,12 +55,40 @@ from .. import kernels
 MAX_LEVELS = 4     # csrc/ms_deform_attn.cu: MAX_LEVELS, and L * P <= 32
 
 
-def tap_geometry(loc: torch.Tensor, shapes: Sequence[Tuple[int, int]]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """loc (B, Q, heads, L, P, 2) f32 -> (idx int64, weight f32), each (B,
-    Q, heads, L, P, 4): the flat cell index over the merged HW axis (level
-    offsets applied, clipped into the level) and the bilinear weight (0
-    outside) of the four taps (``_geometry_batched``)."""
+def _pixel_taps(sx: torch.Tensor, sy: torch.Tensor, h, w):
+    """The four bilinear taps around pixel coordinates (sx, sy) of a map of
+    h rows and w columns (numbers, or f32 tensors that broadcast against
+    sx). Returns (idx int64, weight, dweight/dsx, dweight/dsy), each sx's
+    shape + (4,): the cell y * w + x clipped into the map, and the weight
+    and both derivatives 0 for a tap outside it (``_tap_geometry``)."""
+    h = torch.as_tensor(h, dtype=torch.float32, device=sx.device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=sx.device)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    taps = ((x0, y0, (1 - fx) * (1 - fy), -(1 - fy), -(1 - fx)),
+            (x0 + 1, y0, fx * (1 - fy), 1 - fy, -fx),
+            (x0, y0 + 1, (1 - fx) * fy, -fy, 1 - fx),
+            (x0 + 1, y0 + 1, fx * fy, fy, fx))
+    idxs, wgts, dxs, dys = [], [], [], []
+    for xi, yi, wgt, dwx, dwy in taps:
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        xi_c = torch.minimum(xi.clamp(min=0), w - 1).long()
+        yi_c = torch.minimum(yi.clamp(min=0), h - 1).long()
+        idxs.append(yi_c * w.long() + xi_c)
+        zero = torch.zeros_like(wgt)
+        wgts.append(torch.where(inside, wgt, zero))
+        dxs.append(torch.where(inside, dwx, zero))
+        dys.append(torch.where(inside, dwy, zero))
+    return (torch.stack(idxs, -1), torch.stack(wgts, -1),
+            torch.stack(dxs, -1), torch.stack(dys, -1))
+
+
+def tap_geometry_full(loc: torch.Tensor, shapes: Sequence[Tuple[int, int]]):
+    """loc (B, Q, heads, L, P, 2) f32 -> (idx int64, weight, dwx, dwy), each
+    (B, Q, heads, L, P, 4): the flat cell index over the merged HW axis
+    (level offsets applied, clipped into the level), the bilinear weight of
+    the four taps and its derivatives by the level's PIXEL coordinates, all
+    three 0 for a tap outside (``_merged_geometry``)."""
     dev = loc.device
     w_l = torch.tensor([w for _, w in shapes], dtype=torch.float32,
                        device=dev)[:, None]
@@ -54,18 +101,37 @@ def tap_geometry(loc: torch.Tensor, shapes: Sequence[Tuple[int, int]]
     off_l = torch.tensor(starts, dtype=torch.int64, device=dev)[:, None, None]
     sx = loc[..., 0] * w_l - 0.5                       # (B, Q, heads, L, P)
     sy = loc[..., 1] * h_l - 0.5
-    x0, y0 = torch.floor(sx), torch.floor(sy)
-    fx, fy = sx - x0, sy - y0
-    taps = ((x0, y0, (1 - fx) * (1 - fy)), (x0 + 1, y0, fx * (1 - fy)),
-            (x0, y0 + 1, (1 - fx) * fy), (x0 + 1, y0 + 1, fx * fy))
-    idxs, wgts = [], []
-    for xi, yi, wgt in taps:
-        inside = (xi >= 0) & (xi < w_l) & (yi >= 0) & (yi < h_l)
-        xi_c = torch.minimum(xi.clamp(min=0), w_l - 1).long()
-        yi_c = torch.minimum(yi.clamp(min=0), h_l - 1).long()
-        idxs.append(yi_c * w_l.long() + xi_c)
-        wgts.append(torch.where(inside, wgt, torch.zeros_like(wgt)))
-    return torch.stack(idxs, -1) + off_l, torch.stack(wgts, -1)
+    idx, wgt, dwx, dwy = _pixel_taps(sx, sy, h_l, w_l)
+    return idx + off_l, wgt, dwx, dwy
+
+
+def tap_geometry(loc: torch.Tensor, shapes: Sequence[Tuple[int, int]]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (idx, weight) of :func:`tap_geometry_full`
+    (``_geometry_batched``)."""
+    return tap_geometry_full(loc, shapes)[:2]
+
+
+def _gather_taps(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values (B, HW, heads, dh), idx (B, Q, heads, N) cells -> the rows
+    values[b, idx, head] as (B, Q, heads, N, dh)."""
+    b, hw, n_h, dh = values.shape
+    q = idx.shape[1]
+    heads = torch.arange(n_h, device=values.device)[None, None, :, None]
+    gidx = (idx * n_h + heads).reshape(b, -1)
+    g = torch.gather(values.reshape(b, hw * n_h, dh), 1,
+                     gidx[..., None].expand(-1, -1, dh))
+    return g.reshape(b, q, n_h, -1, dh)
+
+
+def _ref_sum(values, shapes, loc, attn) -> torch.Tensor:
+    """The plain version's f32 sum, (B, Q, heads, dh)."""
+    b, _, n_h, _ = values.shape
+    q = loc.shape[1]
+    idx, w = tap_geometry(loc.float(), shapes)         # (B,Q,heads,L,P,4)
+    c = w * attn.float()[..., None]
+    g = _gather_taps(values, idx.reshape(b, q, n_h, -1)).float()
+    return (g * c.reshape(b, q, n_h, -1, 1)).sum(3)
 
 
 def ms_deform_attn_ref(values: torch.Tensor,
@@ -74,26 +140,52 @@ def ms_deform_attn_ref(values: torch.Tensor,
     """Plain version: gather the taps' rows, weight, sum. values (B, HW,
     heads, dh); loc (B, Q, heads, L, P, 2); attn (B, Q, heads, L, P) ->
     (B, Q, heads, dh) in values' dtype."""
+    return _ref_sum(values, shapes, loc, attn).to(values.dtype)
+
+
+def ms_deform_attn_backward_ref(values, shapes, loc, attn, dout):
+    """Plain version of the backward, written out as the kernels compute it
+    (``_tpu_bwd_core``): the per-tap scalars s = <dout[q], values[cell]>
+    give d(attn) = sum_tap s * weight and d(loc) = attn * sum_tap s *
+    (dwx * W_l, dwy * H_l); d(values) adds dout[q] * attn * weight into each
+    tap's cell with ``index_add_``. values (B, HW, heads, dh), dout (B, Q,
+    heads, dh) -> (d values in values' dtype, d loc f32, d attn f32)."""
     b, hw, n_h, dh = values.shape
     q = loc.shape[1]
-    idx, w = tap_geometry(loc.float(), shapes)         # (B,Q,heads,L,P,4)
-    c = w * attn.float()[..., None]
+    idx, w, dwx, dwy = tap_geometry_full(loc.float(), shapes)
+    flat_idx = idx.reshape(b, q, n_h, -1)
+    dout = dout.float()
+    taps = _gather_taps(values, flat_idx).float()      # (B,Q,heads,LP4,dh)
+    s = (taps * dout[:, :, :, None, :]).sum(-1).reshape(idx.shape)
+    dattn = (s * w).sum(-1)
+    ds = s * attn.float()[..., None]
+    scale = torch.tensor([(w_, h_) for h_, w_ in shapes],
+                         dtype=torch.float32, device=values.device)
+    dloc = torch.stack([(ds * dwx).sum(-1), (ds * dwy).sum(-1)], -1) \
+        * scale[:, None, :]
+    c = (w * attn.float()[..., None]).reshape(b, q, n_h, -1, 1)
     heads = torch.arange(n_h, device=values.device)[None, None, :, None]
-    flat = values.reshape(b, hw * n_h, dh)
-    gidx = (idx.reshape(b, q, n_h, -1) * n_h + heads).reshape(b, -1)
-    g = torch.gather(flat, 1, gidx[..., None].expand(-1, -1, dh))
-    g = g.reshape(b, q, n_h, -1, dh).float()           # (B,Q,heads,LP4,dh)
-    out = (g * c.reshape(b, q, n_h, -1, 1)).sum(3)
-    return out.to(values.dtype)
+    batch = torch.arange(b, device=values.device)[:, None, None, None]
+    rows = ((batch * hw + flat_idx) * n_h + heads).reshape(-1)
+    dv = torch.zeros(b * hw * n_h, dh, dtype=torch.float32,
+                     device=values.device)
+    dv.index_add_(0, rows, (dout[:, :, :, None, :] * c).reshape(-1, dh))
+    return dv.reshape(values.shape).to(values.dtype), dloc, dattn
 
 
-def _check(values, shapes, loc, attn) -> None:
+def _check(values, shapes, loc, attn, transposed: bool = False) -> None:
+    """Raises on what the kernels do not take. transposed: values is the
+    (B, heads, dh, HW) layout of :func:`ms_deform_attn_t`."""
     if values.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
-        raise ValueError(f"ms_deform_attn takes values (B,HW,heads,dh), loc "
+        layout = "(B,heads,dh,HW)" if transposed else "(B,HW,heads,dh)"
+        raise ValueError(f"ms_deform_attn takes values {layout}, loc "
                          f"(B,Q,heads,L,P,2) and attn (B,Q,heads,L,P), got "
                          f"{tuple(values.shape)}, {tuple(loc.shape)}, "
                          f"{tuple(attn.shape)}")
-    b, hw, n_h, _ = values.shape
+    if transposed:
+        b, n_h, _, hw = values.shape
+    else:
+        b, hw, n_h, _ = values.shape
     n_l, n_p = loc.shape[3], loc.shape[4]
     if (loc.shape[0] != b or loc.shape[2] != n_h or loc.shape[5] != 2
             or tuple(attn.shape) != tuple(loc.shape[:5])):
@@ -218,3 +310,283 @@ def ms_deform_attn_slots(values: torch.Tensor,
 
 
 ms_deform_attn_slots.launches = 0
+
+
+# ── generation 1: one level's bilinear sampling, d(v) by stamp scatter ────
+
+
+def stamp_scatter_ref(idx: torch.Tensor, gw: torch.Tensor, hw: int
+                      ) -> torch.Tensor:
+    """Plain version of :func:`stamp_scatter`: ``index_add_`` of every
+    tap's column into its cell."""
+    b, n_h, dh, t = gw.shape
+    rows = torch.arange(b * n_h, device=gw.device).reshape(b, n_h, 1)
+    out = torch.zeros(b * n_h * hw, dh, dtype=torch.float32, device=gw.device)
+    out.index_add_(0, (rows * hw + idx.long()).reshape(-1),
+                   gw.float().permute(0, 1, 3, 2).reshape(-1, dh))
+    return out.reshape(b, n_h, hw, dh).permute(0, 1, 3, 2).contiguous()
+
+
+def _sort_bits(t: int, cells: int):
+    """(sb, key dtype) of the packed sort keys (cell << sb) | position for
+    t taps over `cells` cells: int32 where it fits, as ``_sorted_taps``
+    packs them, else int64."""
+    sb = max(1, (t - 1).bit_length())
+    return sb, torch.int32 if (cells << sb) < 2 ** 31 else torch.int64
+
+
+def stamp_scatter(idx: torch.Tensor, gw: torch.Tensor, hw: int
+                  ) -> torch.Tensor:
+    """idx (B, heads, T) int32 or int64 cells in [0, hw); gw (B, heads, dh,
+    T) f32. Returns dv (B, heads, dh, hw) f32 with dv[b, h, :, c] the sum of
+    gw[b, h, :, t] over the taps t with idx[b, h, t] == c, taken in the
+    order of t (``_stamp_scatter``). On CUDA tensors: one ``torch.sort`` of
+    the keys (cell, t), then K5-g1, which writes every cell once; two runs
+    give the same bits."""
+    if idx.dim() != 3 or gw.dim() != 4 or hw <= 0 or 0 in gw.shape or (
+            tuple(idx.shape) != (gw.shape[0], gw.shape[1], gw.shape[3])):
+        raise ValueError(f"stamp_scatter takes idx (B,heads,T), gw "
+                         f"(B,heads,dh,T) and hw > 0, got "
+                         f"{tuple(idx.shape)}, {tuple(gw.shape)}, hw {hw}")
+    if idx.dtype not in (torch.int32, torch.int64) \
+            or gw.dtype != torch.float32:
+        raise ValueError(f"stamp_scatter takes int32 or int64 idx and "
+                         f"float32 gw, got {idx.dtype}, {gw.dtype}")
+    if idx.device != gw.device or gw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"stamp_scatter: idx and gw must be on one cpu or "
+                         f"cuda device, got {idx.device}, {gw.device}")
+    if not (idx.is_contiguous() and gw.is_contiguous()):
+        raise ValueError("stamp_scatter takes contiguous tensors")
+    if gw.device.type == "cpu":
+        return stamp_scatter_ref(idx, gw, hw)
+    b, n_h, dh, t = gw.shape
+    sb, kdtype = _sort_bits(t, hw)
+    pos = torch.arange(t, dtype=kdtype, device=gw.device)
+    keys = torch.sort((idx.to(kdtype) << sb) | pos, dim=-1).values
+    dv = torch.empty((b, n_h, dh, hw), dtype=torch.float32, device=gw.device)
+    lib = kernels.load()
+    with torch.cuda.device(gw.device):
+        err = lib.stamp_scatter_sorted(
+            keys.data_ptr(), gw.data_ptr(), dv.data_ptr(), b * n_h, t, hw,
+            dh, sb, keys.element_size(), kernels.stream_ptr(gw.device))
+    kernels.check(err, "stamp_scatter_sorted")
+    stamp_scatter.launches += 1
+    return dv
+
+
+stamp_scatter.launches = 0
+
+
+def _level_taps(v, sx, sy):
+    """(idx, weight, dwx, dwy, tap rows) of one level: the first four (B,
+    Q, heads, P, 4), the rows (B, Q, heads, P, 4, dh) f32."""
+    b, h, w, n_h, dh = v.shape
+    geo = _pixel_taps(sx.float(), sy.float(), h, w)
+    taps = _gather_taps(v.reshape(b, h * w, n_h, dh), geo[0].flatten(3))
+    return (*geo, taps.float().reshape(*geo[0].shape, dh))
+
+
+def bilinear_sample_ref(v, sx, sy) -> torch.Tensor:
+    """Plain version of :func:`bilinear_sample`: the same gather and
+    weights in f32 with no custom backward (autograd differentiates the
+    gather), (B, Q, heads, P, dh) float32."""
+    _, wgt, _, _, taps = _level_taps(v, sx, sy)
+    return (taps * wgt[..., None]).sum(-2)
+
+
+class _BilinearSample(torch.autograd.Function):
+    """The reference's custom VJP (``_fwd_rule`` / ``_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, v, sx, sy):
+        ctx.save_for_backward(v, sx, sy)
+        return bilinear_sample_ref(v, sx, sy).to(torch.result_type(v, sx))
+
+    @staticmethod
+    def backward(ctx, g):
+        v, sx, sy = ctx.saved_tensors
+        b, h, w, n_h, dh = v.shape
+        idx, wgt, dwx, dwy, taps = _level_taps(v, sx, sy)
+        g = g.float()
+        gd = (g[..., None, :] * taps).sum(-1)           # (B,Q,heads,P,4)
+        dsx = (gd * dwx).sum(-1).to(sx.dtype)
+        dsy = (gd * dwy).sum(-1).to(sy.dtype)
+        if not ctx.needs_input_grad[0]:
+            return None, dsx, dsy
+        # d(v): the cotangent times each tap's weight, stamped per head
+        gw = g[..., None, :] * wgt[..., None]           # (B,Q,heads,P,4,dh)
+        idx_t = idx.permute(0, 2, 1, 3, 4).reshape(b, n_h, -1)
+        gw_t = gw.permute(0, 2, 5, 1, 3, 4).reshape(b, n_h, dh, -1)
+        dv = stamp_scatter(idx_t.int().contiguous(), gw_t.contiguous(), h * w)
+        dv = dv.permute(0, 3, 1, 2).reshape(b, h, w, n_h, dh)
+        return dv.to(v.dtype), dsx, dsy
+
+
+def bilinear_sample(v: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor
+                    ) -> torch.Tensor:
+    """v (B, H, W, heads, dh) f32 or bf16; sx, sy (B, Q, heads, P) f32 pixel
+    coordinates. Returns (B, Q, heads, P, dh), zero outside the map.
+    Differentiable in all three; d(v) goes through :func:`stamp_scatter`
+    (K5-g1 on CUDA tensors)."""
+    if v.dim() != 5 or sx.dim() != 4 or sx.shape != sy.shape or (
+            (sx.shape[0], sx.shape[2]) != (v.shape[0], v.shape[3])) \
+            or 0 in v.shape or 0 in sx.shape:
+        raise ValueError(f"bilinear_sample takes v (B,H,W,heads,dh) and sx, "
+                         f"sy (B,Q,heads,P), got {tuple(v.shape)}, "
+                         f"{tuple(sx.shape)}, {tuple(sy.shape)}")
+    if v.dtype not in (torch.float32, torch.bfloat16) \
+            or sx.dtype != torch.float32 or sy.dtype != torch.float32:
+        raise ValueError(f"bilinear_sample takes float32 or bfloat16 v and "
+                         f"float32 sx and sy, got {v.dtype}, {sx.dtype}, "
+                         f"{sy.dtype}")
+    if sx.device != v.device or sy.device != v.device \
+            or v.device.type not in ("cpu", "cuda"):
+        raise ValueError("bilinear_sample: all tensors must be on one cpu "
+                         "or cuda device")
+    return _BilinearSample.apply(v, sx, sy)
+
+
+# ── generation 2: sorted taps, either layout of the value maps ────────────
+
+
+def values_to_t(values: torch.Tensor) -> torch.Tensor:
+    """(B, HW, heads, dh) -> the (B, heads, dh, HW) layout of
+    :func:`ms_deform_attn_t`, contiguous."""
+    return values.permute(0, 2, 3, 1).contiguous()
+
+
+def values_from_t(values_t: torch.Tensor) -> torch.Tensor:
+    """(B, heads, dh, HW) -> (B, HW, heads, dh), contiguous."""
+    return values_t.permute(0, 3, 1, 2).contiguous()
+
+
+def _sizes(values, loc, transposed):
+    """(B, HW, heads, dh, Q, L, P) of a checked call."""
+    if transposed:
+        b, n_h, dh, hw = values.shape
+    else:
+        b, hw, n_h, dh = values.shape
+    return b, hw, n_h, dh, loc.shape[1], loc.shape[3], loc.shape[4]
+
+
+def ms_deform_attn_sorted_forward(values, shapes, loc, attn,
+                                  transposed: bool = False) -> torch.Tensor:
+    """K5-g2 forward on the card: values in either layout (transposed: (B,
+    heads, dh, HW)) -> (B, Q, heads, dh) f32. CUDA tensors only."""
+    _check(values, shapes, loc, attn, transposed)
+    if values.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_sorted_forward launches K5-g2 on a "
+                         f"CUDA card, got {values.device}")
+    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
+    levels = _levels_arg(shapes)
+    out = torch.empty((b, q, n_h, dh), dtype=torch.float32,
+                      device=values.device)
+    lib = kernels.load()
+    with torch.cuda.device(values.device):
+        err = lib.ms_deform_attn_sorted_fwd(
+            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), ctypes.addressof(levels), b, hw, q, n_h, dh,
+            n_l, n_p, kernels.dtype_code(values.dtype), int(transposed),
+            kernels.stream_ptr(values.device))
+    kernels.check(err, "ms_deform_attn_sorted_fwd")
+    ms_deform_attn_sorted_forward.launches += 1
+    return out
+
+
+ms_deform_attn_sorted_forward.launches = 0
+
+
+def ms_deform_attn_sorted_backward(values, shapes, loc, attn, dout,
+                                   transposed: bool = False):
+    """K5-g2 backward on the card: dout (B, Q, heads, dh) -> (d values in
+    values' dtype and layout, d loc f32, d attn f32). One kernel writes d
+    loc, d attn and each tap's key and coefficient, ``torch.sort`` orders
+    the keys of every (batch, head) by cell, a second kernel sums d values
+    segment by segment. No atomics: two runs give the same bits. CUDA
+    tensors only."""
+    _check(values, shapes, loc, attn, transposed)
+    if values.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_sorted_backward launches K5-g2 "
+                         f"backward on a CUDA card, got {values.device}")
+    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
+    if tuple(dout.shape) != (b, q, n_h, dh) or dout.device != values.device:
+        raise ValueError(f"ms_deform_attn_sorted_backward takes dout "
+                         f"{(b, q, n_h, dh)} on values' device, got "
+                         f"{tuple(dout.shape)} on {dout.device}")
+    dout = dout.float().contiguous()
+    dev = values.device
+    levels = _levels_arg(shapes)
+    t = q * n_l * n_p * 4
+    sb, kdtype = _sort_bits(t, hw)
+    keys = torch.empty((b * n_h, t), dtype=kdtype, device=dev)
+    coef = torch.empty((b * n_h, t), dtype=torch.float32, device=dev)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    dv = torch.empty_like(values)
+    code = kernels.dtype_code(values.dtype)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        err = lib.ms_deform_attn_sorted_taps(
+            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            dout.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+            keys.data_ptr(), coef.data_ptr(), ctypes.addressof(levels), b,
+            hw, q, n_h, dh, n_l, n_p, code, int(transposed), sb,
+            keys.element_size(), kernels.stream_ptr(dev))
+        kernels.check(err, "ms_deform_attn_sorted_taps")
+        keys = torch.sort(keys, dim=-1).values
+        err = lib.ms_deform_attn_sorted_dvalues(
+            keys.data_ptr(), coef.data_ptr(), dout.data_ptr(), dv.data_ptr(),
+            b, hw, q, n_h, dh, n_l * n_p * 4, code, int(transposed), sb,
+            keys.element_size(), kernels.stream_ptr(dev))
+        kernels.check(err, "ms_deform_attn_sorted_dvalues")
+    ms_deform_attn_sorted_backward.launches += 1
+    return dv, dloc, dattn
+
+
+ms_deform_attn_sorted_backward.launches = 0
+
+
+class _MsDeformAttnSorted(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, values, loc, attn, shapes, transposed):
+        ctx.save_for_backward(values, loc, attn)
+        ctx.shapes, ctx.transposed = shapes, transposed
+        return ms_deform_attn_sorted_forward(values, shapes, loc, attn,
+                                             transposed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        values, loc, attn = ctx.saved_tensors
+        dv, dloc, dattn = ms_deform_attn_sorted_backward(
+            values, ctx.shapes, loc, attn, dout, ctx.transposed)
+        return dv, dloc, dattn, None, None
+
+
+def _sorted_entry(values, shapes, loc, attn, transposed):
+    _check(values, shapes, loc, attn, transposed)
+    if values.device.type == "cpu":
+        flat = values_from_t(values) if transposed else values
+        return _ref_sum(flat, shapes, loc, attn)
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    return _MsDeformAttnSorted.apply(values, loc, attn, shapes, transposed)
+
+
+def ms_deform_attn(values: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                   loc: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    """Multi-scale deformable attention core, sorted-tap generation. values
+    (B, HW, heads, dh) f32 or bf16, the levels of ``shapes`` flattened
+    row-major and concatenated; loc (B, Q, heads, L, P, 2) f32 in [0, 1];
+    attn (B, Q, heads, L, P) f32. Returns (B, Q, heads, dh) float32.
+    Differentiable in values, loc and attn; on CUDA tensors d(values) is a
+    sum in a fixed order (the same bits every run)."""
+    return _sorted_entry(values, shapes, loc, attn, False)
+
+
+def ms_deform_attn_t(values_t: torch.Tensor,
+                     shapes: Sequence[Tuple[int, int]], loc: torch.Tensor,
+                     attn: torch.Tensor) -> torch.Tensor:
+    """:func:`ms_deform_attn` for value maps laid out (B, heads, dh, HW),
+    read in place (no relayout copy); d(values_t) comes back in the same
+    layout."""
+    return _sorted_entry(values_t, shapes, loc, attn, True)

@@ -609,3 +609,172 @@ def test_rtdetr_train_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         AS.auction_assignment(cost, valid.cpu())
     assert (ST.stem_fused.launches, AS.auction_assignment.launches) == before
+
+
+SORTED_CASES = [
+    (((128, 128), (64, 64), (32, 32)), 2, 428, 8, 32, 4),
+    (((6, 10), (3, 5)), 1, 7, 3, 32, 2),
+    (((5, 7), (3, 3), (2, 1), (1, 1)), 2, 13, 2, 8, 8),
+    (((9, 4),), 1, 5, 1, 48, 3),
+    (((40, 40), (20, 20)), 1, 50, 2, 40, 4),
+    (((1024, 1024),), 1, 200, 1, 4, 4)]       # 2^20 cells: 64-bit sort keys
+
+
+def _sorted_entry(transposed):
+    return DF.ms_deform_attn_t if transposed else DF.ms_deform_attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_sorted_deform_forward_matches_plain(cuda, dtype, tol, case,
+                                             transposed):
+    """K5-g2 forward in both layouts against the plain gather version in
+    f32 on the same values: f32 out from f32 or bf16 values, so both are
+    the same f32 products in another summation order."""
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(15), shapes, b, q, heads, dh, p, cuda,
+        dtype)
+    given = DF.values_to_t(values) if transposed else values
+    before = DF.ms_deform_attn_sorted_forward.launches
+    out = _sorted_entry(transposed)(given, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert DF.ms_deform_attn_sorted_forward.launches == before + 1
+    assert out.shape == (b, q, heads, dh) and out.dtype == torch.float32
+    ref = DF.ms_deform_attn_ref(values.float(), shapes, loc, attn)
+    assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_sorted_deform_backward_matches_plain(cuda, dtype, tol, case,
+                                              transposed):
+    """K5-g2 backward in both layouts against the plain backward in f32 on
+    the same values (d(values): one rounding to values' dtype; d(loc),
+    d(attn) f32 sums in another order, 1e-4 / 1e-3), taps outside the maps
+    included; a second run returns the same bits in all three."""
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(16), shapes, b, q, heads, dh, p, cuda,
+        dtype, lo=-0.4, hi=1.4)
+    dout = _rand(torch.Generator().manual_seed(17), b, q, heads, dh).to(cuda)
+    given = DF.values_to_t(values) if transposed else values
+    leaves = [t.clone().requires_grad_() for t in (given, loc, attn)]
+    before = DF.ms_deform_attn_sorted_backward.launches
+    _sorted_entry(transposed)(leaves[0], shapes, leaves[1],
+                              leaves[2]).backward(dout)
+    torch.cuda.synchronize()
+    assert DF.ms_deform_attn_sorted_backward.launches == before + 1
+    assert leaves[0].grad.dtype == dtype
+    assert leaves[0].grad.shape == given.shape
+    rdv, rdloc, rdattn = DF.ms_deform_attn_backward_ref(
+        values.float(), shapes, loc, attn, dout)
+    dv = leaves[0].grad
+    dv = DF.values_from_t(dv) if transposed else dv
+    ltol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert _rel_err(dv, rdv) <= tol
+    assert _rel_err(leaves[1].grad, rdloc) <= ltol
+    assert _rel_err(leaves[2].grad, rdattn) <= ltol
+    again = DF.ms_deform_attn_sorted_backward(given, shapes, loc, attn, dout,
+                                              transposed)
+    for a, l in zip(again, leaves):
+        assert torch.equal(a, l.grad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (8, 8, 32, 6848, 16384), (2, 3, 32, 56, 60), (1, 2, 8, 37, 1),
+    (2, 1, 48, 300, 1000), (1, 1, 5, 1, 129),
+    (1, 1, 2, 5000, 1 << 20)])                # 64-bit sort keys
+def test_stamp_scatter_matches_plain(cuda, case):
+    """K5-g1 against ``index_add_`` (the same f32 terms, perhaps in another
+    order: 1e-5 x max|ref|), cells without taps zero, the same bits on a
+    second run; taps piled on few cells in the second half of the rows."""
+    b, heads, dh, t, hw = case
+    g = torch.Generator().manual_seed(18)
+    idx = torch.randint(0, hw, (b, heads, t), generator=g, dtype=torch.int32)
+    idx[b // 2:] = idx[b // 2:] % max(1, hw // 50)
+    idx, gw = idx.to(cuda), _rand(g, b, heads, dh, t).to(cuda)
+    before = DF.stamp_scatter.launches
+    out = DF.stamp_scatter(idx, gw, hw)
+    torch.cuda.synchronize()
+    assert DF.stamp_scatter.launches == before + 1
+    assert out.shape == (b, heads, dh, hw) and out.dtype == torch.float32
+    ref = DF.stamp_scatter_ref(idx, gw, hw)
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(out == 0, ref == 0)
+    assert torch.equal(DF.stamp_scatter(idx, gw, hw), out)
+    assert torch.equal(DF.stamp_scatter(idx.long(), gw, hw), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", [(2, 128, 128, 8, 32, 300, 4),
+                                  (2, 6, 5, 3, 4, 7, 2),
+                                  (1, 3, 70, 2, 40, 9, 3)])
+def test_bilinear_sample_gradients_match_autograd(cuda, dtype, tol, case):
+    """bilinear_sample on the card (d(v) through K5-g1) against the
+    autograd of the same gather and weights in f32, samples inside, on the
+    edges and outside the map."""
+    b, h, w, heads, dh, q, p = case
+    g = torch.Generator().manual_seed(19)
+    v = _rand(g, b, h, w, heads, dh).to(cuda, dtype)
+    sx = (torch.rand(b, q, heads, p, generator=g) * (w + 2.5) - 1.5).to(cuda)
+    sy = (torch.rand(b, q, heads, p, generator=g) * (h + 2.5) - 1.5).to(cuda)
+    cot = _rand(g, b, q, heads, p, dh).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (v, sx, sy)]
+    before = DF.stamp_scatter.launches
+    out = DF.bilinear_sample(*leaves)
+    out.backward(cot)
+    assert DF.stamp_scatter.launches == before + 1
+    refs = [t.float().clone().requires_grad_() for t in (v, sx, sy)]
+    ref = DF.bilinear_sample_ref(*refs)
+    ref.backward(cot)
+    assert _rel_err(out, ref.detach()) <= 1e-5
+    assert leaves[0].grad.dtype == dtype
+    assert _rel_err(leaves[0].grad, refs[0].grad) <= tol
+    # d(sx), d(sy): the weights' derivatives jump at integer coordinates,
+    # where autograd of floor() and the analytic rule agree (both one-sided)
+    assert _rel_err(leaves[1].grad, refs[1].grad) <= 1e-4
+    assert _rel_err(leaves[2].grad, refs[2].grad) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_sorted_deform_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
+    g = torch.Generator().manual_seed(20)
+    values, shapes, loc, attn = _deform_inputs(
+        g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, cuda, torch.float32)
+    idx = torch.zeros(1, 2, 5, dtype=torch.int32, device=cuda)
+    gw = torch.zeros(1, 2, 8, 5, device=cuda)
+    counters = (DF.ms_deform_attn_sorted_forward,
+                DF.ms_deform_attn_sorted_backward, DF.stamp_scatter)
+    before = [f.launches for f in counters]
+    with pytest.raises(ValueError, match="float32 loc"):
+        DF.ms_deform_attn(values.half(), shapes, loc, attn)
+    with pytest.raises(ValueError, match="do not match"):
+        DF.ms_deform_attn_t(values, shapes, loc, attn)   # the other layout
+    with pytest.raises(ValueError, match="contiguous"):
+        DF.ms_deform_attn_t(values.permute(0, 2, 3, 1), shapes, loc, attn)
+    with pytest.raises(ValueError, match="takes dout"):
+        DF.ms_deform_attn_sorted_backward(values, shapes, loc, attn,
+                                          values[:, :2])
+    with pytest.raises(ValueError, match="CUDA card"):
+        DF.ms_deform_attn_sorted_forward(values.cpu(), shapes, loc.cpu(),
+                                         attn.cpu())
+    with pytest.raises(ValueError, match="float32 gw"):
+        DF.stamp_scatter(idx, gw.double(), 16)
+    with pytest.raises(ValueError, match="idx \\(B,heads,T\\)"):
+        DF.stamp_scatter(idx[:, :, :4], gw, 16)
+    with pytest.raises(ValueError, match="one cpu or cuda device"):
+        DF.stamp_scatter(idx.cpu(), gw, 16)
+    with pytest.raises(ValueError, match="float32 sx"):
+        DF.bilinear_sample(values.reshape(1, 4, 5, 2, 8),
+                           loc[..., 0, :, 0].double(), loc[..., 0, :, 1])
+    assert [f.launches for f in counters] == before

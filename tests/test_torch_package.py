@@ -79,7 +79,9 @@ def test_kernel_sources_and_hash():
     assert {"conv3x3.cu", "yolo_front.cu", "conv_tile.cuh",
             "conv3x3_wgrad.cu", "yolo_front_bwd.cu", "corrupt.cu",
             "conv_wgrad.cuh", "hgstem.cu", "ms_deform_attn.cu",
-            "hgstem_bwd.cu", "auction.cu"} <= set(names)
+            "hgstem_bwd.cu", "auction.cu", "stamp_scatter.cu",
+            "ms_deform_attn_sorted.cu", "segment_sum.cuh",
+            "deform_levels.cuh"} <= set(names)
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
         if p.suffix == ".cu":
@@ -111,7 +113,9 @@ def test_every_c_entry_point_has_a_signature():
         found |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
     assert found == set(kernels.SIGNATURES)
     assert {"hgstem_train_nhwc", "hgstem_bwd_nhwc", "ms_deform_attn_bwd",
-            "auction_assign"} <= found
+            "auction_assign", "stamp_scatter_sorted",
+            "ms_deform_attn_sorted_fwd", "ms_deform_attn_sorted_taps",
+            "ms_deform_attn_sorted_dvalues"} <= found
 
 
 @pytest.mark.parametrize("train", [False, True])
