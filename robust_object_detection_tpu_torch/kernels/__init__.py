@@ -17,6 +17,7 @@ Each C entry point returns the ``cudaError_t`` of its launches (0 = ok);
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,10 +41,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument lists of the C entry points (pointers and the stream as void*,
 # or ctypes would pass them as 32-bit ints)
 SIGNATURES: Dict[str, List] = {
-    # x, w, y, B, H, W, Cin, Cout, dtype, stream
+    # x, w, y (f32), B, H, W, Cin, Cout, dtype, stream
     "conv3x3_nhwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y (bf16), B, H, W, Cin, Cout, nt, vec, blocks, stream (the plan
+    # of conv3x3_tc_plan)
+    "conv3x3_tc_nhwc": [_P, _P, _P] + [_I] * 8 + [_P],
     # x, dy, part (scratch), dk, B, H, W, Cin, Cout, n_chunks, dtype, stream
     "conv3x3_wgrad_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, dy (bf16), part (scratch), dk, B, H, W, Cin, Cout, mt, nt, vec,
+    # n_chunks, stream (the plan of wgrad_tc_plan)
+    "conv3x3_wgrad_tc_nhwc": [_P] * 4 + [_I] * 9 + [_P],
     # x, k1, g1, b1, k2, a1 (scratch), y2, B, H, W, C1, C2, dtype, stream
     "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
@@ -210,3 +217,94 @@ def wgrad_chunks(cin: int, cout: int) -> int:
     blocks (chunks x 16-wide channel tiles) to fill the card's SMs a few
     times. Fixed for a shape, so a repeated run sums in the same order."""
     return max(1, -(-512 // (-(-cin // 16) * -(-cout // 16))))
+
+
+# ---- K3's bf16 tensor-core kernels (csrc/conv3x3_tc.cuh) ----------------
+# Output pixel tiles are TC_TH x TC_TW; a launch's plan is computed here so
+# that the CPU tests can hold it.
+TC_TH, TC_TW = 8, 16
+TC_BLOCKS_PER_SM = 2        # both kernels fit two blocks an SM
+_INT_MAX = 2 ** 31 - 1
+
+
+def tc_tiles(b: int, h: int, w: int) -> int:
+    """Pixel tiles of a (b, h, w) tensor in the tensor-core kernels."""
+    return b * -(-h // TC_TH) * -(-w // TC_TW)
+
+
+def _tc_shape_ok(name: str, b: int, h: int, w: int, cin: int,
+                 cout: int) -> None:
+    if min(b, h, w, cin, cout) <= 0:
+        raise ValueError(f"{name} takes non-empty tensors, got B {b}, H {h}, "
+                         f"W {w}, Cin {cin}, Cout {cout}")
+    if tc_tiles(b, h, w) > _INT_MAX or 9 * cin * cout > _INT_MAX:
+        raise ValueError(f"{name}: B {b} x H {h} x W {w} with {cin} -> "
+                         f"{cout} channels is beyond the kernel's int32 "
+                         f"counts")
+
+
+def _vec(cin: int, cout: int, ptrs) -> int:
+    """1 if every staged row is whole 16-byte pieces: channel counts that
+    are multiples of 8 and 16-byte aligned base pointers."""
+    return int(cin % 8 == 0 and cout % 8 == 0
+               and all(p % 16 == 0 for p in ptrs))
+
+
+def conv3x3_tc_plan(b: int, h: int, w: int, cin: int, cout: int, ptrs,
+                    n_sm: int) -> Dict[str, int]:
+    """Launch plan of K3-f's bf16 kernel on (b, h, w, cin) -> cout, with
+    base pointers `ptrs` (x, w) and `n_sm` SMs: nt n8 tiles a block (an
+    8 nt output-channel slice, blockIdx.y; the kernel takes 48 input
+    channels a pass), vec (16-byte staging), blocks (persistent, about two
+    an SM; block i takes the tiles of :func:`chunk_tiles`)."""
+    _tc_shape_ok("conv3x3", b, h, w, cin, cout)
+    nt = 2 if cout <= 16 else 6
+    co_chunks = -(-cout // (8 * nt))
+    if co_chunks > 65535:
+        raise ValueError(f"conv3x3: {cout} output channels are too many")
+    tiles = tc_tiles(b, h, w)
+    return dict(nt=nt, vec=_vec(cin, cout, ptrs), co_chunks=co_chunks,
+                tiles=tiles,
+                blocks=max(1, min(tiles, TC_BLOCKS_PER_SM * n_sm
+                                  // co_chunks)))
+
+
+def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int, ptrs,
+                  n_sm: int) -> Dict[str, int]:
+    """Launch plan of K3-b's bf16 kernel on x (b, h, w, cin), dy (b, h, w,
+    cout) with base pointers `ptrs` (x, dy) and `n_sm` SMs: mt m16 tiles
+    (16 mt input channels, blockIdx.y) and nt n8 tiles (8 nt output
+    channels, blockIdx.z) a block, vec, and n_chunks pixel chunks (chunk c
+    owns the tiles of :func:`chunk_tiles`): enough blocks for about two an
+    SM, fixed for a shape and a card, so a repeated run sums in the same
+    order."""
+    _tc_shape_ok("conv3x3_wgrad", b, h, w, cin, cout)
+    mt = 1 if cin <= 16 else 3
+    nt = 2 if cout <= 16 else 6
+    slices = -(-cin // (16 * mt)) * -(-cout // (8 * nt))
+    if max(-(-cin // (16 * mt)), -(-cout // (8 * nt))) > 65535:
+        raise ValueError(f"conv3x3_wgrad: {cin} -> {cout} channels are too "
+                         f"many")
+    tiles = tc_tiles(b, h, w)
+    return dict(mt=mt, nt=nt, vec=_vec(cin, cout, ptrs), tiles=tiles,
+                n_chunks=max(1, min(tiles, TC_BLOCKS_PER_SM * n_sm
+                                    // slices)))
+
+
+def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:
+    """The pixel tiles chunk `chunk` of a K3-b launch walks (and the tiles
+    a persistent K3-f block walks, with n_chunks = blocks), in order."""
+    return range(chunk, tiles, n_chunks)
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (the plans ask on every launch)."""
+    import torch
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -3,12 +3,20 @@
 :func:`conv3x3` is the port of ``conv3x3_planes``, forward and backward,
 as a ``torch.autograd.Function``:
 
-  * forward: the hand-written kernel of ``csrc/conv3x3.cu`` (K3-f);
+  * forward: the hand-written kernel of ``csrc/conv3x3.cu`` (K3-f): for
+    bf16 the tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh``, for
+    f32 the CUDA-core tile of ``csrc/conv_tile.cuh`` (a route by dtype);
   * dX: the same forward kernel on dy with the filter flipped spatially
     and transposed (``k'[a, b, co, ci] = k[2-a, 2-b, ci, co]``), as the
     reference's ``_bwd`` does; these launches count as K3-f launches;
   * dW: :func:`conv3x3_wgrad`, the kernel of ``csrc/conv3x3_wgrad.cu``
-    (K3-b), f32.
+    (K3-b), f32 out; bf16 inputs on the tensor cores
+    (``csrc/conv3x3_tc.cuh``), f32 inputs on the CUDA cores
+    (``csrc/conv_wgrad.cuh``).
+
+The bf16 launches take a plan computed in Python
+(``kernels.conv3x3_tc_plan``, ``kernels.wgrad_tc_plan``: tile split,
+chunk count, 16-byte or element staging), which the CPU tests hold.
 
 On a CPU tensor each of the two kernels is replaced by its plain PyTorch
 version (:func:`conv3x3_reference`, :func:`conv3x3_wgrad_reference`), the
@@ -69,18 +77,27 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K3-f (or its plain version on the CPU); w already in x's dtype."""
+    """K3-f (or its plain version on the CPU); w already in x's dtype.
+    bf16 runs the tensor-core kernel, f32 the CUDA-core one."""
     if x.device.type == "cpu":
         return conv3x3_reference(x, w)
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, cin, cout)
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
-        err = lib.conv3x3_nhwc(x.data_ptr(), w.data_ptr(), y.data_ptr(), b,
-                               h, wd, cin, cout, kernels.dtype_code(x.dtype),
-                               kernels.stream_ptr(x.device))
-    kernels.check(err, "conv3x3_nhwc")
+        stream = kernels.stream_ptr(x.device)
+        if x.dtype == torch.bfloat16:
+            plan = kernels.conv3x3_tc_plan(b, h, wd, cin, cout, args[:2],
+                                           kernels.sm_count(x.device))
+            name = "conv3x3_tc_nhwc"
+            err = lib.conv3x3_tc_nhwc(*args, plan["nt"], plan["vec"],
+                                      plan["blocks"], stream)
+        else:
+            name = "conv3x3_nhwc"
+            err = lib.conv3x3_nhwc(*args, kernels.DTYPE_F32, stream)
+    kernels.check(err, name)
     conv3x3.launches += 1
     return y
 
@@ -106,18 +123,31 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return conv3x3_wgrad_reference(x, dy)
     b, h, wd, cin = x.shape
     cout = dy.shape[3]
-    chunks = kernels.wgrad_chunks(cin, cout)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        plan = kernels.wgrad_tc_plan(b, h, wd, cin, cout,
+                                     (x.data_ptr(), dy.data_ptr()),
+                                     kernels.sm_count(x.device))
+        chunks = plan["n_chunks"]
+    else:
+        chunks = kernels.wgrad_chunks(cin, cout)
     part = torch.empty(chunks * 9 * cin * cout, dtype=torch.float32,
                        device=x.device)
     dk = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     lib = kernels.load()
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_wgrad_nhwc(x.data_ptr(), dy.data_ptr(),
-                                     part.data_ptr(), dk.data_ptr(), b, h,
-                                     wd, cin, cout, chunks,
-                                     kernels.dtype_code(x.dtype),
-                                     kernels.stream_ptr(x.device))
-    kernels.check(err, "conv3x3_wgrad_nhwc")
+        args = (x.data_ptr(), dy.data_ptr(), part.data_ptr(), dk.data_ptr(),
+                b, h, wd, cin, cout)
+        stream = kernels.stream_ptr(x.device)
+        if bf16:
+            name = "conv3x3_wgrad_tc_nhwc"
+            err = lib.conv3x3_wgrad_tc_nhwc(*args, plan["mt"], plan["nt"],
+                                            plan["vec"], chunks, stream)
+        else:
+            name = "conv3x3_wgrad_nhwc"
+            err = lib.conv3x3_wgrad_nhwc(*args, chunks, kernels.DTYPE_F32,
+                                         stream)
+    kernels.check(err, name)
     conv3x3_wgrad.launches += 1
     return dk
 

@@ -81,7 +81,7 @@ def test_kernel_sources_and_hash():
             "conv_wgrad.cuh", "hgstem.cu", "ms_deform_attn.cu",
             "hgstem_bwd.cu", "auction.cu", "stamp_scatter.cu",
             "ms_deform_attn_sorted.cu", "segment_sum.cuh",
-            "deform_levels.cuh"} <= set(names)
+            "deform_levels.cuh", "conv3x3_tc.cuh"} <= set(names)
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
         if p.suffix == ".cu":

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's 4-pass sweep goes, on one CUDA card.
 
     python3 tools/profile_torch_sweep.py [--model yolo|rtdetr] [--images 64]
-                                         [--batch 8]
+                                         [--batch 8] [--root DIR]
 
 Runs a sweep of chip_smoke.py (YOLOv8m or RT-DETR-L, nc=6, seeded random
 weights, bf16, a 1024 canvas, synthetic 768x1024 images) and measures, in
@@ -18,7 +18,10 @@ one process:
      idle share; kernel launches and the host time spent in the launch
      API; device time by kernel group.
 
-The device-time table by kernel goes to --out. Needs one CUDA card.
+The device-time table by kernel goes to --out. --root names another
+checkout whose port package is measured instead of this one's (its kernels
+are built there), so that two trees can be compared in one call on one
+card. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     """The group of a device kernel by its name. `rtdetr`: the stride-2
     weight gradients and the BN-chain kernels belong to K4-b (the HGNetv2
     stem's backward), not to K2-b (the YOLO front's)."""
+    if "conv3x3_tc_kernel" in name:
+        return "K3-f conv3x3"
+    if "wgrad_tc_kernel" in name or "sum_chunks_tc_kernel" in name:
+        return "K3-b conv3x3_wgrad"
     m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
     if m:       # stride, then the activation (1: ReLU, the HGNetv2 stem)
         if m.group(2) == "1":
@@ -112,7 +119,10 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "profile_torch_sweep.txt")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose port package is measured")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
     if args.model == "rtdetr" and args.out == ap.get_default("out"):
         args.out = args.out.with_name("profile_torch_sweep_rtdetr.txt")
 
@@ -136,6 +146,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(chip_smoke.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"]))
+    print(f"[sweep] package {Path(kernels.__file__).resolve().parents[1]}")
     kernels.build()
     seeded = torch.Generator().manual_seed(chip_smoke.SEED)
     if args.model == "yolo":
@@ -203,7 +214,10 @@ def main() -> int:
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     events = prof.events()
-    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # kernels and copies only: a GPU-side user annotation (the
+    # optimizer's step range) spans the card's idle gaps too
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device events")
     busy_ms = union_us((e.time_range.start, e.time_range.end)

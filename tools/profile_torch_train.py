@@ -2,6 +2,7 @@
 """Where the time of the PyTorch port's train step goes, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--model yolo|rtdetr] [--steps 5]
+                                         [--root DIR]
 
 Runs a training cell of chip_smoke.py (bench.py's workloads, seeded random
 weights, 1024 px, 80 GT boxes per image in 600 slots, augment + HSV/flip,
@@ -17,7 +18,9 @@ auction matcher) and measures, in one process:
      device time by kernel group (the hand kernels by name).
 
 The device-time table by kernel goes to --out (or its first 30 lines to
-stdout). Needs one CUDA card.
+stdout). --root names another checkout whose port package is measured
+instead of this one's (its kernels are built there), so that two trees can
+be compared in one call on one card. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -44,7 +47,10 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="write the per-kernel table here (default: its "
                          "first 30 lines to stdout)")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="checkout whose port package is measured")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
 
     import numpy as np
     import torch
@@ -66,6 +72,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(S.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]))
+    print(f"[train] package {Path(kernels.__file__).resolve().parents[1]}")
     kernels.build()
     rtdetr = args.model == "rtdetr"
     seeded = torch.Generator().manual_seed(S.SEED)
@@ -112,7 +119,10 @@ def main() -> int:
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+    # kernels and copies only: a GPU-side user annotation (the
+    # optimizer's step range) spans the card's idle gaps too
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device events")
     busy_ms = union_us((e.time_range.start, e.time_range.end)
