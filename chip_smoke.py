@@ -17,12 +17,14 @@ each generation of the deformable-attention op family. Phases:
      limit; exits non-zero without a CUDA card;
   2. build: compiles the kernels of csrc/ with nvcc from this checkout;
      ptxas's registers and spills of every kernel, and the count of
-     tensor-core instructions (HMMA / HGMMA) in the SASS of K3's bf16
-     kernels, which must be above 0;
+     tensor-core instructions (HMMA / HGMMA), async copies (LDGSTS) and
+     f32 FMAs in the SASS of K3's and K2's bf16 kernels; HMMA must be above
+     0 in each;
   3. kernels: the eval kernels (K3-f, K2-f) against their plain PyTorch
      versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
-     (median of 10 calls after 3 warm-ups) of both; K3-f, K3-f as dX and
+     (median of 10 calls after 3 warm-ups) of both and the profiler's
+     device ms of each bf16 K2-f sub-kernel (P1, P2); K3-f, K3-f as dX and
      K3-b at odd shapes and on a misaligned x (conv3x3_edges); and the
      kernels' refusal of CUDA tensors they do not take;
   4. model check: YOLOv8m f32 logits on the card (kernels, TF32 off)
@@ -32,8 +34,11 @@ each generation of the deformable-attention op family. Phases:
      per-variant mAPs, detections per image, images/sec;
   6. training kernels: K3-b (conv3x3 wgrad) and K3-f as dX, K2-f in train
      mode, K2-b and K1 against their plain versions at the training
-     shapes, in f32 with TF32 off and in bf16, timed the same way, and
-     their refusal of bad CUDA inputs (tolerances in phase_train_kernels);
+     shapes, in f32 with TF32 off and in bf16, timed the same way (with the
+     device ms of each bf16 K2 sub-kernel: P1, P2, finalize; stat
+     cotangent, e2 prep, dA1, dk2, dk1, the chunk sums, bn chain), K2-b and
+     the train statistics bit-identical on a second run, and the kernels'
+     refusal of bad CUDA inputs (tolerances in phase_train_kernels);
   7. train-step model check: one YOLOv8m f32 train step at 128 px, batch
      2, no corruption, on the card (kernels, TF32 off) and on the CPU
      (plain versions) from the same weights and batch: loss within 1e-4
@@ -163,6 +168,54 @@ def time_ms(fn, iters: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, calls: int = 10):
+    """[(device ms a call, launches a call, kernel name)] of `fn` under
+    torch.profiler, after one warm-up call; largest first. A kernel's ms a
+    call is its mean device ms a launch times its launches a call, so that
+    records the profiler drops (seen when several sessions run in one
+    process) lower neither."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_time_total > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA):
+            n = max(1, round(e.count / calls))
+            rows.append((e.device_time_total / 1e3 / e.count * n, n, e.key))
+    return sorted(rows, reverse=True)
+
+
+# K2's bf16 sub-kernels (csrc/front_tc.cuh and the shared reductions), by
+# a substring of their names
+FRONT_PARTS = (("P1", "front_p1_kernel"), ("P2", "front_p2_kernel"),
+               ("finalize", "finalize_partials_kernel"),
+               ("stat cotangent", "stat_cotangent_kernel"),
+               ("e2 prep", "e2_prep_kernel"), ("dA1", "front_da1_tc_kernel"),
+               ("dk2", "front_dk2_tc_kernel"), ("dk1", "front_dk1_tc_kernel"),
+               ("sums", "sum_chunks_tc_kernel"),
+               ("bn chain", "bn_chain_kernel"))
+
+
+def front_parts(fn, tag, what):
+    """Prints the device ms a call of each K2 sub-kernel that `fn`
+    launches (profiler); returns {part: ms}."""
+    parts = {}
+    for ms, n, key in device_ms_by_kernel(fn):
+        for part, sub in FRONT_PARTS:
+            if sub in key:
+                parts[part] = parts.get(part, 0.0) + ms
+    print(f"[{tag}] {what} device ms by sub-kernel: " + ", ".join(
+        f"{k} {v}" for k, v in parts.items()) + f"; sum {sum(parts.values())}")
+    return parts
 
 
 def work(dtype: str, nbytes: float, flops: float, library_ms=None) -> dict:
@@ -334,6 +387,10 @@ def phase_kernels(dev):
                 f"yolo_front {name} error {err} > {tol} x {scale}")
         front[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            **front_work(name, BATCH, esize(dtype)))
+        if dtype == torch.bfloat16:
+            front[name]["parts"] = front_parts(
+                lambda: TF.front_inference(*args), "kernels",
+                "yolo_front bfloat16 (8,1024,1024,3)")
     results["yolo_front"] = front
 
     # the kernels refuse CUDA tensors they do not take, and launch nothing
@@ -638,7 +695,30 @@ def phase_train_kernels(dev):
                                                   retain_graph=True))
         bplain = time_ms(lambda: torch.autograd.grad(pout, params, cots,
                                                      retain_graph=True))
-        del out, pout
+        # K2-b (and the forward's statistics) twice: the same bits
+        again = [torch.autograd.grad(out, params, cots, retain_graph=True)
+                 for _ in range(2)]
+        require(all(torch.equal(a, b) for a, b in zip(*again)),
+                f"front backward {name} is not deterministic")
+        with torch.no_grad():
+            stats = [TF.front_fused(xd, *params)[1:] for _ in range(2)]
+        require(all(torch.equal(a, b) for a, b in zip(*stats)),
+                f"front train statistics {name} are not deterministic")
+        log.append("K2-b and the statistics bit-identical twice")
+        parts = {}
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                parts["forward"] = front_parts(
+                    lambda: TF.front_fused(xd, *params), "train-kernels",
+                    "front train forward bfloat16 (16,1024,1024,3)")
+            # K2-b called directly, on this thread (autograd runs it on its
+            # own), on the tensors the forward saved for it
+            saved = out[0].grad_fn.saved_tensors
+            parts["backward"] = front_parts(
+                lambda: TF.front_fused_backward(*saved, *cots),
+                "train-kernels", "front backward bfloat16 (16,1024,1024,3)")
+            del saved
+        del out, pout, again, stats
         print(f"[train-kernels] {'; '.join(log)}; front train forward "
               f"kernel {ms} ms plain {plain_ms} ms; backward kernel {bms} "
               f"ms plain {bplain} ms (autograd of the plain front, cuDNN)")
@@ -646,6 +726,9 @@ def phase_train_kernels(dev):
                          **front_work(name, TRAIN_BATCH, esize(dtype)))
         bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain,
                          **front_work(name, TRAIN_BATCH, esize(dtype), True))
+        for key, rec in (("forward", fwd), ("backward", bwd)):
+            if key in parts:
+                rec[name]["parts"] = parts[key]
     results["yolo_front_train"] = fwd
     results["yolo_front_bwd"] = bwd
     del xf, cot
@@ -2025,8 +2108,11 @@ def phase_deform_generations(dev):
     return total
 
 
-# K3's bf16 tensor-core kernels (csrc/conv3x3_tc.cuh)
-TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel")
+# the bf16 tensor-core kernels: K3's (csrc/conv3x3_tc.cuh) and K2's
+# (csrc/front_tc.cuh)
+TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
+              "front_p2_kernel", "front_da1_tc_kernel", "front_dk2_tc_kernel",
+              "front_dk1_tc_kernel")
 
 
 def ptxas_report(log: str):
@@ -2161,9 +2247,10 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "library_ms": r["library_ms"]})
-        if name in ("conv3x3", "conv3x3_wgrad"):
-            # K3's route by dtype: tensor cores (conv3x3_tc.cuh) for bf16,
-            # the CUDA-core tiles for f32
+        if name in ("conv3x3", "conv3x3_wgrad", "yolo_front",
+                    "yolo_front_train", "yolo_front_bwd"):
+            # K3's and K2's route by dtype: tensor cores (conv3x3_tc.cuh,
+            # front_tc.cuh) for bf16, the CUDA-core tiles for f32
             summary[-1]["dtype_routes"] = {"bfloat16": "tc",
                                            "float32": "cuda-core"}
     print(json.dumps({"kernels": summary}))

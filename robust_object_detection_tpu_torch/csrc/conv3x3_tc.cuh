@@ -3,7 +3,8 @@
 // f32), NHWC in, operands staged in shared memory by 16-byte cp.async and
 // read into fragments by ldmatrix. Used by conv3x3.cu and conv3x3_wgrad.cu
 // for bf16; their f32 route stays on the CUDA-core tiles of conv_tile.cuh
-// and conv_wgrad.cuh.
+// and conv_wgrad.cuh. front_tc.cuh (K2) builds on its PTX wrappers,
+// stage_rows and sum_chunks_tc_kernel.
 //
 // Both kernels walk 8 x 16 output-pixel tiles (TH x TW) of an image and
 // read each tile's input halo, (TH+2) x (TW+2) pixels, with no im2col

@@ -10,16 +10,18 @@
 //     of the STORED (rounded) outputs, as deterministic partials
 //     stats[2][P][Cout], P = B * tiles; finalize_partials_kernel reduces
 //     them.
-// Used by conv3x3.cu (K3-f), yolo_front.cu (K2-f, eval and train) and
-// hgstem.cu (K4-f: stem1 and stem3).
+// Used by conv3x3.cu (K3-f, f32), yolo_front.cu (K2-f eval and train,
+// f32) and hgstem.cu (K4-f: stem1 and stem3, f32 and bf16); the bf16 K3-f
+// and K2-f run the tensor-core kernels of conv3x3_tc.cuh and front_tc.cuh,
+// and K2-f's bf16 route still reduces its statistics partials with
+// finalize_partials_kernel below.
 //
 // One block computes a TILE x TILE output tile for CO_T output channels of
 // one image. Input channels are staged CI_T at a time: the block copies the
 // input patch the tile needs (its halo included, zero outside the image)
 // and the 3x3 x CI_T x CO_T filter slice into shared memory as f32, then
 // each of the 256 threads accumulates 4 pixels x 4 output channels in
-// registers. All plain CUDA cores; tensor cores (mma.sync / wgmma) and TMA
-// are later work.
+// registers. All plain CUDA cores.
 #pragma once
 
 #include <cuda_runtime.h>

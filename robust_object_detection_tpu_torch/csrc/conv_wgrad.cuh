@@ -6,11 +6,12 @@
 // ReLU), and e = d or the statistics fold
 // round(d + dsum + 2 * y * dsq) of a train-mode BatchNorm that follows the
 // conv (the mean / sum-of-squares cotangents of its batch statistics).
-// Used by conv3x3_wgrad.cu (K3-b), yolo_front_bwd.cu (K2-b) and
-// hgstem_bwd.cu (K4-b; its 2x2 convs with zero pad right/bottom are the
-// taps ky, kx in {1, 2} of this 3x3 pad-1 gradient). Also holds the two
-// tiny per-channel kernels of a train-mode BN's backward that K2-b and
-// K4-b share.
+// Used by conv3x3_wgrad.cu (K3-b, f32), yolo_front_bwd.cu (K2-b, f32) and
+// hgstem_bwd.cu (K4-b, f32 and bf16; its 2x2 convs with zero pad
+// right/bottom are the taps ky, kx in {1, 2} of this 3x3 pad-1 gradient);
+// the bf16 K3-b and K2-b run the tensor-core kernels of conv3x3_tc.cuh and
+// front_tc.cuh. Also holds the two tiny per-channel kernels of a
+// train-mode BN's backward that K2-b (both routes) and K4-b share.
 //
 // On the TPU the grid runs in order and one output block accumulates dk
 // across grid steps. Here blocks run in parallel, so the reduction over

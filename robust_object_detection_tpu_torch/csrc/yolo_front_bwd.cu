@@ -15,19 +15,34 @@
 //   5. dk1 = sum x (x) e1, e1 = dy1 + ds1 + 2 y1 dss1.
 // There is no gradient into the image.
 //
-// What bounds it on the H100: steps 2 and 3 each do the P2 conv's 87 GFLOP
-// (batch 16, 1024 px) and step 5 the P1 conv's 11 GFLOP; all run on the
-// CUDA cores, so they are compute bound. The TPU split the work into one
-// kernel that emitted dk2, dy1 and the BN1 partials together; on this card
-// a dX gather (one output per y1 pixel) and a weight-gradient reduction
-// (few outputs, summed over every pixel) want different decompositions, so
-// step 2 is a gather kernel tiled over y1 pixels (for a stride-2 transposed
-// conv each y1 pixel reads 1, 2 or 4 y2 pixels, fixed by its row and column
-// parity) and steps 3 and 5 use the chunked weight-gradient kernel of
-// conv_wgrad.cuh. Every cross-block sum goes through fixed-order partials,
-// so a repeated run gives identical bits.
+// Two routes, by dtype:
+//   * bf16 (the train step): yolo_front_bwd_tc_nhwc, the tensor-core
+//     kernels of front_tc.cuh with the plan of kernels.front_bwd_plan. What
+//     bounds it on the H100 at (16, 1024, 1024, 3) -> 48 -> 96: dA1 and dk2
+//     each do the P2 conv's 87 GFLOP and dk1 11 GFLOP (0.19 ms at 989
+//     TFLOP/s in all), against x, y1, y2 and dy2 read once (0.27 ms at 3.35
+//     TB/s): bytes-bound; the design moves about 3.3 GB (e2 formed once and
+//     read twice, y1 read by dA1, dk2 and dk1, dy1 written and read back),
+//     1.0 ms. Step 2 is the transposed conv split by the parity of the y1
+//     pixel into four stride-1 GEMMs over one staged e2 patch; steps 3 and
+//     5 are filter-gradient GEMMs over fixed pixel chunks, 16-byte cp.async
+//     staging throughout. The TPU split the work into one kernel that
+//     emitted dk2, dy1 and the BN1 partials together; here a dX gather and
+//     a weight-gradient reduction want different decompositions, so they
+//     are separate kernels. On an H100 80GB HBM3 at 700 W: 2.95 ms of device
+//     time at batch 16 (dk2 1.31, dA1 0.88, dk1 0.55, e2 prep 0.19; bound
+//     0.27). dk2 stages and transforms each y1 halo once for each of its
+//     two 48-channel output slices; how much of its time that takes is not
+//     measured apart.
+//   * f32: yolo_front_bwd_nhwc, the CUDA-core kernels: step 2 a gather
+//     tiled over y1 pixels (each y1 pixel reads 1, 2 or 4 y2 pixels, fixed
+//     by its row and column parity), steps 3 and 5 the chunked
+//     weight-gradient kernel of conv_wgrad.cuh.
+// Every cross-block sum goes through fixed-order partials, so a repeated
+// run gives identical bits.
 
 #include "conv_wgrad.cuh"
+#include "front_tc.cuh"
 
 namespace {
 
@@ -222,20 +237,77 @@ extern "C" int yolo_front_bwd_nhwc(
     int chunks2, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H < 2 || W < 2 || C1 <= 0 || C2 <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != rodt::DTYPE_F32)  // bf16 goes to yolo_front_bwd_tc_nhwc
+    return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
+  return front_bwd<float>(x, k2, y1, y2, dy2, f(sc1), f(mean1), f(var1),
+                          f(g1), f(b1), f(mean2), f(dmean1), f(dvar1),
+                          f(dmean2), f(dvar2), dy1, m(gpart), m(wpart),
+                          m(vecs), m(dk1), m(dk2), m(dsc1), m(dbi1), B, H, W,
+                          C1, C2, chunks1, chunks2,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// bf16: arguments as yolo_front_bwd_nhwc, plus the scratch e2 (like y2) and
+// the plan of kernels.front_bwd_plan: da_blocks persistent blocks of dA1
+// (gpart holds 2 * da_blocks * C1 floats), dk2_chunks and dk1_chunks pixel
+// chunks (wpart holds max(dk2_chunks * 9 * C1 * C2, dk1_chunks * 27 * C1)
+// floats), vec (16-byte staging of y1, y2, dy2, e2, dy1 and k2) and vec_x
+// (also of x, for dk1).
+extern "C" int yolo_front_bwd_tc_nhwc(
+    const void* x, const void* k2, const void* y1, const void* y2,
+    const void* dy2, const void* sc1, const void* mean1, const void* var1,
+    const void* g1, const void* b1, const void* mean2, const void* dmean1,
+    const void* dvar1, const void* dmean2, const void* dvar2, void* dy1,
+    void* e2, void* gpart, void* wpart, void* vecs, void* dk1, void* dk2,
+    void* dsc1, void* dbi1, int B, int H, int W, int C1, int C2,
+    int da_blocks, int dk2_chunks, int dk1_chunks, int vec, int vec_x,
+    void* stream) {
+  if (B <= 0 || H < 2 || W < 2 || C1 <= 0 || C2 <= 0 || da_blocks <= 0 ||
+      dk2_chunks <= 0 || dk1_chunks <= 0 ||
+      (vec && (C1 % 8 != 0 || C2 % 8 != 0)) || (vec_x && (!vec || W % 8 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using rodt::ftc::bf16;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rodt::DTYPE_F32)
-    return front_bwd<float>(x, k2, y1, y2, dy2, f(sc1), f(mean1), f(var1),
-                            f(g1), f(b1), f(mean2), f(dmean1), f(dvar1),
-                            f(dmean2), f(dvar2), dy1, m(gpart), m(wpart),
-                            m(vecs), m(dk1), m(dk2), m(dsc1), m(dbi1), B, H,
-                            W, C1, C2, chunks1, chunks2, st);
-  if (dtype == rodt::DTYPE_BF16)
-    return front_bwd<__nv_bfloat16>(
-        x, k2, y1, y2, dy2, f(sc1), f(mean1), f(var1), f(g1), f(b1),
-        f(mean2), f(dmean1), f(dvar1), f(dmean2), f(dvar2), dy1, m(gpart),
-        m(wpart), m(vecs), m(dk1), m(dk2), m(dsc1), m(dbi1), B, H, W, C1, C2,
-        chunks1, chunks2, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int H2 = rodt::out_size(H, 2), W2 = rodt::out_size(W, 2);
+  const int H4 = rodt::out_size(H2, 2), W4 = rodt::out_size(W2, 2);
+  const float n1 = (float)B * H2 * W2, n2 = (float)B * H4 * W4;
+  float* ds2 = static_cast<float*>(vecs);
+  float* dss2 = ds2 + C2;
+  float* sums = dss2 + C2;
+  float* ds1 = sums + 2 * C1;
+  float* dss1 = ds1 + C1;
+  float* gp = static_cast<float*>(gpart);
+  float* wp = static_cast<float*>(wpart);
+  bf16* e2b = static_cast<bf16*>(e2);
+  bf16* dy1b = static_cast<bf16*>(dy1);
+
+  rodt::stat_cotangent_kernel<<<1, rodt::THREADS, 0, st>>>(
+      f(dmean2), f(dvar2), f(mean2), n2, C2, ds2, dss2);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = rodt::ftc::launch_e2(h(dy2), h(y2), ds2, dss2, e2b,
+                             (long long)B * H4 * W4 * C2, C2, vec, st);
+  if (err != 0) return err;
+  err = rodt::ftc::launch_da1(e2b, h(k2), h(y1), f(g1), f(b1), dy1b, gp, B,
+                              H2, W2, C1, C2, da_blocks, vec, st);
+  if (err != 0) return err;
+  err = rodt::ftc::launch_dk2(h(y1), e2b, f(g1), f(b1), wp,
+                              static_cast<float*>(dk2), B, H2, W2, C1, C2,
+                              dk2_chunks, vec, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(gp, da_blocks, C1, 1.f, sums, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, st);
+  if (err != 0) return err;
+  rodt::bn_chain_kernel<<<1, rodt::THREADS, 0, st>>>(
+      sums, f(sc1), f(mean1), f(var1), n1, f(dmean1), f(dvar1), C1,
+      static_cast<float*>(dsc1), static_cast<float*>(dbi1), ds1, dss1);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return rodt::ftc::launch_dk1(h(x), dy1b, h(y1), ds1, dss1, wp,
+                               static_cast<float*>(dk1), B, H, W, C1,
+                               dk1_chunks, vec_x, st);
 }

@@ -61,6 +61,15 @@ SIGNATURES: Dict[str, List] = {
     # dmean2, dvar2, dy1, gpart, wpart, vecs (scratch), dk1, dk2, dsc1,
     # dbi1, B, H, W, C1, C2, chunks1, chunks2, dtype, stream
     "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P],
+    # the bf16 front (csrc/front_tc.cuh) with the plan of front_plan: the
+    # arguments of yolo_front_nhwc without dtype, + blocks1, blocks2, vec1,
+    # vec2
+    "yolo_front_tc_nhwc": [_P] * 7 + [_I] * 9 + [_P],
+    # yolo_front_train_nhwc's, without dtype, + blocks1, blocks2, vec1, vec2
+    "yolo_front_train_tc_nhwc": [_P] * 15 + [_I] * 9 + [_P],
+    # yolo_front_bwd_nhwc's pointers with e2 (scratch) after dy1, B, H, W,
+    # C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec, vec_x (front_bwd_plan)
+    "yolo_front_bwd_tc_nhwc": [_P] * 24 + [_I] * 10 + [_P],
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, stream
     "corrupt_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
     # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
@@ -289,6 +298,98 @@ def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int, ptrs,
     return dict(mt=mt, nt=nt, vec=_vec(cin, cout, ptrs), tiles=tiles,
                 n_chunks=max(1, min(tiles, TC_BLOCKS_PER_SM * n_sm
                                     // slices)))
+
+
+# ---- K2's bf16 tensor-core kernels (csrc/front_tc.cuh) ------------------
+# P1, P2 and dk1 cut their output (or y1) pixels into FRONT_TH x FRONT_TW
+# tiles, dA1 its y1 pixels into DA_TH x DA_TW tiles (8 x 16 pixels of each
+# row / column parity class), dk2 its y2 pixels into DK2_TH x FRONT_TW.
+# Blocks an SM by each kernel's shared memory and registers: P1 34 KB, P2
+# 214 KB, dA1 164 KB, dk2 81 KB (288 threads), dk1 73 KB.
+FRONT_TH, FRONT_TW = 8, 16
+DA_TH, DA_TW = 16, 32
+DK2_TH = 4
+P1_PER_SM, P2_PER_SM, DA_PER_SM, DK2_PER_SM, DK1_PER_SM = 4, 1, 1, 2, 2
+P1_CH, P2_CH, DA_CH, DK_CH = 48, 96, 48, 48   # channels a block, each way
+
+
+def _tiles(b: int, h: int, w: int, th: int, tw: int) -> int:
+    return b * -(-h // th) * -(-w // tw)
+
+
+def _spread(tiles: int, per_sm: int, n_sm: int, slices: int) -> int:
+    """Persistent blocks (or pixel chunks) of a launch whose grid has
+    `slices` channel slices: about `per_sm` blocks an SM in all, at least
+    one, at most one a tile. Fixed for a shape and a card."""
+    return max(1, min(tiles, per_sm * n_sm // slices))
+
+
+def _front_shape_ok(name: str, b: int, h: int, w: int, c1: int,
+                    c2: int) -> None:
+    if min(b, c1, c2) <= 0 or h < 2 or w < 2:
+        raise ValueError(f"{name} takes B >= 1, H, W >= 2 and C1, C2 >= 1, "
+                         f"got B {b}, H {h}, W {w}, C1 {c1}, C2 {c2}")
+    if (b * (h // 2) * (w // 2) > _INT_MAX or 9 * c1 * c2 > _INT_MAX
+            or max(-(-c1 // 48), -(-c2 // 48)) > 65535):
+        raise ValueError(f"{name}: B {b} x H {h} x W {w} with C1 {c1}, C2 "
+                         f"{c2} is beyond the kernels' int32 counts")
+
+
+def front_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
+               n_sm: int) -> Dict[str, Dict[str, int]]:
+    """Launch plan of K2-f's bf16 kernels on x (b, h, w, 3) -> 48 -> 96
+    (or c1 -> c2), with base pointers `ptrs` (x, k1, k2) and `n_sm` SMs.
+    ``p1`` / ``p2``: tiles, co_chunks (output-channel slices, blockIdx.y),
+    blocks (persistent; block i takes the tiles of :func:`chunk_tiles`, and
+    in train mode writes row i of the statistics partials, so the wrapper
+    allocates 2 x blocks x C of them) and vec (16-byte staging: P1 needs W
+    and C1 multiples of 8 and x, k1 aligned; P2 C1, C2 multiples of 8 and k2
+    aligned, its input being the wrapper's own y1 / a1)."""
+    _front_shape_ok("yolo_front", b, h, w, c1, c2)
+    x, k1, k2 = ptrs
+    h2, w2 = h // 2, w // 2
+    h4, w4 = -(-h2 // 2), -(-w2 // 2)
+    plan = {}
+    for name, (th, hh, ww, ch, cout, per_sm, vec) in dict(
+            p1=(FRONT_TH, h2, w2, P1_CH, c1, P1_PER_SM,
+                w % 8 == 0 and c1 % 8 == 0
+                and x % 16 == 0 and k1 % 16 == 0),
+            p2=(FRONT_TH, h4, w4, P2_CH, c2, P2_PER_SM,
+                _vec(c1, c2, (k2,)))).items():
+        tiles = _tiles(b, hh, ww, th, FRONT_TW)
+        co_chunks = -(-cout // ch)
+        plan[name] = dict(tiles=tiles, co_chunks=co_chunks, vec=int(vec),
+                          blocks=_spread(tiles, per_sm, n_sm, co_chunks))
+    return plan
+
+
+def front_bwd_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
+                   n_sm: int) -> Dict[str, int]:
+    """Launch plan of K2-b's bf16 kernels for x (b, h, w, 3), y1 (b, h/2,
+    w/2, c1), y2 (b, h/4, w/4, c2), with base pointers `ptrs` (x, k2, y1, y2,
+    dy2) and `n_sm` SMs: da_blocks (dA1's persistent blocks, each writing
+    one row of the BN1 partials: gpart holds 2 x da_blocks x c1),
+    dk2_chunks and dk1_chunks (the filter gradients' pixel chunks: wpart
+    holds max(dk2_chunks x 9 c1 c2, dk1_chunks x 27 c1)), vec (16-byte
+    staging of everything but x: c1, c2 multiples of 8, pointers aligned)
+    and vec_x (vec, W a multiple of 8 and x aligned), with each kernel's
+    tile count. Fixed for a shape and a card."""
+    _front_shape_ok("yolo_front_bwd", b, h, w, c1, c2)
+    x, *rest = ptrs
+    h2, w2 = h // 2, w // 2
+    h4, w4 = -(-h2 // 2), -(-w2 // 2)
+    vec = _vec(c1, c2, rest)
+    da_tiles = _tiles(b, h2, w2, DA_TH, DA_TW)
+    dk2_tiles = _tiles(b, h4, w4, DK2_TH, FRONT_TW)
+    dk1_tiles = _tiles(b, h2, w2, FRONT_TH, FRONT_TW)
+    c1s, c2s = -(-c1 // DK_CH), -(-c2 // DK_CH)
+    return dict(vec=int(vec), vec_x=int(vec and w % 8 == 0 and x % 16 == 0),
+                da_tiles=da_tiles, da_co_chunks=-(-c1 // DA_CH),
+                da_blocks=_spread(da_tiles, DA_PER_SM, n_sm, -(-c1 // DA_CH)),
+                dk2_tiles=dk2_tiles,
+                dk2_chunks=_spread(dk2_tiles, DK2_PER_SM, n_sm, c1s * c2s),
+                dk1_tiles=dk1_tiles,
+                dk1_chunks=_spread(dk1_tiles, DK1_PER_SM, n_sm, c1s))
 
 
 def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:

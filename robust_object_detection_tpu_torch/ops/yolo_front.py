@@ -5,15 +5,23 @@ C2), and return the P2 output BEFORE BN2; the caller applies BN2 + SiLU,
 as models/yolov8.py does.
 
   * :func:`front_inference` (``front_fused_inference``): BN1 from the
-    running statistics. On a CUDA tensor it launches ``yolo_front_nhwc``
-    of ``csrc/yolo_front.cu`` (K2-f, eval).
+    running statistics. On a CUDA tensor it launches K2-f, eval
+    (``csrc/yolo_front.cu``).
   * :func:`front_fused` (``front_fused``, train): BN1 from the batch
     statistics; returns ``(y2, mean1, var1, mean2, var2)``, the batch
     statistics of the stored (rounded) y1 and y2, so the caller applies
     BN2 and updates the running statistics. On a CUDA tensor it is a
-    ``torch.autograd.Function``: forward ``yolo_front_train_nhwc`` (K2-f,
-    train), backward :func:`front_fused_backward`
-    (``csrc/yolo_front_bwd.cu``, K2-b).
+    ``torch.autograd.Function``: forward K2-f, train, backward
+    :func:`front_fused_backward` (``csrc/yolo_front_bwd.cu``, K2-b).
+
+Each kernel has two routes, by dtype: bf16 runs the tensor-core implicit
+GEMMs of ``csrc/front_tc.cuh`` (``yolo_front_tc_nhwc``,
+``yolo_front_train_tc_nhwc``, ``yolo_front_bwd_tc_nhwc``) with a launch
+plan computed in Python (``kernels.front_plan``,
+``kernels.front_bwd_plan``: persistent blocks, which fix the number of
+statistics partials the wrapper allocates, pixel chunks, 16-byte or
+element staging), which the CPU tests hold; f32 runs the CUDA-core tiles
+of ``csrc/conv_tile.cuh`` and ``csrc/conv_wgrad.cuh``.
 
 On a CPU tensor each runs its plain PyTorch version
 (:func:`front_inference_reference`, :func:`front_fused_reference`, whose
@@ -109,15 +117,23 @@ def front_inference(x, k1, sc1, bi1, k2, means: Sequence,
     h4, w4 = (h2 + 1) // 2, (w2 + 1) // 2    # stride 2, pad 1, kernel 3
     a1 = torch.empty((b, h2, w2, c1), dtype=x.dtype, device=x.device)
     y2 = torch.empty((b, h4, w4, c2), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), k1.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+            k2.data_ptr(), a1.data_ptr(), y2.data_ptr(), b, h, w, c1, c2)
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
-        err = lib.yolo_front_nhwc(x.data_ptr(), k1.data_ptr(),
-                                  g1.data_ptr(), b1.data_ptr(),
-                                  k2.data_ptr(), a1.data_ptr(),
-                                  y2.data_ptr(), b, h, w, c1, c2,
-                                  kernels.dtype_code(x.dtype),
-                                  kernels.stream_ptr(x.device))
-    kernels.check(err, "yolo_front_nhwc")
+        stream = kernels.stream_ptr(x.device)
+        if x.dtype == torch.bfloat16:
+            plan = kernels.front_plan(b, h, w, c1, c2, (args[0], args[1],
+                                                        args[4]),
+                                      kernels.sm_count(x.device))
+            name = "yolo_front_tc_nhwc"
+            err = lib.yolo_front_tc_nhwc(
+                *args, plan["p1"]["blocks"], plan["p2"]["blocks"],
+                plan["p1"]["vec"], plan["p2"]["vec"], stream)
+        else:
+            name = "yolo_front_nhwc"
+            err = lib.yolo_front_nhwc(*args, kernels.DTYPE_F32, stream)
+    kernels.check(err, name)
     front_inference.launches += 1
     return y2
 
@@ -194,22 +210,38 @@ class _FrontFused(torch.autograd.Function):
         sc1f, bi1f = _f32(sc1), _f32(bi1)
         y1 = torch.empty((b, h2, w2, c1), dtype=dtype, device=dev)
         y2 = torch.empty((b, h4, w4, c2), dtype=dtype, device=dev)
-        st1 = torch.empty(2 * b * kernels.tile_count(h2, w2) * c1,
-                          dtype=torch.float32, device=dev)
-        st2 = torch.empty(2 * b * kernels.tile_count(h4, w4) * c2,
-                          dtype=torch.float32, device=dev)
+        bf16 = dtype == torch.bfloat16
+        if bf16:        # one partial row per persistent block
+            plan = kernels.front_plan(
+                b, h, w, c1, c2, (x.data_ptr(), k1d.data_ptr(),
+                                  k2d.data_ptr()), kernels.sm_count(dev))
+            p1, p2 = plan["p1"]["blocks"], plan["p2"]["blocks"]
+        else:           # one partial row per image and 16 x 16 tile
+            p1 = b * kernels.tile_count(h2, w2)
+            p2 = b * kernels.tile_count(h4, w4)
+        st1 = torch.empty(2 * p1 * c1, dtype=torch.float32, device=dev)
+        st2 = torch.empty(2 * p2 * c2, dtype=torch.float32, device=dev)
         mean1, var1, g1, b1 = (torch.empty(c1, device=dev) for _ in range(4))
         mean2, var2 = (torch.empty(c2, device=dev) for _ in range(2))
-        lib = kernels.load()
-        with torch.cuda.device(dev):
-            err = lib.yolo_front_train_nhwc(
-                x.data_ptr(), k1d.data_ptr(), sc1f.data_ptr(),
+        args = (x.data_ptr(), k1d.data_ptr(), sc1f.data_ptr(),
                 bi1f.data_ptr(), k2d.data_ptr(), y1.data_ptr(),
                 y2.data_ptr(), st1.data_ptr(), st2.data_ptr(),
                 mean1.data_ptr(), var1.data_ptr(), g1.data_ptr(),
                 b1.data_ptr(), mean2.data_ptr(), var2.data_ptr(), b, h, w,
-                c1, c2, kernels.dtype_code(dtype), kernels.stream_ptr(dev))
-        kernels.check(err, "yolo_front_train_nhwc")
+                c1, c2)
+        lib = kernels.load()
+        with torch.cuda.device(dev):
+            stream = kernels.stream_ptr(dev)
+            if bf16:
+                name = "yolo_front_train_tc_nhwc"
+                err = lib.yolo_front_train_tc_nhwc(
+                    *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
+                    stream)
+            else:
+                name = "yolo_front_train_nhwc"
+                err = lib.yolo_front_train_nhwc(*args, kernels.DTYPE_F32,
+                                                stream)
+        kernels.check(err, name)
         front_fused.launches += 1
         ctx.save_for_backward(x, k2d, y1, y2, sc1f, mean1, var1, g1, b1,
                               mean2)
@@ -253,6 +285,16 @@ def front_fused_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2,
     if x.device.type != "cuda":
         raise ValueError(f"front_fused_backward launches K2-b on a CUDA "
                          f"card, got {x.device}")
+    grads = _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2,
+                             dy2, dmean1, dvar1, dmean2, dvar2)
+    front_fused_backward.launches += 1
+    return grads
+
+
+def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
+                     dmean1, dvar1, dmean2, dvar2):
+    """Scratch, outputs and the launch of K2-b (bf16: its plan's partial
+    counts size gpart and wpart); the body of :func:`front_fused_backward`."""
     b, h, w, _ = x.shape
     _, h2, w2, c1 = y1.shape
     c2 = y2.shape[3]
@@ -260,31 +302,45 @@ def front_fused_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2,
     dy2 = dy2.to(dtype).contiguous()
     dmean1, dvar1, dmean2, dvar2 = (_f32(t) for t in (dmean1, dvar1, dmean2,
                                                       dvar2))
-    chunks1 = kernels.wgrad_chunks(3, c1)
-    chunks2 = kernels.wgrad_chunks(c1, c2)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        plan = kernels.front_bwd_plan(
+            b, h, w, c1, c2, (x.data_ptr(), k2.data_ptr(), y1.data_ptr(),
+                              y2.data_ptr(), dy2.data_ptr()),
+            kernels.sm_count(dev))
+        p, chunks1, chunks2 = (plan["da_blocks"], plan["dk1_chunks"],
+                               plan["dk2_chunks"])
+    else:
+        p = b * kernels.tile_count(h2, w2)
+        chunks1 = kernels.wgrad_chunks(3, c1)
+        chunks2 = kernels.wgrad_chunks(c1, c2)
     dy1 = torch.empty_like(y1)
-    gpart = torch.empty(2 * b * kernels.tile_count(h2, w2) * c1,
-                        dtype=torch.float32, device=dev)
+    gpart = torch.empty(2 * p * c1, dtype=torch.float32, device=dev)
     wpart = torch.empty(max(chunks1 * 27 * c1, chunks2 * 9 * c1 * c2),
                         dtype=torch.float32, device=dev)
     vecs = torch.empty(2 * c2 + 4 * c1, dtype=torch.float32, device=dev)
     dk1 = torch.empty((3, 3, 3, c1), dtype=torch.float32, device=dev)
     dk2 = torch.empty((3, 3, c1, c2), dtype=torch.float32, device=dev)
     dsc1, dbi1 = torch.empty(c1, device=dev), torch.empty(c1, device=dev)
+    head = [t.data_ptr() for t in (x, k2, y1, y2, dy2, sc1, mean1, var1,
+                                   g1, b1, mean2, dmean1, dvar1, dmean2,
+                                   dvar2, dy1)]
+    tail = [t.data_ptr() for t in (gpart, wpart, vecs, dk1, dk2, dsc1,
+                                   dbi1)] + [b, h, w, c1, c2]
     lib = kernels.load()
     with torch.cuda.device(dev):
-        err = lib.yolo_front_bwd_nhwc(
-            x.data_ptr(), k2.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-            dy2.data_ptr(), sc1.data_ptr(), mean1.data_ptr(),
-            var1.data_ptr(), g1.data_ptr(), b1.data_ptr(), mean2.data_ptr(),
-            dmean1.data_ptr(), dvar1.data_ptr(), dmean2.data_ptr(),
-            dvar2.data_ptr(), dy1.data_ptr(), gpart.data_ptr(),
-            wpart.data_ptr(), vecs.data_ptr(), dk1.data_ptr(),
-            dk2.data_ptr(), dsc1.data_ptr(), dbi1.data_ptr(), b, h, w, c1,
-            c2, chunks1, chunks2, kernels.dtype_code(dtype),
-            kernels.stream_ptr(dev))
-    kernels.check(err, "yolo_front_bwd_nhwc")
-    front_fused_backward.launches += 1
+        stream = kernels.stream_ptr(dev)
+        if bf16:
+            e2 = torch.empty_like(y2)   # dy2 with the BN2 stats fold
+            name = "yolo_front_bwd_tc_nhwc"
+            err = lib.yolo_front_bwd_tc_nhwc(
+                *head, e2.data_ptr(), *tail, p, chunks2, chunks1,
+                plan["vec"], plan["vec_x"], stream)
+        else:
+            name = "yolo_front_bwd_nhwc"
+            err = lib.yolo_front_bwd_nhwc(*head, *tail, chunks1, chunks2,
+                                          kernels.DTYPE_F32, stream)
+    kernels.check(err, name)
     return dk1, dsc1, dbi1, dk2
 
 

@@ -25,6 +25,10 @@ from robust_object_detection_tpu_torch.ops import stem as ST
 from robust_object_detection_tpu_torch.ops import yolo_front as TF
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
+# K2's odd shapes (B, H, W, C1, C2): odd H/4 and W/4 with channel counts
+# that are not multiples of 8 (element staging), and a front wider than
+# one channel slice or pass of the bf16 kernels (C1 64, C2 128)
+FRONT_EDGES = [(1, 20, 36, 12, 20), (1, 18, 50, 64, 128)]
 
 
 @pytest.fixture
@@ -65,7 +69,7 @@ def test_conv3x3_kernel_matches_plain(cuda, dtype, tol, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1024, 1024, 48, 96),
-                                   (2, 34, 46, 16, 24)])
+                                   (2, 34, 46, 16, 24)] + FRONT_EDGES)
 def test_front_kernel_matches_plain(cuda, dtype, tol, shape):
     b, h, w, c1, c2 = shape
     g = torch.Generator().manual_seed(1)
@@ -210,7 +214,8 @@ def _front_loss(out, c2):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24)])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24)]
+                         + FRONT_EDGES)
 def test_front_train_forward_matches_plain(cuda, dtype, tol, shape):
     b, h, w, c1, c2 = shape
     x, k1, sc1, bi1, k2 = _front_inputs(torch.Generator().manual_seed(3),
@@ -232,7 +237,8 @@ def test_front_train_forward_matches_plain(cuda, dtype, tol, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24)])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24)]
+                         + FRONT_EDGES)
 def test_front_train_backward_matches_plain(cuda, dtype, tol, shape):
     """K2-b against the autograd of the plain front in the same dtype (f32
     with TF32 off; bf16, which rounds y1 where the kernel does — see
@@ -252,6 +258,61 @@ def test_front_train_backward_matches_plain(cuda, dtype, tol, shape):
         _front_loss(TF.front_fused_reference(x, *ref_params), c2).backward()
     for p, r in zip(params, ref_params):
         assert _rel_err(p.grad, r.grad) <= tol
+
+
+@pytest.mark.gpu
+def test_front_misaligned_x_stages_by_element(cuda):
+    """A contiguous bf16 x whose data pointer breaks 16-byte alignment
+    takes element staging in P1 and dk1 (the plans say so) and still agrees
+    with the plain front: eval, train forward and K2-b."""
+    from robust_object_detection_tpu_torch import kernels
+    b, h, w, c1, c2 = 2, 64, 64, 48, 96
+    args = _front_inputs(torch.Generator().manual_seed(6), b, h, w, c1, c2,
+                         cuda)
+    x = _misaligned(args[0].bfloat16())
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    k1, sc1, bi1, k2 = args[1:]
+    sm = kernels.sm_count(cuda)
+    k1b, k2b = k1.bfloat16(), k2.bfloat16()
+    plan = kernels.front_plan(b, h, w, c1, c2, (x.data_ptr(), k1b.data_ptr(),
+                                                k2b.data_ptr()), sm)
+    assert (plan["p1"]["vec"], plan["p2"]["vec"]) == (0, 1)
+    means = (torch.zeros(c1, device=cuda), torch.zeros(c2, device=cuda))
+    var = (torch.ones(c1, device=cuda), torch.ones(c2, device=cuda))
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        assert _rel_err(TF.front_inference(x, k1b, sc1, bi1, k2b, means, var),
+                        TF.front_inference_reference(
+                            x.float(), k1b.float(), sc1, bi1, k2b.float(),
+                            means, var)) <= 1e-2
+    params = [t.clone().requires_grad_() for t in args[1:]]
+    ref_params = [t.clone().requires_grad_() for t in args[1:]]
+    out = TF.front_fused(x, *params)
+    ref = TF.front_fused_reference(x, *ref_params)
+    for o, r in zip(out, ref):
+        assert _rel_err(o, r) <= 2e-2
+    _front_loss(out, c2).backward()
+    _front_loss(ref, c2).backward()
+    for p, r in zip(params, ref_params):
+        assert _rel_err(p.grad, r.grad) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24),
+                                   (1, 20, 36, 12, 20)])
+def test_front_train_is_deterministic(cuda, shape):
+    """The bf16 train-mode statistics and every gradient of K2-b are the
+    same bits on a second run (fixed-order partials, no atomics)."""
+    b, h, w, c1, c2 = shape
+    args = _front_inputs(torch.Generator().manual_seed(7), b, h, w, c1, c2,
+                         cuda)
+    x = args[0].bfloat16()
+    runs = []
+    for _ in range(2):
+        params = [t.clone().requires_grad_() for t in args[1:]]
+        out = TF.front_fused(x, *params)
+        _front_loss(out, c2).backward()
+        runs.append([t.detach() for t in out] + [p.grad for p in params])
+    assert all(torch.equal(a, r) for a, r in zip(*runs))
 
 
 @pytest.mark.gpu

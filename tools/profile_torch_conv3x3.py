@@ -34,7 +34,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as S  # noqa: E402  (time_ms, ptxas_report, sass_opcodes)
+import chip_smoke as S  # noqa: E402  (time_ms, device_ms_by_kernel, ...)
 
 OPS = ("HMMA", "HGMMA", "LDSM", "LDS", "LDG", "LDGSTS", "STS", "FFMA",
        "BAR")
@@ -49,7 +49,6 @@ def main() -> int:
 
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.ops import conv3x3 as C
@@ -63,19 +62,6 @@ def main() -> int:
     print(f"[conv3x3] package {Path(C.__file__).resolve().parents[1]}")
     so = kernels.build()
     kernels.load()
-
-    def device_ms_by_kernel(fn, calls=10):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.device_time_total / 1e3 / calls, e.count // calls, e.key)
-                for e in prof.key_averages() if e.device_time_total > 0
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        return sorted(rows, reverse=True)
 
     def host_us(fn, calls=100):
         """Host microseconds to enqueue one call (the wrapper's own cost
@@ -103,7 +89,8 @@ def main() -> int:
               f"ms; F.conv2d {lib} ms; enqueue "
               f"{host_us(lambda: C.conv3x3(x, kd))} us a call")
         if dtype == torch.bfloat16:
-            for kms, n, key in device_ms_by_kernel(lambda: C.conv3x3(x, kd)):
+            for kms, n, key in S.device_ms_by_kernel(
+                    lambda: C.conv3x3(x, kd)):
                 print(f"    {kms:9.4f}  x{n}  {key[:110]}")
         for batch in (S.TRAIN_BATCH, S.RTDETR_TRAIN_BATCH):
             xb = torch.randn(batch, 256, 256, 48, device=dev,
@@ -118,7 +105,7 @@ def main() -> int:
                   f"kernel {ms} ms; conv2d_weight {lib} ms; enqueue "
                   f"{host_us(lambda: C.conv3x3_wgrad(xb, dy))} us a call")
             if dtype == torch.bfloat16 and batch == S.TRAIN_BATCH:
-                for kms, n, key in device_ms_by_kernel(
+                for kms, n, key in S.device_ms_by_kernel(
                         lambda: C.conv3x3_wgrad(xb, dy)):
                     print(f"    {kms:9.4f}  x{n}  {key[:110]}")
             del xb, dy

@@ -50,7 +50,11 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     stem's backward), not to K2-b (the YOLO front's)."""
     if "conv3x3_tc_kernel" in name:
         return "K3-f conv3x3"
-    if "wgrad_tc_kernel" in name or "sum_chunks_tc_kernel" in name:
+    if re.search(r"front_p[12]_kernel", name):
+        return "K2-f yolo_front"
+    if re.search(r"e2_prep_kernel|front_d(a1|k1|k2)_tc_kernel", name):
+        return "K2-b yolo_front_bwd"
+    if "wgrad_tc_kernel" in name:
         return "K3-b conv3x3_wgrad"
     m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
     if m:       # stride, then the activation (1: ReLU, the HGNetv2 stem)
@@ -77,7 +81,7 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
         return "K3-b conv3x3_wgrad"
     if re.search(r"front_da1_kernel|bn_chain_kernel|stat_cotangent", name):
         return front_bwd
-    if re.search(r"finalize_partials_kernel|sum_chunks_kernel", name):
+    if re.search(r"finalize_partials_kernel|sum_chunks_(tc_)?kernel", name):
         return "hand-kernel partial sums (K2-f, K2-b, K3-b, K4-f, K4-b)"
     if "corrupt_kernel" in name:
         return "K1 corrupt"
