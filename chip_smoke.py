@@ -18,8 +18,8 @@ each generation of the deformable-attention op family. Phases:
   2. build: compiles the kernels of csrc/ with nvcc from this checkout;
      ptxas's registers and spills of every kernel, and the count of
      tensor-core instructions (HMMA / HGMMA), async copies (LDGSTS) and
-     f32 FMAs in the SASS of K3's and K2's bf16 kernels; HMMA must be above
-     0 in each;
+     f32 FMAs in the SASS of K3's, K2's and K4's bf16 kernels (every
+     instantiation); HMMA must be above 0 in each;
   3. kernels: the eval kernels (K3-f, K2-f) against their plain PyTorch
      versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
@@ -53,9 +53,10 @@ each generation of the deformable-attention op family. Phases:
   9. RT-DETR-L kernels: K4-f (the HGNetv2 stem) and K5 forward
      (multi-scale deformable attention) against their plain versions at
      the sweep's shapes and at one odd shape each, f32 with TF32 off and
-     bf16 (tolerances in phase_rtdetr_kernels), timed as above, cuDNN's
-     time for each conv stage of the stem beside it, and the refusal of
-     bad CUDA inputs;
+     bf16 (tolerances in phase_rtdetr_kernels), timed as above, with the
+     profiler's device ms of each bf16 K4-f launch (stem1, stem2a, stem2b,
+     pool, stem3) and cuDNN's time for each conv stage of the stem beside
+     it, and the refusal of bad CUDA inputs;
  10. RT-DETR-L model check: f32 at 128 px on the card (kernels, TF32 off)
      against the same weights on the CPU (plain versions): the same
      selected anchors, last-layer logits and boxes within 2e-3 x max|ref|,
@@ -67,8 +68,9 @@ each generation of the deformable-attention op family. Phases:
      backward), K5 backward and K6 (the auction matcher) against their
      plain versions at the train step's shapes and at one odd shape each,
      f32 with TF32 off and bf16 where the kernel takes it (tolerances in
-     phase_rtdetr_train_kernels; K6 by equality), timed as above, cuDNN's
-     time for each stage of the stem's backward beside K4-b; and the
+     phase_rtdetr_train_kernels; K6 by equality), timed as above, with the
+     profiler's device ms of each bf16 K4-f train and K4-b launch, and
+     cuDNN's time for each stage of the stem's backward beside K4-b; and the
      kernels this step shares with earlier paths at its own shapes (K5
      forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8);
  13. RT-DETR-L train-step model check: forward, loss and backward of one
@@ -192,6 +194,62 @@ def device_ms_by_kernel(fn, calls: int = 10):
             n = max(1, round(e.count / calls))
             rows.append((e.device_time_total / 1e3 / e.count * n, n, e.key))
     return sorted(rows, reverse=True)
+
+
+def device_ms_by_launch(fn, calls: int = 10):
+    """[(device ms, kernel name)] of `fn`'s launches in launch order, each
+    the mean over `calls` profiled calls after one warm-up, so that two
+    launches of one kernel (stem1 and stem3 of the CUDA-core stem) stay
+    apart. None when the profiler's record does not split into `calls`
+    equal sequences (it may drop records in a process that ran several
+    sessions)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)),
+                key=lambda e: e.time_range.start)
+    n = len(ev) // calls
+    seqs = [ev[i * n:(i + 1) * n] for i in range(calls)]
+    if not ev or len(ev) % calls or any(
+            [e.name for e in s] != [e.name for e in seqs[0]] for s in seqs):
+        return None
+    return [(sum(s[i].time_range.elapsed_us() for s in seqs) / calls / 1e3,
+             seqs[0][i].name) for i in range(n)]
+
+
+def short_kernel_name(name: str) -> str:
+    """A kernel's name without its namespaces and argument list."""
+    for ns in ("(anonymous namespace)::", "rodt::stc::", "rodt::ftc::",
+               "rodt::tc::", "rodt::", "at::native::", "void "):
+        name = name.replace(ns, "")
+    return name.split("(")[0].strip()
+
+
+def stem_parts(fn, tag, what):
+    """Prints the device ms of each launch of `fn` (a K4 call) in launch
+    order, by the profiler; returns [(ms, short name)] (None when the
+    record did not split into calls, then the sums by kernel name are
+    printed instead)."""
+    seq = device_ms_by_launch(fn)
+    if seq is None:
+        rows = device_ms_by_kernel(fn)
+        print(f"[{tag}] {what} device ms by kernel (launch order lost): "
+              + "; ".join(f"{short_kernel_name(k)} x{n} {ms}"
+                          for ms, n, k in rows))
+        return None
+    seq = [(ms, short_kernel_name(k)) for ms, k in seq]
+    print(f"[{tag}] {what} device ms by launch: " + "; ".join(
+        f"{i} {k} {ms}" for i, (ms, k) in enumerate(seq))
+        + f"; sum {sum(ms for ms, _ in seq)}")
+    return seq
 
 
 # K2's bf16 sub-kernels (csrc/front_tc.cuh and the shared reductions), by
@@ -989,6 +1047,9 @@ def phase_rtdetr_kernels(dev):
                 continue
             ms = time_ms(lambda: ST.stem_fused_inference(*args))
             plain_ms = time_ms(lambda: ST.stem_reference(*args))
+            if dtype == torch.bfloat16:
+                stem_parts(lambda: ST.stem_fused_inference(*args),
+                           "rtdetr-kernels", f"K4-f eval {shape}")
             # cuDNN's time for each conv stage alone (channels-last views,
             # default flags): there is no one call for the chain
             b, h, w = shape
@@ -1279,10 +1340,17 @@ def phase_rtdetr_train_kernels(dev):
             with torch.no_grad():
                 ms = time_ms(lambda: ST.stem_fused(xd, *ps))
                 plain_ms = time_ms(lambda: ST.stem_train_reference(xd, *ps))
+                if dtype == torch.bfloat16:
+                    stem_parts(lambda: ST.stem_fused(xd, *ps),
+                               "rtdetr-train-kernels", f"K4-f train {shape}")
             out = ST.stem_fused(xd, *ps)
             flat = (out[0], *out[1], *out[2])
             bms = time_ms(lambda: torch.autograd.grad(flat, ps, cd,
                                                       retain_graph=True))
+            if dtype == torch.bfloat16:
+                stem_parts(lambda: torch.autograd.grad(flat, ps, cd,
+                                                       retain_graph=True),
+                           "rtdetr-train-kernels", f"K4-b {shape}")
             del out, flat
             pout = ST.stem_train_reference(xd, *ps)
             pflat = (pout[0], *pout[1], *pout[2])
@@ -2108,11 +2176,13 @@ def phase_deform_generations(dev):
     return total
 
 
-# the bf16 tensor-core kernels: K3's (csrc/conv3x3_tc.cuh) and K2's
-# (csrc/front_tc.cuh)
+# the bf16 tensor-core kernels: K3's (csrc/conv3x3_tc.cuh), K2's and K4's
+# stride-2 convs (csrc/front_tc.cuh, each instantiated for both) and K4's
+# 2x2 convs (csrc/stem_tc.cuh)
 TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
               "front_p2_kernel", "front_da1_tc_kernel", "front_dk2_tc_kernel",
-              "front_dk1_tc_kernel")
+              "front_dk1_tc_kernel", "stem2x2_tc_kernel",
+              "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel")
 
 
 def ptxas_report(log: str):
@@ -2248,9 +2318,11 @@ def main() -> int:
                         "bound_by": bound_by,
                         "library_ms": r["library_ms"]})
         if name in ("conv3x3", "conv3x3_wgrad", "yolo_front",
-                    "yolo_front_train", "yolo_front_bwd"):
-            # K3's and K2's route by dtype: tensor cores (conv3x3_tc.cuh,
-            # front_tc.cuh) for bf16, the CUDA-core tiles for f32
+                    "yolo_front_train", "yolo_front_bwd", "hgstem",
+                    "hgstem_train", "hgstem_bwd"):
+            # K3's, K2's and K4's route by dtype: tensor cores
+            # (conv3x3_tc.cuh, front_tc.cuh, stem_tc.cuh) for bf16, the
+            # CUDA-core kernels for f32
             summary[-1]["dtype_routes"] = {"bfloat16": "tc",
                                            "float32": "cuda-core"}
     print(json.dumps({"kernels": summary}))

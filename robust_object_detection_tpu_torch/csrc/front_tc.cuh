@@ -1,24 +1,33 @@
-// bf16 kernels of the YOLOv8 P1/P2 front (K2-f, K2-b) on the tensor cores:
-// implicit GEMMs on mma.sync.m16n8k16 (bf16 x bf16 -> f32), NHWC in,
-// operands staged in shared memory by 16-byte cp.async and read into
-// fragments by ldmatrix, with the primitives of conv3x3_tc.cuh. Used by
-// yolo_front.cu and yolo_front_bwd.cu for bf16; their f32 route stays on
-// the CUDA-core tiles of conv_tile.cuh and conv_wgrad.cuh.
+// bf16 kernels of the YOLOv8 P1/P2 front (K2-f, K2-b) and of the stride-2
+// convs of the HGNetv2 stem (K4-f, K4-b) on the tensor cores: implicit
+// GEMMs on mma.sync.m16n8k16 (bf16 x bf16 -> f32), NHWC in, operands
+// staged in shared memory by 16-byte cp.async and read into fragments by
+// ldmatrix, with the primitives of conv3x3_tc.cuh. Used by yolo_front.cu,
+// yolo_front_bwd.cu, hgstem.cu and hgstem_bwd.cu for bf16; their f32 route
+// stays on the CUDA-core tiles of conv_tile.cuh and conv_wgrad.cuh. The
+// channel tiles, the activation (SiLU for the front, ReLU for the stem)
+// and the input transforms are template parameters; the launchers default
+// to the front's instantiation.
 //
 //   front_p1_kernel      P1: conv3x3/2, 3 -> C1, K = 27 taps x channels
 //                        (padded to 32) from an im2col tile built in shared
-//                        memory; eval: BN1 + SiLU epilogue; train: y1
+//                        memory; eval: BN1 + act epilogue; train: y1
 //                        rounded to bf16 plus BN1 statistics partials.
+//                        The stem's stem1 at C1 = 32.
 //   front_p2_kernel      P2: conv3x3/2, C1 -> C2, K3-f's GEMM on a stride-2
 //                        halo; train: a1 = round(silu(g1 y1 + b1)) applied
-//                        in place to the staged halo, BN2 partials.
+//                        in place to the staged halo, BN2 partials. The
+//                        stem's stem3 (64 -> 32, no transform).
 //   e2_prep_kernel       e2 = round(dy2 + ds2 + 2 y2 dss2), once, so that
-//                        dA1 and dk2 both stage it by cp.async.
+//                        dA1 and dk2 both stage it by cp.async (the stem:
+//                        e3, and in place e of its two 2x2 convs).
 //   front_da1_tc_kernel  dA1: the transposed stride-2 conv split by the
 //                        parity of the y1 pixel into four stride-1 GEMMs
 //                        with 1, 2, 2 and 4 taps; BN1 + SiLU chain and
-//                        dgamma / dbeta partials in the epilogue.
-//   front_dk2_tc_kernel  dk2 = sum a1 (x) e2 at stride 2 (K3-b's GEMM).
+//                        dgamma / dbeta partials in the epilogue (the
+//                        stem's d(cat): raw, no chain).
+//   front_dk2_tc_kernel  dk2 = sum a1 (x) e2 at stride 2 (K3-b's GEMM);
+//                        the stem's dk3 without the input transform.
 //   front_dk1_tc_kernel  dk1 = sum im2col(x) (x) e1, e1 = round(dy1 + ds1 +
 //                        2 y1 dss1) formed in place in shared memory.
 //
@@ -86,11 +95,25 @@ __device__ __forceinline__ float fast_sigmoid(float z) {
   return __fdividef(1.f, 1.f + __expf(-z));
 }
 
-// a = round(silu(g y + b)) in place over `rows` staged rows of `ck`
+// act(z): SiLU on the SFU (fast_sigmoid) or ReLU.
+template <int ACT>
+__device__ __forceinline__ float act_fast(float z) {
+  return ACT == ACT_RELU ? fmaxf(z, 0.f) : z * fast_sigmoid(z);
+}
+
+// d act(z) / dz (ReLU: 1 for z > 0, else 0).
+template <int ACT>
+__device__ __forceinline__ float act_grad(float z) {
+  if (ACT == ACT_RELU) return z > 0.f ? 1.f : 0.f;
+  const float sg = fast_sigmoid(z);
+  return sg * (1.f + z * (1.f - sg));
+}
+
+// a = round(act(g y + b)) in place over `rows` staged rows of `ck`
 // channels (a multiple of 8; channel c0 + j of C), for the rows that
 // valid(r) accepts (pixels inside the image) and the channels below C.
-template <typename ValidFn>
-__device__ __forceinline__ void silu_in_place(bf16* buf, int stride,
+template <int ACT, typename ValidFn>
+__device__ __forceinline__ void act_in_place(bf16* buf, int stride,
                                               int rows, int ck, int c0,
                                               int C,
                                               const float* __restrict__ g,
@@ -127,8 +150,8 @@ __device__ __forceinline__ void silu_in_place(bf16* buf, int stride,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       if (cb + k < C) {
-        const float z = __bfloat162float(e[k]) * gv[k] + bv[k];
-        e[k] = __float2bfloat16(z * fast_sigmoid(z));
+        e[k] = __float2bfloat16(
+            act_fast<ACT>(__bfloat162float(e[k]) * gv[k] + bv[k]));
       }
     }
     *p = u;
@@ -245,33 +268,36 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ y,
 
 // ---- P1: y1 = conv3x3/2(x, k1), 3 -> C1 ----------------------------------
 //
-// GEMM per 8 x 16 tile of y1: M = 128 pixels, N = 48 output channels (a
-// block owns one 48-channel slice, blockIdx.y), K = 32. 4 warps, warp w
-// owns tile rows 2w, 2w + 1 (two m16 tiles) x 6 n8 tiles. Persistent:
+// GEMM per 8 x 16 tile of y1: M = 128 pixels, N = 8 NT1 output channels
+// (a block owns one such slice, blockIdx.y: 48 for the YOLOv8 front, 32
+// for the HGNetv2 stem), K = 32. 4 warps, warp w owns tile rows 2w, 2w + 1
+// (two m16 tiles) x NT1 n8 tiles. Persistent:
 // block i walks tiles i, i + gridDim.x, ...; the filter slice is staged
 // once, the next tile's x rows are copied while this tile runs. Eval: y =
-// silu(g1 acc + b1), the folded BN1, in bf16. Train: y = round(acc), and
+// act(g1 acc + b1), the folded BN1 and the activation ACT, in bf16.
+// Train: y = round(acc), and
 // the block's per-channel sum and sum of squares of the rounded values of
 // its pixels inside the image, read from the accumulator fragments (rows
 // g, g + 8, columns 2 t4, 2 t4 + 1 of each m16n8 tile), summed over g by
 // shuffles and over the warps in order into stats[2][gridDim.x][C1].
 constexpr int P1_THREADS = 128;
-constexpr int NT1 = 6;              // n8 tiles: 48 output channels a block
-constexpr int NP1 = 8 * NT1;
-constexpr int NPS1 = padded(NP1);   // 56
 
+template <int NT1>
 __host__ __device__ constexpr size_t p1_smem() {
   return sizeof(bf16) * (size_t)(2 * XROWS * XR + TH * TW * KS1 +
-                                 KC1 * NPS1 + 4 * 2 * TW * NPS1);
+                                 KC1 * padded(8 * NT1) +
+                                 4 * 2 * TW * padded(8 * NT1));
 }
 
-template <bool TRAIN, bool VEC>
+template <bool TRAIN, bool VEC, int NT1, int ACT>
 __global__ void __launch_bounds__(P1_THREADS)
 front_p1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
                 const float* __restrict__ g1, const float* __restrict__ b1,
                 bf16* __restrict__ y, float* __restrict__ stats, int H, int W,
                 int Ho, int Wo, int C1, int tiles_x, int tiles_per_img,
                 int n_tiles) {
+  constexpr int NP1 = 8 * NT1;       // output channels a block
+  constexpr int NPS1 = padded(NP1);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [2][XROWS][XR]
   bf16* col = xs + 2 * XROWS * XR;                // [TH TW][KS1]
@@ -373,10 +399,8 @@ front_p1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
         for (int h = 0; h < 2; ++h) {
           float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
           if (!TRAIN) {
-            v0 = v0 * gv[j][0] + bv[j][0];
-            v1 = v1 * gv[j][1] + bv[j][1];
-            v0 *= fast_sigmoid(v0);
-            v1 *= fast_sigmoid(v1);
+            v0 = act_fast<ACT>(v0 * gv[j][0] + bv[j][0]);
+            v1 = act_fast<ACT>(v1 * gv[j][1] + bv[j][1]);
           }
           const __nv_bfloat162 t = __floats2bfloat162_rn(v0, v1);
           *reinterpret_cast<__nv_bfloat162*>(
@@ -427,48 +451,52 @@ front_p1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ k1,
 // ---- P2: y2 = conv3x3/2(a1, k2), C1 -> C2 --------------------------------
 //
 // K3-f's GEMM (conv3x3_tc.cuh) on a stride-2 halo: per 8 x 16 tile of y2,
-// M = 128 pixels, N = 96 output channels (a block owns one 96-channel
-// slice, blockIdx.y), K = 9 taps x C1, taken 48 input channels a pass. 8
+// M = 128 pixels, N = NP output channels (a block owns one NP-channel
+// slice, blockIdx.y), K = 9 taps x Cin, taken CK input channels a pass. 8
 // warps: warp w owns tile rows 2 (w & 3), 2 (w & 3) + 1 (two m16 tiles) x
-// the 6 n8 tiles of channel half w >> 2, so the halo is staged and
-// transformed once for all 96 channels. A tap (ky, kx) is a constant offset
-// of the per-lane row addresses into the parity-plane halo. Persistent, one
-// block an SM (214 KB of shared memory: two halo stages and the filter
-// slice), the next stage's halo in flight under this one's MMAs. Train:
-// after a stage lands, a1 = round(silu(g1 y1 + b1)) in place for the
-// pixels inside the image; the BN2 statistics of the rounded y2 come out of
+// the NP / 16 n8 tiles of channel half w >> 2, so the halo is staged (and
+// transformed) once for all NP channels. A tap (ky, kx) is a constant
+// offset of the per-lane row addresses into the parity-plane halo.
+// Persistent, one block an SM (two halo stages and the filter slice), the
+// next stage's halo in flight under this one's MMAs. TRANSFORM: after a
+// stage lands, a1 = round(act(g1 y1 + b1)) in place for the pixels inside
+// the image (the YOLOv8 front's train mode; the stem's concat is stored
+// activated). STATS: the batch statistics of the rounded y2 come out of
 // the epilogue as in P1. The epilogue stages its rows in the halo buffer
-// the MMAs just finished with.
+// the MMAs just finished with. Instantiations: the YOLOv8 front, CK 48, NP
+// 96, SiLU (TRANSFORM = STATS = train mode); the stem's stem3, 64 -> 32,
+// CK 64, NP 32, no transform, STATS in train mode.
 constexpr int P2_THREADS = 256;
 constexpr int HALO2 = (2 * TH + 1) * HROW;  // 578 slots
-constexpr int CK2 = 48;                     // input channels a pass
-constexpr int CKS2 = padded(CK2);           // 56
-constexpr int NP2 = 96;                     // output channels a block
-constexpr int NPS2 = padded(NP2);           // 104
 
+template <int CK, int NP>
 __host__ __device__ constexpr size_t p2_smem() {
-  return sizeof(bf16) * (size_t)(2 * HALO2 * CKS2 + 9 * CK2 * NPS2);
+  return sizeof(bf16) *
+         (size_t)(2 * HALO2 * padded(CK) + 9 * CK * padded(NP));
 }
 
-template <bool TRAIN, bool VEC>
+template <bool TRANSFORM, bool STATS, bool VEC, int CK, int NP, int ACT>
 __global__ void __launch_bounds__(P2_THREADS, 1)
 front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
                 const float* __restrict__ g1, const float* __restrict__ b1,
                 bf16* __restrict__ y, float* __restrict__ stats, int H, int W,
                 int Ho, int Wo, int Cin, int Cout, int tiles_x,
                 int tiles_per_img, int n_tiles) {
-  constexpr int NT = 6;  // n8 tiles a warp
+  constexpr int CKS = padded(CK), NPS = padded(NP);
+  constexpr int HALF = NP / 2;   // output channels a warp
+  constexpr int NT = HALF / 8;   // n8 tiles a warp
+  static_assert(CK % 16 == 0 && NP % 32 == 0 && HALF <= CKS, "P2 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* halo = reinterpret_cast<bf16*>(smem_raw);  // [2][HALO2][CKS2]
-  bf16* filt = halo + 2 * HALO2 * CKS2;             // [9][CK2][NPS2]
+  bf16* halo = reinterpret_cast<bf16*>(smem_raw);  // [2][HALO2][CKS]
+  bf16* filt = halo + 2 * HALO2 * CKS;              // [9][CK][NPS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
-  const int co0 = blockIdx.y * NP2;
-  const int cw0 = co0 + 48 * wn;  // this warp's first output channel
-  const int nco = max(0, min(48, Cout - cw0));
-  const int n_ci = (Cin + CK2 - 1) / CK2;
+  const int co0 = blockIdx.y * NP;
+  const int cw0 = co0 + HALF * wn;  // this warp's first output channel
+  const int nco = max(0, min(HALF, Cout - cw0));
+  const int n_ci = (Cin + CK - 1) / CK;
   const int blk = blockIdx.x, n_blk = gridDim.x;
   const int my_tiles = blk < n_tiles ? (n_tiles - 1 - blk) / n_blk + 1 : 0;
   const int stages = my_tiles * n_ci;
@@ -484,16 +512,15 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
     int b, oy0, ox0;
     tile_of(s, b, oy0, ox0);
     stage_rows<VEC>(
-        halo + (s & 1) * HALO2 * CKS2, CKS2, a, HALO2, CK2,
-        (s % n_ci) * CK2, Cin,
-        [&](int p) { return halo_offset(p, b, oy0, ox0, H, W, Cin); }, tid,
-        P2_THREADS);
+        halo + (s & 1) * HALO2 * CKS, CKS, a, HALO2, CK, (s % n_ci) * CK,
+        Cin, [&](int p) { return halo_offset(p, b, oy0, ox0, H, W, Cin); },
+        tid, P2_THREADS);
   };
   auto load_filter = [&](int ci0) {
     stage_rows<VEC>(
-        filt, NPS2, k2, 9 * CK2, NP2, co0, Cout,
+        filt, NPS, k2, 9 * CK, NP, co0, Cout,
         [&](int r) -> long long {
-          const int tap = r / CK2, ci = ci0 + r % CK2;
+          const int tap = r / CK, ci = ci0 + r % CK;
           if (ci >= Cin) return -1;
           return ((long long)tap * Cin + ci) * Cout;
         },
@@ -519,13 +546,13 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
   const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
   // output row 2 wm + i, tap ky reads halo row 4 wm + 2 i + ky
   const uint32_t a_lane =
-      smem_addr(halo + (4 * wm * HROW + a_px) * CKS2 + a_k);
-  const uint32_t b_lane = smem_addr(filt + b_k * NPS2 + 48 * wn + b_n);
+      smem_addr(halo + (4 * wm * HROW + a_px) * CKS + a_k);
+  const uint32_t b_lane = smem_addr(filt + b_k * NPS + HALF * wn + b_n);
   constexpr int E = sizeof(bf16);
 
   for (int s = 0; s < stages; ++s) {
-    if (n_ci > 1) load_filter((s % n_ci) * CK2);  // free since the last
-    cp_async_commit();                            // stage's barrier
+    if (n_ci > 1) load_filter((s % n_ci) * CK);  // free since the last
+    cp_async_commit();                           // stage's barrier
     if (s + 1 < stages) load_halo(s + 1);
     cp_async_commit();
     cp_async_wait_prev();
@@ -533,18 +560,18 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
 
     int b, oy0, ox0;
     tile_of(s, b, oy0, ox0);
-    bf16* cur = halo + (s & 1) * HALO2 * CKS2;
-    if (TRAIN) {
-      silu_in_place(
-          cur, CKS2, HALO2, CK2, (s % n_ci) * CK2, Cin, g1, b1,
+    bf16* cur = halo + (s & 1) * HALO2 * CKS;
+    if (TRANSFORM) {
+      act_in_place<ACT>(
+          cur, CKS, HALO2, CK, (s % n_ci) * CK, Cin, g1, b1,
           [&](int p) { return halo_offset(p, b, oy0, ox0, H, W, 1) >= 0; },
           tid, P2_THREADS);
       __syncthreads();
     }
 
-    const uint32_t a_base = a_lane + (s & 1) * HALO2 * CKS2 * E;
+    const uint32_t a_base = a_lane + (s & 1) * HALO2 * CKS * E;
 #pragma unroll
-    for (int k0 = 0; k0 < CK2; k0 += 16) {
+    for (int k0 = 0; k0 < CK; k0 += 16) {
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const int ky = tap / 3, kx = tap % 3;
@@ -552,11 +579,11 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           ldsm_x4(af[i], a_base + (((2 * i + ky) * HROW + (kx & 1) * PL +
-                                    (kx >> 1)) * CKS2 + k0) * E);
+                                    (kx >> 1)) * CKS + k0) * E);
 #pragma unroll
         for (int jj = 0; jj < NT / 2; ++jj) {
           uint32_t bq[4];
-          ldsm_x4_t(bq, b_lane + ((tap * CK2 + k0) * NPS2 + 16 * jj) * E);
+          ldsm_x4_t(bq, b_lane + ((tap * CK + k0) * NPS + 16 * jj) * E);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             mma_bf16(acc[i][2 * jj], af[i], bq[0], bq[1]);
@@ -568,7 +595,7 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
 
     if (s % n_ci == n_ci - 1) {  // the tile's last channel pass: store
       __syncthreads();            // every warp is done reading `cur`
-      bf16* st = cur + warp * 2 * TW * CKS2;
+      bf16* st = cur + warp * 2 * TW * CKS;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const bool row_ok = oy0 + 2 * wm + i < Ho;
@@ -579,8 +606,8 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
             const __nv_bfloat162 t = __floats2bfloat162_rn(
                 acc[i][j][2 * h], acc[i][j][2 * h + 1]);
             *reinterpret_cast<__nv_bfloat162*>(
-                st + (i * TW + g + 8 * h) * CKS2 + 8 * j + 2 * t4) = t;
-            if (TRAIN && row_ok && ox0 + g + 8 * h < Wo) {
+                st + (i * TW + g + 8 * h) * CKS + 8 * j + 2 * t4) = t;
+            if (STATS && row_ok && ox0 + g + 8 * h < Wo) {
               const float r0 = __bfloat162float(t.x);
               const float r1 = __bfloat162float(t.y);
               if (8 * j + 2 * t4 < nco) {
@@ -598,14 +625,14 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
       }
       __syncwarp();
       if (nco > 0)
-        store_rows(y, st, CKS2, b, oy0 + 2 * wm, ox0, Ho, Wo, Cout, cw0, nco,
+        store_rows(y, st, CKS, b, oy0 + 2 * wm, ox0, Ho, Wo, Cout, cw0, nco,
                    lane);
     }
     __syncthreads();  // stage buffer (and filter) free for the next copies
   }
 
-  if (TRAIN) {
-    __shared__ float red[8][2][48];
+  if (STATS) {
+    __shared__ float red[8][2][HALF];
     warp_sum_g<NT>(s1);
     warp_sum_g<NT>(s2);
     if (g == 0)
@@ -617,9 +644,9 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
           red[warp][1][8 * j + 2 * t4 + e] = s2[j][e];
         }
     __syncthreads();
-    if (tid < 2 * NP2) {
-      const int which = tid / NP2, c = tid - which * NP2;
-      const int h = c / 48, cc = c - 48 * h;
+    if (tid < 2 * NP) {
+      const int which = tid / NP, c = tid - which * NP;
+      const int h = c / HALF, cc = c - HALF * h;
       float t = 0.f;
       for (int w = 0; w < 4; ++w) t += red[4 * h + w][which][cc];
       if (co0 + c < Cout)
@@ -671,32 +698,32 @@ e2_prep_kernel(const bf16* __restrict__ dy2, const bf16* __restrict__ y2,
 // rows (iy + 1) / 2 and (iy - 1) / 2: so a block's y1 tile of 2 DU x 2 DV
 // pixels splits into four classes (row parity, column parity) of DU x DV
 // pixels, each a stride-1 GEMM over one shared (DU + 1) x (DV + 1) patch of
-// e2 with 1, 2, 2 or 4 taps: M = DV pixels a class row, N = 48 y1 channels
-// (blockIdx.y slice), K = taps x C2, taken 96 e2 channels a pass. 8 warps,
-// warp u owns class row u of all four classes (4 x 6 n8 tiles, 96 f32
-// sums a thread); B = k2 as stored, rows (tap, c1) with c2 contiguous,
-// read by ldmatrix without transposition. Persistent, one block an SM, the
-// next patch in flight under this one's MMAs; the filter slice is staged
-// once when C2 <= 96. Epilogue per class: y1 at its 16 pixels by 16-byte
-// loads into a per-warp buffer, dpre = dA1 silu'(z1), z1 = g1 y1 + b1, dy1
-// = round(dpre g1) written back in place and stored by 16-byte pieces,
-// dgamma += dpre y1, dbeta += dpre over the pixels inside the image,
-// summed as P1's statistics into gpart[2][gridDim.x][C1].
+// e2 with 1, 2, 2 or 4 taps: M = DV pixels a class row, N = ND y1 channels
+// (blockIdx.y slice), K = taps x C2, taken KD e2 channels a pass. 8 warps,
+// warp u owns class row u of all four classes (4 x ND / 8 n8 tiles: 96 f32
+// sums a thread at ND 48); B = k2 as stored, rows (tap, c1) with c2
+// contiguous, read by ldmatrix without transposition. Persistent, the next
+// patch in flight under this one's MMAs; the filter slice is staged once
+// when C2 <= KD. Epilogue per class through a per-warp buffer of 16 pixels
+// stored by 16-byte pieces. CHAIN (the YOLOv8 front: KD 96, ND 48, SiLU):
+// y1 at its 16 pixels by 16-byte loads into that buffer, dpre = dA1
+// act'(z1), z1 = g1 y1 + b1, dy1 = round(dpre g1) written back in place,
+// dgamma += dpre y1, dbeta += dpre over the pixels inside the image, summed
+// as P1's statistics into gpart[2][gridDim.x][C1]. Without CHAIN (the
+// stem's stem3: d(cat) from e3, KD 32, ND 32, two slices of the 64 concat
+// channels) the rounded dA1 itself is stored.
 constexpr int DA_THREADS = 256;
 constexpr int DU = 8, DV = 16;            // class rows, class columns
 constexpr int PC = DV + 1;                // patch columns
 constexpr int PATCH = (DU + 1) * PC;      // patch pixels, 153
-constexpr int KD = 96;                    // e2 channels a pass
-constexpr int KDS = padded(KD);           // 104
-constexpr int ND = 48;                    // y1 channels a block
-constexpr int YS = padded(ND);            // 56
 
+template <int KD, int ND>
 __host__ __device__ constexpr size_t da1_smem() {
-  return sizeof(bf16) *
-         (size_t)(2 * PATCH * KDS + 9 * ND * KDS + 8 * DV * YS);
+  return sizeof(bf16) * (size_t)(2 * PATCH * padded(KD) +
+                                 9 * ND * padded(KD) + 8 * DV * padded(ND));
 }
 
-template <bool VEC>
+template <bool CHAIN, bool VEC, int KD, int ND, int ACT>
 __global__ void __launch_bounds__(DA_THREADS, 1)
 front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
                     const bf16* __restrict__ y1, const float* __restrict__ g1,
@@ -705,6 +732,8 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
                     int C1, int C2, int tiles_x, int tiles_per_img,
                     int n_tiles) {
   constexpr int NT = ND / 8;
+  constexpr int KDS = padded(KD), YS = padded(ND);
+  static_assert(KD % 16 == 0 && ND % 16 == 0, "dA1 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* patch = reinterpret_cast<bf16*>(smem_raw);  // [2][PATCH][KDS]
   bf16* filt = patch + 2 * PATCH * KDS;              // [9][ND][KDS]
@@ -719,7 +748,7 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
   const int blk = blockIdx.x, n_blk = gridDim.x;
   const int my_tiles = blk < n_tiles ? (n_tiles - 1 - blk) / n_blk + 1 : 0;
   const int stages = my_tiles * n_c2;
-  if (tid < ND) {
+  if (CHAIN && tid < ND) {
     gs[tid] = tid < nc1 ? g1[c10 + tid] : 0.f;
     bs[tid] = tid < nc1 ? b1[c10 + tid] : 0.f;
   }
@@ -807,7 +836,7 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
       }
     }
 
-    if (s % n_c2 == n_c2 - 1) {  // the tile's last pass: the chain
+    if (s % n_c2 == n_c2 - 1) {  // the tile's last pass: the epilogue
       int b, iy0, ix0;
       tile_of(s, b, iy0, ix0);
 #pragma unroll
@@ -815,26 +844,28 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
         const int py = cls >> 1, px = cls & 1;
         const int iy = iy0 + 2 * u + py;
         const size_t row = ((size_t)b * H2 + iy) * W2;
-        if (VEC) {
-          for (int idx = lane; idx < DV * NT; idx += 32) {
-            const int v = idx / NT, j = idx - v * NT;
-            const int ix = ix0 + 2 * v + px;
-            uint4 val = make_uint4(0u, 0u, 0u, 0u);
-            if (iy < H2 && ix < W2 && 8 * j < nc1)
-              val = *reinterpret_cast<const uint4*>(
-                  y1 + (row + ix) * C1 + c10 + 8 * j);
-            *reinterpret_cast<uint4*>(yb + v * YS + 8 * j) = val;
+        if (CHAIN) {
+          if (VEC) {
+            for (int idx = lane; idx < DV * NT; idx += 32) {
+              const int v = idx / NT, j = idx - v * NT;
+              const int ix = ix0 + 2 * v + px;
+              uint4 val = make_uint4(0u, 0u, 0u, 0u);
+              if (iy < H2 && ix < W2 && 8 * j < nc1)
+                val = *reinterpret_cast<const uint4*>(
+                    y1 + (row + ix) * C1 + c10 + 8 * j);
+              *reinterpret_cast<uint4*>(yb + v * YS + 8 * j) = val;
+            }
+          } else {
+            for (int idx = lane; idx < DV * ND; idx += 32) {
+              const int v = idx / ND, c = idx - v * ND;
+              const int ix = ix0 + 2 * v + px;
+              yb[v * YS + c] = (iy < H2 && ix < W2 && c < nc1)
+                                   ? y1[(row + ix) * C1 + c10 + c]
+                                   : __float2bfloat16(0.f);
+            }
           }
-        } else {
-          for (int idx = lane; idx < DV * ND; idx += 32) {
-            const int v = idx / ND, c = idx - v * ND;
-            const int ix = ix0 + 2 * v + px;
-            yb[v * YS + c] = (iy < H2 && ix < W2 && c < nc1)
-                                 ? y1[(row + ix) * C1 + c10 + c]
-                                 : __float2bfloat16(0.f);
-          }
+          __syncwarp();
         }
-        __syncwarp();
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -844,15 +875,17 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int c = 8 * j + 2 * t4 + e;
-              const float yv = __bfloat162float(yb[v * YS + c]);
-              const float z = yv * gs[c] + bs[c];
-              const float sg = fast_sigmoid(z);
-              const float dpre =
-                  acc[cls][j][2 * h + e] * (sg * (1.f + z * (1.f - sg)));
-              yb[v * YS + c] = __float2bfloat16(dpre * gs[c]);
-              if (pix_ok && c < nc1) {
-                dg[j][e] = fmaf(dpre, yv, dg[j][e]);
-                db[j][e] += dpre;
+              if (CHAIN) {
+                const float yv = __bfloat162float(yb[v * YS + c]);
+                const float z = yv * gs[c] + bs[c];
+                const float dpre = acc[cls][j][2 * h + e] * act_grad<ACT>(z);
+                yb[v * YS + c] = __float2bfloat16(dpre * gs[c]);
+                if (pix_ok && c < nc1) {
+                  dg[j][e] = fmaf(dpre, yv, dg[j][e]);
+                  db[j][e] += dpre;
+                }
+              } else {
+                yb[v * YS + c] = __float2bfloat16(acc[cls][j][2 * h + e]);
               }
               acc[cls][j][2 * h + e] = 0.f;
             }
@@ -880,63 +913,75 @@ front_da1_tc_kernel(const bf16* __restrict__ e2, const bf16* __restrict__ k2,
     __syncthreads();  // patch buffer (and filter) free for the next copies
   }
 
-  __shared__ float red[8][2][ND];
-  warp_sum_g<NT>(dg);
-  warp_sum_g<NT>(db);
-  if (g == 0)
+  if (CHAIN) {
+    __shared__ float red[8][2][ND];
+    warp_sum_g<NT>(dg);
+    warp_sum_g<NT>(db);
+    if (g == 0)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[u][0][8 * j + 2 * t4 + e] = dg[j][e];
-        red[u][1][8 * j + 2 * t4 + e] = db[j][e];
-      }
-  __syncthreads();
-  if (tid < 2 * ND) {
-    const int which = tid / ND, c = tid - which * ND;
-    float t = 0.f;
-    for (int w = 0; w < 8; ++w) t += red[w][which][c];
-    if (c < nc1) gpart[((size_t)which * n_blk + blk) * C1 + c10 + c] = t;
+        for (int e = 0; e < 2; ++e) {
+          red[u][0][8 * j + 2 * t4 + e] = dg[j][e];
+          red[u][1][8 * j + 2 * t4 + e] = db[j][e];
+        }
+    __syncthreads();
+    if (tid < 2 * ND) {
+      const int which = tid / ND, c = tid - which * ND;
+      float t = 0.f;
+      for (int w = 0; w < 8; ++w) t += red[w][which][c];
+      if (c < nc1) gpart[((size_t)which * n_blk + blk) * C1 + c10 + c] = t;
+    }
   }
 }
 
 // ---- K2-b: dk2 = sum over y2 pixels of a1 (x) e2 at stride 2 -------------
 //
 // K3-b's GEMM (conv3x3_tc.cuh wgrad_tc_kernel) on a stride-2 halo: per tap
-// M = 48 y1 channels (blockIdx.y slice), N = 48 y2 channels (blockIdx.z
-// slice), K = the y2 pixels. 9 warps, warp = tap, 3 x 6 m16n8 tiles of f32
-// sums each. The pixels are cut into 4 x 16 tiles of y2 (4 k16 steps)
-// split into n_chunks fixed strided sets; a tile stages its (9 x 33)-pixel
-// halo of y1 in parity planes and its e2 rows by cp.async, then a1 =
-// round(silu(g1 y1 + b1)) in place for the pixels inside the image. Each
-// block writes its partial to part[chunk][tap][c1][c2];
-// sum_chunks_tc_kernel adds the chunks in a fixed order.
+// M = 16 MT y1 channels (blockIdx.y slice), N = 8 NT y2 channels
+// (blockIdx.z slice), K = the y2 pixels. 9 warps, warp = tap, MT x NT
+// m16n8 tiles of f32 sums each. The pixels are cut into 4 x 16 tiles of y2
+// (4 k16 steps) split into n_chunks fixed strided sets; a tile stages its
+// (9 x 33)-pixel halo of y1 in parity planes and its e2 rows by cp.async,
+// then, with TRANSFORM, a1 = round(act(g1 y1 + b1)) in place for the pixels
+// inside the image. Each block writes its partial to
+// part[chunk][tap][c1][c2]; sum_chunks_tc_kernel adds the chunks in a fixed
+// order. Instantiations: the YOLOv8 front's dk2 (MT 3, NT 6: 48 x 48
+// slices, SiLU transform) and the stem's dk3 (MT 4, NT 4: all 64 concat x
+// 32 y3 channels in one block, no transform: the concat is stored
+// activated).
 constexpr int DK_THREADS = 9 * 32;
 constexpr int DK_TH = 4;                       // y2 rows a tile
 constexpr int DK_HALO = (2 * DK_TH + 1) * HROW;  // 306 slots
-constexpr int DK_C = 48;                       // channels a block, each way
-constexpr int DK_CS = padded(DK_C);            // 56
-constexpr int DK_STAGE = DK_HALO * DK_CS + DK_TH * TW * DK_CS;
 
-__host__ __device__ constexpr size_t dk2_smem() {
-  return sizeof(bf16) * 2 * (size_t)DK_STAGE;
+template <int MT, int NT>
+__host__ __device__ constexpr int dk2_stage() {
+  return DK_HALO * padded(16 * MT) + DK_TH * TW * padded(8 * NT);
 }
 
-template <bool VEC>
+template <int MT, int NT>
+__host__ __device__ constexpr size_t dk2_smem() {
+  return sizeof(bf16) * 2 * (size_t)dk2_stage<MT, NT>();
+}
+
+template <bool TRANSFORM, bool VEC, int MT, int NT, int ACT>
 __global__ void __launch_bounds__(DK_THREADS, 2)
 front_dk2_tc_kernel(const bf16* __restrict__ y1, const bf16* __restrict__ e2,
                     const float* __restrict__ g1, const float* __restrict__ b1,
                     float* __restrict__ part, int H2, int W2, int H4, int W4,
                     int C1, int C2, int tiles_x, int tiles_per_img,
                     int n_tiles, int n_chunks) {
-  constexpr int MT = DK_C / 16, NT = DK_C / 8;
+  constexpr int CA = 16 * MT, CB = 8 * NT;   // channels a block, each way
+  constexpr int CAS = padded(CA), CBS = padded(CB);
+  constexpr int STAGE = dk2_stage<MT, NT>();
+  static_assert(NT % 2 == 0, "dk2 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stage_buf = reinterpret_cast<bf16*>(smem_raw);  // [2][DK_STAGE]
+  bf16* stage_buf = reinterpret_cast<bf16*>(smem_raw);  // [2][STAGE]
 
   const int tid = threadIdx.x, lane = tid & 31, tap = tid >> 5;
   const int ky = tap / 3, kx = tap % 3;
   const int chunk = blockIdx.x;
-  const int ci0 = blockIdx.y * DK_C, co0 = blockIdx.z * DK_C;
+  const int ci0 = blockIdx.y * CA, co0 = blockIdx.z * CB;
   const int my_tiles =
       chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
 
@@ -950,13 +995,13 @@ front_dk2_tc_kernel(const bf16* __restrict__ y1, const bf16* __restrict__ e2,
   auto load_tile = [&](int s) {
     int b, oy0, ox0;
     tile_of(s, b, oy0, ox0);
-    bf16* hx = stage_buf + (s & 1) * DK_STAGE;
+    bf16* hx = stage_buf + (s & 1) * STAGE;
     stage_rows<VEC>(
-        hx, DK_CS, y1, DK_HALO, DK_C, ci0, C1,
+        hx, CAS, y1, DK_HALO, CA, ci0, C1,
         [&](int p) { return halo_offset(p, b, oy0, ox0, H2, W2, C1); }, tid,
         DK_THREADS);
     stage_rows<VEC>(
-        hx + DK_HALO * DK_CS, DK_CS, e2, DK_TH * TW, DK_C, co0, C2,
+        hx + DK_HALO * CAS, CBS, e2, DK_TH * TW, CB, co0, C2,
         [&](int p) -> long long {
           const int oy = oy0 + p / TW, ox = ox0 + p % TW;
           if (oy >= H4 || ox >= W4) return -1;
@@ -982,10 +1027,10 @@ front_dk2_tc_kernel(const bf16* __restrict__ y1, const bf16* __restrict__ e2,
   const int a_px = (lane & 7) + (lane >> 4) * 8, a_m = ((lane >> 3) & 1) * 8;
   const int b_px = (lane & 7) + ((lane >> 3) & 1) * 8, b_n = (lane >> 4) * 8;
   const uint32_t a_lane = smem_addr(
-      stage_buf + (ky * HROW + (kx & 1) * PL + (kx >> 1) + a_px) * DK_CS +
+      stage_buf + (ky * HROW + (kx & 1) * PL + (kx >> 1) + a_px) * CAS +
       a_m);
   const uint32_t b_lane =
-      smem_addr(stage_buf + DK_HALO * DK_CS + b_px * DK_CS + b_n);
+      smem_addr(stage_buf + DK_HALO * CAS + b_px * CBS + b_n);
   constexpr int E = sizeof(bf16);
 
   for (int s = 0; s < my_tiles; ++s) {
@@ -993,26 +1038,27 @@ front_dk2_tc_kernel(const bf16* __restrict__ y1, const bf16* __restrict__ e2,
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
-    int b, oy0, ox0;
-    tile_of(s, b, oy0, ox0);
-    silu_in_place(
-        stage_buf + (s & 1) * DK_STAGE, DK_CS, DK_HALO, DK_C, ci0, C1, g1,
-        b1,
-        [&](int p) { return halo_offset(p, b, oy0, ox0, H2, W2, 1) >= 0; },
-        tid, DK_THREADS);
-    __syncthreads();
+    if (TRANSFORM) {
+      int b, oy0, ox0;
+      tile_of(s, b, oy0, ox0);
+      act_in_place<ACT>(
+          stage_buf + (s & 1) * STAGE, CAS, DK_HALO, CA, ci0, C1, g1, b1,
+          [&](int p) { return halo_offset(p, b, oy0, ox0, H2, W2, 1) >= 0; },
+          tid, DK_THREADS);
+      __syncthreads();
+    }
 
-    const uint32_t off = (s & 1) * DK_STAGE * E;
+    const uint32_t off = (s & 1) * STAGE * E;
 #pragma unroll 1
     for (int r = 0; r < DK_TH; ++r) {  // one k16 step: a tile row of y2
       uint32_t a[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldsm_x4_t(a[i], a_lane + off + (2 * r * HROW * DK_CS + 16 * i) * E);
+        ldsm_x4_t(a[i], a_lane + off + (2 * r * HROW * CAS + 16 * i) * E);
 #pragma unroll
       for (int jj = 0; jj < NT / 2; ++jj) {
         uint32_t bq[4];
-        ldsm_x4_t(bq, b_lane + off + (r * TW * DK_CS + 16 * jj) * E);
+        ldsm_x4_t(bq, b_lane + off + (r * TW * CBS + 16 * jj) * E);
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           mma_bf16(acc[i][2 * jj], a[i], bq[0], bq[1]);
@@ -1039,23 +1085,23 @@ front_dk2_tc_kernel(const bf16* __restrict__ y1, const bf16* __restrict__ e2,
 
 // ---- K2-b: dk1 = sum over y1 pixels of im2col(x) (x) e1 -------------------
 //
-// M = 32 (the 27 im2col columns, padded), N = 48 y1 channels (blockIdx.y
-// slice), K = the y1 pixels, in 8 x 16 tiles split into n_chunks fixed
+// M = 32 (the 27 im2col columns, padded), N = NC y1 channels (blockIdx.y
+// slice: 48 for the YOLOv8 front, 32 for the stem), K = the y1 pixels, in 8 x 16 tiles split into n_chunks fixed
 // strided sets. A tile stages its x rows, dy1 and y1 by 16-byte cp.async,
 // builds the im2col tile as P1 does, and forms e1 = round(dy1 + ds1 + 2 y1
 // dss1) in place over dy1's rows (zero outside the image). 4 warps, warp w
-// takes tile rows 2w, 2w + 1 (two k16 steps) and keeps 2 x 6 m16n8 tiles of
-// f32 sums; at the end the four warps' sums are added in order and the
+// takes tile rows 2w, 2w + 1 (two k16 steps) and keeps 2 x NC / 8 m16n8
+// tiles of f32 sums; at the end the four warps' sums are added in order and the
 // block writes part[chunk][27][C1], summed by sum_chunks_tc_kernel.
 constexpr int K1_THREADS = 128;
-constexpr int K1_CS = padded(48);  // 56
 
+template <int NC>
 __host__ __device__ constexpr size_t dk1_smem() {
   return sizeof(bf16) * (size_t)(2 * XROWS * XR + TH * TW * KS1 +
-                                 2 * 2 * TH * TW * K1_CS);
+                                 2 * 2 * TH * TW * padded(NC));
 }
 
-template <bool VEC>
+template <bool VEC, int NC>
 __global__ void __launch_bounds__(K1_THREADS)
 front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
                     const bf16* __restrict__ y1,
@@ -1063,7 +1109,9 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
                     const float* __restrict__ dss1, float* __restrict__ part,
                     int H, int W, int H2, int W2, int C1, int tiles_x,
                     int tiles_per_img, int n_tiles, int n_chunks) {
-  constexpr int NT = 6, PIX = TH * TW;
+  constexpr int NT = NC / 8, PIX = TH * TW, K1_CS = padded(NC);
+  static_assert(NC % 16 == 0 && 4 * 32 * NC * 4 <= 2 * 2 * PIX * K1_CS * 2,
+                "dk1 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [2][XROWS][XR]
   bf16* col = xs + 2 * XROWS * XR;                // [PIX][KS1]
@@ -1071,7 +1119,7 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
   bf16* yb = db + 2 * PIX * K1_CS;                // [2][PIX][K1_CS] y1
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = blockIdx.x, c10 = blockIdx.y * 48;
+  const int chunk = blockIdx.x, c10 = blockIdx.y * NC;
   const int my_tiles =
       chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
 
@@ -1092,9 +1140,9 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
       if (oy >= H2 || ox >= W2) return -1;
       return (((long long)b * H2 + oy) * W2 + ox) * C1;
     };
-    stage_rows<VEC>(db + (s & 1) * PIX * K1_CS, K1_CS, dy1, PIX, 48, c10,
+    stage_rows<VEC>(db + (s & 1) * PIX * K1_CS, K1_CS, dy1, PIX, NC, c10,
                     C1, pix, tid, K1_THREADS);
-    stage_rows<VEC>(yb + (s & 1) * PIX * K1_CS, K1_CS, y1, PIX, 48, c10, C1,
+    stage_rows<VEC>(yb + (s & 1) * PIX * K1_CS, K1_CS, y1, PIX, NC, c10, C1,
                     pix, tid, K1_THREADS);
   };
 
@@ -1127,8 +1175,8 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
     build_im2col(col, xs + (s & 1) * XROWS * XR, tid, K1_THREADS);
     bf16* dcur = db + (s & 1) * PIX * K1_CS;
     const bf16* ycur = yb + (s & 1) * PIX * K1_CS;
-    for (int i = tid; i < PIX * 6; i += K1_THREADS) {
-      const int p = i / 6, j = i - p * 6;
+    for (int i = tid; i < PIX * NT; i += K1_THREADS) {
+      const int p = i / NT, j = i - p * NT;
       const bool ok = oy0 + p / TW < H2 && ox0 + p % TW < W2;
       uint4* dp = reinterpret_cast<uint4*>(dcur + p * K1_CS + 8 * j);
       uint4 du = *dp;
@@ -1171,7 +1219,7 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
   }
 
   // the four warps' sums in order, then this chunk's partial
-  float* red = reinterpret_cast<float*>(db);  // [4][32][48]
+  float* red = reinterpret_cast<float*>(db);  // [4][32][NC]
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -1179,18 +1227,19 @@ front_dk1_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy1,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        red[(warp * 32 + 16 * i + g + (q >> 1) * 8) * 48 + 8 * j + 2 * t4 +
+        red[(warp * 32 + 16 * i + g + (q >> 1) * 8) * NC + 8 * j + 2 * t4 +
             (q & 1)] = acc[i][j][q];
   __syncthreads();
-  for (int idx = tid; idx < 27 * 48; idx += K1_THREADS) {
-    const int m = idx / 48, n = idx - m * 48;
+  for (int idx = tid; idx < 27 * NC; idx += K1_THREADS) {
+    const int m = idx / NC, n = idx - m * NC;
     float t = 0.f;
-    for (int w = 0; w < 4; ++w) t += red[(w * 32 + m) * 48 + n];
+    for (int w = 0; w < 4; ++w) t += red[(w * 32 + m) * NC + n];
     if (c10 + n < C1) part[((size_t)chunk * 27 + m) * C1 + c10 + n] = t;
   }
 }
 
 // ---- launchers: the wrapper's plan in, cudaGetLastError() out ------------
+// Template arguments default to the YOLOv8 front's instantiation.
 
 template <typename K>
 inline int set_smem(K kernel, size_t bytes) {
@@ -1205,28 +1254,30 @@ inline int tiles_of(int H, int W, int th, int tw, int& tiles_x) {
 }
 
 // P1 on x (B, H, W, 3) -> y (B, H/2, W/2, C1); TRAIN writes the statistics
-// partials [2][blocks][C1], eval applies silu(g1 acc + b1).
-template <bool TRAIN>
+// partials [2][blocks][C1], eval applies act(g1 acc + b1).
+template <bool TRAIN, int NT1 = 6, int ACT = ACT_SILU>
 inline int launch_p1(const bf16* x, const bf16* k1, const float* g1,
                      const float* b1, bf16* y, float* stats, int B, int H,
                      int W, int C1, int blocks, int vec, cudaStream_t st) {
   const int Ho = out_size(H, 2), Wo = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(Ho, Wo, TH, TW, tiles_x);
-  dim3 grid(blocks, (C1 + NP1 - 1) / NP1);
-  auto kern =
-      vec ? front_p1_kernel<TRAIN, true> : front_p1_kernel<TRAIN, false>;
-  int err = set_smem(kern, p1_smem());
+  dim3 grid(blocks, (C1 + 8 * NT1 - 1) / (8 * NT1));
+  auto kern = vec ? front_p1_kernel<TRAIN, true, NT1, ACT>
+                  : front_p1_kernel<TRAIN, false, NT1, ACT>;
+  constexpr size_t smem = p1_smem<NT1>();
+  int err = set_smem(kern, smem);
   if (err != 0) return err;
-  kern<<<grid, P1_THREADS, p1_smem(), st>>>(x, k1, g1, b1, y, stats, H, W, Ho,
-                                            Wo, C1, tiles_x, per_img,
-                                            B * per_img);
+  kern<<<grid, P1_THREADS, smem, st>>>(x, k1, g1, b1, y, stats, H, W, Ho, Wo,
+                                       C1, tiles_x, per_img, B * per_img);
   return static_cast<int>(cudaGetLastError());
 }
 
-// P2 on a (B, H, W, Cin) -> y (B, H/2, W/2, Cout); TRAIN applies the BN1
-// fold + SiLU to the staged input and writes [2][blocks][Cout] partials.
-template <bool TRAIN>
+// P2 on a (B, H, W, Cin) -> y (B, H/2, W/2, Cout); TRANSFORM applies the
+// BN1 fold + act to the staged input, STATS writes [2][blocks][Cout]
+// partials.
+template <bool TRANSFORM, bool STATS = TRANSFORM, int CK = 48, int NP = 96,
+          int ACT = ACT_SILU>
 inline int launch_p2(const bf16* a, const bf16* k2, const float* g1,
                      const float* b1, bf16* y, float* stats, int B, int H,
                      int W, int Cin, int Cout, int blocks, int vec,
@@ -1234,14 +1285,15 @@ inline int launch_p2(const bf16* a, const bf16* k2, const float* g1,
   const int Ho = out_size(H, 2), Wo = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(Ho, Wo, TH, TW, tiles_x);
-  dim3 grid(blocks, (Cout + NP2 - 1) / NP2);
-  auto kern =
-      vec ? front_p2_kernel<TRAIN, true> : front_p2_kernel<TRAIN, false>;
-  int err = set_smem(kern, p2_smem());
+  dim3 grid(blocks, (Cout + NP - 1) / NP);
+  auto kern = vec ? front_p2_kernel<TRANSFORM, STATS, true, CK, NP, ACT>
+                  : front_p2_kernel<TRANSFORM, STATS, false, CK, NP, ACT>;
+  constexpr size_t smem = p2_smem<CK, NP>();
+  int err = set_smem(kern, smem);
   if (err != 0) return err;
-  kern<<<grid, P2_THREADS, p2_smem(), st>>>(a, k2, g1, b1, y, stats, H, W, Ho,
-                                            Wo, Cin, Cout, tiles_x, per_img,
-                                            B * per_img);
+  kern<<<grid, P2_THREADS, smem, st>>>(a, k2, g1, b1, y, stats, H, W, Ho, Wo,
+                                       Cin, Cout, tiles_x, per_img,
+                                       B * per_img);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1260,7 +1312,9 @@ inline int launch_e2(const bf16* dy2, const bf16* y2, const float* ds2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dA1 + the BN1 chain: dy1 (B, H2, W2, C1) and gpart [2][blocks][C1]
+// dA1 (+ the BN1 chain when CHAIN): dy1 (B, H2, W2, C1) and gpart
+// [2][blocks][C1]
+template <bool CHAIN = true, int KD = 96, int ND = 48, int ACT = ACT_SILU>
 inline int launch_da1(const bf16* e2, const bf16* k2, const bf16* y1,
                       const float* g1, const float* b1, bf16* dy1,
                       float* gpart, int B, int H2, int W2, int C1, int C2,
@@ -1269,16 +1323,19 @@ inline int launch_da1(const bf16* e2, const bf16* k2, const bf16* y1,
   int tiles_x;
   const int per_img = tiles_of(H2, W2, 2 * DU, 2 * DV, tiles_x);
   dim3 grid(blocks, (C1 + ND - 1) / ND);
-  auto kern = vec ? front_da1_tc_kernel<true> : front_da1_tc_kernel<false>;
-  int err = set_smem(kern, da1_smem());
+  auto kern = vec ? front_da1_tc_kernel<CHAIN, true, KD, ND, ACT>
+                  : front_da1_tc_kernel<CHAIN, false, KD, ND, ACT>;
+  constexpr size_t smem = da1_smem<KD, ND>();
+  int err = set_smem(kern, smem);
   if (err != 0) return err;
-  kern<<<grid, DA_THREADS, da1_smem(), st>>>(e2, k2, y1, g1, b1, dy1, gpart,
-                                             H2, W2, H4, W4, C1, C2, tiles_x,
-                                             per_img, B * per_img);
+  kern<<<grid, DA_THREADS, smem, st>>>(e2, k2, y1, g1, b1, dy1, gpart, H2, W2,
+                                       H4, W4, C1, C2, tiles_x, per_img,
+                                       B * per_img);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dk2 (3, 3, C1, C2) f32 = the in-order sum of n_chunks partials in part
+template <bool TRANSFORM = true, int MT = 3, int NT = 6, int ACT = ACT_SILU>
 inline int launch_dk2(const bf16* y1, const bf16* e2, const float* g1,
                       const float* b1, float* part, float* dk2, int B, int H2,
                       int W2, int C1, int C2, int n_chunks, int vec,
@@ -1286,13 +1343,16 @@ inline int launch_dk2(const bf16* y1, const bf16* e2, const float* g1,
   const int H4 = out_size(H2, 2), W4 = out_size(W2, 2);
   int tiles_x;
   const int per_img = tiles_of(H4, W4, DK_TH, TW, tiles_x);
-  dim3 grid(n_chunks, (C1 + DK_C - 1) / DK_C, (C2 + DK_C - 1) / DK_C);
-  auto kern = vec ? front_dk2_tc_kernel<true> : front_dk2_tc_kernel<false>;
-  int err = set_smem(kern, dk2_smem());
+  dim3 grid(n_chunks, (C1 + 16 * MT - 1) / (16 * MT),
+            (C2 + 8 * NT - 1) / (8 * NT));
+  auto kern = vec ? front_dk2_tc_kernel<TRANSFORM, true, MT, NT, ACT>
+                  : front_dk2_tc_kernel<TRANSFORM, false, MT, NT, ACT>;
+  constexpr size_t smem = dk2_smem<MT, NT>();
+  int err = set_smem(kern, smem);
   if (err != 0) return err;
-  kern<<<grid, DK_THREADS, dk2_smem(), st>>>(y1, e2, g1, b1, part, H2, W2, H4,
-                                             W4, C1, C2, tiles_x, per_img,
-                                             B * per_img, n_chunks);
+  kern<<<grid, DK_THREADS, smem, st>>>(y1, e2, g1, b1, part, H2, W2, H4, W4,
+                                       C1, C2, tiles_x, per_img, B * per_img,
+                                       n_chunks);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int n = 9 * C1 * C2;
@@ -1302,6 +1362,7 @@ inline int launch_dk2(const bf16* y1, const bf16* e2, const float* g1,
 }
 
 // dk1 (3, 3, 3, C1) f32 = the in-order sum of n_chunks partials in part
+template <int NC = 48>
 inline int launch_dk1(const bf16* x, const bf16* dy1, const bf16* y1,
                       const float* ds1, const float* dss1, float* part,
                       float* dk1, int B, int H, int W, int C1, int n_chunks,
@@ -1309,13 +1370,15 @@ inline int launch_dk1(const bf16* x, const bf16* dy1, const bf16* y1,
   const int H2 = out_size(H, 2), W2 = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(H2, W2, TH, TW, tiles_x);
-  dim3 grid(n_chunks, (C1 + 47) / 48);
-  auto kern = vec ? front_dk1_tc_kernel<true> : front_dk1_tc_kernel<false>;
-  int err = set_smem(kern, dk1_smem());
+  dim3 grid(n_chunks, (C1 + NC - 1) / NC);
+  auto kern = vec ? front_dk1_tc_kernel<true, NC>
+                  : front_dk1_tc_kernel<false, NC>;
+  constexpr size_t smem = dk1_smem<NC>();
+  int err = set_smem(kern, smem);
   if (err != 0) return err;
-  kern<<<grid, K1_THREADS, dk1_smem(), st>>>(x, dy1, y1, ds1, dss1, part, H, W,
-                                             H2, W2, C1, tiles_x, per_img,
-                                             B * per_img, n_chunks);
+  kern<<<grid, K1_THREADS, smem, st>>>(x, dy1, y1, ds1, dss1, part, H, W, H2,
+                                       W2, C1, tiles_x, per_img, B * per_img,
+                                       n_chunks);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int n = 27 * C1;

@@ -22,17 +22,40 @@
 // exist. None of that comes along: here every stage reads and writes NHWC
 // with plain indices, and blocks run in any order.
 //
-// Stages (five launches on one stream):
-//   1. stem1 through the tiled conv of conv_tile.cuh, BN1 + ReLU in its
-//      epilogue on the f32 accumulator; a1 stored in the working dtype;
-//   2. stem2a, conv2x2_relu_kernel<32, 16>;
-//   3. stem2b, conv2x2_relu_kernel<16, 32>, written straight into channels
-//      32..63 of the concat buffer (output channel stride 64);
-//   4. pool2x2_kernel writes channels 0..31 of the concat buffer;
-//   5. stem3 through the tiled conv, no epilogue.
-// The concat buffer does reach memory (the pool is not fused into stem3's
-// staging): a later change can save its 2 x B x H/2 x W/2 x 64 elements of
-// traffic.
+// Two routes, by dtype, each five launches (eval) or nine (train) on one
+// stream:
+//   * bf16 (every model path): hgstem_tc_nhwc and hgstem_train_tc_nhwc,
+//     hand-written tensor-core implicit GEMMs (mma.sync.m16n8k16, ldmatrix,
+//     16-byte cp.async staging) with the launch plan of kernels.stem_plan:
+//       1. stem1: front_p1_kernel (front_tc.cuh) at 32 output channels, an
+//          im2col tile of the 6-byte x rows; eval: BN1 + ReLU on the f32
+//          accumulator, a1 stored in bf16; train: y1 and BN1 partials;
+//       2. stem2a, 3. stem2b: stem2x2_tc_kernel (stem_tc.cuh), a stride-1
+//          GEMM over 4 taps from one staged halo; stem2b writes channels
+//          32..63 of the concat (eval) or y2b (train);
+//       4. the pool (eval) or pool + concat (train): 8 channels a thread;
+//       5. stem3: front_p2_kernel at 64 -> 32, one channel pass, no input
+//          transform (the concat is stored activated), BN3 partials in
+//          train mode.
+//     What bounds it on the H100 at (8, 1024, 1024, 3): 40 GFLOP (0.04 ms
+//     at 989 TFLOP/s) against 84 MB that must move (x in, y3 out: 0.025
+//     ms), so operations; this design also writes and reads a1, a2a and
+//     the concat (about 1.2 GB, 0.35 ms at 3.35 TB/s), which sets its pace.
+//     On an H100 80GB HBM3 at 700 W: eval 0.579 ms of device time (stem1
+//     0.081, stem2a 0.103, stem2b 0.103, pool 0.107, stem3 0.165, the
+//     caller's BN folds 0.02), train 0.761 (0.101, 0.145, 0.116, assemble
+//     0.196, 0.176, finalizes 0.011).
+//   * f32: hgstem_nhwc and hgstem_train_nhwc, the CUDA-core kernels below
+//     (the f32 model checks run through them):
+//       1. stem1 through the tiled conv of conv_tile.cuh, BN1 + ReLU in
+//          its epilogue on the f32 accumulator;
+//       2. stem2a, conv2x2_relu_kernel<32, 16>;
+//       3. stem2b, conv2x2_relu_kernel<16, 32>, written straight into
+//          channels 32..63 of the concat buffer (output channel stride 64);
+//       4. pool2x2_kernel writes channels 0..31 of the concat buffer;
+//       5. stem3 through the tiled conv, no epilogue.
+// The concat buffer does reach memory in both routes (the pool is not
+// fused into stem3's staging).
 //
 // Rounding: a1, a2a, a2b (hence the concat) and y3 are stored in the
 // working dtype; every sum and every BN + ReLU runs in f32 on the
@@ -46,16 +69,12 @@
 // one-block-per-channel pass reduces them in a fixed order into mean, the
 // clamped fast variance and the fold (g, b); the next stage applies
 // relu(g * y + b), rounded to the working dtype, while it stages its input.
-// The pool and the concat read y1 and y2b through the same folds
-// (assemble_train_kernel). y1, y2a, y2b and the concat stay in memory: the
-// backward (hgstem_bwd.cu) reads them. Nine launches, no atomics, so the
-// statistics are the same bits from run to run.
-//
-// What bounds it on the H100: 40 GFLOP at (8, 1024, 1024, 3) against
-// about 84 MB that must move (x and y3 in bf16), so operations; with plain
-// CUDA cores the 2x2 convs and stem3 dominate. Tensor cores are later work.
+// The pool and the concat read y1 and y2b through the same folds. y1, y2a,
+// y2b and the concat stay in memory: the backward (hgstem_bwd.cu) reads
+// them. No atomics, so the statistics are the same bits from run to run.
 
 #include "conv_tile.cuh"
+#include "stem_tc.cuh"
 
 namespace rodt {
 
@@ -284,8 +303,9 @@ inline int launch_mid_stages_train(const void* y1, const void* k2a,
 
 }  // namespace rodt
 
-// x (B, H, W, 3); k1 (3,3,3,32), k2a (2,2,32,16), k2b (2,2,16,32), k3
-// (3,3,64,32) HWIO in the working dtype; g*, b* the folded BN vectors, f32;
+// f32 eval (bf16 goes to hgstem_tc_nhwc). x (B, H, W, 3); k1 (3,3,3,32),
+// k2a (2,2,32,16), k2b (2,2,16,32), k3 (3,3,64,32) HWIO in the working
+// dtype; g*, b* the folded BN vectors, f32;
 // a1 (B, H/2, W/2, 32), a2a (B, H/2, W/2, 16) and cat (B, H/2, W/2, 64) are
 // scratch in the working dtype; y3 (B, H/4, W/4, 32). H and W are
 // multiples of 4.
@@ -296,7 +316,8 @@ extern "C" int hgstem_nhwc(const void* x, const void* k1, const void* g1,
                            void* a2a, void* cat, void* y3, int B, int H,
                            int W, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4)
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4 ||
+      dtype != rodt::DTYPE_F32)
     return static_cast<int>(cudaErrorInvalidValue);
   const int H2 = H / 2, W2 = W / 2;
   rodt::ConvOpts p1;
@@ -309,12 +330,8 @@ extern "C" int hgstem_nhwc(const void* x, const void* k1, const void* g1,
   const float* fb2a = static_cast<const float*>(b2a);
   const float* fg2b = static_cast<const float*>(g2b);
   const float* fb2b = static_cast<const float*>(b2b);
-  if (dtype == rodt::DTYPE_F32)
-    err = rodt::launch_mid_stages<float>(a1, k2a, fg2a, fb2a, k2b, fg2b,
-                                         fb2b, a2a, cat, B, H2, W2, st);
-  else
-    err = rodt::launch_mid_stages<__nv_bfloat16>(
-        a1, k2a, fg2a, fb2a, k2b, fg2b, fb2b, a2a, cat, B, H2, W2, st);
+  err = rodt::launch_mid_stages<float>(a1, k2a, fg2a, fb2a, k2b, fg2b, fb2b,
+                                       a2a, cat, B, H2, W2, st);
   if (err != 0) return err;
   // no epilogue asked for, so the activation is never applied; the ReLU
   // instantiation is stem1's, reused
@@ -322,7 +339,8 @@ extern "C" int hgstem_nhwc(const void* x, const void* k1, const void* g1,
       dtype, cat, k3, y3, rodt::ConvOpts(), B, H2, W2, 64, 32, st);
 }
 
-// Train-mode forward. x and the filters as hgstem_nhwc; sc*, bi* the BN
+// f32 train-mode forward (bf16 goes to hgstem_train_tc_nhwc). x and the
+// filters as hgstem_nhwc; sc*, bi* the BN
 // affines, f32. Outputs in the working dtype, all pre-BN: y1 (B, H/2, W/2,
 // 32), y2a (.., 16), y2b (.., 32), y3 (B, H/4, W/4, 32), and cat (B, H/2,
 // W/2, 64) = [pool(a1), a2b]. stats: scratch of 2 * B *
@@ -336,7 +354,8 @@ extern "C" int hgstem_train_nhwc(
     void* y2b, void* cat, void* y3, void* stats, void* vecs, int B, int H,
     int W, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4)
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4 ||
+      dtype != rodt::DTYPE_F32)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
@@ -351,14 +370,9 @@ extern "C" int hgstem_train_nhwc(
                               (float)B * H2 * W2, nullptr, v, v + 32, f(sc1),
                               f(bi1), v + 2 * 32, v + 3 * 32, st);
   if (err != 0) return err;
-  if (dtype == rodt::DTYPE_F32)
-    err = rodt::launch_mid_stages_train<float>(
-        y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp,
-        v, B, H2, W2, st);
-  else
-    err = rodt::launch_mid_stages_train<__nv_bfloat16>(
-        y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp,
-        v, B, H2, W2, st);
+  err = rodt::launch_mid_stages_train<float>(
+      y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp, v,
+      B, H2, W2, st);
   if (err != 0) return err;
   rodt::ConvOpts p3;
   p3.stats = sp;
@@ -369,4 +383,132 @@ extern "C" int hgstem_train_nhwc(
                                (float)B * H4 * W4, nullptr, v + 12 * 32,
                                v + 13 * 32, nullptr, nullptr, nullptr,
                                nullptr, st);
+}
+
+namespace {
+
+using rodt::stc::bf16;
+
+// The plan of kernels.stem_plan for one call: persistent blocks and
+// 16-byte staging of stem1, stem2a, stem2b and stem3.
+struct StemPlan {
+  int blocks[4];
+  int vec[4];
+};
+
+bool stem_tc_ok(int B, int H, int W, const StemPlan& p) {
+  for (int i = 0; i < 4; ++i)
+    if (p.blocks[i] <= 0) return false;
+  return B > 0 && H > 0 && W > 0 && H % 4 == 0 && W % 4 == 0 &&
+         !(p.vec[0] && W % 8 != 0);
+}
+
+const bf16* h(const void* p) { return static_cast<const bf16*>(p); }
+bf16* hm(void* p) { return static_cast<bf16*>(p); }
+const float* f(const void* p) { return static_cast<const float*>(p); }
+
+}  // namespace
+
+// bf16 eval: the arguments of hgstem_nhwc without dtype, then the plan of
+// kernels.stem_plan: blocks of stem1, stem2a, stem2b, stem3 and their
+// 16-byte staging flags.
+extern "C" int hgstem_tc_nhwc(const void* x, const void* k1, const void* g1,
+                              const void* b1, const void* k2a,
+                              const void* g2a, const void* b2a,
+                              const void* k2b, const void* g2b,
+                              const void* b2b, const void* k3, void* a1,
+                              void* a2a, void* cat, void* y3, int B, int H,
+                              int W, int blocks1, int blocks2a, int blocks2b,
+                              int blocks3, int vec1, int vec2a, int vec2b,
+                              int vec3, void* stream) {
+  const StemPlan p{{blocks1, blocks2a, blocks2b, blocks3},
+                   {vec1, vec2a, vec2b, vec3}};
+  if (!stem_tc_ok(B, H, W, p)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  namespace ftc = rodt::ftc;
+  namespace stc = rodt::stc;
+  const int H2 = H / 2, W2 = W / 2;
+  int err = ftc::launch_p1<false, 4, rodt::ACT_RELU>(
+      h(x), h(k1), f(g1), f(b1), hm(a1), nullptr, B, H, W, 32, blocks1, vec1,
+      st);
+  if (err != 0) return err;
+  err = stc::launch_c2<32, 16, false>(h(a1), h(k2a), f(g2a), f(b2a), hm(a2a),
+                                      nullptr, B, H2, W2, 16, 0, blocks2a,
+                                      vec2a, st);
+  if (err != 0) return err;
+  err = stc::launch_c2<16, 32, false>(h(a2a), h(k2b), f(g2b), f(b2b),
+                                      hm(cat), nullptr, B, H2, W2, 64, 32,
+                                      blocks2b, vec2b, st);
+  if (err != 0) return err;
+  const long long items = (long long)B * H2 * W2 * 4;
+  stc::pool2x2_vec_kernel<32><<<stc::elementwise_blocks(items), 256, 0, st>>>(
+      h(a1), hm(cat), H2, W2, 64, items);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return ftc::launch_p2<false, false, 64, 32, rodt::ACT_RELU>(
+      h(cat), h(k3), nullptr, nullptr, hm(y3), nullptr, B, H2, W2, 64, 32,
+      blocks3, vec3, st);
+}
+
+// bf16 train mode: the arguments of hgstem_train_nhwc without dtype, then
+// the plan as hgstem_tc_nhwc's. stats holds 2 * max(blocks1 * 32, blocks2a
+// * 16, blocks2b * 32, blocks3 * 32) floats (one partial row per
+// persistent block of each conv); vecs as hgstem_train_nhwc's.
+extern "C" int hgstem_train_tc_nhwc(
+    const void* x, const void* k1, const void* sc1, const void* bi1,
+    const void* k2a, const void* sc2a, const void* bi2a, const void* k2b,
+    const void* sc2b, const void* bi2b, const void* k3, void* y1, void* y2a,
+    void* y2b, void* cat, void* y3, void* stats, void* vecs, int B, int H,
+    int W, int blocks1, int blocks2a, int blocks2b, int blocks3, int vec1,
+    int vec2a, int vec2b, int vec3, void* stream) {
+  const StemPlan p{{blocks1, blocks2a, blocks2b, blocks3},
+                   {vec1, vec2a, vec2b, vec3}};
+  if (!stem_tc_ok(B, H, W, p)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  namespace ftc = rodt::ftc;
+  namespace stc = rodt::stc;
+  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
+  const float n2 = (float)B * H2 * W2;
+  float* v = static_cast<float*>(vecs);
+  float* sp = static_cast<float*>(stats);
+  // slots of 32 floats: BN i's mean, var, g, b in 4 i .. 4 i + 3
+  auto slot = [&](int bn, int which) { return v + (4 * bn + which) * 32; };
+  int err = ftc::launch_p1<true, 4, rodt::ACT_RELU>(
+      h(x), h(k1), nullptr, nullptr, hm(y1), sp, B, H, W, 32, blocks1, vec1,
+      st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(sp, blocks1, 32, n2, nullptr, slot(0, 0),
+                              slot(0, 1), f(sc1), f(bi1), slot(0, 2),
+                              slot(0, 3), st);
+  if (err != 0) return err;
+  err = stc::launch_c2<32, 16, true>(h(y1), h(k2a), slot(0, 2), slot(0, 3),
+                                     hm(y2a), sp, B, H2, W2, 16, 0, blocks2a,
+                                     vec2a, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(sp, blocks2a, 16, n2, nullptr, slot(1, 0),
+                              slot(1, 1), f(sc2a), f(bi2a), slot(1, 2),
+                              slot(1, 3), st);
+  if (err != 0) return err;
+  err = stc::launch_c2<16, 32, true>(h(y2a), h(k2b), slot(1, 2), slot(1, 3),
+                                     hm(y2b), sp, B, H2, W2, 32, 0, blocks2b,
+                                     vec2b, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(sp, blocks2b, 32, n2, nullptr, slot(2, 0),
+                              slot(2, 1), f(sc2b), f(bi2b), slot(2, 2),
+                              slot(2, 3), st);
+  if (err != 0) return err;
+  const long long items = (long long)B * H2 * W2 * 4;
+  stc::assemble_train_vec_kernel<32>
+      <<<stc::elementwise_blocks(items), 256, 0, st>>>(
+          h(y1), h(y2b), slot(0, 2), slot(0, 3), slot(2, 2), slot(2, 3),
+          hm(cat), H2, W2, items);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = ftc::launch_p2<false, true, 64, 32, rodt::ACT_RELU>(
+      h(cat), h(k3), nullptr, nullptr, hm(y3), sp, B, H2, W2, 64, 32,
+      blocks3, vec3, st);
+  if (err != 0) return err;
+  return rodt::launch_finalize(sp, blocks3, 32, (float)B * H4 * W4, nullptr,
+                               v + 12 * 32, v + 13 * 32, nullptr, nullptr,
+                               nullptr, nullptr, st);
 }

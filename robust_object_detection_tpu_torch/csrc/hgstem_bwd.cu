@@ -25,22 +25,48 @@
 // accumulate dk and dgamma/dbeta in revisited output blocks. On this card
 // blocks run in parallel, so a weight gradient (few outputs summed over
 // every pixel) and an input gradient (one output per pixel) are separate
-// kernels: the weight gradients go through the chunked kernel of
-// conv_wgrad.cuh (a 2x2 conv with zero pad right/bottom is the taps ky, kx
-// in {1, 2} of a 3x3 pad-1 conv, so its gradient is a corner of that
-// kernel's result), the input gradients are gather kernels tiled over
-// pixels. Every cross-block sum goes through fixed-order partials, never
-// float atomics, so a repeated run gives identical bits.
+// kernels, and every cross-block sum goes through fixed-order partials,
+// never float atomics, so a repeated run gives identical bits.
 //
-// What bounds it on the H100: operations. As a function it must move x, y3
-// and dy3 (about 0.12 GB in bf16 at (8, 1024, 1024, 3)) and do about 77
-// GFLOP, so even at the tensor cores' peak the arithmetic takes longer than
-// the bytes. This version runs the arithmetic on the CUDA cores and moves
-// about 2 GB more (the saved y1, y2a, y2b and concat, and the dcat, dy2b,
-// dy2a, dy1 scratch); the two 2x2 filter gradients are computed as full 3x3
-// gradients (2.25x their work) to reuse conv_wgrad.cuh unchanged.
+// Two routes, by dtype:
+//   * bf16 (the train step): hgstem_bwd_tc_nhwc, hand-written tensor-core
+//     implicit GEMMs (mma.sync.m16n8k16, ldmatrix, 16-byte cp.async) with
+//     the plan of kernels.stem_bwd_plan:
+//       (a) e3 = round(dy3 + ds3 + 2 y3 dss3) once (e2_prep_kernel); d(cat)
+//           = front_da1_tc_kernel without its chain: the transposed stem3
+//           as four parity-class GEMMs over one e3 patch; dk3 =
+//           front_dk2_tc_kernel without its input transform (the concat is
+//           stored activated), 64 x 32 channels a block;
+//       (b) assemble_bwd_vec_kernel (stem_tc.cuh): the concat's halves, 8
+//           channels a thread;
+//       (c) for stem2b, then stem2a: e = round(dy + ds + 2 y dss) once,
+//           written over the buffer that held dy (e2_prep_kernel); the
+//           filter gradient over the 2x2 tap range itself
+//           (stem2x2_wgrad_tc_kernel, (2, 2, Cin, Cout) written directly);
+//           the input gradient, the transposed 2x2 conv, with the BN +
+//           ReLU chain below and its dgamma / dbeta partials in the
+//           epilogue (stem2x2_dx_tc_kernel; for stem2a the pool's gradient
+//           of a1 added before the ReLU mask);
+//       (d) dk1 = front_dk1_tc_kernel at 32 channels, e1 formed in place.
+//     What bounds it on the H100 at (8, 1024, 1024, 3): 77 GFLOP (0.08 ms
+//     at 989 TFLOP/s) against x, y3 and dy3 (0.12 GB, 0.04 ms): operations.
+//     This design moves about 2.6 GB more (the saved y1, y2a, y2b and
+//     concat read, e3, d(cat), da1p, dy2b, dy2a, dy1 written and read
+//     back), about 0.8 ms at 3.35 TB/s, which sets its pace. On an H100
+//     80GB HBM3 at 700 W: 1.92-1.94 ms of device time (the concat's
+//     backward 0.57, stem2a's dX 0.19, dk1 0.19, d(cat) 0.18, dk2a 0.15,
+//     dk3 0.14, e preps 0.22, stem2b's dX and dk2b 0.11 each). The concat's
+//     backward recomputes a1 on a 3 x 3 neighbourhood for each item and is
+//     the largest stage.
+//   * f32: hgstem_bwd_nhwc, the CUDA-core kernels below: the weight
+//     gradients through the chunked kernel of conv_wgrad.cuh (a 2x2 conv
+//     with zero pad right/bottom is the taps ky, kx in {1, 2} of a 3x3
+//     pad-1 conv, so its gradient is a corner of that kernel's result, at
+//     2.25x the work), the input gradients gather kernels tiled over
+//     pixels.
 
 #include "conv_wgrad.cuh"
+#include "stem_tc.cuh"
 
 namespace {
 
@@ -48,10 +74,7 @@ using namespace rodt;
 
 constexpr int DC_C = 16;  // y3 channels staged per pass of stem3_dx_kernel
 
-// maximum-VJP weight of u against v: 1 if u > v, 0.5 at a tie, else 0
-__device__ __forceinline__ float sel(float u, float v) {
-  return u > v ? 1.f : (u == v ? 0.5f : 0.f);
-}
+using stc::sel;  // maximum-VJP weight, shared with the bf16 route
 
 // (a) d(cat)[b, iy, ix, c] = sum over taps (ky, kx) with iy + 1 - ky and
 // ix + 1 - kx even, and co: e3[b, (iy+1-ky)/2, (ix+1-kx)/2, co]
@@ -484,7 +507,7 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
 
 }  // namespace
 
-// The tensors hgstem_train_nhwc read and wrote (x, y1, y2a, y2b, cat, y3,
+// f32 only. The tensors hgstem_train_nhwc read and wrote (x, y1, y2a, y2b, cat, y3,
 // the filters k2a, k2b, k3, all in the working dtype; sc1, sc2a, sc2b f32;
 // fvecs its statistics buffer), dy3 (B, H/4, W/4, 32) in the working dtype
 // and dstat (8 slots of 32 floats: dmean of BN1, 2a, 2b, 3, then dvar).
@@ -508,17 +531,149 @@ extern "C" int hgstem_bwd_nhwc(
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rodt::DTYPE_F32)
-    return stem_bwd<float>(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, f(sc1),
-                           f(sc2a), f(sc2b), f(fvecs), dy3, f(dstat), dcat,
-                           da1p, dy2b, dy2a, dy1, m(gpart), m(wpart), m(work),
-                           m(dk1), m(dk2a9), m(dk2b9), m(dk3), m(dvec), B, H,
-                           W, ch1, ch2a, ch2b, ch3, st);
-  if (dtype == rodt::DTYPE_BF16)
-    return stem_bwd<__nv_bfloat16>(
-        x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, f(sc1), f(sc2a), f(sc2b),
-        f(fvecs), dy3, f(dstat), dcat, da1p, dy2b, dy2a, dy1, m(gpart),
-        m(wpart), m(work), m(dk1), m(dk2a9), m(dk2b9), m(dk3), m(dvec), B, H,
-        W, ch1, ch2a, ch2b, ch3, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != rodt::DTYPE_F32)  // bf16 goes to hgstem_bwd_tc_nhwc
+    return static_cast<int>(cudaErrorInvalidValue);
+  return stem_bwd<float>(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, f(sc1),
+                         f(sc2a), f(sc2b), f(fvecs), dy3, f(dstat), dcat,
+                         da1p, dy2b, dy2a, dy1, m(gpart), m(wpart), m(work),
+                         m(dk1), m(dk2a9), m(dk2b9), m(dk3), m(dvec), B, H, W,
+                         ch1, ch2a, ch2b, ch3, st);
+}
+
+// bf16: the tensors hgstem_train_tc_nhwc read and wrote and the
+// cotangents, as hgstem_bwd_nhwc's, plus the scratch e3 (like y3); dk2a
+// (2,2,32,16) and dk2b (2,2,16,32) are written directly. Then the plan of
+// kernels.stem_bwd_plan: da_blocks (d(cat), 2 channel slices), dk3_chunks,
+// asm_blocks (the concat's backward: gpart rows), wg2b_chunks,
+// dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec (16-byte staging
+// of the filters and dy3) and vec_x (of x). gpart holds 2 * max(asm_blocks
+// * 32, dx2b_blocks * 16, dx2a_blocks * 32) floats, wpart max(dk3_chunks *
+// 9 * 64 * 32, wg2b_chunks * 4 * 16 * 32, wg2a_chunks * 4 * 32 * 16,
+// dk1_chunks * 27 * 32).
+extern "C" int hgstem_bwd_tc_nhwc(
+    const void* x, const void* y1, const void* y2a, const void* y2b,
+    const void* cat, const void* y3, const void* k2a, const void* k2b,
+    const void* k3, const void* sc1, const void* sc2a, const void* sc2b,
+    const void* fvecs, const void* dy3, const void* dstat, void* dcat,
+    void* da1p, void* dy2b, void* dy2a, void* dy1, void* e3, void* gpart,
+    void* wpart, void* work, void* dk1, void* dk2a, void* dk2b, void* dk3,
+    void* dvec, int B, int H, int W, int da_blocks, int dk3_chunks,
+    int asm_blocks, int wg2b_chunks, int dx2b_blocks, int wg2a_chunks,
+    int dx2a_blocks, int dk1_chunks, int vec, int vec_x, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || H % 4 || W % 4 || da_blocks <= 0 ||
+      dk3_chunks <= 0 || asm_blocks <= 0 || wg2b_chunks <= 0 ||
+      dx2b_blocks <= 0 || wg2a_chunks <= 0 || dx2a_blocks <= 0 ||
+      dk1_chunks <= 0 || (vec_x && (!vec || W % 8 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  namespace ftc = rodt::ftc;
+  namespace stc = rodt::stc;
+  using stc::bf16;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto hm = [](void* p) { return static_cast<bf16*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
+  const float n1 = (float)B * H2 * W2, n3 = (float)B * H4 * W4;
+  const float* fv = f(fvecs);
+  const float* ds_in = f(dstat);
+  auto dmean = [&](int bn) { return ds_in + bn * 32; };
+  auto dvar = [&](int bn) { return ds_in + (4 + bn) * 32; };
+  float* ds = static_cast<float*>(work);
+  float* dss = ds + 32;
+  float* sums = ds + 64;
+  float* dv = static_cast<float*>(dvec);
+  float* gp = static_cast<float*>(gpart);
+  float* wp = static_cast<float*>(wpart);
+  // e of stem2b over d(cat)'s buffer (free after (b)), e of stem2a over
+  // dy2b's (free once e2b is formed)
+  bf16* e2b = hm(dcat);
+  bf16* e2a = hm(dy2b);
+
+  // (a)
+  rodt::stat_cotangent_kernel<<<1, 32, 0, st>>>(dmean(3), dvar(3),
+                                                fv + 12 * 32, n3, 32, ds, dss);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = ftc::launch_e2(h(dy3), h(y3), ds, dss, hm(e3),
+                       (long long)B * H4 * W4 * 32, 32, vec, st);
+  if (err != 0) return err;
+  err = ftc::launch_da1<false, 32, 32, rodt::ACT_RELU>(
+      h(e3), h(k3), nullptr, nullptr, nullptr, hm(dcat), nullptr, B, H2, W2,
+      64, 32, da_blocks, vec, st);
+  if (err != 0) return err;
+  err = ftc::launch_dk2<false, 4, 4, rodt::ACT_RELU>(
+      h(cat), h(e3), nullptr, nullptr, wp, static_cast<float*>(dk3), B, H2,
+      W2, 64, 32, dk3_chunks, vec, st);
+  if (err != 0) return err;
+
+  // (b)
+  const long long items = (long long)B * H2 * W2 * 4;
+  stc::assemble_bwd_vec_kernel<32><<<asm_blocks, 256, 0, st>>>(
+      h(y1), h(y2b), h(dcat), fslot(fv, 0, F_G), fslot(fv, 0, F_B),
+      fslot(fv, 2, F_G), fslot(fv, 2, F_B), hm(da1p), hm(dy2b), gp, H2, W2,
+      items);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  err = rodt::launch_finalize(gp, asm_blocks, 32, 1.f, sums, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr,
+                              st);
+  if (err != 0) return err;
+  // dvec: dsc1, dbi1, dsc2a, dbi2a, dsc2b, dbi2b in slots 0..5
+  rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
+      sums, f(sc2b), fslot(fv, 2, F_MEAN), fslot(fv, 2, F_VAR), n1, dmean(2),
+      dvar(2), 32, dv + 4 * 32, dv + 5 * 32, ds, dss);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // (c) stem2b: e2b, its filter gradient, the gradient into y2a
+  err = ftc::launch_e2(h(dy2b), h(y2b), ds, dss, e2b, (long long)B * H2 * W2
+                       * 32, 32, 1, st);
+  if (err != 0) return err;
+  err = stc::launch_wg2<16, 32>(h(y2a), e2b, fslot(fv, 1, F_G),
+                                fslot(fv, 1, F_B), wp,
+                                static_cast<float*>(dk2b), B, H2, W2,
+                                wg2b_chunks, vec, st);
+  if (err != 0) return err;
+  err = stc::launch_dx2<32, 16, false>(
+      e2b, h(k2b), h(y2a), nullptr, fslot(fv, 1, F_G), fslot(fv, 1, F_B),
+      hm(dy2a), gp, B, H2, W2, dx2b_blocks, vec, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(gp, dx2b_blocks, 16, 1.f, sums, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr,
+                              st);
+  if (err != 0) return err;
+  rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
+      sums, f(sc2a), fslot(fv, 1, F_MEAN), fslot(fv, 1, F_VAR), n1, dmean(1),
+      dvar(1), 16, dv + 2 * 32, dv + 3 * 32, ds, dss);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // stem2a: e2a, its filter gradient, the gradient into y1 (plus the
+  // pool's)
+  err = ftc::launch_e2(h(dy2a), h(y2a), ds, dss, e2a, (long long)B * H2 * W2
+                       * 16, 16, 1, st);
+  if (err != 0) return err;
+  err = stc::launch_wg2<32, 16>(h(y1), e2a, fslot(fv, 0, F_G),
+                                fslot(fv, 0, F_B), wp,
+                                static_cast<float*>(dk2a), B, H2, W2,
+                                wg2a_chunks, vec, st);
+  if (err != 0) return err;
+  err = stc::launch_dx2<16, 32, true>(
+      e2a, h(k2a), h(y1), h(da1p), fslot(fv, 0, F_G), fslot(fv, 0, F_B),
+      hm(dy1), gp, B, H2, W2, dx2a_blocks, vec, st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize(gp, dx2a_blocks, 32, 1.f, sums, nullptr,
+                              nullptr, nullptr, nullptr, nullptr, nullptr,
+                              st);
+  if (err != 0) return err;
+  rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
+      sums, f(sc1), fslot(fv, 0, F_MEAN), fslot(fv, 0, F_VAR), n1, dmean(0),
+      dvar(0), 32, dv, dv + 32, ds, dss);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // (d)
+  return ftc::launch_dk1<32>(h(x), h(dy1), h(y1), ds, dss, wp,
+                             static_cast<float*>(dk1), B, H, W, 32,
+                             dk1_chunks, vec_x, st);
 }

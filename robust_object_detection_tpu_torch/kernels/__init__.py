@@ -73,15 +73,27 @@ SIGNATURES: Dict[str, List] = {
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, stream
     "corrupt_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
     # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
-    # (scratch), y3, B, H, W, dtype, stream
+    # (scratch), y3, B, H, W, dtype (f32 only), stream
     "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
     # x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3, y1, y2a, y2b,
-    # cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, dtype, stream
+    # cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, dtype (f32
+    # only), stream
     "hgstem_train_nhwc": [_P] * 18 + [_I] * 4 + [_P],
     # x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
     # dstat, dcat, da1p, dy2b, dy2a, dy1, gpart, wpart, work (scratch), dk1,
-    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype, stream
+    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype (f32 only), stream
     "hgstem_bwd_nhwc": [_P] * 28 + [_I] * 8 + [_P],
+    # the bf16 stem (csrc/front_tc.cuh, csrc/stem_tc.cuh) with the plan of
+    # stem_plan: hgstem_nhwc's pointers, B, H, W, then blocks and vec of
+    # stem1, stem2a, stem2b, stem3
+    "hgstem_tc_nhwc": [_P] * 15 + [_I] * 11 + [_P],
+    # hgstem_train_nhwc's pointers, B, H, W, then the plan as above
+    "hgstem_train_tc_nhwc": [_P] * 18 + [_I] * 11 + [_P],
+    # hgstem_bwd_nhwc's pointers with e3 (scratch) after dy1 and dk2a, dk2b
+    # (2, 2, ., .) in place of dk2a9, dk2b9; B, H, W, then the plan of
+    # stem_bwd_plan: da_blocks, dk3_chunks, asm_blocks, wg2b_chunks,
+    # dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec, vec_x
+    "hgstem_bwd_tc_nhwc": [_P] * 29 + [_I] * 13 + [_P],
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
     # NH, DH, L, P, dtype, stream
     "ms_deform_attn_fwd": [_P] * 5 + [_I] * 8 + [_P],
@@ -390,6 +402,103 @@ def front_bwd_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
                 dk2_chunks=_spread(dk2_tiles, DK2_PER_SM, n_sm, c1s * c2s),
                 dk1_tiles=dk1_tiles,
                 dk1_chunks=_spread(dk1_tiles, DK1_PER_SM, n_sm, c1s))
+
+
+# ---- K4's bf16 tensor-core kernels (csrc/front_tc.cuh, csrc/stem_tc.cuh) --
+# stem1 and stem3 run K2's P1 and P2 kernels (FRONT_TH x FRONT_TW output
+# tiles), d(cat) its dA1 (DA_TH x DA_TW tiles of the concat, two 32-channel
+# slices), dk3 its dk2 (DK2_TH x FRONT_TW tiles of y3, one 64 x 32 slice),
+# dk1 its dk1 at 32 channels; the 2x2 convs, their input and filter
+# gradients take STEM_TH x STEM_TW tiles of the stem2 maps; the concat's
+# backward is persistent over (pixel, 8 channels) items. Blocks an SM by
+# each kernel's shared memory and registers: P1 30 KB, P2 208 KB, the
+# 2x2 forward 30-37 KB, its dX 42-62 KB, its filter gradient 35-37 KB, dA1
+# 57 KB, dk2 98 KB (288 threads), dk1 57 KB.
+STEM_CM = 32                  # the kernels' width (HGNetv2-L)
+STEM_TH, STEM_TW = 8, 16
+STEM_P1_PER_SM, STEM_C2_PER_SM, STEM_P3_PER_SM = 4, 4, 1
+STEM_DA_PER_SM, STEM_DK3_PER_SM, STEM_ASM_PER_SM = 2, 2, 4
+STEM_WG_PER_SM, STEM_DX_PER_SM, STEM_DK1_PER_SM = 4, 3, 2
+
+
+def _stem_shape_ok(name: str, b: int, h: int, w: int) -> None:
+    if b <= 0 or h <= 0 or w <= 0 or h % 4 or w % 4:
+        raise ValueError(f"{name} takes B >= 1 and H, W positive multiples "
+                         f"of 4, got B {b}, H {h}, W {w}")
+    if b * (h // 2) * (w // 2) > _INT_MAX:
+        raise ValueError(f"{name}: B {b} x H {h} x W {w} is beyond the "
+                         f"kernels' int32 counts")
+
+
+def stem_plan(b: int, h: int, w: int, ptrs,
+              n_sm: int) -> Dict[str, Dict[str, int]]:
+    """Launch plan of K4-f's bf16 kernels on x (b, h, w, 3), with base
+    pointers `ptrs` (x, k1, k2a, k2b, k3) and `n_sm` SMs. ``p1`` (stem1),
+    ``c2a``, ``c2b`` (the 2x2 convs), ``p3`` (stem3): tiles, blocks
+    (persistent; block i takes the tiles of :func:`chunk_tiles`, and in
+    train mode writes row i of that conv's statistics partials) and vec
+    (16-byte staging: stem1 needs W a multiple of 8 and x, k1 aligned, the
+    others their filter aligned, their inputs being the wrapper's own
+    buffers). ``stats``: the floats of the train mode's partials buffer,
+    2 x the largest blocks x channels of the four convs."""
+    _stem_shape_ok("stem", b, h, w)
+    x, k1, k2a, k2b, k3 = ptrs
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    plan = {}
+    for name, (hh, ww, per_sm, vec) in dict(
+            p1=(h2, w2, STEM_P1_PER_SM,
+                w % 8 == 0 and x % 16 == 0 and k1 % 16 == 0),
+            c2a=(h2, w2, STEM_C2_PER_SM, k2a % 16 == 0),
+            c2b=(h2, w2, STEM_C2_PER_SM, k2b % 16 == 0),
+            p3=(h4, w4, STEM_P3_PER_SM, k3 % 16 == 0)).items():
+        tiles = _tiles(b, hh, ww, STEM_TH, STEM_TW)
+        plan[name] = dict(tiles=tiles, vec=int(vec),
+                          blocks=_spread(tiles, per_sm, n_sm, 1))
+    widths = dict(p1=STEM_CM, c2a=STEM_CM // 2, c2b=STEM_CM, p3=STEM_CM)
+    plan["stats"] = 2 * max(plan[k]["blocks"] * c for k, c in widths.items())
+    return plan
+
+
+def stem_bwd_plan(b: int, h: int, w: int, ptrs, n_sm: int) -> Dict[str, int]:
+    """Launch plan of K4-b's bf16 kernels for x (b, h, w, 3) and the stem's
+    saved tensors, with base pointers `ptrs` (x, k2a, k2b, k3, dy3) and
+    `n_sm` SMs: da_blocks (d(cat)'s persistent blocks, two channel slices),
+    dk3_chunks, wg2b_chunks, wg2a_chunks and dk1_chunks (the filter
+    gradients' pixel chunks), asm_blocks, dx2b_blocks and dx2a_blocks (the
+    concat's backward and the two 2x2 input gradients, each block one row
+    of dgamma / dbeta partials), each with its tile (or item) count; vec
+    (16-byte staging of the filters and dy3: pointers aligned) and vec_x
+    (vec, W a multiple of 8 and x aligned); ``gpart`` and ``wpart``, the
+    floats of the partials buffers. Fixed for a shape and a card."""
+    _stem_shape_ok("stem_bwd", b, h, w)
+    x, *rest = ptrs
+    cm = STEM_CM
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    vec = int(all(p % 16 == 0 for p in rest))
+    t2 = _tiles(b, h2, w2, STEM_TH, STEM_TW)
+    plan = dict(vec=vec, vec_x=int(vec and w % 8 == 0 and x % 16 == 0),
+                da_tiles=_tiles(b, h2, w2, DA_TH, DA_TW),
+                dk3_tiles=_tiles(b, h4, w4, DK2_TH, FRONT_TW),
+                asm_items=b * h2 * w2 * (cm // 8),
+                wg2b_tiles=t2, dx2b_tiles=t2, wg2a_tiles=t2, dx2a_tiles=t2,
+                dk1_tiles=_tiles(b, h2, w2, FRONT_TH, FRONT_TW))
+    plan["da_blocks"] = _spread(plan["da_tiles"], STEM_DA_PER_SM, n_sm, 2)
+    plan["dk3_chunks"] = _spread(plan["dk3_tiles"], STEM_DK3_PER_SM, n_sm, 1)
+    plan["asm_blocks"] = _spread(-(-plan["asm_items"] // 256),
+                                 STEM_ASM_PER_SM, n_sm, 1)
+    for k in ("wg2b", "wg2a"):
+        plan[f"{k}_chunks"] = _spread(t2, STEM_WG_PER_SM, n_sm, 1)
+    for k in ("dx2b", "dx2a"):
+        plan[f"{k}_blocks"] = _spread(t2, STEM_DX_PER_SM, n_sm, 1)
+    plan["dk1_chunks"] = _spread(plan["dk1_tiles"], STEM_DK1_PER_SM, n_sm, 1)
+    plan["gpart"] = 2 * max(plan["asm_blocks"] * cm,
+                            plan["dx2b_blocks"] * (cm // 2),
+                            plan["dx2a_blocks"] * cm)
+    plan["wpart"] = max(plan["dk3_chunks"] * 9 * 2 * cm * cm,
+                        plan["wg2b_chunks"] * 4 * (cm // 2) * cm,
+                        plan["wg2a_chunks"] * 4 * cm * (cm // 2),
+                        plan["dk1_chunks"] * 27 * cm)
+    return plan
 
 
 def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:

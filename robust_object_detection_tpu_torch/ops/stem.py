@@ -13,10 +13,19 @@ The caller applies BN3 + ReLU and the 1x1 stem4, as models/rtdetr.HGStem
 does after the TPU kernel. Every BN here is the affine fold of the running
 statistics (eps 1e-3), computed in f32.
 
-:func:`stem_fused_inference` launches ``hgstem_nhwc`` of ``csrc/hgstem.cu``
-(K4-f) on a CUDA tensor and runs :func:`stem_reference`, the plain PyTorch
-version, on a CPU tensor. Any other device, dtype, layout or shape raises:
-there is no second route.
+:func:`stem_fused_inference` launches K4-f (``csrc/hgstem.cu``) on a CUDA
+tensor and runs :func:`stem_reference`, the plain PyTorch version, on a CPU
+tensor. Any other device, dtype, layout or shape raises.
+
+Each kernel has two routes, by dtype: bf16 runs the tensor-core implicit
+GEMMs of ``csrc/front_tc.cuh`` and ``csrc/stem_tc.cuh``
+(``hgstem_tc_nhwc``, ``hgstem_train_tc_nhwc``, ``hgstem_bwd_tc_nhwc``) with
+a launch plan computed in Python (``kernels.stem_plan``,
+``kernels.stem_bwd_plan``: persistent blocks, which fix the number of
+statistics and dgamma / dbeta partials the wrapper allocates, pixel chunks,
+16-byte or element staging), which the CPU tests hold; f32 runs the
+CUDA-core kernels (``hgstem_nhwc``, ``hgstem_train_nhwc``,
+``hgstem_bwd_nhwc``).
 
 Rounding: both versions store a1, a2a, a2b (hence the concat) and y3 in
 the working dtype and apply BN + ReLU in f32. The kernel applies BN + ReLU
@@ -117,6 +126,14 @@ def _check_stats(x, cm, means, variances) -> None:
         raise ValueError("stem: BN vectors do not match the filters")
 
 
+def _plan_args(plan):
+    """The blocks, then the vec flags, of stem1, stem2a, stem2b and stem3
+    in a :func:`kernels.stem_plan`."""
+    convs = ("p1", "c2a", "c2b", "p3")
+    return ([plan[c]["blocks"] for c in convs]
+            + [plan[c]["vec"] for c in convs])
+
+
 def stem_fused_inference(x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b,
                          k3, means: Sequence,
                          variances: Sequence) -> torch.Tensor:
@@ -147,15 +164,21 @@ def stem_fused_inference(x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b,
 
     a1, a2a, cat = scratch(cm), scratch(cm // 2), scratch(2 * cm)
     y3 = torch.empty((b, h // 4, w // 4, cm), dtype=x.dtype, device=x.device)
+    args = [t.data_ptr() for t in (x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b,
+                                   b2b, k3, a1, a2a, cat, y3)] + [b, h, w]
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
-        err = lib.hgstem_nhwc(
-            x.data_ptr(), k1.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-            k2a.data_ptr(), g2a.data_ptr(), b2a.data_ptr(), k2b.data_ptr(),
-            g2b.data_ptr(), b2b.data_ptr(), k3.data_ptr(), a1.data_ptr(),
-            a2a.data_ptr(), cat.data_ptr(), y3.data_ptr(), b, h, w,
-            kernels.dtype_code(x.dtype), kernels.stream_ptr(x.device))
-    kernels.check(err, "hgstem_nhwc")
+        stream = kernels.stream_ptr(x.device)
+        if x.dtype == torch.bfloat16:
+            name = "hgstem_tc_nhwc"
+            plan = kernels.stem_plan(b, h, w, (args[0], args[1], args[4],
+                                               args[7], args[10]),
+                                     kernels.sm_count(x.device))
+            err = lib.hgstem_tc_nhwc(*args, *_plan_args(plan), stream)
+        else:
+            name = "hgstem_nhwc"
+            err = lib.hgstem_nhwc(*args, kernels.DTYPE_F32, stream)
+    kernels.check(err, name)
     stem_fused_inference.launches += 1
     return y3
 
@@ -225,20 +248,29 @@ class _StemFused(torch.autograd.Function):
 
         y1, y2a, y2b, cat = half(cm), half(cm // 2), half(cm), half(2 * cm)
         y3 = torch.empty((b, h // 4, w // 4, cm), dtype=dtype, device=dev)
-        stats = torch.empty(2 * b * kernels.tile_count(h2, w2) * cm,
-                            dtype=torch.float32, device=dev)
+        bf16 = dtype == torch.bfloat16
+        if bf16:        # one partial row per persistent block of each conv
+            plan = kernels.stem_plan(b, h, w, tuple(
+                t.data_ptr() for t in (x, *kd)), kernels.sm_count(dev))
+            n_stats = plan["stats"]
+        else:           # one partial row per image and 16 x 16 tile
+            n_stats = 2 * b * kernels.tile_count(h2, w2) * cm
+        stats = torch.empty(n_stats, dtype=torch.float32, device=dev)
         fvecs = torch.zeros((14, SLOT), dtype=torch.float32, device=dev)
+        args = [t.data_ptr() for t in (
+            x, kd[0], vf[0], vf[1], kd[1], vf[2], vf[3], kd[2], vf[4],
+            vf[5], kd[3], y1, y2a, y2b, cat, y3, stats, fvecs)] + [b, h, w]
         lib = kernels.load()
         with torch.cuda.device(dev):
-            err = lib.hgstem_train_nhwc(
-                x.data_ptr(), kd[0].data_ptr(), vf[0].data_ptr(),
-                vf[1].data_ptr(), kd[1].data_ptr(), vf[2].data_ptr(),
-                vf[3].data_ptr(), kd[2].data_ptr(), vf[4].data_ptr(),
-                vf[5].data_ptr(), kd[3].data_ptr(), y1.data_ptr(),
-                y2a.data_ptr(), y2b.data_ptr(), cat.data_ptr(),
-                y3.data_ptr(), stats.data_ptr(), fvecs.data_ptr(), b, h, w,
-                kernels.dtype_code(dtype), kernels.stream_ptr(dev))
-        kernels.check(err, "hgstem_train_nhwc")
+            stream = kernels.stream_ptr(dev)
+            if bf16:
+                name = "hgstem_train_tc_nhwc"
+                err = lib.hgstem_train_tc_nhwc(*args, *_plan_args(plan),
+                                               stream)
+            else:
+                name = "hgstem_train_nhwc"
+                err = lib.hgstem_train_nhwc(*args, kernels.DTYPE_F32, stream)
+        kernels.check(err, name)
         stem_fused.launches += 1
         ctx.save_for_backward(x, y1, y2a, y2b, cat, y3, kd[1], kd[2], kd[3],
                               vf[0], vf[2], vf[4], fvecs)
@@ -296,6 +328,16 @@ def stem_fused_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
     if x.device.type != "cuda":
         raise ValueError(f"stem_fused_backward launches K4-b on a CUDA card, "
                          f"got {x.device}")
+    grads = _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1,
+                             sc2a, sc2b, fvecs, dy3, dmeans, dvars)
+    stem_fused_backward.launches += 1
+    return grads
+
+
+def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
+                     sc2b, fvecs, dy3, dmeans, dvars):
+    """Scratch, outputs and the launch of K4-b (bf16: its plan's partial
+    counts size gpart and wpart); the body of :func:`stem_fused_backward`."""
     b, h, w, _ = x.shape
     h2, w2 = h // 2, w // 2
     cm = y1.shape[3]
@@ -307,11 +349,6 @@ def stem_fused_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
             dstat[i, :dm.numel()] = dm.float()
         if dv is not None:
             dstat[4 + i, :dv.numel()] = dv.float()
-    chunks = [kernels.wgrad_chunks(ci, co) for ci, co in
-              ((3, cm), (cm, cm // 2), (cm // 2, cm), (2 * cm, cm))]
-    sizes = (27 * cm, 9 * cm * (cm // 2), 9 * (cm // 2) * cm,
-             9 * 2 * cm * cm)
-
     def half(c):
         return torch.empty((b, h2, w2, c), dtype=dtype, device=dev)
 
@@ -320,34 +357,57 @@ def stem_fused_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
 
     dcat, da1p, dy2b, dy2a, dy1 = (half(2 * cm), half(cm), half(cm),
                                    half(cm // 2), half(cm))
-    gpart = f32(2 * b * kernels.tile_count(h2, w2) * cm)
-    wpart = f32(max(c * n for c, n in zip(chunks, sizes)))
-    work = f32(4 * SLOT)
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        plan = kernels.stem_bwd_plan(b, h, w, tuple(
+            t.data_ptr() for t in (x, k2a, k2b, k3, dy3)),
+            kernels.sm_count(dev))
+        n_gpart, n_wpart = plan["gpart"], plan["wpart"]
+    else:
+        chunks = [kernels.wgrad_chunks(ci, co) for ci, co in
+                  ((3, cm), (cm, cm // 2), (cm // 2, cm), (2 * cm, cm))]
+        sizes = (27 * cm, 9 * cm * (cm // 2), 9 * (cm // 2) * cm,
+                 9 * 2 * cm * cm)
+        n_gpart = 2 * b * kernels.tile_count(h2, w2) * cm
+        n_wpart = max(c * n for c, n in zip(chunks, sizes))
+    gpart, wpart, work = f32(n_gpart), f32(n_wpart), f32(4 * SLOT)
     dk1, dk3 = f32(3, 3, 3, cm), f32(3, 3, 2 * cm, cm)
-    dk2a9, dk2b9 = f32(3, 3, cm, cm // 2), f32(3, 3, cm // 2, cm)
+    taps = 2 if bf16 else 3     # f32: the 2x2 gradients as 3x3 corners
+    dk2a = f32(taps, taps, cm, cm // 2)
+    dk2b = f32(taps, taps, cm // 2, cm)
     dvec = f32(6, SLOT)
+    head = [t.data_ptr() for t in (
+        x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
+        dstat, dcat, da1p, dy2b, dy2a, dy1)]
+    tail = [t.data_ptr() for t in (gpart, wpart, work, dk1, dk2a, dk2b, dk3,
+                                   dvec)] + [b, h, w]
     lib = kernels.load()
     with torch.cuda.device(dev):
-        err = lib.hgstem_bwd_nhwc(
-            x.data_ptr(), y1.data_ptr(), y2a.data_ptr(), y2b.data_ptr(),
-            cat.data_ptr(), y3.data_ptr(), k2a.data_ptr(), k2b.data_ptr(),
-            k3.data_ptr(), sc1.data_ptr(), sc2a.data_ptr(), sc2b.data_ptr(),
-            fvecs.data_ptr(), dy3.data_ptr(), dstat.data_ptr(),
-            dcat.data_ptr(), da1p.data_ptr(), dy2b.data_ptr(),
-            dy2a.data_ptr(), dy1.data_ptr(), gpart.data_ptr(),
-            wpart.data_ptr(), work.data_ptr(), dk1.data_ptr(),
-            dk2a9.data_ptr(), dk2b9.data_ptr(), dk3.data_ptr(),
-            dvec.data_ptr(), b, h, w, *chunks, kernels.dtype_code(dtype),
-            kernels.stream_ptr(dev))
-    kernels.check(err, "hgstem_bwd_nhwc")
-    stem_fused_backward.launches += 1
-    # a 2x2 conv with zero pad right/bottom is the taps ky, kx in {1, 2} of
-    # the 3x3 pad-1 gradient the kernel computed
-    dk2a = dk2a9[1:, 1:].contiguous()
-    dk2b = dk2b9[1:, 1:].contiguous()
+        stream = kernels.stream_ptr(dev)
+        if bf16:
+            e3 = torch.empty_like(y3)   # dy3 with the BN3 statistics fold
+            name = "hgstem_bwd_tc_nhwc"
+            err = lib.hgstem_bwd_tc_nhwc(
+                *head, e3.data_ptr(), *tail,
+                *(plan[k] for k in STEM_BWD_PLAN), stream)
+        else:
+            name = "hgstem_bwd_nhwc"
+            err = lib.hgstem_bwd_nhwc(*head, *tail, *chunks,
+                                      kernels.DTYPE_F32, stream)
+    kernels.check(err, name)
+    if not bf16:
+        # a 2x2 conv with zero pad right/bottom is the taps ky, kx in {1, 2}
+        # of the 3x3 pad-1 gradient the CUDA-core kernel computed
+        dk2a = dk2a[1:, 1:].contiguous()
+        dk2b = dk2b[1:, 1:].contiguous()
     ch = cm // 2
     return (dk1, dvec[0, :cm], dvec[1, :cm], dk2a, dvec[2, :ch],
             dvec[3, :ch], dk2b, dvec[4, :cm], dvec[5, :cm], dk3)
 
 
 stem_fused_backward.launches = 0
+
+# the order of the plan's counts in hgstem_bwd_tc_nhwc's arguments
+STEM_BWD_PLAN = ("da_blocks", "dk3_chunks", "asm_blocks", "wg2b_chunks",
+                 "dx2b_blocks", "wg2a_chunks", "dx2a_blocks", "dk1_chunks",
+                 "vec", "vec_x")

@@ -607,6 +607,93 @@ def test_stem_train_backward_matches_plain(cuda, dtype, tol, shape):
     assert all(torch.equal(a.grad, c.grad) for a, c in zip(ps, ps2))
 
 
+def _stem_bf16_all_modes(x, params, cuda, gtol):
+    """The bf16 stem kernels on x against their plain versions: eval (2e-2
+    x max|ref| against the f32 chain on the same values), train y3 and the
+    eight statistics (2e-2), K4-b's ten gradients (gtol, against the
+    autograd of the plain chain in bf16); the train outputs and K4-b bit-
+    identical on a second run."""
+    b, h, w, _ = x.shape
+    sizes = (32, 16, 32)
+    means = [torch.zeros(c, device=cuda) for c in sizes]
+    var = [torch.ones(c, device=cuda) for c in sizes]
+    ev = [x, *(p.bfloat16() if p.dim() == 4 else p for p in params), means,
+          var]
+    out = ST.stem_fused_inference(*ev)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ref = ST.stem_reference(*(a.float() if torch.is_tensor(a) else a
+                                  for a in ev))
+    assert out.shape == (b, h // 4, w // 4, 32)
+    assert _rel_err(out, ref) <= 2e-2
+    runs = []
+    for _ in range(2):
+        ps = [p.clone().requires_grad_() for p in params]
+        y3, ms, vs = ST.stem_fused(x, *ps)
+        _stem_loss((y3, ms, vs)).backward()
+        runs.append([y3.detach(), *ms, *vs] + [p.grad for p in ps])
+    assert all(torch.equal(a, r) for a, r in zip(*runs))
+    rs = [p.clone().requires_grad_() for p in params]
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ry3, rms, rvs = ST.stem_train_reference(x, *rs)
+        _stem_loss((ry3, rms, rvs)).backward()
+    for o, r in zip(runs[0][:9], (ry3, *rms, *rvs)):
+        assert _rel_err(o, r.detach()) <= 2e-2
+    for i, (g, r) in enumerate(zip(runs[0][9:], rs)):
+        assert _rel_err(g, r.grad) <= gtol, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 20, 44), (3, 12, 28), (2, 44, 20)])
+def test_stem_bf16_odd_shapes(cuda, shape):
+    """K4-f eval, train and K4-b on the tensor-core route at shapes the
+    path never gives them: H != W, H/4 and W/4 odd, W not a multiple of 8
+    (stem1 and dk1 stage x by element), ragged tiles, small B. K4-b at
+    0.25 x max|ref|, chip_smoke.py's tolerance at its odd bf16 shape: the
+    sums run over 110 to 440 stem2 pixels, where a last-bit difference of
+    a stored y (the kernels round an f32 sum once, cuDNN's bf16 conv
+    elsewhere) flips roundings down the chain; the CUDA-core route shows
+    the same errors against the plain chain on these inputs (up to 0.15
+    at 252 pixels)."""
+    from robust_object_detection_tpu_torch import kernels
+    b, h, w = shape
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(15), b, h,
+                                   w, cuda)
+    x = x.bfloat16()
+    plan = kernels.stem_plan(b, h, w, tuple(
+        t.data_ptr() for t in (x, *(p.bfloat16() for p in params
+                                    if p.dim() == 4))), kernels.sm_count(cuda))
+    assert plan["p1"]["vec"] == int(w % 8 == 0)
+    counts = [f.launches for f in (ST.stem_fused_inference, ST.stem_fused,
+                                   ST.stem_fused_backward)]
+    _stem_bf16_all_modes(x, params, cuda, 0.25)
+    assert [f.launches for f in (ST.stem_fused_inference, ST.stem_fused,
+                                 ST.stem_fused_backward)] == [
+        counts[0] + 1, counts[1] + 2, counts[2] + 2]
+
+
+@pytest.mark.gpu
+def test_stem_misaligned_x_stages_by_element(cuda):
+    """A contiguous bf16 x whose data pointer breaks 16-byte alignment
+    takes element staging in stem1 and dk1 (the plans say so) and still
+    agrees with the plain stem: eval, train forward and K4-b."""
+    from robust_object_detection_tpu_torch import kernels
+    b, h, w = 2, 128, 128
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(16), b, h,
+                                   w, cuda)
+    x = _misaligned(x.bfloat16())
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    kb = [p.bfloat16() for p in params if p.dim() == 4]
+    sm = kernels.sm_count(cuda)
+    fw = kernels.stem_plan(b, h, w, tuple(t.data_ptr() for t in (x, *kb)), sm)
+    assert [fw[k]["vec"] for k in ("p1", "c2a", "c2b", "p3")] == [0, 1, 1, 1]
+    dy3 = torch.zeros(b, h // 4, w // 4, 32, dtype=torch.bfloat16,
+                      device=cuda)
+    bw = kernels.stem_bwd_plan(b, h, w, tuple(t.data_ptr() for t in (
+        x, kb[1], kb[2], kb[3], dy3)), sm)
+    assert (bw["vec"], bw["vec_x"]) == (1, 0)
+    _stem_bf16_all_modes(x, params, cuda, 8e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])

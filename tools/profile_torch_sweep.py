@@ -46,14 +46,21 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 def kernel_group(name: str, rtdetr: bool = False) -> str:
     """The group of a device kernel by its name. `rtdetr`: the stride-2
-    weight gradients and the BN-chain kernels belong to K4-b (the HGNetv2
-    stem's backward), not to K2-b (the YOLO front's)."""
+    weight gradients, the BN-chain kernels and the front_tc.cuh kernels
+    belong to K4 (the HGNetv2 stem, whose bf16 stride-2 convs run them), not
+    to K2 (the YOLO front's; no path runs both)."""
     if "conv3x3_tc_kernel" in name:
         return "K3-f conv3x3"
     if re.search(r"front_p[12]_kernel", name):
-        return "K2-f yolo_front"
+        return "K4-f hgstem" if rtdetr else "K2-f yolo_front"
     if re.search(r"e2_prep_kernel|front_d(a1|k1|k2)_tc_kernel", name):
-        return "K2-b yolo_front_bwd"
+        return "K4-b hgstem_bwd" if rtdetr else "K2-b yolo_front_bwd"
+    if re.search(r"stem2x2_tc_kernel|pool2x2_vec_kernel|"
+                 r"assemble_train_vec_kernel", name):
+        return "K4-f hgstem"
+    if re.search(r"stem2x2_(dx|wgrad)_tc_kernel|assemble_bwd_vec_kernel",
+                 name):
+        return "K4-b hgstem_bwd"
     if "wgrad_tc_kernel" in name:
         return "K3-b conv3x3_wgrad"
     m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
@@ -234,7 +241,8 @@ def main() -> int:
         by_kernel[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
     groups: dict = {}
     for name, (ms, cnt) in by_kernel.items():
-        g = groups.setdefault(kernel_group(name), [0.0, 0])
+        g = groups.setdefault(kernel_group(name, args.model == "rtdetr"),
+                              [0.0, 0])
         g[0] += ms
         g[1] += cnt
     forwards = 4 * math.ceil(args.images / bs)
