@@ -19,7 +19,9 @@ each generation of the deformable-attention op family. Phases:
      ptxas's registers and spills of every kernel, and the count of
      tensor-core instructions (HMMA / HGMMA), async copies (LDGSTS) and
      f32 FMAs in the SASS of K3's, K2's and K4's bf16 kernels (every
-     instantiation); HMMA must be above 0 in each;
+     instantiation); HMMA must be above 0 in each; the global loads of K5
+     forward's and K5-g1's kernels, with 128-bit value loads required in
+     K5 forward's 16-byte instantiations;
   3. kernels: the eval kernels (K3-f, K2-f) against their plain PyTorch
      versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
@@ -53,7 +55,11 @@ each generation of the deformable-attention op family. Phases:
   9. RT-DETR-L kernels: K4-f (the HGNetv2 stem) and K5 forward
      (multi-scale deformable attention) against their plain versions at
      the sweep's shapes and at one odd shape each, f32 with TF32 off and
-     bf16 (tolerances in phase_rtdetr_kernels), timed as above, with the
+     bf16 (tolerances in phase_rtdetr_kernels); K5 forward also on
+     clustered samples (timed beside the uniform ones), with the queries
+     permuted (the same bits), a loc and a values one element past a
+     16-byte boundary, and every tap outside its map (an exact 0); timed
+     as above, with the
      profiler's device ms of each bf16 K4-f launch (stem1, stem2a, stem2b,
      pool, stem3) and cuDNN's time for each conv stage of the stem beside
      it, and the refusal of bad CUDA inputs;
@@ -87,13 +93,15 @@ each generation of the deformable-attention op family. Phases:
      sorted-tap deformable attention, both layouts of the value maps) and
      K5-g1 (``stamp_scatter``, and ``bilinear_sample``'s three gradients
      through it) against their plain versions at the RT-DETR-L decoder's
-     shapes (300 and 428 queries; each of the three levels for K5-g1) and
-     at one odd shape, f32 and bf16 values (tolerances in
-     phase_sorted_kernels); every backward twice for identical bits; timed
-     as above with the tap sort inside the timed call, ``torch.sort`` alone
-     beside it; the one library call for K5-g1 (``scatter_add_`` into
-     zeros) and, for the record, ``grid_sample`` forward + backward beside
-     ``bilinear_sample``; the refusal of bad CUDA inputs;
+     shapes (300 and 428 queries; each of the three levels for K5-g1, on
+     uniform and on clustered cells) and at one odd shape, f32 and bf16
+     values (tolerances in phase_sorted_kernels); every backward twice for
+     identical bits, K5-g1 also from gw in the row layout and from int64
+     idx; timed as above with K5-g2's tap sort inside the timed call,
+     ``torch.sort`` alone beside it; K5-g1 in both gw layouts beside the
+     one library call (``scatter_add_`` into zeros) and, for the record,
+     ``grid_sample`` forward + backward beside ``bilinear_sample``; the
+     refusal of bad CUDA inputs;
  16. the generations' path: six forward + backward calls (one per decoder
      layer, 428 queries, values (8, 21504, 8, 32), bf16 then f32) of
      ``ms_deform_attn``, of ``ms_deform_attn_t`` and of the per-level
@@ -999,18 +1007,68 @@ def stem_args(x, kers, affine, means, variances, dtype):
             variances)
 
 
-def deform_inputs(g, shapes, b, q, heads, dh, points, dev):
+CLUSTER_CENTRES = 200
+
+
+def clustered_loc(g, b, q, heads, n_l, points, dev, spread=0.01):
+    """Sampling locations drawn around CLUSTER_CENTRES centres per (batch,
+    head), as a trained decoder's gather around its reference boxes: each
+    query picks a centre, and its points at every level lie a normal
+    `spread` (in map widths) around it. Many queries then read the same
+    value rows, and a level's taps pile on few cells."""
+    import torch
+    centres = torch.rand(b, heads, CLUSTER_CENTRES, 2, device=dev,
+                         generator=g)
+    pick = torch.randint(0, CLUSTER_CENTRES, (b, q, heads), device=dev,
+                         generator=g)
+    bi = torch.arange(b, device=dev).view(b, 1, 1)
+    hi = torch.arange(heads, device=dev).view(1, 1, heads)
+    centre = centres[bi, hi, pick]                     # (B, Q, heads, 2)
+    return centre[:, :, :, None, None] + spread * torch.randn(
+        b, q, heads, n_l, points, 2, device=dev, generator=g)
+
+
+def deform_inputs(g, shapes, b, q, heads, dh, points, dev,
+                  clustered=False):
     """Values, sampling locations in [-0.1, 1.1] (some taps fall outside
-    the maps) and softmaxed attention weights."""
+    the maps; clustered: around CLUSTER_CENTRES centres instead) and
+    softmaxed attention weights."""
     import torch
     hw = sum(h * w for h, w in shapes)
     n_l = len(shapes)
     values = torch.randn(b, hw, heads, dh, device=dev, generator=g)
-    loc = torch.rand(b, q, heads, n_l, points, 2, device=dev,
-                     generator=g) * 1.2 - 0.1
+    loc = clustered_loc(g, b, q, heads, n_l, points, dev) if clustered \
+        else torch.rand(b, q, heads, n_l, points, 2, device=dev,
+                        generator=g) * 1.2 - 0.1
     attn = torch.softmax(torch.randn(b, q, heads, n_l * points, device=dev,
                                      generator=g), -1)
     return values, loc, attn.reshape(b, q, heads, n_l, points)
+
+
+def deform_edges(DF, values, shapes, loc, attn, ref):
+    """K5 forward on the same inputs with loc and values one element past a
+    16-byte boundary (the kernel reads loc by element, and values by
+    element in the generic instantiation), and with every tap outside its
+    map (an exact 0)."""
+    import torch
+    from robust_object_detection_tpu_torch import kernels
+    out = DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    mloc = misaligned(loc)
+    require(torch.equal(DF.ms_deform_attn_slots(values, shapes, mloc, attn),
+                        out), "K5 forward: a misaligned loc changes bits")
+    mval = misaligned(values)
+    require(kernels.deform_fwd_plan(len(shapes), loc.shape[4],
+                                    values.shape[3], values.element_size(),
+                                    mval.data_ptr())["vec"] == 1,
+            "a misaligned values took 16-byte loads")
+    log = []
+    check("ms_deform_attn misaligned values and loc",
+          DF.ms_deform_attn_slots(mval, shapes, mloc, attn), ref, 1e-2, log)
+    far = DF.ms_deform_attn_slots(values, shapes, loc + 2.0, attn)
+    require(torch.equal(far, torch.zeros_like(far)),
+            "K5 forward: taps outside every map do not give 0")
+    print(f"[rtdetr-kernels] {log[0]}; a misaligned loc gives the same "
+          f"bits; all taps outside: exact 0")
 
 
 def phase_rtdetr_kernels(dev):
@@ -1080,44 +1138,62 @@ def phase_rtdetr_kernels(dev):
     results["hgstem"] = stem
 
     # K5 forward: values (8, 21504, 8, 32), 300 queries, 3 levels x 4
-    # points; and non-square levels with a Q that divides nothing
+    # points, uniform and clustered samples (the (3, 4) x 32-channel
+    # instantiation); non-square levels with a Q that divides nothing and 2
+    # points (the generic one)
     deform = {}
-    for shapes, b, q, heads, dh, pts in (
+    for shapes, b, q, heads, dh, pts, clustered in (
             (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
-             RTDETR_POINTS),
-            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+             RTDETR_POINTS, False),
+            (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
+             RTDETR_POINTS, True),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2, False)):
         values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
-                                          dev)
-        main = b == BATCH
+                                          dev, clustered)
+        main = b == BATCH and not clustered
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             name = str(dtype).split(".")[-1]
             vd = values.to(dtype)
             out = DF.ms_deform_attn_slots(vd, shapes, loc, attn)
             ref = DF.ms_deform_attn_ref(vd.float(), shapes, loc, attn)
             log = []
-            err = check(f"ms_deform_attn {name} levels {shapes} Q {q}", out,
-                        ref, tol, log)
-            if not main:
-                print(f"[rtdetr-kernels] {log[0]}")
+            what = "clustered" if clustered else "uniform"
+            err = check(f"ms_deform_attn {name} levels {shapes} Q {q} "
+                        f"{what}", out, ref, tol, log)
+            perm = torch.randperm(q, device=dev, generator=g)
+            require(torch.equal(DF.ms_deform_attn_slots(
+                vd, shapes, loc[:, perm].contiguous(),
+                attn[:, perm].contiguous()), out[:, perm]),
+                "K5 forward changes bits with the query order")
+            if b != BATCH:
+                print(f"[rtdetr-kernels] {log[0]}; query order: same bits")
                 continue
             ms = time_ms(lambda: DF.ms_deform_attn_slots(vd, shapes, loc,
                                                          attn))
+            rows, taps = touched_rows(DF, loc, shapes, values.shape[1],
+                                      heads)
+            if not main:
+                print(f"[rtdetr-kernels] {log[0]}; query order: same bits; "
+                      f"kernel {ms} ms (uniform: "
+                      f"{deform[name]['ms']}); {taps} in-map taps touch "
+                      f"{rows} distinct rows")
+                continue
             plain_ms = time_ms(lambda: DF.ms_deform_attn_ref(vd, shapes, loc,
                                                              attn))
             # what this run's data needs: the distinct (batch, cell, head)
             # rows its in-map taps touch, once each, and 2 operations per
             # in-map tap and channel
-            rows, taps = touched_rows(DF, loc, shapes, values.shape[1],
-                                      heads)
             nbytes = rows * dh * esize(dtype) + (loc.numel() + attn.numel()) \
                 * 4 + out.numel() * esize(dtype)
-            print(f"[rtdetr-kernels] {log[0]}; kernel {ms} ms plain "
-                  f"{plain_ms} ms (torch.gather + elementwise); {taps} "
-                  f"in-map taps touch {rows} distinct rows of "
-                  f"{dh * esize(dtype)} bytes; no single PyTorch call "
-                  f"computes it")
+            print(f"[rtdetr-kernels] {log[0]}; query order: same bits; "
+                  f"kernel {ms} ms plain {plain_ms} ms (torch.gather + "
+                  f"elementwise); {taps} in-map taps touch {rows} distinct "
+                  f"rows of {dh * esize(dtype)} bytes; no single PyTorch "
+                  f"call computes it")
             deform[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 **work(name, nbytes, 2 * taps * dh))
+            if dtype == torch.bfloat16:
+                deform_edges(DF, vd, shapes, loc, attn, ref)
         del values, loc, attn
     results["ms_deform_attn"] = deform
 
@@ -1848,7 +1924,7 @@ def phase_sorted_kernels(dev):
     tag = "[sorted-kernels]"
     q_train = RTDETR_QUERIES + 2 * 2 * 32
 
-    fwd, bwd = {}, {}
+    fwd, bwd, stamp_ms = {}, {}, {}
     for shapes, b, q, heads, dh, pts in (
             (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
              RTDETR_POINTS),
@@ -1942,28 +2018,44 @@ def phase_sorted_kernels(dev):
     torch.cuda.empty_cache()
 
     # K5-g1, one level at a time: the three RT-DETR-L levels at 428 and 300
-    # queries (T = Q * 4 points * 4 taps), and (6, 10) with 7 queries
+    # queries (T = Q * 4 points * 4 taps), uniform samples and, at 428,
+    # clustered ones; and (6, 10) with 7 queries. gw in the reference's
+    # layout and in the row layout bilinear_sample's backward builds.
     stamp = {}
-    cases = [(BATCH, q, RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS, h, w)
+    cases = [(BATCH, q, RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS, h, w, False)
              for q in (q_train, RTDETR_QUERIES) for h, w in RTDETR_LEVELS]
-    for b, q, heads, dh, pts, h, w in cases + [(2, 7, 3, 32, 2, 6, 10)]:
+    cases += [(BATCH, q_train, RTDETR_HEADS, RTDETR_DH, RTDETR_POINTS, h, w,
+               True) for h, w in RTDETR_LEVELS]
+    for b, q, heads, dh, pts, h, w, clustered in cases + [
+            (2, 7, 3, 32, 2, 6, 10, False)]:
         hw = h * w
-        sx = torch.rand(b, q, heads, pts, device=dev, generator=g) \
-            * (w * 1.2) - 0.1 * w - 0.5
-        sy = torch.rand(b, q, heads, pts, device=dev, generator=g) \
-            * (h * 1.2) - 0.1 * h - 0.5
+        if clustered:
+            loc = clustered_loc(g, b, q, heads, 1, pts, dev)[:, :, :, 0]
+            sx, sy = loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5
+        else:
+            sx = torch.rand(b, q, heads, pts, device=dev, generator=g) \
+                * (w * 1.2) - 0.1 * w - 0.5
+            sy = torch.rand(b, q, heads, pts, device=dev, generator=g) \
+                * (h * 1.2) - 0.1 * h - 0.5
         idx = DF.tap_geometry(
             torch.stack([(sx + 0.5) / w, (sy + 0.5) / h], -1)[:, :, :, None],
             ((h, w),))[0]                              # (B,Q,heads,1,P,4)
         idx = idx.permute(0, 2, 1, 3, 4, 5).reshape(b, heads, -1).int()
         t = idx.shape[-1]
         gw = torch.randn(b, heads, dh, t, device=dev, generator=g)
+        rows_gw = gw.transpose(2, 3).contiguous().transpose(2, 3)
+        what = "clustered" if clustered else "uniform"
         log = []
         dv = DF.stamp_scatter(idx, gw, hw)
-        err = check(f"stamp_scatter f32 hw {hw} T {t} rows {b * heads}", dv,
-                    DF.stamp_scatter_ref(idx, gw, hw), 1e-4, log)
+        ref = DF.stamp_scatter_ref(idx, gw, hw)
+        err = check(f"stamp_scatter f32 hw {hw} T {t} rows {b * heads} "
+                    f"{what}", dv, ref, 1e-4, log)
         require(torch.equal(DF.stamp_scatter(idx, gw, hw), dv),
                 "K5-g1 is not deterministic")
+        require(torch.equal(DF.stamp_scatter(idx, rows_gw, hw), dv),
+                "K5-g1 in the row layout does not give the same bits")
+        require(torch.equal(DF.stamp_scatter(idx.long(), gw, hw), dv),
+                "K5-g1 with int64 idx does not give the same bits")
         wide = idx.long()[:, :, None, :].expand(-1, -1, dh, -1)
 
         def library():
@@ -1976,6 +2068,8 @@ def phase_sorted_kernels(dev):
         cot = torch.randn(b, q, heads, pts, dh, device=dev, generator=g)
         level_ms = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            if clustered:
+                break
             name = str(dtype).split(".")[-1]
             stol = 1e-4 if dtype == torch.float32 else 1e-3
             leaves = [x.clone().requires_grad_()
@@ -2010,23 +2104,34 @@ def phase_sorted_kernels(dev):
                 level_ms[name] = (time_ms(ours), time_ms(theirs))
             del leaves, refs, out, rout, grads, rgrads, again, lib_out
         if q != q_train:
-            print(f"{tag} {'; '.join(log)}; second runs: identical bits")
+            print(f"{tag} {'; '.join(log)}; second run, row layout and "
+                  f"int64 idx: identical bits")
             continue
         ms = time_ms(lambda: DF.stamp_scatter(idx, gw, hw))
-        plain_ms = time_ms(lambda: DF.stamp_scatter_ref(idx, gw, hw))
+        rows_ms = time_ms(lambda: DF.stamp_scatter(idx, rows_gw, hw))
         lib_ms = time_ms(library)
-        print(f"{tag} {'; '.join(log)}; second runs: identical bits; "
-              f"stamp_scatter {ms} ms (key packing + torch.sort + kernel) "
-              f"plain {plain_ms} ms (index_add_ with its layout copies) "
-              f"library {lib_ms} ms (zeros + scatter_add_); bilinear_sample "
-              f"forward + backward vs grid_sample forward + backward, ms: "
-              f"{level_ms}")
+        if clustered:
+            print(f"{tag} {'; '.join(log)}; identical bits as above; "
+                  f"stamp_scatter {ms} ms (reference layout) {rows_ms} ms "
+                  f"(row layout; uniform: {stamp_ms[hw]}) library {lib_ms} "
+                  f"ms (zeros + scatter_add_)")
+            continue
+        plain_ms = time_ms(lambda: DF.stamp_scatter_ref(idx, gw, hw))
+        stamp_ms[hw] = (ms, rows_ms)
+        print(f"{tag} {'; '.join(log)}; second run, row layout and int64 "
+              f"idx: identical bits; stamp_scatter {ms} ms (reference "
+              f"layout) {rows_ms} ms (row layout) plain {plain_ms} ms "
+              f"(index_add_ with its layout copies) library {lib_ms} ms "
+              f"(zeros + scatter_add_); bilinear_sample forward + backward "
+              f"vs grid_sample forward + backward, ms: {level_ms}")
         if hw == RTDETR_LEVELS[0][0] * RTDETR_LEVELS[0][1]:
+            # the row layout is the one bilinear_sample's backward hands it
             stamp["float32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=rows_ms, plain_ms=plain_ms,
+                ms_by_layout={"reference": ms, "rows": rows_ms},
                 **work("float32", (idx.numel() + gw.numel() + dv.numel()) * 4,
                        gw.numel(), lib_ms))
-        del idx, gw, dv, wide, v, cot
+        del idx, gw, rows_gw, dv, ref, wide, v, cot
     results["stamp_scatter"] = stamp
     torch.cuda.empty_cache()
 
@@ -2047,6 +2152,8 @@ def phase_sorted_kernels(dev):
            lambda: DF.stamp_scatter(idx, gw.double(), 16),
            lambda: DF.stamp_scatter(idx[:, :, :4], gw, 16),
            lambda: DF.stamp_scatter(idx.cpu(), gw, 16),
+           lambda: DF.stamp_scatter(idx, torch.zeros(1, 2, 8, 10, device=dev)
+                                    [..., ::2], 16),
            lambda: DF.bilinear_sample(values.reshape(1, 4, 5, 2, 8),
                                       loc[..., 0, :, 0].double(),
                                       loc[..., 0, :, 1]))
@@ -2185,6 +2292,11 @@ TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
               "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel")
 
 
+# K5 forward's instantiations with 16-byte value loads, by mangled name
+K5_WIDE = ("ms_deform_attn_kernelI13__nv_bfloat16Li8E",
+           "ms_deform_attn_kernelIfLi4E")
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -2201,7 +2313,9 @@ def ptxas_report(log: str):
 
 def sass_opcodes(so, names):
     """{function: {opcode: count}} of the SASS (cuobjdump -sass) of the
-    kernels in the built library whose names contain one of `names`."""
+    kernels in the built library whose names contain one of `names`, each
+    instruction counted under its opcode (``LDG``) and, where it has
+    modifiers, under its full name (``LDG.E.128``)."""
     from robust_object_detection_tpu_torch import kernels
     tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
     res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
@@ -2216,10 +2330,10 @@ def sass_opcodes(so, names):
                 counts[fn] = {}
             continue
         m = fn and re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
-                            r"([A-Z][A-Z0-9_]*)", line)
+                            r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)", line)
         if m:
-            op = m.group(1)
-            counts[fn][op] = counts[fn].get(op, 0) + 1
+            for op in {m.group(1), m.group(1) + m.group(2)}:
+                counts[fn][op] = counts[fn].get(op, 0) + 1
     return counts
 
 
@@ -2257,6 +2371,21 @@ def main() -> int:
         require(found and all(ops.get("HMMA", 0) + ops.get("HGMMA", 0) > 0
                               for ops in found),
                 f"{name}: no tensor-core instruction in its SASS")
+
+    # K5 forward's 16-byte instantiations (bf16 8 and f32 4 channels a
+    # load) must load value rows with 128-bit LDGs; K5-g1 beside them
+    sass = sass_opcodes(so, ("ms_deform_attn_kernel",
+                             "stamp_scatter_kernel"))
+    for fn, ops in sass.items():
+        ldg = {k: v for k, v in ops.items() if k.startswith("LDG.")}
+        print(f"[build] SASS of {fn}: LDG {ops.get('LDG', 0)} {ldg} SHFL "
+              f"{ops.get('SHFL', 0)} FFMA {ops.get('FFMA', 0)} STG "
+              f"{ops.get('STG', 0)} BAR {ops.get('BAR', 0)}")
+    for pattern in K5_WIDE:
+        found = [ops for fn, ops in sass.items() if pattern in fn]
+        require(found and all(any(k.startswith("LDG.") and ".128" in k
+                                  for k in ops) for ops in found),
+                f"{pattern}: no 16-byte value loads in its SASS")
 
     kres = phase_kernels(dev)
     phase_model_check(dev)
@@ -2317,6 +2446,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "library_ms": r["library_ms"]})
+        if "ms_by_layout" in r:
+            summary[-1]["ms_by_layout"] = r["ms_by_layout"]
         if name in ("conv3x3", "conv3x3_wgrad", "yolo_front",
                     "yolo_front_train", "yolo_front_bwd", "hgstem",
                     "hgstem_train", "hgstem_bwd"):

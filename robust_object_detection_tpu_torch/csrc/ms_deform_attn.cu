@@ -15,12 +15,20 @@
 // The TPU version has no gather unit: it lays taps out in (level, query)
 // slots, gathers by multiplying value tiles with one-hot matrices between
 // per-chunk [lo, hi] tile bounds, and pads Q to whole chunks. A GPU
-// gathers. Here one warp owns one (batch, query, head): lanes 0..L*P-1
-// each work out one sampling point's geometry, the warp then walks the
-// points, every lane reading its channel of the tap's value row (dh = 32:
-// one coalesced 64- or 128-byte row per tap), accumulating in f32, and
-// stores the row once. No shared memory, no atomics, no order among warps,
-// so any query order gives the same bits.
+// gathers. Here one warp owns one (batch, query, head) and its L * P * 4
+// taps. The lanes are (tap slot, channel group): a value row is read in
+// 16-byte pieces, so at dh 32 a bf16 row is 4 lanes and one load
+// instruction reads 8 taps (f32: 8 lanes, 4 taps). Each lane works out its
+// own tap's geometry from loc and attn (no shuffles per point); a tap
+// outside its map gets weight 0 and a valid address, so no load sits
+// behind a branch. For the model's 3 levels x 4 points the kernel is
+// instantiated with (L, P) fixed and issues all 48 taps' loads (6 rounds in
+// bf16, 12 in f32) before its first FMA; a generic instantiation takes any
+// L <= 4, L * P <= 32 and any dh (element loads where the row or the
+// pointer is not 16-byte aligned), four rounds in flight. The slots are
+// summed with xor shuffles in a fixed order, and the lanes of slot 0 store
+// the row in 16-byte pieces. No shared memory, no atomics, no order among
+// warps, so any query order gives the same bits.
 //
 // values (B, HW, NH, DH) f32 or bf16; loc (B, Q, NH, L, P, 2) f32 in
 // [0, 1]; attn (B, Q, NH, L, P) f32; out (B, Q, NH, DH) in values' dtype
@@ -29,7 +37,8 @@
 // What bounds it on the H100: bytes. At the RT-DETR-L shapes (B 8, Q 300,
 // 8 heads, 3 levels x 4 points) it gathers at most 8*300*8*48 rows of 64
 // bytes (bf16) and does 2 FLOP per gathered element; the rows of one query
-// are scattered, so the floor is the gathered bytes over the memory rate.
+// are scattered, so the floor is the gathered bytes over the memory rate,
+// and what the design buys is many rows in flight per warp.
 //
 // Backward (ms_deform_attn_bwd), given dout (B, Q, NH, DH):
 //   dV[b, cell_t, h, :] += dout[b, q, h, :] * wgt_t * attn      (f32)
@@ -41,8 +50,9 @@
 // coordinate (deform.py:_geometry_batched) and nothing from a tap outside
 // its map. The TPU version re-gathers with one-hot matmuls, stamps dV one
 // value tile at a time and hands the (B,Q,H,L,P,4) tap scalars to XLA
-// glue. Here the same warp-per-(batch, query, head) walk as the forward
-// does all of it: per tap every lane loads its channel of the value row,
+// glue. Here one warp per (batch, query, head), lane = channel, walks the
+// taps one at a time and does all of it: every lane loads its channel of
+// the tap's value row,
 // adds its share of dV with an f32 atomicAdd (two queries may hit one
 // cell) and the warp reduces <row, dout> with xor shuffles; the lane that
 // owns the sampling point keeps the three sums and writes dattn and dloc
@@ -53,73 +63,194 @@
 // Bound: bytes again, the zero fill, the atomics' traffic and the cast of
 // the dV buffer (B x HW x NH x DH x 4 bytes) on top of the gathered rows.
 
+#include <stdint.h>
+
 #include "conv_tile.cuh"
 #include "deform_levels.cuh"
 
 namespace rodt {
 
+// The forward's value rows are read in pieces of VEC channels (16 bytes
+// when VEC > 1), RL lanes a row (RL a power of two): lane = (slot s = lane /
+// RL, channel group g = lane % RL). Round r of a pass reads tap k = r * (32
+// / RL) + s, corner k % 4 of sampling point k / 4 = (level, point).
+template <typename T, int VEC>
+struct RowPiece;
+
+template <>
+struct RowPiece<__nv_bfloat16, 8> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ float get(int j) const {
+    const unsigned w = j < 2 ? u.x : j < 4 ? u.y : j < 6 ? u.z : u.w;
+    return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct RowPiece<float, 4> {
+  float4 f;
+  __device__ __forceinline__ void load(const float* p) {
+    f = *reinterpret_cast<const float4*>(p);
+  }
+  __device__ __forceinline__ void zero() { f = make_float4(0, 0, 0, 0); }
+  __device__ __forceinline__ float get(int j) const {
+    return j == 0 ? f.x : j == 1 ? f.y : j == 2 ? f.z : f.w;
+  }
+};
+
 template <typename T>
+struct RowPiece<T, 1> {
+  float v;
+  __device__ __forceinline__ void load(const T* p) { v = to_f(*p); }
+  __device__ __forceinline__ void zero() { v = 0.f; }
+  __device__ __forceinline__ float get(int) const { return v; }
+};
+
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_piece(T* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]),
+                   pack_bf16x2(a[4], a[5]), pack_bf16x2(a[6], a[7]));
+  } else if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+    *p = from_f<T>(a[0]);
+  }
+}
+
+__device__ __forceinline__ int pick_level(const int (&a)[MAX_LEVELS],
+                                          int l) {
+  return l == 0 ? a[0] : l == 1 ? a[1] : l == 2 ? a[2] : a[3];
+}
+
+// Tap k of one (batch, query, head): the cell it reads in values' merged HW
+// axis and its weight attn * bilinear weight. A tap outside its level's
+// map gets weight 0 and cell 0, a valid row, so its load needs no branch.
+// lq, aq: the query's (L * P, 2) locations and (L * P) weights.
+__device__ __forceinline__ void fwd_tap(int k, int P,
+                                        const float* __restrict__ lq,
+                                        const float* __restrict__ aq,
+                                        const Levels& lv, int& cell,
+                                        float& wgt) {
+  const int i = k >> 2, corner = k & 3, l = i / P;
+  const int lw = pick_level(lv.w, l), lh = pick_level(lv.h, l);
+  const float sx = lq[2 * i] * (float)lw - 0.5f;
+  const float sy = lq[2 * i + 1] * (float)lh - 0.5f;
+  const float flx = floorf(sx), fly = floorf(sy);
+  const float fx = sx - flx, fy = sy - fly;
+  // far outside either way: every tap has weight 0; keep the ints sane
+  const int tx = (int)fminf(fmaxf(flx, -2.f), (float)lw) + (corner & 1);
+  const int ty = (int)fminf(fmaxf(fly, -2.f), (float)lh) + (corner >> 1);
+  const bool in = tx >= 0 && tx < lw && ty >= 0 && ty < lh;
+  const float w = ((corner & 1) ? fx : 1.f - fx) *
+                  ((corner >> 1) ? fy : 1.f - fy) * aq[i];
+  cell = in ? pick_level(lv.start, l) + ty * lw + tx : 0;
+  wgt = in ? w : 0.f;
+}
+
+// Sums the slots of each channel group over the warp (xor shuffles, the
+// same order for every query); every lane ends with its group's sums.
+template <int VEC>
+__device__ __forceinline__ void reduce_slots(float (&acc)[VEC], int RL) {
+  for (int off = RL; off < 32; off <<= 1)  // uniform
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+}
+
+// One warp per (batch, query, head). FL, FP, FRL > 0: the model's (L, P) =
+// (3, 4) with DH = FRL * VEC = 32, every tap's geometry and load issued
+// before the first FMA (6 rounds in bf16, 12 in f32); 0: any L, P, DH and
+// RL, four rounds of loads in flight at a time, DH in passes of RL * VEC
+// channels.
+template <typename T, int VEC, int FL, int FP, int FRL>
 __global__ void __launch_bounds__(THREADS)
 ms_deform_attn_kernel(const T* __restrict__ values,
                       const float* __restrict__ loc,
                       const float* __restrict__ attn, T* __restrict__ out,
                       Levels lv, size_t n_warps, int HW, int Q, int NH,
-                      int DH, int L, int P) {
-  const unsigned FULL = 0xffffffffu;
+                      int DH, int L, int P, int row_lanes) {
   const int lane = threadIdx.x & 31;
   const size_t wid =
       (size_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   if (wid >= n_warps) return;  // the whole warp leaves together
   const int h = (int)(wid % NH);
   const size_t b = wid / NH / Q;
-  const int LP = L * P;
+  const int lp = FL ? FL * FP : L * P;
+  const int taps = 4 * lp;
+  const int RL = FRL ? FRL : row_lanes;
+  const int slots = 32 / RL;
+  const int s = lane / RL, g = lane % RL;
+  const float* lq = loc + wid * lp * 2;
+  const float* aq = attn + wid * lp;
+  const T* vb = values + (b * HW * NH + h) * (size_t)DH + g * VEC;
+  const size_t ps = (size_t)NH * DH;
 
-  // lane i < LP: the geometry of sampling point i = (level, point)
-  int x0 = 0, y0 = 0, lw = 1, lh = 1, lstart = 0;
-  float fx = 0.f, fy = 0.f, a = 0.f;
-  if (lane < LP) {
-    const int l = lane / P;
-    lw = lv.w[l];
-    lh = lv.h[l];
-    lstart = lv.start[l];
-    const float* lp = loc + (wid * LP + lane) * 2;
-    const float sx = lp[0] * (float)lw - 0.5f;
-    const float sy = lp[1] * (float)lh - 0.5f;
-    const float flx = floorf(sx), fly = floorf(sy);
-    fx = sx - flx;
-    fy = sy - fly;
-    // far outside either way: every tap has weight 0; keep the ints sane
-    x0 = (int)fminf(fmaxf(flx, -2.f), (float)lw);
-    y0 = (int)fminf(fmaxf(fly, -2.f), (float)lh);
-    a = attn[wid * LP + lane];
-  }
-
-  const T* vb = values + (b * HW * NH + h) * (size_t)DH;
-  const size_t pix_stride = (size_t)NH * DH;
-  for (int c = lane; c - lane < DH; c += 32) {  // uniform trip count
-    float acc = 0.f;
-    for (int i = 0; i < LP; ++i) {
-      const int xi = __shfl_sync(FULL, x0, i);
-      const int yi = __shfl_sync(FULL, y0, i);
-      const int wi = __shfl_sync(FULL, lw, i);
-      const int hi = __shfl_sync(FULL, lh, i);
-      const int si = __shfl_sync(FULL, lstart, i);
-      const float fxi = __shfl_sync(FULL, fx, i);
-      const float fyi = __shfl_sync(FULL, fy, i);
-      const float ai = __shfl_sync(FULL, a, i);
+  if constexpr (FL > 0) {
+    constexpr int ROUNDS = (4 * FL * FP + 32 / FRL - 1) / (32 / FRL);
+    int cell[ROUNDS];
+    float wgt[ROUNDS];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int tx = xi + (t & 1), ty = yi + (t >> 1);
-        if (tx < 0 || tx >= wi || ty < 0 || ty >= hi) continue;
-        const float wgt = ((t & 1) ? fxi : 1.f - fxi) *
-                          ((t >> 1) ? fyi : 1.f - fyi) * ai;
-        if (c < DH)
-          acc = fmaf(wgt,
-                     to_f(vb[(size_t)(si + ty * wi + tx) * pix_stride + c]),
-                     acc);
-      }
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = r * slots + s;
+      cell[r] = 0;
+      wgt[r] = 0.f;
+      if (k < taps) fwd_tap(k, FP, lq, aq, lv, cell[r], wgt[r]);
     }
-    if (c < DH) out[wid * DH + c] = from_f<T>(acc);
+    RowPiece<T, VEC> raw[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) raw[r].load(vb + cell[r] * ps);
+    float acc[VEC] = {};
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        acc[j] = fmaf(wgt[r], raw[r].get(j), acc[j]);
+    reduce_slots<VEC>(acc, RL);
+    if (s == 0) store_piece<T, VEC>(out + wid * DH + g * VEC, acc);
+  } else {
+    constexpr int BURST = 4;  // rounds whose loads are in flight together
+    for (int c0 = 0; c0 < DH; c0 += RL * VEC) {  // uniform
+      const bool live = c0 + g * VEC < DH;
+      float acc[VEC] = {};
+      for (int r0 = 0; r0 * slots < taps; r0 += BURST) {  // uniform
+        int cell[BURST];
+        float wgt[BURST];
+        RowPiece<T, VEC> raw[BURST];
+#pragma unroll
+        for (int u = 0; u < BURST; ++u) {
+          const int k = (r0 + u) * slots + s;
+          cell[u] = 0;
+          wgt[u] = 0.f;
+          if (k < taps) fwd_tap(k, P, lq, aq, lv, cell[u], wgt[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < BURST; ++u) {
+          if (live && (r0 + u) * slots + s < taps)
+            raw[u].load(vb + c0 + cell[u] * ps);
+          else
+            raw[u].zero();
+        }
+#pragma unroll
+        for (int u = 0; u < BURST; ++u)
+#pragma unroll
+          for (int j = 0; j < VEC; ++j)
+            acc[j] = fmaf(wgt[u], raw[u].get(j), acc[j]);
+      }
+      reduce_slots<VEC>(acc, RL);
+      if (s == 0 && live)
+        store_piece<T, VEC>(out + wid * DH + c0 + g * VEC, acc);
+    }
   }
 }
 
@@ -225,42 +356,72 @@ inline int launch_ms_deform_bwd(const void* values, const void* loc,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int VEC>
 inline int launch_ms_deform(const void* values, const void* loc,
                             const void* attn, void* out, const Levels& lv,
                             int B, int HW, int Q, int NH, int DH, int L,
-                            int P, cudaStream_t st) {
+                            int P, int row_lanes, int fixed,
+                            cudaStream_t st) {
   const size_t n_warps = (size_t)B * Q * NH;
   const size_t per_block = THREADS / 32;
   const size_t blocks = (n_warps + per_block - 1) / per_block;
   if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidValue);
-  ms_deform_attn_kernel<T><<<(unsigned)blocks, THREADS, 0, st>>>(
-      static_cast<const T*>(values), static_cast<const float*>(loc),
-      static_cast<const float*>(attn), static_cast<T*>(out), lv, n_warps,
-      HW, Q, NH, DH, L, P);
+  const T* v = static_cast<const T*>(values);
+  const float* l = static_cast<const float*>(loc);
+  const float* a = static_cast<const float*>(attn);
+  T* o = static_cast<T*>(out);
+  if constexpr (VEC > 1) {
+    if (fixed) {
+      ms_deform_attn_kernel<T, VEC, 3, 4, 32 / VEC>
+          <<<(unsigned)blocks, THREADS, 0, st>>>(v, l, a, o, lv, n_warps, HW,
+                                                 Q, NH, DH, L, P, row_lanes);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  ms_deform_attn_kernel<T, VEC, 0, 0, 0><<<(unsigned)blocks, THREADS, 0, st>>>(
+      v, l, a, o, lv, n_warps, HW, Q, NH, DH, L, P, row_lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rodt
 
 // levels: 3 * L host ints, (H_l, W_l, start_l) per level, start_l the flat
-// offset of the level's first cell in the HW axis of values.
+// offset of the level's first cell in the HW axis of values. vec, row_lanes,
+// fixed: the plan of kernels.deform_fwd_plan (channels a load, lanes a
+// value row, the (3, 4) x 32-channel instantiation).
 extern "C" int ms_deform_attn_fwd(const void* values, const void* loc,
                                   const void* attn, void* out,
                                   const int* levels, int B, int HW, int Q,
                                   int NH, int DH, int L, int P, int dtype,
+                                  int vec, int row_lanes, int fixed,
                                   void* stream) {
   rodt::Levels lv;
+  const int esize = dtype == rodt::DTYPE_BF16 ? 2 : 4;
+  const bool aligned = (DH * esize) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (B <= 0 || HW <= 0 || Q <= 0 || NH <= 0 || DH <= 0 || P <= 0 ||
-      !rodt::fill_levels(lv, levels, L) || L * P > 32)
+      !rodt::fill_levels(lv, levels, L) || L * P > 32 || row_lanes < 1 ||
+      row_lanes > 32 || (row_lanes & (row_lanes - 1)) ||
+      !(vec == 1 || (vec == 16 / esize && aligned)) ||
+      (fixed && !(vec > 1 && L == 3 && P == 4 && DH == 32 &&
+                  row_lanes * vec == 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rodt::DTYPE_F32)
-    return rodt::launch_ms_deform<float>(values, loc, attn, out, lv, B, HW,
-                                         Q, NH, DH, L, P, st);
+    return vec == 1 ? rodt::launch_ms_deform<float, 1>(
+                          values, loc, attn, out, lv, B, HW, Q, NH, DH, L,
+                          P, row_lanes, 0, st)
+                    : rodt::launch_ms_deform<float, 4>(
+                          values, loc, attn, out, lv, B, HW, Q, NH, DH, L,
+                          P, row_lanes, fixed, st);
   if (dtype == rodt::DTYPE_BF16)
-    return rodt::launch_ms_deform<__nv_bfloat16>(values, loc, attn, out, lv,
-                                                 B, HW, Q, NH, DH, L, P, st);
+    return vec == 1 ? rodt::launch_ms_deform<__nv_bfloat16, 1>(
+                          values, loc, attn, out, lv, B, HW, Q, NH, DH, L,
+                          P, row_lanes, 0, st)
+                    : rodt::launch_ms_deform<__nv_bfloat16, 8>(
+                          values, loc, attn, out, lv, B, HW, Q, NH, DH, L,
+                          P, row_lanes, fixed, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

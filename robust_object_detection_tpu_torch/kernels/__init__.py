@@ -95,16 +95,17 @@ SIGNATURES: Dict[str, List] = {
     # dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec, vec_x
     "hgstem_bwd_tc_nhwc": [_P] * 29 + [_I] * 13 + [_P],
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
-    # NH, DH, L, P, dtype, stream
-    "ms_deform_attn_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # NH, DH, L, P, dtype, vec, row_lanes, fixed (deform_fwd_plan), stream
+    "ms_deform_attn_fwd": [_P] * 5 + [_I] * 11 + [_P],
     # values, loc, attn, dout, dv (f32, zeroed), dloc, dattn, levels, B, HW,
     # Q, NH, DH, L, P, dtype, stream
     "ms_deform_attn_bwd": [_P] * 8 + [_I] * 8 + [_P],
     # value (B, M, Q), valid, owner, capped, B, Q, M, eps, max_rounds,
     # complete_greedy, stream
     "auction_assign": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
-    # keys (sorted), gw, dv, rows, T, HW, DH, sb, key_bytes, stream
-    "stamp_scatter_sorted": [_P] * 3 + [_I] * 6 + [_P],
+    # idx, gw, dv, rows, T, HW, DH, cs, ts (gw's channel and tap strides),
+    # idx_bytes, tile, ivec, pairs (the plan of stamp_plan), stream
+    "stamp_scatter": [_P] * 3 + [_I] * 10 + [_P],
     # values, loc, attn, out (f32), levels, B, HW, Q, NH, DH, L, P, dtype,
     # transposed, stream
     "ms_deform_attn_sorted_fwd": [_P] * 5 + [_I] * 9 + [_P],
@@ -499,6 +500,94 @@ def stem_bwd_plan(b: int, h: int, w: int, ptrs, n_sm: int) -> Dict[str, int]:
                         plan["wg2a_chunks"] * 4 * cm * (cm // 2),
                         plan["dk1_chunks"] * 27 * cm)
     return plan
+
+
+# ---- K5 forward (csrc/ms_deform_attn.cu) ---------------------------------
+def deform_fwd_plan(n_l: int, n_p: int, dh: int, esize: int,
+                    values_ptr: int) -> Dict[str, int]:
+    """Lane plan of K5 forward for L = n_l levels x P = n_p points, dh
+    channels of `esize` bytes at `values_ptr`: vec (channels a load: 16
+    bytes where dh * esize is a multiple of 16 and values is aligned, else
+    1), row_lanes (lanes a value row: a power of two, at most 32), slots
+    (taps a load instruction, 32 / row_lanes), passes (of row_lanes * vec
+    channels), rounds (4 L P taps over the slots) and fixed (1 for the
+    model's (3, 4) x 32 channels with 16-byte loads: the kernel instantiated
+    for it). Lane i of a warp reads, in round r of pass c, tap k = r *
+    slots + i // row_lanes (corner k % 4 of point k // 4 = (level, point))
+    and channels c * row_lanes * vec + (i % row_lanes) * vec + [0, vec)."""
+    vec = 16 // esize if (dh * esize) % 16 == 0 and values_ptr % 16 == 0 \
+        else 1
+    row_lanes = min(32, 1 << (-(-dh // vec) - 1).bit_length())
+    slots = 32 // row_lanes
+    return dict(vec=vec, row_lanes=row_lanes, slots=slots,
+                passes=-(-dh // (row_lanes * vec)),
+                rounds=-(-4 * n_l * n_p // slots),
+                fixed=int(vec > 1 and (n_l, n_p, dh) == (3, 4, 32)))
+
+
+# ---- K5-g1 (csrc/stamp_scatter.cu) --------------------------------------
+# A block of STAMP_WARPS warps owns one row (b, h) and `tile` consecutive
+# cells, each warp the cells c (tile-local) with stamp_owner(c) == its
+# index. Tiles are powers of two from 8 cells, STAMP_TILE where that gives
+# at least one block an SM (STAMP_MIN_BLOCKS), halved until it does or
+# reaches 8 (the kernel takes up to STAMP_MAX_TILE). Timed on an H100 at
+# the RT-DETR-L levels against 128 and 512, 256 cells were best or within
+# 8% of the best tile in both gw layouts: larger tiles leave fewer blocks
+# an SM (shared memory), smaller ones make more blocks scan idx.
+STAMP_WARPS = 8
+STAMP_MAX_TILE = 512
+STAMP_TILE = 256
+STAMP_MIN_BLOCKS = 132
+STAMP_CHUNK = 2048           # taps a block scans a pass
+STAMP_LIST = 2 * STAMP_CHUNK  # taps a block lists before it adds them
+STAMP_RING = 64              # a warp's queue of taps
+
+
+def stamp_owner(c: int) -> int:
+    """The warp of a K5-g1 block that owns tile-local cell c (c < 512), as
+    csrc/stamp_scatter.cu hashes it: the taps piled on one map row or
+    column (clamped samples outside the map) spread over the warps, and
+    four neighbour cells share one."""
+    c >>= 2
+    return (c ^ (c >> 3) ^ (c >> 6)) & (STAMP_WARPS - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _stamp_tile(rows: int, hw: int) -> int:
+    tile = STAMP_TILE
+    while tile > STAMP_WARPS and tile // 2 >= hw:
+        tile //= 2
+    while tile > STAMP_WARPS and rows * -(-hw // tile) < STAMP_MIN_BLOCKS:
+        tile //= 2
+    return tile
+
+
+def stamp_plan(rows: int, hw: int, t: int, dh: int, ptrs,
+               tap_stride: int) -> Dict[str, int]:
+    """Launch plan of K5-g1 on `rows` rows of `t` taps into `hw` cells of
+    `dh` channels, with base pointers `ptrs` (idx, gw) and gw's taps
+    `tap_stride` elements apart (1 in the reference's layout, dh in the
+    row layout): tile (cells a block: block i owns row i // tiles, cells
+    from (i % tiles) * tile; its warps own them by :func:`stamp_owner`),
+    tiles (a row), blocks, smem (bytes of shared memory a block), ivec
+    (16-byte loads of idx: t a multiple of 8, idx aligned) and pairs (one
+    8-byte load for two neighbour taps: tap stride 1, t even, gw 8-byte
+    aligned). The tile, and so the cells each warp owns, depend on (rows,
+    hw) alone, never on the data, the pointers or gw's layout."""
+    if min(rows, hw, t, dh) <= 0:
+        raise ValueError(f"stamp_scatter takes non-empty tensors, got rows "
+                         f"{rows}, hw {hw}, T {t}, dh {dh}")
+    tile = _stamp_tile(rows, hw)
+    tiles = -(-hw // tile)
+    if rows * tiles > _INT_MAX or t > _INT_MAX - 2 * STAMP_CHUNK:
+        raise ValueError(f"stamp_scatter: {rows} rows of {t} taps into "
+                         f"{hw} cells are beyond the kernel's int32 counts")
+    return dict(tile=tile, tiles=tiles, blocks=rows * tiles,
+                smem=4 * (32 * (tile + 1) + STAMP_LIST + 2 * STAMP_WARPS
+                          + STAMP_WARPS * STAMP_RING),
+                ivec=int(t % 8 == 0 and ptrs[0] % 16 == 0),
+                pairs=int(tap_stride == 1 and t % 2 == 0
+                          and ptrs[1] % 8 == 0))
 
 
 def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:

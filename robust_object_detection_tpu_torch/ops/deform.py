@@ -46,6 +46,7 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -223,19 +224,48 @@ def _levels_arg(shapes):
     return (ctypes.c_int * len(levels))(*levels)
 
 
+@functools.lru_cache(maxsize=64)
+def _levels_table(shapes):
+    """The level table of :func:`_levels_arg` for a tuple of (H, W) int
+    pairs, built once (the kernels copy it at launch) and its address."""
+    table = _levels_arg(shapes)
+    return table, ctypes.addressof(table)
+
+
+_entries = {}
+
+
+def _launch(device, name, *args) -> int:
+    """Calls the kernel library's entry point `name` with `args` and the
+    current stream of `device`. The function is looked up once per loaded
+    library, and `device` is made current only when it is not already."""
+    lib = kernels.load()
+    hit = _entries.get(name)
+    if hit is None or hit[0] is not lib:
+        hit = _entries[name] = (lib, getattr(lib, name))
+    if device.index == torch.cuda.current_device():
+        return hit[1](*args, kernels.stream_ptr(device))
+    with torch.cuda.device(device):
+        return hit[1](*args, kernels.stream_ptr(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(n_l, n_p, dh, esize, aligned):
+    return kernels.deform_fwd_plan(n_l, n_p, dh, esize, 0 if aligned else 1)
+
+
 def _forward_cuda(values, shapes, loc, attn) -> torch.Tensor:
     b, hw, n_h, dh = values.shape
     q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
-    levels = _levels_arg(shapes)
     out = torch.empty((b, q, n_h, dh), dtype=values.dtype,
                       device=values.device)
-    lib = kernels.load()
-    with torch.cuda.device(values.device):
-        err = lib.ms_deform_attn_fwd(
-            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), ctypes.addressof(levels), b, hw, q, n_h, dh,
-            n_l, n_p, kernels.dtype_code(values.dtype),
-            kernels.stream_ptr(values.device))
+    plan = _fwd_plan(n_l, n_p, dh, values.element_size(),
+                     values.data_ptr() % 16 == 0)
+    err = _launch(values.device, "ms_deform_attn_fwd", values.data_ptr(),
+                  loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+                  _levels_table(shapes)[1], b, hw, q, n_h, dh, n_l, n_p,
+                  kernels.dtype_code(values.dtype), plan["vec"],
+                  plan["row_lanes"], plan["fixed"])
     kernels.check(err, "ms_deform_attn_fwd")
     ms_deform_attn_slots.launches += 1
     return out
@@ -306,7 +336,10 @@ def ms_deform_attn_slots(values: torch.Tensor,
     if values.device.type == "cpu":
         return ms_deform_attn_ref(values, shapes, loc, attn)
     shapes = tuple((int(h), int(w)) for h, w in shapes)
-    return _MsDeformAttn.apply(values, loc, attn, shapes)
+    if torch.is_grad_enabled() and (values.requires_grad or loc.requires_grad
+                                    or attn.requires_grad):
+        return _MsDeformAttn.apply(values, loc, attn, shapes)
+    return _forward_cuda(values, shapes, loc, attn)
 
 
 ms_deform_attn_slots.launches = 0
@@ -335,14 +368,26 @@ def _sort_bits(t: int, cells: int):
     return sb, torch.int32 if (cells << sb) < 2 ** 31 else torch.int64
 
 
+def _gw_strides(gw: torch.Tensor):
+    """(channel, tap) element strides of a gw (B, heads, dh, T) that the
+    kernel reads in place: a contiguous gw, (T, 1), or the transpose of a
+    contiguous (B, heads, T, dh), (1, dh); None for any other layout."""
+    if gw.is_contiguous():
+        return gw.shape[3], 1
+    if gw.transpose(2, 3).is_contiguous():
+        return 1, gw.shape[2]
+    return None
+
+
 def stamp_scatter(idx: torch.Tensor, gw: torch.Tensor, hw: int
                   ) -> torch.Tensor:
     """idx (B, heads, T) int32 or int64 cells in [0, hw); gw (B, heads, dh,
-    T) f32. Returns dv (B, heads, dh, hw) f32 with dv[b, h, :, c] the sum of
-    gw[b, h, :, t] over the taps t with idx[b, h, t] == c, taken in the
-    order of t (``_stamp_scatter``). On CUDA tensors: one ``torch.sort`` of
-    the keys (cell, t), then K5-g1, which writes every cell once; two runs
-    give the same bits."""
+    T) f32, contiguous or the transposed view of a contiguous (B, heads, T,
+    dh) (a tap's dh channels then one row). Returns dv (B, heads, dh, hw)
+    f32 with dv[b, h, :, c] the sum of gw[b, h, :, t] over the taps t with
+    idx[b, h, t] == c, taken in the order of t from +0.0
+    (``_stamp_scatter``). On CUDA tensors: one launch of K5-g1, which
+    writes every cell once; two runs give the same bits."""
     if idx.dim() != 3 or gw.dim() != 4 or hw <= 0 or 0 in gw.shape or (
             tuple(idx.shape) != (gw.shape[0], gw.shape[1], gw.shape[3])):
         raise ValueError(f"stamp_scatter takes idx (B,heads,T), gw "
@@ -355,26 +400,41 @@ def stamp_scatter(idx: torch.Tensor, gw: torch.Tensor, hw: int
     if idx.device != gw.device or gw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stamp_scatter: idx and gw must be on one cpu or "
                          f"cuda device, got {idx.device}, {gw.device}")
-    if not (idx.is_contiguous() and gw.is_contiguous()):
-        raise ValueError("stamp_scatter takes contiguous tensors")
+    strides = _gw_strides(gw)
+    if not idx.is_contiguous() or strides is None:
+        raise ValueError("stamp_scatter takes a contiguous idx and a "
+                         "contiguous gw or the transpose of a contiguous "
+                         "(B,heads,T,dh)")
     if gw.device.type == "cpu":
         return stamp_scatter_ref(idx, gw, hw)
+    return _stamp_scatter_cuda(idx, gw, hw, strides)
+
+
+def _stamp_scatter_cuda(idx, gw, hw, strides) -> torch.Tensor:
+    """One launch of K5-g1 on a checked call; strides: gw's (channel, tap)
+    element strides."""
     b, n_h, dh, t = gw.shape
-    sb, kdtype = _sort_bits(t, hw)
-    pos = torch.arange(t, dtype=kdtype, device=gw.device)
-    keys = torch.sort((idx.to(kdtype) << sb) | pos, dim=-1).values
     dv = torch.empty((b, n_h, dh, hw), dtype=torch.float32, device=gw.device)
-    lib = kernels.load()
-    with torch.cuda.device(gw.device):
-        err = lib.stamp_scatter_sorted(
-            keys.data_ptr(), gw.data_ptr(), dv.data_ptr(), b * n_h, t, hw,
-            dh, sb, keys.element_size(), kernels.stream_ptr(gw.device))
-    kernels.check(err, "stamp_scatter_sorted")
+    plan = _stamp_plan(b * n_h, hw, t, dh, idx.data_ptr() % 16,
+                       gw.data_ptr() % 8, strides[1])
+    err = _launch(gw.device, "stamp_scatter", idx.data_ptr(), gw.data_ptr(),
+                  dv.data_ptr(), b * n_h, t, hw, dh, *strides,
+                  idx.element_size(), *plan)
+    kernels.check(err, "stamp_scatter")
     stamp_scatter.launches += 1
     return dv
 
 
 stamp_scatter.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _stamp_plan(rows, hw, t, dh, idx_offset, gw_offset, tap_stride):
+    """(tile, ivec, pairs) of :func:`kernels.stamp_plan` for pointers whose
+    16-byte (idx) and 8-byte (gw) offsets are given."""
+    plan = kernels.stamp_plan(rows, hw, t, dh, (idx_offset, gw_offset),
+                              tap_stride)
+    return plan["tile"], plan["ivec"], plan["pairs"]
 
 
 def _level_taps(v, sx, sy):
@@ -416,8 +476,11 @@ class _BilinearSample(torch.autograd.Function):
         # d(v): the cotangent times each tap's weight, stamped per head
         gw = g[..., None, :] * wgt[..., None]           # (B,Q,heads,P,4,dh)
         idx_t = idx.permute(0, 2, 1, 3, 4).reshape(b, n_h, -1)
-        gw_t = gw.permute(0, 2, 5, 1, 3, 4).reshape(b, n_h, dh, -1)
-        dv = stamp_scatter(idx_t.int().contiguous(), gw_t.contiguous(), h * w)
+        # one copy into (B, heads, T, dh): a tap's dh channels are one row;
+        # the kernel reads its (B, heads, dh, T) transpose in place
+        gw_t = gw.permute(0, 2, 1, 3, 4, 5).reshape(b, n_h, -1, dh)
+        dv = stamp_scatter(idx_t.int().contiguous(),
+                           gw_t.contiguous().transpose(2, 3), h * w)
         dv = dv.permute(0, 3, 1, 2).reshape(b, h, w, n_h, dh)
         return dv.to(v.dtype), dsx, dsy
 

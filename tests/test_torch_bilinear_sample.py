@@ -186,5 +186,8 @@ def test_bad_inputs_are_refused():
     with pytest.raises(ValueError, match="hw > 0"):
         TD.stamp_scatter(idx, gw, 0)
     with pytest.raises(ValueError, match="contiguous"):
+        TD.stamp_scatter(idx, torch.zeros(1, 2, 8, 10)[..., ::2], 16)
+    # the transpose of a contiguous (B, heads, T, dh) is read in place
+    assert torch.equal(
         TD.stamp_scatter(idx, gw.transpose(2, 3).contiguous().transpose(2, 3),
-                         16)
+                         16), TD.stamp_scatter(idx, gw, 16))

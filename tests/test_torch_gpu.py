@@ -883,7 +883,7 @@ def test_sorted_deform_backward_matches_plain(cuda, dtype, tol, case,
 @pytest.mark.parametrize("case", [
     (8, 8, 32, 6848, 16384), (2, 3, 32, 56, 60), (1, 2, 8, 37, 1),
     (2, 1, 48, 300, 1000), (1, 1, 5, 1, 129),
-    (1, 1, 2, 5000, 1 << 20)])                # 64-bit sort keys
+    (1, 1, 2, 5000, 1 << 20)])                # 2**20 cells
 def test_stamp_scatter_matches_plain(cuda, case):
     """K5-g1 against ``index_add_`` (the same f32 terms, perhaps in another
     order: 1e-5 x max|ref|), cells without taps zero, the same bits on a
@@ -970,3 +970,164 @@ def test_sorted_deform_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
         DF.bilinear_sample(values.reshape(1, 4, 5, 2, 8),
                            loc[..., 0, :, 0].double(), loc[..., 0, :, 1])
     assert [f.launches for f in counters] == before
+
+
+# ---- K5-g1 and K5 forward as redesigned for Hopper --------------------------
+
+
+def _stamp_in_t_order(idx, gw, hw):
+    """dv summed tap by tap in the order of t from +0.0, on the card: the
+    sequence of fadds K5-g1 makes for every cell (each step adds one tap of
+    every row; no two land on one element)."""
+    b, heads, dh, t = gw.shape
+    rows = torch.arange(b * heads, device=gw.device)
+    dv = torch.zeros(b * heads, dh, hw, device=gw.device)
+    flat_idx = idx.reshape(b * heads, t).long()
+    flat_gw = gw.reshape(b * heads, dh, t)
+    for k in range(t):
+        dv[rows, :, flat_idx[:, k]] += flat_gw[:, :, k]
+    return dv.reshape(b, heads, dh, hw)
+
+
+def _rows_layout(gw):
+    """gw (B, heads, dh, T) as the transpose of a contiguous (B, heads, T,
+    dh): channel stride 1."""
+    return gw.transpose(2, 3).contiguous().transpose(2, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["reference", "rows"])
+@pytest.mark.parametrize("case", [
+    (8, 8, 32, 6848, 16384), (8, 8, 32, 6848, 4096), (8, 8, 32, 6848, 1024),
+    (2, 3, 32, 37, 1000), (1, 2, 40, 300, 129), (2, 1, 5, 33, 7),
+    (1, 1, 2, 5000, 1 << 20)])
+def test_stamp_scatter_layouts_match_plain(cuda, layout, case):
+    """K5-g1 in either gw layout: within 1e-5 x max|ref| of ``index_add_``,
+    one launch, the same bits on a second run, from the other layout and
+    from int64 idx. The RT-DETR-L levels, and hw that is no multiple of the
+    tile or of 4, T no multiple of 32, dh over 32 channels, a map of 2**20
+    cells."""
+    b, heads, dh, t, hw = case
+    g = torch.Generator().manual_seed(21)
+    idx = torch.randint(0, hw, (b, heads, t), generator=g,
+                        dtype=torch.int32).to(cuda)
+    gw = _rand(g, b, heads, dh, t).to(cuda)
+    given, other = (gw, _rows_layout(gw)) if layout == "reference" \
+        else (_rows_layout(gw), gw)
+    before = DF.stamp_scatter.launches
+    out = DF.stamp_scatter(idx, given, hw)
+    torch.cuda.synchronize()
+    assert DF.stamp_scatter.launches == before + 1
+    assert out.shape == (b, heads, dh, hw) and out.dtype == torch.float32
+    assert _rel_err(out, DF.stamp_scatter_ref(idx, gw, hw)) <= 1e-5
+    assert torch.equal(DF.stamp_scatter(idx, given, hw), out)
+    assert torch.equal(DF.stamp_scatter(idx, other, hw), out)
+    assert torch.equal(DF.stamp_scatter(idx.long(), given, hw), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 3, 32, 300, 1000), (1, 2, 40, 57, 60),
+                                  (8, 8, 32, 428, 4096)])
+def test_stamp_scatter_sums_in_tap_order(cuda, case):
+    """Every cell is the sum of its taps in the order of t from +0.0, bit
+    for bit (the order a sort by (cell, t) and a segmented sum give), with
+    taps piled on few cells."""
+    b, heads, dh, t, hw = case
+    g = torch.Generator().manual_seed(22)
+    idx = torch.randint(0, hw, (b, heads, t), generator=g, dtype=torch.int32)
+    idx[:, 0] = idx[:, 0] % 5
+    idx, gw = idx.to(cuda), _rand(g, b, heads, dh, t).to(cuda)
+    want = _stamp_in_t_order(idx, gw, hw)
+    assert torch.equal(DF.stamp_scatter(idx, gw, hw), want)
+    assert torch.equal(DF.stamp_scatter(idx, _rows_layout(gw), hw), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["reference", "rows"])
+def test_stamp_scatter_one_cell_and_empty_tiles(cuda, layout):
+    """A row whose 6848 taps all land on one cell (one warp adds them all,
+    across several refills of the block's tap list), a row whose taps
+    cover only the first cells (the other tiles find none and store
+    zeros), and cells that get no tap at all."""
+    b, heads, dh, t, hw = 2, 2, 32, 6848, 16384
+    g = torch.Generator().manual_seed(23)
+    idx = torch.randint(0, 64, (b, heads, t), generator=g, dtype=torch.int32)
+    idx[0, 0] = hw - 1
+    idx[1, 1] = 777
+    idx, gw = idx.to(cuda), _rand(g, b, heads, dh, t).to(cuda)
+    given = gw if layout == "reference" else _rows_layout(gw)
+    out = DF.stamp_scatter(idx, given, hw)
+    ref = DF.stamp_scatter_ref(idx, gw, hw)
+    assert _rel_err(out, ref) <= 1e-5
+    assert torch.equal(out == 0, ref == 0)
+    assert torch.equal(out[0, 0, :, :hw - 1], torch.zeros_like(
+        out[0, 0, :, :hw - 1]))
+    assert torch.equal(out[0, 0, :, hw - 1], _stamp_in_t_order(
+        idx[:1, :1], gw[:1, :1], hw)[0, 0, :, hw - 1])
+    assert torch.equal(out[:, :, :, 64:].count_nonzero(),
+                       out[0, 0, :, hw - 1].count_nonzero()
+                       + out[1, 1, :, 777].count_nonzero())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case,fixed", [
+    ((((128, 128), (64, 64), (32, 32)), 2, 1, 8, 32, 4), 1),    # Q 1
+    ((((6, 10), (3, 5), (2, 2)), 1, 7, 3, 32, 4), 1),           # odd maps
+    ((((5, 7), (3, 3)), 2, 9, 2, 24, 2), 0),                    # dh 24
+    ((((4, 6), (3, 3), (2, 2), (1, 2)), 1, 5, 2, 16, 8), 0),    # L P 32
+    ((((9, 4),), 1, 3, 1, 200, 1), 0)])                         # 2 passes
+def test_deform_forward_instantiations(cuda, dtype, tol, case, fixed):
+    """K5 forward's (3, 4) x 32-channel instantiation and the generic one
+    (any L, P, dh; several channel passes) against the plain version, one
+    launch, the same bits with grad and without, and for any query
+    order."""
+    from robust_object_detection_tpu_torch import kernels
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(24), shapes, b, q, heads, dh, p, cuda,
+        dtype)
+    plan = kernels.deform_fwd_plan(len(shapes), p, dh,
+                                   values.element_size(), values.data_ptr())
+    assert plan["fixed"] == fixed and plan["vec"] == 16 // \
+        values.element_size()
+    before = DF.ms_deform_attn_slots.launches
+    out = DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert DF.ms_deform_attn_slots.launches == before + 1
+    ref = DF.ms_deform_attn_ref(values.float(), shapes, loc, attn)
+    assert out.dtype == dtype and _rel_err(out, ref) <= tol
+    leaves = [t.clone().requires_grad_() for t in (values, loc, attn)]
+    assert torch.equal(DF.ms_deform_attn_slots(leaves[0], shapes, leaves[1],
+                                               leaves[2]).detach(), out)
+    perm = torch.randperm(q, generator=torch.Generator().manual_seed(1))
+    outp = DF.ms_deform_attn_slots(values, shapes, loc[:, perm].contiguous(),
+                                   attn[:, perm].contiguous())
+    assert torch.equal(outp, out[:, perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_deform_forward_edges(cuda, dtype, tol):
+    """Every tap outside its map gives an exact 0; values and loc one
+    element past a 16-byte boundary (element loads of values, the generic
+    instantiation) match the plain version."""
+    shapes = ((128, 128), (64, 64), (32, 32))
+    g = torch.Generator().manual_seed(25)
+    values, shapes, loc, attn = _deform_inputs(g, shapes, 2, 37, 8, 32, 4,
+                                               cuda, dtype, lo=1.6, hi=2.5)
+    out = DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    assert torch.equal(out, torch.zeros_like(out))
+    values, shapes, loc, attn = _deform_inputs(g, shapes, 2, 37, 8, 32, 4,
+                                               cuda, dtype)
+    mv, ml = _misaligned(values), _misaligned(loc)
+    from robust_object_detection_tpu_torch import kernels
+    assert kernels.deform_fwd_plan(3, 4, 32, mv.element_size(),
+                                   mv.data_ptr())["vec"] == 1
+    ref = DF.ms_deform_attn_ref(values.float(), shapes, loc, attn)
+    out = DF.ms_deform_attn_slots(mv, shapes, ml, attn)
+    assert _rel_err(out, ref) <= tol
+    assert torch.equal(DF.ms_deform_attn_slots(values, shapes, ml, attn),
+                       DF.ms_deform_attn_slots(values, shapes, loc, attn))

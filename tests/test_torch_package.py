@@ -113,7 +113,7 @@ def test_every_c_entry_point_has_a_signature():
         found |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
     assert found == set(kernels.SIGNATURES)
     assert {"hgstem_train_nhwc", "hgstem_bwd_nhwc", "ms_deform_attn_bwd",
-            "auction_assign", "stamp_scatter_sorted",
+            "auction_assign", "stamp_scatter",
             "ms_deform_attn_sorted_fwd", "ms_deform_attn_sorted_taps",
             "ms_deform_attn_sorted_dvalues"} <= found
 

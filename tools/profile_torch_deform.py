@@ -1,32 +1,39 @@
 #!/usr/bin/env python3
-"""Times of the three generations of the deformable-attention kernels on
-one CUDA card, and where a sorted-tap backward's time goes.
+"""Times of the deformable-attention kernels on one CUDA card, and where a
+call's time goes.
 
     python3 tools/profile_torch_deform.py [--root DIR] [--queries 428]
 
 At the RT-DETR-L decoder's shapes (values (8, 21504, 8, 32), 3 levels x 4
 points, seeded random inputs as in chip_smoke.py), bf16 and f32 values:
 
-  1. CUDA-event medians (10 calls after 3 warm-ups) of K5 forward and
-     backward (``ms_deform_attn_slots``), K5-g2 forward and backward in both
-     layouts (``ms_deform_attn`` / ``ms_deform_attn_t``; the backward's
-     ``torch.sort`` inside the timed call) and K5-g1 (``stamp_scatter``,
-     key packing and sort inside) at each level, with ``scatter_add_`` into
-     zeros beside it;
-  2. under torch.profiler, the device time by kernel of 10 K5-g2 backwards
-     (bf16, both layouts) and of 10 K5-g1 calls at the largest and the
-     smallest level: the hand kernels by name, the library sort's kernels
-     and the elementwise key packing.
+  1. K5 forward (``ms_deform_attn_slots``) at 300 and 428 queries, on
+     uniform and on clustered samples (chip_smoke.clustered_loc: 200
+     centres per batch and head): CUDA-event medians (10 calls after 3
+     warm-ups), the host's time to enqueue one call (20 calls, no
+     synchronize) and the profiler's device ms of each launch;
+  2. the CUDA-event medians of K5 backward and of K5-g2 forward and
+     backward in both layouts (the backward's ``torch.sort`` inside the
+     timed call), and the device time by kernel of a bf16 K5-g2 backward;
+  3. K5-g1 (``stamp_scatter``) at each level, uniform and clustered cells,
+     with gw in the reference's layout and, where the package takes it,
+     in the row layout (the transpose of a contiguous (B, heads, T, dh)):
+     events, enqueue, device ms by launch, ``scatter_add_`` into zeros
+     beside it, and a SHA-256 of each output, so that two trees' bits can
+     be compared.
 
 --root names another checkout whose port package is measured instead of
 this one's (its kernels are built there), so that two trees can be timed in
-one call on one card. Needs one CUDA card.
+one call on one card: run the tool in turns (parent, this, this, parent).
+Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -39,12 +46,11 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=428)
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
+    import chip_smoke as S  # this checkout's inputs, whichever is measured
     sys.path.insert(0, str(args.root.resolve()))
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke as S
     from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.ops import deform as DF
 
@@ -54,38 +60,63 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(S.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"]))
-    print(f"[deform] package {Path(DF.__file__).resolve().parents[1]}")
+    tree = Path(DF.__file__).resolve().parents[2].name
+    tag = f"deform {tree}"
+    print(f"[{tag}] package {Path(DF.__file__).resolve().parents[1]}")
+    kernels.build()
     kernels.load()
+    rows_layout = hasattr(DF, "_gw_strides")   # the row layout of K5-g1
 
-    shapes = S.RTDETR_LEVELS
-    b, q, heads, dh, pts = (S.BATCH, args.queries, S.RTDETR_HEADS,
-                            S.RTDETR_DH, S.RTDETR_POINTS)
-    g = torch.Generator(dev).manual_seed(S.SEED + 5)
-    values, loc, attn = S.deform_inputs(g, shapes, b, q, heads, dh, pts, dev)
-    dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
-
-    def device_ms_by_kernel(fn, calls=10):
-        """Device ms per call of every kernel fn launches, largest first."""
+    def host_us(fn, calls=20):
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.device_time_total / 1e3 / calls, e.count // calls, e.key)
-                for e in prof.key_averages() if e.device_time_total > 0
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        return sorted(rows, reverse=True)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
 
+    def by_launch(fn):
+        seq = S.device_ms_by_launch(fn)
+        if seq is None:
+            return "; ".join(f"{S.short_kernel_name(k)} x{n} {ms}"
+                             for ms, n, k in S.device_ms_by_kernel(fn))
+        return "; ".join(f"{S.short_kernel_name(k)} {ms}" for ms, k in seq)
+
+    def report(what, fn):
+        print(f"[{tag}] {what}: events {S.time_ms(fn)} ms; enqueue "
+              f"{host_us(fn)} us a call; device ms by launch: "
+              f"{by_launch(fn)}")
+
+    shapes = S.RTDETR_LEVELS
+    b, heads, dh, pts = S.BATCH, S.RTDETR_HEADS, S.RTDETR_DH, S.RTDETR_POINTS
+    g = torch.Generator(dev).manual_seed(S.SEED + 5)
+
+    # 1. K5 forward
+    for q in sorted({S.RTDETR_QUERIES, args.queries}):
+        for clustered in (False, True):
+            values, loc, attn = S.deform_inputs(g, shapes, b, q, heads, dh,
+                                                pts, dev, clustered)
+            for dtype in (torch.bfloat16, torch.float32):
+                vd = values.to(dtype)
+                name = str(dtype).split(".")[-1]
+                what = "clustered" if clustered else "uniform"
+                report(f"K5 forward {name} Q {q} {what}",
+                       lambda: DF.ms_deform_attn_slots(vd, shapes, loc,
+                                                       attn))
+    del values, loc, attn
+
+    # 2. the backwards and the sorted-tap generation
+    q = args.queries
+    values, loc, attn = S.deform_inputs(g, shapes, b, q, heads, dh, pts, dev)
+    dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         vd = values.to(dtype)
         vt = DF.values_to_t(vd)
         dd = dout.to(dtype)
         times = {
-            "K5 forward": S.time_ms(lambda: DF.ms_deform_attn_slots(
-                vd, shapes, loc, attn)),
             "K5 backward": S.time_ms(lambda: DF.ms_deform_attn_backward(
                 vd, shapes, loc, attn, dd)),
             "K5-g2 forward values": S.time_ms(lambda: DF.ms_deform_attn(
@@ -99,38 +130,46 @@ def main() -> int:
                 lambda: DF.ms_deform_attn_sorted_backward(
                     vt, shapes, loc, attn, dout, True)),
         }
-        print(f"[deform] {name} values {tuple(vd.shape)} Q {q}, ms: {times}")
-        if dtype != torch.bfloat16:
-            continue
-        for layout, given, flag in (("values", vd, False),
-                                    ("values_t", vt, True)):
-            rows = device_ms_by_kernel(
+        print(f"[{tag}] {name} values {tuple(vd.shape)} Q {q}, ms: {times}")
+        if dtype == torch.bfloat16:
+            rows = S.device_ms_by_kernel(
                 lambda: DF.ms_deform_attn_sorted_backward(
-                    given, shapes, loc, attn, dout, flag))
-            print(f"[deform] K5-g2 backward {name} {layout}: device ms per "
-                  f"call by kernel (sum {sum(r[0] for r in rows)}):")
-            for ms, n, key in rows:
-                print(f"    {ms:9.4f}  x{n}  {key[:110]}")
-    del values, vd, vt
+                    vd, shapes, loc, attn, dout))
+            print(f"[{tag}] K5-g2 backward {name} values: device ms per "
+                  f"call by kernel (sum {sum(r[0] for r in rows)}): "
+                  + "; ".join(f"{S.short_kernel_name(k)} x{n} {ms}"
+                              for ms, n, k in rows))
+    del values, vd, vt, loc, attn, dout, dd
 
-    for h, w in shapes:
-        hw, t = h * w, q * pts * 4
-        idx = torch.randint(0, hw, (b, heads, t), device=dev, generator=g,
-                            dtype=torch.int32)
-        gw = torch.randn(b, heads, dh, t, device=dev, generator=g)
-        wide = idx.long()[:, :, None, :].expand(-1, -1, dh, -1)
-        ms = S.time_ms(lambda: DF.stamp_scatter(idx, gw, hw))
-        lib = S.time_ms(lambda: torch.zeros(
-            b, heads, dh, hw, device=dev).scatter_add_(3, wide, gw))
-        print(f"[deform] K5-g1 stamp_scatter hw {hw} T {t} rows {b * heads} "
-              f"(uniform random cells): {ms} ms; zeros + scatter_add_ "
-              f"{lib} ms")
-        if (h, w) in (shapes[0], shapes[-1]):
-            rows = device_ms_by_kernel(lambda: DF.stamp_scatter(idx, gw, hw))
-            print(f"[deform] K5-g1 hw {hw}: device ms per call by kernel "
-                  f"(sum {sum(r[0] for r in rows)}):")
-            for kms, n, key in rows:
-                print(f"    {kms:9.4f}  x{n}  {key[:110]}")
+    # 3. K5-g1, one level at a time
+    for clustered in (False, True):
+        what = "clustered" if clustered else "uniform"
+        for h, w in shapes:
+            hw = h * w
+            if clustered:
+                lc = S.clustered_loc(g, b, q, heads, 1, pts, dev)[:, :, :, 0]
+            else:
+                lc = torch.rand(b, q, heads, pts, 2, device=dev,
+                                generator=g) * 1.2 - 0.1
+            idx = DF.tap_geometry(lc[:, :, :, None], ((h, w),))[0]
+            idx = idx.permute(0, 2, 1, 3, 4, 5).reshape(b, heads, -1).int()
+            t = idx.shape[-1]
+            gw = torch.randn(b, heads, dh, t, device=dev, generator=g)
+            wide = idx.long()[:, :, None, :].expand(-1, -1, dh, -1)
+            lib = S.time_ms(lambda: torch.zeros(
+                b, heads, dh, hw, device=dev).scatter_add_(3, wide, gw))
+            layouts = {"reference": gw}
+            if rows_layout:
+                layouts["rows"] = gw.transpose(2, 3).contiguous() \
+                    .transpose(2, 3)
+            for layout, given in layouts.items():
+                out = DF.stamp_scatter(idx, given, hw)
+                digest = hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()[:16]
+                report(f"K5-g1 hw {hw} T {t} {what} {layout} layout "
+                       f"(sha256 {digest}; zeros + scatter_add_ {lib} ms)",
+                       lambda: DF.stamp_scatter(idx, given, hw))
+            del idx, gw, wide, layouts, given, out
     return 0
 
 
