@@ -20,8 +20,10 @@ each generation of the deformable-attention op family. Phases:
      tensor-core instructions (HMMA / HGMMA), async copies (LDGSTS) and
      f32 FMAs in the SASS of K3's, K2's and K4's bf16 kernels (every
      instantiation); HMMA must be above 0 in each; the global loads of K5
-     forward's and K5-g1's kernels, with 128-bit value loads required in
-     K5 forward's 16-byte instantiations;
+     forward's, the deformable backward's (taps kernel and scatter) and
+     K5-g1's kernels, with 128-bit value loads required in K5 forward's
+     16-byte instantiations and the backward's bf16 taps kernels that read
+     `values`;
   3. kernels: the eval kernels (K3-f, K2-f) against their plain PyTorch
      versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
@@ -78,7 +80,10 @@ each generation of the deformable-attention op family. Phases:
      profiler's device ms of each bf16 K4-f train and K4-b launch, and
      cuDNN's time for each stage of the stem's backward beside K4-b; and the
      kernels this step shares with earlier paths at its own shapes (K5
-     forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8);
+     forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8); K5
+     backward also on clustered samples, twice for identical bits and bit
+     for bit K5-g2's d(values) on the same inputs, with the profiler's
+     device ms of its two launches (taps kernel, owner scatter);
  13. RT-DETR-L train-step model check: forward, loss and backward of one
      f32 batch at 128 px on the card (kernels, TF32 off) and on the CPU
      (plain versions), same weights, batch and denoising queries; every
@@ -95,10 +100,10 @@ each generation of the deformable-attention op family. Phases:
      through it) against their plain versions at the RT-DETR-L decoder's
      shapes (300 and 428 queries; each of the three levels for K5-g1, on
      uniform and on clustered cells) and at one odd shape, f32 and bf16
-     values (tolerances in phase_sorted_kernels); every backward twice for
-     identical bits, K5-g1 also from gw in the row layout and from int64
-     idx; timed as above with K5-g2's tap sort inside the timed call,
-     ``torch.sort`` alone beside it; K5-g1 in both gw layouts beside the
+     values (tolerances in phase_sorted_kernels), K5-g2 backward also on
+     clustered samples; every backward twice for identical bits, K5-g1
+     also from gw in the row layout and from int64 idx; timed as above;
+     K5-g1 in both gw layouts beside the
      one library call (``scatter_add_`` into zeros) and, for the record,
      ``grid_sample`` forward + backward beside ``bilinear_sample``; the
      refusal of bad CUDA inputs;
@@ -1348,11 +1353,13 @@ def phase_rtdetr_train_kernels(dev):
     which rounds the stored tensors where the kernels do (a last-bit
     difference of a stored bf16 y flips roundings four tensors down the
     chain); K4-b twice gives identical bits. K5 backward against the
-    autograd of the plain gather version in f32 on the same values:
-    d(values) 1e-4 in f32 (f32 atomics: another order every run) and 2e-2
-    in bf16 (one rounding of the f32 sum), d(loc) and d(attn) 1e-4 and
-    1e-3, and the same bits for d(loc) and d(attn) under a permutation of
-    the queries. K6: the same assignment
+    autograd of the plain gather version in f32 on the same values, on
+    uniform and on clustered samples: d(values) 1e-4 in f32 and 2e-2 in
+    bf16 (one rounding of the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3,
+    the same bits on a second run, the same bits for d(loc) and d(attn)
+    under a permutation of the queries, and d(values) bit for bit that of
+    K5-g2's backward (``ms_deform_attn_sorted_backward``) on the same
+    inputs with the f32 of the same dout. K6: the same assignment
     and capped flags as the plain round loop + greedy completion, by
     equality, on costs that converge, on a batch built to hit the round
     cap (as many valid GTs as queries) and with an image without GT. The
@@ -1471,17 +1478,21 @@ def phase_rtdetr_train_kernels(dev):
     torch.cuda.empty_cache()
 
     # K5 backward: values (8, 21504, 8, 32), 300 + 128 queries, 3 levels x
-    # 4 points; and non-square levels with a Q that divides nothing
+    # 4 points, uniform and clustered samples; and non-square levels with a
+    # Q that divides nothing
     dbwd = {}
     q_train = RTDETR_QUERIES + 2 * 2 * 32
-    for shapes, b, q, heads, dh, pts in (
+    for shapes, b, q, heads, dh, pts, clustered in (
             (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
-             RTDETR_DH, RTDETR_POINTS),
-            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+             RTDETR_DH, RTDETR_POINTS, False),
+            (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
+             RTDETR_DH, RTDETR_POINTS, True),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2, False)):
         values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
-                                          dev)
+                                          dev, clustered)
         dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
-        main = b == RTDETR_TRAIN_BATCH
+        main = b == RTDETR_TRAIN_BATCH and not clustered
+        what = "clustered" if clustered else "uniform"
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             name = str(dtype).split(".")[-1]
             vd, dd = values.to(dtype), dout.to(dtype)
@@ -1495,9 +1506,17 @@ def phase_rtdetr_train_kernels(dev):
             log = []
             ltol = 1e-4 if dtype == torch.float32 else 1e-3
             err = check(f"ms_deform_attn bwd d(values) {name} levels "
-                        f"{shapes} Q {q}", dv, rdv, tol, log)
+                        f"{shapes} Q {q} {what}", dv, rdv, tol, log)
             err = max(err, check(f"d(loc) {name}", dloc, rdloc, ltol, log),
                       check(f"d(attn) {name}", dattn, rdattn, ltol, log))
+            again = DF.ms_deform_attn_backward(vd, shapes, loc, attn, dd)
+            require(all(torch.equal(a, c) for a, c in
+                        zip(again, (dv, dloc, dattn))),
+                    f"K5 backward ({name}) is not deterministic")
+            require(torch.equal(DF.ms_deform_attn_sorted_backward(
+                vd, shapes, loc, attn, dd.float())[0], dv),
+                f"K5 backward's d(values) ({name}) differs from K5-g2's on "
+                f"the same inputs")
             perm = torch.randperm(q, device=dev, generator=g)
             _, ploc, pattn = DF.ms_deform_attn_backward(
                 vd, shapes, loc[:, perm].contiguous(),
@@ -1505,9 +1524,13 @@ def phase_rtdetr_train_kernels(dev):
             require(torch.equal(ploc, dloc[:, perm])
                     and torch.equal(pattn, dattn[:, perm]),
                     "d(loc) / d(attn) change bits with the query order")
-            del leaves, rdv, rdloc, rdattn, ploc, pattn
+            del leaves, rdv, rdloc, rdattn, ploc, pattn, again
             if not main:
-                print(f"[rtdetr-train-kernels] {'; '.join(log)}")
+                ms = time_ms(lambda: DF.ms_deform_attn_backward(
+                    vd, shapes, loc, attn, dd)) if clustered else None
+                print(f"[rtdetr-train-kernels] {'; '.join(log)}; a second "
+                      f"run, K5-g2's d(values): identical bits"
+                      + (f"; kernel {ms} ms" if clustered else ""))
                 continue
             # the forward at this path's 428 queries (the sweep's 300 are
             # held in phase_rtdetr_kernels), same tolerances as there
@@ -1524,16 +1547,26 @@ def phase_rtdetr_train_kernels(dev):
                 pout, leaves, dd, retain_graph=True))
             del leaves, pout
             # what this run's data needs: the distinct value rows its
-            # in-map taps touch read once, d(values) written once, and 4
-            # operations per in-map tap and channel
+            # in-map taps touch and dout read once, d(values), d(loc) and
+            # d(attn) written once, and 4 operations per in-map tap and
+            # channel
             rows, taps = touched_rows(DF, loc, shapes, values.shape[1],
                                       heads)
             elt = esize(dtype)
-            nbytes = (rows * dh + values.numel() + 2 * dout.numel()) * elt \
+            nbytes = (rows * dh + values.numel() + dout.numel()) * elt \
                 + 2 * (loc.numel() + attn.numel()) * 4
-            print(f"[rtdetr-train-kernels] {'; '.join(log)}; kernel {ms} ms "
-                  f"(zero fill, atomics and cast of the f32 d(values) "
-                  f"included) plain {plain_ms} ms (autograd of torch.gather "
+            # the two launches' device ms (by kernel where the profiler's
+            # record does not split into calls)
+            parts = device_ms_by_launch(lambda: DF.ms_deform_attn_backward(
+                vd, shapes, loc, attn, dd)) or [
+                    (t, k) for t, _, k in device_ms_by_kernel(
+                        lambda: DF.ms_deform_attn_backward(
+                            vd, shapes, loc, attn, dd))]
+            print(f"[rtdetr-train-kernels] {'; '.join(log)}; a second run, "
+                  f"K5-g2's d(values): identical bits; kernel {ms} ms "
+                  f"(device ms: " + "; ".join(
+                      f"{short_kernel_name(k)} {t}" for t, k in parts)
+                  + f") plain {plain_ms} ms (autograd of torch.gather "
                   f"+ elementwise); {taps} in-map taps, {rows} distinct "
                   f"rows; no single PyTorch call computes it")
             dbwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1908,7 +1941,8 @@ def phase_sorted_kernels(dev):
     (the out is f32, so both are the plain version's f32 products summed in
     another order). K5-g2 backward against the plain backward in f32 on the
     same values: d(values) 1e-4 in f32 and 1e-2 in bf16 (one rounding of
-    the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3. K5-g1 against
+    the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3; the backward also on
+    clustered samples at the train step's shapes. K5-g1 against
     ``index_add_``: 1e-4 (f32 only; the same terms, perhaps in another
     order); ``bilinear_sample`` against the autograd of its plain version
     in f32: out 1e-4, d(v) 1e-4 in f32 and 1e-2 for a bf16 map, d(sx) and
@@ -1925,29 +1959,21 @@ def phase_sorted_kernels(dev):
     q_train = RTDETR_QUERIES + 2 * 2 * 32
 
     fwd, bwd, stamp_ms = {}, {}, {}
-    for shapes, b, q, heads, dh, pts in (
+    for shapes, b, q, heads, dh, pts, clustered in (
             (RTDETR_LEVELS, BATCH, RTDETR_QUERIES, RTDETR_HEADS, RTDETR_DH,
-             RTDETR_POINTS),
+             RTDETR_POINTS, False),
             (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
-             RTDETR_DH, RTDETR_POINTS),
-            (((6, 10), (3, 5)), 2, 7, 3, 32, 2)):
+             RTDETR_DH, RTDETR_POINTS, False),
+            (RTDETR_LEVELS, RTDETR_TRAIN_BATCH, q_train, RTDETR_HEADS,
+             RTDETR_DH, RTDETR_POINTS, True),
+            (((6, 10), (3, 5)), 2, 7, 3, 32, 2, False)):
         values, loc, attn = deform_inputs(g, shapes, b, q, heads, dh, pts,
-                                          dev)
+                                          dev, clustered)
         dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
         hw = values.shape[1]
         timed = q == q_train
         if timed:
             rows, taps = touched_rows(DF, loc, shapes, hw, heads)
-            # the library's sort alone, on this run's keys
-            idx, _ = DF.tap_geometry(loc, shapes)
-            t = q * len(shapes) * pts * 4
-            sb = (t - 1).bit_length()
-            keys = ((idx.permute(0, 2, 1, 3, 4, 5).reshape(b * heads, t)
-                     << sb) | torch.arange(t, device=dev)).int()
-            sort_ms = time_ms(lambda: torch.sort(keys, dim=-1))
-            print(f"{tag} torch.sort alone on the int32 keys "
-                  f"{tuple(keys.shape)}: {sort_ms} ms")
-            del idx, keys
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             name = str(dtype).split(".")[-1]
             elt = esize(dtype)
@@ -1992,8 +2018,9 @@ def phase_sorted_kernels(dev):
                     given, shapes, loc, attn, dout, transposed))
                 print(f"{tag} {'; '.join(log)}; second backward: identical "
                       f"bits; forward kernel {ms} ms; backward {bms} ms "
-                      f"(taps kernel + torch.sort + d(values) kernel)")
-                if transposed:
+                      f"(taps kernel + owner scatter"
+                      f"{', clustered samples' if clustered else ''})")
+                if transposed or clustered:
                     continue
                 plain_ms = time_ms(lambda: DF.ms_deform_attn_ref(
                     vd, shapes, loc, attn))
@@ -2292,9 +2319,12 @@ TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
               "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel")
 
 
-# K5 forward's instantiations with 16-byte value loads, by mangled name
-K5_WIDE = ("ms_deform_attn_kernelI13__nv_bfloat16Li8E",
-           "ms_deform_attn_kernelIfLi4E")
+# K5 forward's instantiations with 16-byte value loads, and the deformable
+# backward's bf16 taps kernels that read `values` in 16-byte pieces (VEC 8,
+# STRIDED false), by substrings of their mangled names
+K5_WIDE = (("ms_deform_attn_kernelI13__nv_bfloat16Li8E",),
+           ("ms_deform_attn_kernelIfLi4E",),
+           ("deform_bwd_taps_kernelI13__nv_bfloat16", "Li8ELb0E"))
 
 
 def ptxas_report(log: str):
@@ -2373,19 +2403,21 @@ def main() -> int:
                 f"{name}: no tensor-core instruction in its SASS")
 
     # K5 forward's 16-byte instantiations (bf16 8 and f32 4 channels a
-    # load) must load value rows with 128-bit LDGs; K5-g1 beside them
-    sass = sass_opcodes(so, ("ms_deform_attn_kernel",
+    # load) and the backward's bf16 taps kernels must load value rows with
+    # 128-bit LDGs; the scatters beside them
+    sass = sass_opcodes(so, ("ms_deform_attn_kernel", "deform_bwd_",
                              "stamp_scatter_kernel"))
     for fn, ops in sass.items():
         ldg = {k: v for k, v in ops.items() if k.startswith("LDG.")}
         print(f"[build] SASS of {fn}: LDG {ops.get('LDG', 0)} {ldg} SHFL "
               f"{ops.get('SHFL', 0)} FFMA {ops.get('FFMA', 0)} STG "
               f"{ops.get('STG', 0)} BAR {ops.get('BAR', 0)}")
-    for pattern in K5_WIDE:
-        found = [ops for fn, ops in sass.items() if pattern in fn]
+    for parts in K5_WIDE:
+        found = [ops for fn, ops in sass.items()
+                 if all(p in fn for p in parts)]
         require(found and all(any(k.startswith("LDG.") and ".128" in k
                                   for k in ops) for ops in found),
-                f"{pattern}: no 16-byte value loads in its SASS")
+                f"{' '.join(parts)}: no 16-byte value loads in its SASS")
 
     kres = phase_kernels(dev)
     phase_model_check(dev)
@@ -2428,12 +2460,12 @@ def main() -> int:
             ("hgstem_train", "hgstem.cu", "pallas_stem.py:170", "bfloat16"),
             ("hgstem_bwd", "hgstem_bwd.cu", "pallas_stem.py:601",
              "bfloat16"),
-            ("ms_deform_attn_bwd", "ms_deform_attn.cu", "deform.py:901",
+            ("ms_deform_attn_bwd", "deform_bwd.cu", "deform.py:901",
              "bfloat16"),
             ("auction", "auction.cu", "assignment.py:113", "float32"),
             ("ms_deform_attn_sorted", "ms_deform_attn_sorted.cu",
              "deform.py:398", "bfloat16"),
-            ("ms_deform_attn_sorted_bwd", "ms_deform_attn_sorted.cu",
+            ("ms_deform_attn_sorted_bwd", "deform_bwd.cu",
              "deform.py:524", "bfloat16"),
             ("stamp_scatter", "stamp_scatter.cu", "deform.py:170",
              "float32")):

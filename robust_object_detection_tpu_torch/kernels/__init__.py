@@ -97,9 +97,10 @@ SIGNATURES: Dict[str, List] = {
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
     # NH, DH, L, P, dtype, vec, row_lanes, fixed (deform_fwd_plan), stream
     "ms_deform_attn_fwd": [_P] * 5 + [_I] * 11 + [_P],
-    # values, loc, attn, dout, dv (f32, zeroed), dloc, dattn, levels, B, HW,
-    # Q, NH, DH, L, P, dtype, stream
-    "ms_deform_attn_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # values, loc, attn, dout, dloc, dattn, cell, coef (scratch), dv, levels,
+    # tiles (host int[L]), B, HW, Q, NH, DH, L, P, dtype, dout_dtype,
+    # transposed, vec, row_lanes, fixed, ivec, svec (deform_bwd_plan), stream
+    "ms_deform_attn_bwd": [_P] * 11 + [_I] * 15 + [_P],
     # value (B, M, Q), valid, owner, capped, B, Q, M, eps, max_rounds,
     # complete_greedy, stream
     "auction_assign": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
@@ -109,12 +110,6 @@ SIGNATURES: Dict[str, List] = {
     # values, loc, attn, out (f32), levels, B, HW, Q, NH, DH, L, P, dtype,
     # transposed, stream
     "ms_deform_attn_sorted_fwd": [_P] * 5 + [_I] * 9 + [_P],
-    # values, loc, attn, dout, dloc, dattn, keys, coef, levels, B, HW, Q, NH,
-    # DH, L, P, dtype, transposed, sb, key_bytes, stream
-    "ms_deform_attn_sorted_taps": [_P] * 9 + [_I] * 11 + [_P],
-    # keys (sorted), coef, dout, dv, B, HW, Q, NH, DH, taps_per_q, dtype,
-    # transposed, sb, key_bytes, stream
-    "ms_deform_attn_sorted_dvalues": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -503,6 +498,15 @@ def stem_bwd_plan(b: int, h: int, w: int, ptrs, n_sm: int) -> Dict[str, int]:
 
 
 # ---- K5 forward (csrc/ms_deform_attn.cu) ---------------------------------
+def _lanes(n_l: int, n_p: int, dh: int, vec: int) -> Dict[str, int]:
+    row_lanes = min(32, 1 << (-(-dh // vec) - 1).bit_length())
+    slots = 32 // row_lanes
+    return dict(vec=vec, row_lanes=row_lanes, slots=slots,
+                passes=-(-dh // (row_lanes * vec)),
+                rounds=-(-4 * n_l * n_p // slots),
+                fixed=int(vec > 1 and (n_l, n_p, dh) == (3, 4, 32)))
+
+
 def deform_fwd_plan(n_l: int, n_p: int, dh: int, esize: int,
                     values_ptr: int) -> Dict[str, int]:
     """Lane plan of K5 forward for L = n_l levels x P = n_p points, dh
@@ -517,15 +521,10 @@ def deform_fwd_plan(n_l: int, n_p: int, dh: int, esize: int,
     and channels c * row_lanes * vec + (i % row_lanes) * vec + [0, vec)."""
     vec = 16 // esize if (dh * esize) % 16 == 0 and values_ptr % 16 == 0 \
         else 1
-    row_lanes = min(32, 1 << (-(-dh // vec) - 1).bit_length())
-    slots = 32 // row_lanes
-    return dict(vec=vec, row_lanes=row_lanes, slots=slots,
-                passes=-(-dh // (row_lanes * vec)),
-                rounds=-(-4 * n_l * n_p // slots),
-                fixed=int(vec > 1 and (n_l, n_p, dh) == (3, 4, 32)))
+    return _lanes(n_l, n_p, dh, vec)
 
 
-# ---- K5-g1 (csrc/stamp_scatter.cu) --------------------------------------
+# ---- K5-g1 (csrc/stamp_scatter.cu, csrc/owner_scatter.cuh) ---------------
 # A block of STAMP_WARPS warps owns one row (b, h) and `tile` consecutive
 # cells, each warp the cells c (tile-local) with stamp_owner(c) == its
 # index. Tiles are powers of two from 8 cells, STAMP_TILE where that gives
@@ -588,6 +587,105 @@ def stamp_plan(rows: int, hw: int, t: int, dh: int, ptrs,
                 ivec=int(t % 8 == 0 and ptrs[0] % 16 == 0),
                 pairs=int(tap_stride == 1 and t % 2 == 0
                           and ptrs[1] % 8 == 0))
+
+
+# ---- K5 and K5-g2 backward (csrc/deform_bwd.cu) --------------------------
+# The taps kernel runs K5 forward's lanes (one warp per (batch, query,
+# head)); the scatter is K5-g1's owner scatter (csrc/owner_scatter.cuh).
+# The taps of a (batch, head) row are written level-major, (level, query,
+# point, corner): tap k = (l P + p) 4 + corner of query q at
+# :func:`deform_bwd_tap_index`. Each level is tiled on its own, so that a
+# scatter block scans one level's taps, its warps owning the cells of
+# :func:`stamp_owner`; block i owns row i // tiles. Timed on an H100 at the
+# RT-DETR-L train shapes (tools/profile_torch_deform_cuts.py), tiles of 256
+# cells at every level beat smaller tiles for the coarse levels (256 / 64 /
+# 16 cells: 1.5x slower; 256 / 128 / 64: 1.1x): every block scans its whole
+# level, so more blocks cost more than longer walks.
+def deform_bwd_tap_index(q: int, k: int, n_q: int, n_p: int) -> int:
+    """Where the taps kernel writes tap k (corner k % 4 of point k // 4 =
+    (level, point)) of query q in its (batch, head) row of cell and coef:
+    level-major, so that a level's taps are one range and, within it, in
+    the order (query, point, corner)."""
+    tpq = 4 * n_p
+    return k // tpq * n_q * tpq + q * tpq + k % tpq
+
+
+def deform_bwd_tile(plan, shapes, t: int):
+    """(level, first cell, cells) of tile t of a row of the scatter: the
+    (t - first)-th tile of the level whose tiles hold t."""
+    start = 0
+    for l, (h, w) in enumerate(shapes):
+        n = -(-h * w // plan["level_tiles"][l])
+        if t < n:
+            tile = plan["level_tiles"][l]
+            return l, start + t * tile, min(tile, h * w - t * tile)
+        t -= n
+        start += h * w
+    raise IndexError("no such tile")
+
+
+def deform_bwd_scan(plan, shapes, t: int):
+    """(ta, tb): the taps of its row that the scatter block of tile t scans,
+    those of the tile's level."""
+    level = deform_bwd_tile(plan, shapes, t)[0]
+    return level * plan["taps_per_level"], (level + 1) * plan["taps_per_level"]
+
+
+def deform_bwd_plan(rows: int, shapes, n_q: int, n_p: int, dh: int,
+                    esize: int, values_ptr: int,
+                    transposed: bool) -> Dict[str, int]:
+    """Launch plan of the deformable-attention backward (K5 and K5-g2) on
+    `rows` (batch, head) rows of value maps of `shapes` ((H_l, W_l), ...)
+    with dh channels of `esize` bytes at `values_ptr`, n_q queries and n_p
+    points a level; transposed: values_t (B, heads, dh, HW). The taps
+    kernel's lanes as :func:`deform_fwd_plan` gives them (vec, row_lanes,
+    slots, passes, rounds, fixed), vec 16 bytes of channels where `values`
+    rows are whole aligned 16-byte pieces or, for values_t (element loads
+    HW apart), where dh is a multiple of that many channels. The scatter's:
+    level_tiles (cells a tile of each level: :func:`stamp_plan`'s tile for
+    the row's cells, halved while a level needs no more than half of it),
+    tiles (a row), blocks, smem (bytes a block), taps (a row, L x
+    taps_per_level, taps_per_level = n_q x taps_per_query = n_q x 4 n_p),
+    ivec (16-byte loads of the cell buffer: taps_per_level a multiple of 8)
+    and svec (channels a store of d(values) in the `values` layout: 16
+    bytes where dh allows; 0 for values_t, stored with lanes along cells).
+    The tiles, and so the cells each warp owns, depend on (rows, shapes)
+    alone."""
+    cells = [h * w for h, w in shapes]
+    hw, n_l = sum(cells), len(cells)
+    if min(rows, n_q, n_l, n_p, dh, *cells) <= 0:
+        raise ValueError(f"ms_deform_attn backward takes non-empty tensors, "
+                         f"got rows {rows}, shapes {tuple(shapes)}, Q {n_q}, "
+                         f"P {n_p}, dh {dh}")
+    v16 = 16 // esize
+    if transposed:
+        vec = v16 if dh % v16 == 0 else 1
+    else:
+        vec = v16 if (dh * esize) % 16 == 0 and values_ptr % 16 == 0 else 1
+    plan = _lanes(n_l, n_p, dh, vec)
+    tile = _stamp_tile(rows, hw)
+    level_tiles = []
+    for c in cells:
+        t = tile
+        while t > STAMP_WARPS and t // 2 >= c:
+            t //= 2
+        level_tiles.append(t)
+    tiles = sum(-(-c // t) for c, t in zip(cells, level_tiles))
+    tpq = 4 * n_p
+    tpl = n_q * tpq
+    if rows * tiles > _INT_MAX or n_l * tpl > _INT_MAX - 2 * STAMP_CHUNK:
+        raise ValueError(f"ms_deform_attn backward: {rows} rows of "
+                         f"{n_l * tpl} taps into {hw} cells are beyond the "
+                         f"kernels' int32 counts")
+    plan.update(level_tiles=tuple(level_tiles), tiles=tiles,
+                blocks=rows * tiles,
+                smem=4 * (32 * (max(level_tiles) + 1) + STAMP_LIST
+                          + 2 * STAMP_WARPS + STAMP_WARPS * STAMP_RING),
+                taps_per_query=tpq, taps_per_level=tpl, taps=n_l * tpl,
+                ivec=int(tpl % 8 == 0),
+                svec=0 if transposed else (v16 if (dh * esize) % 16 == 0
+                                           else 1))
+    return plan
 
 
 def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:

@@ -19,9 +19,11 @@ other device, dtype, layout or shape raises. On CUDA it is a
 autograd through the plain version's ``torch.gather``.
 
 Both versions sum in f32 and return values' dtype (one rounding). The
-kernel's d(values) is summed with f32 atomics into a zeroed f32 buffer and
-cast once, so its last bits vary from run to run; d(loc) and d(attn) use
-no atomics and are the same bits for any query order.
+backward (``csrc/deform_bwd.cu``, shared with K5-g2) is two launches: a
+taps kernel writes d(loc) and d(attn), the same bits for any query order,
+and each tap's cell and coefficient; an owner scatter sums d(values) cell by
+cell in tap order and writes it once in values' dtype: the same bits on
+every run.
 
 The two earlier generations of the reference's op family are here too, with
 the reference's signatures and layouts:
@@ -32,12 +34,11 @@ the reference's signatures and layouts:
   ``csrc/stamp_scatter.cu``; plain version :func:`stamp_scatter_ref`);
 * :func:`ms_deform_attn` (values (B, HW, heads, dh)) and
   :func:`ms_deform_attn_t` (values_t (B, heads, dh, HW)), the sorted-tap
-  generation (K5-g2, ``csrc/ms_deform_attn_sorted.cu``). They return f32
-  whatever values' dtype. Their backward sorts the taps by destination cell
-  (one ``torch.sort`` of packed keys) and sums d(values) segment by segment
-  in a fixed order: no atomics, the same bits on every run, in values' dtype
-  and layout. Plain versions: :func:`ms_deform_attn_ref` in f32 and
-  :func:`ms_deform_attn_backward_ref`.
+  generation (K5-g2 forward, ``csrc/ms_deform_attn_sorted.cu``). They
+  return f32 whatever values' dtype. Their backward is K5's
+  (``csrc/deform_bwd.cu``) in either layout, d(values) in values' dtype and
+  layout, the same bits as K5's on the same inputs. Plain versions:
+  :func:`ms_deform_attn_ref` in f32 and :func:`ms_deform_attn_backward_ref`.
 
 On CPU tensors every entry point runs its plain version; on CUDA tensors it
 launches its kernel or raises.
@@ -271,37 +272,87 @@ def _forward_cuda(values, shapes, loc, attn) -> torch.Tensor:
     return out
 
 
-def ms_deform_attn_backward(values, shapes, loc, attn, dout):
-    """K5 backward on the card: values (B, HW, heads, dh), loc, attn as
-    :func:`ms_deform_attn_slots` takes them and dout (B, Q, heads, dh) ->
-    (d values in values' dtype, d loc f32, d attn f32). CUDA tensors only:
-    on the CPU the backward is the autograd of :func:`ms_deform_attn_ref`."""
-    _check(values, shapes, loc, attn)
+def _require_card(values, name, what) -> None:
+    """Raises unless values lies on a CUDA card: `name` launches `what`
+    there and has no CPU version."""
     if values.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_backward launches K5 backward on "
-                         f"a CUDA card, got {values.device}")
-    b, hw, n_h, dh = values.shape
-    q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
-    if tuple(dout.shape) != (b, q, n_h, dh) or dout.device != values.device:
-        raise ValueError(f"ms_deform_attn_backward takes dout "
-                         f"{(b, q, n_h, dh)} on values' device, got "
+        raise ValueError(f"{name} launches {what} on a CUDA card, got "
+                         f"{values.device}")
+
+
+def _shape_key(shapes):
+    """``shapes`` as a tuple of (H, W) int pairs (the level table's key)."""
+    return tuple((int(h), int(w)) for h, w in shapes)
+
+
+def _dout_arg(name, values, dout, want):
+    """dout checked against its shape `want` and values' device, in values'
+    dtype or f32 as given (the kernel reads either), contiguous."""
+    if tuple(dout.shape) != want or dout.device != values.device:
+        raise ValueError(f"{name} takes dout {want} on values' device, got "
                          f"{tuple(dout.shape)} on {dout.device}")
-    dout = dout.to(values.dtype).contiguous()
-    levels = _levels_arg(shapes)
-    dv = torch.zeros(values.shape, dtype=torch.float32, device=values.device)
+    if dout.dtype not in (values.dtype, torch.float32):
+        raise ValueError(f"{name} takes dout in values' dtype or float32, "
+                         f"got {dout.dtype}")
+    return dout.contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(rows, shapes, q, n_p, dh, esize, aligned, transposed):
+    """The plan of :func:`kernels.deform_bwd_plan` as the launch takes it:
+    the level tiles' host table and its address, the lane and store
+    arguments (vec, row_lanes, fixed, ivec, svec) and the taps of a row."""
+    plan = kernels.deform_bwd_plan(rows, shapes, q, n_p, dh, esize,
+                                   0 if aligned else 1, transposed)
+    tiles = (ctypes.c_int * len(shapes))(*plan["level_tiles"])
+    return ((tiles, ctypes.addressof(tiles)),
+            tuple(plan[k] for k in ("vec", "row_lanes", "fixed", "ivec",
+                                    "svec")), plan["taps"])
+
+
+def _backward_cuda(values, shapes, loc, attn, dout, transposed):
+    """The two launches of the backward (``ms_deform_attn_bwd``) on a
+    checked call: the taps kernel, then the owner scatter. shapes: the
+    level table's key; dout as :func:`_dout_arg` returns it. Returns (d
+    values in values' dtype and layout, d loc, d attn)."""
+    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
+    tiles, args, taps = _bwd_plan(b * n_h, shapes, q, n_p, dh,
+                                  values.element_size(),
+                                  values.data_ptr() % 16 == 0, transposed)
+    dev = values.device
+    cell = torch.empty((b * n_h, taps), dtype=torch.int32, device=dev)
+    coef = torch.empty((b * n_h, taps), dtype=torch.float32, device=dev)
     dloc = torch.empty_like(loc)
     dattn = torch.empty_like(attn)
-    lib = kernels.load()
-    with torch.cuda.device(values.device):
-        err = lib.ms_deform_attn_bwd(
-            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            dout.data_ptr(), dv.data_ptr(), dloc.data_ptr(),
-            dattn.data_ptr(), ctypes.addressof(levels), b, hw, q, n_h, dh,
-            n_l, n_p, kernels.dtype_code(values.dtype),
-            kernels.stream_ptr(values.device))
+    dv = torch.empty_like(values)
+    err = _launch(dev, "ms_deform_attn_bwd", values.data_ptr(),
+                  loc.data_ptr(), attn.data_ptr(), dout.data_ptr(),
+                  dloc.data_ptr(), dattn.data_ptr(), cell.data_ptr(),
+                  coef.data_ptr(), dv.data_ptr(), _levels_table(shapes)[1],
+                  tiles[1], b, hw, q, n_h, dh, n_l, n_p,
+                  kernels.dtype_code(values.dtype),
+                  kernels.dtype_code(dout.dtype), int(transposed), *args)
     kernels.check(err, "ms_deform_attn_bwd")
+    return dv, dloc, dattn
+
+
+def ms_deform_attn_backward(values, shapes, loc, attn, dout):
+    """K5 backward on the card: values (B, HW, heads, dh), loc, attn as
+    :func:`ms_deform_attn_slots` takes them and dout (B, Q, heads, dh) in
+    values' dtype or f32 -> (d values in values' dtype, d loc f32, d attn
+    f32). Two launches (``csrc/deform_bwd.cu``); d(values) has the same bits
+    on every run, and those of :func:`ms_deform_attn_sorted_backward` on the
+    same inputs. CUDA tensors only: on the CPU the backward is the autograd
+    of :func:`ms_deform_attn_ref`."""
+    _check(values, shapes, loc, attn)
+    _require_card(values, "ms_deform_attn_backward", "K5 backward")
+    b, _, n_h, dh = values.shape
+    dout = _dout_arg("ms_deform_attn_backward", values, dout,
+                     (b, loc.shape[1], n_h, dh))
+    grads = _backward_cuda(values, _shape_key(shapes), loc, attn, dout,
+                           False)
     ms_deform_attn_backward.launches += 1
-    return dv.to(values.dtype), dloc, dattn
+    return grads
 
 
 ms_deform_attn_backward.launches = 0
@@ -358,14 +409,6 @@ def stamp_scatter_ref(idx: torch.Tensor, gw: torch.Tensor, hw: int
     out.index_add_(0, (rows * hw + idx.long()).reshape(-1),
                    gw.float().permute(0, 1, 3, 2).reshape(-1, dh))
     return out.reshape(b, n_h, hw, dh).permute(0, 1, 3, 2).contiguous()
-
-
-def _sort_bits(t: int, cells: int):
-    """(sb, key dtype) of the packed sort keys (cell << sb) | position for
-    t taps over `cells` cells: int32 where it fits, as ``_sorted_taps``
-    packs them, else int64."""
-    sb = max(1, (t - 1).bit_length())
-    return sb, torch.int32 if (cells << sb) < 2 ** 31 else torch.int64
 
 
 def _gw_strides(gw: torch.Tensor):
@@ -537,9 +580,7 @@ def ms_deform_attn_sorted_forward(values, shapes, loc, attn,
     """K5-g2 forward on the card: values in either layout (transposed: (B,
     heads, dh, HW)) -> (B, Q, heads, dh) f32. CUDA tensors only."""
     _check(values, shapes, loc, attn, transposed)
-    if values.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_sorted_forward launches K5-g2 on a "
-                         f"CUDA card, got {values.device}")
+    _require_card(values, "ms_deform_attn_sorted_forward", "K5-g2")
     b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
     levels = _levels_arg(shapes)
     out = torch.empty((b, q, n_h, dh), dtype=torch.float32,
@@ -561,49 +602,21 @@ ms_deform_attn_sorted_forward.launches = 0
 
 def ms_deform_attn_sorted_backward(values, shapes, loc, attn, dout,
                                    transposed: bool = False):
-    """K5-g2 backward on the card: dout (B, Q, heads, dh) -> (d values in
-    values' dtype and layout, d loc f32, d attn f32). One kernel writes d
-    loc, d attn and each tap's key and coefficient, ``torch.sort`` orders
-    the keys of every (batch, head) by cell, a second kernel sums d values
-    segment by segment. No atomics: two runs give the same bits. CUDA
-    tensors only."""
+    """K5-g2 backward on the card: dout (B, Q, heads, dh) in f32 or values'
+    dtype -> (d values in values' dtype and layout, d loc f32, d attn f32).
+    K5's two launches (``csrc/deform_bwd.cu``), values read in either
+    layout: d(values) has the same bits on every run, and in the `values`
+    layout those of :func:`ms_deform_attn_backward`. CUDA tensors only."""
     _check(values, shapes, loc, attn, transposed)
-    if values.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_sorted_backward launches K5-g2 "
-                         f"backward on a CUDA card, got {values.device}")
-    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
-    if tuple(dout.shape) != (b, q, n_h, dh) or dout.device != values.device:
-        raise ValueError(f"ms_deform_attn_sorted_backward takes dout "
-                         f"{(b, q, n_h, dh)} on values' device, got "
-                         f"{tuple(dout.shape)} on {dout.device}")
-    dout = dout.float().contiguous()
-    dev = values.device
-    levels = _levels_arg(shapes)
-    t = q * n_l * n_p * 4
-    sb, kdtype = _sort_bits(t, hw)
-    keys = torch.empty((b * n_h, t), dtype=kdtype, device=dev)
-    coef = torch.empty((b * n_h, t), dtype=torch.float32, device=dev)
-    dloc = torch.empty_like(loc)
-    dattn = torch.empty_like(attn)
-    dv = torch.empty_like(values)
-    code = kernels.dtype_code(values.dtype)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        err = lib.ms_deform_attn_sorted_taps(
-            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            dout.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
-            keys.data_ptr(), coef.data_ptr(), ctypes.addressof(levels), b,
-            hw, q, n_h, dh, n_l, n_p, code, int(transposed), sb,
-            keys.element_size(), kernels.stream_ptr(dev))
-        kernels.check(err, "ms_deform_attn_sorted_taps")
-        keys = torch.sort(keys, dim=-1).values
-        err = lib.ms_deform_attn_sorted_dvalues(
-            keys.data_ptr(), coef.data_ptr(), dout.data_ptr(), dv.data_ptr(),
-            b, hw, q, n_h, dh, n_l * n_p * 4, code, int(transposed), sb,
-            keys.element_size(), kernels.stream_ptr(dev))
-        kernels.check(err, "ms_deform_attn_sorted_dvalues")
+    _require_card(values, "ms_deform_attn_sorted_backward",
+                  "K5-g2 backward")
+    b, _, n_h, dh, q, _, _ = _sizes(values, loc, transposed)
+    dout = _dout_arg("ms_deform_attn_sorted_backward", values, dout,
+                     (b, q, n_h, dh))
+    grads = _backward_cuda(values, _shape_key(shapes), loc, attn, dout,
+                           transposed)
     ms_deform_attn_sorted_backward.launches += 1
-    return dv, dloc, dattn
+    return grads
 
 
 ms_deform_attn_sorted_backward.launches = 0

@@ -189,17 +189,6 @@ def test_bf16_values_give_f32_out_and_bf16_gradient(layout):
     _close(dv.numpy(), ref[1], 1e-2, "d values")
 
 
-def test_sort_keys_pack_into_int32_where_they_fit():
-    """(cell << bits) | position: int32 at the RT-DETR-L shapes (21504 cells,
-    20544 taps a row: 15 bits), int64 once the cells outgrow it."""
-    assert TD._sort_bits(428 * 3 * 4 * 4, 21504) == (15, torch.int32)
-    assert TD._sort_bits(6848, 16384) == (13, torch.int32)
-    assert TD._sort_bits(1, 5) == (1, torch.int32)
-    assert TD._sort_bits(3200, 1 << 20) == (12, torch.int64)
-    assert TD._sort_bits(32768, 65536) == (15, torch.int64)
-    assert TD._sort_bits(32768, 65535) == (15, torch.int32)
-
-
 def test_layout_helpers_round_trip():
     values = torch.from_numpy(_inputs(6, **CASES["nonsquare_levels"])[0])
     vt = TD.values_to_t(values)

@@ -12,9 +12,12 @@ points, seeded random inputs as in chip_smoke.py), bf16 and f32 values:
      centres per batch and head): CUDA-event medians (10 calls after 3
      warm-ups), the host's time to enqueue one call (20 calls, no
      synchronize) and the profiler's device ms of each launch;
-  2. the CUDA-event medians of K5 backward and of K5-g2 forward and
-     backward in both layouts (the backward's ``torch.sort`` inside the
-     timed call), and the device time by kernel of a bf16 K5-g2 backward;
+  2. the backwards at --queries, on uniform and on clustered samples: K5
+     backward and K5-g2 backward in both layouts (``values``,
+     ``values_t``), events, enqueue and the device ms of each launch (the
+     taps kernel and the scatter), with a SHA-256 of each d(values), so
+     that two trees' bits can be compared; K5-g2 forward in both layouts
+     by events beside them;
   3. K5-g1 (``stamp_scatter``) at each level, uniform and clustered cells,
      with gw in the reference's layout and, where the package takes it,
      in the row layout (the transpose of a contiguous (B, heads, T, dh)):
@@ -107,39 +110,45 @@ def main() -> int:
                                                        attn))
     del values, loc, attn
 
-    # 2. the backwards and the sorted-tap generation
+    # 2. the backwards (and K5-g2 forward), uniform and clustered
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+
     q = args.queries
-    values, loc, attn = S.deform_inputs(g, shapes, b, q, heads, dh, pts, dev)
-    dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        vd = values.to(dtype)
-        vt = DF.values_to_t(vd)
-        dd = dout.to(dtype)
-        times = {
-            "K5 backward": S.time_ms(lambda: DF.ms_deform_attn_backward(
-                vd, shapes, loc, attn, dd)),
-            "K5-g2 forward values": S.time_ms(lambda: DF.ms_deform_attn(
-                vd, shapes, loc, attn)),
-            "K5-g2 forward values_t": S.time_ms(lambda: DF.ms_deform_attn_t(
-                vt, shapes, loc, attn)),
-            "K5-g2 backward values": S.time_ms(
-                lambda: DF.ms_deform_attn_sorted_backward(
-                    vd, shapes, loc, attn, dout)),
-            "K5-g2 backward values_t": S.time_ms(
-                lambda: DF.ms_deform_attn_sorted_backward(
-                    vt, shapes, loc, attn, dout, True)),
-        }
-        print(f"[{tag}] {name} values {tuple(vd.shape)} Q {q}, ms: {times}")
-        if dtype == torch.bfloat16:
-            rows = S.device_ms_by_kernel(
-                lambda: DF.ms_deform_attn_sorted_backward(
-                    vd, shapes, loc, attn, dout))
-            print(f"[{tag}] K5-g2 backward {name} values: device ms per "
-                  f"call by kernel (sum {sum(r[0] for r in rows)}): "
-                  + "; ".join(f"{S.short_kernel_name(k)} x{n} {ms}"
-                              for ms, n, k in rows))
-    del values, vd, vt, loc, attn, dout, dd
+    for clustered in (False, True):
+        what = "clustered" if clustered else "uniform"
+        values, loc, attn = S.deform_inputs(g, shapes, b, q, heads, dh, pts,
+                                            dev, clustered)
+        dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            vd = values.to(dtype)
+            vt = DF.values_to_t(vd)
+            dd = dout.to(dtype)
+            calls = {
+                "K5 backward": lambda: DF.ms_deform_attn_backward(
+                    vd, shapes, loc, attn, dd),
+                "K5-g2 backward values":
+                    lambda: DF.ms_deform_attn_sorted_backward(
+                        vd, shapes, loc, attn, dout),
+                "K5-g2 backward values_t":
+                    lambda: DF.ms_deform_attn_sorted_backward(
+                        vt, shapes, loc, attn, dout, True)}
+            for call, fn in calls.items():
+                grads = fn()
+                report(f"{call} {name} Q {q} {what} (sha256 d(values) "
+                       f"{digest(grads[0])} d(loc) {digest(grads[1])} "
+                       f"d(attn) {digest(grads[2])})", fn)
+                del grads
+            times = {
+                "K5-g2 forward values": S.time_ms(lambda: DF.ms_deform_attn(
+                    vd, shapes, loc, attn)),
+                "K5-g2 forward values_t": S.time_ms(
+                    lambda: DF.ms_deform_attn_t(vt, shapes, loc, attn))}
+            print(f"[{tag}] {name} values {tuple(vd.shape)} Q {q} {what}, "
+                  f"ms: {times}")
+        del values, vd, vt, loc, attn, dout, dd
 
     # 3. K5-g1, one level at a time
     for clustered in (False, True):
