@@ -64,7 +64,9 @@ each generation of the deformable-attention op family. Phases:
      as above, with the
      profiler's device ms of each bf16 K4-f launch (stem1, stem2a, stem2b,
      pool, stem3) and cuDNN's time for each conv stage of the stem beside
-     it, and the refusal of bad CUDA inputs;
+     it, and the refusal of bad CUDA inputs (among them five levels of
+     eight points, which the kernels do not instantiate: refused before
+     any launch, with and without a gradient, by all three entry points);
  10. RT-DETR-L model check: f32 at 128 px on the card (kernels, TF32 off)
      against the same weights on the CPU (plain versions): the same
      selected anchors, last-layer logits and boxes within 2e-3 x max|ref|,
@@ -83,7 +85,15 @@ each generation of the deformable-attention op family. Phases:
      forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8); K5
      backward also on clustered samples, twice for identical bits and bit
      for bit K5-g2's d(values) on the same inputs, with the profiler's
-     device ms of its two launches (taps kernel, owner scatter);
+     device ms of its two launches (taps kernel, owner scatter); K6 also
+     on ties (costs on a 1/64 grid), an image whose GTs are all padded, a
+     column marked invalid but priced below BIG / 2, GTs that all rank the
+     queries alike and more GT rows than
+     shared memory holds (M 420), each by equality with and without the
+     greedy completion, with each image's auction and greedy rounds, and
+     the profiler's device ms on the train and the capped shape; K1 branch
+     by branch at batch 16 (all clean, all noise, all blur, all lowres),
+     events, device ms and the bound;
  13. RT-DETR-L train-step model check: forward, loss and backward of one
      f32 batch at 128 px on the card (kernels, TF32 off) and on the CPU
      (plain versions), same weights, batch and denoising queries; every
@@ -93,7 +103,8 @@ each generation of the deformable-attention op family. Phases:
      launch counters zeroed just before and read just after (per step: K1
      1, K4-f train 1, K4-b 1, K3-f 12 = 6 forward + 6 dX, K3-b 6, K5
      forward 6, K5 backward 6, K6 7); finite loss and grad norm, moved
-     running statistics and EMA; step ms, images/s, peak memory;
+     running statistics and EMA; step ms, images/s, peak memory; the
+     steps' matcher_capped (which regime K6 ran in);
  15. the earlier generations' kernels: K5-g2 forward and backward (the
      sorted-tap deformable attention, both layouts of the value maps) and
      K5-g1 (``stamp_scatter``, and ``bilinear_sample``'s three gradients
@@ -1207,13 +1218,24 @@ def phase_rtdetr_kernels(dev):
     args = stem_args(*raw, torch.float32)
     values, loc, attn = deform_inputs(g, ((4, 4), (2, 2)), 1, 3, 2, 8, 2, dev)
     shapes = ((4, 4), (2, 2))
-    counters = (ST.stem_fused_inference, DF.ms_deform_attn_slots)
+    # five levels of eight points: the plain versions take it on the CPU,
+    # as the reference does; the card's kernels do not instantiate it and
+    # refuse it before any launch, with or without a gradient
+    shapes5 = ((8, 8), (4, 4), (2, 2), (2, 1), (1, 1))
+    v5, l5, a5 = deform_inputs(g, shapes5, 1, 3, 2, 8, 8, dev)
+    v5g = v5.clone().requires_grad_()
+    counters = (ST.stem_fused_inference, DF.ms_deform_attn_slots,
+                DF.ms_deform_attn_sorted_forward)
     bad = (lambda: ST.stem_fused_inference(args[0][:, :6], *args[1:]),
            lambda: ST.stem_fused_inference(args[0].half(), *args[1:]),
            lambda: ST.stem_fused_inference(args[0][:, :, ::2], *args[1:]),
            lambda: DF.ms_deform_attn_slots(values.half(), shapes, loc, attn),
            lambda: DF.ms_deform_attn_slots(values, ((4, 4), (2, 3)), loc,
-                                           attn))
+                                           attn),
+           lambda: DF.ms_deform_attn_slots(v5, shapes5, l5, a5),
+           lambda: DF.ms_deform_attn_slots(v5g, shapes5, l5, a5),
+           lambda: DF.ms_deform_attn(v5g, shapes5, l5, a5),
+           lambda: DF.ms_deform_attn_t(DF.values_to_t(v5), shapes5, l5, a5))
     require_refused("rtdetr-kernels", bad, counters)
     torch.cuda.synchronize()
     return results
@@ -1322,6 +1344,38 @@ STEM_PARAMS = ("k1", "sc1", "bi1", "k2a", "sc2a", "bi2a", "k2b", "sc2b",
                "bi2b", "k3")
 
 
+def stem_grads_f64(ST, x, params, cots):
+    """The ten gradients of the train-mode stem's plain chain in float64 on
+    the card, on bf16 x and the bf16-rounded conv kernels the bf16 route
+    computes with (the chain's f32 casts widened to float64)."""
+    import torch
+    ps = [(p.bfloat16() if p.dim() == 4 else p).double().requires_grad_()
+          for p in params]
+    real_float = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: t.double()
+    try:
+        y3, means, variances = ST.stem_train_reference(x.double(), *ps)
+        return torch.autograd.grad((y3, *means, *variances), ps,
+                                   [c.double() for c in cots])
+    finally:
+        torch.Tensor.float = real_float
+
+
+def stem_f64_witness(ST, x, params, cots, grads, plain_grads, log):
+    """K4-b's bf16 gradients and the plain bf16 chain's against the float64
+    chain on the same bf16-rounded inputs: each of the ten within 2x the
+    plain chain's error (each error x max|f64|), a bound that bf16 noise
+    does not set."""
+    ref = stem_grads_f64(ST, x, params, cots)
+    for name, gk, gp, r in zip(STEM_PARAMS, grads, plain_grads, ref):
+        scale = r.abs().max().item()
+        ek = (gk.double() - r).abs().max().item() / scale
+        ep = (gp.double() - r).abs().max().item() / scale
+        log.append(f"d{name} vs float64: kernel {ek:.3g} plain {ep:.3g}")
+        require(ek <= 2 * ep, f"K4-b d{name} at {tuple(x.shape)}: error "
+                f"{ek} against float64, more than 2x the plain chain's {ep}")
+
+
 def stem_work(dtype: str, b: int, h: int, w: int, elt: int, backward: bool):
     """The train-mode stem at (b, h, w, 3) as a function: the forward reads
     x and the filters and writes y3 (and 8 statistics vectors); its VJP
@@ -1342,6 +1396,33 @@ def stem_work(dtype: str, b: int, h: int, w: int, elt: int, backward: bool):
     return work(dtype, nbytes, f1 + 2 * f2 + f3)
 
 
+def auction_inputs(g, dev, b, q, m, n_valid, quantum=None,
+                   empty_image=False, cheap_invalid=False, alike=False):
+    """K6's inputs: costs in [0, 4) (quantised to 1/quantum: ties), the
+    first n_valid GTs of each image valid and the rest padded at BIG;
+    empty_image: image 0 without a valid GT; cheap_invalid: the last column
+    of every image marked invalid yet priced 2.5, below BIG / 2; alike:
+    every GT ranks the queries alike (a cost per query plus 0.05 of noise),
+    so that few GTs cap and the greedy takes about one pair a round."""
+    import torch
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    cost = torch.rand(b, q, m, device=dev, generator=g) * 4
+    if quantum:
+        cost = torch.round(cost * quantum) / quantum
+    if alike:
+        cost = torch.rand(b, q, 1, device=dev, generator=g) * 4 \
+            + 0.05 * cost / 4
+    valid = torch.zeros(b, m, dtype=torch.bool, device=dev)
+    valid[:, :n_valid] = True
+    if empty_image:
+        valid[0] = False
+    cost = torch.where(valid[:, None, :], cost, torch.full_like(cost, AS.BIG))
+    if cheap_invalid:
+        cost[:, :, m - 1] = 2.5
+        valid[:, m - 1] = False
+    return cost, valid
+
+
 def phase_rtdetr_train_kernels(dev):
     """K4-f train, K4-b, K5 backward and K6 vs their plain versions at the
     RT-DETR-L train step's shapes and at one odd shape each. Tolerances,
@@ -1352,7 +1433,10 @@ def phase_rtdetr_train_kernels(dev):
     edges), against the autograd of the plain chain in the same dtype,
     which rounds the stored tensors where the kernels do (a last-bit
     difference of a stored bf16 y flips roundings four tensors down the
-    chain); K4-b twice gives identical bits. K5 backward against the
+    chain); at the odd bf16 shape also against the float64 chain on the
+    same bf16-rounded inputs, each gradient within 2x the plain bf16
+    chain's error (stem_f64_witness); K4-b twice gives identical bits. K5
+    backward against the
     autograd of the plain gather version in f32 on the same values, on
     uniform and on clustered samples: d(values) 1e-4 in f32 and 2e-2 in
     bf16 (one rounding of the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3,
@@ -1369,6 +1453,7 @@ def phase_rtdetr_train_kernels(dev):
     tolerances of phase_train_kernels."""
     import torch
     import torch.nn.functional as F
+    from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.ops import assignment as AS
     from robust_object_detection_tpu_torch.ops import conv3x3 as C
     from robust_object_detection_tpu_torch.ops import deform as DF
@@ -1416,6 +1501,8 @@ def phase_rtdetr_train_kernels(dev):
             again = torch.autograd.grad(flat, ps, cd)
             require(all(torch.equal(a, c) for a, c in zip(grads, again)),
                     "K4-b is not deterministic")
+            if dtype == torch.bfloat16 and not main:
+                stem_f64_witness(ST, xd, params, cd, grads, rgrads, log)
             del out, flat, ref, rflat, grads, rgrads, again
             if not main:
                 print(f"[rtdetr-train-kernels] {'; '.join(log)}")
@@ -1600,52 +1687,104 @@ def phase_rtdetr_train_kernels(dev):
 
     # K6: cost (8, 300, 300), 80 valid GTs an image (the train step's);
     # the same with 300 valid GTs, which hits the 16-round cap so that the
-    # greedy completion runs; and Q 7, M 5 with an image without GT
+    # greedy completion runs; Q 7, M 5 with an image without GT; costs
+    # quantised to 1/64 (ties), converging and capped; an image whose GTs
+    # are all padded; a column marked invalid but priced below BIG / 2 (the
+    # greedy may take it); GTs that all rank the queries alike (80 of them
+    # cap; the greedy takes about one pair a round); and M 420, more GT
+    # rows than shared memory holds
     auction = {}
-    cases = (("train", 8, 300, 300, 80, False), ("capped", 8, 300, 300, 300,
-                                                 False),
-             ("odd", 3, 7, 5, 3, True))
-    for tag, b, q, m, n_valid, empty_image in cases:
-        cost = torch.rand(b, q, m, device=dev, generator=g) * 4
-        valid = torch.zeros(b, m, dtype=torch.bool, device=dev)
-        valid[:, :n_valid] = True
-        if empty_image:
-            valid[0] = False
-        cost = torch.where(valid[:, None, :], cost,
-                           torch.full_like(cost, AS.BIG))
+    cases = (("train", 8, 300, 300, 80, {}),
+             ("capped", 8, 300, 300, 300, {}),
+             ("odd", 3, 7, 5, 3, dict(empty_image=True)),
+             ("ties", 8, 300, 300, 80, dict(quantum=64)),
+             ("ties capped", 8, 300, 300, 300, dict(quantum=64)),
+             ("all padded", 4, 300, 300, 80, dict(empty_image=True)),
+             ("invalid but cheap", 4, 60, 50, 50, dict(cheap_invalid=True)),
+             ("alike", 8, 300, 300, 80, dict(alike=True)),
+             ("past capacity", 4, 300, 420, 420, {}))
+    for tag, b, q, m, n_valid, kw in cases:
+        cost, valid = auction_inputs(g, dev, b, q, m, n_valid, **kw)
         owner, capped = AS.auction_assignment(cost, valid, max_rounds=16)
         powner, pcapped = AS.auction_assignment_plain(cost, valid,
                                                       max_rounds=16)
         same = bool(torch.equal(owner, powner)
                     and torch.equal(capped, pcapped))
+        raw, _ = AS.auction_assignment(cost, valid, max_rounds=16,
+                                       complete_greedy=False)
+        same_raw = bool(torch.equal(raw, AS.auction_assignment_ref(
+            cost, valid, 0.005, 16)[0]))
+        rounds = AS.auction_assignment_rounds(cost, valid,
+                                              max_rounds=16)[2].tolist()
+        staged = kernels.auction_rows_staged(kernels.auction_plan(q, m),
+                                             n_valid)
         n_capped = int(capped.sum().item())
         matched = (owner >= 0).sum(1).tolist()
         print(f"[rtdetr-train-kernels] auction {tag} (B {b}, Q {q}, M {m}, "
-              f"{n_valid} valid): equal to the plain version {same}; capped "
-              f"images {n_capped}; matched per image {matched}")
-        require(same, f"auction {tag}: kernel and plain version differ")
-        if tag == "capped":
-            require(n_capped == b, "the capped case did not hit the cap")
-            cms = time_ms(lambda: AS.auction_assignment(cost, valid,
-                                                        max_rounds=16))
-            print(f"[rtdetr-train-kernels] auction capped: kernel {cms} ms "
-                  f"(16 rounds, then {q} greedy picks an image)")
-        if tag != "train":
+              f"{n_valid} valid): equal to the plain version {same}, "
+              f"without the completion {same_raw}; capped images "
+              f"{n_capped}; matched per image {matched}; rounds (auction, "
+              f"greedy) by image {rounds}; staged rows {staged}")
+        require(same and same_raw,
+                f"auction {tag}: kernel and plain version differ")
+        if tag in ("capped", "ties capped", "alike", "past capacity"):
+            require(n_capped == b, f"the {tag} case did not hit the cap")
+        if tag not in ("train", "capped"):
             continue
         ms = time_ms(lambda: AS.auction_assignment(cost, valid,
                                                    max_rounds=16))
+        dev_ms = device_ms_by_kernel(lambda: AS.auction_assignment(
+            cost, valid, max_rounds=16))
+        print(f"[rtdetr-train-kernels] auction {tag}: kernel {ms} ms by "
+              f"events; device ms by kernel "
+              f"{[(short_kernel_name(k), n, d) for d, n, k in dev_ms]}")
+        auction[tag] = dict(ms=ms, device_ms=dev_ms[0][0], rounds=rounds)
+        if tag != "train":
+            continue
         plain_ms = time_ms(lambda: AS.auction_assignment_plain(
             cost, valid, max_rounds=16), iters=3, warmup=1)
-        print(f"[rtdetr-train-kernels] auction train shape: kernel {ms} ms "
-              f"(transpose of the cost included) plain {plain_ms} ms (a "
-              f"tensor pass and a host sync per round); no single PyTorch "
-              f"call computes it")
+        print(f"[rtdetr-train-kernels] auction train shape: plain {plain_ms} "
+              f"ms (a tensor pass and a host sync per round); no single "
+              f"PyTorch call computes it")
         # reads the cost once, writes the assignment; a dozen compares per
         # (GT, query) pair and round at most
         auction["float32"] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             **work("float32", cost.numel() * 4 + valid.numel() + b * q * 4,
                    16 * 4 * n_valid * q * b))
+    auction["float32"]["capped_ms"] = auction.pop("capped")
+    auction["float32"]["train_device"] = auction.pop("train")
+
+    # K1 branch by branch at the YOLOv8m step's batch: all 16 images clean,
+    # then all noise, all blur, all lowres (each branch's output held as in
+    # check_corrupt: clean and blur bit-exact, noise and lowres within 1)
+    img = torch.floor(torch.rand(TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
+                                 device=dev, generator=g) * 256)
+    seeds = torch.randint(0, 2 ** 30, (TRAIN_BATCH,), device=dev,
+                          generator=g, dtype=torch.int32)
+    bound_ms = bound(work("float32", 2 * img.numel() * 4, 0))[0]
+    by_branch = {}
+    for name, branch in (("clean", 0), ("noise", 1), ("blur", 2),
+                         ("lowres", 3)):
+        choice = torch.full((TRAIN_BATCH,), branch, device=dev,
+                            dtype=torch.int32)
+        out, _ = FC.fused_random_corruption(img, None, choice=choice,
+                                            seeds=seeds)
+        err = (out - FC.fused_corruption_reference(img, choice, seeds)
+               ).abs().max().item()
+        require(err <= (0 if branch in (0, 2) else 1),
+                f"corrupt {name}: max abs diff {err}")
+        del out
+        ms = time_ms(lambda: FC.fused_random_corruption(
+            img, None, choice=choice, seeds=seeds))
+        dev_ms = device_ms_by_kernel(lambda: FC.fused_random_corruption(
+            img, None, choice=choice, seeds=seeds))[0][0]
+        by_branch[name] = dict(ms=ms, device_ms=dev_ms, max_abs_err=err)
+        print(f"[rtdetr-train-kernels] corrupt {name} "
+              f"{tuple(img.shape)}: max abs diff {err}; kernel {ms} ms by "
+              f"events, {dev_ms} ms device; bound {bound_ms} ms (bytes)")
+    results["corrupt_by_branch"] = by_branch
+    del img
     results["auction"] = auction
 
     # the new wrappers refuse CUDA tensors they do not take
@@ -1863,19 +2002,22 @@ def phase_rtdetr_training(dev):
     for f in counters.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    times = []
+    times, matcher_capped = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         m = step(state, images, gb, gc, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         vals = {k: v.item() for k, v in m.items()}
+        matcher_capped.append(vals["matcher_capped"])
         print(f"[rtdetr-train] step {i}: {vals}")
         require(math.isfinite(vals["loss"]) and
                 math.isfinite(vals["grad_norm"]),
                 f"step {i}: loss or grad_norm not finite")
     launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[rtdetr-train] matcher_capped of the timed steps (image-"
+          f"matchings K6 completed greedily, of 7 x {nb}): {matcher_capped}")
 
     per_step = {"corrupt": 1, "hgstem_train": 1, "hgstem_bwd": 1,
                 "conv3x3": 12, "conv3x3_wgrad": 6, "ms_deform_attn": 6,
@@ -2480,6 +2622,13 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
         if "ms_by_layout" in r:
             summary[-1]["ms_by_layout"] = r["ms_by_layout"]
+        if name == "auction":
+            # the device ms and rounds of the train shape's call, and the
+            # capped case's events, device ms and rounds
+            summary[-1]["train_device"] = r["train_device"]
+            summary[-1]["capped"] = r["capped_ms"]
+        if name == "corrupt":
+            summary[-1]["by_branch"] = kres["corrupt_by_branch"]
         if name in ("conv3x3", "conv3x3_wgrad", "yolo_front",
                     "yolo_front_train", "yolo_front_bwd", "hgstem",
                     "hgstem_train", "hgstem_bwd"):

@@ -21,14 +21,30 @@
 // based generator: no state, any element in any order, and the plain
 // version replays the same bits with integer tensor ops.
 //
-// What bounds it on the H100: bytes. One f32 read and one write per
-// element (16 x 1024 x 1024 x 3 x 8 bytes = 403 MB per step); the blur's 9
-// and the lowres' 16 taps per output hit L1/L2, since neighbouring threads
-// read neighbouring elements. The TPU kernel needed reflect-padded copies
-// and row tiles with DMA halos; here each thread maps its taps' indices
-// through reflect-101 itself, so there is no padded copy and no tiling.
-// The per-image choice is read once per block (blocks never straddle
-// images), so the branch never diverges inside a warp.
+// What bounds it on the H100: bytes, one f32 read and one write per
+// element (16 x 1024 x 1024 x 3 x 8 bytes = 403 MB per step). The design:
+//
+//  * A 2-D grid of tiles per image, (column band, row band, image), a tile
+//    TW pixels x TH rows, 32-bit indices. The image's choice is read once
+//    per block, so the branch never diverges inside a block.
+//  * Clean and noise move the tile with 16-byte loads and stores over the
+//    interleaved W * C row (every row is 16-byte aligned when W * C is a
+//    multiple of 4 and the pointers are; the wrapper's plan says so, else
+//    element loads and stores).
+//  * Blur and lowres stage the tile and its halo in shared memory with
+//    16-byte cp.async: +-k/2 pixels for blur; +-2 rows and +-2 pixels for
+//    lowres. A staged position outside the image holds the pixel that
+//    reflect-101 maps it to, loaded element by element: the only element
+//    loads, at image borders (and at a row's ragged 16-byte ends). The
+//    compute then reads shared memory with no reflect arithmetic.
+//  * Lowres runs its horizontal FIR once per staged row into shared memory
+//    (TH + 4 rows), then the vertical FIR on that buffer; the parent's
+//    kernel recomputed the horizontal FIR of four rows (16 loads) for
+//    every output element.
+//  * Each output's arithmetic is the parent's: the same __fadd_rn /
+//    __fmul_rn order, the blur summed from 0 left to right with no
+//    sliding sum, the same logf, sqrtf, cosf and hash. Only where the
+//    operands come from changed, so the output keeps the parent's bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +52,26 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int TW = 64;    // tile width in pixels (kernels.CORRUPT_TW)
+constexpr int TH = 16;    // tile height in rows (kernels.CORRUPT_TH)
+constexpr size_t SMEM_LIMIT = 232448;
+
+__host__ __device__ inline int ceil4(int n) { return (n + 3) & ~3; }
+
+// floats of a staged row for a halo of hx pixels: the tile's row plus
+// halos, rounded to whole 16-byte chunks from a 16-byte aligned start
+__host__ __device__ inline int stage_width(int hx, int C) {
+  return ceil4((TW + 2 * hx) * C) + 4;
+}
+
+// dynamic shared bytes of a launch: the larger of blur's staged rows and
+// lowres' staged rows plus its horizontal-FIR buffer
+__host__ __device__ inline size_t smem_bytes(int C, int R) {
+  const size_t blur = (size_t)TH * stage_width(R, C) * 4;
+  const size_t lowres =
+      (size_t)(TH + 4) * (stage_width(2, C) + TW * C) * 4;
+  return blur > lowres ? blur : lowres;
+}
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -52,17 +88,24 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i;
 }
 
-__device__ __forceinline__ float pix(const float* img, int y, int x, int c,
-                                     int H, int W, int C) {
-  return img[((size_t)reflect101(y, H) * W + reflect101(x, W)) * C + c];
+// reflect-101, then clamped into [0, n): the positions a tile stages past
+// the halo it needs (a ragged last tile, 16-byte rounding) stay in bounds
+__device__ __forceinline__ int reflect_clamp(int i, int n) {
+  return min(max(reflect101(i, n), 0), n - 1);
 }
 
-// mean of the 2x2-box pair starting at q along x (row y): (v[q] + v[q+1])/2
-__device__ __forceinline__ float pair_x(const float* img, int y, int q,
-                                        int c, int H, int W, int C) {
-  return __fmul_rn(__fadd_rn(pix(img, y, q, c, H, W, C),
-                             pix(img, y, q + 1, c, H, W, C)),
-                   0.5f);
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+__device__ __forceinline__ float noise_value(float xv, uint32_t i,
+                                             uint32_t key, float sigma) {
+  const uint32_t bits = fmix32(fmix32(i ^ key) + key);
+  const float u1 = ((float)(bits & 0xFFFFu) + 0.5f) / 65536.0f;
+  const float u2 = ((float)((bits >> 16) & 0xFFFFu) + 0.5f) / 65536.0f;
+  const float g = sqrtf(-2.0f * logf(u1)) * cosf(6.2831855f * u2);
+  return floorf(fminf(fmaxf(__fadd_rn(xv, __fmul_rn(sigma, g)), 0.f),
+                      255.f));
 }
 
 // one axis of the lowres FIR at coordinate j from the pair means s(.):
@@ -81,76 +124,165 @@ __device__ __forceinline__ float fir(float s1, float s2) {
   return __fadd_rn(__fmul_rn(0.75f, s1), __fmul_rn(0.25f, s2));
 }
 
-// horizontal FIR at (row y, column x)
-__device__ __forceinline__ float lowres_h(const float* img, int y, int x,
-                                          int c, int H, int W, int C) {
-  int q1, q2;
-  fir_taps(x, &q1, &q2);
-  return fir(pair_x(img, y, q1, c, H, W, C), pair_x(img, y, q2, c, H, W, C));
+__device__ __forceinline__ float pair_mean(float a, float b) {
+  return __fmul_rn(__fadd_rn(a, b), 0.5f);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Stage image rows y0 - hy .. y0 - hy + nrows - 1 (reflected) and, of each,
+// the floats a .. a + sw - 1 of its W * C interleaved row (a 16-byte
+// aligned start, a multiple of 4; positions outside the row reflected by
+// pixel). Whole 16-byte chunks inside the row go by cp.async when `vec`.
+__device__ __forceinline__ void stage(float* S, const float* img, int y0,
+                                      int hy, int nrows, int a, int sw, int H,
+                                      int W, int C, int vec) {
+  const int WC = W * C, chunks = sw / 4;
+  for (int e = threadIdx.x; e < nrows * chunks; e += THREADS) {
+    const int j = e / chunks, k = e - j * chunks;
+    const float* row = img + (size_t)reflect_clamp(y0 - hy + j, H) * WC;
+    const int g = a + 4 * k;
+    float* dst = S + j * sw + 4 * k;
+    if (vec && g >= 0 && g + 4 <= WC) {
+      cp_async16(dst, row + g);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int px = floor_div(g + u, C), c = g + u - px * C;
+        dst[u] = __ldg(row + reflect_clamp(px, W) * C + c);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
+
+// CC: the channel count when it is 3 (a compile-time constant), else 0
+// and C is read from the argument
+template <int CC>
 __global__ void __launch_bounds__(THREADS)
-corrupt_kernel(const float* __restrict__ x, float* __restrict__ y,
-               const int* __restrict__ choice, const int* __restrict__ seeds,
-               int H, int W, int C, float sigma, int blur_k, float inv_k) {
-  const int b = blockIdx.y;
-  const size_t per_img = (size_t)H * W * C;
-  const size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= per_img) return;
-  const float* img = x + b * per_img;
-  float* out = y + b * per_img;
-  const int c = (int)(i % C);
-  const int px = (int)((i / C) % W);
-  const int py = (int)(i / ((size_t)C * W));
+corrupt_tile_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    const int* __restrict__ choice,
+                    const int* __restrict__ seeds, int H, int W, int C_arg,
+                    float sigma, int R, float inv_k, int vec) {
+  extern __shared__ __align__(16) float S[];
+  const int C = CC ? CC : C_arg;
+  const int WC = W * C, TWC = TW * C;
+  const int b = blockIdx.z;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int f0 = x0 * C;                    // the tile's first row float
+  const int fn = min(TW, W - x0) * C;       // its floats a row
+  const int rows = min(TH, H - y0);
+  const float* img = x + (size_t)b * H * WC;
+  float* out = y + (size_t)b * H * WC;
   const int ch = choice[b];
 
-  float v;
-  if (ch == 1) {  // noise
-    const uint32_t key = fmix32((uint32_t)seeds[b] ^ 0x9E3779B9u);
-    const uint32_t bits = fmix32(fmix32((uint32_t)i ^ key) + key);
-    const float u1 = ((float)(bits & 0xFFFFu) + 0.5f) / 65536.0f;
-    const float u2 = ((float)((bits >> 16) & 0xFFFFu) + 0.5f) / 65536.0f;
-    const float g = sqrtf(-2.0f * logf(u1)) * cosf(6.2831855f * u2);
-    v = floorf(fminf(fmaxf(__fadd_rn(img[i], __fmul_rn(sigma, g)), 0.f),
-                     255.f));
-  } else if (ch == 2) {  // blur
-    float acc = 0.f;
-    for (int t = -(blur_k / 2); t <= blur_k / 2; ++t)
-      acc = __fadd_rn(acc, pix(img, py, px + t, c, H, W, C));
-    v = fminf(fmaxf(rintf(__fmul_rn(acc, inv_k)), 0.f), 255.f);
-  } else if (ch == 3) {  // lowres
-    int r1, r2;
-    fir_taps(py, &r1, &r2);
-    const float s1 = __fmul_rn(__fadd_rn(lowres_h(img, r1, px, c, H, W, C),
-                                         lowres_h(img, r1 + 1, px, c, H, W,
-                                                  C)),
-                               0.5f);
-    const float s2 = __fmul_rn(__fadd_rn(lowres_h(img, r2, px, c, H, W, C),
-                                         lowres_h(img, r2 + 1, px, c, H, W,
-                                                  C)),
-                               0.5f);
-    v = fminf(fmaxf(floorf(__fadd_rn(fir(s1, s2), 0.5f)), 0.f), 255.f);
-  } else {  // clean
-    v = img[i];
+  if (ch == 2 || ch == 3) {
+    const int hx = ch == 2 ? R : 2, hy = ch == 2 ? 0 : 2;
+    const int a = (f0 - hx * C) & ~3;        // floor to a multiple of 4
+    const int sw = stage_width(hx, C);
+    stage(S, img, y0, hy, TH + 2 * hy, a, sw, H, W, C, vec);
+    if (ch == 2) {  // blur: k taps along the staged row, from 0
+      for (int e = threadIdx.x; e < TH * TWC; e += THREADS) {
+        const int r = e / TWC, f = e - r * TWC;
+        if (r >= rows || f >= fn) continue;
+        const float* base = S + r * sw + (f0 + f - a);
+        float acc = 0.f;
+        for (int t = -R; t <= R; ++t) acc = __fadd_rn(acc, base[t * C]);
+        out[(size_t)(y0 + r) * WC + f0 + f] =
+            fminf(fmaxf(rintf(__fmul_rn(acc, inv_k)), 0.f), 255.f);
+      }
+    } else {  // lowres: the horizontal FIR of every staged row, once
+      float* Hb = S + (TH + 4) * sw;
+      for (int e = threadIdx.x; e < (TH + 4) * TW; e += THREADS) {
+        const int j = e / TW, xi = e - j * TW, px = x0 + xi;
+        if (px >= W) continue;
+        int q1, q2;
+        fir_taps(px, &q1, &q2);
+        const float* srow = S + j * sw - a;
+        for (int c = 0; c < C; ++c) {
+          const float s1 = pair_mean(srow[q1 * C + c], srow[(q1 + 1) * C + c]);
+          const float s2 = pair_mean(srow[q2 * C + c], srow[(q2 + 1) * C + c]);
+          Hb[j * TWC + xi * C + c] = fir(s1, s2);
+        }
+      }
+      __syncthreads();
+      // then the vertical FIR; staged row j holds image row y0 - 2 + j
+      for (int e = threadIdx.x; e < TH * TWC; e += THREADS) {
+        const int r = e / TWC, f = e - r * TWC;
+        if (r >= rows || f >= fn) continue;
+        int r1, r2;
+        fir_taps(y0 + r, &r1, &r2);
+        const float* h1 = Hb + (r1 - y0 + 2) * TWC + f;
+        const float* h2 = Hb + (r2 - y0 + 2) * TWC + f;
+        const float v = fir(pair_mean(h1[0], h1[TWC]),
+                            pair_mean(h2[0], h2[TWC]));
+        out[(size_t)(y0 + r) * WC + f0 + f] =
+            fminf(fmaxf(floorf(__fadd_rn(v, 0.5f)), 0.f), 255.f);
+      }
+    }
+    return;
   }
-  out[i] = v;
+
+  // clean (0 and any other id) and noise (1): the element index of the
+  // noise draw is the flat (y * W + x) * C + c within the image
+  const bool noise = ch == 1;
+  const uint32_t key = noise ? fmix32((uint32_t)seeds[b] ^ 0x9E3779B9u) : 0u;
+  if (vec) {
+    const int n4 = TWC / 4;
+    for (int e = threadIdx.x; e < TH * n4; e += THREADS) {
+      const int r = e / n4, f = 4 * (e - r * n4);
+      if (r >= rows || f >= fn) continue;
+      const int i = (y0 + r) * WC + f0 + f;
+      float4 v = __ldg(reinterpret_cast<const float4*>(img + i));
+      if (noise) {
+        v.x = noise_value(v.x, (uint32_t)i, key, sigma);
+        v.y = noise_value(v.y, (uint32_t)i + 1u, key, sigma);
+        v.z = noise_value(v.z, (uint32_t)i + 2u, key, sigma);
+        v.w = noise_value(v.w, (uint32_t)i + 3u, key, sigma);
+      }
+      *reinterpret_cast<float4*>(out + i) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < TH * TWC; e += THREADS) {
+      const int r = e / TWC, f = e - r * TWC;
+      if (r >= rows || f >= fn) continue;
+      const int i = (y0 + r) * WC + f0 + f;
+      const float v = __ldg(img + i);
+      out[i] = noise ? noise_value(v, (uint32_t)i, key, sigma) : v;
+    }
+  }
 }
 
 }  // namespace
 
-// x, y (B, H, W, C) f32; choice, seeds (B,) int32. H and W even and >= 8
-// (checked by the wrapper), blur_k odd, inv_k = float(1 / blur_k).
+// x, y (B, H, W, C) f32; choice, seeds (B,) int32. H and W even and >= 8,
+// blur_k odd with blur_k / 2 < W, inv_k = float(1 / blur_k) (checked by
+// the wrapper). smem and vec: the plan of kernels.corrupt_plan (vec: W * C
+// a multiple of 4 and x, y 16-byte aligned).
 extern "C" int corrupt_nhwc(const void* x, void* y, const void* choice,
                             const void* seeds, int B, int H, int W, int C,
-                            float sigma, int blur_k, float inv_k,
-                            void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0)
+                            float sigma, int blur_k, float inv_k, int smem,
+                            int vec, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 || blur_k <= 0 ||
+      blur_k / 2 >= W || (size_t)H * W * C >= (size_t)1 << 31)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t per_img = (size_t)H * W * C;
-  dim3 grid((unsigned)((per_img + THREADS - 1) / THREADS), B);
-  corrupt_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int R = blur_k / 2;
+  if ((size_t)smem != smem_bytes(C, R) || (size_t)smem > SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = C == 3 ? corrupt_tile_kernel<3> : corrupt_tile_kernel<0>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, THREADS, smem, s>>>(
       static_cast<const float*>(x), static_cast<float*>(y),
       static_cast<const int*>(choice), static_cast<const int*>(seeds), H, W,
-      C, sigma, blur_k, inv_k);
+      C, sigma, R, inv_k, vec);
   return static_cast<int>(cudaGetLastError());
 }

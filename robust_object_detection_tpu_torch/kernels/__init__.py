@@ -70,8 +70,9 @@ SIGNATURES: Dict[str, List] = {
     # yolo_front_bwd_nhwc's pointers with e2 (scratch) after dy1, B, H, W,
     # C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec, vec_x (front_bwd_plan)
     "yolo_front_bwd_tc_nhwc": [_P] * 24 + [_I] * 10 + [_P],
-    # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, stream
-    "corrupt_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _P],
+    # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, smem, vec (the
+    # plan of corrupt_plan), stream
+    "corrupt_nhwc": [_P] * 4 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
     # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
     # (scratch), y3, B, H, W, dtype (f32 only), stream
     "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
@@ -101,9 +102,10 @@ SIGNATURES: Dict[str, List] = {
     # tiles (host int[L]), B, HW, Q, NH, DH, L, P, dtype, dout_dtype,
     # transposed, vec, row_lanes, fixed, ivec, svec (deform_bwd_plan), stream
     "ms_deform_attn_bwd": [_P] * 11 + [_I] * 15 + [_P],
-    # value (B, M, Q), valid, owner, capped, B, Q, M, eps, max_rounds,
+    # cost (B, Q, M), valid, owner, capped (bool), stats (or null), B, Q,
+    # M, qs, cap, smem (the plan of auction_plan), eps, max_rounds,
     # complete_greedy, stream
-    "auction_assign": [_P] * 4 + [_I] * 3 + [_F, _I, _I, _P],
+    "auction_assign": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
     # idx, gw, dv, rows, T, HW, DH, cs, ts (gw's channel and tap strides),
     # idx_bytes, tile, ivec, pairs (the plan of stamp_plan), stream
     "stamp_scatter": [_P] * 3 + [_I] * 10 + [_P],
@@ -204,6 +206,25 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_entries: Dict[str, tuple] = {}
+
+
+def launch(device, name: str, *args) -> int:
+    """Calls the kernel library's entry point `name` with `args` and the
+    current stream of `device`; returns its error code. The function is
+    looked up once per loaded library, and `device` is made current only
+    when it is not already."""
+    import torch
+    lib = load()
+    hit = _entries.get(name)
+    if hit is None or hit[0] is not lib:
+        hit = _entries[name] = (lib, getattr(lib, name))
+    if device.index == torch.cuda.current_device():
+        return hit[1](*args, stream_ptr(device))
+    with torch.cuda.device(device):
+        return hit[1](*args, stream_ptr(device))
 
 
 def check(err: int, name: str) -> None:
@@ -686,6 +707,135 @@ def deform_bwd_plan(rows: int, shapes, n_q: int, n_p: int, dh: int,
                 svec=0 if transposed else (v16 if (dh * esize) % 16 == 0
                                            else 1))
     return plan
+
+
+# ---- K1, the training corruption (csrc/corrupt.cu) -----------------------
+# A 2-D grid of tiles per image, CORRUPT_TW pixels x CORRUPT_TH rows; blur
+# and lowres stage the tile and its halo (+-k/2 pixels; +-2 rows and +-2
+# pixels) in shared memory, each staged row a whole number of 16-byte
+# chunks from a 16-byte aligned start, positions outside the image holding
+# the pixel reflect-101 maps them to.
+CORRUPT_TW, CORRUPT_TH = 64, 16
+CORRUPT_SMEM_LIMIT = 232448
+
+
+def _ceil4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def corrupt_stage_width(hx: int, c: int) -> int:
+    """Floats of a staged row for a halo of hx pixels (csrc/corrupt.cu's
+    stage_width)."""
+    return _ceil4((CORRUPT_TW + 2 * hx) * c) + 4
+
+
+def corrupt_plan(b: int, h: int, w: int, c: int, blur_k: int,
+                 ptrs) -> Dict:
+    """K1's launch plan for (b, h, w, c) f32 images: the grid of tiles, the
+    blur halo, the dynamic shared bytes (the larger of blur's staged rows
+    and lowres' staged rows plus its horizontal-FIR buffer) and vec, 1 when
+    every row is 16-byte aligned (w * c a multiple of 4 and every pointer
+    of `ptrs`, x and y, 16-byte aligned): 16-byte loads, stores and
+    cp.async, else element ones."""
+    if not 0 < b <= 65535 or c <= 0 or h < 8 or w < 8 or h % 2 or w % 2:
+        raise ValueError(f"K1 takes 1 to 65535 images of even H, W >= 8 and "
+                         f"C >= 1, got {(b, h, w, c)}")
+    if blur_k <= 0 or blur_k % 2 == 0 or blur_k // 2 >= w:
+        raise ValueError(f"K1 takes an odd blur kernel narrower than 2 W - "
+                         f"1 (reflect-101 stays in the image), got {blur_k} "
+                         f"at W {w}")
+    if h * w * c >= 2 ** 31:
+        raise ValueError(f"K1 indexes an image with 32 bits, got "
+                         f"{(h, w, c)}")
+    r = blur_k // 2
+    blur = CORRUPT_TH * corrupt_stage_width(r, c) * 4
+    lowres = (CORRUPT_TH + 4) * (corrupt_stage_width(2, c)
+                                 + CORRUPT_TW * c) * 4
+    smem = max(blur, lowres)
+    if smem > CORRUPT_SMEM_LIMIT:
+        raise ValueError(f"K1's tile of {c} channels needs {smem} bytes of "
+                         f"shared memory, more than {CORRUPT_SMEM_LIMIT}")
+    return dict(grid=(-(-w // CORRUPT_TW), -(-h // CORRUPT_TH), b), h=h, w=w,
+                c=c, halo=r, smem=smem,
+                vec=int((w * c) % 4 == 0 and all(p % 16 == 0 for p in ptrs)))
+
+
+def _reflect_clamp(i, n: int):
+    import numpy as np
+    i = np.abs(i)
+    i = np.where(i >= n, 2 * n - 2 - i, i)
+    return np.clip(i, 0, n - 1)
+
+
+def corrupt_window(plan: Dict, bx: int, by: int, hx: int, hy: int):
+    """What tile (bx, by) stages for a halo of hx pixels and hy rows: (the
+    image rows of its staged rows, the row floats x * C + c of its staged
+    columns, a, the row float of staged column 0), in shared-memory order,
+    reflect-101 then clamped into the image (csrc/corrupt.cu's stage)."""
+    import numpy as np
+    h, w, c = plan["h"], plan["w"], plan["c"]
+    x0, y0 = bx * CORRUPT_TW, by * CORRUPT_TH
+    a = ((x0 - hx) * c) // 4 * 4
+    g = a + np.arange(corrupt_stage_width(hx, c))
+    px = g // c
+    rows = _reflect_clamp(y0 - hy + np.arange(CORRUPT_TH + 2 * hy), h)
+    return rows, _reflect_clamp(px, w) * c + (g - px * c), a
+
+
+def corrupt_tile_floats(plan: Dict, bx: int, by: int, vec: bool):
+    """The flat indices (y * W + x) * C + c of one image that tile (bx, by)
+    writes, in the order of its threads' loop (16-byte units when vec)."""
+    import numpy as np
+    w, c = plan["w"], plan["c"]
+    twc = CORRUPT_TW * c
+    x0, y0 = bx * CORRUPT_TW, by * CORRUPT_TH
+    fn = min(CORRUPT_TW, w - x0) * c
+    rows = min(CORRUPT_TH, plan["h"] - y0)
+    unit = 4 if vec else 1
+    e = np.arange(CORRUPT_TH * twc // unit)
+    r, f = e // (twc // unit), unit * (e % (twc // unit))
+    keep = (r < rows) & (f < fn)
+    start = (y0 + r[keep]) * (w * c) + x0 * c + f[keep]
+    return (start[:, None] + np.arange(unit)).ravel()
+
+
+# ---- K6, the auction matcher (csrc/auction.cu) ---------------------------
+# One block an image; -cost staged transposed in shared memory, a GT's row
+# of qs values (Q rounded up to 4) contiguous, as many rows as fit beside
+# the per-query and per-column state. The sections of the layout, each
+# rounded up to 16 bytes, mirror auction.cu's `layout`.
+AUCTION_SMEM_LIMIT = 232448 - 1024
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def auction_plan(q: int, m: int) -> Dict[str, int]:
+    """K6's launch plan for cost (B, q, m): qs, the staged row's length;
+    state, the shared bytes of everything but the staged rows (a query's
+    price, best bid, owner and best free column in the greedy; a column's
+    list entry, best free query in the greedy and flag; the free-query
+    flags); cap, the rows that fit beside it (at most m); smem, the dynamic
+    shared bytes. A launch stages min(valid GTs, cap) rows, the first valid
+    columns in index order (the greedy completion stages further columns
+    up to cap); any others are read from cost where they lie."""
+    if q <= 0 or m <= 0:
+        raise ValueError(f"auction_assignment takes Q, M > 0, got {q}, {m}")
+    qs = -(-q // 4) * 4
+    state = (_round16(qs * 4) + _round16(q * 8) + 2 * _round16(q * 4)
+             + 2 * _round16(m * 4) + _round16(m) + _round16(qs))
+    if state > AUCTION_SMEM_LIMIT:
+        raise ValueError(f"auction_assignment: Q {q}, M {m} need {state} "
+                         f"bytes of per-query and per-column state in shared "
+                         f"memory, more than {AUCTION_SMEM_LIMIT}")
+    cap = min(m, (AUCTION_SMEM_LIMIT - state) // (qs * 4))
+    return dict(qs=qs, state=state, cap=cap, smem=state + cap * qs * 4)
+
+
+def auction_rows_staged(plan: Dict[str, int], n_valid: int) -> int:
+    """The rows an image with `n_valid` valid GTs stages."""
+    return min(n_valid, plan["cap"])
 
 
 def chunk_tiles(tiles: int, n_chunks: int, chunk: int) -> range:

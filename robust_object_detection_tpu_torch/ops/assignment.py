@@ -15,15 +15,19 @@ cap and a greedy completion of the images that hit the cap:
 
 :func:`auction_assignment` launches ``auction_assign`` of
 ``csrc/auction.cu`` (K6: all rounds and the greedy completion in one
-launch, one block per image) on CUDA tensors and runs the plain PyTorch
-version (:func:`auction_assignment_plain`: :func:`auction_assignment_ref`
-+ :func:`_greedy_owner`) on CPU tensors. Any other device, dtype or shape
+launch, one block per image, the cost read where the caller holds it) on
+CUDA tensors and runs the plain PyTorch version
+(:func:`auction_assignment_plain`: :func:`auction_assignment_ref` +
+:func:`_greedy_owner`) on CPU tensors. Any other device, dtype or shape
 raises. The algorithm is deterministic and every compare is an f32 compare
-on the same values, so the two agree bit for bit.
+on the same values, so the two agree element for element.
+:func:`auction_assignment_rounds` is the same launch with the kernel's
+round counts, for measurements.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -122,7 +126,7 @@ def auction_assignment_plain(cost: torch.Tensor, valid: torch.Tensor,
     return owner, capped
 
 
-def _check(cost, valid) -> None:
+def _check(cost, valid, max_rounds) -> None:
     if cost.dim() != 3 or valid.dim() != 2 or 0 in cost.shape:
         raise ValueError(f"auction_assignment takes cost (B,Q,M) and valid "
                          f"(B,M), no empty dimension, got "
@@ -139,6 +143,37 @@ def _check(cost, valid) -> None:
     if cost.device.type not in ("cpu", "cuda"):
         raise ValueError(f"auction_assignment runs on cpu or cuda, got "
                          f"{cost.device}")
+    if max_rounds < 0:
+        raise ValueError(f"auction_assignment takes max_rounds >= 0, got "
+                         f"{max_rounds}")
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(q: int, m: int) -> Tuple[int, int, int]:
+    """(qs, cap, smem) of :func:`kernels.auction_plan`."""
+    plan = kernels.auction_plan(q, m)
+    return plan["qs"], plan["cap"], plan["smem"]
+
+
+def _auction_cuda(cost, valid, eps, max_rounds, complete_greedy,
+                  stats=None):
+    """One launch of K6 on a checked call: cost and valid as given (no
+    transposed copy), owner and a bool capped written by the kernel;
+    stats, an int32 (B, 2) tensor or None, gets each image's auction rounds
+    and greedy rounds."""
+    b, qn, m = cost.shape
+    qs, cap, smem = _plan(qn, m)
+    cost, valid = cost.contiguous(), valid.contiguous()
+    owner = torch.empty((b, qn), dtype=torch.int32, device=cost.device)
+    capped = torch.empty((b,), dtype=torch.bool, device=cost.device)
+    err = kernels.launch(
+        cost.device, "auction_assign", cost.data_ptr(), valid.data_ptr(),
+        owner.data_ptr(), capped.data_ptr(),
+        None if stats is None else stats.data_ptr(), b, qn, m, qs, cap, smem,
+        float(eps), int(max_rounds), int(bool(complete_greedy)))
+    kernels.check(err, "auction_assign")
+    auction_assignment.launches += 1
+    return owner, capped
 
 
 @torch.no_grad()
@@ -151,24 +186,30 @@ def auction_assignment(cost: torch.Tensor, valid: torch.Tensor,
     (padded GTs never bid). Returns (gt_for_query (B, Q) int32, -1 =
     unmatched; capped (B,) bool). With ``complete_greedy`` a capped image's
     matching is the greedy solve."""
-    _check(cost, valid)
+    _check(cost, valid, max_rounds)
     if cost.device.type == "cpu":
         return auction_assignment_plain(cost, valid, eps, max_rounds,
                                         complete_greedy)
-    b, qn, m = cost.shape
-    value = (-cost.transpose(1, 2)).contiguous()
-    valid = valid.contiguous()
-    owner = torch.empty((b, qn), dtype=torch.int32, device=cost.device)
-    capped = torch.empty((b,), dtype=torch.int32, device=cost.device)
-    lib = kernels.load()
-    with torch.cuda.device(cost.device):
-        err = lib.auction_assign(
-            value.data_ptr(), valid.data_ptr(), owner.data_ptr(),
-            capped.data_ptr(), b, qn, m, float(eps), int(max_rounds),
-            int(bool(complete_greedy)), kernels.stream_ptr(cost.device))
-    kernels.check(err, "auction_assign")
-    auction_assignment.launches += 1
-    return owner, capped != 0
+    return _auction_cuda(cost, valid, eps, max_rounds, complete_greedy)
 
 
 auction_assignment.launches = 0
+
+
+@torch.no_grad()
+def auction_assignment_rounds(cost: torch.Tensor, valid: torch.Tensor,
+                              eps: float = 0.005, max_rounds: int = 150,
+                              complete_greedy: bool = True):
+    """:func:`auction_assignment` on the card with the kernel's round
+    counts: (owner, capped, rounds (B, 2) int32), rounds[b] = (auction
+    rounds run, greedy rounds that took a pair). One launch, counted as
+    :func:`auction_assignment`'s. CUDA tensors only."""
+    _check(cost, valid, max_rounds)
+    if cost.device.type != "cuda":
+        raise ValueError(f"auction_assignment_rounds counts K6's rounds on a "
+                         f"CUDA card, got {cost.device}")
+    stats = torch.empty((cost.shape[0], 2), dtype=torch.int32,
+                        device=cost.device)
+    owner, capped = _auction_cuda(cost, valid, eps, max_rounds,
+                                  complete_greedy, stats)
+    return owner, capped, stats

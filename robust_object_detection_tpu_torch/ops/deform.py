@@ -176,8 +176,10 @@ def ms_deform_attn_backward_ref(values, shapes, loc, attn, dout):
 
 
 def _check(values, shapes, loc, attn, transposed: bool = False) -> None:
-    """Raises on what the kernels do not take. transposed: values is the
-    (B, heads, dh, HW) layout of :func:`ms_deform_attn_t`."""
+    """Raises on what no version takes: shapes, dtypes, devices, layout.
+    transposed: values is the (B, heads, dh, HW) layout of
+    :func:`ms_deform_attn_t`. The kernels' own limits are
+    :func:`_kernel_limits`, checked by the card's routes alone."""
     if values.dim() != 4 or loc.dim() != 6 or attn.dim() != 5:
         layout = "(B,heads,dh,HW)" if transposed else "(B,HW,heads,dh)"
         raise ValueError(f"ms_deform_attn takes values {layout}, loc "
@@ -197,11 +199,10 @@ def _check(values, shapes, loc, attn, transposed: bool = False) -> None:
     if len(shapes) != n_l or sum(h * w for h, w in shapes) != hw:
         raise ValueError(f"ms_deform_attn: {n_l} levels over {hw} cells do "
                          f"not match shapes {tuple(shapes)}")
-    if n_l > MAX_LEVELS or n_l * n_p > 32 or 0 in loc.shape or 0 in \
-            values.shape:
-        raise ValueError(f"ms_deform_attn takes at most {MAX_LEVELS} levels "
-                         f"and 32 sampling points a query and head, and no "
-                         f"empty dimension, got L {n_l} P {n_p}")
+    if 0 in loc.shape or 0 in values.shape:
+        raise ValueError(f"ms_deform_attn takes no empty dimension, got "
+                         f"values {tuple(values.shape)}, loc "
+                         f"{tuple(loc.shape)}")
     if (values.dtype not in (torch.float32, torch.bfloat16)
             or loc.dtype != torch.float32 or attn.dtype != torch.float32):
         raise ValueError(f"ms_deform_attn takes float32 or bfloat16 values "
@@ -215,6 +216,17 @@ def _check(values, shapes, loc, attn, transposed: bool = False) -> None:
     if values.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn runs on cpu or cuda, got "
                          f"{values.device}")
+
+
+def _kernel_limits(loc) -> None:
+    """Raises, before any launch, on the level and point counts the kernels
+    do not instantiate. The plain versions on the CPU take any L and P, as
+    the reference does off the TPU."""
+    n_l, n_p = loc.shape[3], loc.shape[4]
+    if n_l > MAX_LEVELS or n_l * n_p > 32:
+        raise ValueError(f"the deformable-attention kernels take at most "
+                         f"{MAX_LEVELS} levels and 32 sampling points a "
+                         f"query and head, got L {n_l} P {n_p}")
 
 
 def _levels_arg(shapes):
@@ -233,40 +245,25 @@ def _levels_table(shapes):
     return table, ctypes.addressof(table)
 
 
-_entries = {}
-
-
-def _launch(device, name, *args) -> int:
-    """Calls the kernel library's entry point `name` with `args` and the
-    current stream of `device`. The function is looked up once per loaded
-    library, and `device` is made current only when it is not already."""
-    lib = kernels.load()
-    hit = _entries.get(name)
-    if hit is None or hit[0] is not lib:
-        hit = _entries[name] = (lib, getattr(lib, name))
-    if device.index == torch.cuda.current_device():
-        return hit[1](*args, kernels.stream_ptr(device))
-    with torch.cuda.device(device):
-        return hit[1](*args, kernels.stream_ptr(device))
-
-
 @functools.lru_cache(maxsize=64)
 def _fwd_plan(n_l, n_p, dh, esize, aligned):
     return kernels.deform_fwd_plan(n_l, n_p, dh, esize, 0 if aligned else 1)
 
 
 def _forward_cuda(values, shapes, loc, attn) -> torch.Tensor:
+    _kernel_limits(loc)
     b, hw, n_h, dh = values.shape
     q, n_l, n_p = loc.shape[1], loc.shape[3], loc.shape[4]
     out = torch.empty((b, q, n_h, dh), dtype=values.dtype,
                       device=values.device)
     plan = _fwd_plan(n_l, n_p, dh, values.element_size(),
                      values.data_ptr() % 16 == 0)
-    err = _launch(values.device, "ms_deform_attn_fwd", values.data_ptr(),
-                  loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                  _levels_table(shapes)[1], b, hw, q, n_h, dh, n_l, n_p,
-                  kernels.dtype_code(values.dtype), plan["vec"],
-                  plan["row_lanes"], plan["fixed"])
+    err = kernels.launch(
+        values.device, "ms_deform_attn_fwd", values.data_ptr(),
+        loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+        _levels_table(shapes)[1], b, hw, q, n_h, dh, n_l, n_p,
+        kernels.dtype_code(values.dtype), plan["vec"], plan["row_lanes"],
+        plan["fixed"])
     kernels.check(err, "ms_deform_attn_fwd")
     ms_deform_attn_slots.launches += 1
     return out
@@ -315,6 +312,7 @@ def _backward_cuda(values, shapes, loc, attn, dout, transposed):
     checked call: the taps kernel, then the owner scatter. shapes: the
     level table's key; dout as :func:`_dout_arg` returns it. Returns (d
     values in values' dtype and layout, d loc, d attn)."""
+    _kernel_limits(loc)
     b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
     tiles, args, taps = _bwd_plan(b * n_h, shapes, q, n_p, dh,
                                   values.element_size(),
@@ -325,13 +323,13 @@ def _backward_cuda(values, shapes, loc, attn, dout, transposed):
     dloc = torch.empty_like(loc)
     dattn = torch.empty_like(attn)
     dv = torch.empty_like(values)
-    err = _launch(dev, "ms_deform_attn_bwd", values.data_ptr(),
-                  loc.data_ptr(), attn.data_ptr(), dout.data_ptr(),
-                  dloc.data_ptr(), dattn.data_ptr(), cell.data_ptr(),
-                  coef.data_ptr(), dv.data_ptr(), _levels_table(shapes)[1],
-                  tiles[1], b, hw, q, n_h, dh, n_l, n_p,
-                  kernels.dtype_code(values.dtype),
-                  kernels.dtype_code(dout.dtype), int(transposed), *args)
+    err = kernels.launch(
+        dev, "ms_deform_attn_bwd", values.data_ptr(), loc.data_ptr(),
+        attn.data_ptr(), dout.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+        cell.data_ptr(), coef.data_ptr(), dv.data_ptr(),
+        _levels_table(shapes)[1], tiles[1], b, hw, q, n_h, dh, n_l, n_p,
+        kernels.dtype_code(values.dtype), kernels.dtype_code(dout.dtype),
+        int(transposed), *args)
     kernels.check(err, "ms_deform_attn_bwd")
     return dv, dloc, dattn
 
@@ -460,9 +458,9 @@ def _stamp_scatter_cuda(idx, gw, hw, strides) -> torch.Tensor:
     dv = torch.empty((b, n_h, dh, hw), dtype=torch.float32, device=gw.device)
     plan = _stamp_plan(b * n_h, hw, t, dh, idx.data_ptr() % 16,
                        gw.data_ptr() % 8, strides[1])
-    err = _launch(gw.device, "stamp_scatter", idx.data_ptr(), gw.data_ptr(),
-                  dv.data_ptr(), b * n_h, t, hw, dh, *strides,
-                  idx.element_size(), *plan)
+    err = kernels.launch(gw.device, "stamp_scatter", idx.data_ptr(),
+                         gw.data_ptr(), dv.data_ptr(), b * n_h, t, hw, dh,
+                         *strides, idx.element_size(), *plan)
     kernels.check(err, "stamp_scatter")
     stamp_scatter.launches += 1
     return dv
@@ -581,6 +579,7 @@ def ms_deform_attn_sorted_forward(values, shapes, loc, attn,
     heads, dh, HW)) -> (B, Q, heads, dh) f32. CUDA tensors only."""
     _check(values, shapes, loc, attn, transposed)
     _require_card(values, "ms_deform_attn_sorted_forward", "K5-g2")
+    _kernel_limits(loc)
     b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
     levels = _levels_arg(shapes)
     out = torch.empty((b, q, n_h, dh), dtype=torch.float32,

@@ -18,7 +18,8 @@ Each image of an NHWC f32 [0, 255] batch is left clean with probability
 
 :func:`fused_random_corruption` draws the choice and the seeds from a
 ``torch.Generator`` unless given; on a CUDA tensor it launches ``csrc/
-corrupt.cu`` (K1), on a CPU tensor it runs
+corrupt.cu`` (K1: a 2-D grid of tiles per image, the plan of
+``kernels.corrupt_plan``), on a CPU tensor it runs
 :func:`fused_corruption_reference`, the plain version, which replays the
 kernel's noise bits with integer tensor ops and its blur and lowres
 arithmetic in the same f32 operation order. The TPU's on-core PRNG bits
@@ -28,6 +29,7 @@ only.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -166,6 +168,14 @@ def _check(img, choice, seeds, cfg) -> None:
                          f"{img.device}")
 
 
+@functools.lru_cache(maxsize=64)
+def _plan(b, h, w, c, blur_k, x_offset, y_offset):
+    """(smem, vec) of :func:`kernels.corrupt_plan` for pointers whose
+    16-byte offsets are given."""
+    plan = kernels.corrupt_plan(b, h, w, c, blur_k, (x_offset, y_offset))
+    return plan["smem"], plan["vec"]
+
+
 def fused_random_corruption(img: torch.Tensor, generator: torch.Generator,
                             cfg: CorruptionConfig = CorruptionConfig(),
                             choice: Optional[torch.Tensor] = None,
@@ -184,19 +194,23 @@ def fused_random_corruption(img: torch.Tensor, generator: torch.Generator,
     _check(img, choice, seeds, cfg)
     if img.device.type == "cpu":
         return fused_corruption_reference(img, choice, seeds, cfg), choice
-    _, h, w, c = img.shape
+    return _corrupt_cuda(img, choice, seeds, cfg), choice
+
+
+def _corrupt_cuda(img, choice, seeds, cfg) -> torch.Tensor:
+    """One launch of K1 on a checked call."""
+    b, h, w, c = img.shape
     out = torch.empty_like(img)
     choice, seeds = choice.contiguous(), seeds.contiguous()
-    lib = kernels.load()
-    with torch.cuda.device(img.device):
-        err = lib.corrupt_nhwc(img.data_ptr(), out.data_ptr(),
-                               choice.data_ptr(), seeds.data_ptr(), b, h, w,
-                               c, float(cfg.noise_sigma), cfg.blur_kernel,
-                               float(np.float32(1.0 / cfg.blur_kernel)),
-                               kernels.stream_ptr(img.device))
+    smem, vec = _plan(b, h, w, c, cfg.blur_kernel, img.data_ptr() % 16,
+                      out.data_ptr() % 16)
+    err = kernels.launch(img.device, "corrupt_nhwc", img.data_ptr(),
+                         out.data_ptr(), choice.data_ptr(), seeds.data_ptr(),
+                         b, h, w, c, float(cfg.noise_sigma), cfg.blur_kernel,
+                         float(np.float32(1.0 / cfg.blur_kernel)), smem, vec)
     kernels.check(err, "corrupt_nhwc")
     fused_random_corruption.launches += 1
-    return out, choice
+    return out
 
 
 fused_random_corruption.launches = 0

@@ -481,14 +481,19 @@ def test_backward_wrappers_make_scratch_of_the_plans_size(lib, recorder,
 
 
 @pytest.mark.parametrize("case", range(len(_refusals())))
-def test_backward_wrappers_refuse_what_they_refused(case):
-    values, shapes, loc, attn, match = _refusals()[case]
+def test_backward_wrappers_refuse_what_they_refused(lib, monkeypatch, case):
+    """As the forward: a shape the kernels do not instantiate is refused on
+    the card's route (CPU tensors standing in) before any launch."""
+    values, shapes, loc, attn, match, card = _refusals()[case]
+    if card:
+        monkeypatch.setattr(DF, "_require_card", lambda *a: None)
     dout = torch.zeros(loc.shape[:3] + values.shape[3:])
     for fn in (DF.ms_deform_attn_backward, DF.ms_deform_attn_sorted_backward):
         before = fn.launches
         with pytest.raises(ValueError, match=match):
             fn(values, shapes, loc, attn, dout)
         assert fn.launches == before
+    assert lib.calls == {}
 
 
 @pytest.mark.parametrize("bad,match", [

@@ -15,7 +15,8 @@ csrc/ms_deform_attn.cu) as redesigned for Hopper, held on the CPU:
     (level, point, corner, channel) exactly once, and the slot sums close
     over each channel group;
   * the cached level table equals ``_levels_arg``, the wrapper passes the
-    plan, and ``_check`` refuses what it refused before.
+    plan, and ``_check`` refuses what it refused before, save the level
+    and point counts, which only the card's route refuses.
 """
 
 import ctypes
@@ -319,38 +320,51 @@ def test_k5_forward_wrapper_passes_the_plan(lib, dtype):
 
 
 def _refusals():
+    """(values, shapes, loc, attn, match, card): card marks a shape every
+    version but the kernels takes, refused on the card's route alone (the
+    CPU runs the plain version at any L and P, as the reference does)."""
     shapes = ((4, 4), (2, 2))
     values = torch.zeros(1, 20, 2, 8)
     loc = torch.zeros(1, 3, 2, 2, 2, 2)
     attn = torch.zeros(1, 3, 2, 2, 2)
     return [
-        (values[0], shapes, loc, attn, "takes values"),
-        (values, shapes, loc[:, :, :1], attn[:, :, :1], "do not match"),
-        (values, shapes, loc, attn[..., :1], "do not match"),
-        (values, ((4, 4), (2, 3)), loc, attn, "do not match shapes"),
-        (values, ((4, 4),), loc, attn, "do not match shapes"),
+        (values[0], shapes, loc, attn, "takes values", False),
+        (values, shapes, loc[:, :, :1], attn[:, :, :1], "do not match",
+         False),
+        (values, shapes, loc, attn[..., :1], "do not match", False),
+        (values, ((4, 4), (2, 3)), loc, attn, "do not match shapes", False),
+        (values, ((4, 4),), loc, attn, "do not match shapes", False),
         (torch.zeros(1, 21, 2, 8), ((1, 1),) * 5 + ((4, 4),),
          torch.zeros(1, 3, 2, 6, 2, 2), torch.zeros(1, 3, 2, 6, 2),
-         "at most 4 levels"),
+         "at most 4 levels", True),
         (values, shapes, torch.zeros(1, 3, 2, 2, 17, 2),
-         torch.zeros(1, 3, 2, 2, 17), "at most 4 levels"),
-        (values, shapes, loc[:, :0], attn[:, :0], "no empty dimension"),
-        (values.half(), shapes, loc, attn, "float32 or bfloat16"),
-        (values, shapes, loc.double(), attn, "float32 loc"),
-        (values, shapes, loc, attn.bfloat16(), "float32 loc"),
+         torch.zeros(1, 3, 2, 2, 17), "at most 4 levels", True),
+        (values, shapes, loc[:, :0], attn[:, :0], "no empty dimension",
+         False),
+        (values.half(), shapes, loc, attn, "float32 or bfloat16", False),
+        (values, shapes, loc.double(), attn, "float32 loc", False),
+        (values, shapes, loc, attn.bfloat16(), "float32 loc", False),
         (values.transpose(1, 2).contiguous().transpose(1, 2), shapes, loc,
-         attn, "contiguous"),
+         attn, "contiguous", False),
         (values, shapes, loc.transpose(1, 2).contiguous().transpose(1, 2),
-         attn, "contiguous"),
+         attn, "contiguous", False),
         (values.to("meta"), shapes, loc.to("meta"), attn.to("meta"),
-         "runs on cpu or cuda"),
+         "runs on cpu or cuda", False),
     ]
 
 
 @pytest.mark.parametrize("case", range(len(_refusals())))
-def test_k5_forward_refuses_what_it_refused(case):
-    values, shapes, loc, attn, match = _refusals()[case]
+def test_k5_forward_refuses_what_it_refused(lib, case):
+    """Every version refuses a bad call; a shape the kernels do not
+    instantiate passes the checks and is refused on the card's route
+    before any launch (CPU tensors stand in for the card's)."""
+    values, shapes, loc, attn, match, card = _refusals()[case]
     before = DF.ms_deform_attn_slots.launches
     with pytest.raises(ValueError, match=match):
-        DF.ms_deform_attn_slots(values, shapes, loc, attn)
+        if card:
+            DF._check(values, shapes, loc, attn)
+            DF._forward_cuda(values, shapes, loc, attn)
+        else:
+            DF.ms_deform_attn_slots(values, shapes, loc, attn)
     assert DF.ms_deform_attn_slots.launches == before
+    assert lib.calls == {}

@@ -342,6 +342,37 @@ def test_corrupt_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,blur_k,misalign", [
+    ((4, 18, 70, 3), 9, False),      # W * C = 210: element route, ragged
+    ((4, 34, 130, 4), 9, False),     # 16-byte route, ragged tiles, C 4
+    ((4, 40, 136, 3), 9, True),      # x one element past a 16-byte line
+    ((4, 32, 64, 3), 15, False),     # a wider blur
+    ((4, 8, 8, 1), 3, False)])
+def test_corrupt_tiles_match_plain_at_odd_shapes(cuda, shape, blur_k,
+                                                 misalign):
+    """K1's tile grid at shapes the path never gives it: clean and blur
+    bit-exact, noise and lowres within 1, every branch in one launch."""
+    g = torch.Generator().manual_seed(6)
+    img = torch.floor(torch.rand(*shape, generator=g) * 256)
+    cfg = CorruptionConfig(blur_kernel=blur_k)
+    choice = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    seeds = torch.tensor([7, 8, 9, 10], dtype=torch.int32)
+    x = img.to(cuda)
+    if misalign:
+        x = _misaligned(x)
+        assert x.data_ptr() % 16 != 0
+    before = FC.fused_random_corruption.launches
+    out, _ = FC.fused_random_corruption(x, None, cfg, choice, seeds)
+    torch.cuda.synchronize()
+    assert FC.fused_random_corruption.launches == before + 1
+    ref = FC.fused_corruption_reference(img, choice, seeds, cfg)
+    out = out.cpu()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+    assert (out[1] - ref[1]).abs().max() <= 1
+    assert (out[3] - ref[3]).abs().max() <= 1
+
+
+@pytest.mark.gpu
 def test_training_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda)
     before = (C.conv3x3_wgrad.launches, TF.front_fused.launches,
@@ -672,6 +703,40 @@ def test_stem_bf16_odd_shapes(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 20, 44), (3, 12, 28), (2, 44, 20)])
+def test_stem_bf16_odd_shapes_against_float64(cuda, shape):
+    """A witness of K4-b at the odd shapes whose bound bf16 noise does not
+    set: K4-b's ten gradients and the plain bf16 chain's against the plain
+    chain in float64 on the same bf16-rounded inputs (x in bf16, the conv
+    kernels rounded to bf16 as both bf16 routes compute with; the chain's
+    f32 casts widened to float64). Each of the kernel's errors is at most
+    2x the plain bf16 chain's (each error x max|float64|)."""
+    b, h, w = shape
+    x, params = _stem_train_inputs(torch.Generator().manual_seed(15), b, h,
+                                   w, cuda)
+    x = x.bfloat16()
+    ps = [p.clone().requires_grad_() for p in params]
+    rs = [p.clone().requires_grad_() for p in params]
+    y3, ms, vs = ST.stem_fused(x, *ps)
+    _stem_loss((y3, ms, vs)).backward()
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        _stem_loss(ST.stem_train_reference(x, *rs)).backward()
+        ds = [(p.bfloat16() if p.dim() == 4 else p).double().requires_grad_()
+              for p in params]
+        real_float = torch.Tensor.float
+        torch.Tensor.float = lambda t, *a, **k: t.double()
+        try:
+            _stem_loss(ST.stem_train_reference(x.double(), *ds)).backward()
+        finally:
+            torch.Tensor.float = real_float
+    for p, r, d in zip(ps, rs, ds):
+        scale = d.grad.abs().max()
+        ek = ((p.grad.double() - d.grad).abs().max() / scale).item()
+        ep = ((r.grad.double() - d.grad).abs().max() / scale).item()
+        assert ek <= 2 * ep, (ek, ep)
+
+
+@pytest.mark.gpu
 def test_stem_misaligned_x_stages_by_element(cuda):
     """A contiguous bf16 x whose data pointer breaks 16-byte alignment
     takes element staging in stem1 and dk1 (the plans say so) and still
@@ -752,6 +817,19 @@ def _auction_case(name):
     elif name == "capped":      # as many GTs as queries: the last few
         b, q, m, n_valid = 8, 300, 300, 300     # fight past the round cap
         cost = torch.rand(b, q, m, generator=g) * 4
+    elif name == "ties":        # costs on a 1/64 grid, converging and not
+        b, q, m, n_valid = 4, 300, 300, 300
+        cost = torch.round(torch.rand(b, q, m, generator=g) * 256) / 64
+    elif name == "cheap_invalid":   # an invalid column priced below BIG / 2
+        b, q, m, n_valid = 3, 40, 30, 30
+        cost = torch.rand(b, q, m, generator=g) * 4
+    elif name == "alike":       # every GT ranks the queries alike: caps
+        b, q, m, n_valid = 4, 300, 300, 80
+        cost = torch.rand(b, q, 1, generator=g) * 4 \
+            + 0.05 * torch.rand(b, q, m, generator=g)
+    elif name == "past_capacity":   # more GT rows than shared memory holds
+        b, q, m, n_valid = 2, 300, 420, 420
+        cost = torch.rand(b, q, m, generator=g) * 4
     else:                       # more valid GTs than queries
         b, q, m, n_valid = 2, 6, 9, 9
         cost = torch.rand(b, q, m, generator=g)
@@ -759,11 +837,16 @@ def _auction_case(name):
     valid[:, :n_valid] = True
     valid[0] = False            # an image with no valid GT
     cost = torch.where(valid[:, None, :], cost, torch.full_like(cost, AS.BIG))
+    if name == "cheap_invalid":
+        cost[:, :, m - 1] = 2.5
+        valid[:, m - 1] = False
     return cost, valid
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["normal", "odd", "capped", "crowded"])
+@pytest.mark.parametrize("name", ["normal", "odd", "capped", "crowded",
+                                  "ties", "cheap_invalid", "alike",
+                                  "past_capacity"])
 @pytest.mark.parametrize("max_rounds", [16, 150])
 def test_auction_kernel_equals_plain(cuda, name, max_rounds):
     """K6 against the plain round loop + greedy completion on the same
@@ -786,6 +869,25 @@ def test_auction_kernel_equals_plain(cuda, name, max_rounds):
                                    complete_greedy=False)
     ref_raw, _ = AS.auction_assignment_ref(cost, valid, 0.005, max_rounds)
     assert torch.equal(raw.cpu(), ref_raw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["normal", "capped"])
+def test_auction_rounds_are_counted_in_one_launch(cuda, name):
+    """``auction_assignment_rounds`` is K6's launch with its round counts:
+    the same owner and capped, one launch, 16 auction rounds and some
+    greedy rounds in a capped image, none in a converged one."""
+    cost, valid = _auction_case(name)
+    cost, valid = cost.to(cuda), valid.to(cuda)
+    owner, capped = AS.auction_assignment(cost, valid, max_rounds=16)
+    before = AS.auction_assignment.launches
+    owner2, capped2, rounds = AS.auction_assignment_rounds(cost, valid,
+                                                           max_rounds=16)
+    assert AS.auction_assignment.launches == before + 1
+    assert torch.equal(owner, owner2) and torch.equal(capped, capped2)
+    assert rounds.shape == (cost.shape[0], 2) and rounds.dtype == torch.int32
+    for (auction, greedy), cap in zip(rounds.tolist(), capped.tolist()):
+        assert (auction == 16 and greedy > 0) if cap else greedy == 0
 
 
 @pytest.mark.gpu
@@ -943,6 +1045,36 @@ def test_bilinear_sample_gradients_match_autograd(cuda, dtype, tol, case):
     # where autograd of floor() and the analytic rule agree (both one-sided)
     assert _rel_err(leaves[1].grad, refs[1].grad) <= 1e-4
     assert _rel_err(leaves[2].grad, refs[2].grad) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,p", [
+    (((8, 8), (4, 4), (2, 2), (2, 1), (1, 1)), 8), (((6, 10), (3, 5)), 17)])
+def test_deform_entries_refuse_what_the_kernels_do_not_instantiate(
+        cuda, shapes, p):
+    """Five levels, or more than 32 points a query and head: the CPU runs
+    the plain version (tests/test_torch_deform_shapes.py); on the card
+    every entry point raises before any launch, with or without a
+    gradient."""
+    g = torch.Generator().manual_seed(21)
+    values, shapes, loc, attn = _deform_inputs(g, shapes, 1, 3, 2, 8, p, cuda,
+                                               torch.float32)
+    counters = (DF.ms_deform_attn_slots, DF.ms_deform_attn_backward,
+                DF.ms_deform_attn_sorted_forward,
+                DF.ms_deform_attn_sorted_backward)
+    before = [f.launches for f in counters]
+    vg = values.clone().requires_grad_()
+    for call in (lambda: DF.ms_deform_attn_slots(values, shapes, loc, attn),
+                 lambda: DF.ms_deform_attn_slots(vg, shapes, loc, attn),
+                 lambda: DF.ms_deform_attn(vg, shapes, loc, attn),
+                 lambda: DF.ms_deform_attn_t(DF.values_to_t(values), shapes,
+                                             loc, attn),
+                 lambda: DF.ms_deform_attn_backward(values, shapes, loc,
+                                                    attn, values[:, :3])):
+        with pytest.raises(ValueError, match="at most 4 levels and 32"):
+            call()
+    torch.cuda.synchronize()
+    assert [f.launches for f in counters] == before
 
 
 @pytest.mark.gpu

@@ -90,7 +90,7 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
         return front_bwd
     if re.search(r"finalize_partials_kernel|sum_chunks_(tc_)?kernel", name):
         return "hand-kernel partial sums (K2-f, K2-b, K3-b, K4-f, K4-b)"
-    if "corrupt_kernel" in name:
+    if re.search(r"corrupt_(tile_)?kernel", name):
         return "K1 corrupt"
     low = name.lower()
     if low.startswith(("memcpy", "memset")):
