@@ -111,13 +111,18 @@ each generation of the deformable-attention op family. Phases:
      through it) against their plain versions at the RT-DETR-L decoder's
      shapes (300 and 428 queries; each of the three levels for K5-g1, on
      uniform and on clustered cells) and at one odd shape, f32 and bf16
-     values (tolerances in phase_sorted_kernels), K5-g2 backward also on
-     clustered samples; every backward twice for identical bits, K5-g1
-     also from gw in the row layout and from int64 idx; timed as above;
-     K5-g1 in both gw layouts beside the
-     one library call (``scatter_add_`` into zeros) and, for the record,
-     ``grid_sample`` forward + backward beside ``bilinear_sample``; the
-     refusal of bad CUDA inputs;
+     values (tolerances in phase_sorted_kernels), K5-g2 both ways also on
+     clustered samples; K5-g2 forward equal to K5 forward bit for bit (f32;
+     after one rounding in bf16), values_t to values, and under a query
+     permutation; every backward twice for identical bits, K5-g1 also
+     from gw in the row layout and from int64 idx; timed as above, K5-g2
+     forward also by the profiler's device ms of each launch (values_t:
+     the relayout, then the gather) with the peak memory a call adds, its
+     values_t bound from distinct 32-byte sectors, and ``grid_sample``
+     level by level on values_t's layout, forward only, beside it; K5-g1
+     in both gw layouts beside the one library call (``scatter_add_`` into
+     zeros) and, for the record, ``grid_sample`` forward + backward beside
+     ``bilinear_sample``; the refusal of bad CUDA inputs;
  16. the generations' path: six forward + backward calls (one per decoder
      layer, 428 queries, values (8, 21504, 8, 32), bf16 then f32) of
      ``ms_deform_attn``, of ``ms_deform_attn_t`` and of the per-level
@@ -247,6 +252,19 @@ def device_ms_by_launch(fn, calls: int = 10):
         return None
     return [(sum(s[i].time_range.elapsed_us() for s in seqs) / calls / 1e3,
              seqs[0][i].name) for i in range(n)]
+
+
+def launch_parts(fn, tries: int = 3):
+    """[(device ms, kernel name)] of `fn`'s launches in launch order, or by
+    kernel where the profiler's record does not split into calls; [] when
+    no try recorded any device time (the profiler drops records in a
+    process that ran many sessions)."""
+    for _ in range(tries):
+        parts = device_ms_by_launch(fn) or [
+            (d, k) for d, _, k in device_ms_by_kernel(fn)]
+        if parts:
+            return parts
+    return []
 
 
 def short_kernel_name(name: str) -> str:
@@ -2057,6 +2075,78 @@ def touched_rows(DF, loc, shapes, hw, heads):
     return rows, int(live.sum().item())
 
 
+def touched_sectors_t(DF, loc, shapes, hw, heads, dh, elt):
+    """Distinct 32-byte sectors of values_t (B, heads, dh, HW) that hold an
+    element the in-map taps of `loc` touch: what any reader of that layout
+    in place must fetch."""
+    import torch
+    b = loc.shape[0]
+    idx, wgt = DF.tap_geometry(loc, shapes)
+    live = wgt != 0
+    bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1, 1, 1)
+    hi = torch.arange(heads, device=loc.device).view(1, 1, heads, 1, 1, 1)
+    keys = torch.unique(((bi * heads + hi) * hw + idx)[live])
+    rows, cell = keys // hw, keys % hw                 # (batch, head), cell
+    ch = torch.arange(dh, device=loc.device)
+    nbytes = ((rows[:, None] * dh + ch) * hw + cell[:, None]) * elt
+    return torch.unique(nbytes // 32).numel()
+
+
+def grid_sample_deform(F, values_t, shapes, loc, attn):
+    """``ms_deform_attn_t``'s forward from ``grid_sample``: each level's map
+    a (B * heads, dh, H_l, W_l) view of values_t (grid_sample's own layout),
+    sampled at the level's points (grid 2 loc - 1, align_corners False:
+    pixel loc * size - 0.5), weighted by attn and summed over points and
+    levels. Returns (B, Q, heads, dh) in values_t's dtype."""
+    b, heads, dh, hw = values_t.shape
+    q, p = loc.shape[1], loc.shape[4]
+    vt = values_t.reshape(b * heads, dh, hw)
+    out, off = 0, 0
+    for l, (h, w) in enumerate(shapes):
+        vm = vt[:, :, off:off + h * w].view(b * heads, dh, h, w)
+        grid = (2 * loc[:, :, :, l] - 1).permute(0, 2, 1, 3, 4).reshape(
+            b * heads, q, p, 2).to(values_t.dtype)
+        sampled = F.grid_sample(vm, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=False)
+        a = attn[:, :, :, l].permute(0, 2, 1, 3).reshape(b * heads, 1, q, p)
+        out = out + (sampled * a.to(values_t.dtype)).sum(-1)  # (B*h, dh, Q)
+        off += h * w
+    return out.reshape(b, heads, dh, q).permute(0, 3, 1, 2)
+
+
+def values_t_yardsticks(F, DF, row, layouts, vd, ref, shapes, loc, attn,
+                        taps, dh):
+    """Adds to K5-g2 forward's summary row `row` the layouts' times, the
+    bound of values_t (the 32-byte sectors holding a touched element, with
+    loc, attn and the f32 out) and the library's forward on values_t's
+    layout (:func:`grid_sample_deform`, held against the f32 reference
+    within 1e-4 x max|ref| in f32)."""
+    name = str(vd.dtype).split(".")[-1]
+    elt = esize(vd.dtype)
+    _, hw, heads, _ = vd.shape
+    vt = DF.values_to_t(vd)
+    sectors = touched_sectors_t(DF, loc, shapes, hw, heads, dh, elt)
+    io = (loc.numel() + attn.numel() + ref.numel()) * 4
+    t_bound = bound(work(name, sectors * 32 + io, 2 * taps * dh))[0]
+    log = []
+    lib_out = grid_sample_deform(F, vt, shapes, loc, attn)
+    if elt == 4:
+        check("grid_sample composition f32 out", lib_out, ref, 1e-4, log)
+    gs_ms = time_ms(lambda: grid_sample_deform(F, vt, shapes, loc, attn))
+    gs_dev = sum(d for d, _ in launch_parts(
+        lambda: grid_sample_deform(F, vt, shapes, loc, attn))) \
+        or "not measured"
+    row.update(ms_by_layout=layouts, values_t_bound_ms=t_bound,
+               values_t_sectors=sectors, grid_sample_fwd_ms=gs_ms,
+               grid_sample_fwd_device_ms=gs_dev)
+    print(f"[sorted-kernels] {name} values_t: {sectors} distinct 32-byte "
+          f"sectors hold a touched element, bound {t_bound} ms (the row "
+          f"bound of values: {bound(row)[0]} ms); grid_sample level by "
+          f"level on (B * heads, dh, H, W) views of values_t + the "
+          f"attention-weighted sum, forward only: {gs_ms} ms by events, "
+          f"{gs_dev} ms device; {'; '.join(log)}")
+
+
 def grid_sample_level(F, v, sx, sy):
     """``bilinear_sample(v, sx, sy)`` as one ``grid_sample`` call: v (B, H,
     W, heads, dh) as (B * heads, dh, H, W), the samples as a (B * heads, Q,
@@ -2081,16 +2171,19 @@ def phase_sorted_kernels(dev):
     counts that are no multiple of 32, maps under 2048 cells). Tolerances,
     each x max|ref|. K5-g2 forward: 1e-4 for f32 and for bf16 values alike
     (the out is f32, so both are the plain version's f32 products summed in
-    another order). K5-g2 backward against the plain backward in f32 on the
-    same values: d(values) 1e-4 in f32 and 1e-2 in bf16 (one rounding of
-    the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3; the backward also on
-    clustered samples at the train step's shapes. K5-g1 against
-    ``index_add_``: 1e-4 (f32 only; the same terms, perhaps in another
-    order); ``bilinear_sample`` against the autograd of its plain version
-    in f32: out 1e-4, d(v) 1e-4 in f32 and 1e-2 for a bf16 map, d(sx) and
-    d(sy) 1e-4 and 1e-3. Every backward runs twice and must return the same
-    bits. ``grid_sample`` computes ``bilinear_sample``'s function and is
-    timed beside it; its f32 output must agree within 1e-4."""
+    another order); bit for bit K5 forward's out (f32; bf16 after one
+    rounding of K5-g2's), values_t's out that of values, and a query
+    permutation's the permuted out. K5-g2 backward against the plain
+    backward in f32 on the same values: d(values) 1e-4 in f32 and 1e-2 in
+    bf16 (one rounding of the f32 sum), d(loc) and d(attn) 1e-4 and 1e-3;
+    the backward also on clustered samples at the train step's shapes.
+    K5-g1 against ``index_add_``: 1e-4 (f32 only; the same terms, perhaps
+    in another order); ``bilinear_sample`` against the autograd of its
+    plain version in f32: out 1e-4, d(v) 1e-4 in f32 and 1e-2 for a bf16
+    map, d(sx) and d(sy) 1e-4 and 1e-3. Every backward runs twice and must
+    return the same bits. ``grid_sample`` computes ``bilinear_sample``'s
+    function and is timed beside it; its f32 output must agree within
+    1e-4, as must K5-g2 forward's ``grid_sample`` composition."""
     import torch
     import torch.nn.functional as F
     from robust_object_detection_tpu_torch.ops import deform as DF
@@ -2114,6 +2207,7 @@ def phase_sorted_kernels(dev):
         dout = torch.randn(b, q, heads, dh, device=dev, generator=g)
         hw = values.shape[1]
         timed = q == q_train
+        what = "clustered" if clustered else "uniform"
         if timed:
             rows, taps = touched_rows(DF, loc, shapes, hw, heads)
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
@@ -2124,6 +2218,27 @@ def phase_sorted_kernels(dev):
             ref = DF.ms_deform_attn_ref(vd.float(), shapes, loc, attn)
             rdv, rdloc, rdattn = DF.ms_deform_attn_backward_ref(
                 vd.float(), shapes, loc, attn, dout)
+            # K5-g2 forward is K5's gather with an f32 out: K5's bits in
+            # f32, K5's bits after one rounding in bf16; values_t is relaid
+            # into rows and gathered the same way; any query order
+            out = DF.ms_deform_attn(vd, shapes, loc, attn)
+            require(torch.equal(out.to(dtype), DF.ms_deform_attn_slots(
+                vd, shapes, loc, attn)),
+                f"K5-g2 forward ({name}) is not K5's gather bit for bit")
+            require(torch.equal(DF.ms_deform_attn_t(
+                DF.values_to_t(vd), shapes, loc, attn), out),
+                f"K5-g2 forward on values_t ({name}) does not give the "
+                f"bits of values")
+            perm = torch.randperm(q, device=dev, generator=g)
+            require(torch.equal(DF.ms_deform_attn(
+                vd, shapes, loc[:, perm].contiguous(),
+                attn[:, perm].contiguous()), out[:, perm]),
+                f"K5-g2 forward ({name}) changes bits with the query order")
+            bits = (f"K5-g2 forward {name} {what}: K5's bits "
+                    f"{'after one rounding' if elt == 2 else 'exactly'}, "
+                    f"values_t = values, query order: same bits")
+            del out
+            layouts = {}
             for transposed in (False, True):
                 layout = "values_t" if transposed else "values"
                 entry = DF.ms_deform_attn_t if transposed \
@@ -2153,15 +2268,29 @@ def phase_sorted_kernels(dev):
                 del out, grads, again, dv
                 if not timed:
                     print(f"{tag} {'; '.join(log)}; second backward: "
-                          f"identical bits")
+                          f"identical bits; {bits}")
                     continue
                 ms = time_ms(lambda: entry(given, shapes, loc, attn))
+                # device ms by launch; the peak memory a call adds: out, and
+                # for values_t the workspace the relayout fills
+                parts = launch_parts(lambda: entry(given, shapes, loc, attn))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                entry(given, shapes, loc, attn)
+                torch.cuda.synchronize()
+                added = torch.cuda.max_memory_allocated() - base
                 bms = time_ms(lambda: DF.ms_deform_attn_sorted_backward(
                     given, shapes, loc, attn, dout, transposed))
+                layouts[layout] = dict(
+                    ms=ms, peak_bytes=added,
+                    device_ms=[(short_kernel_name(k), d) for d, k in parts]
+                    or "not measured")
                 print(f"{tag} {'; '.join(log)}; second backward: identical "
-                      f"bits; forward kernel {ms} ms; backward {bms} ms "
-                      f"(taps kernel + owner scatter"
-                      f"{', clustered samples' if clustered else ''})")
+                      f"bits; forward {ms} ms by events, device ms by "
+                      f"launch {layouts[layout]['device_ms']}, the call "
+                      f"adds {added} bytes of peak memory; backward {bms} "
+                      f"ms (taps kernel + owner scatter, {what} samples)")
                 if transposed or clustered:
                     continue
                 plain_ms = time_ms(lambda: DF.ms_deform_attn_ref(
@@ -2180,6 +2309,13 @@ def phase_sorted_kernels(dev):
                     max_abs_err=berr, ms=bms, plain_ms=bplain,
                     **work(name, (rows * dh + values.numel()) * elt + 2 * io
                            - dout.numel() * 4, 4 * taps * dh))
+            if timed:
+                print(f"{tag} {bits}")
+                if clustered:
+                    fwd[name]["clustered"] = layouts
+                else:
+                    values_t_yardsticks(F, DF, fwd[name], layouts, vd, ref,
+                                        shapes, loc, attn, taps, dh)
             del vd, ref, rdv, rdloc, rdattn
         del values, loc, attn, dout
     results["ms_deform_attn_sorted"] = fwd
@@ -2461,11 +2597,14 @@ TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
               "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel")
 
 
-# K5 forward's instantiations with 16-byte value loads, and the deformable
-# backward's bf16 taps kernels that read `values` in 16-byte pieces (VEC 8,
-# STRIDED false), by substrings of their mangled names
-K5_WIDE = (("ms_deform_attn_kernelI13__nv_bfloat16Li8E",),
-           ("ms_deform_attn_kernelIfLi4E",),
+# The gather's instantiations with 16-byte value loads (K5 forward and
+# K5-g2 forward, bf16 8 and f32 4 channels a load, out in values' dtype or
+# f32), K5-g2's relayout of values_t, and the deformable backward's bf16
+# taps kernels that read `values` in 16-byte pieces (VEC 8, STRIDED false),
+# by substrings of their mangled names
+K5_WIDE = (("ms_deform_attn_kernelI13__nv_bfloat16", "Li8E"),
+           ("ms_deform_attn_kernelIff", "Li4E"),
+           ("values_t_to_rows_kernel",),
            ("deform_bwd_taps_kernelI13__nv_bfloat16", "Li8ELb0E"))
 
 
@@ -2544,11 +2683,11 @@ def main() -> int:
                               for ops in found),
                 f"{name}: no tensor-core instruction in its SASS")
 
-    # K5 forward's 16-byte instantiations (bf16 8 and f32 4 channels a
-    # load) and the backward's bf16 taps kernels must load value rows with
-    # 128-bit LDGs; the scatters beside them
-    sass = sass_opcodes(so, ("ms_deform_attn_kernel", "deform_bwd_",
-                             "stamp_scatter_kernel"))
+    # the gather's 16-byte instantiations (K5 and K5-g2 forward, bf16 8
+    # and f32 4 channels a load), K5-g2's relayout and the backward's bf16
+    # taps kernels must load with 128-bit LDGs; the scatters beside them
+    sass = sass_opcodes(so, ("ms_deform_attn_kernel", "values_t_to_rows",
+                             "deform_bwd_", "stamp_scatter_kernel"))
     for fn, ops in sass.items():
         ldg = {k: v for k, v in ops.items() if k.startswith("LDG.")}
         print(f"[build] SASS of {fn}: LDG {ops.get('LDG', 0)} {ldg} SHFL "
@@ -2620,8 +2759,13 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "library_ms": r["library_ms"]})
-        if "ms_by_layout" in r:
-            summary[-1]["ms_by_layout"] = r["ms_by_layout"]
+        # K5-g1's and K5-g2 forward's times by layout; K5-g2 forward's
+        # values_t bound, library composition and clustered samples
+        for key in ("ms_by_layout", "values_t_bound_ms", "values_t_sectors",
+                    "grid_sample_fwd_ms", "grid_sample_fwd_device_ms",
+                    "clustered"):
+            if key in r:
+                summary[-1][key] = r[key]
         if name == "auction":
             # the device ms and rounds of the train shape's call, and the
             # capped case's events, device ms and rounds

@@ -1,7 +1,6 @@
-// The level table of the deformable-attention kernels (ms_deform_attn.cu,
-// ms_deform_attn_sorted.cu, deform_bwd.cu): (H_l, W_l) of each value map
-// and the flat offset of its first cell in the merged HW axis, passed by
-// value.
+// The level table of the deformable-attention kernels (deform_fwd.cuh,
+// deform_bwd.cu): (H_l, W_l) of each value map and the flat offset of its
+// first cell in the merged HW axis, passed by value.
 #pragma once
 
 namespace rodt {

@@ -1,8 +1,10 @@
-// Value rows of the deformable-attention kernels (ms_deform_attn.cu, K5
-// forward; deform_bwd.cu, the backward of K5 and K5-g2): a lane's piece of
-// a value row, VEC channels read with one 16-byte load where VEC > 1, and
-// its 16-byte store.
+// Value rows of the deformable-attention kernels (deform_fwd.cuh, the
+// gather of K5 and K5-g2 forward; deform_bwd.cu, the backward of K5 and
+// K5-g2): a lane's piece of a value row, VEC channels read with one
+// 16-byte load where VEC > 1, and its store.
 #pragma once
+
+#include <type_traits>
 
 #include "conv_tile.cuh"
 #include "deform_levels.cuh"
@@ -54,9 +56,16 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// Stores a lane's VEC f32 sums as T: 16 bytes of bf16 or f32 (VEC 8 or
+// 4), 32 bytes of f32 from a bf16 piece (two float4 stores), or one
+// element.
 template <typename T, int VEC>
 __device__ __forceinline__ void store_piece(T* p, const float (&a)[VEC]) {
-  if constexpr (VEC == 8) {
+  if constexpr (VEC == 8 && std::is_same<T, float>::value) {
+    float4* q = reinterpret_cast<float4*>(p);
+    q[0] = make_float4(a[0], a[1], a[2], a[3]);
+    q[1] = make_float4(a[4], a[5], a[6], a[7]);
+  } else if constexpr (VEC == 8) {
     *reinterpret_cast<uint4*>(p) =
         make_uint4(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]),
                    pack_bf16x2(a[4], a[5]), pack_bf16x2(a[6], a[7]));

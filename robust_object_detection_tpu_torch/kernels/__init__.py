@@ -109,9 +109,11 @@ SIGNATURES: Dict[str, List] = {
     # idx, gw, dv, rows, T, HW, DH, cs, ts (gw's channel and tap strides),
     # idx_bytes, tile, ivec, pairs (the plan of stamp_plan), stream
     "stamp_scatter": [_P] * 3 + [_I] * 10 + [_P],
-    # values, loc, attn, out (f32), levels, B, HW, Q, NH, DH, L, P, dtype,
-    # transposed, stream
-    "ms_deform_attn_sorted_fwd": [_P] * 5 + [_I] * 9 + [_P],
+    # values (or values_t), loc, attn, out (f32), ws (values_t's relayout,
+    # or null), levels, B, HW, Q, NH, DH, L, P, dtype, transposed, vec,
+    # row_lanes, fixed (deform_fwd_plan of the rows the gather reads),
+    # ld_vec, st_vec (deform_relayout_plan; 0 for values), stream
+    "ms_deform_attn_sorted_fwd": [_P] * 6 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()
@@ -214,12 +216,12 @@ _entries: Dict[str, tuple] = {}
 def launch(device, name: str, *args) -> int:
     """Calls the kernel library's entry point `name` with `args` and the
     current stream of `device`; returns its error code. The function is
-    looked up once per loaded library, and `device` is made current only
-    when it is not already."""
+    looked up once per loaded library (:func:`load` is called only until
+    then), and `device` is made current only when it is not already."""
     import torch
-    lib = load()
     hit = _entries.get(name)
-    if hit is None or hit[0] is not lib:
+    if hit is None or _lib is None or hit[0] is not _lib:
+        lib = load()
         hit = _entries[name] = (lib, getattr(lib, name))
     if device.index == torch.cuda.current_device():
         return hit[1](*args, stream_ptr(device))
@@ -518,7 +520,7 @@ def stem_bwd_plan(b: int, h: int, w: int, ptrs, n_sm: int) -> Dict[str, int]:
     return plan
 
 
-# ---- K5 forward (csrc/ms_deform_attn.cu) ---------------------------------
+# ---- K5 forward and K5-g2 forward's gather (csrc/deform_fwd.cuh) ---------
 def _lanes(n_l: int, n_p: int, dh: int, vec: int) -> Dict[str, int]:
     row_lanes = min(32, 1 << (-(-dh // vec) - 1).bit_length())
     slots = 32 // row_lanes
@@ -543,6 +545,50 @@ def deform_fwd_plan(n_l: int, n_p: int, dh: int, esize: int,
     vec = 16 // esize if (dh * esize) % 16 == 0 and values_ptr % 16 == 0 \
         else 1
     return _lanes(n_l, n_p, dh, vec)
+
+
+# ---- K5-g2 forward's relayout of values_t (csrc/ms_deform_attn_sorted.cu) --
+# values_t_to_rows_kernel: one block of RELAYOUT_THREADS per (cell tile,
+# channel tile, batch) copies a RELAYOUT_TILE_C x RELAYOUT_TILE_P tile of a
+# batch's (NH * DH) x HW matrix through shared memory into the rows (B, HW,
+# NH, DH) that K5's gather reads.
+RELAYOUT_TILE_C = 64
+RELAYOUT_TILE_P = 64
+RELAYOUT_THREADS = 256
+
+
+def deform_relayout_plan(b: int, n_h: int, dh: int, hw: int, esize: int,
+                         values_t_ptr: int) -> Dict[str, int]:
+    """Launch plan of K5-g2 forward's relayout of values_t (b, n_h, dh, hw)
+    with elements of `esize` bytes at `values_t_ptr`: channels c = n_h *
+    dh, the tiles (tile_c channels x tile_p cells), pitch (elements a
+    staged row: an odd number of 4-byte words), the grid (cell tiles,
+    channel tiles, b), threads, piece (elements in 16 bytes), ld_vec
+    (16-byte loads along HW: hw a multiple of the piece and values_t
+    aligned) and st_vec (16-byte stores along the channels: c a multiple of
+    the piece; the workspace is a fresh, aligned allocation). A tile that
+    crosses an edge of the matrix uses element accesses in both phases,
+    whatever the flags. In a full tile, thread t of a vector phase moves
+    piece i = t + k * threads: loads channel i // (tile_p / piece), cells
+    (i % (tile_p / piece)) * piece + [0, piece); stores cell i // (tile_c /
+    piece), channels (i % (tile_c / piece)) * piece + [0, piece). An
+    element phase moves element e = t + k * threads: loads (channel e //
+    tile_p, cell e % tile_p), stores (cell e // tile_c, channel e %
+    tile_c)."""
+    c = n_h * dh
+    if min(b, n_h, dh, hw) <= 0:
+        raise ValueError(f"ms_deform_attn_t takes non-empty tensors, got B "
+                         f"{b}, heads {n_h}, dh {dh}, HW {hw}")
+    grid = (-(-hw // RELAYOUT_TILE_P), -(-c // RELAYOUT_TILE_C), b)
+    if c > _INT_MAX or hw > _INT_MAX or max(grid[1:]) > 65535:
+        raise ValueError(f"ms_deform_attn_t: B {b} x {c} channels x HW {hw} "
+                         f"is beyond the relayout's grid")
+    piece = 16 // esize
+    return dict(c=c, tile_c=RELAYOUT_TILE_C, tile_p=RELAYOUT_TILE_P,
+                pitch=RELAYOUT_TILE_P + (2 if esize == 2 else 1),
+                threads=RELAYOUT_THREADS, grid=grid, piece=piece,
+                ld_vec=int(hw % piece == 0 and values_t_ptr % 16 == 0),
+                st_vec=int(c % piece == 0))
 
 
 # ---- K5-g1 (csrc/stamp_scatter.cu, csrc/owner_scatter.cuh) ---------------

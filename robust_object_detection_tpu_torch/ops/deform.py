@@ -35,7 +35,11 @@ the reference's signatures and layouts:
 * :func:`ms_deform_attn` (values (B, HW, heads, dh)) and
   :func:`ms_deform_attn_t` (values_t (B, heads, dh, HW)), the sorted-tap
   generation (K5-g2 forward, ``csrc/ms_deform_attn_sorted.cu``). They
-  return f32 whatever values' dtype. Their backward is K5's
+  return f32 whatever values' dtype: K5's gather (``csrc/deform_fwd.cuh``)
+  stores its f32 sums, so on `values` they are K5's out before its
+  rounding. values_t is first relaid into rows by a tiled transpose into a
+  workspace the size of the map (freed after the call), then gathered the
+  same way: the same bits as `values`. Their backward is K5's
   (``csrc/deform_bwd.cu``) in either layout, d(values) in values' dtype and
   layout, the same bits as K5's on the same inputs. Plain versions:
   :func:`ms_deform_attn_ref` in f32 and :func:`ms_deform_attn_backward_ref`.
@@ -573,25 +577,53 @@ def _sizes(values, loc, transposed):
     return b, hw, n_h, dh, loc.shape[1], loc.shape[3], loc.shape[4]
 
 
+@functools.lru_cache(maxsize=256)
+def _relayout_plan(b, n_h, dh, hw, esize, aligned):
+    """(ld_vec, st_vec) of :func:`kernels.deform_relayout_plan` for a
+    values_t whose pointer is 16-byte aligned or not."""
+    plan = kernels.deform_relayout_plan(b, n_h, dh, hw, esize,
+                                        0 if aligned else 1)
+    return plan["ld_vec"], plan["st_vec"]
+
+
+def _sorted_forward_cuda(values, shapes, loc, attn, transposed):
+    """K5-g2 forward's launch on a checked call (``ms_deform_attn_sorted_
+    fwd``): K5's gather with an f32 out on `values`; for values_t, first its
+    relayout into a workspace (B, HW, heads, dh) in values' dtype, freed
+    after the call, then the gather on it. shapes: the level table's key.
+    Returns (B, Q, heads, dh) f32."""
+    _kernel_limits(loc)
+    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
+    dev, esize = values.device, values.element_size()
+    out = torch.empty((b, q, n_h, dh), dtype=torch.float32, device=dev)
+    if transposed:
+        rows = torch.empty((b, hw, n_h, dh), dtype=values.dtype, device=dev)
+        relayout = _relayout_plan(b, n_h, dh, hw, esize,
+                                  values.data_ptr() % 16 == 0)
+        ws = rows.data_ptr()
+    else:
+        rows, relayout, ws = values, (0, 0), 0
+    plan = _fwd_plan(n_l, n_p, dh, esize, rows.data_ptr() % 16 == 0)
+    err = kernels.launch(
+        dev, "ms_deform_attn_sorted_fwd", values.data_ptr(), loc.data_ptr(),
+        attn.data_ptr(), out.data_ptr(), ws, _levels_table(shapes)[1], b, hw,
+        q, n_h, dh, n_l, n_p, kernels.dtype_code(values.dtype),
+        int(transposed), plan["vec"], plan["row_lanes"], plan["fixed"],
+        *relayout)
+    kernels.check(err, "ms_deform_attn_sorted_fwd")
+    return out
+
+
 def ms_deform_attn_sorted_forward(values, shapes, loc, attn,
                                   transposed: bool = False) -> torch.Tensor:
     """K5-g2 forward on the card: values in either layout (transposed: (B,
-    heads, dh, HW)) -> (B, Q, heads, dh) f32. CUDA tensors only."""
+    heads, dh, HW)) -> (B, Q, heads, dh) f32, the f32 sums K5 rounds to
+    values' dtype; values_t gives the bits of the same map as `values`. One
+    launch, or two for values_t (relayout, gather). CUDA tensors only."""
     _check(values, shapes, loc, attn, transposed)
     _require_card(values, "ms_deform_attn_sorted_forward", "K5-g2")
-    _kernel_limits(loc)
-    b, hw, n_h, dh, q, n_l, n_p = _sizes(values, loc, transposed)
-    levels = _levels_arg(shapes)
-    out = torch.empty((b, q, n_h, dh), dtype=torch.float32,
-                      device=values.device)
-    lib = kernels.load()
-    with torch.cuda.device(values.device):
-        err = lib.ms_deform_attn_sorted_fwd(
-            values.data_ptr(), loc.data_ptr(), attn.data_ptr(),
-            out.data_ptr(), ctypes.addressof(levels), b, hw, q, n_h, dh,
-            n_l, n_p, kernels.dtype_code(values.dtype), int(transposed),
-            kernels.stream_ptr(values.device))
-    kernels.check(err, "ms_deform_attn_sorted_fwd")
+    out = _sorted_forward_cuda(values, _shape_key(shapes), loc, attn,
+                               transposed)
     ms_deform_attn_sorted_forward.launches += 1
     return out
 
@@ -661,7 +693,8 @@ def ms_deform_attn(values: torch.Tensor, shapes: Sequence[Tuple[int, int]],
 def ms_deform_attn_t(values_t: torch.Tensor,
                      shapes: Sequence[Tuple[int, int]], loc: torch.Tensor,
                      attn: torch.Tensor) -> torch.Tensor:
-    """:func:`ms_deform_attn` for value maps laid out (B, heads, dh, HW),
-    read in place (no relayout copy); d(values_t) comes back in the same
-    layout."""
+    """:func:`ms_deform_attn` for value maps laid out (B, heads, dh, HW).
+    On the card the forward relays them into rows first (a workspace the
+    size of the map) and the backward reads them in place; d(values_t)
+    comes back in the same layout."""
     return _sorted_entry(values_t, shapes, loc, attn, True)

@@ -950,6 +950,53 @@ def test_sorted_deform_forward_matches_plain(cuda, dtype, tol, case,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SORTED_CASES)
+def test_sorted_deform_forward_is_k5_gather_bit_for_bit(cuda, dtype, case):
+    """K5-g2 forward runs K5's gather with an f32 out: on `values` in f32
+    it equals K5 forward bit for bit, and in bf16 its out rounded once to
+    bf16 equals K5's; values_t (relaid into rows, then gathered) equals
+    `values`; a permutation of the queries permutes the out bit for bit."""
+    shapes, b, q, heads, dh, p = case
+    g = torch.Generator().manual_seed(22)
+    values, shapes, loc, attn = _deform_inputs(g, shapes, b, q, heads, dh,
+                                               p, cuda, dtype)
+    out = DF.ms_deform_attn(values, shapes, loc, attn)
+    k5 = DF.ms_deform_attn_slots(values, shapes, loc, attn)
+    assert out.dtype == torch.float32 and k5.dtype == dtype
+    assert torch.equal(out.to(dtype), k5)
+    assert torch.equal(DF.ms_deform_attn_t(DF.values_to_t(values), shapes,
+                                           loc, attn), out)
+    perm = torch.randperm(q, generator=g).to(cuda)
+    assert torch.equal(DF.ms_deform_attn(values, shapes,
+                                         loc[:, perm].contiguous(),
+                                         attn[:, perm].contiguous()),
+                       out[:, perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [SORTED_CASES[1], SORTED_CASES[2],
+                                  SORTED_CASES[3]])
+def test_sorted_deform_forward_misaligned_values(cuda, dtype, case,
+                                                 transposed):
+    """values (element loads in the gather) or values_t (element loads in
+    the relayout, 16-byte pieces in the gather of the aligned workspace)
+    one element past a 16-byte boundary, at the odd shapes: the plain
+    version's f32 sum within 1e-4 x max|ref|."""
+    shapes, b, q, heads, dh, p = case
+    values, shapes, loc, attn = _deform_inputs(
+        torch.Generator().manual_seed(23), shapes, b, q, heads, dh, p, cuda,
+        dtype)
+    given = _misaligned(DF.values_to_t(values) if transposed else values)
+    assert given.data_ptr() % 16 != 0
+    out = _sorted_entry(transposed)(given, shapes, loc, attn)
+    ref = DF.ms_deform_attn_ref(values.float(), shapes, loc, attn)
+    assert _rel_err(out, ref) <= 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])

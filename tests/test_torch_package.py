@@ -82,7 +82,7 @@ def test_kernel_sources_and_hash():
             "hgstem_bwd.cu", "auction.cu", "stamp_scatter.cu",
             "ms_deform_attn_sorted.cu", "deform_bwd.cu", "owner_scatter.cuh",
             "deform_rows.cuh", "deform_levels.cuh", "conv3x3_tc.cuh",
-            "front_tc.cuh"} <= set(names)
+            "front_tc.cuh", "deform_fwd.cuh"} <= set(names)
     assert "segment_sum.cuh" not in names
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():

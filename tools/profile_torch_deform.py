@@ -11,13 +11,16 @@ points, seeded random inputs as in chip_smoke.py), bf16 and f32 values:
      uniform and on clustered samples (chip_smoke.clustered_loc: 200
      centres per batch and head): CUDA-event medians (10 calls after 3
      warm-ups), the host's time to enqueue one call (20 calls, no
-     synchronize) and the profiler's device ms of each launch;
+     synchronize), the profiler's device ms of each launch and a SHA-256
+     of the out;
   2. the backwards at --queries, on uniform and on clustered samples: K5
      backward and K5-g2 backward in both layouts (``values``,
      ``values_t``), events, enqueue and the device ms of each launch (the
      taps kernel and the scatter), with a SHA-256 of each d(values), so
      that two trees' bits can be compared; K5-g2 forward in both layouts
-     by events beside them;
+     the same way (events, enqueue, device ms by launch: for values_t the
+     relayout and the gather; a SHA-256 of the out), and ``grid_sample``
+     level by level on values_t's layout, forward only, beside it;
   3. K5-g1 (``stamp_scatter``) at each level, uniform and clustered cells,
      with gw in the reference's layout and, where the package takes it,
      in the row layout (the transpose of a contiguous (B, heads, T, dh)):
@@ -53,6 +56,7 @@ def main() -> int:
     sys.path.insert(0, str(args.root.resolve()))
 
     import torch
+    import torch.nn.functional as F
 
     from robust_object_detection_tpu_torch import kernels
     from robust_object_detection_tpu_torch.ops import deform as DF
@@ -96,6 +100,10 @@ def main() -> int:
     b, heads, dh, pts = S.BATCH, S.RTDETR_HEADS, S.RTDETR_DH, S.RTDETR_POINTS
     g = torch.Generator(dev).manual_seed(S.SEED + 5)
 
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+
     # 1. K5 forward
     for q in sorted({S.RTDETR_QUERIES, args.queries}):
         for clustered in (False, True):
@@ -105,16 +113,12 @@ def main() -> int:
                 vd = values.to(dtype)
                 name = str(dtype).split(".")[-1]
                 what = "clustered" if clustered else "uniform"
-                report(f"K5 forward {name} Q {q} {what}",
-                       lambda: DF.ms_deform_attn_slots(vd, shapes, loc,
-                                                       attn))
+                fn = (lambda: DF.ms_deform_attn_slots(vd, shapes, loc, attn))
+                report(f"K5 forward {name} Q {q} {what} (sha256 out "
+                       f"{digest(fn())})", fn)
     del values, loc, attn
 
     # 2. the backwards (and K5-g2 forward), uniform and clustered
-    def digest(t):
-        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
-                              .tobytes()).hexdigest()[:16]
-
     q = args.queries
     for clustered in (False, True):
         what = "clustered" if clustered else "uniform"
@@ -141,13 +145,18 @@ def main() -> int:
                        f"{digest(grads[0])} d(loc) {digest(grads[1])} "
                        f"d(attn) {digest(grads[2])})", fn)
                 del grads
-            times = {
-                "K5-g2 forward values": S.time_ms(lambda: DF.ms_deform_attn(
-                    vd, shapes, loc, attn)),
-                "K5-g2 forward values_t": S.time_ms(
-                    lambda: DF.ms_deform_attn_t(vt, shapes, loc, attn))}
-            print(f"[{tag}] {name} values {tuple(vd.shape)} Q {q} {what}, "
-                  f"ms: {times}")
+            forwards = {
+                "values": lambda: DF.ms_deform_attn(vd, shapes, loc, attn),
+                "values_t": lambda: DF.ms_deform_attn_t(vt, shapes, loc,
+                                                        attn)}
+            for layout, fn in forwards.items():
+                report(f"K5-g2 forward {layout} {name} Q {q} {what} (sha256 "
+                       f"out {digest(fn())})", fn)
+            gs = (lambda: S.grid_sample_deform(F, vt, shapes, loc, attn))
+            print(f"[{tag}] {name} Q {q} {what}: grid_sample level by level "
+                  f"on values_t + the weighted sum, forward only: events "
+                  f"{S.time_ms(gs)} ms; device ms "
+                  f"{sum(d for d, _, _ in S.device_ms_by_kernel(gs))}")
         del values, vd, vt, loc, attn, dout, dd
 
     # 3. K5-g1, one level at a time
@@ -173,10 +182,9 @@ def main() -> int:
                     .transpose(2, 3)
             for layout, given in layouts.items():
                 out = DF.stamp_scatter(idx, given, hw)
-                digest = hashlib.sha256(
-                    out.cpu().numpy().tobytes()).hexdigest()[:16]
                 report(f"K5-g1 hw {hw} T {t} {what} {layout} layout "
-                       f"(sha256 {digest}; zeros + scatter_add_ {lib} ms)",
+                       f"(sha256 {digest(out)}; zeros + scatter_add_ {lib} "
+                       f"ms)",
                        lambda: DF.stamp_scatter(idx, given, hw))
             del idx, gw, wide, layouts, given, out
     return 0
