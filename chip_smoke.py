@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths once each at full width, with seeded random
+Drives the port's paths once each at full width, with seeded random
 weights: the serving path, the 4-pass robustness sweep (nc=6, bf16, eval
 mode, 1024 canvas, 64 synthetic 768x1024 images in batches of 8), once
 with YOLOv8m and once with RT-DETR-L, and the training path, ``bench.py``'s
 two workloads (YOLOv8m trained at 1024 px, batch 16, and RT-DETR-L at
 batch 8 with contrastive denoising; 80 ground-truth boxes per image in 600
 slots, the Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm
-outputs and f32 statistics); and the decoder's sampling workload through
-each generation of the deformable-attention op family. Phases:
+outputs and f32 statistics); the decoder's sampling workload through
+each generation of the deformable-attention op family; and the Restored
+strategy: the 8-pass sweep with the restoration U-Net and the U-Net's
+training. Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -129,7 +131,35 @@ each generation of the deformable-attention op family. Phases:
      composition over ``bilinear_sample``, launch counters zeroed just
      before and read just after (K5-g2 forward 12, K5-g2 backward 12,
      K5-g1 18 per dtype), each output and gradient held against
-     ``ms_deform_attn_slots`` (K5) on the same inputs; ms per call.
+     ``ms_deform_attn_slots`` (K5) on the same inputs; ms per call;
+ 17. the U-Net model check: the f32 restoration U-Net (32, 64, 128, 256),
+     seeded weights with redrawn running statistics and biases, on the
+     card (cuDNN, TF32 off) against the CPU at 1x256x256 and through
+     ``restore_image`` at an odd 250x333 (max abs err <= 1e-4); its u8
+     apply card vs CPU (at most 1 LSB, the count that differ printed);
+     SSIM and PSNR on the card with TF32 switched on against float64 on
+     the CPU, on an image near 0.9 with small noise (SSIM within 1e-6),
+     beside the same SSIM through an f32 cuDNN window in TF32;
+ 18. the 8-pass sweep (``bench.py``'s ``bench_sweep`` path): phase 5's 64
+     images with the f32 U-Net restoring the three corrupted variants,
+     launch counters zeroed just before and read just after (front 1 and
+     conv3x3 4 per forward, x 8 passes x batches), finite mAPs of both
+     strategies, images/s and peak memory; for one batch the restored
+     passes equal the U-Net's u8 apply run alone and then detected, the
+     restored Clean pass the corrupted one; the U-Net's ms for a batch of
+     8 at 768x1024 by CUDA events with the process's flags and with TF32
+     off, beside its FLOP bound (2 x 122,560 MACs a pixel over 67 TFLOP/s
+     f32 and 494 TFLOP/s TF32);
+ 19. U-Net training at ``RestorationConfig``'s defaults (patch 256, batch
+     8): 1 warm-up + 5 timed steps, finite loss / psnr / grad_norm, moved
+     running statistics, step ms, patches/s, peak memory, the loss's own
+     forward + backward ms; one step at batch 2, patch 64 on the card
+     (TF32 off) and on the CPU from the same weights and draws: in float64
+     loss within 1e-9 relative, every gradient within 1e-6 x max|ref| and
+     the running statistics after the step within 1e-9 x max|ref| (1e-5 in
+     f32); in f32 loss within 1e-4 relative and every card gradient within
+     max(1e-4, 10 x its own f32 noise) x max|ref| of the float64 one
+     (tolerances in phase_unet_training).
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -566,22 +596,25 @@ def synthetic_samples(n: int):
     return images, samples
 
 
-def run_sweep(dev, tag, title, model, predict, counters, per_forward):
-    """One 4-pass sweep through the port's entry points with `predict`:
-    warm-up batch, launch counters zeroed just before the sweep and read
-    just after, finite mAPs, images/s and peak memory. Returns the launch
-    counts and the detections of one more fused step (not counted)."""
+def run_sweep(dev, tag, title, model, predict, counters, per_forward,
+              unet=None, n_images=N_IMAGES):
+    """One sweep through the port's entry points with `predict` (4 passes,
+    8 with a U-Net): warm-up batch, launch counters zeroed just before the
+    sweep and read just after, finite mAPs, images/s and peak memory.
+    Returns the launch counts and the detections of one more fused step
+    (not counted)."""
     import numpy as np
     import torch
     from robust_object_detection_tpu_torch.eval import fused_sweep as FS
 
-    images, samples = synthetic_samples(N_IMAGES)
+    images, samples = synthetic_samples(n_images)
+    passes = 4 if unet is None else 8
 
     def loader(sample):
         return images[sample.image_id]
 
     # warm-up batch (cuDNN algorithm choice, allocator), off the count
-    FS.run_fused_sweep(predict, model, None, None, samples[:BATCH], IMG_SIZE,
+    FS.run_fused_sweep(predict, model, unet, None, samples[:BATCH], IMG_SIZE,
                        BATCH, load_image=loader)
     torch.cuda.synchronize()
 
@@ -589,30 +622,35 @@ def run_sweep(dev, tag, title, model, predict, counters, per_forward):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = FS.run_fused_sweep(predict, model, None, None, samples, IMG_SIZE,
+    out = FS.run_fused_sweep(predict, model, unet, None, samples, IMG_SIZE,
                              BATCH, seed=SEED, load_image=loader)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
 
-    forwards = 4 * math.ceil(N_IMAGES / BATCH)
+    forwards = passes * math.ceil(n_images / BATCH)
     expect = {k: n * forwards for k, n in per_forward.items()}
     print(f"[{tag}] launches {launches} expected {expect}")
     require(launches == expect, f"launch counts {launches} != {expect}")
-    require(out["images_evaluated"] == 4 * N_IMAGES, "images_evaluated")
-    for variant, summary in out["corrupted"].items():
-        m50, m5095 = summary["mAP50"], summary["mAP50_95"]
-        print(f"[{tag}] {variant}: mAP50 {m50} mAP50-95 {m5095}")
-        require(all(math.isfinite(v) and 0.0 <= v <= 1.0
-                    for v in (m50, m5095)), f"{variant} mAP not finite")
+    require(out["images_evaluated"] == passes * n_images, "images_evaluated")
+    strategies = ("corrupted",) if unet is None else ("corrupted", "restored")
+    require(all(st in out for st in strategies)
+            and ("restored" in out) == (unet is not None), "strategies")
+    for st in strategies:
+        for variant, summary in out[st].items():
+            m50, m5095 = summary["mAP50"], summary["mAP50_95"]
+            name = variant if unet is None else f"{st} {variant}"
+            print(f"[{tag}] {name}: mAP50 {m50} mAP50-95 {m5095}")
+            require(all(math.isfinite(v) and 0.0 <= v <= 1.0
+                        for v in (m50, m5095)), f"{name} mAP not finite")
     rate = out["images_evaluated"] / elapsed
-    print(f"[{tag}] {title} bf16 1024px, {N_IMAGES} images 768x1024 x 4 "
-          f"passes, batch {BATCH}: {elapsed} s, {rate} images/s (host "
-          f"scoring included); peak memory {peak} bytes "
+    print(f"[{tag}] {title} bf16 1024px, {n_images} images 768x1024 x "
+          f"{passes} passes, batch {BATCH}: {elapsed} s, {rate} images/s "
+          f"(host scoring included); peak memory {peak} bytes "
           f"({peak / 2 ** 30} GiB)")
 
-    step = FS.make_fused_step(predict, None, NATIVE_HW, IMG_SIZE)
+    step = FS.make_fused_step(predict, unet, NATIVE_HW, IMG_SIZE)
     batch = torch.from_numpy(np.stack([images[s.image_id]
                                        for s in samples[:BATCH]])).to(dev)
     dets = step(model, None, batch, torch.Generator(dev).manual_seed(SEED))
@@ -2608,6 +2646,351 @@ K5_WIDE = (("ms_deform_attn_kernelI13__nv_bfloat16", "Li8E"),
            ("deform_bwd_taps_kernelI13__nv_bfloat16", "Li8ELb0E"))
 
 
+UNET_CHANNELS = (32, 64, 128, 256)  # the reference's RestorationUNet
+UNET_PEAK_TF32 = 494e12            # H100 SXM dense TF32 on the tensor cores
+
+
+def unet_pair(dev, train=False, channels=UNET_CHANNELS):
+    """The same seeded f32 U-Net on the CPU and on the card, its running
+    statistics and biases redrawn from a seed (the stock init's 0 / 1 and
+    zeros would make eval BatchNorm the identity)."""
+    import torch
+    from robust_object_detection_tpu_torch.models import unet as U
+
+    cpu = U.create(channels, device=torch.device("cpu"),
+                   generator=torch.Generator().manual_seed(SEED), train=train)
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for name, t in cpu.state_dict().items():
+            if name.endswith("running_mean") or name.endswith(".bias"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75)
+    gpu = U.create(channels, device=dev, train=train)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def ssim_float64(a, b):
+    """SSIM in float64 on the CPU by F.conv2d (depthwise, zero padding 5)
+    with the reference's f32 window: an implementation independent of the
+    port's shifted multiply-adds."""
+    import torch
+    import torch.nn.functional as F
+    from robust_object_detection_tpu_torch.ops import ssim as S
+
+    a, b = (t.double().permute(0, 3, 1, 2) for t in (a, b))
+    c = a.shape[1]
+    w = torch.from_numpy(S.gaussian_window()).double()
+    w = w.expand(c, 1, *w.shape).contiguous()
+
+    def win(x):
+        return F.conv2d(x, w, padding=w.shape[-1] // 2, groups=c)
+    mu1, mu2 = win(a), win(b)
+    s1, s2 = win(a * a) - mu1 ** 2, win(b * b) - mu2 ** 2
+    s12 = win(a * b) - mu1 * mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return (((2 * mu1 * mu2 + c1) * (2 * s12 + c2))
+            / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))).mean().item()
+
+
+def phase_unet_model_check(dev):
+    """The f32 U-Net on the card (cuDNN, TF32 off) against the same
+    weights on the CPU at 1x256x256 and through restore_image at an odd
+    250x333 (max abs err <= 1e-4); the u8 apply card vs CPU (at most 1
+    LSB); SSIM and PSNR on the card, under TF32 flags switched on, against
+    float64 on the CPU on an image near 0.9 with small noise (SSIM within
+    1e-6), with the same SSIM through an f32 cuDNN conv in TF32 beside it
+    to show what the check would catch."""
+    import torch
+    import torch.nn.functional as F
+    from robust_object_detection_tpu_torch.models import unet as U
+    from robust_object_detection_tpu_torch.ops import ssim as S
+
+    cpu, gpu = unet_pair(dev)
+    g = torch.Generator().manual_seed(SEED + 5)
+    x = torch.rand(1, 256, 256, 3, generator=g)
+    odd = torch.rand(250, 333, 3, generator=g)
+    xu = torch.randint(0, 256, (1, 256, 256, 3), generator=g,
+                       dtype=torch.uint8)
+    with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+        e256 = (gpu(x.to(dev)).cpu() - cpu(x)).abs().max().item()
+        out_odd = U.restore_image(gpu, odd.to(dev)).cpu()
+        e_odd = (out_odd - U.restore_image(cpu, odd)).abs().max().item()
+        d = (U.apply_u8(gpu, xu.to(dev)).cpu().int()
+             - U.apply_u8(cpu, xu).int()).abs()
+    print(f"[unet] f32 U-Net {UNET_CHANNELS} ({U.param_count(gpu)} "
+          f"parameters) card vs CPU, TF32 off: max abs err 1x256x256 "
+          f"{e256}, restore_image 250x333 {e_odd} (shape "
+          f"{tuple(out_odd.shape)}; tol 1e-4); u8 apply: max diff "
+          f"{d.max().item()} LSB, {int((d > 0).sum())} of {d.numel()} "
+          f"bytes differ (tol 1 LSB)")
+    require(e256 <= 1e-4 and e_odd <= 1e-4,
+            f"U-Net card vs CPU: {e256}, {e_odd} > 1e-4")
+    require(tuple(out_odd.shape) == (250, 333, 3), "restore_image shape")
+    require(d.max().item() <= 1, "u8 apply differs by more than 1 LSB")
+
+    a = 0.9 + 0.02 * torch.randn(2, 256, 256, 3, generator=g)
+    b = a + 0.01 * torch.randn(a.shape, generator=g)
+    ref_ssim = ssim_float64(a, b)
+    ref_psnr = 10 * math.log10(1 / ((a.double() - b.double()) ** 2)
+                               .mean().item())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(allow_tf32=True):
+            s = S.ssim(a.to(dev), b.to(dev)).item()
+            p = S.psnr(a.to(dev), b.to(dev)).item()
+            # the same SSIM with its window as an f32 cuDNN conv in TF32
+            # (dense, block-diagonal: cuDNN's depthwise kernels do not
+            # take TF32, a dense conv does)
+            c = a.shape[-1]
+            w = torch.zeros(c, c, 11, 11, device=dev)
+            for i in range(c):
+                w[i, i] = torch.from_numpy(S.gaussian_window())
+            ad, bd = (t.to(dev).permute(0, 3, 1, 2) for t in (a, b))
+
+            def win(t):
+                return F.conv2d(t, w, padding=5)
+            mu1, mu2 = win(ad), win(bd)
+            s1, s2 = win(ad * ad) - mu1 ** 2, win(bd * bd) - mu2 ** 2
+            s12 = win(ad * bd) - mu1 * mu2
+            c1, c2 = 0.01 ** 2, 0.03 ** 2
+            s_tf32 = (((2 * mu1 * mu2 + c1) * (2 * s12 + c2))
+                      / ((mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))
+                      ).mean().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[unet] SSIM near 0.9 (2x256x256x3, noise 0.02 / 0.01), TF32 "
+          f"flags on: card {s} vs float64 {ref_ssim}, err "
+          f"{abs(s - ref_ssim)} (tol 1e-6); an f32 cuDNN window in TF32 "
+          f"would give {s_tf32}, err {abs(s_tf32 - ref_ssim)}; PSNR card "
+          f"{p} vs float64 {ref_psnr}, rel err "
+          f"{abs(p - ref_psnr) / ref_psnr}")
+    require(abs(s - ref_ssim) <= 1e-6, f"SSIM off by {abs(s - ref_ssim)}")
+    require(abs(p - ref_psnr) <= 1e-6 * ref_psnr, "PSNR off")
+
+
+def phase_restored_sweep(dev):
+    """The 8-pass YOLOv8m sweep with the f32 U-Net (bench_sweep's path);
+    returns the launch counts of its run."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.eval import fused_sweep as FS
+    from robust_object_detection_tpu_torch.models import unet as U
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import corrupt as CO
+    from robust_object_detection_tpu_torch.ops import image as IM
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    model = Y.create(6, "m", torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED))
+    unet = unet_pair(dev)[1]
+    predict = D.make_predict_step(IMG_SIZE)
+    launches, dets = run_sweep(
+        dev, "sweep8", "YOLOv8m + U-Net", model, predict,
+        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference},
+        {"conv3x3": 4, "yolo_front": 1}, unet=unet)
+    per_img = dets[3].sum(-1).float().mean(-1).tolist()
+    print(f"[sweep8] detections per image by pass (corrupted, then "
+          f"restored: Clean, Noise, Blur, LowRes): {per_img}")
+
+    # one batch: the step's restored passes against the U-Net's u8 apply
+    # run alone, then detected; restored Clean against corrupted Clean
+    images, _ = synthetic_samples(BATCH)
+    clean = torch.from_numpy(np.stack(list(images.values()))).to(dev)
+    noise = torch.randn(clean.shape, generator=torch.Generator(
+        dev).manual_seed(SEED), device=dev) * 15.0
+    out = FS.make_fused_step(predict, unet, NATIVE_HW, IMG_SIZE,
+                             host_noise=True)(model, None, clean, noise)
+    x = clean.float()
+    same = [all(torch.equal(o[4], o[0]) for o in out)]
+    for p, img in enumerate((CO.add_noise(x, noise, 1.0),
+                             CO.apply_motion_blur(x), CO.apply_lowres(x)),
+                            start=5):
+        restored = U.apply_u8(unet, img.to(torch.uint8)).float()
+        alone = predict(model, IM.letterbox(restored, IMG_SIZE)[0])
+        same.append(all(torch.equal(o[p], r) for o, r in zip(out, alone)))
+    print(f"[sweep8] one batch: restored Clean == corrupted Clean, and the "
+          f"restored Noise / Blur / LowRes == the U-Net's u8 apply alone, "
+          f"then detected: {same}")
+    require(all(same), f"restored passes differ from their parts: {same}")
+
+    # the U-Net alone, a batch of 8 at 768x1024, by CUDA events
+    xb = clean[:BATCH]
+    flops = 2 * U.macs_per_pixel(unet) * xb.shape[0] * xb.shape[1] * \
+        xb.shape[2]
+    ms_flags = time_ms(lambda: U.apply_u8(unet, xb))
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ms_f32 = time_ms(lambda: U.apply_u8(unet, xb))
+    print(f"[sweep8] U-Net f32, batch {BATCH} x 768x1024 (u8 apply): "
+          f"{ms_flags} ms with the process's flags (cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}), {ms_f32} ms with TF32 off; "
+          f"{U.macs_per_pixel(unet)} MACs a pixel = {flops / 1e12} TFLOP a "
+          f"batch, {3 * flops / 1e12} for a batch's three variants; bound "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3} ms at 67 TFLOP/s f32, "
+          f"{flops / UNET_PEAK_TF32 * 1e3} ms at 494 TFLOP/s TF32")
+    return launches
+
+
+def phase_unet_training(dev):
+    """U-Net training at RestorationConfig's defaults (patch 256, batch 8,
+    full widths): 1 warm-up + 5 timed steps, finite metrics, moved running
+    statistics, step ms, patches/s, peak memory; then one step at batch
+    2, patch 64 on the card (TF32 off) and on the CPU from the same
+    weights and draws. In float64: loss within 1e-9 relative, every
+    gradient within 1e-6 x max|ref| of its leaf (the same function), the
+    running statistics after the step within 1e-9 x max|ref| (1e-5 in
+    f32). In f32: loss within 1e-4 relative of the CPU's; the train-mode BatchNorm's
+    fast variance E[y^2] - E[y]^2 cancels in f32, so the deepest leaves'
+    f32 gradients carry several % of rounding noise, on the CPU as on the
+    card; each leaf's card f32 gradient is held against the float64 one
+    within max(1e-4, 10 x the leaf's own f32 noise) x max|ref|, the noise
+    measured as the change when the batch's two images swap places (the
+    same gradient in exact arithmetic, summed in another order). TF32
+    would put ~1e-3 on every leaf where cuDNN takes it."""
+    import torch
+    from robust_object_detection_tpu_torch.core.config import (
+        CorruptionConfig, RestorationConfig)
+    from robust_object_detection_tpu_torch.models import unet as U
+    from robust_object_detection_tpu_torch.ops import ssim as S
+    from robust_object_detection_tpu_torch.train import restoration as R
+
+    rcfg = RestorationConfig()
+    model = U.create(rcfg.channels, device=dev,
+                     generator=torch.Generator().manual_seed(SEED),
+                     train=True)
+    tx, _ = R.make_optimizer(rcfg, 100)
+    state = R.init_state(model, tx)
+    step = R.make_train_step(CorruptionConfig(), rcfg.ssim_weight)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    batch = torch.randint(0, 256, (rcfg.batch_size, rcfg.patch_size,
+                                   rcfg.patch_size, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    m = step(state, batch, gen)                  # warm-up
+    torch.cuda.synchronize()
+    require(math.isfinite(m["loss"].item()), "warm-up loss not finite")
+    bn = model.mid.bn1
+    stats0 = (bn.running_mean.clone(), bn.running_var.clone())
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: v.item() for k, v in m.items()}
+        print(f"[unet-train] step {i}: {vals}")
+        require(all(math.isfinite(v) for v in vals.values()),
+                f"step {i}: loss, psnr or grad_norm not finite")
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = [not torch.equal(a, b) for a, b in zip(
+        stats0, (bn.running_mean, bn.running_var))]
+    require(all(moved), "U-Net running statistics did not move")
+    ms = statistics.median(times)
+    print(f"[unet-train] U-Net f32 (process flags) patch {rcfg.patch_size} "
+          f"batch {rcfg.batch_size}: step ms {times} median {ms} = "
+          f"{rcfg.batch_size / (ms / 1e3)} patches/s; running stats moved "
+          f"{moved}; peak memory {peak} bytes ({peak / 2 ** 30} GiB)")
+    out = torch.rand(batch.shape, generator=gen, device=dev,
+                     requires_grad=True)
+    target = batch.float() / 255.0
+
+    def loss_step():
+        S.restoration_loss(out, target).backward()
+    print(f"[unet-train] of which the loss alone (L1 + SSIM, forward + "
+          f"backward) at the same shape: {time_ms(loss_step)} ms")
+
+    # one step at batch 2, patch 64 from the same weights and draws, in
+    # f32 and in float64, on the CPU and on the card (TF32 off); on the
+    # card in f32 also with the batch's two images swapped
+    small = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(SEED + 7))
+    draws = R.draw_train(small.shape, torch.Generator().manual_seed(SEED))
+    state_dict = unet_pair(dev, train=True)[0].state_dict()
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            res[name, dtype] = unet_step_grads(state_dict, device, dtype,
+                                               small, draws, step, tx)
+    swap = [1, 0]
+    res["swapped"] = unet_step_grads(
+        state_dict, dev, torch.float32, small[swap],
+        {k: v[swap] for k, v in draws.items()}, step, tx)
+    (l64, g64, s64), (lc64, gc64, sc64) = res["cpu", torch.float64], res[
+        "card", torch.float64]
+    (l32, g32, s32), (lc32, gc32, sc32) = res["cpu", torch.float32], res[
+        "card", torch.float32]
+    gsw = res["swapped"][1]
+
+    def worst_rel(got, ref):
+        return max(((got[n] - r).abs().max() / r.abs().max()).item()
+                   for n, r in ref.items())
+    rel64 = abs(lc64 - l64) / abs(l64)
+    worst64, stats64 = worst_rel(gc64, g64), worst_rel(sc64, s64)
+    stats32 = worst_rel(sc32, s32)
+    print(f"[unet-train] float64 step batch 2 patch 64 card vs CPU: loss "
+          f"rel {rel64} (tol 1e-9); worst gradient rel err {worst64} over "
+          f"{len(g64)} leaves (tol 1e-6); running statistics after the step "
+          f"{stats64} (tol 1e-9), in f32 {stats32} (tol 1e-5)")
+    require(rel64 <= 1e-9 and worst64 <= 1e-6 and stats64 <= 1e-9,
+            f"float64 U-Net step card vs CPU: {rel64}, {worst64}, {stats64}")
+    require(stats32 <= 1e-5, f"f32 running statistics differ by {stats32}")
+    rel32 = abs(lc32 - l32) / abs(l32)
+    over, errs, pair = [], [], []
+    for n, r in g64.items():
+        scale = r.abs().max().item()
+        err = (gc32[n] - r).abs().max().item() / scale
+        noise = (gc32[n] - gsw[n]).abs().max().item() / scale
+        errs.append(err)
+        pair.append(((gc32[n] - g32[n]).abs().max().item() / scale, n))
+        if err > 1e-4:
+            print(f"[unet-train]   {n}: card f32 vs float64 {err}, card f32 "
+                  f"vs itself with the images swapped {noise} (x max|ref|)")
+        if err > max(1e-4, 10 * noise):
+            over.append(n)
+    print(f"[unet-train] f32 step card vs CPU: loss {lc32} vs {l32} (rel "
+          f"{rel32}, tol 1e-4); worst gradient rel err card vs CPU "
+          f"{max(pair)}; card f32 vs float64: median leaf "
+          f"{statistics.median(errs)}, max {max(errs)}; every leaf within "
+          f"max(1e-4, 10 x its swapped-order noise) x max|ref|: {not over}")
+    require(rel32 <= 1e-4, f"U-Net f32 step loss differs by {rel32}")
+    require(not over, f"card f32 gradients off the float64 ones: {over}")
+
+
+def unet_step_grads(state_dict, device, dtype, batch, draws, step, tx):
+    """(loss, gradients as float64 CPU tensors) of one U-Net train step on
+    `device` in `dtype` from `state_dict` and the given draws; float64
+    widens the step's .float() casts while it runs."""
+    import torch
+    from robust_object_detection_tpu_torch.models import unet as U
+    from robust_object_detection_tpu_torch.train import restoration as R
+
+    model = U.RestorationUNet(UNET_CHANNELS, dtype=dtype).train()
+    model.load_state_dict(state_dict)
+    model.to(device, dtype, memory_format=torch.channels_last)
+    to_float = torch.Tensor.float
+    if dtype == torch.float64:
+        torch.Tensor.float = lambda self: self.double()
+    try:
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            m = step(R.init_state(model, tx), batch.to(device),
+                     draws={k: (v.to(device, dtype) if v.is_floating_point()
+                                else v.to(device)) for k, v in draws.items()})
+    finally:
+        torch.Tensor.float = to_float
+    require(m["loss"].dtype == dtype and all(
+        p.grad.dtype == dtype for p in model.parameters()),
+        f"the {dtype} step computed in another dtype")
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()}
+    stats = {n: b.double().cpu() for n, b in model.named_buffers()
+             if "running" in n}
+    return m["loss"].item(), grads, stats
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -2714,10 +3097,13 @@ def main() -> int:
     rtdetr_train_launches = phase_rtdetr_training(dev)
     kres.update(phase_sorted_kernels(dev))
     generation_launches = phase_deform_generations(dev)
+    phase_unet_model_check(dev)
+    restored_launches = phase_restored_sweep(dev)
+    phase_unet_training(dev)
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
-                 generation_launches):
+                 generation_launches, restored_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -1,15 +1,20 @@
-"""Fused on-device robustness sweep, corrupted stream (counterpart of
+"""Fused on-device robustness sweep (counterpart of
 robust_object_detection_tpu/eval/fused_sweep.py).
 
 Clean uint8 images go to the device once per batch; there each batch
 becomes the four variants Clean / Noise sigma 15 / Blur k9 / LowRes 0.5x,
 each variant is letterboxed and detected, and only the fixed-capacity
 detection tensors come back to the host for COCO mAP (eval/coco_map.py,
-the port's copy of the reference's host scorer).
+the port's copy of the reference's host scorer). That is the corrupted
+stream: 4 passes.
 
-This is the 4-pass sweep the reference runs without a U-Net. The restored
-stream (U-Net over the corrupted variants, 8 passes) is not ported yet:
-``unet_model`` must be None.
+With a U-Net (``unet_model``, models/unet.py) the restored stream follows:
+each corrupted variant is reflect-padded to a multiple of 16, restored
+(/255, forward, floor(clip(y * 255 + 0.5, 0, 255)), i.e.
+``unet.apply_u8``), cropped and detected; Clean passes through. The pass
+order is corrupted[Clean, Noise, Blur, LowRes], then restored[the same],
+8 passes, run one at a time, so peak memory is one U-Net forward plus one
+detector forward.
 
 Noise: by default drawn on the device from a ``torch.Generator`` seeded by
 ``seed`` — distributionally the reference's, not the same numbers. With
@@ -30,11 +35,13 @@ import torch
 from ..core.config import CorruptionConfig
 from ..data.pipeline import load_image_rgb
 from ..data.visdrone import CLASS_NAMES
+from ..models import unet as unet_lib
 from ..ops import corrupt as corrupt_ops
 from ..ops import image as image_ops
 from . import coco_map
 
 TESTSET_VARIANTS = ("Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")
+STRATEGIES = ("corrupted", "restored")
 
 
 def make_fused_step(predict_fn: Callable, unet_model,
@@ -45,21 +52,28 @@ def make_fused_step(predict_fn: Callable, unet_model,
 
     predict_fn(det_state, canvas (B, S, S, 3) f32 in [0, 255]) ->
     (boxes, scores, classes, valid) (train.detector.make_predict_step for
-    YOLOv8, train.rtdetr.make_predict_step for RT-DETR).
+    YOLOv8, train.rtdetr.make_predict_step for RT-DETR). unet_model: a
+    models/unet.RestorationUNet on the batch's device (put in eval mode
+    here), or None for the corrupted stream alone.
 
     Returns step(det_state, unet_vars, clean_u8 (B, H, W, 3), key) ->
-    (boxes (4, B, K, 4) canvas coords, scores (4, B, K), classes (4, B, K),
-    valid (4, B, K)), passes in the order Clean, Noise, Blur, LowRes.
+    (boxes (P, B, K, 4) canvas coords, scores (P, B, K), classes (P, B, K),
+    valid (P, B, K)), P = 8 with a U-Net (corrupted[Clean, Noise, Blur,
+    LowRes], then restored[the same]), else 4. unet_vars is unused (a
+    port module carries its weights); it keeps the reference's signature.
     `key` is a torch.Generator on the batch's device, or with
     host_noise=True a (B, H, W, 3) f32 noise-plane batch added to the
     clean pixels (clip + truncate, as the frozen-testset builder).
     """
-    if unet_model is not None:
-        raise NotImplementedError("the restored (U-Net) stream is not "
-                                  "ported yet; pass unet_model=None")
     h, w = native_hw
     if h % 2 or w % 2:
         raise ValueError(f"fused sweep needs even native dims, got {h}x{w}")
+    if unet_model is not None:
+        unet_model.eval()
+
+    def restore(img: torch.Tensor) -> torch.Tensor:
+        x = image_ops.pad_to_multiple(img.to(torch.uint8), 16)
+        return unet_lib.apply_u8(unet_model, x)[:, :h, :w].float()
 
     def step(det_state, unet_vars, clean_u8: torch.Tensor, key):
         x = clean_u8.float()
@@ -70,11 +84,17 @@ def make_fused_step(predict_fn: Callable, unet_model,
         blurred = corrupt_ops.apply_motion_blur(x, cfg.blur_kernel,
                                                 cfg.blur_angle_deg)
         low = corrupt_ops.apply_lowres(x, cfg.downscale_factor)
-        outs = []
-        # sequential over passes: peak memory is one detector forward
-        for img in (x, noised, blurred, low):
+        variants = (x, noised, blurred, low)
+
+        def detect(img):
             canvas, _, _ = image_ops.letterbox(img, img_size)
-            outs.append(predict_fn(det_state, canvas))
+            return predict_fn(det_state, canvas)
+        # one pass at a time: peak memory is one detector forward (plus
+        # one U-Net forward on the restored stream)
+        outs = [detect(img) for img in variants]
+        if unet_model is not None:
+            outs.append(detect(x))
+            outs += [detect(restore(img)) for img in variants[1:]]
         return tuple(torch.stack(parts) for parts in zip(*outs))
 
     return step
@@ -130,23 +150,23 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
                     seed: int = 0, num_threads: int = 8,
                     mt19937_rng=None,
                     load_image: Callable = load_image_rgb) -> Dict:
-    """The 4-pass fused sweep over an indexed clean val split.
+    """The fused sweep over an indexed clean val split: 8 passes with a
+    U-Net, 4 without.
 
     det_state: the detector module (its device is the sweep's device).
-    samples: data/pipeline.Sample list of CLEAN images, grouped by native
-    size; partial batches are padded to full batch shape. Every batch is
+    unet_model: a U-Net on the same device, or None. samples:
+    data/pipeline.Sample list of CLEAN images, grouped by native size;
+    partial batches are padded to full batch shape. Every batch is
     enqueued before the first fetch, so host decode of batch k+1 overlaps
     device work on batch k. load_image(sample) -> (H, W, 3) uint8 RGB
     (default: decode from disk).
 
-    Returns {"corrupted": {variant: summary}, "images_per_sec",
-    "images_evaluated", "wall_seconds"}; summaries as detector_eval's.
+    Returns {"corrupted": {variant: summary}, ["restored": {variant:
+    summary},] "images_per_sec", "images_evaluated", "wall_seconds"};
+    summaries as detector_eval's. images_evaluated counts image-passes.
     """
     from concurrent.futures import ThreadPoolExecutor
 
-    if unet_model is not None:
-        raise NotImplementedError("the restored (U-Net) stream is not "
-                                  "ported yet; pass unet_model=None")
     device = next(det_state.parameters()).device
     noise_states = (None if mt19937_rng is None else
                     _mt19937_states(samples, cfg.noise_sigma, mt19937_rng))
@@ -155,7 +175,10 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
     for s in samples:
         groups.setdefault((s.height, s.width), []).append(s)
 
-    dets: Dict[str, Dict] = {v: {} for v in TESTSET_VARIANTS}
+    strategies = STRATEGIES if unet_model is not None else STRATEGIES[:1]
+    n_passes = 4 * len(strategies)
+    dets: Dict[str, Dict[str, Dict]] = {
+        st: {v: {} for v in TESTSET_VARIANTS} for st in strategies}
     gts: Dict[int, coco_map.GroundTruth] = {}
     gen = torch.Generator(device).manual_seed(seed)
     n_images = 0
@@ -164,8 +187,8 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
     with ThreadPoolExecutor(num_threads) as pool:
         pending = []
         for (h, w), group in sorted(groups.items()):
-            step = make_fused_step(predict_fn, None, (h, w), img_size, cfg,
-                                   host_noise=noise_states is not None)
+            step = make_fused_step(predict_fn, unet_model, (h, w), img_size,
+                                   cfg, host_noise=noise_states is not None)
             scale = min(img_size / h, img_size / w)
             for start in range(0, len(group), batch_size):
                 chunk = group[start:start + batch_size]
@@ -195,24 +218,25 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
                     if len(gb) else np.zeros((0, 4), np.float32))
                 gts[img_id] = coco_map.GroundTruth(
                     boxes=gt_xywh, classes=sample.classes.astype(np.int64) + 1)
-                for p, variant in enumerate(TESTSET_VARIANTS):
+                for p in range(n_passes):
                     v = valid[p, i]
                     b = boxes[p, i][v] / scale
                     b[:, 0::2] = b[:, 0::2].clip(0, sample.width)
                     b[:, 1::2] = b[:, 1::2].clip(0, sample.height)
                     xywh = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], 1)
-                    dets[variant][img_id] = coco_map.Detections(
+                    dets[strategies[p // 4]][TESTSET_VARIANTS[p % 4]][
+                        img_id] = coco_map.Detections(
                         boxes=xywh, scores=scores[p, i][v],
                         classes=classes[p, i][v].astype(np.int64) + 1)
             n_images += len(chunk)
 
     predict_elapsed = time.time() - t0
-    scored = {v: _score(dets[v], gts, n_images, predict_elapsed)
-              for v in TESTSET_VARIANTS}
+    scored = {st: {v: _score(dets[st][v], gts, n_images, predict_elapsed)
+                   for v in TESTSET_VARIANTS} for st in strategies}
     elapsed = time.time() - t0
-    n_passes = len(TESTSET_VARIANTS)
-    return {"images_evaluated": n_images * n_passes,
-            "wall_seconds": round(elapsed, 2),
-            "images_per_sec": round(n_images * n_passes
-                                    / max(elapsed, 1e-9), 2),
-            "corrupted": scored}
+    out: Dict = {"images_evaluated": n_images * n_passes,
+                 "wall_seconds": round(elapsed, 2),
+                 "images_per_sec": round(n_images * n_passes
+                                         / max(elapsed, 1e-9), 2)}
+    out.update(scored)
+    return out

@@ -1,11 +1,13 @@
-"""JAX (flax) YOLOv8 and RT-DETR variables -> the port's ``state_dict``.
+"""JAX (flax) YOLOv8, RT-DETR and restoration U-Net variables -> the
+port's ``state_dict``.
 
 The port keeps the Ultralytics key layout (``model.{i}.…``), so these are
 the exact inverses of the reference's ``models/pretrained.import_yolov8``
 and ``import_rtdetr``: conv kernels HWIO -> OIHW, dense kernels (in, out)
 -> (out, in), BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` ->
 ``weight/bias/running_mean/running_var``, flax per-head attention kernels
--> torch's packed ``in_proj``. Inputs are nested dicts of numpy arrays
+-> torch's packed ``in_proj``, flax transposed-conv kernels -> torch's
+flipped ``ConvTranspose2d`` weights. Inputs are nested dicts of numpy arrays
 (``jax.device_get`` of the flax variables), so this module needs no jax.
 """
 
@@ -236,4 +238,53 @@ def rtdetr_from_jax_variables(params: Mapping, batch_stats: Mapping
         _dense(sd, f"{D}.dec_score_head.{li}", P[f"dec_score{li}"])
         _mlp(sd, f"{D}.dec_bbox_head.{li}", P[f"dec_bbox{li}"])
         li += 1
+    return sd
+
+
+# ── restoration U-Net ────────────────────────────────────────────────────
+
+def conv_transpose_weight(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel (kh, kw, in, out), applied unflipped ->
+    torch ConvTranspose2d weight (in, out, kh, kw). With k = s = 2 and
+    SAME padding flax computes out[2i] = x[i] K[1], out[2i+1] = x[i] K[0]
+    (per axis), torch out[2i + k] = x[i] W[k]: W is K flipped in space
+    with in / out in torch's order."""
+    return _t(np.flip(np.asarray(kernel), (0, 1)).transpose(2, 3, 0, 1))
+
+
+def unet_from_jax_variables(params: Mapping, batch_stats: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """Flax RestorationUNet ``params`` / ``batch_stats`` -> the port's
+    state_dict: ``ConvBlock_0..3`` -> ``enc.0..3``, ``ConvBlock_4`` ->
+    ``mid``, ``ConvBlock_5..8`` -> ``dec.0..3`` (each ``Conv_{0,1}`` /
+    ``BatchNorm_{0,1}`` -> ``conv{0,1}`` / ``bn{0,1}``),
+    ``ConvTranspose_0..3`` -> ``up.0..3``, ``Conv_0`` -> ``out``. A model
+    built with ``remat=True`` names its blocks ``CheckpointConvBlock_i``;
+    both namings are read."""
+    n_blocks = sum(1 for k in params if k.startswith("ConvTranspose_"))
+    prefix = next((p for p in ("ConvBlock", "CheckpointConvBlock")
+                   if f"{p}_0" in params), None)
+    if prefix is None or n_blocks == 0:
+        raise KeyError("not a flax RestorationUNet variable tree: expected "
+                       "ConvBlock_i or CheckpointConvBlock_i and "
+                       f"ConvTranspose_i, got {sorted(params)}")
+    targets = ([f"enc.{i}" for i in range(n_blocks)] + ["mid"]
+               + [f"dec.{i}" for i in range(n_blocks)])
+    sd: Dict[str, torch.Tensor] = {}
+    for i, tkey in enumerate(targets):
+        p, st = params[f"{prefix}_{i}"], batch_stats[f"{prefix}_{i}"]
+        for j in range(2):
+            sd[f"{tkey}.conv{j}.weight"] = _oihw(p[f"Conv_{j}"]["kernel"])
+            bn, s = p[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"]
+            sd[f"{tkey}.bn{j}.weight"] = _t(bn["scale"])
+            sd[f"{tkey}.bn{j}.bias"] = _t(bn["bias"])
+            sd[f"{tkey}.bn{j}.running_mean"] = _t(s["mean"])
+            sd[f"{tkey}.bn{j}.running_var"] = _t(s["var"])
+            sd[f"{tkey}.bn{j}.num_batches_tracked"] = torch.tensor(0)
+    for i in range(n_blocks):
+        p = params[f"ConvTranspose_{i}"]
+        sd[f"up.{i}.weight"] = conv_transpose_weight(p["kernel"])
+        sd[f"up.{i}.bias"] = _t(p["bias"])
+    sd["out.weight"] = _oihw(params["Conv_0"]["kernel"])
+    sd["out.bias"] = _t(params["Conv_0"]["bias"])
     return sd

@@ -65,11 +65,20 @@ def from_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def update_running(bn: nn.BatchNorm2d, mean: torch.Tensor,
-                   var: torch.Tensor) -> None:
+                   var: torch.Tensor, momentum: float = MOMENTUM) -> None:
     """flax's running-statistics update from one batch's statistics."""
     with torch.no_grad():
-        bn.running_mean.mul_(MOMENTUM).add_(mean.detach() * (1 - MOMENTUM))
-        bn.running_var.mul_(MOMENTUM).add_(var.detach() * (1 - MOMENTUM))
+        bn.running_mean.mul_(momentum).add_(mean.detach() * (1 - momentum))
+        bn.running_var.mul_(momentum).add_(var.detach() * (1 - momentum))
+
+
+def bn_normalize(y: torch.Tensor, bn: nn.BatchNorm2d, mean: torch.Tensor,
+                 var: torch.Tensor) -> torch.Tensor:
+    """((y - mean) * (rsqrt(var + eps) * scale) + bias) over the channels
+    of NCHW y, in f32 (flax's BatchNorm arithmetic)."""
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((y.float() - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias[:, None, None])
 
 
 def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d,
@@ -79,10 +88,7 @@ def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d,
     (rsqrt(var + eps) * scale) + bias) in f32, cast to out_dtype."""
     mean, var = batch_stats(y, (0, 2, 3))
     update_running(bn, mean, var)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    yn = ((y.float() - mean[:, None, None]) * mul[:, None, None]
-          + bn.bias[:, None, None])
-    return yn.to(out_dtype)
+    return bn_normalize(y, bn, mean, var).to(out_dtype)
 
 
 class ConvBnAct(nn.Module):

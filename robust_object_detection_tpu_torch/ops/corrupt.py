@@ -21,6 +21,8 @@ the K1 Pallas kernel) is ops/fused_corrupt.py.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -58,14 +60,19 @@ def motion_blur_kernel(k: int, angle_deg: float) -> np.ndarray:
     return base / (base.sum() + 1e-8)
 
 
+def add_noise(img: torch.Tensor, noise: torch.Tensor, sigma: float = 15.0,
+              quantize: bool = True) -> torch.Tensor:
+    """img + sigma * noise for a given standard-normal draw, in f32."""
+    x = img.float() + sigma * noise
+    return image_ops.quantize_trunc(x) if quantize else x
+
+
 def apply_noise(img: torch.Tensor, generator: torch.Generator,
                 sigma: float = 15.0, quantize: bool = True) -> torch.Tensor:
     """Additive gaussian noise; `generator` lives on img's device."""
-    x = img.float()
-    noise = torch.randn(x.shape, generator=generator, device=x.device,
+    noise = torch.randn(img.shape, generator=generator, device=img.device,
                         dtype=torch.float32)
-    x = x + sigma * noise
-    return image_ops.quantize_trunc(x) if quantize else x
+    return add_noise(img, noise, sigma, quantize)
 
 
 def apply_motion_blur(img: torch.Tensor, k: int = 9, angle_deg: float = 0.0,
@@ -107,10 +114,16 @@ def apply_lowres(img: torch.Tensor, factor: float = 0.5,
 
 def corrupt_variant(img: torch.Tensor, variant, generator: torch.Generator,
                     cfg: CorruptionConfig = CorruptionConfig(),
-                    quantize: bool = True) -> torch.Tensor:
-    """Apply a fixed per-image corruption id (an int or a (B,) tensor)."""
+                    quantize: bool = True,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply a fixed per-image corruption id (an int or a (B,) tensor).
+    The noise branch draws a standard normal of img's shape from
+    `generator`, or takes the given `noise` draw."""
     x = img.float()
-    noised = apply_noise(x, generator, cfg.noise_sigma, quantize=quantize)
+    if noise is None:
+        noised = apply_noise(x, generator, cfg.noise_sigma, quantize=quantize)
+    else:
+        noised = add_noise(x, noise, cfg.noise_sigma, quantize=quantize)
     blurred = apply_motion_blur(x, cfg.blur_kernel, cfg.blur_angle_deg,
                                 quantize=quantize)
     low = apply_lowres(x, cfg.downscale_factor, quantize=quantize)

@@ -4,7 +4,12 @@ of robust_object_detection_tpu/ops/image.py).
 NHWC (or HWC) tensors, computed in float32 throughout:
 
   * ``pad_reflect101`` — BORDER_REFLECT_101 (``gfedcb|abcdefgh|gfedcba``),
+  * ``pad_to_multiple`` — pad H, W at the end up to a multiple (the
+    U-Net's reflect padding to 16),
   * ``area_downsample_2x`` — cv2 INTER_AREA at factor 0.5: a 2x2 box mean,
+  * ``resize_area`` — cv2 INTER_AREA downscaling at any size: each output
+    pixel a fractional-overlap weighted mean of its source interval,
+    separable, as shifted multiply-adds in f32 (no matmul, so no TF32),
   * ``resize_bilinear`` — half-pixel-centre bilinear (INTER_LINEAR), the
     same static gather indices and weights as the reference,
   * ``letterbox`` — aspect-preserving resize onto a top-left anchored
@@ -33,6 +38,23 @@ def pad_reflect101(img: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     return img.index_select(-3, ih).index_select(-2, iw)
 
 
+def pad_to_multiple(img: torch.Tensor, multiple: int,
+                    mode: str = "reflect") -> torch.Tensor:
+    """Pad H, W of NHWC (or HWC) at the end up to the next multiple.
+    `mode` is a numpy pad mode of the index ("reflect" = BORDER_REFLECT_101,
+    "symmetric", "edge", "wrap"); any pad length is taken, as jnp.pad
+    takes it."""
+    h, w = img.shape[-3], img.shape[-2]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph == 0 and pw == 0:
+        return img
+    ih = torch.as_tensor(np.pad(np.arange(h), (0, ph), mode=mode),
+                         device=img.device)
+    iw = torch.as_tensor(np.pad(np.arange(w), (0, pw), mode=mode),
+                         device=img.device)
+    return img.index_select(-3, ih).index_select(-2, iw)
+
+
 def area_downsample_2x(img: torch.Tensor) -> torch.Tensor:
     """Exact 2x2 box average. img (..., H, W, C), even H, W -> f32."""
     h, w = img.shape[-3], img.shape[-2]
@@ -41,6 +63,50 @@ def area_downsample_2x(img: torch.Tensor) -> torch.Tensor:
     x = img.float().reshape(*img.shape[:-3], h // 2, 2, w // 2, 2,
                             img.shape[-1])
     return x.mean(dim=(-4, -2))
+
+
+def _area_taps(out_size: int, in_size: int):
+    """cv2 INTER_AREA weights as taps: (index (out, T), weight (out, T))
+    of the row-stochastic resampling matrix of the reference
+    (``ops/image._area_weights``: each output averages the source interval
+    [i * scale, (i + 1) * scale) by overlap), zero-weight padding taps
+    pointing at index 0."""
+    scale = in_size / out_size
+    w = np.zeros((out_size, in_size), np.float32)
+    for i in range(out_size):
+        lo, hi = i * scale, (i + 1) * scale
+        j0, j1 = int(np.floor(lo)), int(np.ceil(hi))
+        for j in range(j0, min(j1, in_size)):
+            w[i, j] = min(hi, j + 1) - max(lo, j)
+    w = w / w.sum(axis=1, keepdims=True)
+    taps = max(int((row > 0).sum()) for row in w)
+    idx = np.zeros((out_size, taps), np.int64)
+    wt = np.zeros((out_size, taps), np.float32)
+    for i, row in enumerate(w):
+        nz = np.flatnonzero(row)
+        idx[i, :len(nz)] = nz
+        wt[i, :len(nz)] = row[nz]
+    return idx, wt
+
+
+def _area_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+    idx, wt = _area_taps(out_size, x.shape[dim])
+    shape = [1] * x.dim()
+    shape[dim] = out_size
+    y = None
+    for t in range(idx.shape[1]):
+        term = (x.index_select(dim, torch.as_tensor(idx[:, t],
+                                                    device=x.device))
+                * torch.as_tensor(wt[:, t], device=x.device).view(shape))
+        y = term if y is None else y + term
+    return y
+
+
+def resize_area(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.resize(..., INTER_AREA) for downscaling, any sizes, NHWC or
+    HWC -> f32 (callers quantise; cv2's uint8 path rounds half up)."""
+    x = img.float()
+    return _area_axis(_area_axis(x, out_h, x.dim() - 3), out_w, x.dim() - 2)
 
 
 def _linear_weights(out_size: int, in_size: int):

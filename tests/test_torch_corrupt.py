@@ -122,3 +122,28 @@ def test_corrupt_variant_selects_per_image():
     ref = jc.corrupt_variant(jnp.asarray(x), jnp.asarray([0, 2, 3]),
                              __import__("jax").random.key(0))
     _assert_lsb(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 24, 34, 3), (12, 17)),
+                                          ((37, 51, 3), (18, 25)),
+                                          ((2, 30, 45, 3), (11, 7))])
+def test_resize_area_matches_reference(shape, out_hw):
+    """INTER_AREA at any scale (the testset builder's LowRes at odd sizes):
+    f32 within 1e-3 before rounding, within 1 LSB after."""
+    x = _img(7, shape)
+    out = ti.resize_area(torch.from_numpy(x), *out_hw).numpy()
+    ref = np.asarray(ji.resize_area(jnp.asarray(x), *out_hw))
+    assert out.shape == ref.shape == shape[:-3] + out_hw + (3,)
+    np.testing.assert_allclose(out, ref, atol=1e-3, rtol=0)
+    _assert_lsb(ti.quantize_round_half_up(torch.from_numpy(out)).numpy(),
+                ji.quantize_round_half_up(ref))
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 34, 3), (37, 51, 3), (5, 7, 3),
+                                   (1, 32, 48, 3)])
+def test_pad_to_multiple_matches_reference(shape):
+    x = _img(8, shape)
+    for multiple in (16, 4):
+        np.testing.assert_array_equal(
+            ti.pad_to_multiple(torch.from_numpy(x), multiple).numpy(),
+            ji.pad_to_multiple(jnp.asarray(x), multiple))

@@ -27,15 +27,21 @@ from robust_object_detection_tpu.data import pipeline as pipe
 from robust_object_detection_tpu.data import synthetic
 from robust_object_detection_tpu.eval import fused_sweep as jfs
 from robust_object_detection_tpu.models import rtdetr as jr
+from robust_object_detection_tpu.models import unet as ju
 from robust_object_detection_tpu.models import yolov8 as jy
 from robust_object_detection_tpu.train import detector as jdet
 from robust_object_detection_tpu.train import rtdetr as jrt
 from robust_object_detection_tpu_torch.eval import fused_sweep as tfs
 from robust_object_detection_tpu_torch.models import convert
 from robust_object_detection_tpu_torch.models import rtdetr as tr
+from robust_object_detection_tpu_torch.models import unet as tu
 from robust_object_detection_tpu_torch.models import yolov8 as ty
+from robust_object_detection_tpu_torch.ops import corrupt as tc
+from robust_object_detection_tpu_torch.ops import image as timage
 from robust_object_detection_tpu_torch.train import detector as tdet
 from robust_object_detection_tpu_torch.train import rtdetr as trt
+
+from _torch_unet_vars import jax_unet, jnp_tree
 
 torch.set_num_threads(1)
 
@@ -88,12 +94,38 @@ def test_fused_step_matches_reference(setup):
     np.testing.assert_allclose(out[0], ref[0], atol=1e-2, rtol=0)
 
 
-def test_fused_step_rejects_odd_dims_and_unet(setup):
-    tpredict = setup[3]
+def test_fused_step_rejects_odd_dims_and_unet(setup, unet_setup):
+    """Odd native dims are refused; a U-Net gives 8 passes in the
+    reference's order: corrupted[Clean, Noise, Blur, LowRes], then
+    restored[Clean (the clean batch again), Noise, Blur, LowRes]."""
+    _, _, tmodel, tpredict = setup
+    tunet = unet_setup[2]
     with pytest.raises(ValueError, match="even"):
         tfs.make_fused_step(tpredict, None, (33, 48), IMG)
-    with pytest.raises(NotImplementedError):
-        tfs.make_fused_step(tpredict, object(), (32, 48), IMG)
+    with pytest.raises(ValueError, match="even"):
+        tfs.make_fused_step(tpredict, tunet, (32, 47), IMG)
+    b, h, w = 2, 32, 48
+    rng = np.random.RandomState(3)
+    clean = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(
+        np.uint8))
+    noise = torch.from_numpy(rng.normal(0, 15, (b, h, w, 3)).astype(
+        np.float32))
+    out = tfs.make_fused_step(tpredict, tunet, (h, w), IMG,
+                              host_noise=True)(tmodel, None, clean, noise)
+    four = tfs.make_fused_step(tpredict, None, (h, w), IMG,
+                               host_noise=True)(tmodel, None, clean, noise)
+    assert out[0].shape == (8, b, KW["max_det"], 4)
+    for o, f in zip(out, four):
+        torch.testing.assert_close(o[:4], f, rtol=0, atol=0)
+        torch.testing.assert_close(o[4], f[0], rtol=0, atol=0)
+    x = clean.float()
+    variants = (tc.add_noise(x, noise, 1.0),
+                tc.apply_motion_blur(x), tc.apply_lowres(x))
+    for p, img in enumerate(variants, start=5):
+        restored = tu.apply_u8(tunet, img.to(torch.uint8)).float()
+        want = tpredict(tmodel, timage.letterbox(restored, IMG)[0])
+        for o, r in zip(out, want):
+            torch.testing.assert_close(o[p], r, rtol=0, atol=0)
 
 
 def test_run_fused_sweep_matches_reference(setup, tmp_path):
@@ -134,6 +166,83 @@ def test_run_fused_sweep_device_noise_and_loader(setup):
     assert out["images_evaluated"] == 12
     for variant in tfs.TESTSET_VARIANTS:
         assert 0.0 <= out["corrupted"][variant]["mAP50"] <= 1.0
+
+
+# ── the 8-pass sweep: the restored stream ────────────────────────────────
+
+@pytest.fixture(scope="module")
+def unet_setup():
+    """A narrow (8, 16, 32, 64) flax U-Net with redrawn statistics and
+    biases, and the port's with the converted variables."""
+    jmodel, v = jax_unet()
+    tmodel = tu.create((8, 16, 32, 64), device="cpu")
+    tmodel.load_state_dict(convert.unet_from_jax_variables(
+        v["params"], v["batch_stats"]))
+    return jmodel, jnp_tree(v), tmodel
+
+
+def test_fused_step_restored_matches_reference(setup, unet_setup):
+    """8 passes at 34 x 50 (the restored stream reflect-pads to 48 x 64):
+    the same detections as the 4-pass test's tolerances, and the restored
+    pixels within 1 LSB of the reference's u8 apply."""
+    state, jpredict, tmodel, tpredict = setup
+    junet, jvars, tunet = unet_setup
+    b, h, w = 2, 34, 50
+    rng = np.random.RandomState(4)
+    clean = rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8)
+    noise = rng.normal(0, 15, (b, h, w, 3)).astype(np.float32)
+    jstep = jfs.make_fused_step(jpredict, junet, (h, w), IMG,
+                                host_noise=True)
+    ref = jax.device_get(jstep(state, jvars, jnp.asarray(clean),
+                               jnp.asarray(noise)))
+    tstep = tfs.make_fused_step(tpredict, tunet, (h, w), IMG,
+                                host_noise=True)
+    out = [t.numpy() for t in tstep(tmodel, None, torch.from_numpy(clean),
+                                    torch.from_numpy(noise))]
+    assert out[0].shape == ref[0].shape == (8, b, KW["max_det"], 4)
+    np.testing.assert_array_equal(out[3], ref[3])           # valid
+    assert out[3][4:].sum() > 0
+    np.testing.assert_array_equal(out[2], ref[2])           # classes
+    np.testing.assert_allclose(out[1], ref[1], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(out[0], ref[0], atol=1e-2, rtol=0)
+
+    x = torch.from_numpy(clean).float()
+    japply = ju.jit_apply_u8(junet)
+    for img in (tc.add_noise(x, torch.from_numpy(noise), 1.0),
+                tc.apply_motion_blur(x), tc.apply_lowres(x)):
+        padded = timage.pad_to_multiple(img.to(torch.uint8), 16)
+        assert padded.shape[1:3] == (48, 64)
+        got = tu.apply_u8(tunet, padded).numpy().astype(int)
+        want = np.asarray(japply(jvars, jnp.asarray(padded.numpy())))
+        assert np.abs(got - want.astype(int)).max() <= 1
+
+
+def test_run_fused_sweep_restored_matches_reference(setup, unet_setup,
+                                                    tmp_path):
+    state, jpredict, tmodel, tpredict = setup
+    junet, jvars, tunet = unet_setup
+    split = synthetic.make_det_split(tmp_path / "raw", n_images=3,
+                                     size_range=((34, 35), (50, 51)))
+    dconvert.convert_det_to_coco(split, tmp_path / "coco", "val")
+    samples = pipe.index_coco(tmp_path / "coco", "val")
+    ref = jfs.run_fused_sweep(jpredict, state, junet, jvars, samples, IMG,
+                              batch_size=2,
+                              mt19937_rng=jfs.frozen_noise_rng())
+    out = tfs.run_fused_sweep(tpredict, tmodel, tunet, None, samples, IMG,
+                              batch_size=2,
+                              mt19937_rng=tfs.frozen_noise_rng())
+    assert out["images_evaluated"] == ref["images_evaluated"] == 3 * 8
+    assert tfs.STRATEGIES == jfs.STRATEGIES
+    for st in tfs.STRATEGIES:
+        assert out[st].keys() == ref[st].keys()
+        for variant in tfs.TESTSET_VARIANTS:
+            o, r = out[st][variant], ref[st][variant]
+            assert o["images"] == r["images"] == 3
+            for k in ("mAP50", "mAP50_95"):
+                assert abs(o[k] - r[k]) <= 1e-3, (st, variant, k, o[k], r[k])
+    for k in ("mAP50", "mAP50_95"):
+        assert out["restored"]["Test_Clean"][k] == out["corrupted"][
+            "Test_Clean"][k]
 
 
 # ── the sweep with the RT-DETR-L predict step ────────────────────────────

@@ -1317,3 +1317,152 @@ def test_deform_forward_edges(cuda, dtype, tol):
     assert _rel_err(out, ref) <= tol
     assert torch.equal(DF.ms_deform_attn_slots(values, shapes, ml, attn),
                        DF.ms_deform_attn_slots(values, shapes, loc, attn))
+
+
+# ── the restored stream: U-Net, SSIM, the 8-pass step ────────────────────
+
+def _unet_pair(cuda, channels=(8, 16, 32, 64), train=False):
+    """The same seeded U-Net on the CPU and on the card, its running
+    statistics and biases redrawn so eval BatchNorm is not the identity."""
+    from robust_object_detection_tpu_torch.models import unet as U
+    cpu = U.create(channels, device="cpu",
+                   generator=torch.Generator().manual_seed(0), train=train)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, t in cpu.state_dict().items():
+            if name.endswith("running_mean") or name.endswith(".bias"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75)
+    gpu = U.create(channels, device=cuda, train=train)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 37, 53)])
+def test_unet_card_matches_cpu(cuda, shape):
+    """f32 forward with cuDNN's TF32 off within 1e-4 (odd sizes through
+    restore_image), the u8 apply within 1 LSB."""
+    from robust_object_detection_tpu_torch.models import unet as U
+    cpu, gpu = _unet_pair(cuda)
+    b, h, w = shape
+    x = torch.rand(b, h, w, 3, generator=torch.Generator().manual_seed(2))
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        if b == 1:
+            out = U.restore_image(gpu, x[0].to(cuda)).cpu()
+            ref = U.restore_image(cpu, x[0])
+        else:
+            with torch.no_grad():
+                out, ref = gpu(x.to(cuda)).cpu(), cpu(x)
+        assert out.shape == ref.shape
+        assert (out - ref).abs().max().item() <= 1e-4
+        xu = U.pad_to_16(torch.randint(0, 256, (2, h, w, 3),
+                                       dtype=torch.uint8))[0]
+        d = (U.apply_u8(gpu, xu.to(cuda)).cpu().int()
+             - U.apply_u8(cpu, xu).int()).abs()
+    assert d.max().item() <= 1
+
+
+@pytest.mark.gpu
+def test_ssim_card_ignores_tf32_flags(cuda):
+    """SSIM / PSNR / loss on the card equal the CPU's under the process's
+    flags with TF32 forced on: the window never reaches cuDNN."""
+    from robust_object_detection_tpu_torch.ops import ssim as S
+    g = torch.Generator().manual_seed(3)
+    a = 0.9 + 0.02 * torch.randn(2, 40, 56, 3, generator=g)
+    b = a + 0.01 * torch.randn(a.shape, generator=g)
+    ref = [f(a, b).item() for f in (S.ssim, S.psnr, S.restoration_loss)]
+    with torch.backends.cudnn.flags(allow_tf32=True):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            out = [f(a.to(cuda), b.to(cuda)).item()
+                   for f in (S.ssim, S.psnr, S.restoration_loss)]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    for o, r in zip(out, ref):
+        assert abs(o - r) <= 1e-6 * max(1.0, abs(r))
+
+
+@pytest.mark.gpu
+def test_unet_train_step_card_matches_cpu(cuda):
+    """One f32 train step from the same weights and draws: loss within
+    1e-4 relative, every gradient within 1e-3 x max|ref|."""
+    from robust_object_detection_tpu_torch.core.config import (
+        RestorationConfig)
+    from robust_object_detection_tpu_torch.train import restoration as R
+    cpu, gpu = _unet_pair(cuda, train=True)
+    batch = torch.randint(0, 256, (2, 32, 48, 3),
+                          generator=torch.Generator().manual_seed(4),
+                          dtype=torch.uint8)
+    draws = R.draw_train(batch.shape, torch.Generator().manual_seed(5))
+    step = R.make_train_step(CorruptionConfig())
+    tx, _ = R.make_optimizer(RestorationConfig(), 10)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ref = step(R.init_state(cpu, tx), batch, draws=draws)
+        out = step(R.init_state(gpu, tx), batch.to(cuda),
+                   draws={k: v.to(cuda) for k, v in draws.items()})
+    assert abs(out["loss"].item() - ref["loss"].item()) <= 1e-4 * abs(
+        ref["loss"].item())
+    for (name, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        scale = q.grad.abs().max().item()
+        assert (p.grad.cpu() - q.grad).abs().max().item() <= 1e-3 * scale, \
+            name
+
+
+@pytest.mark.gpu
+def test_eight_pass_step_card_matches_cpu(cuda):
+    """The 8-pass fused step (YOLOv8n f32, the U-Net above, host noise) on
+    the card with TF32 off against the CPU: the same valid masks, scores
+    within 1e-3, and where neighbouring scores are more than 1e-4 apart
+    the same classes and boxes within 0.05 px; the launch counts
+    of the card's run (K2-f 1 and K3-f one per hand-kernel conv a forward,
+    8 forwards)."""
+    from robust_object_detection_tpu_torch.eval import fused_sweep as FS
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.train import detector as D
+    g0 = torch.Generator().manual_seed(7)
+    ucpu, ugpu = _unet_pair(cuda)
+    ycpu = Y.create(6, "n", torch.float32, "cpu",
+                    torch.Generator().manual_seed(0))
+    # running statistics redrawn and class-head outputs spread (kernels x
+    # 4, biases ~N(0, 1)), so most score gaps lie far above f32 noise
+    with torch.no_grad():
+        for name, t in ycpu.state_dict().items():
+            if name.endswith("running_mean") or name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=g0) * 0.5 + 0.75)
+        for seq in ycpu.model[22].cv3:
+            seq[2].weight.mul_(4.0)
+            seq[2].bias.copy_(torch.randn(seq[2].bias.shape, generator=g0))
+    ygpu = Y.create(6, "n", torch.float32, cuda)
+    ygpu.load_state_dict(ycpu.state_dict())
+    per_forward = sum(1 for m in ygpu.modules()
+                      if getattr(m, "hand_kernel", False))
+    g = torch.Generator().manual_seed(6)
+    clean = torch.randint(0, 256, (2, 34, 50, 3), generator=g,
+                          dtype=torch.uint8)
+    noise = torch.randn(clean.shape, generator=g) * 15
+    predict = D.make_predict_step(64, num_candidates=64, max_det=32)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        ref = FS.make_fused_step(predict, ucpu, (34, 50), 64,
+                                 host_noise=True)(ycpu, None, clean, noise)
+        before = (C.conv3x3.launches, TF.front_inference.launches)
+        out = FS.make_fused_step(predict, ugpu, (34, 50), 64,
+                                 host_noise=True)(
+            ygpu, None, clean.to(cuda), noise.to(cuda))
+        torch.cuda.synchronize()
+    assert (C.conv3x3.launches - before[0],
+            TF.front_inference.launches - before[1]) == (per_forward * 8, 8)
+    boxes, scores, classes, valid = (t.cpu() for t in out)
+    assert boxes.shape == (8, 2, 32, 4)
+    assert torch.equal(valid, ref[3])
+    assert (scores - ref[1]).abs().max().item() <= 1e-3
+    # where neighbouring scores lie within f32 noise of each other the NMS
+    # order may swap them: classes and boxes where the order is certain
+    gap = (ref[1][..., 1:] - ref[1][..., :-1]).abs() > 1e-4
+    sure = valid.clone()
+    sure[..., 1:] &= gap
+    sure[..., :-1] &= gap
+    assert sure.sum().item() >= 0.5 * valid.sum().item() > 0
+    assert torch.equal(classes[sure], ref[2][sure])
+    assert (boxes - ref[0]).abs()[sure].max().item() <= 5e-2

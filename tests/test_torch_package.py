@@ -53,7 +53,9 @@ def test_package_imports_without_jax():
         "train.detection", "train.augment", "eval.fused_sweep",
         "eval.coco_map", "native", "data.visdrone", "data.pipeline",
         "ops.stem", "ops.deform", "models.rtdetr", "train.rtdetr",
-        "ops.assignment")}
+        "ops.assignment", "core.artifacts", "core.checkpoint",
+        "core.profiling", "ops.ssim", "models.unet", "train.restoration",
+        "data.testsets", "data.restore")}
     assert expected <= set(out["modules"])
 
 
