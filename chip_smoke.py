@@ -13,7 +13,8 @@ slots, the Augmented mode with HSV + flip, bf16 convs with bf16 BatchNorm
 outputs and f32 statistics); the decoder's sampling workload through
 each generation of the deformable-attention op family; and the Restored
 strategy: the 8-pass sweep with the restoration U-Net and the U-Net's
-training. Phases:
+training; and Faster R-CNN, served through both sweeps (f32) and the
+aspect-bucket eval at native resolution. Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -159,7 +160,28 @@ training. Phases:
      the running statistics after the step within 1e-9 x max|ref| (1e-5 in
      f32); in f32 loss within 1e-4 relative and every card gradient within
      max(1e-4, 10 x its own f32 noise) x max|ref| of the float64 one
-     (tolerances in phase_unet_training).
+     (tolerances in phase_unet_training);
+ 20. Faster R-CNN ResNet-50-FPN-v2 f32 at full width (blocks (3, 4, 6, 3),
+     256-channel FPN, 512 proposals, 7 classes, every BN and bias drawn
+     from the seed) on the card with TF32 off against the CPU, batch 2 at
+     256x256 and 256x384: the pyramid, the RPN maps and the box head on the
+     CPU's proposals within 1e-4 x max|ref|, then the detections matched by
+     box; on the card against the torchvision-layout replica of
+     tests/_torch_frcnn.py (pyramid, RPN maps, box head) and RoIAlign
+     against a float64 RoI-by-RoI version (tolerances in
+     phase_frcnn_model_check);
+ 21. the 4-pass sweep with Faster R-CNN (f32 under the process's flags,
+     phase 5's 64 images, 1024 canvas, batch 8): no hand kernel launched
+     (every counter zeroed just before, read just after), image-passes/s,
+     peak memory, the event ms a batch of backbone + FPN, RPN head,
+     proposals, RoIAlign, box head and final NMS beside the FLOP bound of
+     the convs and linears (counted by hooks), RoIAlign's peak memory, the
+     idle share of one profiled batch; then the 8-pass sweep with the
+     U-Net over 16 images;
+ 22. the aspect-bucket eval at native resolution: ``evaluate_bucketed``
+     through ``BucketedPredict`` over 16 in-memory 750x1333 images (the
+     VisDrone bucket 768x1344), batch 1: one bucket of 16, finite mAPs, ms
+     an image.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -597,7 +619,7 @@ def synthetic_samples(n: int):
 
 
 def run_sweep(dev, tag, title, model, predict, counters, per_forward,
-              unet=None, n_images=N_IMAGES):
+              unet=None, n_images=N_IMAGES, dtype="bf16"):
     """One sweep through the port's entry points with `predict` (4 passes,
     8 with a U-Net): warm-up batch, launch counters zeroed just before the
     sweep and read just after, finite mAPs, images/s and peak memory.
@@ -645,7 +667,7 @@ def run_sweep(dev, tag, title, model, predict, counters, per_forward,
             require(all(math.isfinite(v) and 0.0 <= v <= 1.0
                         for v in (m50, m5095)), f"{name} mAP not finite")
     rate = out["images_evaluated"] / elapsed
-    print(f"[{tag}] {title} bf16 1024px, {n_images} images 768x1024 x "
+    print(f"[{tag}] {title} {dtype} 1024px, {n_images} images 768x1024 x "
           f"{passes} passes, batch {BATCH}: {elapsed} s, {rate} images/s "
           f"(host scoring included); peak memory {peak} bytes "
           f"({peak / 2 ** 30} GiB)")
@@ -2991,6 +3013,473 @@ def unet_step_grads(state_dict, device, dtype, batch, draws, step, tx):
     return m["loss"].item(), grads, stats
 
 
+# ── Faster R-CNN ResNet-50-FPN-v2 (phases 20-22) ─────────────────────────
+
+FRCNN_PEAK_TF32 = 494e12           # H100 SXM dense TF32 on the tensor cores
+FRCNN_RECT = (256, 384)            # phase 20's rectangular canvas
+BUCKET_HW = (750, 1333)            # tv_target scale 1.0 -> bucket 768x1344
+N_BUCKET_IMAGES = 16
+
+
+def frcnn_pair(dev):
+    """The full-width f32 Faster R-CNN (blocks (3, 4, 6, 3), 256-channel
+    FPN, 512 proposals, 7 classes) on the CPU and on the card, every
+    BatchNorm's scale, bias and running statistics and every bias drawn
+    from the seed (each bottleneck's last BN scale in [0.1, 0.3], so the
+    residual stream stays in range through 16 blocks), the class logits'
+    weights x10 so that scores spread far above f32 noise."""
+    import torch
+    from torch import nn
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.models import resnet as RN
+
+    cpu = FR.create(FR.FrcnnConfig(), device=torch.device("cpu"),
+                    generator=torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 1)
+
+    def draw(t, lo, span):
+        t.copy_(torch.rand(t.shape, generator=g) * span + lo)
+    with torch.no_grad():
+        bn3 = {id(m.bn3) for m in cpu.modules()
+               if isinstance(m, RN.BottleneckBlock)}
+        for mod in cpu.modules():
+            if isinstance(mod, nn.BatchNorm2d):
+                draw(mod.weight, *((0.1, 0.2) if id(mod) in bn3
+                                   else (0.75, 0.5)))
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.1)
+                mod.running_mean.copy_(
+                    torch.randn(mod.running_mean.shape, generator=g) * 0.1)
+                draw(mod.running_var, 0.75, 0.5)
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)) and \
+                    mod.bias is not None:
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.1)
+        cpu.roi_heads.box_predictor.cls_score.weight.mul_(10.0)
+    gpu = FR.create(FR.FrcnnConfig(), device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def roi_align_float64(features, boxes, output_size=7, strides=(4, 8, 16, 32),
+                      sampling_ratio=2):
+    """RoIAlign RoI by RoI and tap by tap in float64 with the reference's
+    semantics (levels by Lin et al. eq. 1 with +1e-8, aligned=False, 2 x 2
+    samples a bin clamped into the level, their mean): an implementation
+    independent of the port's flattened gather. features: per-level (B,
+    C, H, W); boxes (B, R, 4). Returns (B, R, out, out, C)."""
+    import torch
+    b, r = boxes.shape[:2]
+    c = features[0].shape[1]
+    out = torch.zeros(b, r, output_size, output_size, c, dtype=torch.float64)
+    s = sampling_ratio
+    for bi in range(b):
+        for ri in range(r):
+            x1, y1, x2, y2 = (float(v) for v in boxes[bi, ri])
+            area = max(x2 - x1, 0.0) * max(y2 - y1, 0.0)
+            k = math.floor(4 + math.log2(math.sqrt(area) / 224.0 + 1e-8))
+            lvl = min(max(k, 2), 5) - 2
+            f = features[lvl][bi].double()
+            h, w = f.shape[1:]
+            st = strides[lvl]
+            bw = max(x2 / st - x1 / st, 1.0) / output_size
+            bh = max(y2 / st - y1 / st, 1.0) / output_size
+            for i in range(output_size):
+                for j in range(output_size):
+                    acc = torch.zeros(c, dtype=torch.float64)
+                    for ti in range(s):
+                        for tj in range(s):
+                            sy = y1 / st + (i * s + ti + 0.5) / s * bh
+                            sx = x1 / st + (j * s + tj + 0.5) / s * bw
+                            sy = min(max(sy, 0.0), h - 1)
+                            sx = min(max(sx, 0.0), w - 1)
+                            y0, x0 = math.floor(sy), math.floor(sx)
+                            ya, xa = min(y0 + 1, h - 1), min(x0 + 1, w - 1)
+                            fy, fx = sy - y0, sx - x0
+                            acc += (f[:, y0, x0] * (1 - fy) * (1 - fx)
+                                    + f[:, y0, xa] * (1 - fy) * fx
+                                    + f[:, ya, x0] * fy * (1 - fx)
+                                    + f[:, ya, xa] * fy * fx)
+                    out[bi, ri, i, j] = acc / (s * s)
+    return out
+
+
+def match_detections(out, ref, box_atol, score_atol, max_ties=3):
+    """Valid detections of two predict outputs equal as sets: each row of
+    `out` matches a row of `ref` by box (box_atol px), class and score
+    (score_atol); rows left over must pair up as near ties resolved the
+    other way (same class, scores within score_atol, IoU above 0.5), at
+    most `max_ties` an image. Returns (matched, ties, worst box err, worst
+    score err)."""
+    ob, os_, oc, ov = (t.cpu() for t in out)
+    rb, rs, rc, rv = (t.cpu() for t in ref)
+    require(bool((ov.sum(1) == rv.sum(1)).all()),
+            f"detection counts differ: {ov.sum(1).tolist()} vs "
+            f"{rv.sum(1).tolist()}")
+    matched = ties = 0
+    worst_box = worst_score = 0.0
+    for b in range(rb.shape[0]):
+        left = rv[b].nonzero().flatten().tolist()
+        spare = []
+        for i in ov[b].nonzero().flatten().tolist():
+            d = [(float((rb[b, j] - ob[b, i]).abs().max()), j) for j in left]
+            err, j = min(d)
+            if err > box_atol:
+                spare.append(i)
+                continue
+            require(int(rc[b, j]) == int(oc[b, i])
+                    and abs(float(rs[b, j] - os_[b, i])) <= score_atol,
+                    f"image {b}: detection {i} differs in class or score")
+            worst_box = max(worst_box, err)
+            worst_score = max(worst_score, abs(float(rs[b, j] - os_[b, i])))
+            left.remove(j)
+            matched += 1
+        require(len(spare) == len(left) <= max_ties,
+                f"image {b}: {len(spare)} detections unmatched")
+        for i in spare:
+            a = ob[b, i]
+            pair = [j for j in left if int(rc[b, j]) == int(oc[b, i])
+                    and abs(float(rs[b, j] - os_[b, i])) <= score_atol
+                    and box_iou(a, rb[b, j]) > 0.5]
+            require(bool(pair), f"image {b}: detection {i} unmatched")
+            left.remove(pair[0])
+            ties += 1
+    return matched, ties, worst_box, worst_score
+
+
+def box_iou(a, b) -> float:
+    iw = max(min(float(a[2]), float(b[2])) - max(float(a[0]), float(b[0])),
+             0.0)
+    ih = max(min(float(a[3]), float(b[3])) - max(float(a[1]), float(b[1])),
+             0.0)
+    union = (float((a[2] - a[0]) * (a[3] - a[1]))
+             + float((b[2] - b[0]) * (b[3] - b[1])) - iw * ih)
+    return iw * ih / union
+
+
+def phase_frcnn_model_check(dev):
+    """Faster R-CNN f32 on the card (cuDNN, TF32 off) against the same
+    weights on the CPU, batch 2 at 256x256 and at 256x384: the pyramid
+    P2..P6, the RPN's objectness and deltas, and the box head on the CPU's
+    proposals within 1e-4 x max|ref| each; then the end-to-end detections
+    matched by box (0.05 px, scores within 1e-4, near ties allowed as
+    match_detections says). On the card also against implementations
+    independent of the port: the pyramid, the RPN maps and the box head
+    (on pooled RoIs) of the torchvision-layout replica in
+    tests/_torch_frcnn.py loaded with the same state_dict, within 1e-4 x
+    max|ref| (TF32 off), and RoIAlign against roi_align_float64 on 12
+    proposals an image and 4 set boxes (three past the border, one under a
+    pixel), within 1e-5 x max|ref|."""
+    import torch
+    from robust_object_detection_tpu_torch.models import fpn as FP
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    import importlib.util
+    # by path: a `tests` package installed elsewhere may shadow the
+    # checkout's tests/ directory
+    spec = importlib.util.spec_from_file_location(
+        "_torch_frcnn", Path(__file__).resolve().parent / "tests"
+        / "_torch_frcnn.py")
+    replica_lib = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(replica_lib)
+
+    cpu, gpu = frcnn_pair(dev)
+    print(f"[frcnn] Faster R-CNN ResNet-50-FPN-v2 f32, "
+          f"{sum(p.numel() for p in gpu.parameters())} parameters, blocks "
+          f"{gpu.cfg.blocks}, "
+          f"{gpu.cfg.num_proposals} proposals, {gpu.cfg.num_classes} "
+          f"classes")
+    g = torch.Generator().manual_seed(SEED + 7)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+            for size in (256, FRCNN_RECT):
+                h, w = FR._hw(size)
+                x = torch.randint(0, 256, (2, h, w, 3), generator=g,
+                                  dtype=torch.uint8)
+                xf = x.float() / 255.0
+                pyr_c, obj_c, d_c = cpu.extract(xf)
+                pyr_g, obj_g, d_g = gpu.extract(xf.to(dev))
+                log = []
+                for i, (o, r) in enumerate(zip(pyr_g, pyr_c)):
+                    check(f"P{i + 2}", o.cpu(), r, 1e-4, log)
+                check("objectness", obj_g.cpu(), obj_c, 1e-4, log)
+                check("rpn deltas", d_g.cpu(), d_c, 1e-4, log)
+                props, valid = FR.generate_proposals(obj_c, d_c, (h, w),
+                                                     cpu.cfg)
+                s_c, bd_c = cpu.roi_forward(pyr_c, props)
+                s_g, bd_g = gpu.roi_forward(pyr_g, props.to(dev))
+                check("box scores", s_g.cpu(), s_c, 1e-4, log)
+                check("box deltas", bd_g.cpu(), bd_c, 1e-4, log)
+                out = TFR.make_predict_step(gpu, (h, w))(gpu, x.to(dev))
+                ref = TFR.make_predict_step(cpu, (h, w))(cpu, x)
+                m, ties, eb, es = match_detections(out, ref, 0.05, 1e-4)
+                print(f"[frcnn] {h}x{w} card vs CPU, TF32 off: "
+                      f"{'; '.join(log)}; proposals valid "
+                      f"{valid.sum(1).tolist()}; detections "
+                      f"{ref[3].sum(1).tolist()}: {m} matched (max box err "
+                      f"{eb} px, score err {es}), {ties} near ties")
+
+            # independent implementations: the torchvision-layout replica
+            # and a float64 RoIAlign, on the card
+            rep = replica_lib.FasterRCNN(num_classes=gpu.cfg.num_classes)
+            rep.load_state_dict({k.replace("box_head.", "box_head.blocks.")
+                                 if k.startswith("roi_heads.box_head.")
+                                 else k: v
+                                 for k, v in gpu.state_dict().items()})
+            rep = rep.to(dev).eval()
+            mean = torch.tensor(FR.IMAGENET_MEAN, device=dev)
+            std = torch.tensor(FR.IMAGENET_STD, device=dev)
+            xf = xf.to(dev)
+            rois = torch.randn(2, 12, 7, 7, 256, generator=g).to(dev)
+            pyr_r, objs_r, boxes_r, s_r, d_r = rep.forward_parts(
+                ((xf - mean) / std).permute(0, 3, 1, 2),
+                rois.reshape(24, 7, 7, 256).permute(0, 3, 1, 2))
+            s_p, d_p = gpu.roi_forward_pooled(None, rois)
+            log = []
+            for i, (o, r) in enumerate(zip(pyr_g, pyr_r)):
+                check(f"P{i + 2}", o, r, 1e-4, log)
+            check("objectness", obj_g, torch.cat(
+                [o.permute(0, 2, 3, 1).reshape(2, -1) for o in objs_r], 1),
+                1e-4, log)
+            check("rpn deltas", d_g, torch.cat(
+                [b.permute(0, 2, 3, 1).reshape(2, -1, 4) for b in boxes_r],
+                1), 1e-4, log)
+            check("box scores", s_p.reshape(24, -1), s_r, 1e-4, log)
+            check("box deltas", d_p.reshape(24, -1), d_r, 1e-4, log)
+            print(f"[frcnn] {h}x{w} card vs the torchvision-layout replica, "
+                  f"TF32 off: {'; '.join(log)}")
+            boxes = torch.cat([props[:, :12].to(dev), torch.tensor(
+                [[-30.0, -20.0, 60.0, 50.0], [300.0, 200.0, 420.0, 300.0],
+                 [-5.0, 100.0, 20.0, 400.0], [10.0, 10.0, 10.5, 10.5]],
+                device=dev).expand(2, 4, 4)], 1)
+            ra = FP.roi_align(tuple(pyr_g[:4]), boxes)
+            rr = roi_align_float64([p.cpu() for p in pyr_g[:4]], boxes.cpu())
+            log = []
+            check("RoIAlign", ra.cpu().double(), rr, 1e-5, log)
+            print(f"[frcnn] RoIAlign on the card vs float64 RoI by RoI "
+                  f"({boxes.shape[1]} boxes an image: 12 proposals, three "
+                  f"boxes past the border, one under a pixel): "
+                  f"{'; '.join(log)}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+def frcnn_macs(model, fn):
+    """Multiply-adds of `fn`'s convs and linears by module group (counted
+    from the shapes each call sees, by forward hooks)."""
+    import torch
+    from torch import nn
+    groups = {"backbone": "backbone.body.", "FPN": "backbone.fpn.",
+              "RPN head": "rpn.", "box head": "roi_heads."}
+    macs = dict.fromkeys(groups, 0)
+    hooks = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (nn.Conv2d, nn.Linear)):
+            continue
+        group = next(k for k, p in groups.items() if name.startswith(p))
+
+        def hook(mod, inp, out, group=group):
+            if isinstance(mod, nn.Conv2d):
+                per_out = (mod.in_channels // mod.groups
+                           * mod.kernel_size[0] * mod.kernel_size[1])
+            else:
+                per_out = mod.in_features
+            macs[group] += out.numel() * per_out
+        hooks.append(mod.register_forward_hook(hook))
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def idle_share(fn):
+    """(wall ms, device busy ms, idle share) of one profiled call of `fn`
+    (after one warm-up): busy is the union of the device's kernel and copy
+    intervals."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    require(bool(dev_ev), "the profiler recorded no device events")
+    busy = union_us((e.time_range.start, e.time_range.end)
+                    for e in dev_ev) / 1e3
+    return wall, busy, 1 - busy / wall
+
+
+def all_kernel_counters():
+    """Every hand kernel's launch counter (the fifteen wrappers)."""
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import stem as ST
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    fns = (C.conv3x3, C.conv3x3_wgrad, TF.front_inference, TF.front_fused,
+           TF.front_fused_backward, FC.fused_random_corruption,
+           ST.stem_fused_inference, ST.stem_fused, ST.stem_fused_backward,
+           DF.ms_deform_attn_slots, DF.ms_deform_attn_backward,
+           AS.auction_assignment, DF.ms_deform_attn_sorted_forward,
+           DF.ms_deform_attn_sorted_backward, DF.stamp_scatter)
+    return {f.__name__: f for f in fns}
+
+
+def phase_frcnn_sweep(dev):
+    """The 4-pass sweep with Faster R-CNN (full width, f32 under the
+    process's flags, 1024 canvas, batch 8, phase 5's 64 images): no hand
+    kernel launches (every counter zeroed just before, read just after);
+    image-passes/s and peak memory; the event ms a batch of each part of
+    the predict step, beside the FLOP bound of its convs and linears; the
+    idle share of one profiled batch; RoIAlign's peak memory. Then the
+    8-pass sweep with the U-Net over 16 images."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.models import fpn as FP
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.ops import image as IM
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    model = frcnn_pair(dev)[1]
+    predict = TFR.make_predict_step(model, IMG_SIZE)
+    counters = all_kernel_counters()
+    none = dict.fromkeys(counters, 0)
+    _, dets = run_sweep(dev, "frcnn-sweep", "Faster R-CNN", model, predict,
+                        counters, none, dtype="f32")
+    per_img = dets[3].sum(-1).float().mean(-1).tolist()
+    print(f"[frcnn-sweep] detections per image by pass (Clean, Noise, "
+          f"Blur, LowRes): {per_img}")
+
+    images, _ = synthetic_samples(BATCH)
+    clean = torch.from_numpy(np.stack(list(images.values()))).to(dev)
+    canvas = IM.letterbox(clean.float(), IMG_SIZE)[0]
+    cfg, hw = model.cfg, (IMG_SIZE, IMG_SIZE)
+    with torch.inference_mode():
+        x = canvas / 255.0
+        pyr = model.pyramid(x)
+        obj, deltas = model.rpn["head"](pyr)
+        props, valid = FR.generate_proposals(obj, deltas, hw, cfg)
+        rois = FP.roi_align(tuple(pyr[:4]), props)
+        scores, box_deltas = model.roi_heads(rois)
+        parts = {
+            "backbone + FPN": lambda: model.pyramid(x),
+            "RPN head": lambda: model.rpn["head"](pyr),
+            "proposals (top-k + NMS)": lambda: FR.generate_proposals(
+                obj, deltas, hw, cfg),
+            "RoIAlign": lambda: FP.roi_align(tuple(pyr[:4]), props),
+            "box head": lambda: model.roi_heads(rois),
+            "final NMS (decode + NMS)": lambda: TFR.detect(
+                cfg, props, valid, scores, box_deltas, hw),
+            "whole predict step": lambda: predict(model, canvas)}
+        ms = {k: time_ms(fn, iters=5, warmup=2) for k, fn in parts.items()}
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        FP.roi_align(tuple(pyr[:4]), props)
+        roi_peak = torch.cuda.max_memory_allocated(dev) - before
+    macs = frcnn_macs(model, lambda: predict(model, canvas))
+    total = sum(macs.values())
+    flops = 2 * total
+    for k, v in ms.items():
+        print(f"[frcnn-sweep] batch {BATCH} at {IMG_SIZE}: {k} {v} ms")
+    print(f"[frcnn-sweep] multiply-adds an image: "
+          + ", ".join(f"{k} {v / BATCH / 1e9} G" for k, v in macs.items())
+          + f"; total {total / BATCH / 1e9} GMAC = {flops / BATCH / 1e12} "
+          f"TFLOP an image, {flops / 1e12} a batch; bound "
+          f"{flops / FRCNN_PEAK_TF32 * 1e3} ms at 494 TFLOP/s TF32, "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3} ms at 67 TFLOP/s f32 "
+          f"(cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
+    print(f"[frcnn-sweep] RoIAlign at batch {BATCH}, {cfg.num_proposals} "
+          f"RoIs, 14x14 taps, 256 channels: peak memory it adds {roi_peak} "
+          f"bytes ({roi_peak / 2 ** 30} GiB)")
+    wall, busy, idle = idle_share(lambda: predict(model, canvas))
+    print(f"[frcnn-sweep] one profiled batch: wall {wall} ms, device busy "
+          f"{busy} ms, idle share {idle}")
+
+    unet = unet_pair(dev)[1]
+    _, dets8 = run_sweep(dev, "frcnn-sweep8", "Faster R-CNN + U-Net", model,
+                         predict, counters, none, unet=unet, n_images=16,
+                         dtype="f32")
+    per_img = dets8[3].sum(-1).float().mean(-1).tolist()
+    print(f"[frcnn-sweep8] detections per image by pass (corrupted, then "
+          f"restored): {per_img}")
+
+
+def phase_frcnn_bucketed(dev):
+    """evaluate_bucketed through BucketedPredict over 16 in-memory 750x1333
+    images (tv_target scale 1.0: the VisDrone bucket 768x1344), batch 1 as
+    the reference evaluates: one bucket of 16, finite mAPs, ms an image
+    (a warm-up run over two images first)."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.data.pipeline import Sample
+    from robust_object_detection_tpu_torch.eval import detector_eval as DE
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    model = frcnn_pair(dev)[1]
+    rng = np.random.RandomState(SEED + 3)
+    h, w = BUCKET_HW
+    images, samples = {}, []
+    for i in range(N_BUCKET_IMAGES):
+        images[i + 1] = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        m = int(rng.randint(1, 6))
+        xy = rng.rand(m, 2) * [w - 64, h - 64]
+        wh = rng.rand(m, 2) * 56 + 8
+        samples.append(Sample(
+            image_path=Path(f"synthetic/bucket{i:04d}.png"), image_id=i + 1,
+            width=w, height=h,
+            boxes_xyxy=np.concatenate([xy, xy + wh], 1).astype(np.float32),
+            classes=rng.randint(0, 6, m).astype(np.int32)))
+    factory = DE.BucketedPredict(
+        lambda hw: TFR.make_predict_step(model, hw))
+
+    def loader(sample):
+        return images[sample.image_id]
+    DE.evaluate_on_samples(factory, model, samples[:2], IMG_SIZE, 1,
+                           load_image=loader)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = DE.evaluate_on_samples(factory, model, samples, IMG_SIZE, 1,
+                                 load_image=loader)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[frcnn-bucket] {N_BUCKET_IMAGES} images {h}x{w}, batch 1: "
+          f"buckets {out['buckets']}, mAP50 {out['mAP50']} mAP50-95 "
+          f"{out['mAP50_95']}, {elapsed} s = {elapsed / N_BUCKET_IMAGES * 1e3}"
+          f" ms an image (host scoring included), peak memory {peak} bytes "
+          f"({peak / 2 ** 30} GiB)")
+    require(out["buckets"] == {"768x1344": N_BUCKET_IMAGES},
+            f"buckets {out['buckets']}")
+    require(out["images"] == N_BUCKET_IMAGES, "images evaluated")
+    require(all(math.isfinite(out[k]) and 0.0 <= out[k] <= 1.0
+                for k in ("mAP50", "mAP50_95")), "bucketed mAP not finite")
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -3100,6 +3589,9 @@ def main() -> int:
     phase_unet_model_check(dev)
     restored_launches = phase_restored_sweep(dev)
     phase_unet_training(dev)
+    phase_frcnn_model_check(dev)
+    phase_frcnn_sweep(dev)
+    phase_frcnn_bucketed(dev)
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,

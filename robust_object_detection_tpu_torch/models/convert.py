@@ -1,9 +1,11 @@
-"""JAX (flax) YOLOv8, RT-DETR and restoration U-Net variables -> the
-port's ``state_dict``.
+"""JAX (flax) YOLOv8, RT-DETR, restoration U-Net and Faster R-CNN
+variables -> the port's ``state_dict``.
 
 The port keeps the Ultralytics key layout (``model.{i}.…``), so these are
 the exact inverses of the reference's ``models/pretrained.import_yolov8``
-and ``import_rtdetr``: conv kernels HWIO -> OIHW, dense kernels (in, out)
+and ``import_rtdetr``, and Faster R-CNN keeps torchvision's
+(``fasterrcnn_resnet50_fpn_v2``), whose inverse is ``import_frcnn``: conv
+kernels HWIO -> OIHW, dense kernels (in, out)
 -> (out, in), BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` ->
 ``weight/bias/running_mean/running_var``, flax per-head attention kernels
 -> torch's packed ``in_proj``, flax transposed-conv kernels -> torch's
@@ -13,6 +15,7 @@ flipped ``ConvTranspose2d`` weights. Inputs are nested dicts of numpy arrays
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -287,4 +290,99 @@ def unet_from_jax_variables(params: Mapping, batch_stats: Mapping
         sd[f"up.{i}.bias"] = _t(p["bias"])
     sd["out.weight"] = _oihw(params["Conv_0"]["kernel"])
     sd["out.bias"] = _t(params["Conv_0"]["bias"])
+    return sd
+
+
+# ── Faster R-CNN (torchvision fasterrcnn_resnet50_fpn_v2 layout) ─────────
+
+def _tv_bn(sd, tkey: str, p: Mapping, st: Mapping) -> None:
+    sd[f"{tkey}.weight"] = _t(p["scale"])
+    sd[f"{tkey}.bias"] = _t(p["bias"])
+    sd[f"{tkey}.running_mean"] = _t(st["mean"])
+    sd[f"{tkey}.running_var"] = _t(st["var"])
+    sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _tv_conv(sd, tkey: str, p: Mapping, bias: bool = False) -> None:
+    sd[f"{tkey}.weight"] = _oihw(p["kernel"])
+    if bias:
+        sd[f"{tkey}.bias"] = _t(p["bias"])
+
+
+def dense_chw(kernel, chw: Tuple[int, int, int]) -> torch.Tensor:
+    """flax Dense kernel over a flattened NHWC tensor, (H*W*C, out) ->
+    torch Linear weight over the flattened NCHW tensor, (out, C*H*W): the
+    inverse of the reference's ``pretrained._dense_chw``."""
+    c, h, w = chw
+    k = np.asarray(kernel).T                            # (out, H*W*C)
+    return _t(k.reshape(k.shape[0], h, w, c).transpose(0, 3, 1, 2)
+              .reshape(k.shape[0], -1))
+
+
+def frcnn_from_jax_variables(params: Mapping, batch_stats: Mapping,
+                             cfg) -> Dict[str, torch.Tensor]:
+    """Flax FasterRCNN ``params`` / ``batch_stats`` (built with `cfg`, a
+    models/frcnn.FrcnnConfig) -> the port's state_dict in torchvision's
+    key layout, the exact inverse of the reference's
+    ``pretrained.import_frcnn``: ``backbone/Conv_0``, ``BatchNorm_0`` ->
+    ``backbone.body.conv1``, ``bn1``; ``BottleneckBlock_k`` ->
+    ``layer{s}.{j}`` (``Conv_0..2`` / ``BatchNorm_0..2`` -> ``conv1..3`` /
+    ``bn1..3``, ``Conv_3`` / ``BatchNorm_3`` -> ``downsample.0/1``);
+    ``fpn/lateral{i}(_bn)``, ``post{i}(_bn)`` ->
+    ``backbone.fpn.inner_blocks.{i}.0/1``, ``layer_blocks.{i}.0/1``;
+    ``rpn_head/conv{0,1}``, ``obj``, ``box`` -> ``rpn.head.conv.{0,1}.0``,
+    ``cls_logits``, ``bbox_pred``; ``box_head/Conv_i``, ``BatchNorm_i`` ->
+    ``roi_heads.box_head.{i}.0/1``, ``Dense_0`` -> ``box_head.5`` (input
+    axis HWC -> CHW), ``Dense_1``, ``Dense_2`` -> ``box_predictor.
+    cls_score``, ``bbox_pred``. With ``cfg.fpn_norm`` False (the classic
+    FPN) the lateral and post convs carry a bias and have no BN:
+    ``inner_blocks.{i}.0`` / ``layer_blocks.{i}.0`` with ``.bias`` are
+    then the port's own keys."""
+    sd: Dict[str, torch.Tensor] = {}
+    bp, bs = params["backbone"], batch_stats["backbone"]
+    _tv_conv(sd, "backbone.body.conv1", bp["Conv_0"])
+    _tv_bn(sd, "backbone.body.bn1", bp["BatchNorm_0"], bs["BatchNorm_0"])
+    k = 0
+    for s, n_blocks in enumerate(cfg.blocks):
+        for j in range(n_blocks):
+            t = f"backbone.body.layer{s + 1}.{j}"
+            p, st = bp[f"BottleneckBlock_{k}"], bs[f"BottleneckBlock_{k}"]
+            for c in range(3):
+                _tv_conv(sd, f"{t}.conv{c + 1}", p[f"Conv_{c}"])
+                _tv_bn(sd, f"{t}.bn{c + 1}", p[f"BatchNorm_{c}"],
+                       st[f"BatchNorm_{c}"])
+            if "Conv_3" in p:
+                _tv_conv(sd, f"{t}.downsample.0", p["Conv_3"])
+                _tv_bn(sd, f"{t}.downsample.1", p["BatchNorm_3"],
+                       st["BatchNorm_3"])
+            k += 1
+    fp = params["fpn"]
+    fs = batch_stats.get("fpn", {})
+    for i in range(4):
+        for flax_name, tv in ((f"lateral{i}", f"inner_blocks.{i}"),
+                              (f"post{i}", f"layer_blocks.{i}")):
+            t = f"backbone.fpn.{tv}"
+            _tv_conv(sd, f"{t}.0", fp[flax_name], bias=not cfg.fpn_norm)
+            if cfg.fpn_norm:
+                _tv_bn(sd, f"{t}.1", fp[f"{flax_name}_bn"],
+                       fs[f"{flax_name}_bn"])
+    rp = params["rpn_head"]
+    for i in range(2):
+        _tv_conv(sd, f"rpn.head.conv.{i}.0", rp[f"conv{i}"], bias=True)
+    _tv_conv(sd, "rpn.head.cls_logits", rp["obj"], bias=True)
+    _tv_conv(sd, "rpn.head.bbox_pred", rp["box"], bias=True)
+    hp, hs = params["box_head"], batch_stats["box_head"]
+    for i in range(4):
+        _tv_conv(sd, f"roi_heads.box_head.{i}.0", hp[f"Conv_{i}"])
+        _tv_bn(sd, f"roi_heads.box_head.{i}.1", hp[f"BatchNorm_{i}"],
+               hs[f"BatchNorm_{i}"])
+    c = np.asarray(hp["Conv_3"]["kernel"]).shape[-1]
+    side = math.isqrt(np.asarray(hp["Dense_0"]["kernel"]).shape[0] // c)
+    sd["roi_heads.box_head.5.weight"] = dense_chw(hp["Dense_0"]["kernel"],
+                                                  (c, side, side))
+    sd["roi_heads.box_head.5.bias"] = _t(hp["Dense_0"]["bias"])
+    for flax_name, tv in (("Dense_1", "cls_score"), ("Dense_2", "bbox_pred")):
+        sd[f"roi_heads.box_predictor.{tv}.weight"] = _t(
+            np.asarray(hp[flax_name]["kernel"]).T)
+        sd[f"roi_heads.box_predictor.{tv}.bias"] = _t(hp[flax_name]["bias"])
     return sd

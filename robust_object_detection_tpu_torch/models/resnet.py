@@ -1,0 +1,96 @@
+"""ResNet backbone for the Faster R-CNN family (counterpart of
+robust_object_detection_tpu/models/resnet.py).
+
+Bottleneck-v1 layout (1x1 reduce, 3x3, 1x1 expand), the stride on the 3x3
+with padding 1 and on the downsample branch's 1x1, as torchvision's; the
+stem is a 7x7 / 2 conv with padding 3, then a 3x3 / 2 max-pool with
+padding 1. Convs are ``nn.Conv2d`` (on the card cuDNN's), BatchNorm runs
+in f32 from the running statistics (eps 1e-5, flax's and torch's
+default). Modules take and return NCHW-indexed tensors, in channels_last
+memory on the card; every stride-2 layer gives ceil(H / 2), as the
+reference's SAME-style explicit padding does.
+
+Attribute names are torchvision's (``conv1``/``bn1``, ``layer{i}.{j}``,
+``downsample.0/1``), so the ``state_dict`` keys are those of
+``fasterrcnn_resnet50_fpn_v2``'s ``backbone.body``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 x4, each with BN; ReLU after the sum."""
+
+    def __init__(self, c_in: int, features: int, stride: int = 1):
+        super().__init__()
+        c_out = features * 4
+        self.conv1 = nn.Conv2d(c_in, features, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(features)
+        self.conv3 = nn.Conv2d(features, c_out, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(c_out)
+        # the reference's `residual.shape != out.shape`
+        self.downsample = (
+            nn.Sequential(nn.Conv2d(c_in, c_out, 1, stride, bias=False),
+                          nn.BatchNorm2d(c_out))
+            if stride != 1 or c_in != c_out else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNet(nn.Module):
+    """Returns (C2, C3, C4, C5) at strides 4/8/16/32."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        c_in = 64
+        for i, n_blocks in enumerate(self.stage_sizes):
+            width = 64 * 2 ** i
+            blocks = []
+            for j in range(n_blocks):
+                stride = 2 if (j == 0 and i > 0) else 1
+                blocks.append(BottleneckBlock(c_in, width, stride))
+                c_in = width * 4
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        feats = []
+        for i in range(len(self.stage_sizes)):
+            x = getattr(self, f"layer{i + 1}")(x)
+            feats.append(x)
+        return tuple(feats)
+
+
+def frozen_param_labels(stage_sizes: Sequence[int], trainable_layers: int):
+    """Backbone param-collection names frozen at this trainable_layers, in
+    the reference's flax names: stem = Conv_0/BatchNorm_0, blocks =
+    BottleneckBlock_k numbered consecutively across stages (used to mask
+    weight decay off frozen params)."""
+    if trainable_layers >= 5:
+        return set()
+    names = {"Conv_0", "BatchNorm_0"}
+    n_frozen_stages = max(0, 4 - trainable_layers)
+    for k in range(sum(stage_sizes[:n_frozen_stages])):
+        names.add(f"BottleneckBlock_{k}")
+    return names
+
+
+def resnet50() -> ResNet:
+    return ResNet((3, 4, 6, 3))

@@ -1,7 +1,7 @@
-"""Box overlaps for training (counterpart of
-robust_object_detection_tpu/ops/boxes.py): IoU, GIoU and CIoU, elementwise
-on aligned (..., 4) xyxy boxes and pairwise (..., M, 4) x (..., N, 4) ->
-(..., M, N).
+"""Box utilities (counterpart of robust_object_detection_tpu/ops/boxes.py):
+format conversion and clipping; IoU, GIoU and CIoU, elementwise on aligned
+(..., 4) xyxy boxes and pairwise (..., M, 4) x (..., N, 4) -> (..., M, N);
+the COCO-convention IoU on xywh boxes.
 
 The pairwise versions stay component-wise, as the reference's do: every
 intermediate is (..., M, N), never a (..., M, N, 2) or (..., M, N, 4)
@@ -15,6 +15,33 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def xywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    x, y, w, h = b.unbind(-1)
+    return torch.stack([x, y, x + w, y + h], -1)
+
+
+def xyxy_to_xywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1, y1, x2 - x1, y2 - y1], -1)
+
+
+def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+def clip_to_image(b: torch.Tensor, h: float, w: float) -> torch.Tensor:
+    """Clamp xyxy boxes into [0, w] x [0, h]."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
+                        y2.clamp(0, h)], -1)
 
 
 def area(b: torch.Tensor) -> torch.Tensor:
@@ -40,6 +67,22 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     pa, pb = _pairwise_parts(a, b)
     inter = _pairwise_inter(pa, pb)
     union = area(a)[..., :, None] + area(b)[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def pairwise_iou_xywh_coco(a: torch.Tensor, b: torch.Tensor,
+                           b_iscrowd: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """COCO-convention IoU on xywh boxes (pycocotools maskUtils.iou): for
+    crowd GT the denominator is the detection area only."""
+    pa, pb = _pairwise_parts(xywh_to_xyxy(a), xywh_to_xyxy(b))
+    inter = _pairwise_inter(pa, pb)
+    area_a = (a[..., 2] * a[..., 3])[..., :, None]
+    area_b = (b[..., 2] * b[..., 3])[..., None, :]
+    union = area_a + area_b - inter
+    if b_iscrowd is not None:
+        union = torch.where(b_iscrowd[..., None, :], area_a + 0 * area_b,
+                            union)
     return inter / torch.clamp(union, min=1e-9)
 
 

@@ -57,6 +57,18 @@ def _nms_core(boxes: torch.Tensor, scores: torch.Tensor,
     return ob, os_, oc, valid
 
 
+def nms(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+        max_outputs: int = 300, iou_thresh: float = 0.7,
+        class_aware: bool = True):
+    """Single-image NMS over fixed-capacity candidates: boxes (K, 4) xyxy,
+    scores (K,) with padding slots at score <= 0, classes (K,). Returns
+    (boxes, scores, classes, valid) with leading dim max_outputs, by
+    descending score."""
+    ob, os_, oc, ov = _nms_core(boxes[None], scores[None], classes[None],
+                                max_outputs, iou_thresh, class_aware)
+    return ob[0], os_[0], oc[0], ov[0]
+
+
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 classes: torch.Tensor, num_candidates: int = 1024,
                 max_outputs: int = 300, iou_thresh: float = 0.7,

@@ -1466,3 +1466,59 @@ def test_eight_pass_step_card_matches_cpu(cuda):
     assert sure.sum().item() >= 0.5 * valid.sum().item() > 0
     assert torch.equal(classes[sure], ref[2][sure])
     assert (boxes - ref[0]).abs()[sure].max().item() <= 5e-2
+
+
+# ── Faster R-CNN ─────────────────────────────────────────────────────────
+
+@pytest.mark.gpu
+def test_frcnn_card_matches_cpu(cuda):
+    """A small Faster R-CNN (blocks (1, 1, 1, 1), 64 proposals) in f32 on
+    the card with TF32 off against the CPU, batch 2 at 96x128: the
+    pyramid, the RPN maps and the box head on the CPU's proposals within
+    1e-4 x max|ref|; the detections' valid counts equal and, where
+    neighbouring scores lie more than 1e-4 apart, the same classes and
+    boxes within 5e-2 px. BN statistics, scales and biases are redrawn."""
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    cfg = FR.FrcnnConfig(blocks=(1, 1, 1, 1), pre_nms_topk=256,
+                         num_proposals=64)
+    cpu = FR.create(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, t in cpu.state_dict().items():
+            if name.endswith("running_mean") or name.endswith(".bias"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("running_var") or (
+                    name.endswith(".weight") and t.dim() == 1):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75)
+        cpu.roi_heads.box_predictor.cls_score.weight.mul_(10.0)
+    gpu = FR.create(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randint(0, 256, (2, 96, 128, 3), generator=g,
+                      dtype=torch.uint8)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+            pyr_c, obj_c, d_c = cpu.extract(x.float() / 255)
+            pyr_g, obj_g, d_g = gpu.extract(x.to(cuda).float() / 255)
+            props, _ = FR.generate_proposals(obj_c, d_c, (96, 128), cfg)
+            head_c = cpu.roi_forward(pyr_c, props)
+            head_g = gpu.roi_forward(pyr_g, props.to(cuda))
+            ref = TFR.make_predict_step(cpu, (96, 128))(cpu, x)
+            out = TFR.make_predict_step(gpu, (96, 128))(gpu, x.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for o, r in [*zip(pyr_g, pyr_c), (obj_g, obj_c), (d_g, d_c),
+                 *zip(head_g, head_c)]:
+        assert _rel_err(o.cpu(), r) <= 1e-4
+    boxes, scores, classes, valid = (t.cpu() for t in out)
+    assert torch.equal(valid.sum(1), ref[3].sum(1)) and valid.any()
+    gap = (ref[1][..., 1:] - ref[1][..., :-1]).abs() > 1e-4
+    sure = valid & ref[3]
+    sure[..., 1:] &= gap
+    sure[..., :-1] &= gap
+    assert sure.sum().item() >= 0.5 * valid.sum().item() > 0
+    assert torch.equal(classes[sure], ref[2][sure])
+    assert (boxes - ref[0]).abs()[sure].max().item() <= 5e-2

@@ -110,19 +110,6 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     return "other (topk, sort, gather, scatter, ...)"
 
 
-def union_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, -math.inf
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("yolo", "rtdetr"), default="yolo")
@@ -231,7 +218,7 @@ def main() -> int:
               and not getattr(e, "is_user_annotation", False)]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device events")
-    busy_ms = union_us((e.time_range.start, e.time_range.end)
+    busy_ms = chip_smoke.union_us((e.time_range.start, e.time_range.end)
                        for e in dev_ev) / 1e3
     launches = [e for e in events if e.name in LAUNCH_APIS]
     launch_ms = sum(e.time_range.elapsed_us() for e in launches) / 1e3
