@@ -14,7 +14,9 @@ outputs and f32 statistics); the decoder's sampling workload through
 each generation of the deformable-attention op family; and the Restored
 strategy: the 8-pass sweep with the restoration U-Net and the U-Net's
 training; and Faster R-CNN, served through both sweeps (f32) and the
-aspect-bucket eval at native resolution. Phases:
+aspect-bucket eval at native resolution, and trained at ``bench.py``'s
+``bench_frcnn`` configuration (batch 2, 1024 px, the Augmented mode, f32).
+Phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit; exits non-zero without a CUDA card;
@@ -181,7 +183,27 @@ aspect-bucket eval at native resolution. Phases:
  22. the aspect-bucket eval at native resolution: ``evaluate_bucketed``
      through ``BucketedPredict`` over 16 in-memory 750x1333 images (the
      VisDrone bucket 768x1344), batch 1: one bucket of 16, finite mAPs, ms
-     an image.
+     an image;
+ 23. Faster R-CNN train-step check: one step of the full-width model at
+     batch 2, 256 px, augment off, on the card and on the CPU from phase
+     20's weights and one set of draws (``train/frcnn.draw_train`` on the
+     CPU, moved), the card's proposals replayed on the CPU: in f32 with
+     TF32 off at trainable_layers 5 and 3 (losses, grad_norm, nine named
+     gradient leaves, every running statistic, each error printed beside
+     its bar; at 3 the frozen parameters bit-identical and their running
+     statistics moved) and in float64 (tolerances in
+     phase_frcnn_train_model_check);
+ 24. Faster R-CNN training at ``bench.py``'s ``bench_frcnn`` configuration
+     (batch 2, 1024 px, 80 GT boxes an image in 600 slots, augment, f32
+     under the process's flags): K1 at this shape against its plain
+     version (all four branches), then 1 warm-up + 5 timed steps with the
+     launch counters zeroed just before and read just after (K1 1 a step,
+     every other hand kernel 0); finite metrics; step ms, images/s, peak
+     memory; the CUDA-event ms of each stage (K1, backbone + FPN + RPN
+     forward, RPN targets + loss, proposals, RoI targets, RoIAlign + box
+     head forward, head loss, backward, SGD); the FLOP bound of the convs
+     and linears beside the step; the idle share of one profiled step; the
+     peak memory RoIAlign + the box head's forward and backward add.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -200,6 +222,7 @@ result. The line before the last is the kernel summary
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -3480,6 +3503,380 @@ def phase_frcnn_bucketed(dev):
                 for k in ("mAP50", "mAP50_95")), "bucketed mAP not finite")
 
 
+# ── Faster R-CNN training (phases 23-24) ─────────────────────────────────
+
+FRCNN_TRAIN_BATCH = 2              # bench.py's bench_frcnn
+FRCNN_CHECK_SIZE = 256             # phase 23's canvas
+FRCNN_CHECK_GT = (8, 16)           # phase 23: valid GT an image, slots
+FRCNN_CHECK_LEAVES = (
+    "backbone.body.conv1.weight", "backbone.body.layer4.2.conv2.weight",
+    "backbone.fpn.layer_blocks.0.0.weight", "rpn.head.conv.0.0.weight",
+    "rpn.head.cls_logits.weight", "rpn.head.bbox_pred.weight",
+    "roi_heads.box_head.5.weight", "roi_heads.box_predictor.cls_score.weight",
+    "roi_heads.box_predictor.bbox_pred.weight")
+FRCNN_METRICS = ("rpn_obj", "rpn_box", "head_cls", "head_box", "loss",
+                 "grad_norm")
+
+
+def frcnn_train_step(model, device, dtype, batch, draws, proposals,
+                     trainable_layers=5):
+    """One Faster R-CNN train step of a copy of `model` on `device` in
+    `dtype` (float64 widens the step's .float() casts and its BatchNorm's
+    f32 cast while it runs), TF32 off, with the given draws. `proposals`:
+    a list; the first run records the proposals it generated there, a run
+    given a filled list replays them, so both sides sample RoIs from the
+    same boxes. Returns (metrics, gradients, state before, state after),
+    tensors as float64 on the CPU."""
+    import torch
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.models import resnet as RN
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    cfg = dataclasses.replace(model.cfg, trainable_layers=trainable_layers)
+    net = FR.FasterRCNN(cfg)
+    net.load_state_dict(model.state_dict())
+    net.to(device, dtype, memory_format=torch.channels_last)
+    before = {k: v.detach().double().cpu().clone()
+              for k, v in net.state_dict().items()}
+    tx, _ = TFR.make_optimizer(frozen=RN.frozen_param_labels(
+        cfg.blocks, trainable_layers))
+    state = TFR.init_state(net, tx)
+    grads = {}
+    for n, p in net.named_parameters():
+        p.register_post_accumulate_grad_hook(
+            lambda p, n=n: grads.__setitem__(n, p.grad.detach().double()
+                                             .cpu()))
+    real_props, to_float, bn_train = (FR.generate_proposals,
+                                      torch.Tensor.float, RN.bn_train)
+
+    def props(obj, deltas, hw, cfg):
+        if not proposals:
+            proposals.extend(t.cpu() for t in real_props(obj, deltas, hw,
+                                                         cfg))
+        return tuple(t.to(obj.device, t.dtype if t.dtype == torch.bool
+                          else obj.dtype) for t in proposals)
+    FR.generate_proposals = props
+    if dtype == torch.float64:
+        torch.Tensor.float = lambda self: self.double()
+        RN.bn_train = lambda y, bn, _, m: bn_train(y, bn, y.dtype, m)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, gb, gc = batch
+    try:
+        with torch.backends.cudnn.flags(allow_tf32=False):
+            step = TFR.make_train_step(net, images.shape[1], None, False)
+            m = step(state, images.to(device), gb.to(device, dtype),
+                     gc.to(device), SEED,
+                     {k: (v.to(device, dtype) if v.is_floating_point()
+                          else v.to(device)) for k, v in draws.items()})
+    finally:
+        FR.generate_proposals = real_props
+        torch.Tensor.float = to_float
+        RN.bn_train = bn_train
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    require(m["loss"].dtype == dtype and all(
+        g.dtype == torch.float64 for g in grads.values()),
+        f"the {dtype} step computed in another dtype")
+    after = {k: v.detach().double().cpu() for k, v in net.state_dict().items()}
+    return ({k: v.item() for k, v in m.items()}, grads, before, after)
+
+
+def frcnn_compare(tag, card, cpu, bars, log):
+    """Card vs CPU of frcnn_train_step's results: each metric's relative
+    error (bars: the losses', grad_norm's), each named leaf's gradient's
+    relative L2 error, the worst running statistic's max error over its
+    leaf's max; each beside its bar."""
+    (mc, gc_, _, sc), (mr, gr, _, sr) = card, cpu
+    m_bar, n_bar, g_bar, s_bar = bars
+    worst = 0.0
+    for k in FRCNN_METRICS:
+        bar = n_bar if k == "grad_norm" else m_bar
+        e = abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-30)
+        log.append(f"{k} {mc[k]} vs {mr[k]} rel {e} (bar {bar})")
+        require(math.isfinite(mc[k]) and e <= bar,
+                f"{tag}: {k} {mc[k]} vs {mr[k]}")
+    require(gc_.keys() == gr.keys(), f"{tag}: gradient leaves differ")
+    for n in FRCNN_CHECK_LEAVES:
+        if n not in gr:
+            log.append(f"{n}: no gradient on either side")
+            continue
+        e = ((gc_[n] - gr[n]).norm() / gr[n].norm()).item()
+        log.append(f"grad {n} rel L2 {e} (bar {g_bar})")
+        require(math.isfinite(e) and e <= g_bar, f"{tag}: grad {n} {e}")
+    for n, r in sr.items():
+        if "running_" in n:
+            worst = max(worst, ((sc[n] - r).abs().max()
+                                / r.abs().max()).item())
+    log.append(f"running statistics worst max err / max|ref| {worst} "
+               f"(bar {s_bar})")
+    require(worst <= s_bar, f"{tag}: running statistics {worst}")
+
+
+def phase_frcnn_train_model_check(dev):
+    """One Faster R-CNN train step at full width, card vs CPU, batch 2 at
+    256 px, augment off, the same weights (phase 20's, every BN and bias
+    drawn from the seed) and the same draws (draw_train on the CPU, moved);
+    the proposals the card generates are replayed on the CPU, so both sample
+    RoIs from the same boxes. f32 with TF32 off, trainable_layers 5 and 3:
+    the losses within 1e-3 relative, grad_norm within 1e-2 and the named
+    leaves' gradients within 5e-2 relative L2 (f32 noise through 70
+    train-mode BatchNorms; the CPU's f32 gradients are the noisier side,
+    the card's f32 grad_norm agrees with float64 to 1e-6), every running
+    statistic within 1e-3 x max|ref|; at trainable_layers 3 the frozen
+    parameters bit-identical before and after on the card, their running
+    statistics moved. float64 (trainable_layers 5): metrics within 1e-9,
+    gradients 1e-7, running statistics 1e-9."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    cpu = frcnn_pair(dev)[0]
+    n_gt, slots = FRCNN_CHECK_GT
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 11),
+                                     FRCNN_TRAIN_BATCH, FRCNN_CHECK_SIZE,
+                                     n_gt, slots)
+    batch = (torch.from_numpy(images), torch.from_numpy(gb),
+             torch.from_numpy(gc))
+    draws = TFR.draw_train(FRCNN_TRAIN_BATCH,
+                           len(FR.anchor_boxes(FRCNN_CHECK_SIZE)),
+                           cpu.cfg.num_proposals + slots,
+                           torch.Generator().manual_seed(SEED + 12))
+    for dtype, tl, bars in ((torch.float32, 5, (1e-3, 1e-2, 5e-2, 1e-3)),
+                            (torch.float32, 3, (1e-3, 1e-2, 5e-2, 1e-3)),
+                            (torch.float64, 5, (1e-9, 1e-9, 1e-7, 1e-9))):
+        name = str(dtype).split(".")[-1]
+        props = []
+        t0 = time.perf_counter()
+        card = frcnn_train_step(cpu, dev, dtype, batch, draws, props, tl)
+        t1 = time.perf_counter()
+        ref = frcnn_train_step(cpu, torch.device("cpu"), dtype, batch,
+                               draws, props, tl)
+        t2 = time.perf_counter()
+        log = []
+        frcnn_compare(f"frcnn-train-check {name} tl {tl}", card, ref, bars,
+                      log)
+        if tl < 5:
+            _, grads, before, after = card
+            frozen = [n for n in before if n.startswith(
+                ("backbone.body.conv1.", "backbone.body.bn1.",
+                 "backbone.body.layer1."))]
+            params = [n for n in frozen if "running_" not in n
+                      and not n.endswith("num_batches_tracked")]
+            require(bool(params) and all(
+                torch.equal(before[n], after[n]) and n not in grads
+                for n in params), "a frozen parameter moved")
+            moved = [n for n in frozen if "running_" in n
+                     and not torch.equal(before[n], after[n])]
+            require(len(moved) == 2 * sum(n.endswith("running_mean")
+                                          for n in frozen),
+                    "frozen BatchNorms' running statistics did not move")
+            log.append(f"{len(params)} frozen parameters bit-identical, "
+                       f"{len(moved)} of their running statistics moved")
+        print(f"[frcnn-train-check] {name} trainable_layers {tl}, batch "
+              f"{FRCNN_TRAIN_BATCH} at {FRCNN_CHECK_SIZE} px, TF32 off, card "
+              f"{t1 - t0} s vs CPU {t2 - t1} s: {'; '.join(log)}")
+
+
+def phase_frcnn_training(dev):
+    """bench_frcnn's configuration (bench.py:233: batch 2, 1024 px, 80 GT
+    an image in 600 slots, augment=True; f32 under the process's flags):
+    1 + 5 steps on one seeded batch through make_train_step, draws from
+    step_generator on the card. Launch counters zeroed just before the
+    timed steps and read just after (K1 1 a step, every other hand kernel
+    0); finite metrics; step ms, images/s, peak memory; CUDA-event ms of
+    each stage (wrappers around the step's own calls); the idle share of
+    one profiled step; the FLOP bound beside the step; K1 at this step's
+    shape against its plain version; the peak memory RoIAlign + the box
+    head's forward and backward add. Returns the launch counts."""
+    import functools
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    # K1 at this step's shape, the four branches in two batches of two
+    # (image 1 of the first mid-grey and noised), against its plain version
+    g = torch.Generator(dev).manual_seed(SEED + 13)
+    img = torch.floor(torch.rand(FRCNN_TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
+                                 device=dev, generator=g) * 256)
+    img[1] = 128.0
+    per_branch = {}
+    for pair in ((FC.CLEAN, FC.NOISE), (FC.BLUR, FC.LOWRES)):
+        choice = torch.tensor(pair, device=dev, dtype=torch.int32)
+        seeds = torch.randint(0, 2 ** 30, (FRCNN_TRAIN_BATCH,), device=dev,
+                              generator=g, dtype=torch.int32)
+        out, _ = FC.fused_random_corruption(img, None, choice=choice,
+                                            seeds=seeds)
+        ref = FC.fused_corruption_reference(img, choice, seeds)
+        for c, d in zip(pair, (out - ref).abs().amax((1, 2, 3)).tolist()):
+            per_branch[c] = d
+        if pair[1] == FC.NOISE:
+            nmean = (out[1] - 128.0).mean().item()
+            nstd = (out[1] - 128.0).std().item()
+    per_branch = [per_branch[c] for c in range(4)]
+    print(f"[frcnn-training] K1 at batch {FRCNN_TRAIN_BATCH} x {IMG_SIZE}^2 "
+          f"vs its plain version: max abs diff by branch {per_branch} "
+          f"(clean, noise, blur, lowres; bars 0 / 1 / 0 / 1), noise mean "
+          f"{nmean} std {nstd} (bars -0.5 +- 0.5, 15 +- 0.5)")
+    require(per_branch[0] == 0 and per_branch[2] == 0
+            and per_branch[1] <= 1 and per_branch[3] <= 1,
+            f"K1 at batch {FRCNN_TRAIN_BATCH}: {per_branch}")
+    require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
+            f"K1 noise mean {nmean} std {nstd}")
+
+    model = frcnn_pair(dev)[1]
+    tx, _ = TFR.make_optimizer()
+    state = TFR.init_state(model, tx)
+    step = TFR.make_train_step(model, IMG_SIZE, CorruptionConfig(),
+                               augment=True)
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 14),
+                                     FRCNN_TRAIN_BATCH, IMG_SIZE,
+                                     GT_PER_IMAGE, MAX_BOXES)
+    images, gb, gc = (torch.from_numpy(a).to(dev) for a in (images, gb, gc))
+
+    m = step(state, images, gb, gc, SEED)          # warm-up, off the count
+    torch.cuda.synchronize()
+    require(all(math.isfinite(v.item()) for v in m.values()),
+            "warm-up metrics not finite")
+
+    # stage events: wrappers around the step's own calls
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def timed(fn, name):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            mark(f"{name}>")
+            out = fn(*a, **k)
+            mark(f"{name}<")
+            return out
+        return run
+    real = {"extract": model.extract, "roi_forward": model.roi_forward,
+            "opt": state.optimizer.step}
+    patched = [(TFR, "fused_random_corruption"), (TFR, "rpn_loss"),
+               (FR, "generate_proposals"), (TFR, "roi_targets"),
+               (TFR, "head_loss")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in patched]
+    for mod, n, fn in saved:
+        setattr(mod, n, timed(fn, n))
+    model.extract = timed(real["extract"], "extract")
+    model.roi_forward = timed(real["roi_forward"], "roi_forward")
+    state.optimizer.step = timed(real["opt"], "sgd")
+
+    counters = all_kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, events = [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            marks.clear()
+            t0 = time.perf_counter()
+            mark("step>")
+            m = step(state, images, gb, gc, SEED)
+            mark("step<")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            events.append(dict(marks))
+            vals = {k: v.item() for k, v in m.items()}
+            print(f"[frcnn-training] step {i}: {vals}")
+            require(all(math.isfinite(v) for v in vals.values()),
+                    f"step {i}: a metric is not finite")
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+        del model.extract, model.roi_forward
+        state.optimizer.step = real["opt"]
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect = dict.fromkeys(counters, 0)
+    expect["fused_random_corruption"] = TRAIN_STEPS
+    print(f"[frcnn-training] launches {launches}")
+    require(launches == expect, f"launch counts {launches} != {expect}")
+
+    spans = (("K1", "fused_random_corruption>", "fused_random_corruption<"),
+             ("backbone + FPN + RPN forward", "extract>", "extract<"),
+             ("RPN targets + loss", "rpn_loss>", "rpn_loss<"),
+             ("proposals (top-k + 512-step NMS)", "generate_proposals>",
+              "generate_proposals<"),
+             ("RoI targets", "roi_targets>", "roi_targets<"),
+             ("RoIAlign + box head forward", "roi_forward>", "roi_forward<"),
+             ("head loss", "head_loss>", "head_loss<"),
+             ("backward (+ grad norm)", "head_loss<", "sgd>"),
+             ("SGD", "sgd>", "sgd<"),
+             ("step (events)", "step>", "step<"))
+    stages = [{name: ev[a].elapsed_time(ev[b]) for name, a, b in spans}
+              for ev in events]
+    ms = statistics.median(times)
+    print(f"[frcnn-training] Faster R-CNN f32 {IMG_SIZE}px batch "
+          f"{FRCNN_TRAIN_BATCH}, augment, {GT_PER_IMAGE} GT in {MAX_BOXES} "
+          f"slots (cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}): step "
+          f"ms {times} median {ms} = {FRCNN_TRAIN_BATCH / (ms / 1e3)} "
+          f"images/s; peak memory {peak} bytes ({peak / 2 ** 30} GiB)")
+    for k in stages[0]:
+        vals = [s[k] for s in stages]
+        print(f"[frcnn-training] stage {k}: events ms median "
+              f"{statistics.median(vals)} (steps {vals})")
+
+    # the work: forward multiply-adds counted by hooks on one train step;
+    # backward is twice the forward (dX and dW) less the stem's dX
+    from torch import nn
+    macs = {"fwd": 0, "stem": 0}
+    hooks = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            def hook(mod, inp, out, name=name):
+                per = (mod.in_channels * mod.kernel_size[0]
+                       * mod.kernel_size[1] if isinstance(mod, nn.Conv2d)
+                       else mod.in_features)
+                macs["fwd"] += out.numel() * per
+                if name == "backbone.body.conv1":
+                    macs["stem"] += out.numel() * per
+            hooks.append(mod.register_forward_hook(hook))
+    try:
+        step(state, images, gb, gc, SEED)
+    finally:
+        for h in hooks:
+            h.remove()
+    flops = 2 * (3 * macs["fwd"] - macs["stem"])
+    print(f"[frcnn-training] work: forward {macs['fwd'] / 1e9} GMAC a batch "
+          f"(convs and linears, counted by forward hooks), forward + "
+          f"backward {flops / 1e12} TFLOP; bound {flops / FRCNN_PEAK_TF32 * 1e3} ms "
+          f"at 494 TFLOP/s TF32, {flops / PEAK_FLOPS['float32'] * 1e3} ms at "
+          f"67 TFLOP/s f32, against the step's {ms} ms")
+    wall, busy, idle = idle_share(lambda: step(state, images, gb, gc, SEED))
+    print(f"[frcnn-training] one profiled step: wall {wall} ms, device busy "
+          f"{busy} ms, idle share {idle}")
+
+    # RoIAlign + box head forward and backward on this step's shapes
+    with torch.no_grad():
+        pyr = [p.detach().requires_grad_() for p in
+               model.extract(images.float() / 255.0)[0]]
+        rois = torch.rand(FRCNN_TRAIN_BATCH, model.cfg.roi_batch, 4,
+                          device=dev, generator=g) * (IMG_SIZE / 2)
+        rois[..., 2:] += rois[..., :2] + 8.0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s, d = model.roi_forward(pyr, rois, train=True)
+    (s.sum() + d.sum()).backward()
+    torch.cuda.synchronize()
+    roi_peak = torch.cuda.max_memory_allocated(dev) - before
+    print(f"[frcnn-training] RoIAlign + box head forward and backward at "
+          f"batch {FRCNN_TRAIN_BATCH}, {model.cfg.roi_batch} RoIs an image: "
+          f"peak memory it adds {roi_peak} bytes ({roi_peak / 2 ** 30} GiB)")
+    return {"corrupt": launches["fused_random_corruption"]}
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -3592,10 +3989,13 @@ def main() -> int:
     phase_frcnn_model_check(dev)
     phase_frcnn_sweep(dev)
     phase_frcnn_bucketed(dev)
+    phase_frcnn_train_model_check(dev)
+    frcnn_train_launches = phase_frcnn_training(dev)
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
-                 generation_launches, restored_launches):
+                 generation_launches, restored_launches,
+                 frcnn_train_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -5,7 +5,8 @@ The FPN is torchvision's v2 layout (``fasterrcnn_resnet50_fpn_v2``): 1x1
 laterals, nearest x2 top-down, 3x3 outputs, P6 a stride-2 max-pool of P5.
 With ``norm=True`` every lateral / output conv is bias-free and followed
 by BatchNorm (``inner_blocks.{i}.0/1``, ``layer_blocks.{i}.0/1``, the v2
-checkpoint's keys); ``norm=False`` is the classic bias-only FPN
+checkpoint's keys; in flax's train mode with ``train=True``); ``norm=False``
+is the classic bias-only FPN
 (``inner_blocks.{i}.0`` and ``layer_blocks.{i}.0`` with a bias: the
 port's own keys for that layout).
 
@@ -15,7 +16,9 @@ plain divide by the stride), a fixed 2 x 2 samples a bin, each sample
 clamped into [0, W-1] x [0, H-1] of its level (torchvision zeroes samples
 outside), and the bin the mean of its samples. The levels are flattened
 into one (B * sum HW, C) table and each corner of every sample is one
-row gather from it, as the reference's ``take_along_axis``.
+row gather from it, as the reference's ``take_along_axis``; autograd
+carries the gradient of the table back through the four gathers (an
+index-add of each corner's rows).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .resnet import batch_norm
 
 
 class FPN(nn.Module):
@@ -45,13 +50,22 @@ class FPN(nn.Module):
         self.layer_blocks = nn.ModuleList(block(features, 3)
                                           for _ in in_channels)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        laterals = [b(f) for b, f in zip(self.inner_blocks, feats)]
+    def _block(self, block: nn.Sequential, x: torch.Tensor,
+               train: bool) -> torch.Tensor:
+        x = block[0](x)
+        return batch_norm(x, block[1], train) if self.norm else x
+
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False
+                ) -> List[torch.Tensor]:
+        """train: the BatchNorms in flax's train mode (resnet.batch_norm)."""
+        laterals = [self._block(b, f, train)
+                    for b, f in zip(self.inner_blocks, feats)]
         outs = [laterals[-1]]
         for lat in laterals[-2::-1]:
             outs.insert(0, lat + F.interpolate(outs[0], scale_factor=2,
                                                mode="nearest"))
-        outs = [b(o) for b, o in zip(self.layer_blocks, outs)]
+        outs = [self._block(b, o, train)
+                for b, o in zip(self.layer_blocks, outs)]
         # P6: stride-2 max-pool of P5 (torchvision LastLevelMaxPool)
         outs.append(F.max_pool2d(outs[-1], 1, 2))
         return outs

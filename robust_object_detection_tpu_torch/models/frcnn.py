@@ -19,8 +19,12 @@ with the FC at index 5, ``roi_heads.box_predictor``), so a
 (models/convert.frcnn_from_jax_variables makes one from the reference's
 variables). Modules take NCHW-indexed tensors, channels_last on the card;
 images come in NHWC in [0, 1] and are normalised inside ``extract``, as
-torchvision's transform does. Training targets (anchor matching, the
-sampler) are not ported yet.
+torchvision's transform does. ``extract`` and ``roi_forward`` take
+``train=``: every BatchNorm (ResNet, FPN, box head) then runs in flax's
+train mode at momentum 0.99 (models/resnet.batch_norm). The training
+targets are pure functions: anchor matching (:func:`match_anchors`) and
+the balanced sampler (:func:`sample_targets`), whose uniforms come as
+tensors or from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..ops import nms as nms_ops
 from . import fpn as fpn_lib
 from . import resnet as resnet_lib
 from .layers import resolve_device
+from .resnet import batch_norm
 from .rtdetr import top_k
 
 ANCHOR_SIZES = (32, 64, 128, 256, 512)       # one per level P2..P6
@@ -230,13 +235,16 @@ class BoxHead(nn.Module):
             *convs, nn.Flatten(), nn.Linear(features * pool * pool, fc_dim))
         self.box_predictor = BoxPredictor(fc_dim, num_classes)
 
-    def forward(self, rois: torch.Tensor) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-        """rois (B, R, 7, 7, C) -> scores (B, R, K), deltas (B, R, K, 4)."""
+    def forward(self, rois: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """rois (B, R, 7, 7, C) -> scores (B, R, K), deltas (B, R, K, 4).
+        With train=True the BatchNorms take their statistics over all B x R
+        RoIs, valid or not, as the reference's do."""
         b, r = rois.shape[:2]
         x = rois.reshape(b * r, *rois.shape[2:]).permute(0, 3, 1, 2)
         for i in range(4):
-            x = F.relu(self.box_head[i](x))
+            conv, bn = self.box_head[i]
+            x = F.relu(batch_norm(conv(x), bn, train))
         x = F.relu(self.box_head[5](x.flatten(1)))
         scores = self.box_predictor.cls_score(x)
         deltas = self.box_predictor.bbox_pred(x)
@@ -253,12 +261,13 @@ class FasterRCNN(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.backbone = nn.ModuleDict(
-            {"body": resnet_lib.ResNet(cfg.blocks),
+            {"body": resnet_lib.ResNet(cfg.blocks, cfg.trainable_layers),
              "fpn": fpn_lib.FPN(norm=cfg.fpn_norm)})
         self.rpn = nn.ModuleDict({"head": RPNHead()})
         self.roi_heads = BoxHead(cfg.num_classes)
 
-    def pyramid(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def pyramid(self, images: torch.Tensor,
+                train: bool = False) -> List[torch.Tensor]:
         """images (B, H, W, 3) in [0, 1] -> P2..P6, each (B, 256, H_l,
         W_l)."""
         if self.cfg.normalize:
@@ -266,32 +275,34 @@ class FasterRCNN(nn.Module):
             std = images.new_tensor(IMAGENET_STD)
             images = (images - mean) / std
         return self.backbone["fpn"](
-            self.backbone["body"](images.permute(0, 3, 1, 2)))
+            self.backbone["body"](images.permute(0, 3, 1, 2), train), train)
 
-    def extract(self, images: torch.Tensor):
+    def extract(self, images: torch.Tensor, train: bool = False):
         """images (B, H, W, 3) in [0, 1] -> (pyramid P2..P6, objectness
         (B, A), RPN deltas (B, A, 4))."""
-        pyramid = self.pyramid(images)
+        pyramid = self.pyramid(images, train)
         obj, deltas = self.rpn["head"](pyramid)
         return pyramid, obj, deltas
 
-    def roi_forward(self, pyramid, proposals: torch.Tensor):
+    def roi_forward(self, pyramid, proposals: torch.Tensor,
+                    train: bool = False):
         rois = fpn_lib.roi_align(tuple(pyramid[:4]), proposals)
-        return self.roi_heads(rois)
+        return self.roi_heads(rois, train)
 
-    def roi_forward_pooled(self, _images, rois: torch.Tensor):
+    def roi_forward_pooled(self, _images, rois: torch.Tensor,
+                           train: bool = False):
         """Box head on pre-pooled (B, R, 7, 7, C) RoI features."""
-        return self.roi_heads(rois)
+        return self.roi_heads(rois, train)
 
     def forward(self, images: torch.Tensor,
-                proposals: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                proposals: Optional[torch.Tensor] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
         """extract + RoI heads on given proposals, or on 8 dummy ones."""
-        pyramid, obj, deltas = self.extract(images)
+        pyramid, obj, deltas = self.extract(images, train)
         if proposals is None:
             proposals = images.new_tensor([[0.0, 0.0, 32.0, 32.0]]).expand(
                 images.shape[0], 8, 4)
-        scores, box_deltas = self.roi_forward(pyramid, proposals)
+        scores, box_deltas = self.roi_forward(pyramid, proposals, train)
         return {"obj": obj, "rpn_deltas": deltas, "scores": scores,
                 "box_deltas": box_deltas}
 
@@ -331,6 +342,96 @@ def generate_proposals(obj: torch.Tensor, rpn_deltas: torch.Tensor,
         max_outputs=cfg.num_proposals, iou_thresh=cfg.rpn_nms_thresh,
         score_thresh=0.0, class_aware=True)
     return pb, pv
+
+
+# ── Training targets ─────────────────────────────────────────────────────
+
+def match_anchors(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                  gt_classes: torch.Tensor, pos_iou: float, neg_iou: float,
+                  allow_low_quality: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torchvision Matcher semantics, vectorised. anchors (A, 4); gt_boxes
+    (B, M, 4) xyxy, gt_classes (B, M) with -1 padding. Returns (matched
+    (B, A) int64, each anchor's best GT; labels (B, A) int32: 1 positive,
+    0 negative, -1 ignored).
+
+    With allow_low_quality every GT's best anchors (IoU within 1e-5 of that
+    GT's best) become positive; ``matched`` stays each anchor's own argmax
+    GT (torchvision's set_low_quality_matches_ restores the pre-threshold
+    match). An image with no GT is all negative. Ties in the argmax go to
+    the lower GT index, as ``jnp.argmax``."""
+    valid = gt_classes >= 0                                   # (B, M)
+    iou = box_ops.pairwise_iou(anchors, gt_boxes)             # (B, A, M)
+    iou = torch.where(valid[:, None, :], iou, -1.0)
+    best_iou, matched = iou.max(-1)                           # (B, A)
+    labels = torch.where(best_iou >= pos_iou, 1,
+                         torch.where(best_iou < neg_iou, 0, -1))
+    if allow_low_quality:
+        gt_best = torch.where(valid, iou.amax(1), -2.0)       # (B, M)
+        is_best = (iou >= gt_best[:, None, :] - 1e-5) & valid[:, None, :]
+        labels = torch.where(is_best.any(-1), 1, labels)
+    has_gt = valid.any(-1, keepdim=True)
+    labels = torch.where(has_gt, labels, 0)
+    return matched, labels.to(torch.int32)
+
+
+def draw_uniform(shape, generator: torch.Generator, lo: float = 0.01,
+                 hi: float = 1.0) -> torch.Tensor:
+    """Uniforms in [lo, hi) on the generator's device (the samplers'
+    ``jax.random.uniform(key, shape, minval, maxval)``)."""
+    u = torch.rand(tuple(shape), generator=generator,
+                   device=generator.device)
+    return u * (hi - lo) + lo
+
+
+def _topk_random(mask: torch.Tensor, k: int,
+                 u: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Keep at most k random Trues a row (static k): those whose uniform
+    (in [0.01, 1), drawn from `generator` when `u` is None) reaches the
+    row's k-th largest among the Trues."""
+    if u is None:
+        u = draw_uniform(mask.shape, generator)
+    pr = torch.where(mask, u, 0.0)
+    kth = torch.topk(pr, min(k, mask.shape[-1]), -1).values[..., -1:]
+    return mask & (pr >= torch.clamp(kth, min=1e-9))
+
+
+def _topk_random_dynamic(mask: torch.Tensor, k: torch.Tensor,
+                         u: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """Keep at most k (a row's own count, (B, 1)) random Trues a row: the
+    Trues ranked by their uniform, descending, by a stable sort (ties to
+    the lower index, as ``jnp.argsort``)."""
+    if u is None:
+        u = draw_uniform(mask.shape, generator)
+    pr = torch.where(mask, u, 0.0)
+    order = torch.argsort(-pr, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(mask.shape[-1], device=mask.device)
+        .expand_as(order))
+    return mask & (rank < k)
+
+
+def sample_targets(labels: torch.Tensor, batch: int, pos_frac: float,
+                   generator: Optional[torch.Generator] = None,
+                   u_pos: Optional[torch.Tensor] = None,
+                   u_neg: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Balanced sampling: (pos_mask, neg_mask), each (B, N) bool, at most
+    int(batch * pos_frac) positives a row and negatives filling the row
+    to `batch`. The uniforms (u_pos, then u_neg, each labels' shape in
+    [0.01, 1)) are drawn from `generator` when not given."""
+    if u_pos is None:
+        u_pos = draw_uniform(labels.shape, generator)
+    if u_neg is None:
+        u_neg = draw_uniform(labels.shape, generator)
+    pos_keep = _topk_random(labels == 1, int(batch * pos_frac), u_pos)
+    n_pos = pos_keep.sum(-1, keepdim=True)
+    neg_keep = _topk_random_dynamic(labels == 0, batch - n_pos, u_neg)
+    return pos_keep, neg_keep
 
 
 # ── Construction ─────────────────────────────────────────────────────────

@@ -14,8 +14,9 @@ permute and no copy. Conventions, as in the reference:
     running statistics, so every eval ConvBnAct returns float32,
   * train BatchNorm has flax semantics (:func:`bn_train`): f32 batch
     statistics with the biased fast variance, running statistics updated
-    as 0.97 * running + 0.03 * batch (torch's BatchNorm2d would update the
-    running variance with the unbiased one), normalisation in f32, output
+    as 0.97 * running + 0.03 * batch (YOLO's; Faster R-CNN keeps flax's
+    default 0.99; torch's BatchNorm2d would update the running variance
+    with the unbiased one), normalisation in f32, output
     and SiLU in ``bn_dtype`` (bf16 under the reference's
     ``bn_dtype_scope(jnp.bfloat16)``),
   * symmetric ``k // 2`` padding, as torch's Conv2d(padding=k//2).
@@ -81,13 +82,15 @@ def bn_normalize(y: torch.Tensor, bn: nn.BatchNorm2d, mean: torch.Tensor,
             + bn.bias[:, None, None])
 
 
-def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d,
-             out_dtype: torch.dtype) -> torch.Tensor:
+def bn_train(y: torch.Tensor, bn: nn.BatchNorm2d, out_dtype: torch.dtype,
+             momentum: float = MOMENTUM) -> torch.Tensor:
     """Train-mode BatchNorm over (N, H, W) of NCHW y, flax semantics: f32
-    statistics (fast variance, clamped), running update, ((y - mean) *
-    (rsqrt(var + eps) * scale) + bias) in f32, cast to out_dtype."""
+    statistics (fast variance, clamped), running update at `momentum`
+    (YOLO's 0.97 by default; flax's own default, 0.99, for the models that
+    keep it), ((y - mean) * (rsqrt(var + eps) * scale) + bias) in f32, cast
+    to out_dtype."""
     mean, var = batch_stats(y, (0, 2, 3))
-    update_running(bn, mean, var)
+    update_running(bn, mean, var, momentum)
     return bn_normalize(y, bn, mean, var).to(out_dtype)
 
 

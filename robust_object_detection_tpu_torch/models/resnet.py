@@ -5,10 +5,11 @@ Bottleneck-v1 layout (1x1 reduce, 3x3, 1x1 expand), the stride on the 3x3
 with padding 1 and on the downsample branch's 1x1, as torchvision's; the
 stem is a 7x7 / 2 conv with padding 3, then a 3x3 / 2 max-pool with
 padding 1. Convs are ``nn.Conv2d`` (on the card cuDNN's), BatchNorm runs
-in f32 from the running statistics (eps 1e-5, flax's and torch's
-default). Modules take and return NCHW-indexed tensors, in channels_last
-memory on the card; every stride-2 layer gives ceil(H / 2), as the
-reference's SAME-style explicit padding does.
+in f32 (eps 1e-5, flax's and torch's default): from the running statistics
+in eval, and with ``train=True`` with flax's train semantics
+(:func:`batch_norm`). Modules take and return NCHW-indexed tensors, in
+channels_last memory on the card; every stride-2 layer gives ceil(H / 2),
+as the reference's SAME-style explicit padding does.
 
 Attribute names are torchvision's (``conv1``/``bn1``, ``layer{i}.{j}``,
 ``downsample.0/1``), so the ``state_dict`` keys are those of
@@ -17,11 +18,29 @@ Attribute names are torchvision's (``conv1``/``bn1``, ``layer{i}.{j}``,
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import bn_train
+
+# flax nn.BatchNorm's default momentum (torch momentum 0.01), which the
+# reference's ResNet, FPN and box head keep
+BN_MOMENTUM = 0.99
+
+
+def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d,
+               train: bool = False) -> torch.Tensor:
+    """BatchNorm of NCHW y. Eval: the running statistics (whatever the
+    module's ``training`` flag). Train: flax's train mode at momentum 0.99,
+    f32 batch statistics with the fast variance, the running statistics
+    updated in place."""
+    if train:
+        return bn_train(y, bn, torch.float32, BN_MOMENTUM)
+    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, bn.eps)
 
 
 class BottleneckBlock(nn.Module):
@@ -42,20 +61,32 @@ class BottleneckBlock(nn.Module):
                           nn.BatchNorm2d(c_out))
             if stride != 1 or c_in != c_out else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(batch_norm(self.conv1(x), self.bn1, train))
+        out = F.relu(batch_norm(self.conv2(out), self.bn2, train))
+        out = batch_norm(self.conv3(out), self.bn3, train)
+        residual = (x if self.downsample is None else
+                    batch_norm(self.downsample[0](x), self.downsample[1],
+                               train))
         return F.relu(out + residual)
 
 
 class ResNet(nn.Module):
-    """Returns (C2, C3, C4, C5) at strides 4/8/16/32."""
+    """Returns (C2, C3, C4, C5) at strides 4/8/16/32.
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+    trainable_layers is torchvision's ``trainable_backbone_layers`` (0..5,
+    counted from the top; 5 trains everything, 3 freezes conv1 / bn1 /
+    layer1): the gradient stops after the stem when it is below 5, and
+    after stage i when i < 4 - trainable_layers (``.detach()`` where the
+    reference has ``stop_gradient``), so frozen parameters get no gradient.
+    Their BatchNorms still run in train mode and update their running
+    statistics, as torch's ``model.train()`` and the reference do."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 trainable_layers: int = 5):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
+        self.trainable_layers = trainable_layers
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         c_in = 64
@@ -68,12 +99,18 @@ class ResNet(nn.Module):
                 c_in = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+        x = F.relu(batch_norm(self.conv1(x), self.bn1, train))
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.trainable_layers < 5:               # conv1 / bn1 frozen
+            x = x.detach()
         feats = []
         for i in range(len(self.stage_sizes)):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = block(x, train)
+            if i < 4 - self.trainable_layers:       # layer{i+1} frozen
+                x = x.detach()
             feats.append(x)
         return tuple(feats)
 
@@ -90,6 +127,19 @@ def frozen_param_labels(stage_sizes: Sequence[int], trainable_layers: int):
     for k in range(sum(stage_sizes[:n_frozen_stages])):
         names.add(f"BottleneckBlock_{k}")
     return names
+
+
+def module_names(stage_sizes: Sequence[int], labels) -> List[str]:
+    """The ResNet submodules (torchvision names: ``conv1``, ``bn1``,
+    ``layer{s}.{j}``) that the flax labels of :func:`frozen_param_labels`
+    name."""
+    names = {"Conv_0": "conv1", "BatchNorm_0": "bn1"}
+    k = 0
+    for s, n_blocks in enumerate(stage_sizes):
+        for j in range(n_blocks):
+            names[f"BottleneckBlock_{k}"] = f"layer{s + 1}.{j}"
+            k += 1
+    return sorted(names[label] for label in labels)
 
 
 def resnet50() -> ResNet:

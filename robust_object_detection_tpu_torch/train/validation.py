@@ -1,0 +1,65 @@
+"""Validation during training and best-checkpoint-by-mAP selection
+(counterpart of robust_object_detection_tpu/train/validation.py).
+
+The reference's Faster R-CNN trainers run a COCOeval and keep ``best.pth``
+by val mAP (train_frcnn_baseline.py:198-208) and log ``mAP50`` /
+``mAP50_95`` into history.jsonl (train_frcnn_baseline.py:105-107). Here a
+trainer runs the same predict step the eval sweep uses
+(eval/detector_eval.py) over the val split every ``val_interval`` epochs;
+the summary lands in history.jsonl and ``CheckpointManager.save_best``
+keeps the best-mAP50 weights.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from ..data import pipeline as pipe
+from ..eval import detector_eval
+
+
+def index_val_samples(data_root: str | Path,
+                      layout: str = "coco") -> List[pipe.Sample]:
+    """Index the val split of a dataset root; [] when the split is absent
+    (synthetic smoke runs often ship train-only roots)."""
+    root = Path(data_root)
+    try:
+        if layout == "coco":
+            if not (root / "annotations" / "instances_val.json").exists():
+                return []
+            return pipe.index_coco(root, "val")
+        if not (root / "images" / "val").is_dir():
+            return []
+        return pipe.index_yolo(root, "val")
+    except (FileNotFoundError, NotADirectoryError):
+        return []
+
+
+def run_validation(predict_fn: Callable, state,
+                   val_samples: List[pipe.Sample], img_size: int,
+                   batch_size: int, ctx: Optional[torch.device] = None,
+                   max_boxes: int = 600) -> Dict[str, float]:
+    """One val pass -> {"mAP50", "mAP50_95"} via the COCOeval-parity scorer.
+    state: the model the predict fn runs; ctx: the device the images go
+    to (None: the model's)."""
+    summary = detector_eval.evaluate_on_samples(
+        predict_fn, state, val_samples, img_size, batch_size, ctx,
+        max_boxes=max_boxes)
+    return {"mAP50": round(summary["mAP50"], 5),
+            "mAP50_95": round(summary["mAP50_95"], 5)}
+
+
+def should_validate(epoch: int, epochs: int, val_interval: int,
+                    have_val: bool) -> bool:
+    """Validate every `val_interval` epochs and always on the final epoch.
+
+    val_interval=0 disables periodic validation but keeps the final pass
+    (the reference FRCNN pattern: single COCOeval after the last epoch)."""
+    if not have_val:
+        return False
+    if epoch == epochs:
+        return True
+    return val_interval > 0 and epoch % val_interval == 0

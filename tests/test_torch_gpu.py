@@ -1522,3 +1522,137 @@ def test_frcnn_card_matches_cpu(cuda):
     assert sure.sum().item() >= 0.5 * valid.sum().item() > 0
     assert torch.equal(classes[sure], ref[2][sure])
     assert (boxes - ref[0]).abs()[sure].max().item() <= 5e-2
+
+
+def _frcnn_train_run(model, device, dtype, batch, draws, props, tl=5):
+    """chip_smoke.frcnn_train_step (loaded by path: an installed `tests`
+    or `chip_smoke` elsewhere must not shadow this checkout's): one train
+    step of a copy of `model`, TF32 off, the first run's proposals
+    recorded in `props` and replayed in the next."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.frcnn_train_step(model, device, dtype, batch, draws, props,
+                                  tl)
+
+
+def _frcnn_train_inputs(size=128, slots=8):
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    cfg = FR.FrcnnConfig(blocks=(1, 1, 1, 1), pre_nms_topk=128,
+                         num_proposals=64, rpn_batch=64, roi_batch=64)
+    model = FR.create(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("running_mean") or name.endswith(".bias"):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+            elif name.endswith("running_var") or (
+                    name.endswith(".weight") and t.dim() == 1):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.75)
+    images = torch.randint(0, 256, (2, size, size, 3), generator=g,
+                           dtype=torch.uint8)
+    xy = torch.rand(2, slots, 2, generator=g) * size * 0.6
+    wh = torch.rand(2, slots, 2, generator=g) * size * 0.3 + 8
+    gb = torch.cat([xy, torch.clamp(xy + wh, max=size)], -1)
+    gc = torch.randint(0, 6, (2, slots), generator=g)
+    gb[:, 5:] = 0.0
+    gc[:, 5:] = -1
+    draws = TFR.draw_train(2, len(FR.anchor_boxes(size)),
+                           cfg.num_proposals + slots, g)
+    return model, (images, gb, gc), draws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bars", [
+    (torch.float32, (1e-3, 1e-2, 5e-2, 1e-3)),
+    (torch.float64, (1e-9, 1e-9, 1e-7, 1e-9))])
+def test_frcnn_train_step_card_matches_cpu(cuda, dtype, bars):
+    """One small Faster R-CNN train step (blocks (1, 1, 1, 1), 128 px,
+    batch 2, augment off) on the card with TF32 off against the CPU, the
+    same weights and draws, the card's proposals replayed on the CPU: the
+    losses within bars[0] relative and grad_norm within bars[1], every
+    gradient leaf within bars[2] relative L2 (f32 noise through train-mode
+    BatchNorm, the CPU's the larger), every running statistic within
+    bars[3] x max|ref|."""
+    model, batch, draws = _frcnn_train_inputs()
+    props = []
+    mc, gcard, _, sc = _frcnn_train_run(model, cuda, dtype, batch, draws,
+                                        props)
+    mr, gref, _, sr = _frcnn_train_run(model, torch.device("cpu"), dtype,
+                                       batch, draws, props)
+    for k, v in mr.items():
+        bar = bars[1] if k == "grad_norm" else bars[0]
+        assert abs(mc[k] - v) <= bar * abs(v), (k, mc[k], v)
+    assert gcard.keys() == gref.keys() and len(gref) > 60
+    for n, r in gref.items():
+        err = ((gcard[n] - r).norm() / r.norm().clamp(min=1e-30)).item()
+        assert err <= bars[2] or (gcard[n] - r).norm() <= 1e-9, (n, err)
+    for n, r in sr.items():
+        if "running_" in n:
+            assert (sc[n] - r).abs().max() <= bars[3] * r.abs().max(), n
+
+
+@pytest.mark.gpu
+def test_frcnn_frozen_layers_keep_their_bits_on_the_card(cuda):
+    """trainable_layers 3 on the card: the stem's and layer1's parameters
+    get no gradient and keep their bits; their running statistics move."""
+    model, batch, draws = _frcnn_train_inputs()
+    _, grads, before, after = _frcnn_train_run(model, cuda, torch.float32,
+                                               batch, draws, [], tl=3)
+    frozen = [n for n in before if n.startswith(
+        ("backbone.body.conv1.", "backbone.body.bn1.",
+         "backbone.body.layer1."))]
+    assert len(frozen) > 20
+    for n in frozen:
+        if n.endswith("num_batches_tracked"):
+            continue
+        if "running_" in n:
+            assert not torch.equal(before[n], after[n]), n
+        else:
+            assert n not in grads and torch.equal(before[n], after[n]), n
+    assert "backbone.body.layer2.0.conv1.weight" in grads
+
+
+@pytest.mark.gpu
+def test_frcnn_augment_step_launches_k1_once_a_step(cuda):
+    """augment=True on the card: K1 launched once a step, every other hand
+    kernel not at all; the step's default draws come from (seed, step)."""
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    model, (images, gb, gc), _ = _frcnn_train_inputs()
+    model = model.to(cuda)
+    state = TFR.init_state(model, TFR.make_optimizer()[0])
+    step = TFR.make_train_step(model, 128, CorruptionConfig(), augment=True)
+    fns = (C.conv3x3, C.conv3x3_wgrad, TF.front_inference, TF.front_fused,
+           TF.front_fused_backward, FC.fused_random_corruption,
+           ST.stem_fused_inference, ST.stem_fused, ST.stem_fused_backward,
+           DF.ms_deform_attn_slots, DF.ms_deform_attn_backward,
+           AS.auction_assignment, DF.ms_deform_attn_sorted_forward,
+           DF.ms_deform_attn_sorted_backward, DF.stamp_scatter)
+    for f in fns:
+        f.launches = 0
+    for _ in range(3):
+        m = step(state, images.to(cuda), gb.to(cuda), gc.to(cuda), 7)
+        assert all(torch.isfinite(v) for v in m.values())
+    assert FC.fused_random_corruption.launches == 3
+    assert all(f.launches == 0 for f in fns
+               if f is not FC.fused_random_corruption)
+    assert state.step == 3 and FR.FrcnnConfig is type(model.cfg)
+
+
+@pytest.mark.gpu
+def test_frcnn_load_checkpoint_lands_on_the_card(cuda, tmp_path):
+    from robust_object_detection_tpu_torch.core.checkpoint import \
+        CheckpointManager
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    model, _, _ = _frcnn_train_inputs()
+    CheckpointManager(tmp_path).save_best(1, model.state_dict(), 0.5)
+    loaded = TFR.load_checkpoint(tmp_path, model.cfg)
+    assert next(loaded.parameters()).device.type == "cuda"
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k].cpu(), v), k

@@ -55,7 +55,9 @@ def test_package_imports_without_jax():
         "ops.stem", "ops.deform", "models.rtdetr", "train.rtdetr",
         "ops.assignment", "core.artifacts", "core.checkpoint",
         "core.profiling", "ops.ssim", "models.unet", "train.restoration",
-        "data.testsets", "data.restore")}
+        "data.testsets", "data.restore", "models.resnet", "models.fpn",
+        "models.frcnn", "train.frcnn", "train.validation",
+        "eval.detector_eval")}
     assert expected <= set(out["modules"])
 
 
