@@ -185,13 +185,15 @@ Phases:
      VisDrone bucket 768x1344), batch 1: one bucket of 16, finite mAPs, ms
      an image;
  23. Faster R-CNN train-step check: one step of the full-width model at
-     batch 2, 256 px, augment off, on the card and on the CPU from phase
-     20's weights and one set of draws (``train/frcnn.draw_train`` on the
-     CPU, moved), the card's proposals replayed on the CPU: in f32 with
-     TF32 off at trainable_layers 5 and 3 (losses, grad_norm, nine named
-     gradient leaves, every running statistic, each error printed beside
-     its bar; at 3 the frozen parameters bit-identical and their running
-     statistics moved) and in float64 (tolerances in
+     batch 2, 256 px, augment off, from phase 20's weights and one set of
+     draws (``train/frcnn.draw_train`` on the CPU, moved), the proposals of
+     the card's f32 step replayed by every other run: at trainable_layers
+     5 and 3, TF32 off, the card's f32 step against the card's float64
+     step (losses, grad_norm, nine named gradient leaves, every running
+     statistic, each error printed beside its bar; at 3 the frozen
+     parameters bit-identical and their running statistics moved), the
+     card's f32 step against the CPU's printed only, and the card's float64
+     step against the CPU's (tolerances in
      phase_frcnn_train_model_check);
  24. Faster R-CNN training at ``bench.py``'s ``bench_frcnn`` configuration
      (batch 2, 1024 px, 80 GT boxes an image in 600 slots, augment, f32
@@ -203,7 +205,28 @@ Phases:
      forward, RPN targets + loss, proposals, RoI targets, RoIAlign + box
      head forward, head loss, backward, SGD); the FLOP bound of the convs
      and linears beside the step; the idle share of one profiled step; the
-     peak memory RoIAlign + the box head's forward and backward add.
+     peak memory RoIAlign + the box head's forward and backward add;
+ 25. the YOLOv8m trainer: ``train.detector.train`` at full width (nc 6,
+     1024 px, batch 16, bf16, augment + HSV/flip) on an in-memory COCO
+     split (32 train, 16 val images, ``load_image=``): 2 epochs (mosaic +
+     affine, then plain), validation each epoch, a checkpoint each step;
+     the launch counts of every step (K1 1, K2-f train 1, K2-b 1, K3-f 8,
+     K3-b 4) and of the run (each validation forward K2-f eval 1, K3-f 4),
+     counters zeroed just before the run; history, best and last; the EMA
+     check (the validation's EMA predict step gives exactly the detections
+     of ``load_checkpoint``'s EMA module, and not those of the raw
+     weights); a second call with 3 epochs resumes at epoch 3 (its idle
+     share under the profiler); step ms, images/s, peak memory, and the
+     host ms of one batch of mosaic + affine;
+ 26. the RT-DETR-L trainer: ``train.rtdetr.train`` at full width (1024 px,
+     batch 8, bf16, augment + HSV/flip + CDN) on 16 train and 8 val
+     in-memory images: 2 epochs with the auction (per step K1 1, K4-f
+     train 1, K4-b 1, K3-f 12, K3-b 6, K5 6 + 6, K6 7; per validation
+     forward K4-f eval 1, K3-f 6, K5 6), then a call with 3 epochs that
+     resumes at epoch 3 (``last`` keyed by epoch) with ASSIGNMENT
+     "greedy" (K6 0); matcher_capped in the history; the greedy matcher's
+     pairs on the epoch's first cost against an independent numpy greedy;
+     ``load_checkpoint`` against the EMA predict step; step ms, images/s.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -3333,25 +3356,9 @@ def union_us(intervals) -> float:
 
 def idle_share(fn):
     """(wall ms, device busy ms, idle share) of one profiled call of `fn`
-    (after one warm-up): busy is the union of the device's kernel and copy
-    intervals."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    after one warm-up (profiled_idle)."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    require(bool(dev_ev), "the profiler recorded no device events")
-    busy = union_us((e.time_range.start, e.time_range.end)
-                    for e in dev_ev) / 1e3
-    return wall, busy, 1 - busy / wall
+    return profiled_idle(fn)
 
 
 def all_kernel_counters():
@@ -3516,6 +3523,12 @@ FRCNN_CHECK_LEAVES = (
     "roi_heads.box_predictor.bbox_pred.weight")
 FRCNN_METRICS = ("rpn_obj", "rpn_box", "head_cls", "head_box", "loss",
                  "grad_norm")
+# phase 23's bars on the card's f32 step against its float64 step: the
+# losses' and grad_norm's relative error, the named gradients' relative L2
+# error, the running statistics' max error over max|ref|. Measured on an
+# H100 80GB HBM3 at 700 W: losses <= 2.0e-6, grad_norm 7.9e-7, gradients <= 5.2e-3
+# (conv1; f32 noise through 70 train-mode BatchNorms), statistics 1.0e-7
+FRCNN_F32_BARS = (1e-5, 1e-5, 1e-2, 1e-6)
 
 
 def frcnn_train_step(model, device, dtype, batch, draws, proposals,
@@ -3581,13 +3594,13 @@ def frcnn_train_step(model, device, dtype, batch, draws, proposals,
     return ({k: v.item() for k, v in m.items()}, grads, before, after)
 
 
-def frcnn_compare(tag, card, cpu, bars, log):
-    """Card vs CPU of frcnn_train_step's results: each metric's relative
-    error (bars: the losses', grad_norm's), each named leaf's gradient's
-    relative L2 error, the worst running statistic's max error over its
-    leaf's max; each beside its bar."""
-    (mc, gc_, _, sc), (mr, gr, _, sr) = card, cpu
-    m_bar, n_bar, g_bar, s_bar = bars
+def frcnn_compare(tag, card, ref, bars, log):
+    """frcnn_train_step's results against a reference run's: each metric's
+    relative error (bars: the losses', grad_norm's), each named leaf's
+    gradient's relative L2 error, the worst running statistic's max error
+    over its leaf's max; each beside its bar. bars None: printed only."""
+    (mc, gc_, _, sc), (mr, gr, _, sr) = card, ref
+    m_bar, n_bar, g_bar, s_bar = bars or (math.inf,) * 4
     worst = 0.0
     for k in FRCNN_METRICS:
         bar = n_bar if k == "grad_norm" else m_bar
@@ -3613,19 +3626,21 @@ def frcnn_compare(tag, card, cpu, bars, log):
 
 
 def phase_frcnn_train_model_check(dev):
-    """One Faster R-CNN train step at full width, card vs CPU, batch 2 at
-    256 px, augment off, the same weights (phase 20's, every BN and bias
+    """One Faster R-CNN train step at full width, batch 2 at 256 px,
+    augment off, from the same weights (phase 20's, every BN and bias
     drawn from the seed) and the same draws (draw_train on the CPU, moved);
-    the proposals the card generates are replayed on the CPU, so both sample
-    RoIs from the same boxes. f32 with TF32 off, trainable_layers 5 and 3:
-    the losses within 1e-3 relative, grad_norm within 1e-2 and the named
-    leaves' gradients within 5e-2 relative L2 (f32 noise through 70
-    train-mode BatchNorms; the CPU's f32 gradients are the noisier side,
-    the card's f32 grad_norm agrees with float64 to 1e-6), every running
-    statistic within 1e-3 x max|ref|; at trainable_layers 3 the frozen
-    parameters bit-identical before and after on the card, their running
-    statistics moved. float64 (trainable_layers 5): metrics within 1e-9,
-    gradients 1e-7, running statistics 1e-9."""
+    the proposals of the card's f32 step are replayed by every other run,
+    so all sample RoIs from the same boxes. At trainable_layers 5 and 3,
+    TF32 off: the card's f32 step against the card's float64 step (losses,
+    grad_norm, the nine named leaves' gradients by relative L2, every
+    running statistic; bars in FRCNN_F32_BARS, near what was measured),
+    the card's f32 step against the CPU's f32 step printed only (on the
+    card's machine the CPU's f32 gradients are the noisier side), and at 3
+    the frozen parameters bit-identical before and after on the card, their
+    running statistics moved. float64, trainable_layers 5: card against
+    CPU, metrics within 1e-9, gradients 1e-7, running statistics 1e-9 (the
+    same function, so the card's float64 run is a witness for its f32
+    one)."""
     import numpy as np
     import torch
     from robust_object_detection_tpu_torch.models import frcnn as FR
@@ -3642,20 +3657,32 @@ def phase_frcnn_train_model_check(dev):
                            len(FR.anchor_boxes(FRCNN_CHECK_SIZE)),
                            cpu.cfg.num_proposals + slots,
                            torch.Generator().manual_seed(SEED + 12))
-    for dtype, tl, bars in ((torch.float32, 5, (1e-3, 1e-2, 5e-2, 1e-3)),
-                            (torch.float32, 3, (1e-3, 1e-2, 5e-2, 1e-3)),
-                            (torch.float64, 5, (1e-9, 1e-9, 1e-7, 1e-9))):
-        name = str(dtype).split(".")[-1]
+    host = torch.device("cpu")
+    for tl in (5, 3):
         props = []
         t0 = time.perf_counter()
-        card = frcnn_train_step(cpu, dev, dtype, batch, draws, props, tl)
+        card = frcnn_train_step(cpu, dev, torch.float32, batch, draws,
+                                props, tl)
         t1 = time.perf_counter()
-        ref = frcnn_train_step(cpu, torch.device("cpu"), dtype, batch,
-                               draws, props, tl)
+        card64 = frcnn_train_step(cpu, dev, torch.float64, batch, draws,
+                                  props, tl)
         t2 = time.perf_counter()
+        ref32 = frcnn_train_step(cpu, host, torch.float32, batch, draws,
+                                 props, tl)
+        t3 = time.perf_counter()
         log = []
-        frcnn_compare(f"frcnn-train-check {name} tl {tl}", card, ref, bars,
-                      log)
+        frcnn_compare(f"frcnn-train-check f32 tl {tl} card vs float64",
+                      card, card64, FRCNN_F32_BARS, log)
+        print(f"[frcnn-train-check] trainable_layers {tl}, batch "
+              f"{FRCNN_TRAIN_BATCH} at {FRCNN_CHECK_SIZE} px, TF32 off: the "
+              f"card's f32 step vs the card's float64 step (card f32 "
+              f"{t1 - t0} s, float64 {t2 - t1} s): {'; '.join(log)}")
+        log = []
+        frcnn_compare(f"frcnn-train-check f32 tl {tl} card vs CPU", card,
+                      ref32, None, log)
+        print(f"[frcnn-train-check] trainable_layers {tl}: the card's f32 "
+              f"step vs the CPU's f32 step ({t3 - t2} s), printed only: "
+              f"{'; '.join(log)}")
         if tl < 5:
             _, grads, before, after = card
             frozen = [n for n in before if n.startswith(
@@ -3671,11 +3698,19 @@ def phase_frcnn_train_model_check(dev):
             require(len(moved) == 2 * sum(n.endswith("running_mean")
                                           for n in frozen),
                     "frozen BatchNorms' running statistics did not move")
-            log.append(f"{len(params)} frozen parameters bit-identical, "
-                       f"{len(moved)} of their running statistics moved")
-        print(f"[frcnn-train-check] {name} trainable_layers {tl}, batch "
-              f"{FRCNN_TRAIN_BATCH} at {FRCNN_CHECK_SIZE} px, TF32 off, card "
-              f"{t1 - t0} s vs CPU {t2 - t1} s: {'; '.join(log)}")
+            print(f"[frcnn-train-check] trainable_layers {tl}: "
+                  f"{len(params)} frozen parameters bit-identical, "
+                  f"{len(moved)} of their running statistics moved")
+            continue
+        t0 = time.perf_counter()
+        ref64 = frcnn_train_step(cpu, host, torch.float64, batch, draws,
+                                 props, tl)
+        log = []
+        frcnn_compare(f"frcnn-train-check float64 tl {tl} card vs CPU",
+                      card64, ref64, (1e-9, 1e-9, 1e-7, 1e-9), log)
+        print(f"[frcnn-train-check] float64 trainable_layers {tl}, card vs "
+              f"CPU ({time.perf_counter() - t0} s on the CPU): "
+              f"{'; '.join(log)}")
 
 
 def phase_frcnn_training(dev):
@@ -3877,6 +3912,456 @@ def phase_frcnn_training(dev):
     return {"corrupt": launches["fused_random_corruption"]}
 
 
+# ── The YOLOv8m and RT-DETR-L trainers (phases 25-26) ────────────────────
+
+TRAINER_SPLITS = {"yolo": (32, 16), "rtdetr": (16, 8)}   # train, val images
+
+
+def trainer_split(root, n_train: int, n_val: int, seed: int):
+    """A COCO root without image files: the annotation JSONs of n_train +
+    n_val IMG_SIZE x IMG_SIZE images with GT_PER_IMAGE boxes each (boxes
+    and classes as detection_batch draws them), and the images themselves
+    in memory, by image id, for the trainers' load_image."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    images = {}
+    for split, ids in (("train", range(1, n_train + 1)),
+                       ("val", range(n_train + 1, n_train + n_val + 1))):
+        imgs, anns = [], []
+        for i in ids:
+            images[i] = rng.randint(0, 255, (IMG_SIZE, IMG_SIZE, 3),
+                                    dtype=np.uint8)
+            imgs.append({"id": i, "file_name": f"{i:06d}.jpg",
+                         "width": IMG_SIZE, "height": IMG_SIZE})
+            xy = rng.rand(GT_PER_IMAGE, 2) * (IMG_SIZE - 100)
+            wh = rng.rand(GT_PER_IMAGE, 2) * 60 + 8
+            for (x, y), (w, h), c in zip(xy, wh,
+                                         rng.randint(1, 7, GT_PER_IMAGE)):
+                anns.append({"id": len(anns) + 1, "image_id": i,
+                             "bbox": [float(x), float(y), float(w), float(h)],
+                             "area": float(w * h), "category_id": int(c),
+                             "iscrowd": 0})
+        path = Path(root) / "annotations" / f"instances_{split}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"images": imgs, "annotations": anns,
+                                    "categories": [{"id": k, "name": str(k)}
+                                                   for k in range(1, 7)]}))
+    return images
+
+
+def timed_steps(module, counters, records):
+    """Wrap module.make_train_step so that each step synchronizes the card
+    and appends (wall ms, launch counts of that step) to records; returns
+    the function to restore."""
+    import torch
+    real = module.make_train_step
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def timed(*args):
+            before = {n: f.launches for n, f in counters.items()}
+            t0 = time.perf_counter()
+            m = step(*args)
+            torch.cuda.synchronize()
+            records.append(((time.perf_counter() - t0) * 1e3,
+                            {n: f.launches - before[n]
+                             for n, f in counters.items()}, m))
+            return m
+        return timed
+    module.make_train_step = make
+    return lambda: setattr(module, "make_train_step", real)
+
+
+def profiled_idle(fn):
+    """(wall ms, device busy ms, idle share) of one call of `fn` under the
+    profiler: busy is the union of the device's kernel and copy
+    intervals."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    require(bool(dev_ev), "the profiler recorded no device events")
+    busy = union_us((e.time_range.start, e.time_range.end)
+                    for e in dev_ev) / 1e3
+    return wall, busy, 1 - busy / wall
+
+
+def same_detections(a, b) -> bool:
+    return all(torch_equal(x, y) for x, y in zip(a, b))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+def detection_gap(a, b) -> float:
+    """Largest score difference of two detection tuples (inf when their
+    valid masks or classes differ)."""
+    if not (torch_equal(a[3], b[3]) and torch_equal(a[2], b[2])):
+        return math.inf
+    return (a[1].float() - b[1].float()).abs().max().item()
+
+
+def ema_check(tag, state_of, load, predict, raw_predict, images):
+    """The trainer's EMA path on one val batch: the EMA predict step on
+    the trained state (what every validation runs) gives exactly the
+    detections of the module load_checkpoint builds with the EMA weights,
+    and not those of the raw weights; the EMA differs from the
+    parameters."""
+    import torch
+    state = state_of()
+    diff = max(((state.ema[n] - p.detach()).abs().max()
+                / (p.detach().abs().max() + 1e-30)).item()
+               for n, p in state.model.named_parameters() if n in state.ema)
+    ema_out = predict(state, images)
+    loaded = load()
+    ref = raw_predict(loaded, images)
+    state.model.eval()
+    raw = raw_predict(state.model, images)
+    torch.cuda.synchronize()
+    gap_ema, gap_raw = detection_gap(ema_out, ref), detection_gap(raw, ref)
+    print(f"[{tag}] EMA check on a val batch: the EMA's largest relative "
+          f"difference from the parameters {diff}; the trainer's EMA "
+          f"predict step vs load_checkpoint's module: identical "
+          f"{same_detections(ema_out, ref)} (score gap {gap_ema}); the raw "
+          f"weights vs load_checkpoint's module: score gap {gap_raw}; "
+          f"valid detections {int(ref[3].sum())}")
+    require(diff > 0, f"{tag}: the EMA equals the parameters")
+    require(same_detections(ema_out, ref),
+            f"{tag}: the EMA predict step differs from load_checkpoint's "
+            f"EMA module (score gap {gap_ema})")
+    require(not same_detections(raw, ref),
+            f"{tag}: the raw weights predict what the EMA does")
+    return loaded
+
+
+def trainer_state(D, create, payload):
+    """A TrainState as the trainer holds it after its run: a train-mode
+    module with the payload's weights and statistics, and its EMA."""
+    model = create()
+    model.load_state_dict(payload["model"])
+    return D.TrainState(model, payload["ema"], None, None)
+
+
+def phase_yolo_trainer(dev):
+    """YOLOv8m (nc 6) at 1024 px, batch 16, bf16, augment + HSV/flip,
+    through train.detector.train on an in-memory COCO split (32 train
+    images, 16 val, images served by load_image=): 2 epochs (mosaic +
+    affine, then plain; close_mosaic 1), validation every epoch, a
+    checkpoint every step. Per step K1 1, K2-f train 1, K2-b 1, K3-f 8,
+    K3-b 4; each validation forward K2-f eval 1, K3-f 4. History with both
+    epochs and their mAPs, best and last written; a second call with 3
+    epochs resumes at epoch 3. The EMA check (ema_check) and
+    load_checkpoint. Step ms, images/s, peak memory, the idle share of the
+    resumed run, and the host ms of a batch of mosaic + affine. Returns the
+    launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import (
+        ExperimentConfig, MeshConfig, TrainConfig)
+    from robust_object_detection_tpu_torch.data import pipeline as pipe
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    from robust_object_detection_tpu_torch.train import augment as A
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    torch.cuda.init()       # the phase may run first in its process
+    n_train, n_val = TRAINER_SPLITS["yolo"]
+    counters = {"corrupt": FC.fused_random_corruption,
+                "yolo_front_train": TF.front_fused,
+                "yolo_front_bwd": TF.front_fused_backward,
+                "yolo_front": TF.front_inference,
+                "conv3x3": C.conv3x3, "conv3x3_wgrad": C.conv3x3_wgrad}
+    per_step = {"corrupt": 1, "yolo_front_train": 1, "yolo_front_bwd": 1,
+                "yolo_front": 0, "conv3x3": 8, "conv3x3_wgrad": 4}
+    per_val = {"corrupt": 0, "yolo_front_train": 0, "yolo_front_bwd": 0,
+               "yolo_front": 1, "conv3x3": 4, "conv3x3_wgrad": 0}
+    cfg = ExperimentConfig(train=TrainConfig(seed=SEED),
+                           mesh=MeshConfig(data=1, model=1))
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "coco", Path(tmp) / "run"
+        images = trainer_split(root, n_train, n_val, SEED + 20)
+
+        def load(sample):
+            return images[sample.image_id]
+        samples = pipe.index_coco(root, "train")
+        host = []
+        for _ in range(2):
+            it = A.mosaic_batches(samples, TRAIN_BATCH, IMG_SIZE,
+                                  max_boxes=MAX_BOXES, seed=SEED,
+                                  load_image=load)
+            t0 = time.perf_counter()
+            next(it)
+            host.append((time.perf_counter() - t0) * 1e3)
+            it.close()
+        kw = dict(augment=True, variant="m", img_size=IMG_SIZE,
+                  batch_size=TRAIN_BATCH, max_boxes=MAX_BOXES,
+                  base_augment=True, mosaic=True, close_mosaic=1,
+                  val_interval=1, dtype="bfloat16", save_every_steps=1,
+                  device=dev, load_image=load)
+        records = []
+        restore = timed_steps(D, counters, records)
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            t0 = time.perf_counter()
+            res = D.train(cfg, root, out, epochs=2, **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = {k: f.launches for k, f in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = 2 * n_train // TRAIN_BATCH
+        vals = 2 * -(-n_val // TRAIN_BATCH)
+        for i, (ms, step_counts, m) in enumerate(records):
+            vals_i = {k: v.item() for k, v in m.items()}
+            print(f"[yolo-trainer] step {i}: {ms} ms, launches "
+                  f"{step_counts}, {vals_i}")
+            require(step_counts == per_step,
+                    f"step {i} launches {step_counts} != {per_step}")
+            require(all(math.isfinite(v) for v in vals_i.values()),
+                    f"step {i}: a metric is not finite")
+        expect = {k: per_step[k] * steps + per_val[k] * vals
+                  for k in counters}
+        print(f"[yolo-trainer] launches of the run {launches} expected "
+              f"{expect} ({steps} steps, {vals} validation forwards)")
+        require(len(records) == steps == res["steps"], "step count")
+        require(launches == expect, f"launches {launches} != {expect}")
+        hist = [json.loads(line) for line in
+                (out / "history.jsonl").read_text().splitlines()]
+        print(f"[yolo-trainer] history {hist}")
+        require([h["epoch"] for h in hist] == [1, 2] and all(
+            {"train_loss", "lr", "mAP50", "mAP50_95"} <= set(h)
+            and math.isfinite(h["train_loss"]) for h in hist),
+            "history of the two epochs")
+        ckpt = out / "ckpt"
+        require((ckpt / "best").exists() and (ckpt / "last" / "4").exists(),
+                "best and last written")
+        ms = statistics.median(r[0] for r in records)
+        print(f"[yolo-trainer] YOLOv8m bf16 1024px batch {TRAIN_BATCH}, "
+              f"augment + HSV/flip, through train(): step ms "
+              f"{[r[0] for r in records]} median {ms} = "
+              f"{TRAIN_BATCH / (ms / 1e3)} images/s; the run {wall} s; peak "
+              f"memory {peak} bytes ({peak / 2 ** 30} GiB); host mosaic + "
+              f"affine of one batch of {TRAIN_BATCH} at {IMG_SIZE} px: "
+              f"{host} ms")
+
+        # load_checkpoint reads `best`: hold it against the same payload
+        payload = torch.load(ckpt / "best", map_location=dev,
+                             weights_only=True)["state"]
+        val = pipe.index_coco(root, "val")[:TRAIN_BATCH]
+        batch = torch.from_numpy(np.stack(
+            [images[s.image_id] for s in val])).to(dev)
+        ema_check("yolo-trainer",
+                  lambda: trainer_state(D, lambda: Y.create(
+                      6, "m", torch.bfloat16, dev, train=True,
+                      bn_dtype=torch.bfloat16), payload),
+                  lambda: D.load_checkpoint(out, "m", torch.bfloat16, dev),
+                  D.make_predict_step(IMG_SIZE, use_ema=True),
+                  D.make_predict_step(IMG_SIZE), batch)
+
+        for f in counters.values():
+            f.launches = 0
+        box = {}
+        wall3, busy, idle = profiled_idle(
+            lambda: box.update(D.train(cfg, root, out, epochs=3, **kw)))
+        hist = [json.loads(line) for line in
+                (out / "history.jsonl").read_text().splitlines()]
+        resumed = {k: f.launches for k, f in counters.items()}
+        expect = {k: per_step[k] * 2 + per_val[k] for k in counters}
+        print(f"[yolo-trainer] resumed with epochs=3: epochs "
+              f"{[h['epoch'] for h in hist]}, steps {box['steps']}, launches "
+              f"{resumed} expected {expect}; under the profiler {wall3} ms, "
+              f"device busy {busy} ms, idle share {idle}")
+        require([h["epoch"] for h in hist] == [1, 2, 3]
+                and box["steps"] == steps + 2, "the resume at epoch 3")
+        require(resumed == expect, f"resumed launches {resumed}")
+        for k, v in resumed.items():
+            launches[k] += v
+    return {k: v for k, v in launches.items()}
+
+
+def greedy_np(cost):
+    """The reference's greedy matcher in numpy: each round the first
+    global argmin, its row and column set to BIG, for min(Q, M) rounds or
+    until only costs >= BIG / 2 remain. Returns (rows, cols) (B, K)."""
+    import numpy as np
+    big = 1e6
+    b, q, m = cost.shape
+    k = min(q, m)
+    rows = np.zeros((b, k), np.int64)
+    cols = np.full((b, k), m, np.int64)
+    for i in range(b):
+        c = cost[i].copy()
+        for j in range(k):
+            if c.min() >= big / 2:
+                break
+            idx = int(np.argmin(c))
+            rows[i, j], cols[i, j] = idx // m, idx % m
+            c[rows[i, j], :] = big
+            c[:, cols[i, j]] = big
+    return rows, cols
+
+
+def phase_rtdetr_trainer(dev):
+    """RT-DETR-L at 1024 px, batch 8, bf16, augment + HSV/flip + CDN,
+    through train.rtdetr.train on an in-memory COCO split (16 train, 8
+    val): 2 epochs (close_mosaic 1), then a second call with 3 epochs that
+    resumes at epoch 3 (``last`` keyed by epoch) with ASSIGNMENT "greedy".
+    Per step K1 1, K4-f train 1, K4-b 1, K3-f 12, K3-b 6, K5 forward 6,
+    K5 backward 6, K6 7 (0 under greedy); each validation forward K4-f
+    eval 1, K5 forward 6, K3-f 6. matcher_capped in the history; the
+    greedy matcher's pairs on the cost of the epoch's first matching
+    against an independent numpy greedy; load_checkpoint against the EMA
+    predict step. Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import (
+        ExperimentConfig, MeshConfig, TrainConfig)
+    from robust_object_detection_tpu_torch.data import pipeline as pipe
+    from robust_object_detection_tpu_torch.models import rtdetr as R
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import stem as ST
+    from robust_object_detection_tpu_torch.train import detector as D
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    torch.cuda.init()
+    nb = RTDETR_TRAIN_BATCH
+    n_train, n_val = TRAINER_SPLITS["rtdetr"]
+    counters = {"corrupt": FC.fused_random_corruption,
+                "hgstem_train": ST.stem_fused,
+                "hgstem_bwd": ST.stem_fused_backward,
+                "hgstem": ST.stem_fused_inference,
+                "conv3x3": C.conv3x3, "conv3x3_wgrad": C.conv3x3_wgrad,
+                "ms_deform_attn": DF.ms_deform_attn_slots,
+                "ms_deform_attn_bwd": DF.ms_deform_attn_backward,
+                "auction": AS.auction_assignment}
+    per_step = {"corrupt": 1, "hgstem_train": 1, "hgstem_bwd": 1,
+                "hgstem": 0, "conv3x3": 12, "conv3x3_wgrad": 6,
+                "ms_deform_attn": 6, "ms_deform_attn_bwd": 6, "auction": 7}
+    per_val = {k: 0 for k in per_step}
+    per_val.update(hgstem=1, conv3x3=6, ms_deform_attn=6)
+    cfg = ExperimentConfig(train=TrainConfig(seed=SEED),
+                           mesh=MeshConfig(data=1, model=1))
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "coco", Path(tmp) / "run"
+        images = trainer_split(root, n_train, n_val, SEED + 30)
+
+        def load(sample):
+            return images[sample.image_id]
+        kw = dict(augment=True, img_size=IMG_SIZE, batch_size=nb,
+                  max_boxes=MAX_BOXES, base_augment=True, mosaic=True,
+                  close_mosaic=1, val_interval=1, dtype="bfloat16",
+                  device=dev, load_image=load)
+        steps = n_train // nb
+        vals = -(-n_val // nb)
+        runs = {}
+        for epochs, method in ((2, "auction"), (3, "greedy")):
+            records, seen = [], []
+            restore = timed_steps(RT, counters, records)
+            solve = RT._solve_assignment
+
+            def recording(cost, exact=False):
+                out_ = solve(cost, exact)
+                if not seen:
+                    seen.append((cost.cpu().numpy(),
+                                 tuple(t.cpu().numpy() for t in out_)))
+                return out_
+            RT._solve_assignment = recording
+            RT.ASSIGNMENT = method
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            try:
+                t0 = time.perf_counter()
+                res = RT.train(cfg, root, out, epochs=epochs, **kw)
+                wall = time.perf_counter() - t0
+            finally:
+                restore()
+                RT._solve_assignment = solve
+                RT.ASSIGNMENT = "auction"
+            launches = {k: f.launches for k, f in counters.items()}
+            n_epochs = 2 if epochs == 2 else 1
+            want_step = dict(per_step, auction=per_step["auction"]
+                             if method == "auction" else 0)
+            for i, (ms, step_counts, m) in enumerate(records):
+                vals_i = {k: v.item() for k, v in m.items()}
+                print(f"[rtdetr-trainer] {method} step {i}: {ms} ms, "
+                      f"launches {step_counts}, {vals_i}")
+                require(step_counts == want_step,
+                        f"{method} step {i} launches {step_counts}")
+                require(all(math.isfinite(v) for v in vals_i.values()),
+                        f"{method} step {i}: a metric is not finite")
+            expect = {k: want_step[k] * steps * n_epochs
+                      + per_val[k] * vals * n_epochs for k in counters}
+            print(f"[rtdetr-trainer] {method}, epochs={epochs}: launches "
+                  f"{launches} expected {expect}; the run {wall} s, peak "
+                  f"memory {torch.cuda.max_memory_allocated(dev)} bytes")
+            require(launches == expect, f"{method} launches {launches}")
+            require(len(records) == steps * n_epochs, f"{method} steps")
+            ms = statistics.median(r[0] for r in records)
+            print(f"[rtdetr-trainer] RT-DETR-L bf16 1024px batch {nb}, "
+                  f"augment + HSV/flip + CDN, matcher {method}, through "
+                  f"train(): step ms {[r[0] for r in records]} median {ms} "
+                  f"= {nb / (ms / 1e3)} images/s")
+            runs[method] = (launches, seen, res)
+        hist = [json.loads(line) for line in
+                (out / "history.jsonl").read_text().splitlines()]
+        print(f"[rtdetr-trainer] history {hist}")
+        require([h["epoch"] for h in hist] == [1, 2, 3] and all(
+            {"train_loss", "lr", "mAP50", "matcher_capped"} <= set(h)
+            for h in hist), "history with matcher_capped, resumed at 3")
+        require(runs["greedy"][2]["steps"] == 3 * steps, "resumed steps")
+        require(sorted(p.name for p in (out / "ckpt" / "last").iterdir())
+                == ["2", "3"], "last keyed by epoch")
+        cost, (rows, cols) = runs["greedy"][1][0]
+        want = greedy_np(cost)
+        pairs = int((want[1] < cost.shape[2]).sum())
+        print(f"[rtdetr-trainer] greedy matcher on the first cost of epoch "
+              f"3 {cost.shape}: {pairs} pairs, equal to the numpy greedy "
+              f"{bool((rows == want[0]).all() and (cols == want[1]).all())}")
+        require((rows == want[0]).all() and (cols == want[1]).all(),
+                "the greedy matcher's pairs differ from the numpy greedy")
+
+        payload = torch.load(out / "ckpt" / "best", map_location=dev,
+                             weights_only=True)["state"]
+        val = pipe.index_coco(root, "val")[:nb]
+        batch = torch.from_numpy(np.stack(
+            [images[s.image_id] for s in val])).to(dev)
+        ema_check("rtdetr-trainer",
+                  lambda: trainer_state(D, lambda: R.create(
+                      6, torch.bfloat16, dev, train=True,
+                      bn_dtype=torch.bfloat16), payload),
+                  lambda: RT.load_checkpoint(out, torch.bfloat16, dev),
+                  RT.make_predict_step(IMG_SIZE, use_ema=True),
+                  RT.make_predict_step(IMG_SIZE), batch)
+    total = {}
+    for launches, _, _ in runs.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -3991,11 +4476,14 @@ def main() -> int:
     phase_frcnn_bucketed(dev)
     phase_frcnn_train_model_check(dev)
     frcnn_train_launches = phase_frcnn_training(dev)
+    yolo_trainer_launches = phase_yolo_trainer(dev)
+    rtdetr_trainer_launches = phase_rtdetr_trainer(dev)
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
                  generation_launches, restored_launches,
-                 frcnn_train_launches):
+                 frcnn_train_launches, yolo_trainer_launches,
+                 rtdetr_trainer_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -40,10 +40,11 @@ def _stage(timer, name: str, fence=None):
 
 
 def _device_of(state, device) -> torch.device:
-    """The device the caller names, else the one the model lives on."""
+    """The device the caller names, else the one the model (or a train
+    state's model) lives on."""
     if device is not None:
         return torch.device(device)
-    return next(state.parameters()).device
+    return next(getattr(state, "model", state).parameters()).device
 
 
 def evaluate_on_samples(predict_fn: Callable, state, samples,

@@ -696,15 +696,16 @@ def init_weights(model: RTDETR, generator: torch.Generator) -> RTDETR:
 def create(num_classes: int = 6, dtype: torch.dtype = torch.float32,
            device: Optional[torch.device] = None,
            generator: Optional[torch.Generator] = None, train: bool = False,
-           bn_dtype: torch.dtype = torch.float32) -> RTDETR:
+           bn_dtype: torch.dtype = torch.float32, **config) -> RTDETR:
     """An RT-DETR-L on `device` (None: the CUDA card; raises when there is
     none), randomly initialised from `generator` (seed 0 when None).
     train=False: eval mode, conv weights stored in `dtype`; train=True:
     train mode, float32 master weights, train-mode BatchNorm output in
-    `bn_dtype`."""
+    `bn_dtype`. config: other RtDetrConfig fields (dec_layers, queries,
+    ...)."""
     device = resolve_device(device)
     gen = generator or torch.Generator().manual_seed(0)
-    model = RTDETR(RtDetrConfig(num_classes=num_classes), dtype,
+    model = RTDETR(RtDetrConfig(num_classes=num_classes, **config), dtype,
                    param_dtype=torch.float32 if train else dtype,
                    bn_dtype=bn_dtype)
     return init_weights(model, gen).to(device).train(train)

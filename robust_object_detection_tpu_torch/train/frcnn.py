@@ -421,7 +421,7 @@ def load_pretrained(model: F.FasterRCNN,
 
 # ── Full training driver ─────────────────────────────────────────────────
 
-def _to_device(batch: pipe.Batch, device: torch.device):
+def batch_to_device(batch: pipe.Batch, device: torch.device):
     """(images, boxes, classes) of a host batch on `device`, through pinned
     memory and a non-blocking copy when it is the card."""
     arrays = (batch.images, batch.boxes, batch.classes)
@@ -549,7 +549,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                     shuffle=True, seed=cfg.train.seed + epoch,
                     drop_remainder=True)))
         for canvas, batch in batch_iter:
-            images, gt_boxes, gt_classes = _to_device(batch, device)
+            images, gt_boxes, gt_classes = batch_to_device(batch, device)
             m = step_for(canvas)(state, images, gt_boxes, gt_classes,
                                  cfg.train.seed)
             losses.append(m["loss"])

@@ -1,34 +1,50 @@
-"""RT-DETR training and inference steps (counterpart of
-robust_object_detection_tpu/train/rtdetr.py): set matching by the auction
-solver, varifocal / L1 / GIoU losses with deep supervision, contrastive
-denoising queries, AdamW with global-norm clipping and an EMA.
+"""RT-DETR training (counterpart of robust_object_detection_tpu/train/
+rtdetr.py): set matching, varifocal / L1 / GIoU losses with deep
+supervision, contrastive denoising queries, AdamW with global-norm clipping
+and an EMA, and the training loop.
 
-The matcher is ``ops.assignment.auction_assignment`` (K6 on the card): 7
-matchings a train step (six decoder layers and the encoder proposals), each
-capped at ``AUCTION_MAX_ROUNDS`` rounds with a greedy completion, the count
-of capped image-matchings surfaced as the ``matcher_capped`` metric. The
-reference's "greedy" and "hungarian" matchers are not ported.
+The module-level ``ASSIGNMENT`` knob picks the matcher of the 7 matchings
+a train step makes (six decoder layers and the encoder proposals):
+"auction" (the default; ``ops.assignment.auction_assignment``, K6 on the
+card, capped at ``AUCTION_MAX_ROUNDS`` rounds with a greedy completion, the
+count of capped image-matchings surfaced as ``matcher_capped``), "greedy"
+(the globally cheapest pair each round, on the tensors' device) or
+"hungarian" (the exact optimum, in float64 numpy on the host).
 
-The host-side ``train()`` loop (mosaic, data pipeline, checkpoints,
-validation) is not ported yet.
+:func:`train` is the reference's loop on one device, with the reference's
+epoch-level resume (``last`` keyed by epoch); validation and
+:func:`load_checkpoint` predict with the EMA weights
+(``train.detector.ema_forward``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+import time
+from pathlib import Path
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.config import CorruptionConfig
+from ..core import artifacts
+from ..core.checkpoint import CheckpointManager
+from ..core.config import CorruptionConfig, ExperimentConfig
+from ..data import pipeline as pipe
 from ..models import rtdetr as rtdetr_lib
+from ..models.layers import resolve_device
 from ..ops import boxes as box_ops
-from ..ops.assignment import BIG, auction_assignment
+from ..ops.assignment import BIG, _first_max, auction_assignment
 from ..ops.fused_corrupt import fused_random_corruption
 from . import augment as aug
-from .detector import TrainState
+from . import validation
+from .detector import (TrainState, _ckpt_payload, compute_dtype,
+                       resume_payload, ema_forward, ema_module,
+                       epoch_batches, load_pretrained, restore_state,
+                       restore_weights, train_samples)
+from .frcnn import batch_to_device, step_generator
 
 # Ultralytics RT-DETR gains: the matcher weighs the focal class cost at 2,
 # the loss weighs VFL at 1
@@ -39,6 +55,8 @@ COST_CLASS, COST_L1, COST_GIOU = 2.0, 5.0, 2.0
 # maximal matching is near-optimal there, so capped images take the greedy
 # completion.
 AUCTION_MAX_ROUNDS = 16
+# "auction" (eps-optimal, the default) | "greedy" | "hungarian" (exact)
+ASSIGNMENT = "auction"
 
 
 def to_norm_cxcywh(boxes_xyxy: torch.Tensor, img_size: float) -> torch.Tensor:
@@ -59,19 +77,133 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rtdetr_lib.permute_rows(x, idx.long())
 
 
+def _hungarian_rows(a: np.ndarray) -> np.ndarray:
+    """Exact min-cost assignment of every row of a (n, m), n <= m, to a
+    distinct column (shortest augmenting paths with potentials, float64).
+    Returns the column of each row."""
+    n, m = a.shape
+    u = np.zeros(n + 1)
+    v = np.zeros(m + 1)
+    p = np.zeros(m + 1, np.int64)       # p[j]: the row (1-based) at column j
+    way = np.zeros(m + 1, np.int64)
+    for i in range(1, n + 1):
+        p[0] = i
+        j0 = 0
+        minv = np.full(m + 1, np.inf)
+        used = np.zeros(m + 1, bool)
+        while True:
+            used[j0] = True
+            i0 = p[j0]
+            free = ~used[1:]
+            cur = a[i0 - 1] - u[i0] - v[1:]
+            better = free & (cur < minv[1:])
+            minv[1:][better] = cur[better]
+            way[1:][better] = j0
+            masked = np.where(free, minv[1:], np.inf)
+            j1 = int(np.argmin(masked)) + 1
+            delta = masked[j1 - 1]
+            u[p[used]] += delta
+            v[used] -= delta
+            minv[1:][free] -= delta
+            j0 = j1
+            if p[j0] == 0:
+                break
+        while j0:
+            j1 = way[j0]
+            p[j0] = p[j1]
+            j0 = j1
+    cols = np.zeros(n, np.int64)
+    for j in range(1, m + 1):
+        if p[j]:
+            cols[p[j] - 1] = j - 1
+    return cols
+
+
+def _solve_assignment(cost: torch.Tensor, exact: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched one-to-one assignment of cost (B, Q, M) -> (rows, cols),
+    each (B, K) int32, K = min(Q, M): pairs in assignment order; slots
+    left unfilled hold (0, M), which the caller drops.
+
+    exact=False, the greedy matcher: each round takes the globally
+    cheapest (query, GT) pair (ties to the lowest flat index) and retires
+    its row and column, for K rounds or until only costs >= BIG / 2
+    remain; batched on the tensors' device, one host sync a call.
+    exact=True: the optimal assignment of each image's columns that have a
+    cost below BIG / 2 (padded GTs are matched by no one), in float64 numpy
+    on the host; pairs in row order."""
+    b, qn, m = cost.shape
+    k = min(qn, m)
+    dev = cost.device
+    rows = torch.zeros((b, k), dtype=torch.int64, device=dev)
+    cols = torch.full((b, k), m, dtype=torch.int64, device=dev)
+    if exact:
+        host = cost.detach().double().cpu().numpy()
+        for i in range(b):
+            keep = np.flatnonzero(host[i].min(0) < BIG / 2)
+            a = host[i][:, keep]
+            if not len(keep):
+                continue
+            if len(keep) <= qn:         # every kept GT gets a query
+                r = _hungarian_rows(a.T)
+                q_idx, m_idx = r, keep
+            else:                       # every query gets a GT
+                r = _hungarian_rows(a)
+                q_idx, m_idx = np.arange(qn), keep[r]
+            order = np.argsort(q_idx, kind="stable")
+            n = len(order)
+            rows[i, :n] = torch.from_numpy(q_idx[order]).to(dev)
+            cols[i, :n] = torch.from_numpy(m_idx[order]).to(dev)
+        return rows.to(torch.int32), cols.to(torch.int32)
+
+    n_iter = min(int((cost.amin(1) < BIG / 2).sum(1).max()), k)
+    q_used = torch.zeros((b, qn), dtype=torch.bool, device=dev)
+    m_used = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    ar = torch.arange(b, device=dev)
+    for i in range(n_iter):
+        masked = cost + (q_used[:, :, None] | m_used[:, None, :]) * BIG
+        best, idx = _first_max(-masked.reshape(b, -1), 1)
+        qi, mi = idx // m, idx % m
+        take = -best < BIG / 2
+        rows[:, i] = torch.where(take, qi, rows[:, i])
+        cols[:, i] = torch.where(take, mi, cols[:, i])
+        q_used[ar, qi] |= take
+        m_used[ar, mi] |= take
+    return rows.to(torch.int32), cols.to(torch.int32)
+
+
+def _pairs_to_gt_for_query(rows: torch.Tensor, cols: torch.Tensor,
+                           valid: torch.Tensor, qn: int) -> torch.Tensor:
+    """(rows, cols) pairs -> gt_for_query (B, Q) int32, -1 = unmatched.
+    Pairs on a padded GT or an unfilled slot (col == M) write to an
+    overflow slot, so they never clobber a real query's assignment."""
+    m = valid.shape[1]
+    in_range = cols < m
+    cols_c = cols.clamp(max=m - 1).long()
+    matched = torch.gather(valid, 1, cols_c) & in_range
+    slot = torch.where(matched, rows.long(), qn)
+    out = torch.full((rows.shape[0], qn + 1), -1, dtype=torch.int32,
+                     device=rows.device)
+    out.scatter_(1, slot, torch.where(matched, cols_c, -1).to(torch.int32))
+    return out[:, :qn]
+
+
 @torch.no_grad()
 def hungarian_match(logits: torch.Tensor, boxes: torch.Tensor,
                     gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
-                    max_match: int = 300
+                    max_match: int = 300, method: Optional[str] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Per-image assignment of queries to GTs. logits (B, Q, nc); boxes (B,
     Q, 4) normalised cxcywh; gt_boxes (B, M, 4) normalised cxcywh;
     gt_classes (B, M) with -1 padding. GTs beyond `max_match` slots are
     ignored. Cost = 2 focal class + 5 L1 + 2 (1 - GIoU), padded GTs at BIG.
+    method: "auction", "greedy" or "hungarian"; None reads the module's
+    ``ASSIGNMENT``.
 
     Returns (gt_for_query (B, Q) int32, -1 = unmatched; iou_q (B, Q), the
     IoU of each matched pair; {"cost": (B, Q, M), "capped": (B,) bool, True
-    where the auction hit its round cap and was completed greedily})."""
+    where the auction hit its round cap and was completed greedily; always
+    False for the greedy and Hungarian matchers})."""
     m = min(max_match, gt_boxes.shape[1])
     gtb = gt_boxes[:, :m]
     gtc = gt_classes[:, :m]
@@ -92,8 +224,19 @@ def hungarian_match(logits: torch.Tensor, boxes: torch.Tensor,
     cost = COST_CLASS * cls_sel + COST_L1 * l1 + COST_GIOU * (1.0 - giou)
     cost = torch.where(valid[:, None, :], cost, BIG).contiguous()
 
-    gt_for_query, capped = auction_assignment(cost, valid,
-                                              max_rounds=AUCTION_MAX_ROUNDS)
+    method = ASSIGNMENT if method is None else method
+    if method == "auction":
+        gt_for_query, capped = auction_assignment(
+            cost, valid, max_rounds=AUCTION_MAX_ROUNDS)
+    elif method in ("greedy", "hungarian"):
+        rows, cols = _solve_assignment(cost, exact=method == "hungarian")
+        gt_for_query = _pairs_to_gt_for_query(rows, cols, valid,
+                                              logits.shape[1])
+        capped = torch.zeros(cost.shape[0], dtype=torch.bool,
+                             device=cost.device)
+    else:
+        raise ValueError(f"method {method!r}: 'auction', 'greedy' or "
+                         f"'hungarian'")
     tgt_x = _take_rows(gx, gt_for_query.clamp(min=0))
     iou_q = box_ops.iou_elementwise(qx, tgt_x)
     iou_q = torch.where(gt_for_query >= 0, iou_q, 0.0)
@@ -371,16 +514,151 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
     return step
 
 
-def make_predict_step(img_size: int, max_det: int = 300) -> Callable:
+def make_predict_step(img_size: int, max_det: int = 300,
+                      use_ema: bool = False) -> Callable:
     """Inference: (model, images (B, S, S, 3) in [0, 255]) -> NMS-free
     detections (boxes (B, max_det, 4) canvas xyxy, scores, classes int32,
     valid), fixed capacity: the contract of
     ``train.detector.make_predict_step``, so ``eval.fused_sweep`` takes
-    either."""
+    either. use_ema=True: the step takes a train state in place of the
+    model and runs its EMA weights (``train.detector.ema_forward``), as
+    the reference's default predict step and every validation does."""
 
     @torch.inference_mode()
-    def step(model: torch.nn.Module, images: torch.Tensor):
+    def step(model, images: torch.Tensor):
         x = images.float() / 255.0
-        return rtdetr_lib.postprocess(model(x), img_size, max_det)
+        outs = ema_forward(model, x) if use_ema else model(x)
+        return rtdetr_lib.postprocess(outs, img_size, max_det)
 
     return step
+
+
+# ── The training loop ────────────────────────────────────────────────────
+
+RTDETR_HEADS = ("model.28.enc_score_head.", "model.28.dec_score_head.")
+DN_TABLE = "model.28.denoising_class_embed.weight"
+
+
+def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
+          augment: bool = False, epochs: int = 100, img_size: int = 1024,
+          batch_size: int = 4, max_steps: Optional[int] = None,
+          max_boxes: int = 600, layout: str = "coco", val_interval: int = 1,
+          lrf: float = 0.01,
+          pretrained: Optional[Union[str, Path, Mapping]] = None,
+          dtype: Optional[str] = None, base_augment: bool = True,
+          mosaic: bool = True, close_mosaic: int = 10,
+          model_kwargs: Optional[dict] = None,
+          device: Optional[torch.device] = None,
+          load_image: Callable = pipe.load_image_rgb) -> dict:
+    """The RT-DETR training loop (reference: 100 epochs, batch 2 at 1024
+    px) on `device` (None: the CUDA card; raises when there is none).
+
+    lrf: final-LR fraction, warmup then linear decay lr0 -> lr0 * lrf over
+    the run. val_interval: a val mAP pass every N epochs and on the last,
+    keeping the best-mAP50 checkpoint. dtype: "bfloat16" (the card's
+    default) or "float32"; parameters and statistics stay f32.
+    base_augment / mosaic / close_mosaic: on-card HSV + flip and host
+    mosaic + affine until the last close_mosaic epochs. pretrained: an
+    rtdetr-l-layout state_dict or its file; the class-dependent score
+    heads keep their fresh init when their shape differs, and a shorter
+    denoising class table fills its first rows. model_kwargs: extra
+    RtDetrConfig fields. The matcher is the module's ``ASSIGNMENT``; the
+    image-matchings the auction capped are logged as ``matcher_capped``.
+    Tensor parallelism (``cfg.mesh.model > 1``) is not ported.
+
+    Writes ``history.jsonl`` and the checkpoints under `out_dir`: ``last``
+    every epoch, keyed by the epoch (not the step, as in the YOLO trainer),
+    and a run that finds one resumes after its epoch. Returns {out_dir,
+    steps, final_loss}."""
+    if cfg.mesh.model > 1:
+        raise NotImplementedError(
+            f"mesh.model={cfg.mesh.model}: tensor parallelism of the "
+            f"decoder is not ported; train on one device (mesh.model=1)")
+    device = resolve_device(device)
+    model_dtype = compute_dtype(dtype, device)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    samples = train_samples(data_root, layout)
+    steps_per_epoch = max(1, len(samples) // batch_size)
+    model = rtdetr_lib.create(6, model_dtype, device,
+                              torch.Generator().manual_seed(cfg.train.seed),
+                              train=True, bn_dtype=model_dtype,
+                              **(model_kwargs or {}))
+    if pretrained:
+        report = load_pretrained(model, pretrained, RTDETR_HEADS,
+                                 (DN_TABLE,))
+        print(f"pretrained import: imported {len(report['imported'])} "
+              f"tensors, skipped {report['skipped']}")
+    tx, sched = make_optimizer(total_steps=epochs * steps_per_epoch, lrf=lrf)
+    state = init_state(model, tx)
+    step_fn = make_train_step(img_size, cfg.corruption, augment,
+                              base_augment=base_augment)
+
+    val_samples = validation.index_val_samples(data_root, layout)
+    predict_fn = (make_predict_step(img_size, use_ema=True)
+                  if val_samples else None)
+
+    ckpt = CheckpointManager(out_dir)
+    hist = artifacts.HistoryLogger(out_dir)
+    steps = 0
+    mean_loss = 0.0
+    start_epoch = 1
+    restored = ckpt.restore_last(map_location=device)
+    if restored is not None:
+        restore_state(state, restored["state"])
+        start_epoch = restored["step"] + 1
+        steps = state.step
+    for epoch in range(start_epoch, epochs + 1):
+        t0 = time.time()
+        losses, capped = [], []
+        # mosaic until the last close_mosaic epochs (the recipe the YOLO
+        # trainer shares)
+        batch_iter = epoch_batches(
+            samples, batch_size, img_size, max_boxes, cfg.train.seed + epoch,
+            mosaic and epoch <= max(0, epochs - close_mosaic), load_image)
+        for batch in pipe.prefetch(batch_iter):
+            images, gt_boxes, gt_classes = batch_to_device(batch, device)
+            m = step_fn(state, images, gt_boxes, gt_classes,
+                        step_generator(cfg.train.seed, state.step, device))
+            losses.append(m["loss"])
+            capped.append(m["matcher_capped"])
+            steps += 1
+            if max_steps and steps >= max_steps:
+                break
+        mean_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        record = dict(epoch=epoch, train_loss=mean_loss,
+                      lr=float(sched(steps)),
+                      # image-matchings this epoch where the auction hit
+                      # its round cap (greedy-completed)
+                      matcher_capped=float(torch.stack(capped).sum())
+                      if capped else 0.0,
+                      epoch_sec=round(time.time() - t0, 2))
+        if validation.should_validate(epoch, epochs, val_interval,
+                                      bool(val_samples)):
+            vm = validation.run_validation(
+                predict_fn, state, val_samples, img_size, batch_size, device,
+                max_boxes=max_boxes, load_image=load_image)
+            record.update(vm)
+            ckpt.save_best(epoch, _ckpt_payload(state), vm["mAP50"])
+        hist.log(**record)
+        ckpt.save_last(epoch, resume_payload(state))
+        if max_steps and steps >= max_steps:
+            break
+    if ckpt.best_metric() is None:
+        ckpt.save_best(epochs, _ckpt_payload(state), 0.0)
+    ckpt.close()
+    return {"out_dir": str(out_dir), "steps": steps, "final_loss": mean_loss}
+
+
+def load_checkpoint(out_dir: str | Path, dtype: torch.dtype = torch.float32,
+                    device: Optional[torch.device] = None,
+                    model_kwargs: Optional[dict] = None) -> torch.nn.Module:
+    """A trained checkpoint under `out_dir` (``best``, else the newest
+    ``last``) as an eval-mode RT-DETR on `device` (None: the CUDA card)
+    carrying the EMA weights, which the reference predicts with.
+    model_kwargs: the RtDetrConfig fields the run trained with."""
+    device = resolve_device(device)
+    payload = restore_weights(out_dir, device)
+    return ema_module(rtdetr_lib.create(6, dtype, device,
+                                        **(model_kwargs or {})), payload)

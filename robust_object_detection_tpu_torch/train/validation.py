@@ -41,13 +41,17 @@ def index_val_samples(data_root: str | Path,
 def run_validation(predict_fn: Callable, state,
                    val_samples: List[pipe.Sample], img_size: int,
                    batch_size: int, ctx: Optional[torch.device] = None,
-                   max_boxes: int = 600) -> Dict[str, float]:
+                   max_boxes: int = 600,
+                   load_image: Callable = pipe.load_image_rgb
+                   ) -> Dict[str, float]:
     """One val pass -> {"mAP50", "mAP50_95"} via the COCOeval-parity scorer.
-    state: the model the predict fn runs; ctx: the device the images go
-    to (None: the model's)."""
+    state: what the predict fn runs (a model, or a train state for the
+    EMA predict steps of train.detector / train.rtdetr); ctx: the device
+    the images go to (None: the model's); load_image: the decoder
+    (data.pipeline.make_batches)."""
     summary = detector_eval.evaluate_on_samples(
         predict_fn, state, val_samples, img_size, batch_size, ctx,
-        max_boxes=max_boxes)
+        max_boxes=max_boxes, load_image=load_image)
     return {"mAP50": round(summary["mAP50"], 5),
             "mAP50_95": round(summary["mAP50_95"], 5)}
 

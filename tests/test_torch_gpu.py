@@ -13,6 +13,8 @@ its intermediate, to bf16). Shapes are ragged on purpose: tile, channel
 and batch edges that the main path's shapes never hit.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -1656,3 +1658,127 @@ def test_frcnn_load_checkpoint_lands_on_the_card(cuda, tmp_path):
     assert next(loaded.parameters()).device.type == "cuda"
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k].cpu(), v), k
+
+
+# ── the YOLOv8 and RT-DETR trainers ──────────────────────────────────────
+
+def _smoke():
+    """chip_smoke.py of this checkout, loaded by path (an installed
+    `chip_smoke` or `tests` elsewhere must not shadow it)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _trainer_split(root, n_train, n_val, size=128):
+    """chip_smoke.trainer_split at `size` px, 8 GT an image."""
+    smoke = _smoke()
+    smoke.IMG_SIZE, smoke.GT_PER_IMAGE = size, 8
+    images = smoke.trainer_split(root, n_train, n_val, 0)
+    return lambda sample: images[sample.image_id]
+
+
+def _trainer_cfg():
+    from robust_object_detection_tpu_torch.core.config import (
+        ExperimentConfig, MeshConfig, TrainConfig)
+    return ExperimentConfig(train=TrainConfig(seed=0),
+                            mesh=MeshConfig(data=1, model=1))
+
+
+@pytest.mark.gpu
+def test_yolo_trainer_two_steps_on_the_card(cuda, tmp_path):
+    """detector.train on the card (YOLOv8n, 128 px, batch 2, bf16,
+    augment + HSV/flip, mosaic + affine, 4 train and 2 val images in
+    memory): per step K1 1, K2-f train 1, K2-b 1, K3-f 4, K3-b 2 (the
+    first C2f of YOLOv8n has one bottleneck, YOLOv8m's two); the
+    validation forward K2-f eval 1, K3-f 2; history, best and last."""
+    from robust_object_detection_tpu_torch.core import artifacts
+    from robust_object_detection_tpu_torch.train import detector as D
+    load = _trainer_split(tmp_path / "coco", 4, 2)
+    fns = {"corrupt": FC.fused_random_corruption, "train": TF.front_fused,
+           "bwd": TF.front_fused_backward, "eval": TF.front_inference,
+           "conv": C.conv3x3, "wgrad": C.conv3x3_wgrad}
+    for f in fns.values():
+        f.launches = 0
+    out = D.train(_trainer_cfg(), tmp_path / "coco", tmp_path / "run",
+                  augment=True, variant="n", epochs=1, img_size=128,
+                  batch_size=2, max_boxes=16, close_mosaic=0,
+                  load_image=load)
+    assert out["steps"] == 2 and math.isfinite(out["final_loss"])
+    assert {k: f.launches for k, f in fns.items()} == {
+        "corrupt": 2, "train": 2, "bwd": 2, "eval": 1, "conv": 10,
+        "wgrad": 4}
+    hist = artifacts.read_jsonl(tmp_path / "run" / "history.jsonl")
+    assert [h["epoch"] for h in hist] == [1] and "mAP50" in hist[0]
+    assert (tmp_path / "run" / "ckpt" / "best").exists()
+    model = D.load_checkpoint(tmp_path / "run", "n", torch.bfloat16)
+    assert next(model.parameters()).device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_rtdetr_trainer_two_steps_on_the_card(cuda, tmp_path):
+    """rtdetr.train on the card (RT-DETR-L with two decoder layers, 128
+    px, batch 2, bf16, augment + HSV/flip + CDN, 4 train and 2 val images
+    in memory): per step K1 1, K4-f train 1, K4-b 1, K3-f 12, K3-b 6, K5
+    2 + 2, K6 3; the validation forward K4-f eval 1, K3-f 6, K5 2."""
+    from robust_object_detection_tpu_torch.core import artifacts
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+    load = _trainer_split(tmp_path / "coco", 4, 2)
+    fns = {"corrupt": FC.fused_random_corruption, "train": ST.stem_fused,
+           "bwd": ST.stem_fused_backward, "eval": ST.stem_fused_inference,
+           "conv": C.conv3x3, "wgrad": C.conv3x3_wgrad,
+           "k5": DF.ms_deform_attn_slots, "k5b": DF.ms_deform_attn_backward,
+           "k6": AS.auction_assignment}
+    for f in fns.values():
+        f.launches = 0
+    out = RT.train(_trainer_cfg(), tmp_path / "coco", tmp_path / "run",
+                   augment=True, epochs=1, img_size=128, batch_size=2,
+                   max_boxes=16, close_mosaic=0, load_image=load,
+                   model_kwargs=dict(dec_layers=2))
+    assert out["steps"] == 2 and math.isfinite(out["final_loss"])
+    assert {k: f.launches for k, f in fns.items()} == {
+        "corrupt": 2, "train": 2, "bwd": 2, "eval": 1, "conv": 30,
+        "wgrad": 12, "k5": 6, "k5b": 4, "k6": 6}
+    hist = artifacts.read_jsonl(tmp_path / "run" / "history.jsonl")
+    assert [h["epoch"] for h in hist] == [1] and "matcher_capped" in hist[0]
+    assert sorted(p.name for p in (tmp_path / "run" / "ckpt" / "last")
+                  .iterdir()) == ["1"]
+
+
+@pytest.mark.gpu
+def test_ema_predict_card_matches_cpu(cuda):
+    """train.detector.ema_forward (the EMA predict path of both trainers)
+    on the card, f32 with TF32 off, against the CPU on one YOLOv8n with an
+    EMA 5% away from its parameters: each head output within 1e-4 x
+    max|ref|, far from the raw weights' outputs; the module's parameters
+    and train mode untouched."""
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.train import detector as D
+    g = torch.Generator().manual_seed(0)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        model = Y.create(6, "n", torch.float32, dev,
+                         torch.Generator().manual_seed(0), train=True)
+        ema = {n: (p.detach().cpu() * (1 + 0.05 * torch.randn(
+            p.shape, generator=torch.Generator().manual_seed(i)))).to(dev)
+            for i, (n, p) in enumerate(model.named_parameters())
+            if p.requires_grad}
+        state = D.TrainState(model, ema, None, None)
+        x = torch.rand(2, 128, 128, 3, generator=g.manual_seed(1)).to(dev)
+        before = {k: t.clone() for k, t in model.state_dict().items()}
+        with torch.backends.cudnn.flags(allow_tf32=False), \
+                torch.inference_mode():
+            outs[dev.type] = [t.float().cpu() for lvl in
+                              D.ema_forward(state, x) for t in lvl]
+            model.eval()
+            raw = [t.float().cpu() for lvl in model(x) for t in lvl]
+            model.train()
+        assert model.training and all(
+            torch.equal(before[k], t) for k, t in model.state_dict().items())
+    for got, ref, r in zip(outs["cuda"], outs["cpu"], raw):
+        assert _rel_err(got, ref) <= 1e-4
+        assert _rel_err(r, ref) > 1e-3

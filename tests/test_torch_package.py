@@ -32,7 +32,7 @@ from robust_object_detection_tpu_torch.ops.conv3x3 import conv3x3
 y = conv3x3(torch.zeros(1, 4, 4, 2), torch.ones(3, 3, 2, 5))
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
-                                      "robust_object_detection_tpu"))
+                                      "PIL", "robust_object_detection_tpu"))
 print(json.dumps({"modules": names, "heavy": heavy, "shape": list(y.shape),
                   "launches": conv3x3.launches}))
 """
@@ -76,6 +76,36 @@ def test_no_module_imports_jax():
             assert f"import {mod}" not in src, p
             assert f"from {mod}" not in src, p
         assert not ref_import.search(src), p
+
+
+_NO_PIL_NO_CV2 = r"""
+import sys
+sys.modules["PIL"] = None       # any import of them now raises
+sys.modules["cv2"] = None
+import numpy as np
+from robust_object_detection_tpu_torch.data.pipeline import Sample
+from robust_object_detection_tpu_torch.train import augment
+samples = [Sample(None, i + 1, 32, 32, np.asarray([[2., 3., 20., 25.]],
+                  np.float32), np.asarray([i % 6], np.int32))
+           for i in range(4)]
+load = lambda s: np.full((32, 32, 3), s.image_id * 40, np.uint8)
+batches = list(augment.mosaic_batches(samples, 2, 32, max_boxes=8, seed=0,
+                                      load_image=load))
+print(len(batches), batches[0].images.shape)
+"""
+
+
+def test_host_augmentation_needs_no_pil_or_cv2():
+    """The card's machine has neither PIL nor cv2: train/augment.py imports
+    neither, and mosaic + affine batches come out with both unimportable,
+    given in-memory images at the canvas size."""
+    src = (PKG / "train" / "augment.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(PIL|cv2)\b", src, re.M)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _NO_PIL_NO_CV2], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["2", "(2,", "32,", "32,", "3)"]
 
 
 def test_kernel_sources_and_hash():

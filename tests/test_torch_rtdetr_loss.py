@@ -86,9 +86,19 @@ def test_hungarian_match_matches(crowded):
     if crowded:
         assert aux["capped"].any()
     assert (owner[2] == -1).all()
-    with pytest.raises(TypeError):
+    # the other matchers on the same costs (tests/test_torch_rtdetr_trainer
+    # holds all three on more inputs); an unknown one raises
+    g_owner, _, _ = JT.hungarian_match(
+        jnp.asarray(outs["logits"][0]), jnp.asarray(outs["boxes"][0]), gt_n,
+        jnp.asarray(gc), method="greedy")
+    owner, _, aux = TT.hungarian_match(_t(outs["logits"][0]),
+                                       _t(outs["boxes"][0]), _t(gt_n),
+                                       _t(gc), method="greedy")
+    np.testing.assert_array_equal(owner.numpy(), g_owner)
+    assert not aux["capped"].any()
+    with pytest.raises(ValueError, match="method"):
         TT.hungarian_match(_t(outs["logits"][0]), _t(outs["boxes"][0]),
-                           _t(gt_n), _t(gc), method="greedy")
+                           _t(gt_n), _t(gc), method="sinkhorn")
 
 
 def test_varifocal_loss_matches():
