@@ -162,7 +162,10 @@ Phases:
      the running statistics after the step within 1e-9 x max|ref| (1e-5 in
      f32); in f32 loss within 1e-4 relative and every card gradient within
      max(1e-4, 10 x its own f32 noise) x max|ref| of the float64 one
-     (tolerances in phase_unet_training);
+     (tolerances in phase_unet_training); and at the phase's own shape
+     (patch 256, batch 8) with cuDNN on, one f32 step with TF32 off and
+     one with TF32 on against the card's float64 step: the median leaf
+     gradient error of the f32 step at most UNET_F32_BAR, TF32's above it;
  20. Faster R-CNN ResNet-50-FPN-v2 f32 at full width (blocks (3, 4, 6, 3),
      256-channel FPN, 512 proposals, 7 classes, every BN and bias drawn
      from the seed) on the card with TF32 off against the CPU, batch 2 at
@@ -226,7 +229,34 @@ Phases:
      resumes at epoch 3 (``last`` keyed by epoch) with ASSIGNMENT
      "greedy" (K6 0); matcher_capped in the history; the greedy matcher's
      pairs on the epoch's first cost against an independent numpy greedy;
-     ``load_checkpoint`` against the EMA predict step; step ms, images/s.
+     ``load_checkpoint`` against the EMA predict step; step ms, images/s;
+ 27. the command-line pipeline, through ``cli.main`` in this process with
+     PIL and cv2 made unimportable, on a BMP split from
+     ``data/synthetic.make_det_split`` (32 train and 16 val images of
+     540-800 x 960-1400 px, so the letterbox resizes both up and down):
+     ``data/imageio`` against golden SHA-256s of PIL's BMP bytes and of
+     ``cv2.resize(INTER_LINEAR)`` outputs, and the host ms of a BMP
+     decode and of ``resize_linear_u8`` at 765x1360 -> 576x1024; then
+     ``convert-det-coco`` / ``convert-det-yolo``, ``validate`` of each
+     kind (once also as ``python -m ...cli`` in a subprocess),
+     ``build-testsets`` on the card held against the same build on the
+     CPU (Clean and Noise byte-equal, Blur and LowRes within 1 LSB),
+     ``train-restoration`` (5 steps at ``RestorationConfig``'s defaults),
+     ``restore-testsets``, ``train-detector`` at full width with 2 steps
+     and one validation each (YOLOv8m batch 16 Baseline and Augmented,
+     RT-DETR-L batch 8, Faster R-CNN batch 2 f32, both Augmented), ``eval``,
+     ``eval-restored`` and ``eval-vid`` over the testsets, ``eval-fused``
+     with the U-Net for YOLOv8m and RT-DETR-L with and without
+     ``--mt19937-parity coco6`` (16 more images at 766x1360: the fused
+     sweep takes even native sizes); every command with the launch
+     counters zeroed just before and read just after, each step and each
+     forward launching what phases 24-26 count (Baseline: K1 0) and
+     together every launch of the command; the files each eval reads
+     (``eval-restored``: only the ``_restored`` layout); finite mAPs in
+     every results JSON; the CLI's YOLOv8m detections identical forward
+     by forward to ``evaluate_testsets`` on ``load_checkpoint``'s EMA
+     module (and not all equal to the raw weights'); seconds a command
+     and ms an image of each disk eval.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -3027,11 +3057,54 @@ def phase_unet_training(dev):
     require(rel32 <= 1e-4, f"U-Net f32 step loss differs by {rel32}")
     require(not over, f"card f32 gradients off the float64 ones: {over}")
 
+    # the checks above run with cuDNN switched off (cudnn.flags' default
+    # enabled=False), so nothing above sees TF32 in the train convs; at
+    # this phase's own shape (patch 256, batch 8), with cuDNN on: one step
+    # in f32 with TF32 off and one with TF32 on, each held against the
+    # card's float64 step from the same weights and draws, by the median
+    # over the leaves of each leaf's largest error over its max|ref|
+    big = batch.cpu()
+    big_draws = R.draw_train(big.shape,
+                             torch.Generator().manual_seed(SEED + 1))
+    runs = {name: unet_step_grads(state_dict, dev, dtype, big, big_draws,
+                                  step, tx, flags={"enabled": True,
+                                                   "allow_tf32": tf32})
+            for name, dtype, tf32 in (("f64", torch.float64, False),
+                                      ("f32", torch.float32, False),
+                                      ("tf32", torch.float32, True))}
+    g_ref = runs["f64"][1]
+    med = {name: statistics.median(
+        ((runs[name][1][n] - r).abs().max() / r.abs().max()).item()
+        for n, r in g_ref.items()) for name in ("f32", "tf32")}
+    loss_rel = {name: abs(runs[name][0] - runs["f64"][0])
+                / abs(runs["f64"][0]) for name in ("f32", "tf32")}
+    print(f"[unet-train] one step at patch {rcfg.patch_size}, batch "
+          f"{rcfg.batch_size} against the card's float64 step: median leaf "
+          f"gradient error f32 (TF32 off) {med['f32']}, TF32 on "
+          f"{med['tf32']} (bar {UNET_F32_BAR}: f32 below it, TF32 above); "
+          f"loss rel {loss_rel}")
+    require(med["f32"] <= UNET_F32_BAR,
+            f"U-Net f32 step at patch {rcfg.patch_size}, batch "
+            f"{rcfg.batch_size}: median leaf error {med['f32']} above "
+            f"{UNET_F32_BAR} (TF32 in the train convs?)")
+    require(med["tf32"] > UNET_F32_BAR,
+            f"the bar {UNET_F32_BAR} does not separate f32 from TF32 "
+            f"({med['tf32']})")
 
-def unet_step_grads(state_dict, device, dtype, batch, draws, step, tx):
+
+# the median leaf gradient error of an f32 U-Net step against float64 at
+# patch 256, batch 8, cuDNN on (phase 19): above the measured f32 spread
+# (2.1e-3, TF32 off) and below TF32's (2.8e-2) on an H100 80GB HBM3, 700 W
+UNET_F32_BAR = 6e-3
+
+
+def unet_step_grads(state_dict, device, dtype, batch, draws, step, tx,
+                    flags=None):
     """(loss, gradients as float64 CPU tensors) of one U-Net train step on
     `device` in `dtype` from `state_dict` and the given draws; float64
-    widens the step's .float() casts while it runs."""
+    widens the step's .float() casts while it runs. flags: the step's
+    torch.backends.cudnn.flags (default allow_tf32=False, which also
+    switches cuDNN off)."""
     import torch
     from robust_object_detection_tpu_torch.models import unet as U
     from robust_object_detection_tpu_torch.train import restoration as R
@@ -3043,7 +3116,7 @@ def unet_step_grads(state_dict, device, dtype, batch, draws, step, tx):
     if dtype == torch.float64:
         torch.Tensor.float = lambda self: self.double()
     try:
-        with torch.backends.cudnn.flags(allow_tf32=False):
+        with torch.backends.cudnn.flags(**(flags or {"allow_tf32": False})):
             m = step(R.init_state(model, tx), batch.to(device),
                      draws={k: (v.to(device, dtype) if v.is_floating_point()
                                 else v.to(device)) for k, v in draws.items()})
@@ -4362,6 +4435,523 @@ def phase_rtdetr_trainer(dev):
     return total
 
 
+# ── The CLI on the card (phase 27) ───────────────────────────────────────
+
+CLI_SPLITS = (32, 16)                       # train, val images
+CLI_SIZE_RANGE = ((540, 800), (960, 1400))  # straddles 765x1360 and 1024
+CLI_EVEN_HW = (766, 1360)    # the fused sweep's split: even native dims
+# cv2.resize(INTER_LINEAR) of RandomState(1700 + i).randint(0, 256, (h, w,
+# 3)) as uint8 to (nw, nh): SHA-256 of the bytes, taken with cv2 5.0
+RESIZE_GOLDEN = (
+    ((765, 1360), (1024, 576),
+     "0ac4ac43f807e9f7de71608d2afcc2d5f49edd9961adc1055ac510d45ac3eb00"),
+    ((1080, 1920), (1024, 576),
+     "84c45e8d16e5f132700617748f630bbf1a904f5176be2771fea31cb973254b3a"),
+    ((540, 960), (1024, 576),
+     "4aa69333be1c8613ff61b976d38d2c5447ddaa60478ef070b621621c61548ccc"),
+    ((800, 1400), (1024, 585),
+     "ad07dfddc5c428cc5fbe5a5a5fd08fe801624f68768edebf07465b92f9d1f4ca"),
+    ((766, 1360), (680, 383),
+     "a55d62f3b09d9ad3bfa22f743eefd87407c210a6f2d8ceef08e07bbc63541eb4"),
+    ((97, 131), (1003, 611),
+     "d3e1fc3e3121b04e6464c054f12c76ce37cc8cc1af2e87edb308d281ec5fc8df"),
+    ((1003, 611), (97, 131),
+     "33cc058b4e9c67f72bdb0eba368dceb8c70fe899cfd1dc6156acb1058887896f"))
+# PIL's Image.fromarray(img).save(buf, "BMP") of RandomState(1800 + i)
+# .randint(0, 256, (h, w, 3)) as uint8: SHA-256 of the file's bytes
+BMP_GOLDEN = (
+    ((5, 7), "dc5b4ee92b20f3b408dfe6a6b39d2696f62b50d13318b0d871778f298dc3bf39"),
+    ((6, 1), "0e13b4548929a5b23fd4013601bfa96cf12f9dbc0b04c755541f052f4a9c98d3"),
+    ((3, 4), "79879c237350c299cc22a356da38dc81dc4f432c957dd194bd66562c7cad252a"))
+
+
+def summary_counters():
+    """The fifteen wrappers' launch counters under the summary's names."""
+    from robust_object_detection_tpu_torch.ops import assignment as AS
+    from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import deform as DF
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.ops import stem as ST
+    from robust_object_detection_tpu_torch.ops import yolo_front as TF
+    return {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference,
+            "conv3x3_wgrad": C.conv3x3_wgrad,
+            "yolo_front_train": TF.front_fused,
+            "yolo_front_bwd": TF.front_fused_backward,
+            "corrupt": FC.fused_random_corruption,
+            "hgstem": ST.stem_fused_inference,
+            "ms_deform_attn": DF.ms_deform_attn_slots,
+            "hgstem_train": ST.stem_fused,
+            "hgstem_bwd": ST.stem_fused_backward,
+            "ms_deform_attn_bwd": DF.ms_deform_attn_backward,
+            "auction": AS.auction_assignment,
+            "ms_deform_attn_sorted": DF.ms_deform_attn_sorted_forward,
+            "ms_deform_attn_sorted_bwd": DF.ms_deform_attn_sorted_backward,
+            "stamp_scatter": DF.stamp_scatter}
+
+
+SUMMARY_NAMES = ("conv3x3", "yolo_front", "conv3x3_wgrad",
+                 "yolo_front_train", "yolo_front_bwd", "corrupt", "hgstem",
+                 "ms_deform_attn", "hgstem_train", "hgstem_bwd",
+                 "ms_deform_attn_bwd", "auction", "ms_deform_attn_sorted",
+                 "ms_deform_attn_sorted_bwd", "stamp_scatter")
+
+
+def per_call(**counts):
+    """A launch-count dict over the fifteen summary names."""
+    out = dict.fromkeys(SUMMARY_NAMES, 0)
+    out.update(counts)
+    return out
+
+
+# launches of one train step / one forward, as phases 24-26 count them
+CLI_EXPECT = {
+    "yolo_step": per_call(corrupt=1, yolo_front_train=1, yolo_front_bwd=1,
+                          conv3x3=8, conv3x3_wgrad=4),
+    "yolo_fwd": per_call(yolo_front=1, conv3x3=4),
+    "rtdetr_step": per_call(corrupt=1, hgstem_train=1, hgstem_bwd=1,
+                            conv3x3=12, conv3x3_wgrad=6, ms_deform_attn=6,
+                            ms_deform_attn_bwd=6, auction=7),
+    "rtdetr_fwd": per_call(hgstem=1, conv3x3=6, ms_deform_attn=6),
+    "frcnn_step": per_call(corrupt=1),
+    "frcnn_fwd": per_call(),
+}
+
+
+class CallRecorder:
+    """Wraps factories (make_train_step, make_predict_step) so that every
+    call of what they build synchronizes the card and records (tag, the
+    launches of that call, a SHA-256 of its outputs for forwards)."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.records = []
+        self._undo = []
+
+    def wrap(self, module, attr, tag, digest=False):
+        import functools
+        real = getattr(module, attr)
+        rec = self
+
+        @functools.wraps(real)
+        def factory(*a, **k):
+            fn = real(*a, **k)
+
+            def call(*args, **kw):
+                import hashlib
+
+                import torch
+                before = {n: f.launches for n, f in rec.counters.items()}
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                h = None
+                if digest:
+                    h = hashlib.sha256()
+                    for t in out:
+                        h.update(t.detach().cpu().numpy().tobytes())
+                    h = h.hexdigest()
+                rec.records.append((tag, {
+                    n: f.launches - before[n]
+                    for n, f in rec.counters.items()}, h))
+                return out
+            return call
+        setattr(module, attr, factory)
+        self._undo.append((module, attr, real))
+
+    def restore(self):
+        for module, attr, real in reversed(self._undo):
+            setattr(module, attr, real)
+        self._undo = []
+
+
+def hold_bmp_and_resize():
+    """imageio against golden digests taken with PIL and cv2 elsewhere
+    (neither is needed here): the BMP writer's bytes, resize_linear_u8's
+    outputs byte for byte; a round trip; the host ms of a BMP decode and
+    of the 765x1360 -> 576x1024 resize (median of 5)."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    from robust_object_detection_tpu_torch.data import imageio as IO
+
+    for i, ((h, w), want) in enumerate(BMP_GOLDEN):
+        img = np.random.RandomState(1800 + i).randint(
+            0, 256, (h, w, 3)).astype(np.uint8)
+        got = hashlib.sha256(IO.bmp_bytes(img)).hexdigest()
+        require(got == want, f"BMP bytes of a {h}x{w} image differ from "
+                             f"PIL's: {got}")
+    bad = []
+    for i, ((h, w), (nw, nh), want) in enumerate(RESIZE_GOLDEN):
+        img = np.random.RandomState(1700 + i).randint(
+            0, 256, (h, w, 3)).astype(np.uint8)
+        got = hashlib.sha256(IO.resize_linear_u8(img, nw, nh).tobytes())
+        if got.hexdigest() != want:
+            bad.append(((h, w), (nw, nh)))
+    print(f"[cli] imageio: BMP bytes equal PIL's on {len(BMP_GOLDEN)} "
+          f"images; resize_linear_u8 equal to cv2.resize(INTER_LINEAR) on "
+          f"{len(RESIZE_GOLDEN) - len(bad)} of {len(RESIZE_GOLDEN)} shapes "
+          f"(golden SHA-256)")
+    require(not bad, f"resize_linear_u8 differs from cv2 at {bad}")
+    img = np.random.RandomState(5).randint(0, 256, (765, 1360, 3)).astype(
+        np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        p = Path(tmp) / "a.bmp"
+        IO.write_rgb(p, img)
+        dec, rsz = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            back = IO.read_rgb(p)
+            dec.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            IO.resize_linear_u8(back, 1024, 576)
+            rsz.append((time.perf_counter() - t0) * 1e3)
+        require(np.array_equal(back, img), "BMP round trip")
+    print(f"[cli] host ms an image, 765x1360: BMP decode {dec} median "
+          f"{statistics.median(dec)}; resize_linear_u8 to 576x1024 {rsz} "
+          f"median {statistics.median(rsz)}")
+    return statistics.median(dec), statistics.median(rsz)
+
+
+def same_testsets(card, cpu):
+    """The card's build against the CPU's: the same manifest keys and
+    counts, Clean and Noise byte-equal, Blur and LowRes within 1 LSB."""
+    import numpy as np
+    from robust_object_detection_tpu_torch.data import imageio as IO
+    from robust_object_detection_tpu_torch.data import testsets as TS
+    mc, mp = TS.testset_manifest(card), TS.testset_manifest(cpu)
+    require(mc.keys() == mp.keys() and len(mc) == 8 and all(
+        mc[k]["images"] == mp[k]["images"] == CLI_SPLITS[1] for k in mc),
+        f"testset manifests: {mc} vs {mp}")
+    worst = {}
+    for key in mc:
+        fmt, variant = key.split("/")
+        dc = Path(card) / fmt / variant / "images" / "val"
+        dp = Path(cpu) / fmt / variant / "images" / "val"
+        names = sorted(p.name for p in dc.iterdir())
+        require(names == sorted(p.name for p in dp.iterdir()),
+                f"{key}: file names")
+        for n in names:
+            if variant in ("Test_Clean", "Test_Noise"):
+                require((dc / n).read_bytes() == (dp / n).read_bytes(),
+                        f"{key}/{n}: the card's bytes differ from the CPU's")
+            else:
+                d = int(np.abs(IO.read_rgb(dc / n).astype(int)
+                               - IO.read_rgb(dp / n).astype(int)).max())
+                worst[key] = max(worst.get(key, 0), d)
+                require(d <= 1, f"{key}/{n}: {d} LSB from the CPU's")
+    print(f"[cli] build-testsets card vs CPU: manifests alike "
+          f"({len(mc)} x {CLI_SPLITS[1]} images), Clean and Noise "
+          f"byte-equal, Blur / LowRes largest difference {worst} LSB (bar "
+          f"1); sha256 equal in {sum(mc[k] == mp[k] for k in mc)} of "
+          f"{len(mc)}")
+
+
+def finite_results(path, strategies=None):
+    """Every (model, variant) of a results JSON has finite mAPs."""
+    res = json.loads(Path(path).read_text())
+    n = 0
+    for model, per in res.items():
+        groups = ([per[s] for s in strategies] if strategies else [per])
+        for g in groups:
+            for variant, s in g.items():
+                require(math.isfinite(s["mAP50"])
+                        and math.isfinite(s["mAP50_95"]),
+                        f"{path}: {model}/{variant} mAP not finite")
+                n += 1
+    return res, n
+
+
+def phase_cli(dev):
+    """The command-line pipeline on the card, through cli.main in this
+    process, on a BMP split made by data/synthetic (32 train and 16 val
+    images, sizes in CLI_SIZE_RANGE), with PIL and cv2 made unimportable
+    for the phase. Returns the launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    from robust_object_detection_tpu_torch import cli
+    from robust_object_detection_tpu_torch.core.config import \
+        RestorationConfig
+    from robust_object_detection_tpu_torch.data import imageio as IO
+    from robust_object_detection_tpu_torch.data import synthetic
+    from robust_object_detection_tpu_torch.eval import detector_eval as DE
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.train import detector as D
+    from robust_object_detection_tpu_torch.train import frcnn as FR
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    print("[cli] not run here: plot, plot-three and plot-vid need "
+          "matplotlib and demo needs cv2, which this phase blocks; the CPU "
+          "tests hold them (tests/test_torch_reports.py, "
+          "tests/test_torch_cli.py)")
+    blocked = {m: sys.modules.get(m) for m in ("PIL", "cv2")}
+    for m in blocked:
+        sys.modules[m] = None           # any import of them now raises
+    counters = summary_counters()
+    require(tuple(counters) == SUMMARY_NAMES, "summary counter names")
+    rec = CallRecorder(counters)
+    for module, tag in ((D, "yolo"), (RT, "rtdetr"), (FR, "frcnn")):
+        rec.wrap(module, "make_train_step", f"{tag}_step")
+        rec.wrap(module, "make_predict_step", f"{tag}_fwd", digest=True)
+    reads = []
+    real_read = IO.read_rgb
+
+    def read_rgb(path):
+        reads.append(str(path))
+        return real_read(path)
+    IO.read_rgb = read_rgb
+    seconds, launches = {}, dict.fromkeys(counters, 0)
+    n_train, n_val = CLI_SPLITS
+    dev_flag = ["--device", "cuda"]
+
+    def run(tag, *argv, steps=None, forwards=None):
+        """One command: counters zeroed just before and read just after;
+        every recorded step / forward launches what CLI_EXPECT says, and
+        they account for every launch of the command."""
+        for f in counters.values():
+            f.launches = 0
+        start = len(rec.records)
+        del reads[:]
+        t0 = time.perf_counter()
+        out = cli.main(list(argv) + dev_flag)
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        got = {n: f.launches for n, f in counters.items()}
+        calls = rec.records[start:]
+        for kind, counts, _ in calls:
+            want = dict(CLI_EXPECT[kind])
+            if kind == "yolo_step" and "--augment" not in argv:
+                want["corrupt"] = 0      # Baseline: no K1
+            require(counts == want, f"{tag}: a {kind} launched {counts}, "
+                                    f"expected {want}")
+        summed = {n: sum(c[n] for _, c, _ in calls) for n in counters}
+        require(got == summed, f"{tag}: launches {got} outside the "
+                               f"recorded steps and forwards {summed}")
+        kinds = {}
+        for kind, _, _ in calls:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        for kind, n in (steps or {}).items():
+            require(kinds.get(kind, 0) == n,
+                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
+        for kind, n in (forwards or {}).items():
+            require(kinds.get(kind, 0) == n,
+                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
+        for n, v in got.items():
+            launches[n] += v
+        print(f"[cli] {tag}: {seconds[tag]} s; calls {kinds}; launches "
+              f"{ {n: v for n, v in got.items() if v} }")
+        return out, calls
+
+    try:
+        decode_ms, resize_ms = hold_bmp_and_resize()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            raw = {s: synthetic.make_det_split(
+                tmp / f"raw_{s}", n_images=n, seed=SEED + 30 + i,
+                size_range=CLI_SIZE_RANGE, ext="bmp")
+                for i, (s, n) in enumerate((("train", n_train),
+                                            ("val", n_val)))}
+            even = synthetic.make_det_split(
+                tmp / "raw_even", n_images=n_val, seed=SEED + 32,
+                size_range=tuple((v, v + 1) for v in CLI_EVEN_HW), ext="bmp")
+            seconds["make splits"] = time.perf_counter() - t0
+            sizes = sorted({IO.image_size(p) for p in
+                            (raw["val"] / "images").iterdir()})
+            print(f"[cli] BMP splits: {n_train} train + {n_val} val images, "
+                  f"{len(sizes)} sizes from {sizes[0]} to {sizes[-1]} "
+                  f"(W, H); {n_val} more at {CLI_EVEN_HW} for the fused "
+                  f"sweep; {seconds['make splits']} s")
+            proc = tmp / "processed"
+            coco, yolo = proc / "visdrone_coco6", proc / "visdrone_yolo6"
+            for s in ("train", "val"):
+                run(f"convert-det-coco {s}", "convert-det-coco", "--src",
+                    str(raw[s]), "--out", str(coco), "--split", s)
+                run(f"convert-det-yolo {s}", "convert-det-yolo", "--src",
+                    str(raw[s]), "--out", str(yolo), "--split", s)
+            run("convert-det-coco even", "convert-det-coco", "--src",
+                str(even), "--out", str(tmp / "even"), "--split", "val")
+            for kind, root in (("visdrone-det", raw["val"]), ("coco", coco),
+                               ("yolo", yolo)):
+                run(f"validate {kind}", "validate", "--root", str(root),
+                    "--kind", kind)
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "robust_object_detection_tpu_torch.cli",
+                 "validate", "--root", str(coco), "--kind", "coco",
+                 "--split", "train", "--device", "cuda"],
+                cwd=str(Path(__file__).resolve().parent),
+                env=dict(__import__("os").environ,
+                         PYTHONPATH=str(Path(__file__).resolve().parent)),
+                capture_output=True, text=True, timeout=300)
+            seconds["validate (python -m)"] = time.perf_counter() - t0
+            print(f"[cli] python -m ...cli validate: rc {res.returncode}, "
+                  f"{res.stdout.strip().splitlines()[-2:]}, "
+                  f"{seconds['validate (python -m)']} s")
+            require(res.returncode == 0
+                    and res.stdout.strip().endswith("[validate] OK"),
+                    f"python -m cli validate failed: {res.stderr[-2000:]}")
+
+            testsets, cpu_sets = tmp / "testsets", tmp / "testsets_cpu"
+            run("build-testsets", "build-testsets", "--processed-root",
+                str(proc), "--out", str(testsets))
+            t0 = time.perf_counter()
+            cli.main(["build-testsets", "--processed-root", str(proc),
+                      "--out", str(cpu_sets), "--device", "cpu"])
+            seconds["build-testsets (CPU)"] = time.perf_counter() - t0
+            same_testsets(testsets, cpu_sets)
+            shutil.rmtree(cpu_sets)
+
+            rcfg = RestorationConfig()
+            unet = tmp / "unet"
+            out, _ = run("train-restoration", "train-restoration",
+                         "--train-dir", str(coco / "images" / "train"),
+                         "--val-dir", str(coco / "images" / "val"), "--out",
+                         str(unet), "--max-steps", "5")
+            print(f"[cli] U-Net at RestorationConfig's defaults (patch "
+                  f"{rcfg.patch_size}, batch {rcfg.batch_size}), 5 steps: "
+                  f"{out}")
+            require(math.isfinite(out["best"]["psnr"]), "U-Net val PSNR")
+            counts, _ = run("restore-testsets", "restore-testsets",
+                            "--testset-root", str(testsets), "--unet-dir",
+                            str(unet))
+            want = {f"{f}/{v}": n_val for f in ("coco6", "yolo6") for v in (
+                "Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")}
+            require(counts == want, f"restore-testsets counts {counts}")
+
+            ck = tmp / "ckpt"
+            det_common = ["--data-root", str(coco), "--epochs", "1",
+                          "--max-steps", "2", "--img-size", str(IMG_SIZE)]
+            runs = (("yolo_baseline", "yolo", TRAIN_BATCH, []),
+                    ("yolo_augmented", "yolo", TRAIN_BATCH, ["--augment"]),
+                    ("rtdetr_augmented", "rtdetr", RTDETR_TRAIN_BATCH,
+                     ["--augment"]),
+                    ("frcnn_augmented", "frcnn", FRCNN_TRAIN_BATCH,
+                     ["--augment", "--dtype", "float32"]))
+            for name, kind, bs, extra in runs:
+                out, _ = run(f"train-detector {name}", "train-detector",
+                             "--model", kind, "--out", str(ck / name),
+                             "--batch-size", str(bs), *det_common, *extra,
+                             steps={f"{kind}_step": 2},
+                             forwards={f"{kind}_fwd": -(-n_val // bs)})
+                hist = json.loads((ck / name / "history.jsonl").read_text()
+                                  .splitlines()[-1])
+                print(f"[cli] {name}: {out}; history {hist}")
+                require(out["steps"] == 2 and math.isfinite(
+                    out["final_loss"]) and math.isfinite(hist["mAP50"]),
+                    f"{name}: {out}, {hist}")
+
+            models = {n: f"{n}={k}:{ck / n}" for n, k, _, _ in runs}
+            exp = tmp / "experiments"
+            sweep = ["--testset-root", str(testsets), "--img-size",
+                     str(IMG_SIZE), "--batch-size", str(BATCH), "--out",
+                     str(exp)]
+            per_model = 4 * -(-n_val // BATCH)
+            three = ("yolo_baseline", "rtdetr_augmented", "frcnn_augmented")
+            _, calls = run("eval", "eval",
+                           *(a for m in models.values()
+                             for a in ("--model", m)), *sweep,
+                           forwards={"yolo_fwd": 2 * per_model,
+                                     "rtdetr_fwd": per_model,
+                                     "frcnn_fwd": per_model})
+            require(reads and all("/coco6/" in p for p in reads),
+                    "eval read outside the coco6 testsets")
+            cli_yolo = [h for k, _, h in calls if k == "yolo_fwd"][
+                :per_model]
+            run("eval-restored", "eval-restored",
+                *(a for m in three for a in ("--model", models[m])), *sweep,
+                forwards={"yolo_fwd": per_model, "rtdetr_fwd": per_model,
+                          "frcnn_fwd": per_model})
+            require(reads and all("/coco6_restored/" in p for p in reads),
+                    "eval-restored read outside the coco6_restored testsets")
+            run("eval-vid", "eval-vid",
+                *(a for m in three for a in ("--model", models[m])), *sweep,
+                forwards={"yolo_fwd": per_model, "rtdetr_fwd": per_model,
+                          "frcnn_fwd": per_model})
+            n_results = {}
+            for name in ("eval_results", "eval_restored_results",
+                         "vid_eval_results"):
+                res, n_results[name] = finite_results(exp / f"{name}.json")
+                require(set(res) == (set(models) if name == "eval_results"
+                                     else set(three)), f"{name}: {set(res)}")
+                print(f"[cli] {name}: ms an image from disk (1000 / "
+                      f"images/s, batch {BATCH}) " + "; ".join(
+                          f"{m} " + ", ".join(
+                              f"{v[5:]} {1000 / s['images_per_sec']:.1f}"
+                              for v, s in per.items())
+                          for m, per in res.items()))
+
+            fused_fwd = 8 * -(-n_val // BATCH)
+            for parity in ("off", "coco6"):
+                run(f"eval-fused {parity}", "eval-fused", "--model",
+                    models["yolo_baseline"], "--model",
+                    models["rtdetr_augmented"], "--data-root",
+                    str(tmp / "even"), "--unet-dir", str(unet),
+                    "--img-size", str(IMG_SIZE), "--batch-size", str(BATCH),
+                    "--mt19937-parity", parity, "--out",
+                    str(exp / f"fused_{parity}"),
+                    forwards={"yolo_fwd": fused_fwd,
+                              "rtdetr_fwd": fused_fwd})
+                res, n = finite_results(
+                    exp / f"fused_{parity}" / "fused_eval_results.json",
+                    ("corrupted", "restored"))
+                n_results[f"fused {parity}"] = n
+                print(f"[cli] eval-fused {parity}: " + ", ".join(
+                    f"{m} {r['images_per_sec']} image-passes/s"
+                    for m, r in res.items()))
+            print(f"[cli] finite mAPs: {n_results} (model, variant) cells")
+
+            # the CLI's YOLOv8m mAPs and detections against the same sweep
+            # in this process on load_checkpoint's EMA module, and against
+            # the raw weights
+            start = len(rec.records)
+            ema = D.load_checkpoint(ck / "yolo_baseline", device=dev)
+            ref = DE.evaluate_testsets(D.make_predict_step(IMG_SIZE), ema,
+                                       testsets, IMG_SIZE, BATCH)
+            ema_h = [h for _, _, h in rec.records[start:]]
+            payload = torch.load(ck / "yolo_baseline" / "ckpt" / "best",
+                                 map_location=dev, weights_only=True)[
+                "state"]
+            raw_model = Y.create(6, "m", device=dev)
+            raw_model.load_state_dict(payload["model"])
+            start = len(rec.records)
+            DE.evaluate_testsets(D.make_predict_step(IMG_SIZE),
+                                 raw_model.eval(), testsets, IMG_SIZE, BATCH)
+            raw_h = [h for _, _, h in rec.records[start:]]
+            cli_res = json.loads((exp / "eval_results.json").read_text())[
+                "yolo_baseline"]
+            same_maps = all(cli_res[v][k] == ref[v][k] for v in ref
+                            for k in ("mAP50", "mAP50_95"))
+            print(f"[cli] YOLOv8m eval through the CLI vs evaluate_testsets "
+                  f"on load_checkpoint's module: mAPs equal {same_maps} "
+                  f"({ {v: ref[v]['mAP50'] for v in ref} }), detections of "
+                  f"all {len(ema_h)} forwards identical "
+                  f"{cli_yolo == ema_h}; with the raw weights identical in "
+                  f"{sum(a == b for a, b in zip(cli_yolo, raw_h))} of "
+                  f"{len(raw_h)}")
+            require(same_maps, "the CLI's YOLOv8m mAPs differ from "
+                               "evaluate_testsets on load_checkpoint's "
+                               "module")
+            require(len(ema_h) == per_model and cli_yolo == ema_h,
+                    "the CLI's YOLOv8m detections differ from "
+                    "load_checkpoint's EMA module")
+            require(any(a != b for a, b in zip(cli_yolo, raw_h)),
+                    "the CLI's YOLOv8m detections are the raw weights'")
+    finally:
+        IO.read_rgb = real_read
+        rec.restore()
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    print(f"[cli] seconds by command: {json.dumps(seconds)}")
+    print(f"[cli] host ms an image: BMP decode {decode_ms}, resize "
+          f"765x1360 -> 576x1024 {resize_ms}")
+    return launches
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -4454,36 +5044,47 @@ def main() -> int:
                                   for k in ops) for ops in found),
                 f"{' '.join(parts)}: no 16-byte value loads in its SASS")
 
-    kres = phase_kernels(dev)
-    phase_model_check(dev)
-    launches = phase_sweep(dev)
-    kres.update(phase_train_kernels(dev))
-    phase_train_model_check(dev)
-    train_launches = phase_training(dev)
-    kres.update(phase_rtdetr_kernels(dev))
-    phase_rtdetr_model_check(dev)
-    rtdetr_launches = phase_rtdetr_sweep(dev)
-    kres.update(phase_rtdetr_train_kernels(dev))
-    phase_rtdetr_train_model_check(dev)
-    rtdetr_train_launches = phase_rtdetr_training(dev)
-    kres.update(phase_sorted_kernels(dev))
-    generation_launches = phase_deform_generations(dev)
-    phase_unet_model_check(dev)
-    restored_launches = phase_restored_sweep(dev)
-    phase_unet_training(dev)
-    phase_frcnn_model_check(dev)
-    phase_frcnn_sweep(dev)
-    phase_frcnn_bucketed(dev)
-    phase_frcnn_train_model_check(dev)
-    frcnn_train_launches = phase_frcnn_training(dev)
-    yolo_trainer_launches = phase_yolo_trainer(dev)
-    rtdetr_trainer_launches = phase_rtdetr_trainer(dev)
+    phase_s = {}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(dev)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        print(f"[phase] {fn.__name__}: {phase_s[fn.__name__]} s", flush=True)
+        return out
+
+    kres = timed(phase_kernels)
+    timed(phase_model_check)
+    launches = timed(phase_sweep)
+    kres.update(timed(phase_train_kernels))
+    timed(phase_train_model_check)
+    train_launches = timed(phase_training)
+    kres.update(timed(phase_rtdetr_kernels))
+    timed(phase_rtdetr_model_check)
+    rtdetr_launches = timed(phase_rtdetr_sweep)
+    kres.update(timed(phase_rtdetr_train_kernels))
+    timed(phase_rtdetr_train_model_check)
+    rtdetr_train_launches = timed(phase_rtdetr_training)
+    kres.update(timed(phase_sorted_kernels))
+    generation_launches = timed(phase_deform_generations)
+    timed(phase_unet_model_check)
+    restored_launches = timed(phase_restored_sweep)
+    timed(phase_unet_training)
+    timed(phase_frcnn_model_check)
+    timed(phase_frcnn_sweep)
+    timed(phase_frcnn_bucketed)
+    timed(phase_frcnn_train_model_check)
+    frcnn_train_launches = timed(phase_frcnn_training)
+    yolo_trainer_launches = timed(phase_yolo_trainer)
+    rtdetr_trainer_launches = timed(phase_rtdetr_trainer)
+    cli_launches = timed(phase_cli)
+    print(f"[phase] seconds: {json.dumps(phase_s)}")
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
                  generation_launches, restored_launches,
                  frcnn_train_launches, yolo_trainer_launches,
-                 rtdetr_trainer_launches):
+                 rtdetr_trainer_launches, cli_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -2,15 +2,16 @@
 robust_object_detection_tpu/data/pipeline.py).
 
   * host threads decode images and letterbox them to ONE static canvas
-    (cv2 bilinear resize, top-left anchored, as ops.image.letterbox),
+    (cv2's bilinear resize, top-left anchored, as ops.image.letterbox),
   * ground truth is padded to a fixed capacity (class -1 marks padding),
     so every batch has identical shapes,
   * a bounded background thread (``prefetch``) overlaps host decode with
     the card's work.
 
-cv2 and PIL are imported at the call, never with the module: the card's
-machine has neither, and there the eval reads images from memory
-(``load_image=``), where a canvas that needs no resize needs no cv2.
+Decode and resize go through data/imageio.py: ``.bmp`` in numpy, JPEG and
+PNG through PIL imported at the call, the resize a numpy copy of cv2's
+INTER_LINEAR, so a BMP split runs where neither PIL nor cv2 is installed.
+Callers may also serve images from memory (``load_image=``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Callable, Iterator, List, Sequence
 
 import numpy as np
 
+from . import imageio
 from .convert import load_coco
 
 
@@ -78,15 +80,12 @@ def index_coco(root: str | Path, split: str = "val",
 
 def index_yolo(root: str | Path, split: str = "val") -> List[Sample]:
     """Index a YOLO-layout dataset (images/<split> + labels/<split>)."""
-    from PIL import Image
     root = Path(root)
     samples = []
     img_paths = sorted(p for p in (root / "images" / split).glob("*.*")
-                       if p.suffix.lower() in
-                       (".jpg", ".jpeg", ".png", ".bmp"))
+                       if p.suffix.lower() in imageio.IMAGE_EXTS)
     for i, p in enumerate(img_paths):
-        with Image.open(p) as im:
-            w, h = im.size
+        w, h = imageio.image_size(p)
         lbl = root / "labels" / split / (p.stem + ".txt")
         boxes, classes = [], []
         if lbl.exists():
@@ -113,20 +112,15 @@ def _hw(size) -> tuple[int, int]:
 
 def load_image_rgb(sample: Sample) -> np.ndarray:
     """Decode one image to native-resolution RGB uint8 (no letterbox)."""
-    import cv2
-    img = cv2.imread(str(sample.image_path), cv2.IMREAD_COLOR)
-    if img is None:  # fall back to PIL for non-JPEG content
-        from PIL import Image
-        return np.asarray(Image.open(sample.image_path).convert("RGB"))
-    return img[:, :, ::-1]  # BGR -> RGB
+    return imageio.read_rgb(sample.image_path)
 
 
 def load_letterboxed(sample: Sample, size, pad_value=114,
                      scale: float | None = None,
                      load_image: Callable = load_image_rgb
                      ) -> tuple[np.ndarray, float]:
-    """Decode + letterbox one image on the host (cv2 bilinear, top-left
-    anchor).
+    """Decode + letterbox one image on the host (cv2's bilinear through
+    imageio.resize_linear_u8, top-left anchor).
 
     size: int (square) or (H, W) canvas. `scale` overrides the
     fit-to-canvas scale (the aspect-bucket eval resizes by torchvision's
@@ -141,8 +135,7 @@ def load_letterboxed(sample: Sample, size, pad_value=114,
         scale = min(ch / h, cw / w)
     nh, nw = min(round(h * scale), ch), min(round(w * scale), cw)
     if (nh, nw) != (h, w):
-        import cv2
-        img = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        img = imageio.resize_linear_u8(img, nw, nh)
     canvas = np.full((ch, cw, 3), pad_value, np.uint8)
     canvas[:nh, :nw] = img
     return canvas, float(scale)

@@ -8,8 +8,8 @@ unchanged; labels, annotations and ``data.yaml`` are copied, with
 ``data.yaml``'s paths pointing at the restored root. Images are grouped by
 padded shape and run in batches through ``models/unet.apply_u8`` (uint8 to
 the card and back); batch k + 1 is decoded and launched before batch k is
-fetched and encoded. PIL reads and writes the files (imported at the
-call).
+fetched and encoded. data/imageio.py reads and writes the files (``.bmp``
+in numpy, JPEG and PNG through PIL at the call).
 """
 
 from __future__ import annotations
@@ -24,22 +24,10 @@ import torch
 
 from ..core.profiling import StageTimer
 from ..models import unet as unet_lib
-from .testsets import VARIANTS, list_images, read_image
+from . import imageio
+from .testsets import VARIANTS, list_images
 
 RESTORE_VARIANTS = ("Test_Noise", "Test_Blur", "Test_LowRes")
-
-
-def _size_hw(path: Path) -> Tuple[int, int]:
-    """(h, w) from the image header only (PIL opens lazily)."""
-    from PIL import Image
-    with Image.open(path) as im:
-        w, h = im.size
-    return h, w
-
-
-def _write(path: Path, img: np.ndarray, quality: int = 95) -> None:
-    from PIL import Image
-    Image.fromarray(img).save(path, quality=quality)
 
 
 def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
@@ -58,8 +46,8 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
     shapes: Dict[Path, Tuple[int, int]] = {}
     with ThreadPoolExecutor(num_threads) as pool:
         with timer.stage("restore/index_sizes"):
-            sizes = list(pool.map(_size_hw, paths))
-    for p, (h, w) in zip(paths, sizes):
+            sizes = list(pool.map(imageio.image_size, paths))
+    for p, (w, h) in zip(paths, sizes):
         groups[(h + (-h) % 16, w + (-w) % 16)].append(p)
         shapes[p] = (h, w)
 
@@ -72,7 +60,7 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
             with timer.stage("restore/fetch"):
                 out = out_dev[:len(chunk)].cpu().numpy()
             with timer.stage("restore/encode"):
-                writes = [pool.submit(_write, out_dir / p.name,
+                writes = [pool.submit(imageio.write_rgb, out_dir / p.name,
                                       out[i, :shapes[p][0], :shapes[p][1]])
                           for i, p in enumerate(chunk)]
                 for job in writes:
@@ -85,7 +73,7 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
                 chunk = group[start:start + batch_size]
                 with timer.stage("restore/decode_pad"):
                     batch = np.zeros((batch_size, ph, pw, 3), np.uint8)
-                    for i, im in enumerate(pool.map(read_image, chunk)):
+                    for i, im in enumerate(pool.map(imageio.read_rgb, chunk)):
                         h, w = im.shape[:2]
                         batch[i] = np.pad(
                             im, ((0, ph - h), (0, pw - w), (0, 0)),

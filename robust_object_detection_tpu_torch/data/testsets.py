@@ -19,8 +19,9 @@ as the reference does:
   * Labels and annotations are copied unchanged; every YOLO variant gets a
     ``data.yaml`` pointing val at ``images/val``.
 
-Images are read and written with PIL (imported at the call): ``.jpg`` is
-re-encoded at quality 95, lossless formats round-trip exactly.
+Images are read and written through data/imageio.py (``.bmp`` in numpy,
+JPEG and PNG through PIL at the call): ``.jpg`` is re-encoded at quality
+95, lossless formats round-trip exactly.
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ from ..core.profiling import StageTimer
 from ..models.layers import resolve_device
 from ..ops import corrupt as corrupt_ops
 from ..ops import image as image_ops
+from . import imageio
 
 VARIANTS = ("Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")
 SEED = 42
-_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
 def blur_u8(img: torch.Tensor, cfg: CorruptionConfig) -> torch.Tensor:
@@ -99,21 +100,7 @@ def make_corruptors(cfg: CorruptionConfig, rng: np.random.RandomState,
 def list_images(img_dir: Path) -> list[Path]:
     """Image files of a directory in sorted name order."""
     return sorted(p for p in img_dir.glob("*.*")
-                  if p.suffix.lower() in _IMAGE_EXTS)
-
-
-def read_image(path: Path) -> np.ndarray:
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"))
-
-
-def write_image(path: Path, img: np.ndarray, quality: int = 95) -> None:
-    from PIL import Image
-    if path.suffix.lower() in (".jpg", ".jpeg"):
-        Image.fromarray(img).save(path, quality=quality)
-    else:                                   # lossless formats: exact bytes
-        Image.fromarray(img).save(path)
+                  if p.suffix.lower() in imageio.IMAGE_EXTS)
 
 
 def _corrupt_dir(src_imgs: list[Path], fn, img_out: Path,
@@ -131,10 +118,10 @@ def _corrupt_dir(src_imgs: list[Path], fn, img_out: Path,
         idx = 0
         for p in src_imgs:
             while idx < len(src_imgs) and len(reads) < lookahead:
-                reads.append(pool.submit(read_image, src_imgs[idx]))
+                reads.append(pool.submit(imageio.read_rgb, src_imgs[idx]))
                 idx += 1
             img = reads.popleft().result()
-            writes.append(pool.submit(write_image, img_out / p.name,
+            writes.append(pool.submit(imageio.write_rgb, img_out / p.name,
                                       fn(img)))
             while len(writes) > 4 * num_threads:    # bound buffered arrays
                 writes.popleft().result()

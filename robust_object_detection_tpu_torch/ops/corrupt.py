@@ -16,7 +16,8 @@ kernel's non-zero taps (9 for the 0-degree kernel): plain f32 arithmetic on
 any device, with no dependence on backend precision flags.
 
 The training-time corruption (the reference's ``random_corruption_fast``,
-the K1 Pallas kernel) is ops/fused_corrupt.py.
+the K1 Pallas kernel) is ops/fused_corrupt.py; :func:`random_corruption` is
+the reference's op-by-op draw, on a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -131,3 +132,38 @@ def corrupt_variant(img: torch.Tensor, variant, generator: torch.Generator,
     variant = torch.as_tensor(variant, device=x.device).long()
     variant = variant.expand(x.shape[0])
     return stacked[variant, torch.arange(x.shape[0], device=x.device)]
+
+
+def draw_random_corruption(shape, generator: torch.Generator,
+                           cfg: CorruptionConfig = CorruptionConfig()):
+    """The draws of :func:`random_corruption` for an NHWC `shape`, from
+    `generator` on its device, in this order: the apply uniforms (B,), the
+    branch (B,) uniform over noise / blur / lowres, the standard-normal
+    noise (B, H, W, C). Returns (choice (B,) int64, noise)."""
+    n = shape[0]
+    dev = generator.device
+    apply = torch.rand(n, generator=generator, device=dev) < cfg.prob
+    choice3 = torch.randint(NOISE, LOWRES + 1, (n,), generator=generator,
+                            device=dev)
+    noise = torch.randn(tuple(shape), generator=generator, device=dev,
+                        dtype=torch.float32)
+    return torch.where(apply, choice3, torch.full_like(choice3, CLEAN)), noise
+
+
+def random_corruption(img: torch.Tensor, generator: torch.Generator,
+                      cfg: CorruptionConfig = CorruptionConfig(),
+                      quantize: bool = True, fast: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Corrupt each image of an NHWC batch with probability `cfg.prob`,
+    choosing uniformly among noise / blur / lowres, op by op (the
+    reference's ``random_corruption``; K1, ops/fused_corrupt.py, is the
+    one-pass kernel). The draws come from `generator` on img's device
+    (:func:`draw_random_corruption`). `fast` is accepted for the
+    reference's signature: the blur here is true f32 on every device, so
+    there is no faster precision to relax to.
+
+    Returns (batch f32, choice (B,) in {CLEAN, NOISE, BLUR, LOWRES})."""
+    del fast
+    choice, noise = draw_random_corruption(img.shape, generator, cfg)
+    return (corrupt_variant(img, choice, None, cfg, quantize, noise=noise),
+            choice)

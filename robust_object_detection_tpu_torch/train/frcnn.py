@@ -138,15 +138,20 @@ def head_loss(scores: torch.Tensor, box_deltas: torch.Tensor,
               ) -> Dict[str, torch.Tensor]:
     """Box head: softmax CE over the valid RoIs, smooth-L1 (beta 1/9, as
     torchvision's fastrcnn_loss) of the target class's deltas over the
-    positives, both divided by the batch's valid count."""
+    positives, both divided by the batch's valid count.
+
+    The positives are selected before the loss, as the reference's
+    multiply by a bool mask selects: a RoI slot filled with a zero-size
+    padding box has non-finite delta targets, which must add 0, not NaN,
+    to the value and to the gradient."""
     n = torch.clamp(roi_valid.sum(), min=1).float()
     ce = TF.cross_entropy(scores.flatten(0, 1), cls_target.flatten(),
                           reduction="none").view(cls_target.shape)
     cls_l = (ce * roi_valid).sum() / n
     sel = torch.gather(box_deltas, 2, cls_target[..., None, None].expand(
         -1, -1, 1, 4))[..., 0, :]
-    box_l = (smooth_l1(sel - delta_target, 1.0 / 9.0).sum(-1)
-             * pos_mask).sum() / n
+    diff = torch.where(pos_mask[..., None], sel - delta_target, 0.0)
+    box_l = smooth_l1(diff, 1.0 / 9.0).sum() / n
     return {"head_cls": cls_l, "head_box": box_l}
 
 

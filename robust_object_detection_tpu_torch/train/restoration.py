@@ -15,8 +15,8 @@ standard normal; every step function also takes the draws as arrays, so
 tests hand both packages the same ones. The reference folds the step
 into a key and splits it instead.
 
-``PatchDataset`` decodes with cv2 (imported at the call), so the trainer's
-host side runs where cv2 is; the steps run on any device.
+``PatchDataset`` decodes and resizes through data/imageio.py (``.bmp`` in
+numpy, JPEG and PNG through PIL at the call, cv2's INTER_LINEAR in numpy).
 """
 
 from __future__ import annotations
@@ -34,20 +34,19 @@ from ..core import artifacts
 from ..core import config as config_lib
 from ..core.checkpoint import CheckpointManager
 from ..core.config import CorruptionConfig, ExperimentConfig, RestorationConfig
+from ..data import imageio
 from ..models import unet as unet_lib
 from ..models.layers import resolve_device
 from ..ops import corrupt as corrupt_ops
 from ..ops import ssim as ssim_ops
-
-_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
-
 
 # ── Host-side patch dataset ──────────────────────────────────────────────
 
 class PatchDataset:
     """Random (train) / centre (val) square crops from a directory of
     images, uint8 RGB. Images smaller than the patch are first resized up
-    (cv2 INTER_LINEAR) to at least the patch on each side.
+    (cv2's INTER_LINEAR, ``imageio.resize_linear_u8``) to at least the
+    patch on each side.
 
     Train crops draw (y, x) from ``RandomState(seed + epoch)`` after the
     epoch's shuffle, image by image in batch order (decode runs on a
@@ -57,7 +56,7 @@ class PatchDataset:
     def __init__(self, img_dir: str | Path, patch: int = 256,
                  train: bool = True, seed: int = 42):
         self.paths = sorted(p for p in Path(img_dir).glob("*.*")
-                            if p.suffix.lower() in _IMAGE_EXTS)
+                            if p.suffix.lower() in imageio.IMAGE_EXTS)
         if not self.paths:
             raise FileNotFoundError(f"no images under {img_dir}")
         self.patch = patch
@@ -68,12 +67,11 @@ class PatchDataset:
         return len(self.paths)
 
     def _decode(self, idx: int) -> np.ndarray:
-        import cv2
-        img = cv2.imread(str(self.paths[idx]), cv2.IMREAD_COLOR)[:, :, ::-1]
+        img = imageio.read_rgb(self.paths[idx])
         h, w = img.shape[:2]
         s = self.patch
         if h < s or w < s:
-            img = cv2.resize(img, (max(w, s), max(h, s)))
+            img = imageio.resize_linear_u8(img, max(w, s), max(h, s))
         return img
 
     def _crop(self, img: np.ndarray, rng: np.random.RandomState

@@ -28,11 +28,17 @@ import robust_object_detection_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "full_pipeline_synthetic_torch",
+    "examples/full_pipeline_synthetic_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from robust_object_detection_tpu_torch.ops.conv3x3 import conv3x3
 y = conv3x3(torch.zeros(1, 4, 4, 2), torch.ones(3, 3, 2, 5))
 heavy = sorted(m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2",
-                                      "PIL", "robust_object_detection_tpu"))
+                                      "PIL", "matplotlib",
+                                      "robust_object_detection_tpu"))
 print(json.dumps({"modules": names, "heavy": heavy, "shape": list(y.shape),
                   "launches": conv3x3.launches}))
 """
@@ -57,7 +63,9 @@ def test_package_imports_without_jax():
         "core.profiling", "ops.ssim", "models.unet", "train.restoration",
         "data.testsets", "data.restore", "models.resnet", "models.fpn",
         "models.frcnn", "train.frcnn", "train.validation",
-        "eval.detector_eval")}
+        "eval.detector_eval", "cli", "data.imageio", "data.synthetic",
+        "data.convert", "core.rng", "eval.parity_fixtures",
+        "parallel.distributed", "report.plots", "report.demo")}
     assert expected <= set(out["modules"])
 
 
@@ -66,7 +74,9 @@ def test_no_module_imports_jax():
     anything of the reference package (a docstring may name a counterpart
     file; an import line may not name the package)."""
     files = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + list((ROOT / "tools").glob("profile_torch_*.py")))
+             + list((ROOT / "tools").glob("profile_torch_*.py"))
+             + [ROOT / "tools" / "smoke_phases.py",
+                ROOT / "examples" / "full_pipeline_synthetic_torch.py"])
     assert len(files) > 20
     ref_import = re.compile(
         r"^\s*(from|import)\s+(.*\s)?robust_object_detection_tpu[.\s]", re.M)
@@ -106,6 +116,24 @@ def test_host_augmentation_needs_no_pil_or_cv2():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["2", "(2,", "32,", "32,", "3)"]
+
+
+def test_image_libraries_only_inside_functions():
+    """PIL, cv2 and matplotlib are imported only inside the functions
+    that handle JPEG / PNG (data/imageio.py), draw boxes and text
+    (report/demo.py) or figures (report/plots.py); nothing else of the
+    port, nor its example, imports them at all."""
+    allowed = {"imageio.py": "PIL", "demo.py": "cv2", "plots.py":
+               "matplotlib"}
+    files = (list(PKG.rglob("*.py"))
+             + [ROOT / "examples" / "full_pipeline_synthetic_torch.py"])
+    for p in files:
+        src = p.read_text()
+        assert not re.search(r"^(from|import)\s+(PIL|cv2|matplotlib)\b",
+                             src, re.M), p
+        for lib in ("PIL", "cv2", "matplotlib"):
+            if re.search(rf"^\s+(from|import)\s+{lib}\b", src, re.M):
+                assert allowed.get(p.name) == lib, (p, lib)
 
 
 def test_kernel_sources_and_hash():
