@@ -244,7 +244,8 @@ Phases:
      ``train-restoration`` (5 steps at ``RestorationConfig``'s defaults),
      ``restore-testsets``, ``train-detector`` at full width with 2 steps
      and one validation each (YOLOv8m batch 16 Baseline and Augmented,
-     RT-DETR-L batch 8, Faster R-CNN batch 2 f32, both Augmented), ``eval``,
+     RT-DETR-L batch 8, Faster R-CNN batch 2 in bf16, the card's default,
+     both Augmented), ``eval``,
      ``eval-restored`` and ``eval-vid`` over the testsets, ``eval-fused``
      with the U-Net for YOLOv8m and RT-DETR-L with and without
      ``--mt19937-parity coco6`` (16 more images at 766x1360: the fused
@@ -256,7 +257,30 @@ Phases:
      every results JSON; the CLI's YOLOv8m detections identical forward
      by forward to ``evaluate_testsets`` on ``load_checkpoint``'s EMA
      module (and not all equal to the raw weights'); seconds a command
-     and ms an image of each disk eval.
+     and ms an image of each disk eval;
+ 28. Faster R-CNN in bf16 at ``bench_frcnn``'s bf16 configuration (batch 2,
+     1024 px, augment, ``FrcnnConfig()``; bench.py:233-257): K1 at batch 2
+     against its plain version; a dtype audit of one forward (every conv
+     and fc6 in bf16, every BatchNorm output f32, the RPN's 1x1s and the
+     box predictor in f32, as flax promotes them); phase 24's
+     measurements (step ms, images/s, peak memory, stage events, idle
+     share) for the bf16 model; the bf16 step against the card's f32 step
+     on one batch at 256 px with the f32 step's proposals replayed
+     (FRCNN_BF16_BARS, from the CPU tests' measured spread of the
+     reference's own bf16 step against its f32 step); one
+     ``train(dtype="bfloat16")`` with a validation on a BMP split, its
+     checkpoint loaded back as f32;
+ 29. parallel/mesh.py on the card: a world-1 NCCL group through the
+     data-parallel path (every collective, K2's and K4's statistics
+     callbacks included) of a YOLOv8m and an RT-DETR-L step (bf16, full
+     width, 512 px, 2 steps) against the step without a group, within
+     twice the spread of two runs without one (PAR_WORLD1_FLOOR), launch
+     counters zeroed just before and read just after; then two processes
+     on the one card over gloo: a data-parallel YOLOv8m step and an
+     RT-DETR-L step with ``mesh.model=2`` against the one-process step on
+     the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS); a
+     gloo that refuses CUDA tensors is printed and the two-process part
+     skipped.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -285,6 +309,7 @@ import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 IMG_SIZE = 1024
 BATCH = 8
 N_IMAGES = 64
@@ -3173,7 +3198,7 @@ def frcnn_pair(dev):
                     mod.bias is not None:
                 mod.bias.copy_(torch.randn(mod.bias.shape, generator=g) * 0.1)
         cpu.roi_heads.box_predictor.cls_score.weight.mul_(10.0)
-    gpu = FR.create(FR.FrcnnConfig(), device=dev)
+    gpu = FR.create(FR.FrcnnConfig(), device=dev, dtype=torch.float32)
     gpu.load_state_dict(cpu.state_dict())
     return cpu, gpu
 
@@ -3605,10 +3630,11 @@ FRCNN_F32_BARS = (1e-5, 1e-5, 1e-2, 1e-6)
 
 
 def frcnn_train_step(model, device, dtype, batch, draws, proposals,
-                     trainable_layers=5):
+                     trainable_layers=5, compute=None):
     """One Faster R-CNN train step of a copy of `model` on `device` in
     `dtype` (float64 widens the step's .float() casts and its BatchNorm's
-    f32 cast while it runs), TF32 off, with the given draws. `proposals`:
+    f32 cast while it runs; compute: the model's compute dtype, bf16 for
+    phase 28, over f32 weights), TF32 off, with the given draws. `proposals`:
     a list; the first run records the proposals it generated there, a run
     given a filled list replays them, so both sides sample RoIs from the
     same boxes. Returns (metrics, gradients, state before, state after),
@@ -3619,7 +3645,7 @@ def frcnn_train_step(model, device, dtype, batch, draws, proposals,
     from robust_object_detection_tpu_torch.train import frcnn as TFR
 
     cfg = dataclasses.replace(model.cfg, trainable_layers=trainable_layers)
-    net = FR.FasterRCNN(cfg)
+    net = FR.FasterRCNN(cfg, compute or torch.float32)
     net.load_state_dict(model.state_dict())
     net.to(device, dtype, memory_format=torch.channels_last)
     before = {k: v.detach().double().cpu().clone()
@@ -3788,26 +3814,22 @@ def phase_frcnn_train_model_check(dev):
 
 def phase_frcnn_training(dev):
     """bench_frcnn's configuration (bench.py:233: batch 2, 1024 px, 80 GT
-    an image in 600 slots, augment=True; f32 under the process's flags):
-    1 + 5 steps on one seeded batch through make_train_step, draws from
-    step_generator on the card. Launch counters zeroed just before the
-    timed steps and read just after (K1 1 a step, every other hand kernel
-    0); finite metrics; step ms, images/s, peak memory; CUDA-event ms of
-    each stage (wrappers around the step's own calls); the idle share of
-    one profiled step; the FLOP bound beside the step; K1 at this step's
-    shape against its plain version; the peak memory RoIAlign + the box
-    head's forward and backward add. Returns the launch counts."""
-    import functools
-    import numpy as np
+    an image in 600 slots, augment=True) in float32 (under the process's
+    flags): K1 at this step's shape against its plain version, then
+    frcnn_step_timing. Returns the launch counts."""
     import torch
-    from robust_object_detection_tpu_torch.core.config import \
-        CorruptionConfig
-    from robust_object_detection_tpu_torch.models import frcnn as FR
-    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
-    from robust_object_detection_tpu_torch.train import frcnn as TFR
+    check_k1_frcnn_batch(dev, "frcnn-training")
+    model = frcnn_pair(dev)[1]
+    require(model.dtype == torch.float32, "phase 24 holds f32")
+    return frcnn_step_timing(dev, model, "frcnn-training")
 
-    # K1 at this step's shape, the four branches in two batches of two
-    # (image 1 of the first mid-grey and noised), against its plain version
+
+def check_k1_frcnn_batch(dev, tag):
+    """K1 at the Faster R-CNN step's shape (batch 2 at 1024 px), the four
+    branches in two batches of two (image 1 of the first mid-grey and
+    noised), against its plain version."""
+    import torch
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
     g = torch.Generator(dev).manual_seed(SEED + 13)
     img = torch.floor(torch.rand(FRCNN_TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
                                  device=dev, generator=g) * 256)
@@ -3826,7 +3848,7 @@ def phase_frcnn_training(dev):
             nmean = (out[1] - 128.0).mean().item()
             nstd = (out[1] - 128.0).std().item()
     per_branch = [per_branch[c] for c in range(4)]
-    print(f"[frcnn-training] K1 at batch {FRCNN_TRAIN_BATCH} x {IMG_SIZE}^2 "
+    print(f"[{tag}] K1 at batch {FRCNN_TRAIN_BATCH} x {IMG_SIZE}^2 "
           f"vs its plain version: max abs diff by branch {per_branch} "
           f"(clean, noise, blur, lowres; bars 0 / 1 / 0 / 1), noise mean "
           f"{nmean} std {nstd} (bars -0.5 +- 0.5, 15 +- 0.5)")
@@ -3836,7 +3858,26 @@ def phase_frcnn_training(dev):
     require(abs(nmean + 0.5) <= 0.5 and abs(nstd - 15.0) <= 0.5,
             f"K1 noise mean {nmean} std {nstd}")
 
-    model = frcnn_pair(dev)[1]
+
+def frcnn_step_timing(dev, model, tag):
+    """1 + 5 steps of `model` (its compute dtype) on one seeded batch at
+    bench_frcnn's configuration through make_train_step, draws from
+    step_generator on the card. Launch counters zeroed just before the
+    timed steps and read just after (K1 1 a step, every other hand kernel
+    0); finite metrics; step ms, images/s, peak memory; CUDA-event ms of
+    each stage (wrappers around the step's own calls); the idle share of
+    one profiled step; the FLOP bound beside the step; the peak memory
+    RoIAlign + the box head's forward and backward add. Returns the launch
+    counts."""
+    import functools
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    g = torch.Generator(dev).manual_seed(SEED + 13)
     tx, _ = TFR.make_optimizer()
     state = TFR.init_state(model, tx)
     step = TFR.make_train_step(model, IMG_SIZE, CorruptionConfig(),
@@ -3895,7 +3936,7 @@ def phase_frcnn_training(dev):
             times.append((time.perf_counter() - t0) * 1e3)
             events.append(dict(marks))
             vals = {k: v.item() for k, v in m.items()}
-            print(f"[frcnn-training] step {i}: {vals}")
+            print(f"[{tag}] step {i}: {vals}")
             require(all(math.isfinite(v) for v in vals.values()),
                     f"step {i}: a metric is not finite")
     finally:
@@ -3907,7 +3948,7 @@ def phase_frcnn_training(dev):
     peak = torch.cuda.max_memory_allocated(dev)
     expect = dict.fromkeys(counters, 0)
     expect["fused_random_corruption"] = TRAIN_STEPS
-    print(f"[frcnn-training] launches {launches}")
+    print(f"[{tag}] launches {launches}")
     require(launches == expect, f"launch counts {launches} != {expect}")
 
     spans = (("K1", "fused_random_corruption>", "fused_random_corruption<"),
@@ -3924,7 +3965,7 @@ def phase_frcnn_training(dev):
     stages = [{name: ev[a].elapsed_time(ev[b]) for name, a, b in spans}
               for ev in events]
     ms = statistics.median(times)
-    print(f"[frcnn-training] Faster R-CNN f32 {IMG_SIZE}px batch "
+    print(f"[{tag}] Faster R-CNN {str(model.dtype)[6:]} {IMG_SIZE}px batch "
           f"{FRCNN_TRAIN_BATCH}, augment, {GT_PER_IMAGE} GT in {MAX_BOXES} "
           f"slots (cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
           f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}): step "
@@ -3932,37 +3973,43 @@ def phase_frcnn_training(dev):
           f"images/s; peak memory {peak} bytes ({peak / 2 ** 30} GiB)")
     for k in stages[0]:
         vals = [s[k] for s in stages]
-        print(f"[frcnn-training] stage {k}: events ms median "
+        print(f"[{tag}] stage {k}: events ms median "
               f"{statistics.median(vals)} (steps {vals})")
 
-    # the work: forward multiply-adds counted by hooks on one train step;
+    # the work: forward multiply-adds of every conv and linear of one
+    # train step, counted at F.conv2d / F.linear (the model calls both
+    # through its modules and through resnet.conv / resnet.linear);
     # backward is twice the forward (dX and dW) less the stem's dX
-    from torch import nn
+    import torch.nn.functional as TF_
     macs = {"fwd": 0, "stem": 0}
-    hooks = []
-    for name, mod in model.named_modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
-            def hook(mod, inp, out, name=name):
-                per = (mod.in_channels * mod.kernel_size[0]
-                       * mod.kernel_size[1] if isinstance(mod, nn.Conv2d)
-                       else mod.in_features)
-                macs["fwd"] += out.numel() * per
-                if name == "backbone.body.conv1":
-                    macs["stem"] += out.numel() * per
-            hooks.append(mod.register_forward_hook(hook))
+    real_conv, real_linear = TF_.conv2d, TF_.linear
+
+    def conv2d(x, w, *a, **k):
+        out = real_conv(x, w, *a, **k)
+        n = out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        macs["fwd"] += n
+        if tuple(w.shape) == (64, 3, 7, 7):
+            macs["stem"] += n
+        return out
+
+    def linear(x, w, *a, **k):
+        out = real_linear(x, w, *a, **k)
+        macs["fwd"] += out.numel() * w.shape[1]
+        return out
+    TF_.conv2d, TF_.linear = conv2d, linear
     try:
         step(state, images, gb, gc, SEED)
     finally:
-        for h in hooks:
-            h.remove()
+        TF_.conv2d, TF_.linear = real_conv, real_linear
     flops = 2 * (3 * macs["fwd"] - macs["stem"])
-    print(f"[frcnn-training] work: forward {macs['fwd'] / 1e9} GMAC a batch "
-          f"(convs and linears, counted by forward hooks), forward + "
+    print(f"[{tag}] work: forward {macs['fwd'] / 1e9} GMAC a batch "
+          f"(convs and linears, counted at F.conv2d / F.linear), forward + "
           f"backward {flops / 1e12} TFLOP; bound {flops / FRCNN_PEAK_TF32 * 1e3} ms "
           f"at 494 TFLOP/s TF32, {flops / PEAK_FLOPS['float32'] * 1e3} ms at "
-          f"67 TFLOP/s f32, against the step's {ms} ms")
+          f"67 TFLOP/s f32, {flops / PEAK_FLOPS['bfloat16'] * 1e3} ms at "
+          f"989 TFLOP/s bf16, against the step's {ms} ms")
     wall, busy, idle = idle_share(lambda: step(state, images, gb, gc, SEED))
-    print(f"[frcnn-training] one profiled step: wall {wall} ms, device busy "
+    print(f"[{tag}] one profiled step: wall {wall} ms, device busy "
           f"{busy} ms, idle share {idle}")
 
     # RoIAlign + box head forward and backward on this step's shapes
@@ -3979,7 +4026,7 @@ def phase_frcnn_training(dev):
     (s.sum() + d.sum()).backward()
     torch.cuda.synchronize()
     roi_peak = torch.cuda.max_memory_allocated(dev) - before
-    print(f"[frcnn-training] RoIAlign + box head forward and backward at "
+    print(f"[{tag}] RoIAlign + box head forward and backward at "
           f"batch {FRCNN_TRAIN_BATCH}, {model.cfg.roi_batch} RoIs an image: "
           f"peak memory it adds {roi_peak} bytes ({roi_peak / 2 ** 30} GiB)")
     return {"corrupt": launches["fused_random_corruption"]}
@@ -4952,6 +4999,472 @@ def phase_cli(dev):
     return launches
 
 
+# ── Faster R-CNN in bf16 (phase 28) ──────────────────────────────────────
+
+# phase 28's bars on the card's bf16 step against its f32 step (same batch,
+# same draws, the f32 step's proposals replayed): the losses' and
+# grad_norm's relative error, the named gradients' relative L2 error, the
+# running statistics' max error over max|ref|. From the CPU tests'
+# measured spread of the reference's own bf16 step against its f32 step
+# (tests/test_torch_frcnn_bf16.py, blocks (1, 1, 1, 1) at 96 px): losses
+# up to 7.4e-3, grad_norm 2.5e-3, gradient leaves 0.20-0.46 relative L2;
+# the bars take 4x the losses' and about 1.3x the gradients' spread
+FRCNN_BF16_BARS = (3e-2, 3e-2, 0.6, 5e-2)
+FRCNN_BF16_SPLIT = (4, 2, (240, 300))   # train, val images; side range
+
+
+def frcnn_dtype_audit(model, images):
+    """One train-mode forward of a bf16 Faster R-CNN with its convs, fc6,
+    BatchNorms and the module calls recorded: every conv and fc6 computes
+    in bf16, every BatchNorm outputs f32, and the RPN's 1x1s and the box
+    predictor (no dtype in the reference: flax promotes them) take f32
+    inputs and weights and give f32."""
+    import torch
+    from robust_object_detection_tpu_torch.models import fpn as FPN_
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.models import resnet as RN
+
+    seen = {"conv": set(), "linear": set(), "bn": set(), "f32 modules": {}}
+    real = {"conv": RN.conv, "linear": RN.linear, "batch_norm": RN.batch_norm}
+
+    def conv(x, c, d):
+        y = real["conv"](x, c, d)
+        seen["conv"].add((str(d), str(y.dtype)))
+        return y
+
+    def linear(x, lin, d):
+        y = real["linear"](x, lin, d)
+        seen["linear"].add((str(d), str(y.dtype)))
+        return y
+
+    def batch_norm(y, bn, train=False):
+        out = real["batch_norm"](y, bn, train)
+        seen["bn"].add(str(out.dtype))
+        return out
+    mods = {"rpn cls_logits": model.rpn["head"].cls_logits,
+            "rpn bbox_pred": model.rpn["head"].bbox_pred,
+            "cls_score": model.roi_heads.box_predictor.cls_score,
+            "bbox_pred": model.roi_heads.box_predictor.bbox_pred}
+    hooks = [m.register_forward_hook(
+        lambda m, inp, out, name=name: seen["f32 modules"].setdefault(
+            name, set()).add((str(inp[0].dtype), str(m.weight.dtype),
+                              str(out.dtype))))
+        for name, m in mods.items()]
+    patched = [(mod, n) for mod in (RN, FPN_, FR)
+               for n in ("conv", "linear", "batch_norm") if hasattr(mod, n)]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in patched]
+    for mod, n in patched:
+        setattr(mod, n, {"conv": conv, "linear": linear,
+                         "batch_norm": batch_norm}[n])
+    try:
+        with torch.no_grad():
+            pyramid, obj, d = model.extract(images, train=True)
+            props = torch.tensor([[0.0, 0.0, 64.0, 64.0]], device=obj.device
+                                 ).expand(images.shape[0], 16, 4)
+            scores, deltas = model.roi_forward(pyramid, props, train=True)
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+        for h in hooks:
+            h.remove()
+    bf, f32 = "torch.bfloat16", "torch.float32"
+    print(f"[frcnn-bf16] dtype audit: {seen}; pyramid "
+          f"{[str(p.dtype) for p in pyramid]}, objectness {obj.dtype}, "
+          f"scores {scores.dtype}")
+    require(seen["conv"] == {(bf, bf)}, f"a conv not in bf16: {seen}")
+    require(seen["linear"] == {(bf, bf)}, f"fc6 not in bf16: {seen}")
+    require(seen["bn"] == {f32}, f"a BatchNorm output not f32: {seen}")
+    require(seen["f32 modules"] == {n: {(f32, f32, f32)} for n in mods},
+            f"an RPN 1x1 or the predictor not in f32: {seen}")
+    require(all(p.dtype == torch.float32 for p in pyramid)
+            and obj.dtype == d.dtype == scores.dtype == deltas.dtype
+            == torch.float32, "phase 28: an output not f32")
+
+
+def phase_frcnn_bf16(dev):
+    """bench_frcnn's bf16 configuration (bench.py:233-257: batch 2, 1024
+    px, augment, FrcnnConfig(), 1 + 5 steps): K1 at batch 2 against its
+    plain version, a dtype audit of one forward, frcnn_step_timing of the
+    bf16 model from phase 24's weights; the bf16 step against the card's
+    f32 step on one batch with the f32 step's proposals replayed (bars
+    FRCNN_BF16_BARS); one train(dtype="bfloat16") with a validation on a
+    BMP split and its checkpoint loaded back as f32. Returns the timed
+    steps' launch counts."""
+    import json as json_
+    import tempfile
+
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        ExperimentConfig
+    from robust_object_detection_tpu_torch.data import convert as CV
+    from robust_object_detection_tpu_torch.data import synthetic
+    from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.train import frcnn as TFR
+
+    check_k1_frcnn_batch(dev, "frcnn-bf16")
+    cpu = frcnn_pair(dev)[0]
+    model = FR.create(FR.FrcnnConfig(), device=dev, dtype=torch.bfloat16)
+    model.load_state_dict(cpu.state_dict())
+    g = torch.Generator(dev).manual_seed(SEED + 15)
+    frcnn_dtype_audit(model, torch.rand(FRCNN_TRAIN_BATCH, 256, 256, 3,
+                                        device=dev, generator=g))
+    launches = frcnn_step_timing(dev, model, "frcnn-bf16")
+    require(all(p.dtype == torch.float32 for p in model.parameters())
+            and all(b.dtype == torch.float32 for n, b in
+                    model.named_buffers() if "running_" in n),
+            "phase 28: weights or statistics left f32")
+
+    # the bf16 step against the f32 step: same batch, draws, proposals
+    n_gt, slots = FRCNN_CHECK_GT
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 11),
+                                     FRCNN_TRAIN_BATCH, FRCNN_CHECK_SIZE,
+                                     n_gt, slots)
+    batch = (torch.from_numpy(images), torch.from_numpy(gb),
+             torch.from_numpy(gc))
+    draws = TFR.draw_train(FRCNN_TRAIN_BATCH,
+                           len(FR.anchor_boxes(FRCNN_CHECK_SIZE)),
+                           cpu.cfg.num_proposals + slots,
+                           torch.Generator().manual_seed(SEED + 12))
+    props = []
+    f32 = frcnn_train_step(cpu, dev, torch.float32, batch, draws, props)
+    bf16 = frcnn_train_step(cpu, dev, torch.float32, batch, draws, props,
+                            compute=torch.bfloat16)
+    log = []
+    frcnn_compare("frcnn-bf16 bf16 vs f32 step", bf16, f32, FRCNN_BF16_BARS,
+                  log)
+    print(f"[frcnn-bf16] batch {FRCNN_TRAIN_BATCH} at {FRCNN_CHECK_SIZE} px, "
+          f"the f32 step's proposals replayed: the bf16 step vs the card's "
+          f"f32 step: {'; '.join(log)}")
+
+    # train(dtype="bfloat16") with a validation; the checkpoint loads as f32
+    n_train, n_val, side = FRCNN_BF16_SPLIT
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for i, (split, n) in enumerate((("train", n_train), ("val", n_val))):
+            raw = synthetic.make_det_split(tmp / f"raw_{split}", n_images=n,
+                                           seed=SEED + 50 + i,
+                                           size_range=(side, side),
+                                           ext="bmp")
+            CV.convert_det_to_coco(raw, tmp / "coco", split)
+        t0 = time.perf_counter()
+        out = TFR.train(ExperimentConfig(), tmp / "coco", tmp / "run",
+                        augment=True, epochs=1, img_size=256,
+                        batch_size=FRCNN_TRAIN_BATCH, max_boxes=64,
+                        val_interval=1, dtype="bfloat16")
+        secs = time.perf_counter() - t0
+        stamp = json_.loads((tmp / "run" / "config.json").read_text())
+        hist = [json_.loads(x) for x in
+                (tmp / "run" / "history.jsonl").read_text().splitlines()]
+        loaded = TFR.load_checkpoint(tmp / "run")
+        with torch.no_grad():
+            det = TFR.make_predict_step(loaded, 256)(
+                loaded, torch.randint(0, 256, (1, 256, 256, 3), device=dev,
+                                      dtype=torch.uint8))
+    print(f"[frcnn-bf16] train(dtype='bfloat16') on {n_train} + {n_val} BMP "
+          f"images at 256 px: {out} in {secs} s; config.json dtype "
+          f"{stamp['dtype']}; history {hist}; checkpoint loaded as "
+          f"{loaded.dtype}")
+    require(out["steps"] == n_train // FRCNN_TRAIN_BATCH
+            and math.isfinite(out["final_loss"]), f"train(): {out}")
+    require(stamp["dtype"] == "bfloat16" and "mAP50" in hist[-1],
+            "train(): stamp or validation missing")
+    require(loaded.dtype == torch.float32 and all(
+        p.dtype == torch.float32 for p in loaded.parameters()),
+        "load_checkpoint did not build an f32 model")
+    require(all(torch.isfinite(t.float()).all() for t in det),
+            "the loaded model's detections are not finite")
+    return launches
+
+
+# ── Parallel on the card (phase 29) ──────────────────────────────────────
+
+PAR_SHAPES = {"yolo": (4, 512), "rtdetr": (2, 512)}   # global batch, px
+PAR_STEPS = 2                  # lr 0, then lr0 (warmup_steps=1)
+# two-process runs: (model, model axis, dtype); bf16 is the trainers'
+# default on the card, f32 (smaller noise) is where a dropped all-reduce
+# stands out most
+PAR_RUNS = (("yolo", 1, "float32"), ("yolo", 1, "bfloat16"),
+            ("rtdetr", 2, "float32"), ("rtdetr", 2, "bfloat16"))
+# phase 29's bars for two ranks (gloo, one card) against one process: the
+# worst metric's relative error, and the distance of the state from the
+# one-process state over the one-process change, relative L2 over all
+# weights and over all running statistics (parallel_compare). Measured in
+# f32 (TF32 off; H100 80GB HBM3, 700 W): YOLOv8m 7.8e-6 / 1.3e-4 / 1.7e-6,
+# RT-DETR-L with the decoder split 4.0e-5 / 6.8e-3 / 0; a rank without the
+# gradient all-reduce gave 1.9e-2 / 0.18, one without the statistics'
+# all-reduce a metric 0.61 off. In bf16 another batch split moves the
+# metrics by up to 9.3e-2 and the statistics by 8.5e-3, and the weights'
+# first update by 0.7-1.2 of itself (bf16 gradients; AdamW's first update
+# is about lr x sign(g)): bf16 is held by its metrics and statistics, the
+# weights printed only (None)
+PAR_BARS = {"float32": {"metric": 1e-2, "weights": 5e-2, "stats": 1e-2},
+            "bfloat16": {"metric": 0.2, "weights": None, "stats": 0.1}}
+# the world-1 group's floor under twice the run-to-run spread: YOLOv8m's
+# step is deterministic with cuDNN's deterministic algorithms (both runs
+# bit-identical), RT-DETR-L's is not (PyTorch's atomic scatters in the
+# gathers' backward): two runs without a group part by up to 3.5e-4 in a
+# metric and 2.9e-2 in the weights' change (H100 80GB HBM3, 700 W)
+PAR_WORLD1_FLOOR = {"yolo": {"metric": 1e-6, "weights": 1e-6,
+                             "stats": 1e-6},
+                    "rtdetr": {"metric": 2e-3, "weights": 0.15,
+                               "stats": 1e-6}}
+
+PAR_WORKER = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+root, rank, port, work, kind, model_axis, dtype = sys.argv[1:8]
+sys.path.insert(0, root)
+import chip_smoke as C
+from robust_object_detection_tpu_torch import kernels
+from robust_object_detection_tpu_torch.core.config import MeshConfig
+from robust_object_detection_tpu_torch.parallel import mesh as M
+rank, model_axis = int(rank), int(model_axis)
+kernels.load()
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank)
+try:
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    ok = bool((probe == 2).all())
+except Exception as e:      # this build's gloo refuses CUDA tensors
+    torch.save({"refused": repr(e)}, f"{work}/{kind}-{dtype}.rank{rank}.pt")
+    sys.exit(0)
+assert ok, probe
+d = torch.load(f"{work}/{kind}.in.pt", weights_only=False)
+mesh = M.make_mesh(MeshConfig(data=2 // model_axis, model=model_axis))
+out = C.parallel_steps(kind, dev, d["init"], d["batch"], mesh, dtype)
+torch.save(out, f"{work}/{kind}-{dtype}.rank{rank}.pt")
+dist.destroy_process_group()
+"""
+
+
+def parallel_model(kind, dev, init=None, dtype="bfloat16"):
+    """The full-width train-mode YOLOv8m or RT-DETR-L computing in `dtype`
+    (seeded init, or `init`'s state), its make_optimizer(warmup_steps=1)
+    and its trainer module."""
+    import torch
+    bf = getattr(torch, dtype)
+    if kind == "yolo":
+        from robust_object_detection_tpu_torch.models import yolov8 as Y
+        from robust_object_detection_tpu_torch.train import detector as D
+        model = Y.create(6, "m", bf, dev,
+                         torch.Generator().manual_seed(SEED + 60),
+                         train=True, bn_dtype=bf)
+        opt = D.make_optimizer(warmup_steps=1, total_steps=10)[0]
+        lib = D
+    else:
+        from robust_object_detection_tpu_torch.models import rtdetr as R
+        from robust_object_detection_tpu_torch.train import rtdetr as RT
+        model = R.create(6, bf, dev, torch.Generator().manual_seed(SEED + 61),
+                         train=True, bn_dtype=bf)
+        opt = RT.make_optimizer(warmup_steps=1, total_steps=10)[0]
+        lib = RT
+    if init is not None:
+        model.load_state_dict(init)
+    return model, opt, lib
+
+
+def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
+                   steps=PAR_STEPS):
+    """PAR_STEPS data-parallel (mesh.model > 1 for RT-DETR: tensor-parallel
+    decoder) steps in `dtype` (float32 with TF32 off) from `init` on this
+    rank's rows of `batch` (images, boxes, classes on the CPU), augment and
+    HSV / flip on, draws from a generator on the card. Returns (metrics by
+    step, the state_dict on the CPU in the one-process layout)."""
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.parallel import mesh as M
+    model, opt, lib = parallel_model(kind, dev, init, dtype)
+    plan = None
+    if mesh is not None and mesh.n_model > 1:
+        plan = M.rtdetr_decoder_tp(mesh, model)
+        M.apply_tp(mesh, model, plan)
+    state = lib.init_state(model, opt)
+    if plan is not None:
+        state.tp_plan = plan
+    size = PAR_SHAPES[kind][1]
+    step = lib.make_train_step(size, CorruptionConfig(), augment=True,
+                               base_augment=True, mesh=mesh)
+    rows = M.shard_batch(mesh, batch)
+    images, gb, gc = (t.to(dev) for t in rows)
+    metrics = []
+    # f32 in f32: TF32 off in cuDNN and the matmuls while the steps run
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    f32 = dtype == "float32"
+    torch.backends.cuda.matmul.allow_tf32 = tf32 and not f32
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                deterministic=torch.backends.cudnn.deterministic,
+                allow_tf32=torch.backends.cudnn.allow_tf32 and not f32):
+            for i in range(steps):
+                m = step(state, images, gb, gc,
+                         torch.Generator(dev).manual_seed(SEED + 70 + i))
+                metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if plan is not None:
+        sd = {k: M.gather_shards(v, plan.get(k), mesh) for k, v in sd.items()}
+    return metrics, sd
+
+
+def parallel_compare(tag, got, ref, init, bars):
+    """got's metrics and state against ref's: the worst metric's relative
+    error, and the distance of got's state from ref's over the change ref
+    made from `init` (relative L2 over all the weights together, and over
+    all the running statistics: a leaf that barely moved would be noise
+    alone). bars None: only measured. Returns the numbers."""
+    gm, gs = got
+    rm, rs = ref
+    metric = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-12)
+                 for g, r in zip(gm, rm) for k in r if k in g)
+    sq = {"weights": [0.0, 0.0], "stats": [0.0, 0.0]}
+    for k, r in rs.items():
+        if not r.is_floating_point():
+            continue
+        part = sq["stats" if "running_" in k else "weights"]
+        part[0] += (gs[k].double() - r.double()).norm().item() ** 2
+        part[1] += (r.double() - init[k].double().cpu()).norm().item() ** 2
+    out = {"metric": metric}
+    out.update({k: math.sqrt(e / max(d, 1e-300)) for k, (e, d) in sq.items()})
+    print(f"[parallel] {tag}: worst metric rel err {out['metric']}, weights' "
+          f"change rel L2 {out['weights']}, running statistics' change rel "
+          f"L2 {out['stats']}" + (f" (bars {bars})" if bars else ""))
+    if bars:
+        for k, v in out.items():
+            require(bars[k] is None or v <= bars[k],
+                    f"{tag}: {k} {v} > {bars[k]}")
+    return out
+
+
+def phase_parallel(dev):
+    """parallel/mesh.py on the card. (a) A world-1 NCCL group through the
+    data-parallel code path (every collective, the K2 / K4 statistics'
+    callbacks included) of a YOLOv8m and an RT-DETR-L step at full width
+    in bf16 (PAR_SHAPES, PAR_STEPS): against the step without a group,
+    within twice the spread of two runs without a group, at least
+    PAR_WORLD1_FLOOR. Launch counters zeroed just before the group's steps
+    and read just after. (b) Two processes on the one card over gloo
+    (NCCL refuses two ranks on one card): a data-parallel YOLOv8m step,
+    and an RT-DETR-L step with mesh.model=2 (the decoder split over both),
+    in f32 and bf16 (PAR_RUNS), against the one-process step on the same
+    global batch (PAR_BARS). A gloo that refuses CUDA tensors is printed
+    and (b) skipped. Returns the launch counts of (a)."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from robust_object_detection_tpu_torch.core.config import MeshConfig
+    from robust_object_detection_tpu_torch.parallel import mesh as M
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    def batch_of(kind):
+        b, size = PAR_SHAPES[kind]
+        images, gb, gc = detection_batch(np.random.RandomState(SEED + 62),
+                                         b, size, 40, 64)
+        return (torch.from_numpy(images), torch.from_numpy(gb),
+                torch.from_numpy(gc))
+
+    inits = {k: {n: v.detach().cpu().clone() for n, v in
+                 parallel_model(k, dev)[0].state_dict().items()}
+             for k in PAR_SHAPES}
+    batches = {k: batch_of(k) for k in PAR_SHAPES}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    counters = summary_counters()
+    launches = dict.fromkeys(counters, 0)
+    refs = {}
+    try:
+        for kind in PAR_SHAPES:
+            a = parallel_steps(kind, dev, inits[kind], batches[kind], None)
+            b = parallel_steps(kind, dev, inits[kind], batches[kind], None)
+            refs[kind] = a
+            spread = parallel_compare(f"{kind} no group, run to run", b, a,
+                                      inits[kind], None)
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                    f"{free_port()}", world_size=1, rank=0)
+            try:
+                mesh = M.make_mesh(MeshConfig())
+                require(mesh.grouped and mesh.n_data == 1, "world-1 mesh")
+                for f in counters.values():
+                    f.launches = 0
+                got = parallel_steps(kind, dev, inits[kind], batches[kind],
+                                     mesh)
+                for n, f in counters.items():
+                    launches[n] += f.launches
+            finally:
+                dist.destroy_process_group()
+            bars = {k: max(2 * v, PAR_WORLD1_FLOOR[kind][k])
+                    for k, v in spread.items()}
+            parallel_compare(f"{kind} world-1 NCCL group vs no group "
+                             f"(bars: twice the run-to-run spread, at least "
+                             f"{PAR_WORLD1_FLOOR[kind]})", got, a,
+                             inits[kind], bars)
+        print(f"[parallel] world-1 launches {launches}")
+        require(launches["yolo_front_train"] == PAR_STEPS
+                and launches["hgstem_train"] == PAR_STEPS
+                and launches["corrupt"] == 2 * PAR_STEPS,
+                f"world-1 launches {launches}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    with tempfile.TemporaryDirectory() as work:
+        for kind in PAR_SHAPES:
+            torch.save({"init": inits[kind], "batch": batches[kind]},
+                       f"{work}/{kind}.in.pt")
+        for kind, model_axis, dtype in PAR_RUNS:
+            ref = (refs[kind] if dtype == "bfloat16" else parallel_steps(
+                kind, dev, inits[kind], batches[kind], None, dtype))
+            port = free_port()
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", PAR_WORKER, str(ROOT), str(r),
+                 str(port), work, kind, str(model_axis), dtype],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, OMP_NUM_THREADS="1"))
+                for r in range(2)]
+            errs = []
+            for p in procs:
+                try:
+                    _, err = p.communicate(timeout=600)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    _, err = p.communicate()
+                errs.append(err)
+            require(all(p.returncode == 0 for p in procs),
+                    f"two-process {kind}: " + " | ".join(
+                        e[-2000:] for e in errs))
+            outs = [torch.load(f"{work}/{kind}-{dtype}.rank{r}.pt",
+                               weights_only=False) for r in range(2)]
+            if "refused" in outs[0]:
+                print(f"[parallel] gloo refuses CUDA tensors in this build: "
+                      f"{outs[0]['refused']}; the two-process phase is "
+                      f"skipped, the world-1 NCCL phase stands")
+                return launches
+            print(f"[parallel] two processes on one card (gloo), {kind} "
+                  f"{dtype}, mesh.model {model_axis}: "
+                  f"{time.perf_counter() - t0} s")
+            for r in range(2):
+                parallel_compare(f"{kind} {dtype} rank {r} of 2 vs one "
+                                 f"process", outs[r], ref, inits[kind],
+                                 PAR_BARS[dtype])
+    return launches
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -5078,13 +5591,16 @@ def main() -> int:
     yolo_trainer_launches = timed(phase_yolo_trainer)
     rtdetr_trainer_launches = timed(phase_rtdetr_trainer)
     cli_launches = timed(phase_cli)
+    frcnn_bf16_launches = timed(phase_frcnn_bf16)
+    parallel_launches = timed(phase_parallel)
     print(f"[phase] seconds: {json.dumps(phase_s)}")
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
                  generation_launches, restored_launches,
                  frcnn_train_launches, yolo_trainer_launches,
-                 rtdetr_trainer_launches, cli_launches):
+                 rtdetr_trainer_launches, cli_launches, frcnn_bf16_launches,
+                 parallel_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -30,8 +30,6 @@ import argparse
 import json
 from pathlib import Path
 
-ROADMAP_5C = ("Faster R-CNN trains in float32 only: its bfloat16 mode is "
-              "not ported yet (ROADMAP.md §1 item 5c)")
 ROADMAP_3D = ("--allow-pickle is not supported: the port reads pretrained "
               "weights with torch.load(weights_only=True) only; export the "
               "checkpoint's state_dict first (ROADMAP.md §1 item 3d, "
@@ -117,8 +115,6 @@ def cmd_train_detector(args):
                              pretrained=args.pretrained,
                              dtype=args.dtype, device=_device(args))
     elif args.model == "frcnn":
-        if args.dtype == "bfloat16":
-            raise SystemExit(ROADMAP_5C)
         from .train import frcnn
         out = frcnn.train(cfg, args.data_root, args.out,
                           augment=args.augment, epochs=args.epochs or 24,
@@ -127,7 +123,7 @@ def cmd_train_detector(args):
                           max_steps=args.max_steps,
                           pretrained=args.pretrained,
                           trainable_layers=args.trainable_layers,
-                          device=_device(args))
+                          dtype=args.dtype, device=_device(args))
     elif args.model == "rtdetr":
         from .train import rtdetr
         out = rtdetr.train(cfg, args.data_root, args.out,
@@ -394,8 +390,8 @@ def build_parser() -> argparse.ArgumentParser:
         (("--dtype",), {"default": None,
                         "choices": ["bfloat16", "float32"],
                         "help": "compute dtype (default: bfloat16 on the "
-                                "card, float32 elsewhere; Faster R-CNN: "
-                                "float32 only)"}),
+                                "card, float32 elsewhere); parameters and "
+                                "statistics stay float32"}),
         (("--trainable-layers",), {"type": int, "default": None,
                                    "help": "FRCNN only: torchvision "
                                            "trainable_backbone_layers "

@@ -8,8 +8,8 @@ written by either package's ``save`` loads in the other. In particular
 training-time corruption and testset generation share ``CorruptionConfig``
 byte for byte.
 
-``MeshConfig`` is a plain record (no ``axis_sizes``): the port runs on one
-card, and no module of the port reads it.
+``MeshConfig`` factors the process group into the (data, model) mesh of
+parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -75,11 +75,19 @@ class RestorationConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the reference (data x model axes; -1 = all
-    remaining devices). Kept so configuration files round-trip."""
+    """Mesh layout: data x model axes over the processes (-1 = all
+    remaining processes). Axis sizes of 1 disable an axis."""
     data: int = -1
     model: int = 1
 
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int]:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else max(1, n_devices // model)
+        if data * model != n_devices:
+            raise ValueError(
+                f"mesh {data}x{model} != {n_devices} devices; "
+                "set MeshConfig.data/model to factor the device count")
+        return data, model
 
 
 @dataclasses.dataclass(frozen=True)

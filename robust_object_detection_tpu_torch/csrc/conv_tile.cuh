@@ -351,4 +351,40 @@ inline int launch_finalize(const float* part, int P, int C, float n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A host callback that averages the n floats at buf (device memory, the
+// caller's stream) over the ranks of a data-parallel step; 0 on success.
+// Every rank holds as many rows, so an average of per-rank batch sums
+// divided by this rank's count is the global batch's mean.
+typedef int (*SyncFn)(float* buf, int n);
+
+// The 2 * C batch sums at `sums` averaged over the data group by `sync`
+// (nothing when sync is null).
+inline int sync_sums(void* sync, float* sums, int C) {
+  if (sync == nullptr) return 0;
+  return reinterpret_cast<SyncFn>(sync)(sums, 2 * C) == 0
+             ? 0
+             : static_cast<int>(cudaErrorUnknown);
+}
+
+// launch_finalize's statistics (and fold) of a train-mode BatchNorm; with
+// `sync`, of the global batch: the partials reduce to sums in `scratch`
+// (2 * C floats), sync averages them, and mean / var / the fold come from
+// the averaged sums with this rank's n.
+inline int launch_finalize_synced(const float* part, int P, int C, float n,
+                                  void* sync, float* scratch, float* mean,
+                                  float* var, const float* scale,
+                                  const float* bias, float* g, float* h,
+                                  cudaStream_t stream) {
+  if (sync == nullptr)
+    return launch_finalize(part, P, C, n, nullptr, mean, var, scale, bias, g,
+                           h, stream);
+  int err = launch_finalize(part, P, C, 1.f, scratch, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, stream);
+  if (err != 0) return err;
+  err = sync_sums(sync, scratch, C);
+  if (err != 0) return err;
+  return launch_finalize(scratch, 1, C, n, nullptr, mean, var, scale, bias, g,
+                         h, stream);
+}
+
 }  // namespace rodt

@@ -271,7 +271,8 @@ inline int launch_mid_stages_train(const void* y1, const void* k2a,
                                    const void* k2b, const float* sc2b,
                                    const float* bi2b, void* y2a, void* y2b,
                                    void* cat, float* stats, float* v, int B,
-                                   int H2, int W2, cudaStream_t st) {
+                                   int H2, int W2, void* sync, float* sb,
+                                   cudaStream_t st) {
   const int tiles_x = (W2 + TILE - 1) / TILE;
   const int n_tiles = tile_count(H2, W2);
   const float n = (float)B * H2 * W2;
@@ -281,16 +282,18 @@ inline int launch_mid_stages_train(const void* y1, const void* k2a,
       v + 3 * 32, static_cast<T*>(y2a), stats, H2, W2, 16, 0, tiles_x);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  err = launch_finalize(stats, B * n_tiles, 16, n, nullptr, v + 4 * 32,
-                        v + 5 * 32, sc2a, bi2a, v + 6 * 32, v + 7 * 32, st);
+  err = launch_finalize_synced(stats, B * n_tiles, 16, n, sync, sb,
+                               v + 4 * 32, v + 5 * 32, sc2a, bi2a, v + 6 * 32,
+                               v + 7 * 32, st);
   if (err != 0) return err;
   conv2x2_relu_kernel<T, 16, 32, true><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(y2a), static_cast<const T*>(k2b), v + 6 * 32,
       v + 7 * 32, static_cast<T*>(y2b), stats, H2, W2, 32, 0, tiles_x);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  err = launch_finalize(stats, B * n_tiles, 32, n, nullptr, v + 8 * 32,
-                        v + 9 * 32, sc2b, bi2b, v + 10 * 32, v + 11 * 32, st);
+  err = launch_finalize_synced(stats, B * n_tiles, 32, n, sync, sb,
+                               v + 8 * 32, v + 9 * 32, sc2b, bi2b,
+                               v + 10 * 32, v + 11 * 32, st);
   if (err != 0) return err;
   const size_t total = (size_t)B * H2 * W2 * 32;
   const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
@@ -346,13 +349,16 @@ extern "C" int hgstem_nhwc(const void* x, const void* k1, const void* g1,
 // W/2, 64) = [pool(a1), a2b]. stats: scratch of 2 * B *
 // tile_count(H/2, W/2) * 32 floats. vecs: 14 slots of 32 floats, written
 // here: per BN (1, 2a, 2b) mean, var and the fold g, b in slots 4 i .. 4 i +
-// 3 (BN2a fills 16 of each), then mean3, var3 in slots 12, 13.
+// 3 (BN2a fills 16 of each), then mean3, var3 in slots 12, 13. sync (a
+// rodt::SyncFn, or null) averages each BN's batch sums over a data-parallel
+// group before its statistics are taken; sync_buf is its scratch of 64
+// floats.
 extern "C" int hgstem_train_nhwc(
     const void* x, const void* k1, const void* sc1, const void* bi1,
     const void* k2a, const void* sc2a, const void* bi2a, const void* k2b,
     const void* sc2b, const void* bi2b, const void* k3, void* y1, void* y2a,
     void* y2b, void* cat, void* y3, void* stats, void* vecs, int B, int H,
-    int W, int dtype, void* stream) {
+    int W, int dtype, void* sync, void* sync_buf, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4 ||
       dtype != rodt::DTYPE_F32)
@@ -366,23 +372,25 @@ extern "C" int hgstem_train_nhwc(
   int err = rodt::launch_conv3x3_dtype<2, rodt::ACT_RELU>(
       dtype, x, k1, y1, p1, B, H, W, 3, 32, st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(sp, B * rodt::tile_count(H2, W2), 32,
-                              (float)B * H2 * W2, nullptr, v, v + 32, f(sc1),
-                              f(bi1), v + 2 * 32, v + 3 * 32, st);
+  float* sb = static_cast<float*>(sync_buf);
+  err = rodt::launch_finalize_synced(sp, B * rodt::tile_count(H2, W2), 32,
+                                     (float)B * H2 * W2, sync, sb, v, v + 32,
+                                     f(sc1), f(bi1), v + 2 * 32, v + 3 * 32,
+                                     st);
   if (err != 0) return err;
   err = rodt::launch_mid_stages_train<float>(
       y1, k2a, f(sc2a), f(bi2a), k2b, f(sc2b), f(bi2b), y2a, y2b, cat, sp, v,
-      B, H2, W2, st);
+      B, H2, W2, sync, sb, st);
   if (err != 0) return err;
   rodt::ConvOpts p3;
   p3.stats = sp;
   err = rodt::launch_conv3x3_dtype<2, rodt::ACT_RELU>(
       dtype, cat, k3, y3, p3, B, H2, W2, 64, 32, st);
   if (err != 0) return err;
-  return rodt::launch_finalize(sp, B * rodt::tile_count(H4, W4), 32,
-                               (float)B * H4 * W4, nullptr, v + 12 * 32,
-                               v + 13 * 32, nullptr, nullptr, nullptr,
-                               nullptr, st);
+  return rodt::launch_finalize_synced(sp, B * rodt::tile_count(H4, W4), 32,
+                                      (float)B * H4 * W4, sync, sb,
+                                      v + 12 * 32, v + 13 * 32, nullptr,
+                                      nullptr, nullptr, nullptr, st);
 }
 
 namespace {
@@ -460,7 +468,8 @@ extern "C" int hgstem_train_tc_nhwc(
     const void* sc2b, const void* bi2b, const void* k3, void* y1, void* y2a,
     void* y2b, void* cat, void* y3, void* stats, void* vecs, int B, int H,
     int W, int blocks1, int blocks2a, int blocks2b, int blocks3, int vec1,
-    int vec2a, int vec2b, int vec3, void* stream) {
+    int vec2a, int vec2b, int vec3, void* sync, void* sync_buf,
+    void* stream) {
   const StemPlan p{{blocks1, blocks2a, blocks2b, blocks3},
                    {vec1, vec2a, vec2b, vec3}};
   if (!stem_tc_ok(B, H, W, p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -477,25 +486,26 @@ extern "C" int hgstem_train_tc_nhwc(
       h(x), h(k1), nullptr, nullptr, hm(y1), sp, B, H, W, 32, blocks1, vec1,
       st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(sp, blocks1, 32, n2, nullptr, slot(0, 0),
-                              slot(0, 1), f(sc1), f(bi1), slot(0, 2),
-                              slot(0, 3), st);
+  float* sb = static_cast<float*>(sync_buf);
+  err = rodt::launch_finalize_synced(sp, blocks1, 32, n2, sync, sb,
+                                     slot(0, 0), slot(0, 1), f(sc1), f(bi1),
+                                     slot(0, 2), slot(0, 3), st);
   if (err != 0) return err;
   err = stc::launch_c2<32, 16, true>(h(y1), h(k2a), slot(0, 2), slot(0, 3),
                                      hm(y2a), sp, B, H2, W2, 16, 0, blocks2a,
                                      vec2a, st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(sp, blocks2a, 16, n2, nullptr, slot(1, 0),
-                              slot(1, 1), f(sc2a), f(bi2a), slot(1, 2),
-                              slot(1, 3), st);
+  err = rodt::launch_finalize_synced(sp, blocks2a, 16, n2, sync, sb,
+                                     slot(1, 0), slot(1, 1), f(sc2a),
+                                     f(bi2a), slot(1, 2), slot(1, 3), st);
   if (err != 0) return err;
   err = stc::launch_c2<16, 32, true>(h(y2a), h(k2b), slot(1, 2), slot(1, 3),
                                      hm(y2b), sp, B, H2, W2, 32, 0, blocks2b,
                                      vec2b, st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(sp, blocks2b, 32, n2, nullptr, slot(2, 0),
-                              slot(2, 1), f(sc2b), f(bi2b), slot(2, 2),
-                              slot(2, 3), st);
+  err = rodt::launch_finalize_synced(sp, blocks2b, 32, n2, sync, sb,
+                                     slot(2, 0), slot(2, 1), f(sc2b),
+                                     f(bi2b), slot(2, 2), slot(2, 3), st);
   if (err != 0) return err;
   const long long items = (long long)B * H2 * W2 * 4;
   stc::assemble_train_vec_kernel<32>
@@ -508,7 +518,8 @@ extern "C" int hgstem_train_tc_nhwc(
       h(cat), h(k3), nullptr, nullptr, hm(y3), sp, B, H2, W2, 64, 32,
       blocks3, vec3, st);
   if (err != 0) return err;
-  return rodt::launch_finalize(sp, blocks3, 32, (float)B * H4 * W4, nullptr,
-                               v + 12 * 32, v + 13 * 32, nullptr, nullptr,
-                               nullptr, nullptr, st);
+  return rodt::launch_finalize_synced(sp, blocks3, 32, (float)B * H4 * W4,
+                                      sync, sb, v + 12 * 32, v + 13 * 32,
+                                      nullptr, nullptr, nullptr, nullptr,
+                                      st);
 }

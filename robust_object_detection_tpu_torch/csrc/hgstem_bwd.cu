@@ -382,7 +382,7 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
              void* dy2b, void* dy2a, void* dy1, float* gpart, float* wpart,
              float* work, float* dk1, float* dk2a9, float* dk2b9, float* dk3,
              float* dvec, int B, int H, int W, int ch1, int ch2a, int ch2b,
-             int ch3, cudaStream_t st) {
+             int ch3, void* sync, cudaStream_t st) {
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
   const float n1 = (float)B * H2 * W2, n3 = (float)B * H4 * W4;
   const int tiles_x = (W2 + TILE - 1) / TILE;
@@ -432,6 +432,8 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
   err = launch_finalize(gpart, P, 32, 1.f, sums, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, st);
   if (err != 0) return err;
+  err = sync_sums(sync, sums, 32);
+  if (err != 0) return err;
   // dvec: dsc1, dbi1, dsc2a, dbi2a, dsc2b, dbi2b in slots 0..5
   bn_chain_kernel<<<1, 32, 0, st>>>(sums, sc2b, fslot(fv, 2, F_MEAN),
                                     fslot(fv, 2, F_VAR), n1, dmean(2),
@@ -460,6 +462,8 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
   }
   err = launch_finalize(gpart, P, 16, 1.f, sums, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, st);
+  if (err != 0) return err;
+  err = sync_sums(sync, sums, 16);
   if (err != 0) return err;
   // (ds, dss) of BN2b are read by the two launches above, which precede
   // this overwrite on the stream
@@ -491,6 +495,8 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
   err = launch_finalize(gpart, P, 32, 1.f, sums, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, st);
   if (err != 0) return err;
+  err = sync_sums(sync, sums, 32);
+  if (err != 0) return err;
   bn_chain_kernel<<<1, 32, 0, st>>>(sums, sc1, fslot(fv, 0, F_MEAN),
                                     fslot(fv, 0, F_VAR), n1, dmean(0),
                                     dvar(0), 32, dvec, dvec + 32, ds, dss);
@@ -516,7 +522,9 @@ int stem_bwd(const void* x, const void* y1, const void* y2a, const void* y2b,
 // wpart the largest chunks * 9 * Cin * Cout of the four weight gradients,
 // work 128. Outputs f32: dk1 (3,3,3,32), dk3 (3,3,64,32), dk2a9 (3,3,32,16)
 // and dk2b9 (3,3,16,32) whose [1:, 1:] corners are dk2a and dk2b, and dvec
-// (6 slots of 32: dsc1, dbi1, dsc2a, dbi2a, dsc2b, dbi2b).
+// (6 slots of 32: dsc1, dbi1, dsc2a, dbi2a, dsc2b, dbi2b). sync (a
+// rodt::SyncFn, or null) averages each BN's batch sums over a data-parallel
+// group before its chain rule; dstat comes in averaged already.
 extern "C" int hgstem_bwd_nhwc(
     const void* x, const void* y1, const void* y2a, const void* y2b,
     const void* cat, const void* y3, const void* k2a, const void* k2b,
@@ -525,7 +533,7 @@ extern "C" int hgstem_bwd_nhwc(
     void* da1p, void* dy2b, void* dy2a, void* dy1, void* gpart, void* wpart,
     void* work, void* dk1, void* dk2a9, void* dk2b9, void* dk3, void* dvec,
     int B, int H, int W, int ch1, int ch2a, int ch2b, int ch3, int dtype,
-    void* stream) {
+    void* sync, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || H % 4 || W % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -537,7 +545,7 @@ extern "C" int hgstem_bwd_nhwc(
                          f(sc2a), f(sc2b), f(fvecs), dy3, f(dstat), dcat,
                          da1p, dy2b, dy2a, dy1, m(gpart), m(wpart), m(work),
                          m(dk1), m(dk2a9), m(dk2b9), m(dk3), m(dvec), B, H, W,
-                         ch1, ch2a, ch2b, ch3, st);
+                         ch1, ch2a, ch2b, ch3, sync, st);
 }
 
 // bf16: the tensors hgstem_train_tc_nhwc read and wrote and the
@@ -559,7 +567,8 @@ extern "C" int hgstem_bwd_tc_nhwc(
     void* wpart, void* work, void* dk1, void* dk2a, void* dk2b, void* dk3,
     void* dvec, int B, int H, int W, int da_blocks, int dk3_chunks,
     int asm_blocks, int wg2b_chunks, int dx2b_blocks, int wg2a_chunks,
-    int dx2a_blocks, int dk1_chunks, int vec, int vec_x, void* stream) {
+    int dx2a_blocks, int dk1_chunks, int vec, int vec_x, void* sync,
+    void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || H % 4 || W % 4 || da_blocks <= 0 ||
       dk3_chunks <= 0 || asm_blocks <= 0 || wg2b_chunks <= 0 ||
       dx2b_blocks <= 0 || wg2a_chunks <= 0 || dx2a_blocks <= 0 ||
@@ -618,6 +627,8 @@ extern "C" int hgstem_bwd_tc_nhwc(
                               nullptr, nullptr, nullptr, nullptr, nullptr,
                               st);
   if (err != 0) return err;
+  err = rodt::sync_sums(sync, sums, 32);
+  if (err != 0) return err;
   // dvec: dsc1, dbi1, dsc2a, dbi2a, dsc2b, dbi2b in slots 0..5
   rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
       sums, f(sc2b), fslot(fv, 2, F_MEAN), fslot(fv, 2, F_VAR), n1, dmean(2),
@@ -642,6 +653,8 @@ extern "C" int hgstem_bwd_tc_nhwc(
                               nullptr, nullptr, nullptr, nullptr, nullptr,
                               st);
   if (err != 0) return err;
+  err = rodt::sync_sums(sync, sums, 16);
+  if (err != 0) return err;
   rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
       sums, f(sc2a), fslot(fv, 1, F_MEAN), fslot(fv, 1, F_VAR), n1, dmean(1),
       dvar(1), 16, dv + 2 * 32, dv + 3 * 32, ds, dss);
@@ -665,6 +678,8 @@ extern "C" int hgstem_bwd_tc_nhwc(
   err = rodt::launch_finalize(gp, dx2a_blocks, 32, 1.f, sums, nullptr,
                               nullptr, nullptr, nullptr, nullptr, nullptr,
                               st);
+  if (err != 0) return err;
+  err = rodt::sync_sums(sync, sums, 32);
   if (err != 0) return err;
   rodt::bn_chain_kernel<<<1, 32, 0, st>>>(
       sums, f(sc1), fslot(fv, 0, F_MEAN), fslot(fv, 0, F_VAR), n1, dmean(0),

@@ -75,12 +75,15 @@ extern "C" int yolo_front_nhwc(const void* x, const void* k1, const void* g1,
 // Train-mode forward, f32 only. stats1 / stats2 are scratch of 2 * P * C
 // floats with P = B * tile_count(Ho, Wo) of the respective conv output;
 // every other pointer is an output of C1 or C2 floats, or y1 / y2 in the
-// working dtype.
+// working dtype. sync (a rodt::SyncFn, or null) averages each BN's batch
+// sums over a data-parallel group before its statistics are taken;
+// sync_buf is its scratch of 2 * max(C1, C2) floats.
 extern "C" int yolo_front_train_nhwc(
     const void* x, const void* k1, const void* sc1, const void* bi1,
     const void* k2, void* y1, void* y2, void* stats1, void* stats2,
     void* mean1, void* var1, void* g1, void* b1, void* mean2, void* var2,
-    int B, int H, int W, int C1, int C2, int dtype, void* stream) {
+    int B, int H, int W, int C1, int C2, int dtype, void* sync,
+    void* sync_buf, void* stream) {
   if (dtype != rodt::DTYPE_F32)  // bf16 goes to yolo_front_train_tc_nhwc
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -94,9 +97,10 @@ extern "C" int yolo_front_train_nhwc(
   int err = rodt::launch_conv3x3_dtype<2>(dtype, x, k1, y1, p1, B, H, W, 3,
                                           C1, st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(
-      static_cast<const float*>(stats1), P1, C1, (float)B * H2 * W2,
-      nullptr, static_cast<float*>(mean1), static_cast<float*>(var1),
+  float* sb = static_cast<float*>(sync_buf);
+  err = rodt::launch_finalize_synced(
+      static_cast<const float*>(stats1), P1, C1, (float)B * H2 * W2, sync,
+      sb, static_cast<float*>(mean1), static_cast<float*>(var1),
       static_cast<const float*>(sc1), static_cast<const float*>(bi1),
       static_cast<float*>(g1), static_cast<float*>(b1), st);
   if (err != 0) return err;
@@ -108,10 +112,10 @@ extern "C" int yolo_front_train_nhwc(
   err = rodt::launch_conv3x3_dtype<2>(dtype, y1, k2, y2, p2, B, H2, W2, C1,
                                       C2, st);
   if (err != 0) return err;
-  return rodt::launch_finalize(
-      static_cast<const float*>(stats2), P2, C2, (float)B * H4 * W4,
-      nullptr, static_cast<float*>(mean2), static_cast<float*>(var2),
-      nullptr, nullptr, nullptr, nullptr, st);
+  return rodt::launch_finalize_synced(
+      static_cast<const float*>(stats2), P2, C2, (float)B * H4 * W4, sync,
+      sb, static_cast<float*>(mean2), static_cast<float*>(var2), nullptr,
+      nullptr, nullptr, nullptr, st);
 }
 
 namespace {
@@ -157,7 +161,7 @@ extern "C" int yolo_front_train_tc_nhwc(
     const void* k2, void* y1, void* y2, void* stats1, void* stats2,
     void* mean1, void* var1, void* g1, void* b1, void* mean2, void* var2,
     int B, int H, int W, int C1, int C2, int blocks1, int blocks2, int vec1,
-    int vec2, void* stream) {
+    int vec2, void* sync, void* sync_buf, void* stream) {
   if (!tc_shape_ok(B, H, W, C1, C2, blocks1, blocks2, vec1, vec2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -170,16 +174,18 @@ extern "C" int yolo_front_train_tc_nhwc(
       nullptr, static_cast<bf16*>(y1), m(stats1), B, H, W, C1, blocks1, vec1,
       st);
   if (err != 0) return err;
-  err = rodt::launch_finalize(f(stats1), blocks1, C1, (float)B * H2 * W2,
-                              nullptr, m(mean1), m(var1), f(sc1), f(bi1),
-                              m(g1), m(b1), st);
+  err = rodt::launch_finalize_synced(f(stats1), blocks1, C1,
+                                     (float)B * H2 * W2, sync, m(sync_buf),
+                                     m(mean1), m(var1), f(sc1), f(bi1),
+                                     m(g1), m(b1), st);
   if (err != 0) return err;
   err = rodt::ftc::launch_p2<true>(
       static_cast<const bf16*>(y1), static_cast<const bf16*>(k2), f(g1),
       f(b1), static_cast<bf16*>(y2), m(stats2), B, H2, W2, C1, C2, blocks2,
       vec2, st);
   if (err != 0) return err;
-  return rodt::launch_finalize(f(stats2), blocks2, C2, (float)B * H4 * W4,
-                               nullptr, m(mean2), m(var2), nullptr, nullptr,
-                               nullptr, nullptr, st);
+  return rodt::launch_finalize_synced(f(stats2), blocks2, C2,
+                                      (float)B * H4 * W4, sync, m(sync_buf),
+                                      m(mean2), m(var2), nullptr, nullptr,
+                                      nullptr, nullptr, st);
 }

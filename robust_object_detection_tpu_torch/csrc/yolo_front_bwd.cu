@@ -169,7 +169,8 @@ int front_bwd(const void* x, const void* k2, const void* y1, const void* y2,
               const float* dmean2, const float* dvar2, void* dy1,
               float* gpart, float* wpart, float* vecs, float* dk1,
               float* dk2, float* dsc1, float* dbi1, int B, int H, int W,
-              int C1, int C2, int chunks1, int chunks2, cudaStream_t st) {
+              int C1, int C2, int chunks1, int chunks2, void* sync,
+              cudaStream_t st) {
   const int H2 = out_size(H, 2), W2 = out_size(W, 2);
   const int H4 = out_size(H2, 2), W4 = out_size(W2, 2);
   const float n1 = (float)B * H2 * W2, n2 = (float)B * H4 * W4;
@@ -207,6 +208,8 @@ int front_bwd(const void* x, const void* k2, const void* y1, const void* y2,
   err = launch_finalize(gpart, B * n_tiles, C1, 1.f, sums, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, st);
   if (err != 0) return err;
+  err = sync_sums(sync, sums, C1);
+  if (err != 0) return err;
   bn_chain_kernel<<<1, THREADS, 0, st>>>(sums, sc1, mean1, var1, n1, dmean1,
                                           dvar1, C1, dsc1, dbi1, ds1, dss1);
   err = static_cast<int>(cudaGetLastError());
@@ -227,6 +230,9 @@ int front_bwd(const void* x, const void* k2, const void* y1, const void* y2,
 // y1; gpart 2 * B * tile_count(H/2, W/2) * C1 floats; wpart
 // max(chunks1 * 27 * C1, chunks2 * 9 * C1 * C2) floats; vecs 2 * C2 + 4 * C1
 // floats. Outputs f32: dk1 (3,3,3,C1), dk2 (3,3,C1,C2), dsc1, dbi1 (C1).
+// sync (a rodt::SyncFn, or null) averages BN1's batch sums over a
+// data-parallel group before its chain rule; the stat cotangents dmean*,
+// dvar* come in averaged already.
 extern "C" int yolo_front_bwd_nhwc(
     const void* x, const void* k2, const void* y1, const void* y2,
     const void* dy2, const void* sc1, const void* mean1, const void* var1,
@@ -234,7 +240,7 @@ extern "C" int yolo_front_bwd_nhwc(
     const void* dvar1, const void* dmean2, const void* dvar2, void* dy1,
     void* gpart, void* wpart, void* vecs, void* dk1, void* dk2, void* dsc1,
     void* dbi1, int B, int H, int W, int C1, int C2, int chunks1,
-    int chunks2, int dtype, void* stream) {
+    int chunks2, int dtype, void* sync, void* stream) {
   if (B <= 0 || B > 65535 || H < 2 || W < 2 || C1 <= 0 || C2 <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != rodt::DTYPE_F32)  // bf16 goes to yolo_front_bwd_tc_nhwc
@@ -245,7 +251,7 @@ extern "C" int yolo_front_bwd_nhwc(
                           f(g1), f(b1), f(mean2), f(dmean1), f(dvar1),
                           f(dmean2), f(dvar2), dy1, m(gpart), m(wpart),
                           m(vecs), m(dk1), m(dk2), m(dsc1), m(dbi1), B, H, W,
-                          C1, C2, chunks1, chunks2,
+                          C1, C2, chunks1, chunks2, sync,
                           static_cast<cudaStream_t>(stream));
 }
 
@@ -263,7 +269,7 @@ extern "C" int yolo_front_bwd_tc_nhwc(
     void* e2, void* gpart, void* wpart, void* vecs, void* dk1, void* dk2,
     void* dsc1, void* dbi1, int B, int H, int W, int C1, int C2,
     int da_blocks, int dk2_chunks, int dk1_chunks, int vec, int vec_x,
-    void* stream) {
+    void* sync, void* stream) {
   if (B <= 0 || H < 2 || W < 2 || C1 <= 0 || C2 <= 0 || da_blocks <= 0 ||
       dk2_chunks <= 0 || dk1_chunks <= 0 ||
       (vec && (C1 % 8 != 0 || C2 % 8 != 0)) || (vec_x && (!vec || W % 8 != 0)))
@@ -301,6 +307,8 @@ extern "C" int yolo_front_bwd_tc_nhwc(
   if (err != 0) return err;
   err = rodt::launch_finalize(gp, da_blocks, C1, 1.f, sums, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, st);
+  if (err != 0) return err;
+  err = rodt::sync_sums(sync, sums, C1);
   if (err != 0) return err;
   rodt::bn_chain_kernel<<<1, rodt::THREADS, 0, st>>>(
       sums, f(sc1), f(mean1), f(var1), n1, f(dmean1), f(dvar1), C1,

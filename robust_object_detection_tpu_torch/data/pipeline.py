@@ -216,3 +216,22 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
                 raise err[0]
             return
         yield item
+
+
+def device_put_sharded(batch: Batch, device):
+    """(images, boxes, classes, scales) of this process's Batch on
+    `device`, through pinned memory and a non-blocking copy on the card
+    (``.to(device)`` on the CPU). Under data parallelism a trainer's batch
+    is already this process's slice of the global batch (its sample shard
+    and local batch size, parallel/mesh.local_batch), as the reference's
+    multi-host path assembles its global array from each process's slice
+    without moving data between hosts."""
+    import torch
+    device = torch.device(device)
+    out = []
+    for a in (batch.images, batch.boxes, batch.classes, batch.scales):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return tuple(out)

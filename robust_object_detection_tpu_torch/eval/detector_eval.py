@@ -29,6 +29,7 @@ import torch
 from ..core import artifacts
 from ..data import pipeline as pipe
 from ..data.visdrone import CLASS_NAMES
+from ..parallel import mesh as mesh_lib
 from . import coco_map
 
 TESTSET_VARIANTS = ("Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")
@@ -51,8 +52,14 @@ def evaluate_on_samples(predict_fn: Callable, state, samples,
                         img_size: int, batch_size: int,
                         device: Optional[torch.device] = None,
                         max_boxes: int = 600, timer=None,
-                        load_image: Callable = pipe.load_image_rgb) -> Dict:
+                        load_image: Callable = pipe.load_image_rgb,
+                        mesh: Optional[mesh_lib.MeshContext] = None) -> Dict:
     """Run a predict fn over samples; score the detections.
+
+    mesh: a data-parallel mesh (parallel/mesh.make_mesh; the reference's
+    ctx): each data rank predicts its rows of every batch (batch_size must
+    divide over the data axis), the detections are gathered, and every
+    rank scores the same set, so the summary is the unsharded one.
 
     state: the model module (it is what the predict fn runs); device: where
     the images go (default: the model's). With `timer` (a
@@ -64,11 +71,12 @@ def evaluate_on_samples(predict_fn: Callable, state, samples,
         return evaluate_bucketed(
             predict_fn.factory, state, samples, batch_size, device,
             max_boxes, predict_fn.min_side, predict_fn.max_side,
-            predict_fn.bucket_mult, timer, predict_fn.pad_value, load_image)
+            predict_fn.bucket_mult, timer, predict_fn.pad_value, load_image,
+            mesh)
     t0 = time.time()
     detections, ground_truth, n_images = _collect_detections(
         predict_fn, state, samples, img_size, batch_size, device, max_boxes,
-        timer, load_image=load_image)
+        timer, load_image=load_image, mesh=mesh)
     elapsed = time.time() - t0
     return _score(detections, ground_truth, n_images, elapsed, timer)
 
@@ -77,7 +85,8 @@ def _collect_detections(predict_fn: Callable, state, samples,
                         img_size, batch_size: int,
                         device: Optional[torch.device], max_boxes: int,
                         timer=None, scale_fn=None, pad_value=114,
-                        load_image: Callable = pipe.load_image_rgb):
+                        load_image: Callable = pipe.load_image_rgb,
+                        mesh: Optional[mesh_lib.MeshContext] = None):
     """The predict half of evaluate_on_samples: (detections, gt, n_images).
 
     img_size may be an (H, W) canvas, scale_fn a per-sample resize-scale
@@ -99,10 +108,13 @@ def _collect_detections(predict_fn: Callable, state, samples,
             break
         images = []
         with _stage(timer, "eval/h2d", images):
-            images.append(torch.from_numpy(batch.images).to(device))
+            # a data rank predicts its rows; the outputs are gathered
+            images.append(torch.from_numpy(np.ascontiguousarray(
+                mesh_lib.shard_batch(mesh, batch.images))).to(device))
         outputs = []
         with _stage(timer, "eval/device_compute", outputs):
-            outputs.append(predict_fn(state, images[0]))
+            outputs.append(mesh_lib.gather_rows(
+                mesh, predict_fn(state, images[0])))
         if timer is not None:
             with timer.stage("eval/d2h"):
                 outputs[0] = tuple(t.cpu() for t in outputs[0])
@@ -182,7 +194,8 @@ def evaluate_bucketed(predict_factory: Callable, state, samples,
                       max_boxes: int = 600, min_side: float = 800.0,
                       max_side: float = 1333.0, bucket_mult: int = 64,
                       timer=None, pad_value=(124, 116, 104),
-                      load_image: Callable = pipe.load_image_rgb) -> Dict:
+                      load_image: Callable = pipe.load_image_rgb,
+                      mesh: Optional[mesh_lib.MeshContext] = None) -> Dict:
     """Aspect-bucket eval at torchvision-native resolution (FRCNN parity).
 
     Each image is resized by exactly the GeneralizedRCNNTransform scale
@@ -208,7 +221,7 @@ def evaluate_bucketed(predict_factory: Callable, state, samples,
         d, g, m = _collect_detections(
             predict_factory(bucket), state, group, bucket, batch_size,
             device, max_boxes, timer, scale_fn=lambda s: scales[s.image_id],
-            pad_value=pad_value, load_image=load_image)
+            pad_value=pad_value, load_image=load_image, mesh=mesh)
         detections.update(d)
         ground_truth.update(g)
         n_images += m

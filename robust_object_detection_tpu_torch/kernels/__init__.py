@@ -55,21 +55,24 @@ SIGNATURES: Dict[str, List] = {
     "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
     # x, k1, sc1, bi1, k2, y1, y2, stats1, stats2 (scratch), mean1, var1,
-    # g1, b1, mean2, var2, B, H, W, C1, C2, dtype, stream
-    "yolo_front_train_nhwc": [_P] * 15 + [_I] * 6 + [_P],
+    # g1, b1, mean2, var2, B, H, W, C1, C2, dtype, sync (a SyncFn or null:
+    # parallel/mesh.kernel_sync), sync_buf (scratch), stream
+    "yolo_front_train_nhwc": [_P] * 15 + [_I] * 6 + [_P] * 3,
     # x, k2, y1, y2, dy2, sc1, mean1, var1, g1, b1, mean2, dmean1, dvar1,
     # dmean2, dvar2, dy1, gpart, wpart, vecs (scratch), dk1, dk2, dsc1,
-    # dbi1, B, H, W, C1, C2, chunks1, chunks2, dtype, stream
-    "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P],
+    # dbi1, B, H, W, C1, C2, chunks1, chunks2, dtype, sync, stream
+    "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P] * 2,
     # the bf16 front (csrc/front_tc.cuh) with the plan of front_plan: the
     # arguments of yolo_front_nhwc without dtype, + blocks1, blocks2, vec1,
     # vec2
     "yolo_front_tc_nhwc": [_P] * 7 + [_I] * 9 + [_P],
-    # yolo_front_train_nhwc's, without dtype, + blocks1, blocks2, vec1, vec2
-    "yolo_front_train_tc_nhwc": [_P] * 15 + [_I] * 9 + [_P],
+    # yolo_front_train_nhwc's, without dtype, + blocks1, blocks2, vec1,
+    # vec2, sync, sync_buf
+    "yolo_front_train_tc_nhwc": [_P] * 15 + [_I] * 9 + [_P] * 3,
     # yolo_front_bwd_nhwc's pointers with e2 (scratch) after dy1, B, H, W,
-    # C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec, vec_x (front_bwd_plan)
-    "yolo_front_bwd_tc_nhwc": [_P] * 24 + [_I] * 10 + [_P],
+    # C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec, vec_x (front_bwd_plan),
+    # sync
+    "yolo_front_bwd_tc_nhwc": [_P] * 24 + [_I] * 10 + [_P] * 2,
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, smem, vec (the
     # plan of corrupt_plan), stream
     "corrupt_nhwc": [_P] * 4 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
@@ -78,23 +81,25 @@ SIGNATURES: Dict[str, List] = {
     "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
     # x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3, y1, y2a, y2b,
     # cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, dtype (f32
-    # only), stream
-    "hgstem_train_nhwc": [_P] * 18 + [_I] * 4 + [_P],
+    # only), sync, sync_buf (scratch), stream
+    "hgstem_train_nhwc": [_P] * 18 + [_I] * 4 + [_P] * 3,
     # x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
     # dstat, dcat, da1p, dy2b, dy2a, dy1, gpart, wpart, work (scratch), dk1,
-    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype (f32 only), stream
-    "hgstem_bwd_nhwc": [_P] * 28 + [_I] * 8 + [_P],
+    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype (f32 only), sync,
+    # stream
+    "hgstem_bwd_nhwc": [_P] * 28 + [_I] * 8 + [_P] * 2,
     # the bf16 stem (csrc/front_tc.cuh, csrc/stem_tc.cuh) with the plan of
     # stem_plan: hgstem_nhwc's pointers, B, H, W, then blocks and vec of
     # stem1, stem2a, stem2b, stem3
     "hgstem_tc_nhwc": [_P] * 15 + [_I] * 11 + [_P],
-    # hgstem_train_nhwc's pointers, B, H, W, then the plan as above
-    "hgstem_train_tc_nhwc": [_P] * 18 + [_I] * 11 + [_P],
+    # hgstem_train_nhwc's pointers, B, H, W, then the plan as above, sync,
+    # sync_buf
+    "hgstem_train_tc_nhwc": [_P] * 18 + [_I] * 11 + [_P] * 3,
     # hgstem_bwd_nhwc's pointers with e3 (scratch) after dy1 and dk2a, dk2b
     # (2, 2, ., .) in place of dk2a9, dk2b9; B, H, W, then the plan of
     # stem_bwd_plan: da_blocks, dk3_chunks, asm_blocks, wg2b_chunks,
-    # dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec, vec_x
-    "hgstem_bwd_tc_nhwc": [_P] * 29 + [_I] * 13 + [_P],
+    # dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec, vec_x, sync
+    "hgstem_bwd_tc_nhwc": [_P] * 29 + [_I] * 13 + [_P] * 2,
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
     # NH, DH, L, P, dtype, vec, row_lanes, fixed (deform_fwd_plan), stream
     "ms_deform_attn_fwd": [_P] * 5 + [_I] * 11 + [_P],

@@ -8,7 +8,10 @@ by BatchNorm (``inner_blocks.{i}.0/1``, ``layer_blocks.{i}.0/1``, the v2
 checkpoint's keys; in flax's train mode with ``train=True``); ``norm=False``
 is the classic bias-only FPN
 (``inner_blocks.{i}.0`` and ``layer_blocks.{i}.0`` with a bias: the
-port's own keys for that layout).
+port's own keys for that layout). The convs run in the compute ``dtype``
+(resnet.conv) and the BatchNorms output f32, as the reference's: with
+``norm=True`` the pyramid is f32 whatever the dtype, with ``norm=False``
+it is in the dtype.
 
 RoIAlign mirrors the reference's function, not torchvision's: levels by
 :func:`assign_levels` (with its +1e-8), ``aligned=False`` coordinates (a
@@ -16,7 +19,9 @@ plain divide by the stride), a fixed 2 x 2 samples a bin, each sample
 clamped into [0, W-1] x [0, H-1] of its level (torchvision zeroes samples
 outside), and the bin the mean of its samples. The levels are flattened
 into one (B * sum HW, C) table and each corner of every sample is one
-row gather from it, as the reference's ``take_along_axis``; autograd
+row gather from it, as the reference's ``take_along_axis``; a bf16 table's
+rows are widened to f32 before the f32 weights multiply them (jnp's
+promotion in the reference's sum); autograd
 carries the gradient of the table back through the four gathers (an
 index-add of each corner's rows).
 """
@@ -30,16 +35,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import batch_norm
+from .resnet import batch_norm, conv
 
 
 class FPN(nn.Module):
     """(C2..C5) -> (P2..P6), all `features` channels."""
 
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 features: int = 256, norm: bool = True):
+                 features: int = 256, norm: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = norm
+        self.dtype = dtype
 
         def block(c_in, kernel):
             conv = nn.Conv2d(c_in, features, kernel, 1, kernel // 2,
@@ -52,7 +59,7 @@ class FPN(nn.Module):
 
     def _block(self, block: nn.Sequential, x: torch.Tensor,
                train: bool) -> torch.Tensor:
-        x = block[0](x)
+        x = conv(x, block[0], self.dtype)
         return batch_norm(x, block[1], train) if self.norm else x
 
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False
@@ -139,7 +146,8 @@ def roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     def gather(yi, xi):
         idx = (lvl_off[..., None, None] + yi[..., :, None] * row_w
                + xi[..., None, :])                          # (B, R, T, T)
-        return flat[idx.reshape(-1)].reshape(b, r, n_taps, n_taps, c)
+        return flat[idx.reshape(-1)].reshape(b, r, n_taps, n_taps,
+                                              c).to(fx.dtype)
 
     wy0 = (1 - fy)[..., :, None, None]
     wy1 = fy[..., :, None, None]

@@ -21,7 +21,15 @@ variables). Modules take NCHW-indexed tensors, channels_last on the card;
 images come in NHWC in [0, 1] and are normalised inside ``extract``, as
 torchvision's transform does. ``extract`` and ``roi_forward`` take
 ``train=``: every BatchNorm (ResNet, FPN, box head) then runs in flax's
-train mode at momentum 0.99 (models/resnet.batch_norm). The training
+train mode at momentum 0.99 (models/resnet.batch_norm).
+
+``dtype`` (the reference's ``FasterRCNN(dtype=...)``) is the compute type
+of the backbone, FPN, RPN and box-head convs and ``fc6``; parameters stay
+f32 and are cast in the forward, every BatchNorm outputs f32. The RPN's
+``cls_logits`` / ``bbox_pred`` and the box predictor take no dtype in the
+reference, so flax promotes their bf16 input with the f32 kernel: here the
+input is cast up and they compute in f32, as do the losses, proposals and
+every IoU. The training
 targets are pure functions: anchor matching (:func:`match_anchors`) and
 the balanced sampler (:func:`sample_targets`), whose uniforms come as
 tensors or from a ``torch.Generator``.
@@ -44,7 +52,7 @@ from ..ops import nms as nms_ops
 from . import fpn as fpn_lib
 from . import resnet as resnet_lib
 from .layers import resolve_device
-from .resnet import batch_norm
+from .resnet import batch_norm, conv, linear
 from .rtdetr import top_k
 
 ANCHOR_SIZES = (32, 64, 128, 256, 512)       # one per level P2..P6
@@ -187,8 +195,10 @@ class RPNHead(nn.Module):
     a location."""
 
     def __init__(self, features: int = 256,
-                 num_anchors: int = len(ASPECT_RATIOS)):
+                 num_anchors: int = len(ASPECT_RATIOS),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Sequential(*(
             nn.Sequential(nn.Conv2d(features, features, 3, 1, 1))
             for _ in range(2)))
@@ -203,8 +213,9 @@ class RPNHead(nn.Module):
         for f in feats:
             h = f
             for block in self.conv:
-                h = F.relu(block(h))
+                h = F.relu(conv(h, block[0], self.dtype))
             b = f.shape[0]
+            h = h.float()        # flax's promotion: the 1x1s compute in f32
             objs.append(self.cls_logits(h).permute(0, 2, 3, 1).reshape(b, -1))
             boxes.append(self.bbox_pred(h).permute(0, 2, 3, 1)
                          .reshape(b, -1, 4))
@@ -225,9 +236,11 @@ class BoxHead(nn.Module):
     the flatten, 5 the FC)."""
 
     def __init__(self, num_classes: int = NUM_CLASSES, features: int = 256,
-                 fc_dim: int = 1024, pool: int = 7):
+                 fc_dim: int = 1024, pool: int = 7,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dtype = dtype
         convs = [nn.Sequential(nn.Conv2d(features, features, 3, 1, 1,
                                          bias=False),
                                nn.BatchNorm2d(features)) for _ in range(4)]
@@ -242,10 +255,12 @@ class BoxHead(nn.Module):
         RoIs, valid or not, as the reference's do."""
         b, r = rois.shape[:2]
         x = rois.reshape(b * r, *rois.shape[2:]).permute(0, 3, 1, 2)
+        d = self.dtype
         for i in range(4):
-            conv, bn = self.box_head[i]
-            x = F.relu(batch_norm(conv(x), bn, train))
-        x = F.relu(self.box_head[5](x.flatten(1)))
+            c, bn = self.box_head[i]
+            x = F.relu(batch_norm(conv(x, c, d), bn, train))
+        x = F.relu(linear(x.flatten(1), self.box_head[5], d))
+        x = x.float()            # the predictor computes in f32 (promotion)
         scores = self.box_predictor.cls_score(x)
         deltas = self.box_predictor.bbox_pred(x)
         return (scores.reshape(b, r, self.num_classes),
@@ -257,19 +272,22 @@ class FasterRCNN(nn.Module):
     proposals and inference are the functions below and
     train/frcnn.make_predict_step."""
 
-    def __init__(self, cfg: FrcnnConfig = FrcnnConfig()):
+    def __init__(self, cfg: FrcnnConfig = FrcnnConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         self.backbone = nn.ModuleDict(
-            {"body": resnet_lib.ResNet(cfg.blocks, cfg.trainable_layers),
-             "fpn": fpn_lib.FPN(norm=cfg.fpn_norm)})
-        self.rpn = nn.ModuleDict({"head": RPNHead()})
-        self.roi_heads = BoxHead(cfg.num_classes)
+            {"body": resnet_lib.ResNet(cfg.blocks, cfg.trainable_layers,
+                                       dtype),
+             "fpn": fpn_lib.FPN(norm=cfg.fpn_norm, dtype=dtype)})
+        self.rpn = nn.ModuleDict({"head": RPNHead(dtype=dtype)})
+        self.roi_heads = BoxHead(cfg.num_classes, dtype=dtype)
 
     def pyramid(self, images: torch.Tensor,
                 train: bool = False) -> List[torch.Tensor]:
         """images (B, H, W, 3) in [0, 1] -> P2..P6, each (B, 256, H_l,
-        W_l)."""
+        W_l). Normalised in f32; the stem conv casts to the dtype."""
         if self.cfg.normalize:
             mean = images.new_tensor(IMAGENET_MEAN)
             std = images.new_tensor(IMAGENET_STD)
@@ -464,11 +482,13 @@ def init_weights(model: FasterRCNN,
 
 def create(cfg: FrcnnConfig = FrcnnConfig(),
            device: Optional[torch.device] = None,
-           generator: Optional[torch.Generator] = None) -> FasterRCNN:
+           generator: Optional[torch.Generator] = None,
+           dtype: torch.dtype = torch.float32) -> FasterRCNN:
     """A Faster R-CNN on `device` (None: the CUDA card; raises when there
     is none), randomly initialised from `generator` (seed 0 when None), in
-    eval mode, weights in channels_last memory."""
+    eval mode, f32 weights in channels_last memory; `dtype` the compute
+    type."""
     device = resolve_device(device)
     gen = generator or torch.Generator().manual_seed(0)
-    model = init_weights(FasterRCNN(cfg), gen)
+    model = init_weights(FasterRCNN(cfg, dtype), gen)
     return model.to(device, memory_format=torch.channels_last).eval()

@@ -4,10 +4,14 @@ robust_object_detection_tpu/models/resnet.py).
 Bottleneck-v1 layout (1x1 reduce, 3x3, 1x1 expand), the stride on the 3x3
 with padding 1 and on the downsample branch's 1x1, as torchvision's; the
 stem is a 7x7 / 2 conv with padding 3, then a 3x3 / 2 max-pool with
-padding 1. Convs are ``nn.Conv2d`` (on the card cuDNN's), BatchNorm runs
-in f32 (eps 1e-5, flax's and torch's default): from the running statistics
-in eval, and with ``train=True`` with flax's train semantics
-(:func:`batch_norm`). Modules take and return NCHW-indexed tensors, in
+padding 1. Convs are ``F.conv2d`` (on the card cuDNN's) in the compute
+``dtype`` (:func:`conv`: the f32 weights and the input cast to it, as
+flax's ``nn.Conv(dtype=...)``), BatchNorm runs in f32 and outputs f32
+whatever its input (eps 1e-5, flax's and torch's default; the reference's
+``nn.BatchNorm(dtype=jnp.float32)``): from the running statistics in eval,
+and with ``train=True`` with flax's train semantics (:func:`batch_norm`).
+So in bf16 only the conv inputs are bf16; residual adds, ReLUs and the
+stem's max-pool run on f32 tensors. Modules take and return NCHW-indexed tensors, in
 channels_last memory on the card; every stride-2 layer gives ceil(H / 2),
 as the reference's SAME-style explicit padding does.
 
@@ -33,21 +37,43 @@ BN_MOMENTUM = 0.99
 
 def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d,
                train: bool = False) -> torch.Tensor:
-    """BatchNorm of NCHW y. Eval: the running statistics (whatever the
-    module's ``training`` flag). Train: flax's train mode at momentum 0.99,
-    f32 batch statistics with the fast variance, the running statistics
-    updated in place."""
+    """BatchNorm of NCHW y, output f32. Eval: the running statistics
+    (whatever the module's ``training`` flag). Train: flax's train mode at
+    momentum 0.99, f32 batch statistics with the fast variance, the
+    running statistics updated in place."""
     if train:
         return bn_train(y, bn, torch.float32, BN_MOMENTUM)
-    return F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+    return F.batch_norm(y.float(), bn.running_mean, bn.running_var,
+                        bn.weight, bn.bias, False, 0.0, bn.eps)
+
+
+def conv(x: torch.Tensor, c: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype)``: input, weight and bias cast to dtype,
+    the output in dtype; below f32 the bias is added to the rounded
+    product, as flax adds it."""
+    if dtype == torch.float32:       # the module's own call (its hooks)
+        return c(x)
+    y = F.conv2d(x.to(dtype), c.weight.to(dtype), None, c.stride, c.padding,
+                 c.dilation, c.groups)
+    return y if c.bias is None else y + c.bias.to(dtype)[:, None, None]
+
+
+def linear(x: torch.Tensor, lin: nn.Linear,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``, the bias added as :func:`conv`
+    adds it."""
+    if dtype == torch.float32:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
 
 
 class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1 x4, each with BN; ReLU after the sum."""
 
-    def __init__(self, c_in: int, features: int, stride: int = 1):
+    def __init__(self, c_in: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         c_out = features * 4
         self.conv1 = nn.Conv2d(c_in, features, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(features)
@@ -62,12 +88,13 @@ class BottleneckBlock(nn.Module):
             if stride != 1 or c_in != c_out else None)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        out = F.relu(batch_norm(self.conv1(x), self.bn1, train))
-        out = F.relu(batch_norm(self.conv2(out), self.bn2, train))
-        out = batch_norm(self.conv3(out), self.bn3, train)
+        d = self.dtype
+        out = F.relu(batch_norm(conv(x, self.conv1, d), self.bn1, train))
+        out = F.relu(batch_norm(conv(out, self.conv2, d), self.bn2, train))
+        out = batch_norm(conv(out, self.conv3, d), self.bn3, train)
         residual = (x if self.downsample is None else
-                    batch_norm(self.downsample[0](x), self.downsample[1],
-                               train))
+                    batch_norm(conv(x, self.downsample[0], d),
+                               self.downsample[1], train))
         return F.relu(out + residual)
 
 
@@ -80,11 +107,14 @@ class ResNet(nn.Module):
     after stage i when i < 4 - trainable_layers (``.detach()`` where the
     reference has ``stop_gradient``), so frozen parameters get no gradient.
     Their BatchNorms still run in train mode and update their running
-    statistics, as torch's ``model.train()`` and the reference do."""
+    statistics, as torch's ``model.train()`` and the reference do.
+    dtype: the convs' compute type (the BatchNorms output f32)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 trainable_layers: int = 5):
+                 trainable_layers: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
         self.trainable_layers = trainable_layers
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -95,13 +125,14 @@ class ResNet(nn.Module):
             blocks = []
             for j in range(n_blocks):
                 stride = 2 if (j == 0 and i > 0) else 1
-                blocks.append(BottleneckBlock(c_in, width, stride))
+                blocks.append(BottleneckBlock(c_in, width, stride, dtype))
                 c_in = width * 4
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
     def forward(self, x: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
-        x = F.relu(batch_norm(self.conv1(x), self.bn1, train))
+        x = F.relu(batch_norm(conv(x, self.conv1, self.dtype), self.bn1,
+                              train))
         x = F.max_pool2d(x, 3, 2, 1)
         if self.trainable_layers < 5:               # conv1 / bn1 frozen
             x = x.detach()
@@ -142,5 +173,5 @@ def module_names(stage_sizes: Sequence[int], labels) -> List[str]:
     return sorted(names[label] for label in labels)
 
 
-def resnet50() -> ResNet:
-    return ResNet((3, 4, 6, 3))
+def resnet50(dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet((3, 4, 6, 3), dtype=dtype)

@@ -59,6 +59,7 @@ from torch import nn
 
 from ..ops.deform import ms_deform_attn_slots
 from ..ops.stem import stem_fused, stem_fused_inference
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .layers import (ConvBnAct, bn_train, from_nhwc, resolve_device,
                      update_running, upsample2x)
 
@@ -98,24 +99,42 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 
 def attention(mha: nn.MultiheadAttention, q, k, v, dtype: torch.dtype,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None,
+              tp_group=None) -> torch.Tensor:
     """flax ``MultiHeadDotProductAttention(dtype=dtype)`` on the packed
     parameters of an nn.MultiheadAttention: q, k, v (B, N, C) -> (B, N, C)
     in dtype; ``mask`` (B, 1, N, N) bool, True = may attend (flax's and
     ``scaled_dot_product_attention``'s convention). Outside every TPU
-    kernel in the reference, so the product itself is PyTorch's."""
-    c, heads = mha.embed_dim, mha.num_heads
+    kernel in the reference, so the product itself is PyTorch's.
+
+    tp_group: the module holds this rank's heads (parallel/mesh.
+    rtdetr_decoder_tp: a share of each of q, k, v's rows, out_proj's
+    matching columns); the inputs enter through Megatron's "f", the
+    partial out_proj products are summed over the group ("g") and the
+    bias is added once after the sum."""
+    c = mha.embed_dim
+    width = mha.in_proj_weight.shape[0] // 3     # this rank's q / k / v
+    heads = mha.num_heads * width // c
     w, b = mha.in_proj_weight.to(dtype), mha.in_proj_bias.to(dtype)
+    if tp_group is not None:
+        q, v = copy_to_model(q, tp_group), copy_to_model(v, tp_group)
+        k = q if k is q else copy_to_model(k, tp_group)
 
     def proj(x, i):
-        y = F.linear(x.to(dtype), w[i * c:(i + 1) * c], b[i * c:(i + 1) * c])
-        return y.reshape(*y.shape[:2], heads, c // heads).transpose(1, 2)
+        y = F.linear(x.to(dtype), w[i * width:(i + 1) * width],
+                     b[i * width:(i + 1) * width])
+        return y.reshape(*y.shape[:2], heads, c // mha.num_heads
+                         ).transpose(1, 2)
 
     o = F.scaled_dot_product_attention(proj(q, 0), proj(k, 1), proj(v, 2),
                                        attn_mask=mask)
-    o = o.transpose(1, 2).reshape(*q.shape[:2], c)
-    return F.linear(o, mha.out_proj.weight.to(dtype),
-                    mha.out_proj.bias.to(dtype))
+    o = o.transpose(1, 2).reshape(q.shape[0], q.shape[1], width)
+    if tp_group is None:
+        return F.linear(o, mha.out_proj.weight.to(dtype),
+                        mha.out_proj.bias.to(dtype))
+    y = reduce_from_model(F.linear(o, mha.out_proj.weight.to(dtype)),
+                          tp_group)
+    return y + mha.out_proj.bias.to(dtype)
 
 
 # ── HGNetv2 backbone ─────────────────────────────────────────────────────
@@ -392,16 +411,27 @@ class DecoderLayer(nn.Module):
         self.linear1 = nn.Linear(c, cfg.ffn)
         self.linear2 = nn.Linear(cfg.ffn, c)
         self.norm3 = nn.LayerNorm(c)
+        # the model group when parallel/mesh.apply_tp sharded this layer
+        self.tp_group = None
 
     def forward(self, query, ref_boxes, memory, shapes, query_pos,
                 attn_mask=None):
+        tp = self.tp_group
         q = query + query_pos
-        sa = attention(self.self_attn, q, q, query, self.dtype, attn_mask)
+        sa = attention(self.self_attn, q, q, query, self.dtype, attn_mask,
+                       tp)
         query = layer_norm(query + sa, self.norm1)
         ca = self.cross_attn(query + query_pos, ref_boxes, memory, shapes)
         query = layer_norm(query + ca, self.norm2)
-        ff = linear(F.relu(linear(query, self.linear1, self.dtype)),
-                    self.linear2, self.dtype)
+        if tp is None:
+            ff = linear(F.relu(linear(query, self.linear1, self.dtype)),
+                        self.linear2, self.dtype)
+        else:       # linear1 column-split, linear2 row-split (Megatron)
+            h = F.relu(linear(copy_to_model(query, tp), self.linear1,
+                              self.dtype))
+            ff = reduce_from_model(F.linear(
+                h, self.linear2.weight.to(self.dtype)), tp)
+            ff = ff + self.linear2.bias.to(self.dtype)
         return layer_norm(query + ff.float(), self.norm3)
 
 

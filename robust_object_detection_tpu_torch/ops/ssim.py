@@ -87,7 +87,10 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, window_size: int = 11,
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """10 log10(1 / MSE) on [0, 1] images; 100 dB at zero error."""
-    mse = torch.mean((pred.float() - target.float()) ** 2)
+    return psnr_of_mse(torch.mean((pred.float() - target.float()) ** 2))
+
+
+def psnr_of_mse(mse: torch.Tensor) -> torch.Tensor:
     return torch.where(mse == 0, torch.full_like(mse, 100.0),
                        10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12)))
 

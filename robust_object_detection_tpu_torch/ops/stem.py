@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.mesh import kernel_sync, mean_over_data
 from .yolo_front import EPS, _f32, batch_stats, fold_bn  # noqa: F401 (EPS)
 
 
@@ -260,16 +261,23 @@ class _StemFused(torch.autograd.Function):
         args = [t.data_ptr() for t in (
             x, kd[0], vf[0], vf[1], kd[1], vf[2], vf[3], kd[2], vf[4],
             vf[5], kd[3], y1, y2a, y2b, cat, y3, stats, fvecs)] + [b, h, w]
+        # a data-parallel step averages each BN's batch sums over the
+        # data group inside the launch (parallel/mesh.kernel_sync)
+        sync_buf = torch.empty(2 * SLOT, dtype=torch.float32, device=dev)
+        sync, keep = kernel_sync(sync_buf)
         lib = kernels.load()
         with torch.cuda.device(dev):
             stream = kernels.stream_ptr(dev)
             if bf16:
                 name = "hgstem_train_tc_nhwc"
                 err = lib.hgstem_train_tc_nhwc(*args, *_plan_args(plan),
+                                               sync, sync_buf.data_ptr(),
                                                stream)
             else:
                 name = "hgstem_train_nhwc"
-                err = lib.hgstem_train_nhwc(*args, kernels.DTYPE_F32, stream)
+                err = lib.hgstem_train_nhwc(*args, kernels.DTYPE_F32, sync,
+                                            sync_buf.data_ptr(), stream)
+        del keep
         kernels.check(err, name)
         stem_fused.launches += 1
         ctx.save_for_backward(x, y1, y2a, y2b, cat, y3, kd[1], kd[2], kd[3],
@@ -349,6 +357,8 @@ def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
             dstat[i, :dm.numel()] = dm.float()
         if dv is not None:
             dstat[4 + i, :dv.numel()] = dv.float()
+    # the statistics are the global batch's: their cotangents, averaged
+    mean_over_data(dstat)
     def half(c):
         return torch.empty((b, h2, w2, c), dtype=dtype, device=dev)
 
@@ -381,6 +391,7 @@ def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
         dstat, dcat, da1p, dy2b, dy2a, dy1)]
     tail = [t.data_ptr() for t in (gpart, wpart, work, dk1, dk2a, dk2b, dk3,
                                    dvec)] + [b, h, w]
+    sync, keep = kernel_sync(work)
     lib = kernels.load()
     with torch.cuda.device(dev):
         stream = kernels.stream_ptr(dev)
@@ -389,11 +400,12 @@ def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
             name = "hgstem_bwd_tc_nhwc"
             err = lib.hgstem_bwd_tc_nhwc(
                 *head, e3.data_ptr(), *tail,
-                *(plan[k] for k in STEM_BWD_PLAN), stream)
+                *(plan[k] for k in STEM_BWD_PLAN), sync, stream)
         else:
             name = "hgstem_bwd_nhwc"
             err = lib.hgstem_bwd_nhwc(*head, *tail, *chunks,
-                                      kernels.DTYPE_F32, stream)
+                                      kernels.DTYPE_F32, sync, stream)
+    del keep
     kernels.check(err, name)
     if not bf16:
         # a 2x2 conv with zero pad right/bottom is the taps ky, kx in {1, 2}

@@ -37,16 +37,20 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from ..parallel.mesh import kernel_sync, mean_over_data, sync_moments
 
 EPS = 1e-3   # flax BatchNorm epsilon (pallas_stem.EPS)
 
 
 def batch_stats(y: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """flax train-mode BatchNorm statistics: f32 mean and fast variance
-    E[y^2] - E[y]^2 clamped at 0 (flax ``_compute_stats``)."""
+    E[y^2] - E[y]^2 clamped at 0 (flax ``_compute_stats``). Under a
+    data-parallel step (parallel/mesh.data_parallel) the two moments are
+    those of the global batch, as the reference's one step over a sharded
+    batch takes them."""
     yf = y.float()
-    mean = yf.mean(dims)
-    return mean, torch.clamp((yf * yf).mean(dims) - mean * mean, min=0.0)
+    mean, meansq = sync_moments(yf.mean(dims), (yf * yf).mean(dims))
+    return mean, torch.clamp(meansq - mean * mean, min=0.0)
 
 
 def fold_bn(scale, bias, mean, var) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,6 +233,11 @@ class _FrontFused(torch.autograd.Function):
                 mean1.data_ptr(), var1.data_ptr(), g1.data_ptr(),
                 b1.data_ptr(), mean2.data_ptr(), var2.data_ptr(), b, h, w,
                 c1, c2)
+        # a data-parallel step averages each BN's batch sums over the
+        # data group inside the launch (parallel/mesh.kernel_sync)
+        sync_buf = torch.empty(2 * max(c1, c2), dtype=torch.float32,
+                               device=dev)
+        sync, keep = kernel_sync(sync_buf)
         lib = kernels.load()
         with torch.cuda.device(dev):
             stream = kernels.stream_ptr(dev)
@@ -236,11 +245,13 @@ class _FrontFused(torch.autograd.Function):
                 name = "yolo_front_train_tc_nhwc"
                 err = lib.yolo_front_train_tc_nhwc(
                     *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
-                    stream)
+                    sync, sync_buf.data_ptr(), stream)
             else:
                 name = "yolo_front_train_nhwc"
                 err = lib.yolo_front_train_nhwc(*args, kernels.DTYPE_F32,
+                                                sync, sync_buf.data_ptr(),
                                                 stream)
+        del keep
         kernels.check(err, name)
         front_fused.launches += 1
         ctx.save_for_backward(x, k2d, y1, y2, sc1f, mean1, var1, g1, b1,
@@ -300,8 +311,10 @@ def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
     c2 = y2.shape[3]
     dev, dtype = x.device, x.dtype
     dy2 = dy2.to(dtype).contiguous()
-    dmean1, dvar1, dmean2, dvar2 = (_f32(t) for t in (dmean1, dvar1, dmean2,
-                                                      dvar2))
+    # the statistics are the global batch's under a data-parallel step:
+    # their cotangents, averaged over the data group
+    dmean1, dvar1, dmean2, dvar2 = (mean_over_data(_f32(t).clone())
+                                    for t in (dmean1, dvar1, dmean2, dvar2))
     bf16 = dtype == torch.bfloat16
     if bf16:
         plan = kernels.front_bwd_plan(
@@ -327,6 +340,7 @@ def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
                                    dvar2, dy1)]
     tail = [t.data_ptr() for t in (gpart, wpart, vecs, dk1, dk2, dsc1,
                                    dbi1)] + [b, h, w, c1, c2]
+    sync, keep = kernel_sync(vecs)
     lib = kernels.load()
     with torch.cuda.device(dev):
         stream = kernels.stream_ptr(dev)
@@ -335,11 +349,12 @@ def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
             name = "yolo_front_bwd_tc_nhwc"
             err = lib.yolo_front_bwd_tc_nhwc(
                 *head, e2.data_ptr(), *tail, p, chunks2, chunks1,
-                plan["vec"], plan["vec_x"], stream)
+                plan["vec"], plan["vec_x"], sync, stream)
         else:
             name = "yolo_front_bwd_nhwc"
             err = lib.yolo_front_bwd_nhwc(*head, *tail, chunks1, chunks2,
-                                          kernels.DTYPE_F32, stream)
+                                          kernels.DTYPE_F32, sync, stream)
+    del keep
     kernels.check(err, name)
     return dk1, dsc1, dbi1, dk2
 

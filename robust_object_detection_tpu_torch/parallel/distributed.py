@@ -17,8 +17,8 @@ Environment contract (set by the launcher; all optional on one process):
   ROD_PROCESS_ID    this process's index  (or RANK)
 
 ``ROD_AUTO_DISTRIBUTED=1`` initialises from ``env://`` as a launcher such
-as torchrun sets it up. Data parallelism of the trainers and the decoder's
-tensor parallelism (the reference's parallel/mesh.py) are not ported.
+as torchrun sets it up. The trainers' data parallelism and the RT-DETR
+decoder's tensor parallelism over the group live in parallel/mesh.py.
 """
 
 from __future__ import annotations

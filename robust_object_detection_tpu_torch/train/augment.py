@@ -74,11 +74,15 @@ def hsv_jitter(img: torch.Tensor, dh: torch.Tensor, ds: torch.Tensor,
 
 def random_hsv(img: torch.Tensor, generator: torch.Generator,
                hgain: float = 0.015, sgain: float = 0.7,
-               vgain: float = 0.4) -> torch.Tensor:
+               vgain: float = 0.4, total: Optional[int] = None,
+               rows: slice = slice(None)) -> torch.Tensor:
     """Per-image HSV jitter, Ultralytics augment_hsv gains: uniform in
-    [-hgain, hgain] (hue, additive) and [1 - g, 1 + g] (saturation, value)."""
-    b = img.shape[0]
-    u = torch.rand(3, b, generator=generator, device=img.device)
+    [-hgain, hgain] (hue, additive) and [1 - g, 1 + g] (saturation, value).
+    img may be the `rows` of a global batch of `total` images (a
+    data-parallel rank's): the gains are drawn for all `total` and sliced,
+    so every rank draws what one process would."""
+    b = img.shape[0] if total is None else total
+    u = torch.rand(3, b, generator=generator, device=img.device)[:, rows]
     return hsv_jitter(img, (2 * u[0] - 1) * hgain, 1 + (2 * u[1] - 1) * sgain,
                       1 + (2 * u[2] - 1) * vgain)
 
@@ -97,11 +101,13 @@ def flip_lr(img: torch.Tensor, boxes: torch.Tensor, classes: torch.Tensor,
 
 
 def random_flip_lr(img: torch.Tensor, boxes: torch.Tensor,
-                   classes: torch.Tensor, generator: torch.Generator
+                   classes: torch.Tensor, generator: torch.Generator,
+                   total: Optional[int] = None, rows: slice = slice(None)
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """p = 0.5 horizontal flip of each image and its boxes."""
-    flip = torch.rand(img.shape[0], generator=generator,
-                      device=img.device) < 0.5
+    """p = 0.5 horizontal flip of each image and its boxes; `total` and
+    `rows` as :func:`random_hsv`'s."""
+    b = img.shape[0] if total is None else total
+    flip = torch.rand(b, generator=generator, device=img.device)[rows] < 0.5
     return flip_lr(img, boxes, classes, flip)
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..models import yolov8 as yolo_lib
 from ..ops import boxes as box_ops
+from ..parallel.mesh import global_sum
 
 
 def _candidates_in_gt(anchors: torch.Tensor, gt_boxes: torch.Tensor,
@@ -153,7 +154,9 @@ def yolo_loss(outs, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
     assign = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
     ts = assign["target_scores"]
     fg = assign["fg_mask"]
-    tsum = torch.clamp(ts.sum(), min=1.0)
+    # the global batch's sum under a data-parallel step, as the
+    # reference's over its sharded batch
+    tsum = torch.clamp(global_sum(ts.sum()), min=1.0)
 
     cls_loss = optax_bce(cls_logits, ts).sum() / tsum
 

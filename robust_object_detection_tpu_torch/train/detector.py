@@ -38,11 +38,13 @@ from ..data import pipeline as pipe
 from ..models import yolov8 as yolo_lib
 from ..models.layers import resolve_device
 from ..ops import nms as nms_ops
-from ..ops.fused_corrupt import fused_random_corruption
+from ..ops.fused_corrupt import draw_choice, fused_random_corruption
+from ..parallel import distributed as dist
+from ..parallel import mesh as mesh_lib
 from . import augment as aug
 from . import detection as det_loss
 from . import validation
-from .frcnn import batch_to_device, step_generator
+from .frcnn import compute_dtype, step_generator
 
 
 def make_optimizer(lr0: float = 0.01, lrf: float = 0.01,
@@ -98,9 +100,16 @@ def init_state(model: torch.nn.Module, tx: Callable) -> TrainState:
     return TrainState(model, ema, opt, sched)
 
 
+# metrics that add up over the ranks of a data-parallel step (each
+# normalised by the global batch's count, or a count)
+ADDITIVE = ("loss", "box", "cls", "dfl", "num_fg")
+
+
 def make_train_step(img_size: int, corruption: CorruptionConfig,
                     augment: bool, ema_decay: float = 0.9999,
-                    base_augment: bool = False) -> Callable:
+                    base_augment: bool = False,
+                    mesh: Optional[mesh_lib.MeshContext] = None
+                    ) -> Callable:
     """Train step: (state, images_u8 (B, S, S, 3), gt_boxes (B, M, 4) xyxy
     canvas px, gt_classes (B, M) with -1 padding, generator on the images'
     device) -> metrics {loss, box, cls, dfl, num_fg, grad_norm} as device
@@ -110,6 +119,13 @@ def make_train_step(img_size: int, corruption: CorruptionConfig,
     -> f32 -> K1 corruption with p = 0.5 (augment, the reference's
     Augmented mode) -> /255 -> train forward -> loss -> backward -> SGD ->
     EMA of the parameters with d = decay * (1 - exp(-(step + 1) / 2000)).
+
+    mesh: a data-parallel mesh (parallel/mesh.make_mesh); the images are
+    then this rank's rows of the global batch. The draws are made for the
+    global batch and sliced (parallel/mesh.draw_rows), BatchNorm
+    statistics and TAL's normaliser span the global batch, gradients are
+    summed over the data group and the additive metrics too, so every
+    rank holds the one-process step's state and metrics.
     """
 
     def step(state: TrainState, images_u8: torch.Tensor,
@@ -117,22 +133,30 @@ def make_train_step(img_size: int, corruption: CorruptionConfig,
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        n, rows = mesh_lib.draw_rows(images_u8.shape[0], mesh)
         # the augmentation chain runs in bf16, as the reference's does
         x = images_u8.to(torch.bfloat16)
         if base_augment:
-            x = aug.random_hsv(x, generator)
+            x = aug.random_hsv(x, generator, total=n, rows=rows)
             x, gt_boxes = aug.random_flip_lr(x, gt_boxes, gt_classes,
-                                             generator)
+                                             generator, total=n, rows=rows)
         x = x.float()
         if augment:
-            x, _ = fused_random_corruption(x.contiguous(), generator,
-                                           corruption)
+            choice, seeds = draw_choice(n, generator, corruption)
+            x, _ = fused_random_corruption(x.contiguous(), None, corruption,
+                                           choice=choice[rows],
+                                           seeds=seeds[rows])
         x = x / 255.0
 
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = det_loss.yolo_loss(model(x), gt_boxes, gt_classes,
-                                           img_size)
-        loss.backward()
+        with mesh_lib.data_parallel(mesh):
+            loss, metrics = det_loss.yolo_loss(model(x), gt_boxes,
+                                               gt_classes, img_size)
+            loss.backward()
+        mesh_lib.all_reduce_grads(model.parameters(), mesh)
+        metrics = mesh_lib.sum_over_data(dict(metrics, loss=loss), mesh,
+                                         ADDITIVE)
+        loss = metrics.pop("loss")
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
@@ -259,15 +283,6 @@ def load_pretrained(model: torch.nn.Module,
 
 # ── The training loop ────────────────────────────────────────────────────
 
-def compute_dtype(dtype: Optional[str], device: torch.device) -> torch.dtype:
-    """"bfloat16" | "float32" | None (bf16 on the card, f32 elsewhere)."""
-    if dtype is None:
-        dtype = "bfloat16" if device.type == "cuda" else "float32"
-    if dtype not in ("bfloat16", "float32"):
-        raise ValueError(f"dtype {dtype!r}: 'bfloat16' or 'float32'")
-    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
-
-
 def train_samples(data_root: str | Path, layout: str) -> list:
     """The train split of a COCO- or YOLO-layout root."""
     if layout == "coco":
@@ -346,7 +361,14 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
 
     Writes ``config.json``, ``history.jsonl`` and the checkpoints under
     `out_dir`; a run that finds a ``last`` checkpoint there resumes from
-    it. Returns {out_dir, steps, final_loss}."""
+    it. Returns {out_dir, steps, final_loss}.
+
+    Across processes (a process group joined by parallel/distributed.
+    maybe_initialize; cfg.mesh factors it): each process decodes its
+    sample shard into its slice of the global `batch_size`, the step is
+    data-parallel (:func:`make_train_step`'s mesh), validation is sharded,
+    and only the primary process writes the artifacts; every process
+    resumes from them."""
     device = resolve_device(device)
     model_dtype = compute_dtype(dtype, device)
     tcfg = cfg.train
@@ -355,12 +377,20 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     batch_size = batch_size or tcfg.batch_size
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    artifacts.write_json(out_dir / "config.json", dict(
-        dataclasses.asdict(cfg), augment=augment, variant=variant,
-        img_size=img_size, batch_size=batch_size, epochs=epochs))
+    primary = dist.is_primary()
+    if primary:
+        artifacts.write_json(out_dir / "config.json", dict(
+            dataclasses.asdict(cfg), augment=augment, variant=variant,
+            img_size=img_size, batch_size=batch_size, epochs=epochs))
+    mesh = mesh_lib.make_mesh(cfg.mesh)
 
     samples = train_samples(data_root, layout)
     steps_per_epoch = max(1, len(samples) // batch_size)
+    # this process's rows: its sample shard and its slice of the global
+    # batch (steps_per_epoch is unchanged: local_len / local_bs ==
+    # global_len / global_bs)
+    local_bs = mesh_lib.local_batch(mesh, batch_size)
+    samples = dist.shard_samples(samples, mesh.data_index, mesh.n_data)
     total_steps = epochs * steps_per_epoch
     model = yolo_lib.create(6, variant, model_dtype, device,
                             torch.Generator().manual_seed(tcfg.seed),
@@ -369,12 +399,13 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
         report = load_pretrained(model, pretrained)
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
+    mesh_lib.replicate_tree(mesh, model)
     tx, sched = make_optimizer(lr0=0.01, warmup_steps=min(
         3 * steps_per_epoch, max(1, total_steps // 10)),
         total_steps=total_steps)
     state = init_state(model, tx)
     train_step = make_train_step(img_size, cfg.corruption, augment,
-                                 base_augment=base_augment)
+                                 base_augment=base_augment, mesh=mesh)
 
     val_samples = validation.index_val_samples(data_root, layout)
     predict_fn = (make_predict_step(img_size, use_ema=True)
@@ -401,20 +432,22 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
         losses = []
         # mosaic until the last `close_mosaic` epochs
         use_mosaic = mosaic and epoch <= max(0, epochs - close_mosaic)
-        batch_iter = epoch_batches(samples, batch_size, img_size, max_boxes,
+        batch_iter = epoch_batches(samples, local_bs, img_size, max_boxes,
                                    tcfg.seed + epoch, use_mosaic, load_image)
         k = 0
         if skip_batches:
             batch_iter = itertools.islice(batch_iter, skip_batches, None)
             k, skip_batches = skip_batches, 0
         for batch in pipe.prefetch(batch_iter):
-            images, gt_boxes, gt_classes = batch_to_device(batch, device)
+            images, gt_boxes, gt_classes, _ = pipe.device_put_sharded(
+                batch, device)
             m = train_step(state, images, gt_boxes, gt_classes,
                            step_generator(tcfg.seed, state.step, device))
             losses.append(m["loss"])
             steps += 1
             k += 1
-            if save_every_steps and steps % save_every_steps == 0:
+            if save_every_steps and steps % save_every_steps == 0 \
+                    and primary:
                 ckpt.save_last(steps, resume_payload(state),
                                extra={"epoch": epoch, "batch_in_epoch": k,
                                       "epoch_done": False})
@@ -428,20 +461,23 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                                       bool(val_samples)):
             vm = validation.run_validation(
                 predict_fn, state, val_samples, img_size, batch_size, device,
-                max_boxes=max_boxes, load_image=load_image)
+                max_boxes=max_boxes, load_image=load_image, mesh=mesh)
             record.update(vm)
-            ckpt.save_best(epoch, _ckpt_payload(state), vm["mAP50"])
-        hist.log(**record)
-        ckpt.save_last(steps, resume_payload(state),
-                       extra={"epoch": epoch, "batch_in_epoch": k,
-                              "epoch_done": True})
+            if primary:
+                ckpt.save_best(epoch, _ckpt_payload(state), vm["mAP50"])
+        if primary:
+            hist.log(**record)
+            ckpt.save_last(steps, resume_payload(state),
+                           extra={"epoch": epoch, "batch_in_epoch": k,
+                                  "epoch_done": True})
         if max_steps and steps >= max_steps:
             break
-    if ckpt.best_metric() is None:
+    if primary and ckpt.best_metric() is None:
         # no val split, or the run broke off before any val pass:
         # final = best
         ckpt.save_best(epochs, _ckpt_payload(state), 0.0)
     ckpt.close()
+    mesh_lib.barrier(mesh)      # the artifacts are on disk for every rank
     return {"out_dir": str(out_dir), "steps": steps,
             "final_loss": mean_loss}
 

@@ -22,7 +22,10 @@ draws (the corruption's choice and seeds, the RPN and RoI samplers'
 uniforms, the RoI compaction's) come from a ``torch.Generator`` seeded by
 (seed, step) on the images' device, so they depend on the step alone, as
 the reference's ``fold_in(key, step)``; every step also takes them as
-tensors (:func:`draw_train`). Training runs in f32.
+tensors (:func:`draw_train`). The model's compute dtype (bf16 by default
+on the card, as the reference's on its accelerator) carries through the
+step and the validation; losses, proposals and the IoU work stay f32, and
+so do the weights, the running statistics and the optimizer's state.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ from ..models.layers import resolve_device
 from ..ops import boxes as box_ops
 from ..ops import nms as nms_ops
 from ..ops.fused_corrupt import draw_choice, fused_random_corruption
+from ..parallel import distributed as dist
+from ..parallel import mesh as mesh_lib
+from ..parallel.mesh import global_sum
 from . import validation
 
 HEAD_DELTA_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -75,7 +81,8 @@ def rpn_loss(obj: torch.Tensor, rpn_deltas: torch.Tensor,
     pos, neg = F.sample_targets(labels, cfg.rpn_batch, cfg.rpn_pos_frac,
                                 generator, u_pos, u_neg)
     sampled = pos | neg
-    n = torch.clamp(sampled.sum(), min=1).float()
+    # over the global batch in a data-parallel step
+    n = torch.clamp(global_sum(sampled.sum()), min=1).float()
     tgt_boxes = torch.gather(gt_boxes, 1, matched[..., None].expand(-1, -1, 4))
     tgt_deltas = F.encode_deltas(tgt_boxes, anchors[None])
     box_l = (smooth_l1(rpn_deltas - tgt_deltas, 1.0 / 9.0).sum(-1)
@@ -144,7 +151,7 @@ def head_loss(scores: torch.Tensor, box_deltas: torch.Tensor,
     multiply by a bool mask selects: a RoI slot filled with a zero-size
     padding box has non-finite delta targets, which must add 0, not NaN,
     to the value and to the gradient."""
-    n = torch.clamp(roi_valid.sum(), min=1).float()
+    n = torch.clamp(global_sum(roi_valid.sum()), min=1).float()
     ce = TF.cross_entropy(scores.flatten(0, 1), cls_target.flatten(),
                           reduction="none").view(cls_target.shape)
     cls_l = (ce * roi_valid).sum() / n
@@ -200,6 +207,15 @@ def make_optimizer(lr: float = 0.005, momentum: float = 0.9,
             opt, lambda count: sched(count) / lr)
 
     return tx, sched
+
+
+def compute_dtype(dtype: Optional[str], device: torch.device) -> torch.dtype:
+    """"bfloat16" | "float32" | None (bf16 on the card, f32 elsewhere)."""
+    if dtype is None:
+        dtype = "bfloat16" if device.type == "cuda" else "float32"
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"dtype {dtype!r}: 'bfloat16' or 'float32'")
+    return torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
 
 def init_state(model: F.FasterRCNN, tx: Callable) -> FrcnnTrainState:
@@ -262,9 +278,13 @@ def native_res_epoch_plan(buckets: Dict, batch_size: int, seed: int
 
 # ── Steps ────────────────────────────────────────────────────────────────
 
+ADDITIVE = ("rpn_obj", "rpn_box", "head_cls", "head_box", "loss")
+
+
 def make_train_step(model: F.FasterRCNN, img_size,
                     corruption: Optional[CorruptionConfig],
-                    augment: bool) -> Callable:
+                    augment: bool,
+                    mesh: Optional[mesh_lib.MeshContext] = None) -> Callable:
     """Train step: (state, images_u8 (B, H, W, 3), gt_boxes (B, M, 4) xyxy
     canvas px, gt_classes (B, M) with -1 padding, seed, draws=None) ->
     metrics {rpn_obj, rpn_box, head_cls, head_box, loss, grad_norm} as
@@ -275,8 +295,15 @@ def make_train_step(model: F.FasterRCNN, img_size,
     (augment) -> /255 -> train-mode extract -> rpn_loss -> proposals
     (outside autograd) -> roi_targets -> train-mode roi_forward ->
     head_loss -> the sum -> backward -> SGD. grad_norm is the global norm
-    of every gradient before the update. draws: :func:`draw_train`'s dict;
-    drawn from ``step_generator(seed, state.step)`` when None."""
+    of every gradient before the update. draws: :func:`draw_train`'s dict
+    for the global batch; drawn from ``step_generator(seed, state.step)``
+    when None.
+
+    mesh: a data-parallel mesh; the images are then this rank's rows of
+    the global batch, which take their rows of the draws. BatchNorm
+    statistics and both losses' sampled counts span the global batch, and
+    the gradients and the losses are summed over the data group, as
+    ``train.detector.make_train_step`` does."""
     cfg = model.cfg
     hw = F._hw(img_size)
     corruption = corruption or CorruptionConfig()
@@ -288,12 +315,13 @@ def make_train_step(model: F.FasterRCNN, img_size,
              ) -> Dict[str, torch.Tensor]:
         net = state.model
         anchors = F._anchor_tensor(hw, images_u8.device)
+        n, rows = mesh_lib.draw_rows(images_u8.shape[0], mesh)
         if draws is None:
             draws = draw_train(
-                images_u8.shape[0], anchors.shape[0],
-                cfg.num_proposals + gt_boxes.shape[1],
+                n, anchors.shape[0], cfg.num_proposals + gt_boxes.shape[1],
                 step_generator(seed, state.step, images_u8.device),
                 corruption)
+        draws = {k: v[rows] for k, v in draws.items()}
         x = images_u8.float()
         if augment:
             x, _ = fused_random_corruption(x.contiguous(), None, corruption,
@@ -302,22 +330,27 @@ def make_train_step(model: F.FasterRCNN, img_size,
         x = x / 255.0
 
         state.optimizer.zero_grad(set_to_none=True)
-        pyramid, obj, rpn_deltas = net.extract(x, train=True)
-        losses = rpn_loss(obj, rpn_deltas, anchors, gt_boxes, gt_classes,
-                          cfg, u_pos=draws["rpn_pos"],
-                          u_neg=draws["rpn_neg"])
-        with torch.no_grad():
-            proposals, prop_valid = F.generate_proposals(
-                obj.detach(), rpn_deltas.detach(), hw, cfg)
-            rois, roi_valid, cls_t, delta_t, pos = roi_targets(
-                proposals, prop_valid, gt_boxes, gt_classes, cfg,
-                u_pos=draws["roi_pos"], u_neg=draws["roi_neg"],
-                u_gather=draws["roi_gather"])
-        scores, box_deltas = net.roi_forward(pyramid, rois, train=True)
-        losses.update(head_loss(scores, box_deltas, cls_t, delta_t,
-                                roi_valid, pos))
-        total = sum(losses.values())
-        total.backward()
+        with mesh_lib.data_parallel(mesh):
+            pyramid, obj, rpn_deltas = net.extract(x, train=True)
+            losses = rpn_loss(obj, rpn_deltas, anchors, gt_boxes,
+                              gt_classes, cfg, u_pos=draws["rpn_pos"],
+                              u_neg=draws["rpn_neg"])
+            with torch.no_grad():
+                proposals, prop_valid = F.generate_proposals(
+                    obj.detach(), rpn_deltas.detach(), hw, cfg)
+                rois, roi_valid, cls_t, delta_t, pos = roi_targets(
+                    proposals, prop_valid, gt_boxes, gt_classes, cfg,
+                    u_pos=draws["roi_pos"], u_neg=draws["roi_neg"],
+                    u_gather=draws["roi_gather"])
+            scores, box_deltas = net.roi_forward(pyramid, rois, train=True)
+            losses.update(head_loss(scores, box_deltas, cls_t, delta_t,
+                                    roi_valid, pos))
+            total = sum(losses.values())
+            total.backward()
+        mesh_lib.all_reduce_grads(net.parameters(), mesh)
+        losses = mesh_lib.sum_over_data(dict(losses, loss=total), mesh,
+                                        ADDITIVE)
+        total = losses.pop("loss")
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in net.parameters() if p.grad is not None])
         state.optimizer.step()
@@ -426,19 +459,6 @@ def load_pretrained(model: F.FasterRCNN,
 
 # ── Full training driver ─────────────────────────────────────────────────
 
-def batch_to_device(batch: pipe.Batch, device: torch.device):
-    """(images, boxes, classes) of a host batch on `device`, through pinned
-    memory and a non-blocking copy when it is the card."""
-    arrays = (batch.images, batch.boxes, batch.classes)
-    out = []
-    for a in arrays:
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out.append(t.to(device, non_blocking=True))
-    return out
-
-
 def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
           augment: bool = False, epochs: int = 24, img_size: int = 1024,
           batch_size: int = 2, max_steps: Optional[int] = None,
@@ -448,9 +468,21 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
           model_kwargs: Optional[dict] = None,
           native_res: bool = False, min_side: float = 800.0,
           max_side: float = 1333.0, bucket_mult: int = 64,
+          dtype: Optional[str] = None,
           device: Optional[torch.device] = None) -> dict:
-    """The Faster R-CNN training driver (reference: 24 epochs, batch 2), in
-    f32 on `device` (None: the CUDA card; raises when there is none).
+    """The Faster R-CNN training driver (reference: 24 epochs, batch 2) on
+    `device` (None: the CUDA card; raises when there is none).
+
+    dtype: the compute dtype, "bfloat16" or "float32"; None is bf16 on the
+    card and f32 elsewhere (:func:`compute_dtype`). Parameters, running
+    statistics and the optimizer stay f32 either way; ``config.json``
+    records the dtype, and :func:`load_checkpoint` builds an f32 model.
+
+    Across processes the run is data-parallel as ``train.detector.train``:
+    each process takes its sample shard (within each bucket with
+    native_res) and its slice of the global `batch_size`, the step sums
+    over the data group, validation is sharded, and the primary process
+    writes the artifacts.
 
     val_interval=0 reproduces the reference pattern, a single validation
     after the final epoch; N adds one every N epochs. Each validation logs
@@ -470,8 +502,12 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     if trainable_layers is None:
         trainable_layers = 3 if pretrained else 5
     device = resolve_device(device)
+    model_dtype = compute_dtype(dtype, device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    primary = dist.is_primary()
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    local_bs = mesh_lib.local_batch(mesh, batch_size)
 
     samples = pipe.index_coco(data_root, "train")
     buckets: dict = {}
@@ -486,23 +522,30 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
             bucket_scale[s.image_id] = sc
         steps_per_epoch = max(1, sum(len(g) // batch_size
                                      for g in buckets.values()))
+        buckets = {k: dist.shard_samples(g, mesh.data_index, mesh.n_data)
+                   for k, g in buckets.items()}
     else:
         steps_per_epoch = max(1, len(samples) // batch_size)
+        samples = dist.shard_samples(samples, mesh.data_index, mesh.n_data)
     fcfg = F.FrcnnConfig(trainable_layers=trainable_layers,
                          **(model_kwargs or {}))
     # the model configuration beside the checkpoints: load_checkpoint
     # prefers it over its defaults
-    artifacts.write_json(out_dir / "config.json",
-                         {"frcnn": dataclasses.asdict(fcfg),
-                          "augment": augment, "img_size": img_size,
-                          "batch_size": batch_size, "epochs": epochs,
-                          "native_res": native_res})
+    if primary:
+        artifacts.write_json(out_dir / "config.json",
+                             {"frcnn": dataclasses.asdict(fcfg),
+                              "augment": augment, "img_size": img_size,
+                              "batch_size": batch_size, "epochs": epochs,
+                              "native_res": native_res,
+                              "dtype": str(model_dtype).split(".")[-1]})
     model = F.create(fcfg, device,
-                     torch.Generator().manual_seed(cfg.train.seed))
+                     torch.Generator().manual_seed(cfg.train.seed),
+                     model_dtype)
     if pretrained:
         report = load_pretrained(model, pretrained)
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
+    mesh_lib.replicate_tree(mesh, model)
     tx, sched = make_optimizer(
         steps_per_epoch=steps_per_epoch,
         frozen=resnet_lib.frozen_param_labels(fcfg.blocks, trainable_layers))
@@ -512,7 +555,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     def step_for(canvas):
         if canvas not in step_fns:
             step_fns[canvas] = make_train_step(model, canvas, cfg.corruption,
-                                               augment)
+                                               augment, mesh)
         return step_fns[canvas]
 
     val_samples = validation.index_val_samples(data_root, "coco")
@@ -537,12 +580,12 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
         dropped = 0
         if native_res:
             chunks, dropped = native_res_epoch_plan(
-                buckets, batch_size, cfg.train.seed + epoch)
+                buckets, local_bs, cfg.train.seed + epoch)
 
             def epoch_batches():
                 for bkt, chunk in chunks:
                     for b in pipe.make_batches(
-                            chunk, batch_size, bkt, max_boxes=max_boxes,
+                            chunk, local_bs, bkt, max_boxes=max_boxes,
                             scale_fn=lambda s: bucket_scale[s.image_id],
                             pad_value=(124, 116, 104)):
                         yield bkt, b
@@ -550,11 +593,12 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
         else:
             batch_iter = ((img_size, b) for b in pipe.prefetch(
                 pipe.make_batches(
-                    samples, batch_size, img_size, max_boxes=max_boxes,
+                    samples, local_bs, img_size, max_boxes=max_boxes,
                     shuffle=True, seed=cfg.train.seed + epoch,
                     drop_remainder=True)))
         for canvas, batch in batch_iter:
-            images, gt_boxes, gt_classes = batch_to_device(batch, device)
+            images, gt_boxes, gt_classes, _ = pipe.device_put_sharded(
+                batch, device)
             m = step_for(canvas)(state, images, gt_boxes, gt_classes,
                                  cfg.train.seed)
             losses.append(m["loss"])
@@ -572,19 +616,22 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                                       bool(val_samples)):
             vm = validation.run_validation(predict_fn, model, val_samples,
                                            img_size, batch_size, device,
-                                           max_boxes=max_boxes)
+                                           max_boxes=max_boxes, mesh=mesh)
             record.update(vm)
-            ckpt.save_best(epoch, model.state_dict(), vm["mAP50"])
-        hist.log(**record)
-        ckpt.save_last(epoch, {"model": model.state_dict(),
-                               "optimizer": state.optimizer.state_dict(),
-                               "scheduler": state.scheduler.state_dict(),
-                               "step": state.step})
+            if primary:
+                ckpt.save_best(epoch, model.state_dict(), vm["mAP50"])
+        if primary:
+            hist.log(**record)
+            ckpt.save_last(epoch, {"model": model.state_dict(),
+                                   "optimizer": state.optimizer.state_dict(),
+                                   "scheduler": state.scheduler.state_dict(),
+                                   "step": state.step})
         if max_steps and steps >= max_steps:
             break
-    if ckpt.best_metric() is None:
+    if primary and ckpt.best_metric() is None:
         ckpt.save_best(epochs, model.state_dict(), 0.0)
     ckpt.close()
+    mesh_lib.barrier(mesh)      # the artifacts are on disk for every rank
     return {"out_dir": str(out_dir), "steps": steps, "final_loss": mean_loss}
 
 

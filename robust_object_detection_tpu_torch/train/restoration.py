@@ -39,6 +39,8 @@ from ..models import unet as unet_lib
 from ..models.layers import resolve_device
 from ..ops import corrupt as corrupt_ops
 from ..ops import ssim as ssim_ops
+from ..parallel import distributed as dist
+from ..parallel import mesh as mesh_lib
 
 # ── Host-side patch dataset ──────────────────────────────────────────────
 
@@ -183,20 +185,29 @@ def corrupt_uniform3(img: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def make_train_step(corruption: CorruptionConfig,
-                    ssim_weight: float = 0.3) -> Callable:
+                    ssim_weight: float = 0.3,
+                    mesh: Optional[mesh_lib.MeshContext] = None) -> Callable:
     """Train step: (state, batch_u8 (B, S, S, 3), generator on the batch's
     device, draws=None) -> metrics {loss, psnr, grad_norm} as device
     tensors; `state` is updated in place. Order, as the reference: uint8 ->
     f32 -> flip -> corrupt -> /255 -> train forward -> loss against the
     flipped clean batch -> backward -> AdamW; psnr of the forward's output,
-    grad_norm the global norm of the gradients."""
+    grad_norm the global norm of the gradients.
+
+    mesh: a data-parallel mesh; batch_u8 is then this rank's rows of the
+    global batch and takes its rows of the draws (made, or given, for the
+    global batch). The loss is a mean over the global batch: each rank's
+    mean counts 1 / n_data of it, BatchNorm statistics span the global
+    batch and the gradients are summed over the data group."""
 
     def step(state: TrainState, batch_u8: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None
              ) -> Dict[str, torch.Tensor]:
+        n, rows = mesh_lib.draw_rows(batch_u8.shape[0], mesh)
         if draws is None:
-            draws = draw_train(batch_u8.shape, generator)
+            draws = draw_train((n,) + tuple(batch_u8.shape[1:]), generator)
+        draws = {k: v[rows] for k, v in draws.items()}
         model = state.model
         model.train()
         x = batch_u8.float()
@@ -205,16 +216,23 @@ def make_train_step(corruption: CorruptionConfig,
         clean = x / 255.0
 
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(corrupted)
-        loss = ssim_ops.restoration_loss(out, clean, ssim_weight)
-        loss.backward()
+        share = 1.0 / (mesh.n_data if mesh is not None else 1)
+        with mesh_lib.data_parallel(mesh):
+            out = model(corrupted)
+            loss = ssim_ops.restoration_loss(out, clean, ssim_weight)
+            if share != 1.0:
+                loss = loss * share
+            loss.backward()
+        mesh_lib.all_reduce_grads(model.parameters(), mesh)
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {"loss": loss.detach(),
-                "psnr": ssim_ops.psnr(out.detach(), clean),
+        mse = torch.mean((out.detach().float() - clean.float()) ** 2) * share
+        m = mesh_lib.sum_over_data({"loss": loss.detach(), "mse": mse},
+                                   mesh, ("loss", "mse"))
+        return {"loss": m["loss"], "psnr": ssim_ops.psnr_of_mse(m["mse"]),
                 "grad_norm": grad_norm}
 
     return step
@@ -256,21 +274,30 @@ def train(cfg: ExperimentConfig, train_dir: str | Path, val_dir: str | Path,
     rcfg = cfg.restoration
     out_dir = Path(out_dir or cfg.out_dir / "restoration")
     out_dir.mkdir(parents=True, exist_ok=True)
-    artifacts.write_json(out_dir / "config.json", config_lib.to_dict(cfg))
+    primary = dist.is_primary()
+    if primary:
+        artifacts.write_json(out_dir / "config.json",
+                             config_lib.to_dict(cfg))
     device = resolve_device(device)
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    local_bs = mesh_lib.local_batch(mesh, rcfg.batch_size)
 
     train_ds = PatchDataset(train_dir, rcfg.patch_size, train=True,
                             seed=rcfg.seed)
     val_ds = PatchDataset(val_dir, rcfg.patch_size, train=False,
                           seed=rcfg.seed)
     steps_per_epoch = len(train_ds) // rcfg.batch_size
+    # this process's images and slice of each batch
+    train_ds.paths = dist.shard_samples(train_ds.paths, mesh.data_index,
+                                        mesh.n_data)
 
     model = unet_lib.create(rcfg.channels, device=device,
                             generator=torch.Generator().manual_seed(
                                 rcfg.seed), train=True)
+    mesh_lib.replicate_tree(mesh, model)
     tx, sched = make_optimizer(rcfg, steps_per_epoch)
     state = init_state(model, tx)
-    train_step = make_train_step(cfg.corruption, rcfg.ssim_weight)
+    train_step = make_train_step(cfg.corruption, rcfg.ssim_weight, mesh)
     eval_step = make_eval_step(cfg.corruption)
 
     ckpt = CheckpointManager(out_dir)
@@ -282,7 +309,7 @@ def train(cfg: ExperimentConfig, train_dir: str | Path, val_dir: str | Path,
     for epoch in range(1, rcfg.epochs + 1):
         t0 = time.time()
         losses: List[torch.Tensor] = []
-        for batch in train_ds.batches(rcfg.batch_size, epoch):
+        for batch in train_ds.batches(local_bs, epoch):
             b = torch.from_numpy(batch).to(device)
             losses.append(train_step(state, b, gen)["loss"])
             total_steps += 1
@@ -303,14 +330,18 @@ def train(cfg: ExperimentConfig, train_dir: str | Path, val_dir: str | Path,
             if record["val_psnr"] > best["psnr"]:
                 best = {"psnr": record["val_psnr"],
                         "ssim": record["val_ssim"], "epoch": epoch}
-                ckpt.save_best(epoch, model.state_dict(), record["val_psnr"])
-        hist.log(**record)
-        ckpt.save_last(epoch, {"model": model.state_dict(),
-                               "optimizer": state.optimizer.state_dict()})
+                if primary:
+                    ckpt.save_best(epoch, model.state_dict(),
+                                   record["val_psnr"])
+        if primary:
+            hist.log(**record)
+            ckpt.save_last(epoch, {"model": model.state_dict(),
+                                   "optimizer": state.optimizer.state_dict()})
         if max_steps and total_steps >= max_steps:
             break
 
     ckpt.close()
+    mesh_lib.barrier(mesh)
     return {"best": best, "out_dir": str(out_dir),
             "param_count": unet_lib.param_count(model)}
 

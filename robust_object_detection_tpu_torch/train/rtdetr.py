@@ -37,14 +37,17 @@ from ..models import rtdetr as rtdetr_lib
 from ..models.layers import resolve_device
 from ..ops import boxes as box_ops
 from ..ops.assignment import BIG, _first_max, auction_assignment
-from ..ops.fused_corrupt import fused_random_corruption
+from ..ops.fused_corrupt import draw_choice, fused_random_corruption
+from ..parallel import distributed as dist
+from ..parallel import mesh as mesh_lib
+from ..parallel.mesh import global_sum
 from . import augment as aug
 from . import validation
 from .detector import (TrainState, _ckpt_payload, compute_dtype,
                        resume_payload, ema_forward, ema_module,
                        epoch_batches, load_pretrained, restore_state,
                        restore_weights, train_samples)
-from .frcnn import batch_to_device, step_generator
+from .frcnn import step_generator
 
 # Ultralytics RT-DETR gains: the matcher weighs the focal class cost at 2,
 # the loss weighs VFL at 1
@@ -263,7 +266,8 @@ def _layer_loss(logits, boxes, gt_boxes_n, gt_classes):
     gt_for_q, iou_q, aux = hungarian_match(logits.detach(), boxes.detach(),
                                            gt_boxes_n, gt_classes)
     matched = gt_for_q >= 0
-    n_pos = matched.sum().clamp(min=1).to(logits.dtype)
+    # over the global batch in a data-parallel step
+    n_pos = global_sum(matched.sum()).clamp(min=1).to(logits.dtype)
     safe = gt_for_q.clamp(min=0)
     tgt_cls = torch.where(
         matched, torch.gather(gt_classes.clamp(min=0), 1, safe.long()), -1)
@@ -286,7 +290,9 @@ def _layer_loss(logits, boxes, gt_boxes_n, gt_classes):
 def build_dn_queries(gt_boxes_n: torch.Tensor, gt_classes: torch.Tensor,
                      generator: torch.Generator, num_groups: int = 2,
                      max_gt: int = 32, box_noise: float = 0.4,
-                     label_noise: float = 0.5, num_classes: int = 6):
+                     label_noise: float = 0.5, num_classes: int = 6,
+                     total: Optional[int] = None,
+                     rows: slice = slice(None)):
     """Noised GT queries for denoising training. Slot layout: per group,
     `max_gt` positive slots (small box noise, target = the source GT) then
     `max_gt` negative slots (large noise, target = background). Empty GT
@@ -296,8 +302,10 @@ def build_dn_queries(gt_boxes_n: torch.Tensor, gt_classes: torch.Tensor,
 
     Returns (dn dict for the model: classes (B, D) int32, boxes (B, D, 4),
     group_ids (B, D) int32; dn_gt (B, D) int32, the source GT index, -1 =
-    negative or empty; dn_active (B, D) bool)."""
-    b = gt_boxes_n.shape[0]
+    negative or empty; dn_active (B, D) bool). The GTs may be the `rows`
+    of a global batch of `total` (a data-parallel rank's): every draw is
+    made for the global batch and sliced."""
+    b = gt_boxes_n.shape[0] if total is None else total
     m = min(max_gt, gt_boxes_n.shape[1])
     dev = gt_boxes_n.device
     gtb = gt_boxes_n[:, :m]
@@ -305,11 +313,13 @@ def build_dn_queries(gt_boxes_n: torch.Tensor, gt_classes: torch.Tensor,
     valid = gtc >= 0
 
     def uniform(shape, lo, hi):
-        return torch.rand(shape, generator=generator, device=dev) * (hi - lo) \
-            + lo
+        u = torch.rand((b,) + tuple(shape[1:]), generator=generator,
+                       device=dev)[rows]
+        return u * (hi - lo) + lo
 
     cls_s, box_s, gid_s, gt_s = [], [], [], []
-    gt_idx = torch.arange(m, dtype=torch.int32, device=dev)[None].expand(b, m)
+    gt_idx = torch.arange(m, dtype=torch.int32, device=dev)[None].expand(
+        gtb.shape[0], m)
     none = torch.full_like(gt_idx, -1)
     for g in range(num_groups):
         for positive in (True, False):
@@ -323,8 +333,8 @@ def build_dn_queries(gt_boxes_n: torch.Tensor, gt_classes: torch.Tensor,
             scale = uniform(wh.shape, 1 - box_noise * hi, 1 + box_noise * hi)
             boxes = torch.cat([centre, wh * scale], -1).clamp(1e-4, 1 - 1e-4)
             flip = uniform(gtc.shape, 0.0, 1.0) < label_noise
-            rand_cls = torch.randint(0, num_classes, gtc.shape,
-                                     generator=generator, device=dev)
+            rand_cls = torch.randint(0, num_classes, (b,) + gtc.shape[1:],
+                                     generator=generator, device=dev)[rows]
             cls = torch.where(flip, rand_cls, gtc.clamp(min=0).long())
             cls_s.append(torch.where(valid, cls, num_classes))
             box_s.append(boxes)
@@ -348,7 +358,7 @@ def dn_loss(dn_logits: torch.Tensor, dn_boxes: torch.Tensor,
     negatives take background VFL; inactive slots' logits are forced to
     -1e4 and weigh nothing."""
     pos = dn_gt >= 0
-    n_pos = pos.sum().clamp(min=1).to(dn_logits.dtype)
+    n_pos = global_sum(pos.sum()).clamp(min=1).to(dn_logits.dtype)
     safe = dn_gt.clamp(min=0)
     tgt_box = _take_rows(gt_boxes_n, safe)
     tgt_cls = torch.where(
@@ -395,8 +405,10 @@ def rtdetr_loss(outputs: Dict[str, torch.Tensor], gt_boxes_xyxy: torch.Tensor,
 @dataclasses.dataclass
 class RtdetrTrainState(TrainState):
     """train.detector.TrainState plus the global-norm clip the optimizer
-    chain starts with."""
+    chain starts with, and the decoder's tensor-parallel plan
+    (parallel/mesh.rtdetr_decoder_tp) when the model holds shards."""
     clip: float = 0.1
+    tp_plan: Optional[Dict] = None
 
 
 def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-4,
@@ -439,10 +451,33 @@ def init_state(model: torch.nn.Module, tx: Callable) -> RtdetrTrainState:
     return RtdetrTrainState(model, ema, opt, sched, clip=clip)
 
 
+# metrics that add up over the ranks of a data-parallel step
+ADDITIVE = ("loss", "dec_cls", "dec_l1", "dec_giou", "enc_cls",
+            "matcher_capped", "dn")
+
+
+def global_grad_norm(state: "RtdetrTrainState",
+                     mesh: Optional[mesh_lib.MeshContext]) -> torch.Tensor:
+    """The global norm of the gradients with each element counted once:
+    under tensor parallelism a sharded leaf's squares sum over the model
+    group, a replicated leaf (the same on every model rank) counts once."""
+    plan = state.tp_plan
+    named = [(n, p.grad) for n, p in state.model.named_parameters()
+             if p.grad is not None]
+    if not plan or mesh is None or mesh.n_model == 1:
+        return torch.nn.utils.get_total_norm([g for _, g in named])
+    sharded = [g for n, g in named if plan.get(n) is not None]
+    replicated = [g for n, g in named if plan.get(n) is None]
+    sq = torch.nn.utils.get_total_norm(sharded) ** 2
+    sq = mesh_lib.sum_over_model(sq, mesh)
+    return torch.sqrt(sq + torch.nn.utils.get_total_norm(replicated) ** 2)
+
+
 def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
                     augment: bool, ema_decay: float = 0.9999,
                     denoise: bool = True, dn_groups: int = 2,
-                    dn_max_gt: int = 32, base_augment: bool = False
+                    dn_max_gt: int = 32, base_augment: bool = False,
+                    mesh: Optional[mesh_lib.MeshContext] = None
                     ) -> Callable:
     """Train step: (state, images_u8 (B, S, S, 3), gt_boxes (B, M, 4) xyxy
     canvas px, gt_classes (B, M) with -1 padding, generator on the images'
@@ -454,22 +489,32 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
     -> f32 -> K1 corruption with p = 0.5 (augment) -> /255 -> denoising
     queries -> train forward -> rtdetr_loss + one dn_loss per decoder layer
     -> backward -> clip by global norm -> AdamW -> EMA of the parameters
-    with d = decay * (1 - exp(-(step + 1) / 2000))."""
+    with d = decay * (1 - exp(-(step + 1) / 2000)).
+
+    mesh: the (data, model) mesh. The images are this rank's data rows
+    (the ranks of one model group hold the same rows); draws, BatchNorm
+    statistics and the set losses' positive counts span the global batch,
+    gradients and additive metrics are summed over the data group, and a
+    model holding decoder shards (parallel/mesh.apply_tp) clips by the
+    norm that counts each element once (:func:`global_grad_norm`)."""
 
     def step(state: RtdetrTrainState, images_u8: torch.Tensor,
              gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        n, rows = mesh_lib.draw_rows(images_u8.shape[0], mesh)
         x = images_u8.to(torch.bfloat16)
         if base_augment:
-            x = aug.random_hsv(x, generator)
+            x = aug.random_hsv(x, generator, total=n, rows=rows)
             x, gt_boxes = aug.random_flip_lr(x, gt_boxes, gt_classes,
-                                             generator)
+                                             generator, total=n, rows=rows)
         x = x.float()
         if augment:
-            x, _ = fused_random_corruption(x.contiguous(), generator,
-                                           corruption)
+            choice, seeds = draw_choice(n, generator, corruption)
+            x, _ = fused_random_corruption(x.contiguous(), None, corruption,
+                                           choice=choice[rows],
+                                           seeds=seeds[rows])
         x = x / 255.0
 
         dn = dn_gt = dn_active = None
@@ -477,22 +522,29 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
         if denoise:
             dn, dn_gt, dn_active = build_dn_queries(
                 gt_n, gt_classes, generator, num_groups=dn_groups,
-                max_gt=dn_max_gt, num_classes=model.cfg.num_classes)
+                max_gt=dn_max_gt, num_classes=model.cfg.num_classes,
+                total=n, rows=rows)
 
         state.optimizer.zero_grad(set_to_none=True)
-        outs = model(x, dn)
-        loss, metrics = rtdetr_loss(outs, gt_boxes, gt_classes, img_size)
-        if denoise:
-            dn_total = sum(
-                dn_loss(outs["dn_logits"][li], outs["dn_boxes"][li], dn_gt,
-                        dn_active, gt_n, gt_classes)
-                for li in range(outs["dn_logits"].shape[0]))
-            loss = loss + dn_total
-            metrics = dict(metrics, dn=dn_total)
-        loss.backward()
+        with mesh_lib.data_parallel(mesh):
+            outs = model(x, dn)
+            loss, metrics = rtdetr_loss(outs, gt_boxes, gt_classes,
+                                        img_size)
+            if denoise:
+                dn_total = sum(
+                    dn_loss(outs["dn_logits"][li], outs["dn_boxes"][li],
+                            dn_gt, dn_active, gt_n, gt_classes)
+                    for li in range(outs["dn_logits"].shape[0]))
+                loss = loss + dn_total
+                metrics = dict(metrics, dn=dn_total)
+            loss.backward()
+        mesh_lib.all_reduce_grads(model.parameters(), mesh)
+        metrics = mesh_lib.sum_over_data(dict(metrics, loss=loss), mesh,
+                                         ADDITIVE)
+        loss = metrics.pop("loss")
 
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = torch.nn.utils.get_total_norm(grads)
+        grad_norm = global_grad_norm(state, mesh)
         # optax.clip_by_global_norm: g * clip / max(norm, clip)
         torch._foreach_mul_(grads,
                             state.clip / grad_norm.clamp(min=state.clip))
@@ -535,6 +587,55 @@ def make_predict_step(img_size: int, max_det: int = 300,
 
 # ── The training loop ────────────────────────────────────────────────────
 
+def _opt_names(model: torch.nn.Module) -> list:
+    """Parameter names in the optimizer's index order (make_optimizer's
+    ``requires_grad`` parameters)."""
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _relayout(payload: dict, names: list, fn) -> dict:
+    """A ``last`` / ``best`` payload with fn(name, tensor) applied to the
+    model's, the EMA's and the optimizer's per-parameter tensors."""
+    out = dict(payload)
+    out["model"] = {k: fn(k, v) for k, v in payload["model"].items()}
+    out["ema"] = {k: fn(k, v) for k, v in payload["ema"].items()}
+    if "optimizer" in payload:
+        opt = dict(payload["optimizer"])
+        opt["state"] = {i: {k: (fn(names[i], v) if torch.is_tensor(v)
+                                and v.dim() > 0 else v)
+                            for k, v in st.items()}
+                        for i, st in payload["optimizer"]["state"].items()}
+        out["optimizer"] = opt
+    return out
+
+
+def full_payload(state: RtdetrTrainState,
+                 mesh: Optional[mesh_lib.MeshContext],
+                 resume: bool = True) -> dict:
+    """The ``last`` (resume=True) or ``best`` payload in the layout of a
+    run without tensor parallelism: shards gathered over the model group
+    (a collective: every rank calls it)."""
+    payload = (resume_payload(state) if resume else _ckpt_payload(state))
+    if not state.tp_plan or mesh is None or mesh.n_model == 1:
+        return payload
+    plan = state.tp_plan
+    return _relayout(payload, _opt_names(state.model),
+                     lambda k, v: mesh_lib.gather_shards(v, plan.get(k),
+                                                         mesh))
+
+
+def shard_payload(state: RtdetrTrainState,
+                  mesh: Optional[mesh_lib.MeshContext], payload: dict
+                  ) -> dict:
+    """A full-layout payload cut to this rank's shards."""
+    if not state.tp_plan or mesh is None or mesh.n_model == 1:
+        return payload
+    plan = state.tp_plan
+    return _relayout(payload, _opt_names(state.model),
+                     lambda k, v: mesh_lib.take_shard(
+                         v, plan.get(k), mesh.model_index, mesh.n_model))
+
+
 RTDETR_HEADS = ("model.28.enc_score_head.", "model.28.dec_score_head.")
 DN_TABLE = "model.28.denoising_class_embed.weight"
 
@@ -564,23 +665,36 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     denoising class table fills its first rows. model_kwargs: extra
     RtDetrConfig fields. The matcher is the module's ``ASSIGNMENT``; the
     image-matchings the auction capped are logged as ``matcher_capped``.
-    Tensor parallelism (``cfg.mesh.model > 1``) is not ported.
+
+    Across processes cfg.mesh factors the group into (data, model): the
+    step is data-parallel over the data axis (as ``train.detector.train``),
+    and with ``mesh.model > 1`` the decoder layers run Megatron-style over
+    the model axis (parallel/mesh.rtdetr_decoder_tp; heads and ffn must
+    divide it). The optimizer's moments and the EMA keep shards; the
+    checkpoints hold the full tensors, so ``load_checkpoint`` reads a
+    tensor-parallel run as any other.
 
     Writes ``history.jsonl`` and the checkpoints under `out_dir`: ``last``
     every epoch, keyed by the epoch (not the step, as in the YOLO trainer),
     and a run that finds one resumes after its epoch. Returns {out_dir,
     steps, final_loss}."""
-    if cfg.mesh.model > 1:
-        raise NotImplementedError(
-            f"mesh.model={cfg.mesh.model}: tensor parallelism of the "
-            f"decoder is not ported; train on one device (mesh.model=1)")
+    rcfg = rtdetr_lib.RtDetrConfig(num_classes=6, **(model_kwargs or {}))
+    n_model = max(1, cfg.mesh.model)
+    if n_model > 1 and (rcfg.heads % n_model or rcfg.ffn % n_model):
+        raise ValueError(
+            f"tensor parallelism needs heads ({rcfg.heads}) and ffn "
+            f"({rcfg.ffn}) divisible by mesh.model ({n_model})")
     device = resolve_device(device)
     model_dtype = compute_dtype(dtype, device)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    primary = dist.is_primary()
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    local_bs = mesh_lib.local_batch(mesh, batch_size)
 
     samples = train_samples(data_root, layout)
     steps_per_epoch = max(1, len(samples) // batch_size)
+    samples = dist.shard_samples(samples, mesh.data_index, mesh.n_data)
     model = rtdetr_lib.create(6, model_dtype, device,
                               torch.Generator().manual_seed(cfg.train.seed),
                               train=True, bn_dtype=model_dtype,
@@ -590,10 +704,19 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                                  (DN_TABLE,))
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
+    mesh_lib.replicate_tree(mesh, model)
+    plan = None
+    if mesh.n_model > 1:
+        plan = mesh_lib.rtdetr_decoder_tp(mesh, model)
+        mesh_lib.apply_tp(mesh, model, plan)
+        if primary:
+            print(f"[rtdetr.train] decoder TP over the {mesh.n_model}-way "
+                  f"model axis", flush=True)
     tx, sched = make_optimizer(total_steps=epochs * steps_per_epoch, lrf=lrf)
     state = init_state(model, tx)
+    state.tp_plan = plan
     step_fn = make_train_step(img_size, cfg.corruption, augment,
-                              base_augment=base_augment)
+                              base_augment=base_augment, mesh=mesh)
 
     val_samples = validation.index_val_samples(data_root, layout)
     predict_fn = (make_predict_step(img_size, use_ema=True)
@@ -606,7 +729,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     start_epoch = 1
     restored = ckpt.restore_last(map_location=device)
     if restored is not None:
-        restore_state(state, restored["state"])
+        restore_state(state, shard_payload(state, mesh, restored["state"]))
         start_epoch = restored["step"] + 1
         steps = state.step
     for epoch in range(start_epoch, epochs + 1):
@@ -615,10 +738,11 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
         # mosaic until the last close_mosaic epochs (the recipe the YOLO
         # trainer shares)
         batch_iter = epoch_batches(
-            samples, batch_size, img_size, max_boxes, cfg.train.seed + epoch,
+            samples, local_bs, img_size, max_boxes, cfg.train.seed + epoch,
             mosaic and epoch <= max(0, epochs - close_mosaic), load_image)
         for batch in pipe.prefetch(batch_iter):
-            images, gt_boxes, gt_classes = batch_to_device(batch, device)
+            images, gt_boxes, gt_classes, _ = pipe.device_put_sharded(
+                batch, device)
             m = step_fn(state, images, gt_boxes, gt_classes,
                         step_generator(cfg.train.seed, state.step, device))
             losses.append(m["loss"])
@@ -638,16 +762,22 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                                       bool(val_samples)):
             vm = validation.run_validation(
                 predict_fn, state, val_samples, img_size, batch_size, device,
-                max_boxes=max_boxes, load_image=load_image)
+                max_boxes=max_boxes, load_image=load_image, mesh=mesh)
             record.update(vm)
-            ckpt.save_best(epoch, _ckpt_payload(state), vm["mAP50"])
-        hist.log(**record)
-        ckpt.save_last(epoch, resume_payload(state))
+            best = full_payload(state, mesh, resume=False)
+            if primary:
+                ckpt.save_best(epoch, best, vm["mAP50"])
+        last = full_payload(state, mesh)
+        if primary:
+            hist.log(**record)
+            ckpt.save_last(epoch, last)
         if max_steps and steps >= max_steps:
             break
-    if ckpt.best_metric() is None:
-        ckpt.save_best(epochs, _ckpt_payload(state), 0.0)
+    best = full_payload(state, mesh, resume=False)
+    if primary and ckpt.best_metric() is None:
+        ckpt.save_best(epochs, best, 0.0)
     ckpt.close()
+    mesh_lib.barrier(mesh)      # the artifacts are on disk for every rank
     return {"out_dir": str(out_dir), "steps": steps, "final_loss": mean_loss}
 
 

@@ -19,6 +19,7 @@ import torch
 
 from ..data import pipeline as pipe
 from ..eval import detector_eval
+from ..parallel import mesh as mesh_lib
 
 
 def index_val_samples(data_root: str | Path,
@@ -42,18 +43,23 @@ def run_validation(predict_fn: Callable, state,
                    val_samples: List[pipe.Sample], img_size: int,
                    batch_size: int, ctx: Optional[torch.device] = None,
                    max_boxes: int = 600,
-                   load_image: Callable = pipe.load_image_rgb
+                   load_image: Callable = pipe.load_image_rgb,
+                   mesh: Optional[mesh_lib.MeshContext] = None
                    ) -> Dict[str, float]:
     """One val pass -> {"mAP50", "mAP50_95"} via the COCOeval-parity scorer.
     state: what the predict fn runs (a model, or a train state for the
     EMA predict steps of train.detector / train.rtdetr); ctx: the device
     the images go to (None: the model's); load_image: the decoder
-    (data.pipeline.make_batches)."""
+    (data.pipeline.make_batches); mesh: the data-parallel mesh the pass
+    is sharded over (eval.detector_eval.evaluate_on_samples). The primary
+    process's numbers are broadcast, so every rank makes the same
+    best-checkpoint decision."""
     summary = detector_eval.evaluate_on_samples(
         predict_fn, state, val_samples, img_size, batch_size, ctx,
-        max_boxes=max_boxes, load_image=load_image)
-    return {"mAP50": round(summary["mAP50"], 5),
-            "mAP50_95": round(summary["mAP50_95"], 5)}
+        max_boxes=max_boxes, load_image=load_image, mesh=mesh)
+    vals = mesh_lib.broadcast_floats(
+        mesh, [summary["mAP50"], summary["mAP50_95"]])
+    return {"mAP50": round(vals[0], 5), "mAP50_95": round(vals[1], 5)}
 
 
 def should_validate(epoch: int, epochs: int, val_interval: int,

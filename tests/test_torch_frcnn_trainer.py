@@ -99,12 +99,14 @@ def test_train_square_canvas_history_stamp_and_validation(square_run):
                 "mAP50_95"} <= set(h) and "dropped_images" not in h
         assert 0.0 <= h["mAP50"] <= 1.0 and 0.0 <= h["mAP50_95"] <= 1.0
         assert np.isfinite(h["train_loss"]) and h["lr"] == 0.005
-    # the stamp the reference's train() writes for the same arguments
+    # the stamp the reference's train() writes for the same arguments,
+    # plus the compute dtype the port records (f32 on the CPU)
     stamp = json.loads((run / "config.json").read_text())
     want = {"frcnn": dataclasses.asdict(JF.FrcnnConfig(trainable_layers=5,
                                                        **SMALL)),
             "augment": False, "img_size": 64, "batch_size": 2, "epochs": 2,
             "native_res": False}
+    assert stamp.pop("dtype") == "float32"
     assert stamp == json.loads(json.dumps(want))
     ckpt = run / "ckpt"
     assert (ckpt / "best").exists() and (ckpt / "last" / "2").exists()

@@ -65,7 +65,8 @@ def test_package_imports_without_jax():
         "models.frcnn", "train.frcnn", "train.validation",
         "eval.detector_eval", "cli", "data.imageio", "data.synthetic",
         "data.convert", "core.rng", "eval.parity_fixtures",
-        "parallel.distributed", "report.plots", "report.demo")}
+        "parallel.distributed", "parallel.mesh", "report.plots",
+        "report.demo")}
     assert expected <= set(out["modules"])
 
 

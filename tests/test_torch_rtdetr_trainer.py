@@ -278,7 +278,9 @@ def test_epoch_resume_is_bit_identical_and_loads_ema(coco_root, tmp_path,
 
 def test_greedy_run_launches_no_auction(coco_root, tmp_path, monkeypatch):
     """ASSIGNMENT = "greedy": the loop trains (finite losses, matcher_capped
-    0) and never calls the auction; a mesh with a model axis is refused."""
+    0) and never calls the auction; a mesh with a model axis of 2 needs
+    two processes (tests/test_torch_multiprocess.py runs one), so one
+    process refuses it as the mesh's factoring."""
     _no_denoise(monkeypatch, TT)
     monkeypatch.setattr(TT, "ASSIGNMENT", "greedy")
     calls = []
@@ -291,7 +293,7 @@ def test_greedy_run_launches_no_auction(coco_root, tmp_path, monkeypatch):
     assert np.isfinite(hist[0]["train_loss"])
     assert hist[0]["matcher_capped"] == 0.0 and not calls
     shutil.rmtree(tmp_path / "greedy")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="factor the device count"):
         TT.train(_cfg(model=2), coco_root, tmp_path / "tp", **kw)
 
 

@@ -6,6 +6,8 @@
 # each run's log goes to LOG_DIR/mut_<name>.log (default _local/mutants).
 #
 #     bash tools/smoke_mutants.sh [LOG_DIR]
+#
+# ONLY="name ..." runs just the named mutations.
 set -u
 ROOT=$(cd "$(dirname "$0")/.." && pwd)
 cd "$ROOT"
@@ -13,6 +15,7 @@ LOG_DIR=$(mkdir -p "${1:-_local/mutants}" && cd "${1:-_local/mutants}" && pwd)
 python3 -c "from robust_object_detection_tpu_torch import kernels; kernels.build()"
 
 mutate () {   # name file old new phase
+  if [ -n "${ONLY:-}" ] && [[ " $ONLY " != *" $1 "* ]]; then return; fi
   local dir="${TMPDIR:-/tmp}/mut_$1"
   rm -rf "$dir"; cp -r "$ROOT" "$dir"
   python3 - "$dir/$2" "$3" "$4" <<'PY'
@@ -54,3 +57,25 @@ mutate unet_tf32 robust_object_detection_tpu_torch/models/unet.py \
   "        torch.backends.cudnn.allow_tf32 = True
         inp = x.float()
         h = inp.permute(0, 3, 1, 2)" phase_unet_training
+# ResNet's train-mode BatchNorm output left in the compute dtype (bf16):
+# phase 28's dtype audit
+mutate frcnn_bn_bf16 robust_object_detection_tpu_torch/models/resnet.py \
+  "return bn_train(y, bn, torch.float32, BN_MOMENTUM)" \
+  "return bn_train(y, bn, y.dtype, BN_MOMENTUM)" phase_frcnn_bf16
+# the class logits computed in bf16 (flax promotes them to f32): phase 28
+mutate frcnn_predictor_bf16 robust_object_detection_tpu_torch/models/frcnn.py \
+  "        scores = self.box_predictor.cls_score(x)" \
+  "        scores = linear(x, self.box_predictor.cls_score, self.dtype).float()" \
+  phase_frcnn_bf16
+# a data-parallel YOLO step without the gradient all-reduce: phase 29
+mutate dp_no_grad_reduce robust_object_detection_tpu_torch/train/detector.py \
+  "        mesh_lib.all_reduce_grads(model.parameters(), mesh)" \
+  "        pass" phase_parallel
+# train-mode BatchNorm statistics over each rank's rows only: phase 29
+mutate dp_no_bn_reduce robust_object_detection_tpu_torch/parallel/mesh.py \
+  "    ctx = _ACTIVE
+    if ctx is None:
+        return mean, meansq" \
+  "    ctx = _ACTIVE
+    if True:
+        return mean, meansq" phase_parallel
