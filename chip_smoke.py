@@ -280,7 +280,24 @@ Phases:
      RT-DETR-L step with ``mesh.model=2`` against the one-process step on
      the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS); a
      gloo that refuses CUDA tensors is printed and the two-process part
-     skipped.
+     skipped;
+ 30. the host codec and the JPEG pipeline, with PIL and cv2 made
+     unimportable: the fixtures of tests/fixtures/jpeg (baseline, grey,
+     progressive, optimised, restart intervals, Adobe RGB) decode to the
+     SHA-256s of Pillow's pixels in their manifest; the encoder's bytes for
+     ``codec_image`` at 1x1, 17x300, 765x1360 and 1080x1920 and q 75, 92,
+     95 equal Pillow's (JPEG_GOLDEN), and decode to Pillow's pixels; host
+     ms an image of the decode and the encode at 765x1360 and 1080x1920 on
+     one thread and on 8, beside phase 27's BMP decode and resize; then a
+     JPEG DET split (``make_det_split``'s default ``jpg``, 16 val images
+     of 540-800 x 960-1400) and a VID split (2 sequences of 4 frames at
+     756x1344) through the CLI: ``convert-det-coco`` / ``-yolo``,
+     ``convert-vid-yolo``, ``build-testsets`` on the card held against the
+     CPU's build, ``restore-testsets`` (q 95 writes), one YOLOv8m step on
+     the VID frames (``--data-layout yolo``) with its validation, ``eval``
+     and ``eval-vid`` with YOLOv8m at batch 8 (phase 27's U-Net and
+     checkpoint where this process holds them, else one step each), launch
+     counters and finite mAPs as phase 27 checks them.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -299,13 +316,16 @@ result. The line before the last is the kernel summary
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4610,6 +4630,52 @@ class CallRecorder:
         self._undo = []
 
 
+def cli_runner(log, counters, rec, reads, seconds, launches):
+    """run(tag, *argv, steps=, forwards=): one command through cli.main on
+    the card, with the counters zeroed just before and read just after;
+    every recorded step / forward launches what CLI_EXPECT says, and they
+    account for every launch of the command; `reads` is emptied before it.
+    Returns (the command's result, its recorded calls)."""
+    import torch
+    from robust_object_detection_tpu_torch import cli
+
+    def run(tag, *argv, steps=None, forwards=None):
+        for f in counters.values():
+            f.launches = 0
+        start = len(rec.records)
+        del reads[:]
+        t0 = time.perf_counter()
+        out = cli.main(list(argv) + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds[tag] = time.perf_counter() - t0
+        got = {n: f.launches for n, f in counters.items()}
+        calls = rec.records[start:]
+        for kind, counts, _ in calls:
+            want = dict(CLI_EXPECT[kind])
+            if kind == "yolo_step" and "--augment" not in argv:
+                want["corrupt"] = 0      # Baseline: no K1
+            require(counts == want, f"{tag}: a {kind} launched {counts}, "
+                                    f"expected {want}")
+        summed = {n: sum(c[n] for _, c, _ in calls) for n in counters}
+        require(got == summed, f"{tag}: launches {got} outside the "
+                               f"recorded steps and forwards {summed}")
+        kinds = {}
+        for kind, _, _ in calls:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        for kind, n in (steps or {}).items():
+            require(kinds.get(kind, 0) == n,
+                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
+        for kind, n in (forwards or {}).items():
+            require(kinds.get(kind, 0) == n,
+                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
+        for n, v in got.items():
+            launches[n] += v
+        print(f"[{log}] {tag}: {seconds[tag]} s; calls {kinds}; launches "
+              f"{ {n: v for n, v in got.items() if v} }")
+        return out, calls
+    return run
+
+
 def hold_bmp_and_resize():
     """imageio against golden digests taken with PIL and cv2 elsewhere
     (neither is needed here): the BMP writer's bytes, resize_linear_u8's
@@ -4750,45 +4816,7 @@ def phase_cli(dev):
     IO.read_rgb = read_rgb
     seconds, launches = {}, dict.fromkeys(counters, 0)
     n_train, n_val = CLI_SPLITS
-    dev_flag = ["--device", "cuda"]
-
-    def run(tag, *argv, steps=None, forwards=None):
-        """One command: counters zeroed just before and read just after;
-        every recorded step / forward launches what CLI_EXPECT says, and
-        they account for every launch of the command."""
-        for f in counters.values():
-            f.launches = 0
-        start = len(rec.records)
-        del reads[:]
-        t0 = time.perf_counter()
-        out = cli.main(list(argv) + dev_flag)
-        torch.cuda.synchronize()
-        seconds[tag] = time.perf_counter() - t0
-        got = {n: f.launches for n, f in counters.items()}
-        calls = rec.records[start:]
-        for kind, counts, _ in calls:
-            want = dict(CLI_EXPECT[kind])
-            if kind == "yolo_step" and "--augment" not in argv:
-                want["corrupt"] = 0      # Baseline: no K1
-            require(counts == want, f"{tag}: a {kind} launched {counts}, "
-                                    f"expected {want}")
-        summed = {n: sum(c[n] for _, c, _ in calls) for n in counters}
-        require(got == summed, f"{tag}: launches {got} outside the "
-                               f"recorded steps and forwards {summed}")
-        kinds = {}
-        for kind, _, _ in calls:
-            kinds[kind] = kinds.get(kind, 0) + 1
-        for kind, n in (steps or {}).items():
-            require(kinds.get(kind, 0) == n,
-                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
-        for kind, n in (forwards or {}).items():
-            require(kinds.get(kind, 0) == n,
-                    f"{tag}: {kinds.get(kind, 0)} {kind}, expected {n}")
-        for n, v in got.items():
-            launches[n] += v
-        print(f"[cli] {tag}: {seconds[tag]} s; calls {kinds}; launches "
-              f"{ {n: v for n, v in got.items() if v} }")
-        return out, calls
+    run = cli_runner("cli", counters, rec, reads, seconds, launches)
 
     try:
         decode_ms, resize_ms = hold_bmp_and_resize()
@@ -4985,6 +5013,11 @@ def phase_cli(dev):
                     "load_checkpoint's EMA module")
             require(any(a != b for a, b in zip(cli_yolo, raw_h)),
                     "the CLI's YOLOv8m detections are the raw weights'")
+            held = Path(tempfile.mkdtemp(prefix="smoke_held_"))
+            atexit.register(shutil.rmtree, held, True)
+            HELD["unet"] = Path(shutil.move(str(unet), str(held / "unet")))
+            HELD["yolo"] = Path(shutil.move(str(ck / "yolo_baseline"),
+                                            str(held / "yolo_baseline")))
     finally:
         IO.read_rgb = real_read
         rec.restore()
@@ -4996,6 +5029,304 @@ def phase_cli(dev):
     print(f"[cli] seconds by command: {json.dumps(seconds)}")
     print(f"[cli] host ms an image: BMP decode {decode_ms}, resize "
           f"765x1360 -> 576x1024 {resize_ms}")
+    return launches
+
+
+# ── The host codec and the JPEG pipeline (phase 30) ─────────────────────
+
+HELD = {}      # phase 27's U-Net directory and YOLOv8m checkpoint
+JPEG_FIXTURES = ROOT / "tests" / "fixtures" / "jpeg"
+VID_HW = (756, 1344)                 # a VisDrone-VID frame
+VID_SEQS, VID_FRAMES = 2, 4
+CODEC_TIMED = ((765, 1360), (1080, 1920))
+CODEC_THREADS = 8
+# Pillow 12.1's Image.fromarray(codec_image(h, w)).save(buf, "JPEG",
+# quality=q): SHA-256 of the file's bytes and of the pixels Pillow decodes
+# from them (tools/make_jpeg_fixtures.py's Pillow; tests/test_torch_jpeg.py
+# holds these to Pillow)
+JPEG_GOLDEN = (
+    ((1, 1), 75,
+     "3e82b3dddff440afb3534b067b31b7e9d5ef3891377175a33b81ac423d0f373f",
+     "412c45d603453521684df8f679c7f68f0f22dd7697d37170385c8c7931636298"),
+    ((1, 1), 92,
+     "b7bc3897cbb999a8fd656d524cb0a047df04183132fa048027b09f8fdaf0edbb",
+     "412c45d603453521684df8f679c7f68f0f22dd7697d37170385c8c7931636298"),
+    ((1, 1), 95,
+     "9a856a7f3992c7c15520fef9722a1df709ff98dda6426e2fec034e42774050b2",
+     "412c45d603453521684df8f679c7f68f0f22dd7697d37170385c8c7931636298"),
+    ((17, 300), 75,
+     "249aeba46c7704ec1303d23bacdfed41dd38496407dab72e8e8462750f41484c",
+     "15108ddde3e4fcff5839af742b67e0a3e25b72e0582518504ee0a1cc282567f0"),
+    ((17, 300), 92,
+     "965ad0293a5775c38b18efec3427bd42666b98566c9ed68cc867e31255f399da",
+     "166e1c3974dd47f5f2c38fe16368db14577d8ca7f21c3ae17e589657db172120"),
+    ((17, 300), 95,
+     "d697311edbd797d17321a77de9bc94d891ffe086d55337e0a09eabb0ed247efd",
+     "84f8d73f7c21d40e73a2b740193b17a01f0d0b4ca8b7f2e0897f92f4049b4a98"),
+    ((765, 1360), 75,
+     "ee9cfa53d45108d898baf56d9884390eecec3f70c2215dfd72cfc1ce344e8dcc",
+     "68b25cb5bd2d3f754e620e03b1ec89faec8a684b492091724f44a1b280b21952"),
+    ((765, 1360), 92,
+     "f1706e20b821fb27bc2e40a4a579b8a5d65df180b0cba75d780ce79e94f26c05",
+     "db1ce0e92df4003e0e210f9eb64c43fcd696118dc65156214d86e544d0b1e60f"),
+    ((765, 1360), 95,
+     "5517104dac4bf658e67d1533c29914cd63e8c83cdf1d146018a8220de19f2e51",
+     "844689dd8cb2cbbfbd36e9bb2bd854c13a76cf385b601779eb8172beb48b1c77"),
+    ((1080, 1920), 75,
+     "696664f145790c783eebb1fde3ae431e5c4e3c8f8921e1bcc3049046a7a56e20",
+     "a6e2209ead128070690bd79e2eb8c2f8047368321676c26da0f253804cf129c4"),
+    ((1080, 1920), 92,
+     "64eb2537cb9cb0fe716cd193d0756dd66c2a303876a8e3bbe5b2ef44bff66b7c",
+     "7a16f5f6e6969430261931b50abe14d0159efe51f70f6808add0928456ab8f53"),
+    ((1080, 1920), 95,
+     "fedb96fbf41bde5031e1fc4a9091075192639ba1c4ecca677496a97949cfb973",
+     "7b115e03c3ead70a9674484bf42e4cb8ecccef642d2645efaf12127b5fe0568d"))
+
+
+def codec_image(h: int, w: int):
+    """A gradient with noise seeded by the size: the codec's test image
+    (AC content in every block, as a photograph has)."""
+    import numpy as np
+    rng = np.random.RandomState(1900 + h + w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
+                     (xx + yy) * 255 // max(w + h - 2, 1)], -1)
+    return np.clip(base + rng.randint(-24, 25, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def hold_codec():
+    """(a) the fixtures against their manifest; (b) the encoder's bytes and
+    the decoder's pixels against JPEG_GOLDEN."""
+    import hashlib
+
+    from robust_object_detection_tpu_torch.data import imageio as IO
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+    manifest = json.loads((JPEG_FIXTURES / "MANIFEST.json").read_text())
+    require(len(manifest) >= 10, f"{len(manifest)} JPEG fixtures")
+    for name, entry in manifest.items():
+        px = IO.read_rgb(JPEG_FIXTURES / entry["file"])
+        got = sha(px.tobytes())
+        require(px.shape == (entry["height"], entry["width"], 3)
+                and got == entry["pixels_sha256"],
+                f"fixture {name}: decoded pixels {px.shape} {got} differ "
+                f"from Pillow's {entry['pixels_sha256']}")
+    print(f"[codec] (a) {len(manifest)} fixtures ("
+          + ", ".join(manifest) + ") decode to Pillow's pixels (SHA-256)")
+    require(len(JPEG_GOLDEN) == 12, "JPEG_GOLDEN")
+    for (h, w), q, file_sha, pixels_sha in JPEG_GOLDEN:
+        data = IO.jpeg_bytes(codec_image(h, w), q)
+        require(sha(data) == file_sha, f"JPEG bytes of a {h}x{w} image at "
+                                       f"q {q} differ from Pillow's")
+        px = IO.native.jpeg_decode(data)
+        require(sha(px.tobytes()) == pixels_sha,
+                f"decoded {h}x{w} q {q} differs from Pillow's pixels")
+    print(f"[codec] (b) encoder bytes equal Pillow's and decode to its "
+          f"pixels: {len(JPEG_GOLDEN)} of {len(JPEG_GOLDEN)} (sizes "
+          f"{sorted({g[0] for g in JPEG_GOLDEN})}, q 75 / 92 / 95)")
+
+
+def codec_timings():
+    """(c) host ms an image of the decode and the encode (q 95) at the
+    CODEC_TIMED sizes: one thread (median of 5), and CODEC_THREADS threads
+    over 2 x CODEC_THREADS images (wall / images, median of 3)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from robust_object_detection_tpu_torch.data import imageio as IO
+    out = {}
+    with ThreadPoolExecutor(CODEC_THREADS) as pool:
+        for h, w in CODEC_TIMED:
+            img = codec_image(h, w)
+            data = IO.jpeg_bytes(img, 95)
+            row = {"bytes": len(data)}
+            for what, fn, arg in (
+                    ("decode", IO.native.jpeg_decode, data),
+                    ("encode", lambda a: IO.jpeg_bytes(a, 95), img)):
+                one = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    fn(arg)
+                    one.append((time.perf_counter() - t0) * 1e3)
+                many = []
+                n = 2 * CODEC_THREADS
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    list(pool.map(fn, [arg] * n))
+                    many.append((time.perf_counter() - t0) * 1e3 / n)
+                row[f"{what}_ms_1_thread"] = statistics.median(one)
+                row[f"{what}_ms_{CODEC_THREADS}_threads"] = \
+                    statistics.median(many)
+            out[f"{h}x{w}"] = row
+    return out
+
+
+def host_cpu() -> str:
+    """lscpu's model name, with the vendor, the CPU count and the SIMD
+    levels beside it (a sandboxed host may report the name as unknown)."""
+    info = {}
+    for ln in run_cmd(["lscpu"]).splitlines():
+        k, _, v = ln.partition(":")
+        info[k.strip()] = v.strip()
+    flags = info.get("Flags", "").split()
+    simd = [f for f in ("avx2", "avx512f", "avx512bw") if f in flags]
+    return (f"{info.get('Model name', 'unknown')} ({info.get('Vendor ID', '?')}"
+            f", {info.get('CPU(s)', '?')} CPUs, {' '.join(simd) or 'no avx2'})")
+
+
+def phase_codec(dev):
+    """The host codec with PIL and cv2 made unimportable, then a JPEG DET
+    split and a VID split through the CLI. Returns the launch counts."""
+    from robust_object_detection_tpu_torch import cli
+    from robust_object_detection_tpu_torch.data import imageio as IO
+    from robust_object_detection_tpu_torch.data import synthetic
+    from robust_object_detection_tpu_torch.train import detector as D
+    from robust_object_detection_tpu_torch.train import frcnn as FR
+    from robust_object_detection_tpu_torch.train import rtdetr as RT
+
+    cpu = host_cpu()
+    card = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).strip()
+    blocked = {m: sys.modules.get(m) for m in ("PIL", "cv2")}
+    for m in blocked:
+        sys.modules[m] = None           # any import of them now raises
+    counters = summary_counters()
+    rec = CallRecorder(counters)
+    for module, tag in ((D, "yolo"), (RT, "rtdetr"), (FR, "frcnn")):
+        rec.wrap(module, "make_train_step", f"{tag}_step")
+        rec.wrap(module, "make_predict_step", f"{tag}_fwd", digest=True)
+    reads = []
+    real_read = IO.read_rgb
+
+    def read_rgb(path):
+        reads.append(str(path))
+        return real_read(path)
+    seconds, launches = {}, dict.fromkeys(counters, 0)
+    run = cli_runner("jpeg", counters, rec, reads, seconds, launches)
+    n_val = CLI_SPLITS[1]
+    try:
+        hold_codec()
+        timings = codec_timings()
+        bmp_ms, resize_ms = hold_bmp_and_resize()
+        print(f"[codec] (c) host ms an image ({card}; host CPU {cpu}): "
+              f"{json.dumps(timings)}; BMP decode 765x1360 {bmp_ms}, "
+              f"resize_linear_u8 765x1360 -> 576x1024 {resize_ms}")
+        IO.read_rgb = read_rgb
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            raw = synthetic.make_det_split(tmp / "raw_val", n_images=n_val,
+                                           seed=SEED + 40,
+                                           size_range=CLI_SIZE_RANGE)
+            vid = synthetic.make_vid_split(tmp / "raw_vid", n_seqs=VID_SEQS,
+                                           frames_per_seq=VID_FRAMES,
+                                           seed=SEED + 41, hw=VID_HW)
+            seconds["make splits"] = time.perf_counter() - t0
+            names = sorted(p.name for p in (raw / "images").iterdir())
+            require(len(names) == n_val
+                    and all(n.endswith(".jpg") for n in names),
+                    f"the DET split is not {n_val} JPEG files: {names}")
+            print(f"[jpeg] splits: {n_val} JPEG DET images, {VID_SEQS} x "
+                  f"{VID_FRAMES} VID frames at {VID_HW}; "
+                  f"{seconds['make splits']} s")
+            proc = tmp / "processed"
+            coco, yolo = proc / "visdrone_coco6", proc / "visdrone_yolo6"
+            vid_yolo = tmp / "visdrone_vid_yolo6"
+            for s in ("train", "val"):
+                run(f"convert-det-coco {s}", "convert-det-coco", "--src",
+                    str(raw), "--out", str(coco), "--split", s)
+                run(f"convert-vid-yolo {s}", "convert-vid-yolo", "--src",
+                    str(vid), "--out", str(vid_yolo), "--split", s)
+            run("convert-det-yolo val", "convert-det-yolo", "--src",
+                str(raw), "--out", str(yolo), "--split", "val")
+            frames = sorted((vid_yolo / "images" / "val").iterdir())
+            require(len(frames) == VID_SEQS * VID_FRAMES and all(
+                IO.image_size(p) == VID_HW[::-1] for p in frames),
+                f"VID frames {[(p.name, IO.image_size(p)) for p in frames]}")
+
+            testsets, cpu_sets = tmp / "testsets", tmp / "testsets_cpu"
+            run("build-testsets", "build-testsets", "--processed-root",
+                str(proc), "--out", str(testsets))
+            t0 = time.perf_counter()
+            cli.main(["build-testsets", "--processed-root", str(proc),
+                      "--out", str(cpu_sets), "--device", "cpu"])
+            seconds["build-testsets (CPU)"] = time.perf_counter() - t0
+            same_testsets(testsets, cpu_sets)
+            shutil.rmtree(cpu_sets)
+            require(all(p.suffix == ".jpg" for p in
+                        (testsets / "coco6").rglob("images/val/*")),
+                    "the testsets are not JPEG")
+
+            unet = HELD.get("unet")
+            if unet is None:
+                unet = tmp / "unet"
+                run("train-restoration", "train-restoration", "--train-dir",
+                    str(coco / "images" / "val"), "--val-dir",
+                    str(coco / "images" / "val"), "--out", str(unet),
+                    "--max-steps", "1")
+            counts, _ = run("restore-testsets", "restore-testsets",
+                            "--testset-root", str(testsets), "--unet-dir",
+                            str(unet))
+            want = {f"{f}/{v}": n_val for f in ("coco6", "yolo6") for v in (
+                "Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")}
+            require(counts == want, f"restore-testsets counts {counts}")
+
+            ck = tmp / "ckpt"
+            common = ["--epochs", "1", "--max-steps", "1", "--img-size",
+                      str(IMG_SIZE), "--batch-size", str(BATCH)]
+            det = HELD.get("yolo")
+            if det is None:
+                det = ck / "yolo_det"
+                run("train-detector yolo (DET)", "train-detector", "--model",
+                    "yolo", "--data-root", str(coco), "--out", str(det),
+                    *common, steps={"yolo_step": 1},
+                    forwards={"yolo_fwd": -(-n_val // BATCH)})
+            n_frames = VID_SEQS * VID_FRAMES
+            out, _ = run("train-detector yolo (VID)", "train-detector",
+                         "--model", "yolo", "--data-layout", "yolo",
+                         "--data-root", str(vid_yolo), "--out",
+                         str(ck / "yolo_vid"), *common,
+                         steps={"yolo_step": 1},
+                         forwards={"yolo_fwd": -(-n_frames // BATCH)})
+            require(reads and all(p.endswith(".jpg") and "/images/" in p
+                                  and "visdrone_vid_yolo6" in p
+                                  for p in reads),
+                    "the VID training read outside the VID JPEG frames")
+            require(out["steps"] == 1 and math.isfinite(out["final_loss"]),
+                    f"VID training: {out}")
+            exp = tmp / "experiments"
+            sweep = ["--testset-root", str(testsets), "--img-size",
+                     str(IMG_SIZE), "--batch-size", str(BATCH), "--out",
+                     str(exp)]
+            per_model = 4 * -(-n_val // BATCH)
+            run("eval", "eval", "--model", f"yolo_baseline=yolo:{det}",
+                *sweep, forwards={"yolo_fwd": per_model})
+            require(reads and all("/coco6/" in p and p.endswith(".jpg")
+                                  for p in reads),
+                    "eval read outside the coco6 JPEG testsets")
+            run("eval-vid", "eval-vid", "--model",
+                f"yolo_vid=yolo:{ck / 'yolo_vid'}", *sweep,
+                forwards={"yolo_fwd": per_model})
+            n_results = {}
+            for name in ("eval_results", "vid_eval_results"):
+                res, n_results[name] = finite_results(exp / f"{name}.json")
+                print(f"[jpeg] {name}: " + "; ".join(
+                    f"{m} " + ", ".join(
+                        f"{v[5:]} mAP50 {s['mAP50']} "
+                        f"{1000 / s['images_per_sec']:.1f} ms an image"
+                        for v, s in per.items())
+                    for m, per in res.items()))
+            print(f"[jpeg] finite mAPs: {n_results} (model, variant) cells")
+    finally:
+        IO.read_rgb = real_read
+        rec.restore()
+        for m, mod in blocked.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    print(f"[jpeg] seconds by command: {json.dumps(seconds)}")
     return launches
 
 
@@ -5593,6 +5924,7 @@ def main() -> int:
     cli_launches = timed(phase_cli)
     frcnn_bf16_launches = timed(phase_frcnn_bf16)
     parallel_launches = timed(phase_parallel)
+    codec_launches = timed(phase_codec)
     print(f"[phase] seconds: {json.dumps(phase_s)}")
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
@@ -5600,7 +5932,7 @@ def main() -> int:
                  generation_launches, restored_launches,
                  frcnn_train_launches, yolo_trainer_launches,
                  rtdetr_trainer_launches, cli_launches, frcnn_bf16_launches,
-                 parallel_launches):
+                 parallel_launches, codec_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

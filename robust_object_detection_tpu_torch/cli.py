@@ -19,9 +19,12 @@ Commands:
   plot / plot-three / plot-vid      figures (matplotlib)
   demo                    demo strips (cv2 for the drawing)
 
-Images are read and written through data/imageio.py: a ``.bmp`` split needs
-neither PIL nor cv2. Checkpoints are the port's (``torch.save``); a
-detector checkpoint loads with its EMA weights (``load_checkpoint``).
+Images are read and written through data/imageio.py: JPEG, PNG and BMP
+splits need neither PIL nor cv2. Checkpoints are the port's
+(``torch.save``); a detector checkpoint loads with its EMA weights
+(``load_checkpoint``). ``--pretrained`` reads a state_dict file; with
+``--allow-pickle`` also a pickled ``nn.Module`` (an Ultralytics ``.pt``),
+for trusted files only.
 """
 
 from __future__ import annotations
@@ -29,12 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
-
-ROADMAP_3D = ("--allow-pickle is not supported: the port reads pretrained "
-              "weights with torch.load(weights_only=True) only; export the "
-              "checkpoint's state_dict first (ROADMAP.md §1 item 3d, "
-              "'allow_pickle')")
-
 
 def _cfg(args) -> "ExperimentConfig":
     from .core import config as config_lib
@@ -102,8 +99,6 @@ def cmd_restore_testsets(args):
 
 def cmd_train_detector(args):
     cfg = _cfg(args)
-    if args.allow_pickle:
-        raise SystemExit(ROADMAP_3D)
     if args.model == "yolo":
         from .train import detector
         out = detector.train(cfg, args.data_root, args.out,
@@ -113,6 +108,7 @@ def cmd_train_detector(args):
                              max_steps=args.max_steps,
                              layout=args.data_layout,
                              pretrained=args.pretrained,
+                             allow_pickle=args.allow_pickle,
                              dtype=args.dtype, device=_device(args))
     elif args.model == "frcnn":
         from .train import frcnn
@@ -122,6 +118,7 @@ def cmd_train_detector(args):
                           batch_size=args.batch_size or 2,
                           max_steps=args.max_steps,
                           pretrained=args.pretrained,
+                          allow_pickle=args.allow_pickle,
                           trainable_layers=args.trainable_layers,
                           dtype=args.dtype, device=_device(args))
     elif args.model == "rtdetr":
@@ -133,6 +130,7 @@ def cmd_train_detector(args):
                            max_steps=args.max_steps,
                            layout=args.data_layout,
                            pretrained=args.pretrained,
+                           allow_pickle=args.allow_pickle,
                            dtype=args.dtype, device=_device(args))
     else:
         raise SystemExit(f"unknown model {args.model!r}")
@@ -385,8 +383,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "help": "state_dict file to import "
                                      "(Ultralytics / torchvision layout)"}),
         (("--allow-pickle",), {"action": "store_true",
-                               "help": "not supported: pretrained weights "
-                                       "are read with weights_only=True"}),
+                               "help": "also read a --pretrained file that "
+                                       "pickles an nn.Module (trusted "
+                                       "files only)"}),
         (("--dtype",), {"default": None,
                         "choices": ["bfloat16", "float32"],
                         "help": "compute dtype (default: bfloat16 on the "

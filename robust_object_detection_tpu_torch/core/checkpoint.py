@@ -14,13 +14,19 @@ dicts and lists of tensors and numbers (a ``state_dict``, an optimizer's
 place with ``os.replace``, so a write cut short leaves the previous
 checkpoint readable. Orbax checkpoints are not read: JAX weights come
 across through ``models/convert.py``.
+
+:func:`load_weights` reads a pretrained weights file (the counterpart of
+the reference's ``models/pretrained.load_checkpoint_state``): a plain
+``state_dict``, one under ``"ema"`` / ``"model"``, or, with
+``allow_pickle=True`` only, a pickled ``nn.Module`` (an Ultralytics
+``.pt``).
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -40,6 +46,36 @@ def _atomic_save(obj: Any, path: Path) -> None:
 
 def _load(path: Path, map_location) -> Any:
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def load_weights(path: str | Path, allow_pickle: bool = False
+                 ) -> Mapping[str, torch.Tensor]:
+    """A pretrained weights file -> its state_dict, on the CPU.
+
+    The file is read with ``weights_only=True``. One that cannot be read so
+    (an Ultralytics ``.pt`` pickles the whole ``nn.Module``) raises a
+    ValueError naming ``allow_pickle``, unless `allow_pickle` is True: then
+    it is read again with ``weights_only=False``, which runs the pickle's
+    code, so set it only for files you trust. The payload under ``"ema"``,
+    else ``"model"``, is taken where there is one, and an ``nn.Module`` is
+    turned into its ``.float().state_dict()``."""
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        if not allow_pickle:
+            raise ValueError(
+                f"{path} is not a plain-tensor checkpoint (Ultralytics .pt "
+                f"files pickle the whole nn.Module). Re-load with "
+                f"allow_pickle=True if the file is trusted, or export its "
+                f"state_dict first.") from e
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("ema", "model"):
+        if isinstance(obj, Mapping) and obj.get(key) is not None:
+            obj = obj[key]
+            break
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.float().state_dict()
+    return obj
 
 
 class CheckpointManager:

@@ -8,10 +8,11 @@ robust_object_detection_tpu/data/pipeline.py).
   * a bounded background thread (``prefetch``) overlaps host decode with
     the card's work.
 
-Decode and resize go through data/imageio.py: ``.bmp`` in numpy, JPEG and
-PNG through PIL imported at the call, the resize a numpy copy of cv2's
-INTER_LINEAR, so a BMP split runs where neither PIL nor cv2 is installed.
-Callers may also serve images from memory (``load_image=``).
+Decode and resize go through data/imageio.py: JPEG through the port's
+own codec (native/jpeg.cc), PNG and BMP in numpy, the resize a numpy copy
+of cv2's INTER_LINEAR, so every split runs where neither PIL nor cv2 is
+installed; ctypes releases the GIL, so ``prefetch``'s threads decode in
+parallel. Callers may also serve images from memory (``load_image=``).
 """
 
 from __future__ import annotations

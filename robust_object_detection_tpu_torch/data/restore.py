@@ -8,8 +8,9 @@ unchanged; labels, annotations and ``data.yaml`` are copied, with
 ``data.yaml``'s paths pointing at the restored root. Images are grouped by
 padded shape and run in batches through ``models/unet.apply_u8`` (uint8 to
 the card and back); batch k + 1 is decoded and launched before batch k is
-fetched and encoded. data/imageio.py reads and writes the files (``.bmp``
-in numpy, JPEG and PNG through PIL at the call).
+fetched and encoded. data/imageio.py reads and writes the files (JPEG
+through the port's codec at q 95, PNG and BMP in numpy; neither PIL nor
+cv2).
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Synthetic mini-VisDrone generator for tests (counterpart of
 robust_object_detection_tpu/data/synthetic.py: the same seed gives the same
-files, byte for byte). Images are written through data/imageio.py, so
-``ext="bmp"`` needs no image library; JPEG and PNG go through PIL at the
-call.
+files, byte for byte). Images are written through data/imageio.py, whose
+JPEG, PNG and BMP writers give Pillow's bytes and need no image library.
 
 The reference has no test suite (SURVEY.md §4); our converter/pipeline tests
 run against a generated miniature dataset with the exact VisDrone on-disk

@@ -19,9 +19,10 @@ as the reference does:
   * Labels and annotations are copied unchanged; every YOLO variant gets a
     ``data.yaml`` pointing val at ``images/val``.
 
-Images are read and written through data/imageio.py (``.bmp`` in numpy,
-JPEG and PNG through PIL at the call): ``.jpg`` is re-encoded at quality
-95, lossless formats round-trip exactly.
+Images are read and written through data/imageio.py (JPEG through the
+port's codec, PNG and BMP in numpy; neither PIL nor cv2): ``.jpg`` is
+re-encoded at quality 95 into Pillow's bytes, lossless formats round-trip
+exactly.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """VisDrone annotation parsing (DET + VID), class filtering, box clamping
 (counterpart of robust_object_detection_tpu/data/visdrone.py; image sizes
 come from the header through data/imageio.py, so no image library is
-needed for a BMP split).
+needed).
 
 Reference semantics reproduced (with file:line citations so parity can be
 audited):

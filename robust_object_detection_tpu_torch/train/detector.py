@@ -32,6 +32,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 
 from ..core import artifacts
+from ..core import checkpoint as ckpt_lib
 from ..core.checkpoint import CheckpointManager
 from ..core.config import CorruptionConfig, ExperimentConfig
 from ..data import pipeline as pipe
@@ -231,10 +232,12 @@ def make_predict_step(img_size: int, conf: float = 0.001, iou: float = 0.7,
 def load_pretrained(model: torch.nn.Module,
                     state: Union[str, Path, Mapping[str, torch.Tensor]],
                     head_prefixes: Sequence[str] = ("model.22.cv3.",),
-                    partial_rows: Sequence[str] = ()) -> Dict[str, list]:
+                    partial_rows: Sequence[str] = (),
+                    allow_pickle: bool = False) -> Dict[str, list]:
     """Load an Ultralytics-layout state_dict (the port's key layout; a path
-    to a ``torch.save`` file, read with ``weights_only=True``, plain or
-    under ``"ema"`` / ``"model"``) into `model`. Tensors under
+    to a ``torch.save`` file, plain or under ``"ema"`` / ``"model"``, read
+    by ``core.checkpoint.load_weights``: a pickled ``nn.Module`` needs
+    `allow_pickle`) into `model`. Tensors under
     `head_prefixes` whose shape differs (the class-count-dependent heads of
     a COCO-80 checkpoint onto the 6-class model) keep their fresh init,
     as the reference's ``import_yolov8(strict_head=False)``; a table in
@@ -242,7 +245,7 @@ def load_pretrained(model: torch.nn.Module,
     (the rest keep their init). Any other missing, extra or mismatched
     tensor raises. Returns {"imported", "skipped"}."""
     if not isinstance(state, Mapping):
-        state = torch.load(state, map_location="cpu", weights_only=True)
+        state = ckpt_lib.load_weights(state, allow_pickle)
     for key in ("ema", "model"):
         if isinstance(state.get(key), Mapping):
             state = state[key]
@@ -337,6 +340,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
           base_augment: bool = True, mosaic: bool = True,
           close_mosaic: int = 10, val_interval: int = 1,
           pretrained: Optional[Union[str, Path, Mapping]] = None,
+          allow_pickle: bool = False,
           dtype: Optional[str] = None,
           save_every_steps: Optional[int] = None,
           device: Optional[torch.device] = None,
@@ -352,7 +356,8 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     logging mAP50 / mAP50_95 and keeping the best-mAP50 checkpoint; skipped
     when the root has no val split. pretrained: an Ultralytics-layout
     state_dict or its file (:func:`load_pretrained`; the class-dependent
-    head keeps its fresh init). dtype: "bfloat16" (the card's default, as
+    head keeps its fresh init); allow_pickle: read a pickled-module file
+    (an Ultralytics ``.pt``; trusted files only). dtype: "bfloat16" (the card's default, as
     the reference's on the TPU) or "float32"; parameters and running
     statistics stay f32. save_every_steps: also write ``last`` every N
     steps, keyed by the global step with {epoch, batch_in_epoch,
@@ -396,7 +401,8 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                             torch.Generator().manual_seed(tcfg.seed),
                             train=True, bn_dtype=model_dtype)
     if pretrained:
-        report = load_pretrained(model, pretrained)
+        report = load_pretrained(model, pretrained,
+                                 allow_pickle=allow_pickle)
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
     mesh_lib.replicate_tree(mesh, model)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..core import artifacts
+from ..core import checkpoint as ckpt_lib
 from ..core.checkpoint import CheckpointManager
 from ..core.config import CorruptionConfig, ExperimentConfig
 from ..data import pipeline as pipe
@@ -416,19 +417,18 @@ def make_predict_step(model: F.FasterRCNN, img_size) -> Callable:
 # ── Pretrained weights ───────────────────────────────────────────────────
 
 def load_pretrained(model: F.FasterRCNN,
-                    state: Union[str, Path, Mapping[str, torch.Tensor]]
-                    ) -> Dict[str, list]:
+                    state: Union[str, Path, Mapping[str, torch.Tensor]],
+                    allow_pickle: bool = False) -> Dict[str, list]:
     """Load a torchvision ``fasterrcnn_resnet50_fpn_v2`` state_dict (the
-    port's key layout; a path to a ``torch.save`` file, read with
-    ``weights_only=True``, plain or under ``"model"``) into `model`. The
+    port's key layout; a path to a ``torch.save`` file, plain or under
+    ``"ema"`` / ``"model"``, read by ``core.checkpoint.load_weights``: a
+    pickled ``nn.Module`` needs `allow_pickle`) into `model`. The
     ``roi_heads.box_predictor`` tensors whose shape differs (a COCO-91
     checkpoint onto the 7-class head) keep their fresh init, as the
     reference's ``import_frcnn(strict_head=False)``; any other missing,
     extra or mismatched tensor raises. Returns {"imported", "skipped"}."""
     if not isinstance(state, Mapping):
-        state = torch.load(state, map_location="cpu", weights_only=True)
-        if isinstance(state.get("model"), Mapping):
-            state = state["model"]
+        state = ckpt_lib.load_weights(state, allow_pickle)
     own = model.state_dict()
     merged, report = {}, {"imported": [], "skipped": []}
     for key, t in own.items():
@@ -464,6 +464,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
           batch_size: int = 2, max_steps: Optional[int] = None,
           max_boxes: int = 600, val_interval: int = 0,
           pretrained: Optional[Union[str, Path, Mapping]] = None,
+          allow_pickle: bool = False,
           trainable_layers: Optional[int] = None,
           model_kwargs: Optional[dict] = None,
           native_res: bool = False, min_side: float = 800.0,
@@ -488,7 +489,8 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     after the final epoch; N adds one every N epochs. Each validation logs
     mAP50 / mAP50_95 into history.jsonl and keeps the best-mAP50 weights.
     pretrained: a torchvision-layout state_dict or its file
-    (:func:`load_pretrained`). trainable_layers: torchvision's 0..5; None
+    (:func:`load_pretrained`); allow_pickle: read a pickled-module file
+    (trusted files only). trainable_layers: torchvision's 0..5; None
     is 3 with pretrained weights, 5 without. model_kwargs: extra
     FrcnnConfig fields. native_res=True trains every image at the exact
     min_side / max_side scale padded into the smallest bucket_mult-aligned
@@ -542,7 +544,8 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                      torch.Generator().manual_seed(cfg.train.seed),
                      model_dtype)
     if pretrained:
-        report = load_pretrained(model, pretrained)
+        report = load_pretrained(model, pretrained,
+                                 allow_pickle=allow_pickle)
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
     mesh_lib.replicate_tree(mesh, model)

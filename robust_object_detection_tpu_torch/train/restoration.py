@@ -15,8 +15,8 @@ standard normal; every step function also takes the draws as arrays, so
 tests hand both packages the same ones. The reference folds the step
 into a key and splits it instead.
 
-``PatchDataset`` decodes and resizes through data/imageio.py (``.bmp`` in
-numpy, JPEG and PNG through PIL at the call, cv2's INTER_LINEAR in numpy).
+``PatchDataset`` decodes and resizes through data/imageio.py (JPEG through
+the port's codec, PNG and BMP in numpy, cv2's INTER_LINEAR in numpy).
 """
 
 from __future__ import annotations

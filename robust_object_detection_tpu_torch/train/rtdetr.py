@@ -646,6 +646,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
           max_boxes: int = 600, layout: str = "coco", val_interval: int = 1,
           lrf: float = 0.01,
           pretrained: Optional[Union[str, Path, Mapping]] = None,
+          allow_pickle: bool = False,
           dtype: Optional[str] = None, base_augment: bool = True,
           mosaic: bool = True, close_mosaic: int = 10,
           model_kwargs: Optional[dict] = None,
@@ -662,7 +663,8 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
     mosaic + affine until the last close_mosaic epochs. pretrained: an
     rtdetr-l-layout state_dict or its file; the class-dependent score
     heads keep their fresh init when their shape differs, and a shorter
-    denoising class table fills its first rows. model_kwargs: extra
+    denoising class table fills its first rows; allow_pickle: read a
+    pickled-module file (trusted files only). model_kwargs: extra
     RtDetrConfig fields. The matcher is the module's ``ASSIGNMENT``; the
     image-matchings the auction capped are logged as ``matcher_capped``.
 
@@ -701,7 +703,7 @@ def train(cfg: ExperimentConfig, data_root: str | Path, out_dir: str | Path,
                               **(model_kwargs or {}))
     if pretrained:
         report = load_pretrained(model, pretrained, RTDETR_HEADS,
-                                 (DN_TABLE,))
+                                 (DN_TABLE,), allow_pickle=allow_pickle)
         print(f"pretrained import: imported {len(report['imported'])} "
               f"tensors, skipped {report['skipped']}")
     mesh_lib.replicate_tree(mesh, model)

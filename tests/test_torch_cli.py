@@ -16,9 +16,9 @@ reference's, and the port's env-driven process group
     near 1 and a wrong box lowers them;
   * ``train-detector`` (all three models) and ``train-restoration`` write
     the reference's checkpoint layout and print its result keys;
-  * the refusals: ``--allow-pickle``, and a computing command without a
-    card and without ``--device cpu``; Faster R-CNN in bfloat16 reaches
-    its trainer;
+  * the refusal of a computing command without a card and without
+    ``--device cpu``; Faster R-CNN in bfloat16 and ``--allow-pickle``
+    reach their trainer;
   * ``python -m robust_object_detection_tpu_torch.cli`` runs;
   * ``shard_samples`` and ``local_batch_size`` equal the reference's,
     ``maybe_initialize`` is False without the environment and joins a
@@ -466,18 +466,21 @@ def test_train_restoration_and_restore_testsets(prepared, tmp_path, capsys):
 
 def test_frcnn_bfloat16_and_allow_pickle_are_refused(tmp_path,
                                                      monkeypatch):
-    """Faster R-CNN's bfloat16 mode is ported: the CLI no longer refuses it
-    and hands --dtype to frcnn.train (tests/test_torch_frcnn_bf16.py
-    trains through it); --allow-pickle stays refused."""
+    """Faster R-CNN's bfloat16 mode and --allow-pickle are ported: the CLI
+    refuses neither and hands --dtype and allow_pickle to the trainer
+    (tests/test_torch_frcnn_bf16.py trains through the first,
+    tests/test_torch_pretrained_pickle.py loads through the second)."""
+    from robust_object_detection_tpu_torch.train import detector as tdet
     from robust_object_detection_tpu_torch.train import frcnn as tfr
     common = ["train-detector", "--data-root", str(tmp_path), "--out",
               str(tmp_path / "o")]
     seen = {}
     monkeypatch.setattr(tfr, "train", lambda *a, **k: seen.update(k) or {})
+    monkeypatch.setattr(tdet, "train", lambda *a, **k: seen.update(k) or {})
     _port(*common, "--model", "frcnn", "--dtype", "bfloat16")
-    assert seen["dtype"] == "bfloat16"
-    with pytest.raises(SystemExit, match="3d"):
-        _port(*common, "--model", "yolo", "--allow-pickle")
+    assert seen["dtype"] == "bfloat16" and seen["allow_pickle"] is False
+    _port(*common, "--model", "yolo", "--allow-pickle")
+    assert seen["allow_pickle"] is True
 
 
 def test_a_computing_command_needs_the_card_or_cpu(prepared, tmp_path):

@@ -7,7 +7,14 @@ data/synthetic.py) against the reference's, on the same files.
     the VID flattening equal the reference's byte for byte (data.yaml up
     to its absolute root path);
   * ``coco_ground_truth`` gives the reference's arrays;
-  * a BMP split prepares without PIL or cv2.
+  * a BMP split prepares without PIL or cv2;
+  * on JPEG splits (the synthetic default, as VisDrone ships), with PIL
+    and cv2 unimportable on the port's side: ``build_coco_testsets``
+    writes the reference's files byte for byte wherever it encodes the
+    reference's pixels (Clean, Noise; Blur and LowRes pixels are within
+    its 1 LSB), and every JPEG it writes is Pillow's for its pixels;
+    ``load_image_rgb`` decodes what the reference's cv2 path decodes, and
+    a VID split converts, indexes and decodes as the reference's does.
 """
 
 import os
@@ -18,12 +25,20 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch
+
 from robust_object_detection_tpu.data import convert as JC
+from robust_object_detection_tpu.data import pipeline as JP
 from robust_object_detection_tpu.data import synthetic as JS
+from robust_object_detection_tpu.data import testsets as JT
 from robust_object_detection_tpu.data import visdrone as JV
 from robust_object_detection_tpu_torch.data import convert as TC
+from robust_object_detection_tpu_torch.data import pipeline as TP
 from robust_object_detection_tpu_torch.data import synthetic as TS
+from robust_object_detection_tpu_torch.data import testsets as TT
 from robust_object_detection_tpu_torch.data import visdrone as TV
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -156,3 +171,103 @@ def test_bmp_split_prepares_without_pil_or_cv2(tmp_path):
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.splitlines()[-1] == "3 (64, 64, 3)"
+
+
+# ── JPEG splits ──────────────────────────────────────────────────────────
+
+def test_jpeg_testsets_are_the_references_bytes(tmp_path, monkeypatch):
+    """build_coco_testsets on a JPEG split (make_det_split's default): the
+    pixels each side encodes are captured. Every file whose pixels equal
+    the reference's (Clean and Noise always: the same decode and the same
+    MT19937 stream) is the reference's file byte for byte, as are the
+    labels and the annotations; Blur and LowRes pixels are within the
+    reference's 1 LSB, and every file the port writes is the JPEG Pillow
+    writes for the port's pixels (q 95)."""
+    import io
+
+    from PIL import Image
+
+    split = TS.make_det_split(tmp_path / "raw", n_images=3, seed=7,
+                              size_range=((40, 57), (48, 81)))
+    assert sorted(p.suffix for p in (split / "images").iterdir()) == \
+        [".jpg"] * 3
+    coco = tmp_path / "coco"
+    JC.convert_det_to_coco(split, coco, "val")
+    written = {"ref": {}, "port": {}}
+
+    def capture(side, real):
+        def write(path, img, quality=95):
+            written[side][Path(path).relative_to(tmp_path / side)
+                          .as_posix()] = (np.array(img), quality)
+            return real(path, img, quality)
+        return write
+    monkeypatch.setattr(JT, "_write_image",
+                        capture("ref", JT._write_image))
+    JT.build_coco_testsets(coco, tmp_path / "ref")
+    monkeypatch.setattr(TT.imageio, "write_rgb",
+                        capture("port", TT.imageio.write_rgb))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    TT.build_coco_testsets(coco, tmp_path / "port", device="cpu")
+    monkeypatch.undo()
+    names = _files(tmp_path / "ref")
+    assert _files(tmp_path / "port") == names
+    images = [n for n in names if n.endswith(".jpg")]
+    assert len(images) == 4 * 3 and set(written["ref"]) == set(images)
+    assert set(written["port"]) == set(images)
+    same = 0
+    for n in names:
+        a = (tmp_path / "port" / n).read_bytes()
+        b = (tmp_path / "ref" / n).read_bytes()
+        if n not in written["ref"]:
+            assert a == b, n
+            continue
+        (px, q), (ref_px, ref_q) = written["port"][n], written["ref"][n]
+        assert q == ref_q == 95
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, format="JPEG", quality=95)
+        assert a == buf.getvalue(), n
+        diff = np.abs(px.astype(int) - ref_px).max()
+        assert diff <= (0 if ("Clean" in n or "Noise" in n) else 1), n
+        assert (a == b) == (diff == 0), n
+        same += diff == 0
+    assert same >= 2 * 3               # Clean and Noise at least
+
+
+def test_jpeg_split_decodes_as_the_references_cv2_path(tmp_path,
+                                                       monkeypatch):
+    split = TS.make_det_split(tmp_path / "raw", n_images=4, seed=8,
+                              size_range=((30, 90), (41, 120)))
+    JC.convert_det_to_coco(split, tmp_path / "coco", "val")
+    ref = [np.array(JP.load_image_rgb(s))
+           for s in JP.index_coco(tmp_path / "coco", "val")]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours = [TP.load_image_rgb(s)
+            for s in TP.index_coco(tmp_path / "coco", "val")]
+    assert len(ours) == len(ref) == 4
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vid_split_converts_indexes_and_decodes_as_reference(tmp_path,
+                                                             monkeypatch):
+    split = JS.make_vid_split(tmp_path / "vid", n_seqs=2, frames_per_seq=3,
+                              seed=9, hw=(45, 70))
+    JC.convert_vid_to_yolo(split, tmp_path / "r", "val")
+    ref = JP.index_yolo(tmp_path / "r", "val")
+    ref_px = [np.array(JP.load_image_rgb(s)) for s in ref]
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    TC.convert_vid_to_yolo(split, tmp_path / "t", "val")
+    ours = TP.index_yolo(tmp_path / "t", "val")
+    assert len(ours) == len(ref) == 6
+    for o, r, px in zip(ours, ref, ref_px):
+        assert o.image_path.name == r.image_path.name
+        assert o.image_path.suffix == ".jpg"
+        assert (o.image_id, o.width, o.height) == (r.image_id, r.width,
+                                                   r.height) == \
+            (o.image_id, 70, 45)
+        np.testing.assert_array_equal(o.boxes_xyxy, r.boxes_xyxy)
+        np.testing.assert_array_equal(o.classes, r.classes)
+        np.testing.assert_array_equal(TP.load_image_rgb(o), px)

@@ -10,7 +10,8 @@
     on 80 seeded random shapes up and down, on the exact 0.5x case and on
     the letterbox scales of 765x1360, 1080x1920 and 1050x1400 to a 1024
     canvas;
-  * JPEG and PNG need PIL and say so where it is missing.
+  * JPEG and PNG need neither PIL nor cv2 (the codecs themselves are held
+    in tests/test_torch_jpeg.py and tests/test_torch_png.py).
 """
 
 import io
@@ -119,16 +120,29 @@ def test_png_and_jpeg_decode_as_pil_and_cv2(tmp_path):
 
 
 def test_jpeg_and_png_need_pil(monkeypatch, tmp_path):
-    img = _img(np.random.RandomState(5), 4, 4)
-    imageio.write_rgb(tmp_path / "a.png", img)
+    """JPEG and PNG need neither PIL nor cv2 any more: with both
+    unimportable, read_rgb, write_rgb and image_size succeed and equal
+    what PIL gave before the block (pixels, sizes and the written bytes)."""
+    img = _img(np.random.RandomState(5), 13, 21)
+    before = {}
+    for ext in ("png", "jpg", "jpeg"):
+        p = tmp_path / f"pil.{ext}"
+        Image.fromarray(img).save(p, quality=95)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG" if ext == "png"
+                                  else "JPEG", quality=95)
+        before[ext] = (np.asarray(Image.open(p).convert("RGB")),
+                       Image.open(p).size, buf.getvalue())
     monkeypatch.setitem(sys.modules, "PIL", None)
-    for call in (lambda: imageio.read_rgb(tmp_path / "a.png"),
-                 lambda: imageio.write_rgb(tmp_path / "b.jpg", img)):
-        with pytest.raises(ImportError, match="needs PIL"):
-            call()
-    imageio.write_rgb(tmp_path / "c.bmp", img)      # BMP needs neither
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for ext, (pixels, size, written) in before.items():
+        np.testing.assert_array_equal(
+            imageio.read_rgb(tmp_path / f"pil.{ext}"), pixels)
+        assert imageio.image_size(tmp_path / f"pil.{ext}") == size
+        imageio.write_rgb(tmp_path / f"ours.{ext}", img)
+        assert (tmp_path / f"ours.{ext}").read_bytes() == written, ext
+    imageio.write_rgb(tmp_path / "c.bmp", img)      # BMP as before
     np.testing.assert_array_equal(imageio.read_rgb(tmp_path / "c.bmp"), img)
-    assert imageio.image_size(tmp_path / "a.png") == (4, 4)
     with pytest.raises(ValueError, match="unsupported image format"):
         imageio.read_rgb(tmp_path / "a.tif")
 

@@ -120,12 +120,11 @@ def test_host_augmentation_needs_no_pil_or_cv2():
 
 
 def test_image_libraries_only_inside_functions():
-    """PIL, cv2 and matplotlib are imported only inside the functions
-    that handle JPEG / PNG (data/imageio.py), draw boxes and text
-    (report/demo.py) or figures (report/plots.py); nothing else of the
-    port, nor its example, imports them at all."""
-    allowed = {"imageio.py": "PIL", "demo.py": "cv2", "plots.py":
-               "matplotlib"}
+    """cv2 and matplotlib are imported only inside the functions that draw
+    boxes and text (report/demo.py) or figures (report/plots.py); PIL is
+    imported nowhere (JPEG and PNG go through the port's own codecs), and
+    nothing else of the port, nor its example, imports any of them."""
+    allowed = {"demo.py": "cv2", "plots.py": "matplotlib"}
     files = (list(PKG.rglob("*.py"))
              + [ROOT / "examples" / "full_pipeline_synthetic_torch.py"])
     for p in files:

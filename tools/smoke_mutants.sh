@@ -79,3 +79,13 @@ mutate dp_no_bn_reduce robust_object_detection_tpu_torch/parallel/mesh.py \
   "    ctx = _ACTIVE
     if True:
         return mean, meansq" phase_parallel
+# an islow IDCT constant off by one (it is the FDCT's too): phase 30 (a),
+# the fixtures' decoded pixels against Pillow's digests
+mutate idct_constant robust_object_detection_tpu_torch/native/jpeg.cc \
+  "constexpr int32_t FIX_1_175875602 = 9633;" \
+  "constexpr int32_t FIX_1_175875602 = 9634;" phase_codec
+# the Annex K luminance table's DC entry 16 -> 17 (8 -> 9 at q 75): phase
+# 30 (b), the encoder's bytes against Pillow's
+mutate quant_entry robust_object_detection_tpu_torch/native/jpeg.cc \
+  "    16, 11, 10, 16, 24,  40,  51,  61," \
+  "    17, 11, 10, 16, 24,  40,  51,  61," phase_codec
