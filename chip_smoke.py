@@ -278,7 +278,8 @@ Phases:
      counters zeroed just before and read just after; then two processes
      on the one card over gloo: a data-parallel YOLOv8m step and an
      RT-DETR-L step with ``mesh.model=2`` against the one-process step on
-     the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS); a
+     the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS;
+     matcher_capped by its absolute difference a step, PAR_COUNTS); a
      gloo that refuses CUDA tensors is printed and the two-process part
      skipped;
  30. the host codec and the JPEG pipeline, with PIL and cv2 made
@@ -297,7 +298,22 @@ Phases:
      the VID frames (``--data-layout yolo``) with its validation, ``eval``
      and ``eval-vid`` with YOLOv8m at batch 8 (phase 27's U-Net and
      checkpoint where this process holds them, else one step each), launch
-     counters and finite mAPs as phase 27 checks them.
+     counters and finite mAPs as phase 27 checks them;
+ 31. the trainers' corruption route (``ops/corrupt.random_corruption_fast``)
+     on f32 (16, 1024, 1024, 3), 4 images a branch: at angle 0 it launches
+     K1 once and equals a direct K1 call bit for bit; at 45 and 90 degrees
+     (k 9) it launches no K1, its blur and lowres images equal the CPU's
+     route bit for bit and its noise images within ROUTE_NOISE_BAR, and its
+     noise images equal K1's for the same seeds bit for bit; event ms of
+     each route beside K1; one YOLOv8m Augmented step (batch 16, 1024 px,
+     bf16, prob 1.0, angle 45): finite loss, K1 0 launches, K2 and K3 as
+     at angle 0;
+ 32. the worker-process loader (``data/worker_pipeline``) on a JPEG DET
+     split of 36 images at phase 30's sizes, batch 16, 1024 px, with 0 and
+     8 spawned workers beside ``pipeline.make_batches`` (threads): the
+     valid rows equal field by field (shuffled too, at 0 workers); the short
+     last batch padded by its last record with image_id -1; numpy uint8;
+     the parent's CUDA context intact; ms a batch each way.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -379,22 +395,27 @@ def device_ms_by_kernel(fn, calls: int = 10):
     torch.profiler, after one warm-up call; largest first. A kernel's ms a
     call is its mean device ms a launch times its launches a call, so that
     records the profiler drops (seen when several sessions run in one
-    process) lower neither."""
+    process) lower neither. A session that records no device time at all
+    (seen once in a whole smoke run) is taken again, up to 3 times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     rows = []
-    for e in prof.key_averages():
-        if (e.device_time_total > 0
-                and e.device_type == torch.autograd.DeviceType.CUDA):
-            n = max(1, round(e.count / calls))
-            rows.append((e.device_time_total / 1e3 / e.count * n, n, e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if (e.device_time_total > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA):
+                n = max(1, round(e.count / calls))
+                rows.append((e.device_time_total / 1e3 / e.count * n, n,
+                             e.key))
+        if rows:
+            break
     return sorted(rows, reverse=True)
 
 
@@ -5529,17 +5550,30 @@ PAR_RUNS = (("yolo", 1, "float32"), ("yolo", 1, "bfloat16"),
 # first update by 0.7-1.2 of itself (bf16 gradients; AdamW's first update
 # is about lr x sign(g)): bf16 is held by its metrics and statistics, the
 # weights printed only (None)
-PAR_BARS = {"float32": {"metric": 1e-2, "weights": 5e-2, "stats": 1e-2},
-            "bfloat16": {"metric": 0.2, "weights": None, "stats": 0.1}}
+PAR_BARS = {"float32": {"metric": 1e-2, "weights": 5e-2, "stats": 1e-2,
+                        "capped": 0},
+            "bfloat16": {"metric": 0.2, "weights": None, "stats": 0.1,
+                         "capped": None}}
+# metrics that count events, held by their absolute difference a step
+# ("capped" in the bars) and not by relative error: matcher_capped, the
+# image-matchings RT-DETR-L's auction left to the greedy completion at its
+# 16-round cap (train/rtdetr.AUCTION_MAX_ROUNDS). At random init the costs
+# are near-tied and an auction may end on either side of the cap: a bf16
+# rank with the decoder split counted 1 of the 14 image-matchings a step
+# where the one process counted 0 in 3 of 15 runs of this phase, then in
+# 5 of 8 rank-steps of one call, its losses within 0.093 of the one
+# process's (H100 80GB HBM3, 700 W). So bf16's counts are printed only,
+# as its weights are; f32 counted alike in every run and is held to 0
+PAR_COUNTS = ("matcher_capped",)
 # the world-1 group's floor under twice the run-to-run spread: YOLOv8m's
 # step is deterministic with cuDNN's deterministic algorithms (both runs
 # bit-identical), RT-DETR-L's is not (PyTorch's atomic scatters in the
 # gathers' backward): two runs without a group part by up to 3.5e-4 in a
 # metric and 2.9e-2 in the weights' change (H100 80GB HBM3, 700 W)
 PAR_WORLD1_FLOOR = {"yolo": {"metric": 1e-6, "weights": 1e-6,
-                             "stats": 1e-6},
+                             "stats": 1e-6, "capped": 0},
                     "rtdetr": {"metric": 2e-3, "weights": 0.15,
-                               "stats": 1e-6}}
+                               "stats": 1e-6, "capped": 1}}
 
 PAR_WORKER = r"""
 import json, sys
@@ -5625,14 +5659,17 @@ def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
     rows = M.shard_batch(mesh, batch)
     images, gb, gc = (t.to(dev) for t in rows)
     metrics = []
-    # f32 in f32: TF32 off in cuDNN and the matmuls while the steps run
+    # f32 in f32: TF32 off in cuDNN and the matmuls while the steps run;
+    # cuDNN's deterministic algorithms in every process, so that the ranks
+    # (fresh worker processes) run the convolutions the one-process
+    # reference runs
     tf32 = torch.backends.cuda.matmul.allow_tf32
     f32 = dtype == "float32"
     torch.backends.cuda.matmul.allow_tf32 = tf32 and not f32
     try:
         with torch.backends.cudnn.flags(
                 enabled=True, benchmark=torch.backends.cudnn.benchmark,
-                deterministic=torch.backends.cudnn.deterministic,
+                deterministic=True,
                 allow_tf32=torch.backends.cudnn.allow_tf32 and not f32):
             for i in range(steps):
                 m = step(state, images, gb, gc,
@@ -5648,14 +5685,20 @@ def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
 
 def parallel_compare(tag, got, ref, init, bars):
     """got's metrics and state against ref's: the worst metric's relative
-    error, and the distance of got's state from ref's over the change ref
-    made from `init` (relative L2 over all the weights together, and over
-    all the running statistics: a leaf that barely moved would be noise
+    error (PAR_COUNTS apart: their largest absolute difference in a step),
+    and the distance of got's state from ref's over the change ref made
+    from `init` (relative L2 over all the weights together, and over all
+    the running statistics: a leaf that barely moved would be noise
     alone). bars None: only measured. Returns the numbers."""
     gm, gs = got
     rm, rs = ref
     metric = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-12)
-                 for g, r in zip(gm, rm) for k in r if k in g)
+                 for g, r in zip(gm, rm) for k in r
+                 if k in g and k not in PAR_COUNTS)
+    capped = max((abs(g[k] - r[k]) for g, r in zip(gm, rm)
+                  for k in PAR_COUNTS if k in r and k in g), default=0.0)
+    counts = {k: ([g[k] for g in gm], [r[k] for r in rm])
+              for k in PAR_COUNTS if k in rm[0]}
     sq = {"weights": [0.0, 0.0], "stats": [0.0, 0.0]}
     for k, r in rs.items():
         if not r.is_floating_point():
@@ -5665,9 +5708,11 @@ def parallel_compare(tag, got, ref, init, bars):
         part[1] += (r.double() - init[k].double().cpu()).norm().item() ** 2
     out = {"metric": metric}
     out.update({k: math.sqrt(e / max(d, 1e-300)) for k, (e, d) in sq.items()})
+    out["capped"] = capped
     print(f"[parallel] {tag}: worst metric rel err {out['metric']}, weights' "
           f"change rel L2 {out['weights']}, running statistics' change rel "
-          f"L2 {out['stats']}" + (f" (bars {bars})" if bars else ""))
+          f"L2 {out['stats']}, counts a step (got, ref) {counts}"
+          + (f" (bars {bars})" if bars else ""))
     if bars:
         for k, v in out.items():
             require(bars[k] is None or v <= bars[k],
@@ -5794,6 +5839,244 @@ def phase_parallel(dev):
                                  f"process", outs[r], ref, inits[kind],
                                  PAR_BARS[dtype])
     return launches
+
+
+# ── The corruption route and the worker loader (phases 31-32) ────────────
+
+ROUTE_ANGLES = (45.0, 90.0)         # phase 31 (b): the op-by-op route, k 9
+# phase 31 (b): the card's op-by-op noise images against the CPU's. The
+# route's log, cos and sqrt are PyTorch's on each device (the CPU's
+# vectorised SLEEF, the card's CUDA math library), which may round g an
+# ulp apart; that moves floor(x + 15 g) by 1 only where x + 15 g lies
+# within ~15 ulp of an integer: at most 1 LSB on 1e-5 of the elements
+ROUTE_NOISE_BAR = (1.0, 1e-5)
+LOADER_SPLIT = 36                   # phase 32: batches of 16, 16 and 4
+LOADER_WORKERS = 8
+
+
+def phase_corrupt_route(dev):
+    """ops/corrupt.random_corruption_fast on f32 (16, 1024, 1024, 3), 4
+    images a branch: (a) angle 0 launches K1 once, equal bit for bit to a
+    direct K1 call; (b) angles 45 and 90 (k 9) launch no K1, the card's
+    blur and lowres images equal the CPU's route bit for bit and its noise
+    images within ROUTE_NOISE_BAR, the noise images equal K1's for the
+    same seeds bit for bit; (c) event times of each route beside K1; (d)
+    one YOLOv8m Augmented step (bs 16, 1024 px, bf16, prob 1.0, angle 45):
+    finite loss, no K1 launch, K2 and K3 as at angle 0. Returns the launch
+    counts of the route's K1 call and the step."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.core.config import \
+        CorruptionConfig
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.ops import corrupt as TC
+    from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+    from robust_object_detection_tpu_torch.train import detector as D
+
+    card = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).strip()
+    counters = summary_counters()
+    g = torch.Generator(dev).manual_seed(SEED + 31)
+    img = torch.floor(torch.rand(TRAIN_BATCH, IMG_SIZE, IMG_SIZE, 3,
+                                 device=dev, generator=g) * 256)
+    choice = torch.arange(TRAIN_BATCH, device=dev, dtype=torch.int32) % 4
+    seeds = torch.randint(0, 2 ** 30, (TRAIN_BATCH,), device=dev,
+                          generator=g, dtype=torch.int32)
+    rows = {b: (choice == b).nonzero().flatten() for b in range(4)}
+    cfg0 = CorruptionConfig()
+
+    # (a) angle 0: K1, once
+    for f in counters.values():
+        f.launches = 0
+    out0, _ = TC.random_corruption_fast(img, None, cfg0, choice, seeds)
+    launches = {k: f.launches for k, f in counters.items()}
+    require(launches == per_call(corrupt=1),
+            f"(a) the route at angle 0 launched {launches}, not K1 once")
+    k1, _ = FC.fused_random_corruption(img, None, cfg0, choice, seeds)
+    require(torch.equal(out0, k1), "(a) the route at angle 0 differs from "
+                                   "a direct K1 call")
+    print(f"[route] (a) angle 0: K1 launched once, output equal to a direct "
+          f"K1 call bit for bit")
+
+    # (b) angles 45 and 90: op by op on the card and on the CPU
+    img_cpu, choice_cpu, seeds_cpu = img.cpu(), choice.cpu(), seeds.cpu()
+    for angle in ROUTE_ANGLES:
+        cfg = CorruptionConfig(blur_angle_deg=angle)
+        for f in counters.values():
+            f.launches = 0
+        out, _ = TC.random_corruption_fast(img, None, cfg, choice, seeds)
+        torch.cuda.synchronize()
+        n_k1 = counters["corrupt"].launches
+        require(n_k1 == 0, f"(b) angle {angle}: K1 launched {n_k1} times")
+        ref, _ = TC.random_corruption_fast(img_cpu, None, cfg, choice_cpu,
+                                           seeds_cpu)
+        diff = (out.cpu() - ref).abs()
+        by_branch = {}
+        for b, name in enumerate(("clean", "noise", "blur", "lowres")):
+            d = diff[rows[b].cpu()]
+            by_branch[name] = (d.max().item(), (d > 0).float().mean().item())
+        print(f"[route] (b) angle {angle}: card vs CPU (max abs diff, share "
+              f"of elements that differ) {by_branch}")
+        for name in ("clean", "blur", "lowres"):
+            require(by_branch[name][0] == 0,
+                    f"(b) angle {angle}: {name} differs from the CPU's "
+                    f"route: {by_branch[name]}")
+        require(by_branch["noise"][0] <= ROUTE_NOISE_BAR[0]
+                and by_branch["noise"][1] <= ROUTE_NOISE_BAR[1],
+                f"(b) angle {angle}: noise beyond {ROUTE_NOISE_BAR}: "
+                f"{by_branch['noise']}")
+        noise = rows[1]
+        require(torch.equal(out[noise], k1[noise]),
+                f"(b) angle {angle}: the noise images differ from K1's for "
+                f"the same seeds")
+        require(not torch.equal(out[rows[2]], k1[rows[2]]),
+                f"(b) angle {angle}: the blur equals K1's 0-degree blur")
+    print(f"[route] (b) angles {ROUTE_ANGLES}: K1 launched 0 times; noise "
+          f"images equal K1's bit for bit")
+
+    # (c) events: each route beside K1
+    ms = {"K1 direct": time_ms(lambda: FC.fused_random_corruption(
+        img, None, cfg0, choice, seeds))}
+    ms["route, angle 0 (K1)"] = time_ms(lambda: TC.random_corruption_fast(
+        img, None, cfg0, choice, seeds))
+    for angle in ROUTE_ANGLES:
+        cfg = CorruptionConfig(blur_angle_deg=angle)
+        ms[f"route, angle {angle} (op by op)"] = time_ms(
+            lambda: TC.random_corruption_fast(img, None, cfg, choice, seeds))
+        # one branch's 4 images at a time, the other 12 clean
+        for b, name in ((1, "noise"), (2, "blur"), (3, "lowres")):
+            only = torch.where(choice == b, choice, torch.zeros_like(choice))
+            ms[f"route, angle {angle}, {name} only"] = time_ms(
+                lambda: TC.random_corruption_fast(img, None, cfg, only,
+                                                  seeds))
+    print(f"[route] (c) ms a call at ({TRAIN_BATCH}, {IMG_SIZE}, {IMG_SIZE}, "
+          f"3) f32, 4 images a branch ({card}; CUDA events, median of 10): "
+          f"{json.dumps(ms)}")
+    del out, ref, out0, k1, img_cpu
+
+    # (d) one YOLOv8m Augmented step at 45 degrees
+    model = Y.create(6, "m", torch.bfloat16, dev,
+                     torch.Generator().manual_seed(SEED), train=True,
+                     bn_dtype=torch.bfloat16)
+    state = D.init_state(model, D.make_optimizer()[0])
+    step = D.make_train_step(IMG_SIZE, CorruptionConfig(blur_angle_deg=45.0,
+                                                        prob=1.0),
+                             augment=True, base_augment=True)
+    images, gb, gc = detection_batch(np.random.RandomState(SEED + 31),
+                                     TRAIN_BATCH, IMG_SIZE, GT_PER_IMAGE,
+                                     MAX_BOXES)
+    images, gb, gc = (torch.from_numpy(a).to(dev) for a in (images, gb, gc))
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    m = step(state, images, gb, gc, torch.Generator(dev).manual_seed(SEED))
+    loss = m["loss"].item()
+    step_s = time.perf_counter() - t0
+    step_launches = {k: f.launches for k, f in counters.items()}
+    want = per_call(yolo_front_train=1, yolo_front_bwd=1, conv3x3=8,
+                    conv3x3_wgrad=4)
+    print(f"[route] (d) YOLOv8m bf16 {IMG_SIZE}px batch {TRAIN_BATCH}, "
+          f"augment (prob 1.0, angle 45) + HSV/flip: loss {loss}, first "
+          f"step {step_s} s, launches "
+          f"{ {k: v for k, v in step_launches.items() if v} }")
+    require(math.isfinite(loss), f"(d) loss {loss}")
+    require(step_launches == want, f"(d) launches {step_launches} != {want}")
+    return {k: launches[k] + step_launches[k] for k in launches}
+
+
+def phase_worker_loader(dev):
+    """data/worker_pipeline.make_batches_workers on a JPEG DET split
+    (LOADER_SPLIT images at phase 30's sizes) at batch 16, 1024 px, with 0
+    and LOADER_WORKERS spawned workers, beside pipeline.make_batches
+    (threads): the valid rows equal field by field, the short last batch
+    padded by its last record with image_id -1, shuffle (at 0 workers) a
+    permutation equal to the threaded loader's, numpy uint8 images, the
+    parent's CUDA context intact after the workers; ms a batch each way."""
+    import numpy as np
+    import torch
+    from robust_object_detection_tpu_torch.data import convert
+    from robust_object_detection_tpu_torch.data import pipeline as P
+    from robust_object_detection_tpu_torch.data import synthetic
+    from robust_object_detection_tpu_torch.data import worker_pipeline as W
+
+    card = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"]).strip()
+    probe = torch.arange(1024, device=dev, dtype=torch.float32)
+    bs = TRAIN_BATCH
+    fields = ("images", "boxes", "classes", "image_ids", "scales")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        raw = synthetic.make_det_split(tmp / "raw", n_images=LOADER_SPLIT,
+                                       seed=SEED + 32,
+                                       size_range=CLI_SIZE_RANGE)
+        require(all(p.suffix == ".jpg" for p in (raw / "images").iterdir()),
+                "the loader's split is not JPEG")
+        convert.convert_det_to_coco(raw, tmp / "coco", "val")
+        samples = P.index_coco(tmp / "coco", "val")
+        runs, ms = {}, {}
+        # (name, loader, shuffles run); spawning the workers costs seconds
+        # (each imports torch), so the 8-worker loader runs once, unshuffled
+        for name, make, shuffles in (
+                ("threads", lambda s: P.make_batches(
+                    samples, bs, IMG_SIZE, MAX_BOXES, shuffle=s, seed=SEED,
+                    num_threads=LOADER_WORKERS), (False, True)),
+                ("workers 0", lambda s: W.make_batches_workers(
+                    samples, bs, IMG_SIZE, MAX_BOXES, shuffle=s, seed=SEED),
+                 (False, True)),
+                (f"workers {LOADER_WORKERS}", lambda s: W.make_batches_workers(
+                    samples, bs, IMG_SIZE, MAX_BOXES, shuffle=s, seed=SEED,
+                    num_workers=LOADER_WORKERS), (False,))):
+            for shuffle in shuffles:
+                t0 = time.perf_counter()
+                stamps, batches = [], []
+                for b in make(shuffle):
+                    batches.append(b)
+                    stamps.append(time.perf_counter() - t0)
+                runs[name, shuffle] = batches
+                if not shuffle:
+                    ms[name] = {"first batch": stamps[0] * 1e3,
+                                "a batch after the first":
+                                (stamps[-1] - stamps[0]) * 1e3
+                                / (len(stamps) - 1),
+                                "a batch": stamps[-1] * 1e3 / len(stamps)}
+    ids = [s.image_id for s in samples]
+    n_last = LOADER_SPLIT % bs
+    for (name, shuffle), batches in runs.items():
+        want = runs["threads", shuffle]
+        require([b.num_valid for b in batches] == [bs, bs, n_last],
+                f"{name}: num_valid {[b.num_valid for b in batches]}")
+        for b, t in zip(batches, want):
+            n = b.num_valid
+            for f in fields:
+                a = getattr(b, f)
+                require(isinstance(a, np.ndarray) and a.dtype
+                        == getattr(t, f).dtype
+                        and np.array_equal(a[:n], getattr(t, f)[:n]),
+                        f"{name} shuffle {shuffle}: {f} differs from the "
+                        f"threaded loader's")
+            require(b.images.dtype == np.uint8, f"{name}: images not uint8")
+        got = np.concatenate([b.image_ids[:b.num_valid] for b in batches])
+        require(sorted(got.tolist()) == ids and (shuffle or got.tolist()
+                                                 == ids),
+                f"{name} shuffle {shuffle}: image ids {got.tolist()}")
+        if name != "threads":
+            last = batches[-1]
+            require((last.image_ids[n_last:] == -1).all() and all(
+                (getattr(last, f)[n_last:] == getattr(last, f)[
+                    n_last - 1]).all() for f in fields if f != "image_ids"),
+                f"{name}: the padding rows do not repeat the last record")
+    shuffled = np.concatenate([b.image_ids[:b.num_valid]
+                               for b in runs["workers 0", True]])
+    require(shuffled.tolist() != ids, "shuffle left the order as it was")
+    require(torch.cuda.is_initialized() and torch.equal(
+        (probe * 2).sum(), torch.tensor(1023.0 * 1024, device=dev)),
+        "the parent's CUDA context after the workers")
+    print(f"[loader] {LOADER_SPLIT} JPEG images at "
+          f"{CLI_SIZE_RANGE}, batch {bs}, {IMG_SIZE} px: worker batches "
+          f"equal the threaded loader's (valid rows, every field; shuffled "
+          f"too at 0 workers), padding repeats the last record with image_id -1, numpy "
+          f"uint8, the parent's CUDA context intact")
+    print(f"[loader] ms ({card}; host CPU {host_cpu()}): {json.dumps(ms)}")
 
 
 def ptxas_report(log: str):
@@ -5925,6 +6208,8 @@ def main() -> int:
     frcnn_bf16_launches = timed(phase_frcnn_bf16)
     parallel_launches = timed(phase_parallel)
     codec_launches = timed(phase_codec)
+    route_launches = timed(phase_corrupt_route)
+    timed(phase_worker_loader)
     print(f"[phase] seconds: {json.dumps(phase_s)}")
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
@@ -5932,7 +6217,7 @@ def main() -> int:
                  generation_launches, restored_launches,
                  frcnn_train_launches, yolo_trainer_launches,
                  rtdetr_trainer_launches, cli_launches, frcnn_bf16_launches,
-                 parallel_launches, codec_launches):
+                 parallel_launches, codec_launches, route_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
 

@@ -15,14 +15,15 @@ card, so the blur here is written as shifted multiply-adds over the
 kernel's non-zero taps (9 for the 0-degree kernel): plain f32 arithmetic on
 any device, with no dependence on backend precision flags.
 
-The training-time corruption (the reference's ``random_corruption_fast``,
-the K1 Pallas kernel) is ops/fused_corrupt.py; :func:`random_corruption` is
-the reference's op-by-op draw, on a ``torch.Generator``.
+The training-time corruption is :func:`random_corruption_fast`, the
+reference's name: K1 (ops/fused_corrupt.py) where K1 computes the
+configuration, these ops otherwise. :func:`random_corruption` is the
+reference's op-by-op draw, on a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,3 +168,81 @@ def random_corruption(img: torch.Tensor, generator: torch.Generator,
     choice, noise = draw_random_corruption(img.shape, generator, cfg)
     return (corrupt_variant(img, choice, None, cfg, quantize, noise=noise),
             choice)
+
+
+def k1_computes(cfg: CorruptionConfig, h: int, w: int) -> bool:
+    """True where K1 computes a (H, W) batch under `cfg`: angle 0, an odd
+    blur kernel, lowres 0.5x, even H, W >= 8. The TPU's further h % 128 is
+    a Pallas tile limit, not part of what K1 computes: the card's K1 takes
+    every even size."""
+    return (cfg.blur_angle_deg % 360 == 0 and cfg.blur_kernel % 2 == 1
+            and cfg.downscale_factor == 0.5 and h % 2 == 0 and w % 2 == 0
+            and h >= 8 and w >= 8)
+
+
+def random_corruption_fast(img: torch.Tensor,
+                           generator: Optional[torch.Generator],
+                           cfg: CorruptionConfig = CorruptionConfig(),
+                           choice: Optional[torch.Tensor] = None,
+                           seeds: Optional[torch.Tensor] = None,
+                           k1: Optional[Callable] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trainers' corruption of img (B, H, W, C) f32 [0, 255]: K1 where
+    :func:`k1_computes` says so from the configuration and the shape, else
+    these ops on the rows that chose each branch (noise: the kernel's
+    per-image normal for each seed, ``fused_corrupt.standard_normal``;
+    blur: :func:`apply_motion_blur` at the configured angle; lowres:
+    :func:`apply_lowres`, cv2's borders with a round after the area step,
+    as the reference's op-by-op route). choice / seeds ((B,) ints) come
+    from ``fused_corrupt.draw_choice`` on `generator` unless given, so both
+    routes take the same draws. k1 is the K1 entry to call (default
+    ``fused_corrupt.fused_random_corruption``): a trainer passes the name
+    it imports, so a wrapper set on that name sees the call.
+
+    An even blur kernel or odd H or W raises ValueError, lowres other than
+    0.5x NotImplementedError, as the reference's ops refuse them. Returns
+    (corrupted f32 batch, choice int32)."""
+    from . import fused_corrupt
+
+    if img.dim() != 4:
+        raise ValueError(f"random_corruption_fast takes (B,H,W,C), got "
+                         f"{tuple(img.shape)}")
+    b, h, w = img.shape[:3]
+    if cfg.blur_kernel % 2 == 0:
+        raise ValueError(f"the motion blur needs an odd kernel, got "
+                         f"{cfg.blur_kernel}")
+    if h % 2 or w % 2:
+        raise ValueError(f"the lowres branch needs even H, W, got {h}x{w}")
+    if cfg.downscale_factor != 0.5:
+        raise NotImplementedError("on-device lowres supports factor=0.5")
+    if choice is None or seeds is None:
+        drawn_choice, drawn_seeds = fused_corrupt.draw_choice(b, generator,
+                                                              cfg)
+        choice = drawn_choice if choice is None else choice
+        seeds = drawn_seeds if seeds is None else seeds
+    if k1_computes(cfg, h, w):
+        k1 = k1 or fused_corrupt.fused_random_corruption
+        return k1(img, generator, cfg, choice=choice, seeds=seeds)
+    x = img.float()
+    choice = torch.as_tensor(choice, device=x.device).to(torch.int32)
+    if choice.shape != (b,) or torch.as_tensor(seeds).shape != (b,):
+        raise ValueError(f"choice and seeds must be ({b},)")
+    ids, seed_list = choice.tolist(), torch.as_tensor(seeds).tolist()
+    out = x.clone()
+    for branch in (NOISE, BLUR, LOWRES):
+        rows = [i for i, c in enumerate(ids) if c == branch]
+        if not rows:
+            continue
+        idx = torch.tensor(rows, device=x.device)
+        part = x.index_select(0, idx)
+        if branch == NOISE:
+            g = torch.stack([fused_corrupt.standard_normal(
+                seed_list[i], part.shape[1:], x.device) for i in rows])
+            part = add_noise(part, g, cfg.noise_sigma)
+        elif branch == BLUR:
+            part = apply_motion_blur(part, cfg.blur_kernel,
+                                     cfg.blur_angle_deg)
+        else:
+            part = apply_lowres(part, cfg.downscale_factor)
+        out.index_copy_(0, idx, part)
+    return out, choice

@@ -66,11 +66,19 @@ def noise_bits(seed: int, n: int, device=None) -> torch.Tensor:
     return _fmix32((_fmix32(idx ^ key) + key) & _M32)
 
 
-def _noise(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor:
-    bits = noise_bits(seed, x.numel(), x.device).view(x.shape)
+def standard_normal(seed: int, shape, device=None) -> torch.Tensor:
+    """The kernel's standard normal g (f32, `shape`) for one image: Box-Muller
+    on the two 16-bit halves of :func:`noise_bits`, element i of the
+    row-major flattening drawing bits i."""
+    shape = tuple(shape)
+    bits = noise_bits(seed, math.prod(shape), device).view(shape)
     u1 = ((bits & 0xFFFF).float() + 0.5) / 65536.0
     u2 = (((bits >> 16) & 0xFFFF).float() + 0.5) / 65536.0
-    g = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(u2 * (2.0 * math.pi))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(u2 * (2.0 * math.pi))
+
+
+def _noise(x: torch.Tensor, seed: int, sigma: float) -> torch.Tensor:
+    g = standard_normal(seed, x.shape, x.device)
     return torch.floor(torch.clamp(x + sigma * g, 0.0, 255.0))
 
 

@@ -6,7 +6,8 @@
     the caller asks for the CPU; a no-op that returns False when the
     environment names no process group.
   * per-process input: ``shard_samples`` gives each process its row shard,
-    ``local_batch_size`` its slice of the global batch.
+    ``local_batch_size`` its slice of the global batch, ``shard_options``
+    its record shard for data/worker_pipeline.py.
   * ``is_primary()`` — process-0 discipline for JSON / CSV / plot
     artifacts.
 
@@ -23,6 +24,7 @@ decoder's tensor parallelism over the group live in parallel/mesh.py.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Optional, Sequence, Union
 
@@ -109,3 +111,17 @@ def local_batch_size(global_batch: int) -> int:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{pc} processes")
     return global_batch // pc
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardOptions:
+    """A record shard (the counterpart of Grain's ShardOptions with
+    drop_remainder=True): shard `shard_index` of `shard_count` equal
+    contiguous slices, the remainder dropped."""
+    shard_index: int
+    shard_count: int
+
+
+def shard_options() -> ShardOptions:
+    """This process's record shard (rank of world; one process: 0 of 1)."""
+    return ShardOptions(shard_index=_rank(), shard_count=_world())

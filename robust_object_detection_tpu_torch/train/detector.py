@@ -39,7 +39,8 @@ from ..data import pipeline as pipe
 from ..models import yolov8 as yolo_lib
 from ..models.layers import resolve_device
 from ..ops import nms as nms_ops
-from ..ops.fused_corrupt import draw_choice, fused_random_corruption
+from ..ops.corrupt import random_corruption_fast
+from ..ops.fused_corrupt import draw_choice
 from ..parallel import distributed as dist
 from ..parallel import mesh as mesh_lib
 from . import augment as aug
@@ -117,9 +118,10 @@ def make_train_step(img_size: int, corruption: CorruptionConfig,
     tensors; `state` is updated in place.
 
     Order, as the reference: uint8 -> bf16 -> HSV -> flip (base_augment)
-    -> f32 -> K1 corruption with p = 0.5 (augment, the reference's
-    Augmented mode) -> /255 -> train forward -> loss -> backward -> SGD ->
-    EMA of the parameters with d = decay * (1 - exp(-(step + 1) / 2000)).
+    -> f32 -> corruption with p = 0.5 (augment, the reference's
+    Augmented mode; ``random_corruption_fast``: K1 at blur angle 0) ->
+    /255 -> train forward -> loss -> backward -> SGD -> EMA of the
+    parameters with d = decay * (1 - exp(-(step + 1) / 2000)).
 
     mesh: a data-parallel mesh (parallel/mesh.make_mesh); the images are
     then this rank's rows of the global batch. The draws are made for the
@@ -144,9 +146,9 @@ def make_train_step(img_size: int, corruption: CorruptionConfig,
         x = x.float()
         if augment:
             choice, seeds = draw_choice(n, generator, corruption)
-            x, _ = fused_random_corruption(x.contiguous(), None, corruption,
-                                           choice=choice[rows],
-                                           seeds=seeds[rows])
+            x, _ = random_corruption_fast(x.contiguous(), None, corruption,
+                                          choice=choice[rows],
+                                          seeds=seeds[rows])
         x = x / 255.0
 
         state.optimizer.zero_grad(set_to_none=True)

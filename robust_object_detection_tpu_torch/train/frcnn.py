@@ -5,8 +5,9 @@ The reference's recipe (train_frcnn_baseline.py / train_frcnn_augmented.py):
 SGD lr 0.005, momentum 0.9, weight decay 5e-4, StepLR(8, 0.1), 24 epochs,
 batch 2; BCE objectness + smooth-L1 RPN loss over balanced anchor samples,
 CE + smooth-L1 box-head loss over balanced RoI samples; in the Augmented
-mode each image is corrupted on the card with probability 0.5 (K1,
-``ops/fused_corrupt``). Training runs on a fixed square letterbox
+mode each image is corrupted with probability 0.5
+(``ops/corrupt.random_corruption_fast``: K1 at the default blur angle 0,
+the op-by-op route at any other). Training runs on a fixed square letterbox
 (``img_size``) or, with ``native_res``, at torchvision's min800 / max1333
 scale padded into aspect buckets, one canvas a batch.
 
@@ -50,6 +51,7 @@ from ..models import resnet as resnet_lib
 from ..models.layers import resolve_device
 from ..ops import boxes as box_ops
 from ..ops import nms as nms_ops
+from ..ops.corrupt import random_corruption_fast
 from ..ops.fused_corrupt import draw_choice, fused_random_corruption
 from ..parallel import distributed as dist
 from ..parallel import mesh as mesh_lib
@@ -325,9 +327,11 @@ def make_train_step(model: F.FasterRCNN, img_size,
         draws = {k: v[rows] for k, v in draws.items()}
         x = images_u8.float()
         if augment:
-            x, _ = fused_random_corruption(x.contiguous(), None, corruption,
-                                           choice=draws["choice"],
-                                           seeds=draws["seeds"])
+            # K1 through this module's name, which the stage timer wraps
+            x, _ = random_corruption_fast(x.contiguous(), None, corruption,
+                                          choice=draws["choice"],
+                                          seeds=draws["seeds"],
+                                          k1=fused_random_corruption)
         x = x / 255.0
 
         state.optimizer.zero_grad(set_to_none=True)

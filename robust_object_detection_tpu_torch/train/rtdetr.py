@@ -37,7 +37,8 @@ from ..models import rtdetr as rtdetr_lib
 from ..models.layers import resolve_device
 from ..ops import boxes as box_ops
 from ..ops.assignment import BIG, _first_max, auction_assignment
-from ..ops.fused_corrupt import draw_choice, fused_random_corruption
+from ..ops.corrupt import random_corruption_fast
+from ..ops.fused_corrupt import draw_choice
 from ..parallel import distributed as dist
 from ..parallel import mesh as mesh_lib
 from ..parallel.mesh import global_sum
@@ -486,7 +487,8 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
     `state` is updated in place.
 
     Order, as the reference: uint8 -> bf16 -> HSV -> flip (base_augment)
-    -> f32 -> K1 corruption with p = 0.5 (augment) -> /255 -> denoising
+    -> f32 -> corruption with p = 0.5 (augment; ``random_corruption_fast``:
+    K1 at blur angle 0) -> /255 -> denoising
     queries -> train forward -> rtdetr_loss + one dn_loss per decoder layer
     -> backward -> clip by global norm -> AdamW -> EMA of the parameters
     with d = decay * (1 - exp(-(step + 1) / 2000)).
@@ -512,9 +514,9 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
         x = x.float()
         if augment:
             choice, seeds = draw_choice(n, generator, corruption)
-            x, _ = fused_random_corruption(x.contiguous(), None, corruption,
-                                           choice=choice[rows],
-                                           seeds=seeds[rows])
+            x, _ = random_corruption_fast(x.contiguous(), None, corruption,
+                                          choice=choice[rows],
+                                          seeds=seeds[rows])
         x = x / 255.0
 
         dn = dn_gt = dn_active = None

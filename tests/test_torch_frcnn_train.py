@@ -751,6 +751,51 @@ def test_augment_step_goes_through_the_fused_corruption(variables,
                                    rtol=1e-6)
 
 
+def test_augment_step_at_45_degrees_takes_the_op_route(variables,
+                                                       monkeypatch):
+    """blur_angle_deg=45, which K1 does not compute: the step corrupts its
+    drawn choice and seeds op by op (random_corruption_fast) without
+    calling K1's entry, and trains on that output: the same step with
+    augment=False on the route's batch gives the same metrics. The noise
+    image is K1's for the seed, the blur image is not K1's 0-degree one."""
+    images, gb, gc = gt_batch()
+    calls = []
+    real = TT.fused_random_corruption
+
+    def spy(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+    monkeypatch.setattr(TT, "fused_random_corruption", spy)
+    cfg = JF.FrcnnConfig(**KW)
+    u = port_draws(step_uniforms(jax.random.key(0), 0,
+                                 len(JF.anchor_boxes(IMG)),
+                                 cfg.num_proposals + M))
+    u["choice"] = torch.tensor([TC.NOISE, TC.BLUR], dtype=torch.int32)
+    u["seeds"] = torch.tensor([11, 12], dtype=torch.int32)
+    corruption = CorruptionConfig(blur_angle_deg=45.0)
+    x = torch.from_numpy(images)
+    runs = []
+    for augment in (True, False):
+        tm = port_model(KW, variables)
+        state = TT.init_state(tm, TT.make_optimizer()[0])
+        step = TT.make_train_step(tm, IMG, corruption, augment)
+        runs.append(step(state, x, torch.from_numpy(gb),
+                         torch.from_numpy(gc), 0, u))
+        if augment:
+            assert calls == []
+            corrupted, _ = TC.random_corruption_fast(
+                x.float(), None, corruption, u["choice"], u["seeds"])
+            x = corrupted.to(torch.uint8)
+    k1, _ = real(torch.from_numpy(images).float(), None, CorruptionConfig(),
+                 u["choice"], u["seeds"])
+    assert torch.equal(corrupted[0], k1[0])
+    assert not torch.equal(corrupted[1], k1[1])
+    for k in METRICS:
+        assert np.isfinite(runs[0][k].item())
+        np.testing.assert_allclose(runs[0][k].item(), runs[1][k].item(),
+                                   rtol=1e-6)
+
+
 def test_step_draws_depend_on_seed_and_step_alone():
     """draw_train from step_generator(seed, step): the same draws for the
     same (seed, step), others for another step or seed; shapes and

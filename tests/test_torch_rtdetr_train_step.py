@@ -436,15 +436,19 @@ def test_adamw_decays_every_parameter_and_clip_follows_optax():
                                    rtol=1e-6)
 
 
-def test_augmented_step_runs_on_the_cpu():
+@pytest.mark.parametrize("angle", [0.0, 45.0])
+def test_augmented_step_runs_on_the_cpu(angle):
     """augment=True, base_augment=True and denoise=True on the CPU: no
     kernel launches, finite metrics, every parameter gets a gradient, the
-    running statistics and the EMA move."""
+    running statistics and the EMA move; at 45 degrees the corruption
+    takes the op-by-op route."""
     images, gb, gc = _batch(1)
     model = _small_trainer_model(2)
     state = TT.init_state(model, TT.make_optimizer(warmup_steps=1)[0])
-    step = TT.make_train_step(IMG, CorruptionConfig(), augment=True,
-                              base_augment=True, dn_max_gt=4)
+    # 45 degrees: the op-by-op route (every image corrupted, so it runs)
+    cfg = CorruptionConfig(blur_angle_deg=angle, prob=1.0 if angle else 0.5)
+    step = TT.make_train_step(IMG, cfg, augment=True, base_augment=True,
+                              dn_max_gt=4)
     counters = (TC.conv3x3, TC.conv3x3_wgrad, TS.stem_fused,
                 TS.stem_fused_backward, TD.ms_deform_attn_slots,
                 TD.ms_deform_attn_backward, TA.auction_assignment,

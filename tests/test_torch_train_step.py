@@ -216,16 +216,19 @@ def test_weight_decay_only_on_conv_weights():
     assert opt.param_groups[0]["lr"] == 0.0 and opt.defaults["nesterov"]
 
 
-def test_augmented_step_runs_on_the_cpu():
+@pytest.mark.parametrize("angle", [0.0, 45.0])
+def test_augmented_step_runs_on_the_cpu(angle):
     """augment=True and base_augment=True: HSV and flip in bf16, the plain
-    K1, then the step; no kernel launches on the CPU; finite metrics; the
-    running statistics and the EMA move."""
+    K1 (at 45 degrees the op-by-op route), then the step; no kernel
+    launches on the CPU; finite metrics; the running statistics and the EMA
+    move."""
     images, gb, gc = _batch(1)
     model = TY.create(6, "n", device="cpu", train=True,
                       generator=torch.Generator().manual_seed(0))
     state = TDet.init_state(model, TDet.make_optimizer(warmup_steps=1)[0])
-    step = TDet.make_train_step(IMG, CorruptionConfig(), augment=True,
-                                base_augment=True)
+    # 45 degrees: the op-by-op route (every image corrupted, so it runs)
+    cfg = CorruptionConfig(blur_angle_deg=angle, prob=1.0 if angle else 0.5)
+    step = TDet.make_train_step(IMG, cfg, augment=True, base_augment=True)
     counters = (TC.conv3x3, TC.conv3x3_wgrad, TF.front_fused,
                 TF.front_fused_backward, TFC.fused_random_corruption)
     before = [f.launches for f in counters]

@@ -89,3 +89,13 @@ mutate idct_constant robust_object_detection_tpu_torch/native/jpeg.cc \
 mutate quant_entry robust_object_detection_tpu_torch/native/jpeg.cc \
   "    16, 11, 10, 16, 24,  40,  51,  61," \
   "    17, 11, 10, 16, 24,  40,  51,  61," phase_codec
+# the route sends angle 0 to the op-by-op ops: phase 31 (a), K1's count
+mutate route_no_k1 robust_object_detection_tpu_torch/ops/corrupt.py \
+  "    if k1_computes(cfg, h, w):" \
+  "    if False:" phase_corrupt_route
+# the op-by-op noise drawn for seed + 1: phase 31 (b), its noise images
+# against K1's for the same seeds
+mutate route_seed_offset robust_object_detection_tpu_torch/ops/corrupt.py \
+  "                seed_list[i], part.shape[1:], x.device) for i in rows])" \
+  "                seed_list[i] + 1, part.shape[1:], x.device) for i in rows])" \
+  phase_corrupt_route
