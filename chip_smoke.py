@@ -278,9 +278,19 @@ Phases:
      counters zeroed just before and read just after; then two processes
      on the one card over gloo: a data-parallel YOLOv8m step and an
      RT-DETR-L step with ``mesh.model=2`` against the one-process step on
-     the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS;
-     matcher_capped by its absolute difference a step, PAR_COUNTS); a
-     gloo that refuses CUDA tensors is printed and the two-process part
+     the same global batch, in f32 (TF32 off) and in bf16 (PAR_BARS, the
+     bf16 YOLOv8m weights included; the statistics K2 / K4 take through
+     the data-parallel callback apart; matcher_capped by its absolute
+     difference a step, PAR_COUNTS); YOLOv8m in bf16 also with the one
+     process's TAL assignment replayed and with K2's plain version (TAL
+     anchors that differ from the one process's counted), and beside it
+     the one process with its batch rows reversed and bf16 against f32;
+     the two RT-DETR-L model ranks' replicated leaves, gradients, EMA,
+     AdamW moments, buffers, 7 matchings and metrics bit-equal after every
+     step (PAR_TP_PARTS; a third run in which model index 1 perturbs a
+     gradient and its matchings), the step's ms with and without the
+     model-group broadcasts; every run printed before a failure; a gloo
+     that refuses CUDA tensors is printed and the two-process part
      skipped;
  30. the host codec and the JPEG pipeline, with PIL and cv2 made
      unimportable: the fixtures of tests/fixtures/jpeg (baseline, grey,
@@ -5533,27 +5543,50 @@ def phase_frcnn_bf16(dev):
 
 PAR_SHAPES = {"yolo": (4, 512), "rtdetr": (2, 512)}   # global batch, px
 PAR_STEPS = 2                  # lr 0, then lr0 (warmup_steps=1)
-# two-process runs: (model, model axis, dtype); bf16 is the trainers'
+# two-process runs: (model, model axis, dtype, mode); bf16 is the trainers'
 # default on the card, f32 (smaller noise) is where a dropped all-reduce
-# stands out most
-PAR_RUNS = (("yolo", 1, "float32"), ("yolo", 1, "bfloat16"),
-            ("rtdetr", 2, "float32"), ("rtdetr", 2, "bfloat16"))
+# stands out most. Mode "replay": every rank takes the one process's TAL
+# assignment of its rows (parallel_steps' `tal`), so what is left of the
+# spread is the rest of the step's; "k2plain": K2's plain version in
+# place of its tensor-core route and statistics callback on every side
+# (parallel_steps' `plain_front`), held against a one-process run of the
+# same; "perturb": RT-DETR-L's model index 1 adds 1e-3 to a replicated
+# leaf's gradient and swaps two queries of every matching it makes
+# (parallel_steps' `perturb`), which the model-group broadcasts must undo
+PAR_RUNS = (("yolo", 1, "float32", ""), ("yolo", 1, "bfloat16", ""),
+            ("yolo", 1, "bfloat16", "replay"),
+            ("yolo", 1, "bfloat16", "k2plain"),
+            ("rtdetr", 2, "float32", ""), ("rtdetr", 2, "bfloat16", ""),
+            ("rtdetr", 2, "bfloat16", "perturb"))
 # phase 29's bars for two ranks (gloo, one card) against one process: the
 # worst metric's relative error, and the distance of the state from the
 # one-process state over the one-process change, relative L2 over all
-# weights and over all running statistics (parallel_compare). Measured in
-# f32 (TF32 off; H100 80GB HBM3, 700 W): YOLOv8m 7.8e-6 / 1.3e-4 / 1.7e-6,
-# RT-DETR-L with the decoder split 4.0e-5 / 6.8e-3 / 0; a rank without the
-# gradient all-reduce gave 1.9e-2 / 0.18, one without the statistics'
-# all-reduce a metric 0.61 off. In bf16 another batch split moves the
-# metrics by up to 9.3e-2 and the statistics by 8.5e-3, and the weights'
-# first update by 0.7-1.2 of itself (bf16 gradients; AdamW's first update
-# is about lr x sign(g)): bf16 is held by its metrics and statistics, the
-# weights printed only (None)
+# weights, over all running statistics and over the kernels' front's
+# (parallel_compare). Measured in f32 (TF32 off; H100 80GB HBM3, 700 W):
+# YOLOv8m 8.0e-6 / 1.3e-4 / 1.7e-6, RT-DETR-L with the decoder split
+# 4.0e-5 / 6.8e-3 / 0; a rank without the gradient all-reduce gave 1.9e-2
+# / 0.18, one without the statistics' all-reduce a metric 0.61 off. In
+# bf16 another batch split moves the metrics by up to 9.3e-2 and the
+# statistics by 8.5e-3, and YOLOv8m's weights (nesterov SGD: the update
+# is linear in the gradients) by 0.700 of their change: bf16's own
+# spread, neither near-tied TAL assignments nor K2's route. The one
+# process's TAL replayed into both ranks gives 0.705, K2's plain version
+# on every side 0.691, the one process with its batch rows reversed (no
+# parallel code) 0.318, bf16 against f32 in one process 0.907; and on the
+# CPU the reference's own 2-device bf16 spread is as large
+# (tests/test_torch_dp_bf16.py). YOLOv8m's bf16 weights are held below
+# bf16's distance from f32; RT-DETR-L's printed only (AdamW: its first
+# update is about lr x sign(g), an element near 0 takes either sign; 0.798)
 PAR_BARS = {"float32": {"metric": 1e-2, "weights": 5e-2, "stats": 1e-2,
-                        "capped": 0},
-            "bfloat16": {"metric": 0.2, "weights": None, "stats": 0.1,
-                         "capped": None}}
+                        "front": 1e-4, "capped": 0},
+            "bfloat16": {"metric": 0.2, "weights": 0.85, "stats": 0.1,
+                         "front": 1e-2, "capped": None}}
+# the running statistics the hand kernels take through the data-parallel
+# callback (parallel/mesh.kernel_sync): YOLOv8m's front (K2: BN1, BN2),
+# RT-DETR-L's stem (K4). BN1 reads the first conv of each image alone, so
+# another batch split only sums its statistics in another order: held
+# apart from the rest ("front" in the bars)
+PAR_FRONT = {"yolo": ("model.0.bn.", "model.1.bn."), "rtdetr": ("model.0.",)}
 # metrics that count events, held by their absolute difference a step
 # ("capped" in the bars) and not by relative error: matcher_capped, the
 # image-matchings RT-DETR-L's auction left to the greedy completion at its
@@ -5571,21 +5604,30 @@ PAR_COUNTS = ("matcher_capped",)
 # gathers' backward): two runs without a group part by up to 3.5e-4 in a
 # metric and 2.9e-2 in the weights' change (H100 80GB HBM3, 700 W)
 PAR_WORLD1_FLOOR = {"yolo": {"metric": 1e-6, "weights": 1e-6,
-                             "stats": 1e-6, "capped": 0},
+                             "stats": 1e-6, "front": 1e-6, "capped": 0},
                     "rtdetr": {"metric": 2e-3, "weights": 0.15,
-                               "stats": 1e-6, "capped": 1}}
+                               "stats": 1e-6, "front": 1e-6, "capped": 1}}
+# what the model ranks of RT-DETR-L's decoder split must hold bit-equal
+# after every step (the reference holds each as one replicated array), in
+# the order a step makes them: the BatchNorm running statistics (every
+# buffer), the 7 matchings, the replicated leaves' gradients as the clip
+# reads them, their AdamW moments, the leaves, their EMA; and the metrics
+PAR_TP_PARTS = ("buffers", "match", "grad", "moments", "params", "ema",
+                "metrics")
+PAR_TIMED = 2          # RT-DETR-L steps a rank times with each variant
 
 PAR_WORKER = r"""
 import json, sys
 import torch
 import torch.distributed as dist
-root, rank, port, work, kind, model_axis, dtype = sys.argv[1:8]
+root, rank, port, work, kind, model_axis, dtype, mode = sys.argv[1:9]
 sys.path.insert(0, root)
 import chip_smoke as C
 from robust_object_detection_tpu_torch import kernels
 from robust_object_detection_tpu_torch.core.config import MeshConfig
 from robust_object_detection_tpu_torch.parallel import mesh as M
 rank, model_axis = int(rank), int(model_axis)
+out_file = f"{work}/{kind}-{dtype}{mode}.rank{rank}.pt"
 kernels.load()
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
@@ -5597,15 +5639,36 @@ try:
     torch.cuda.synchronize()
     ok = bool((probe == 2).all())
 except Exception as e:      # this build's gloo refuses CUDA tensors
-    torch.save({"refused": repr(e)}, f"{work}/{kind}-{dtype}.rank{rank}.pt")
+    torch.save({"refused": repr(e)}, out_file)
     sys.exit(0)
 assert ok, probe
 d = torch.load(f"{work}/{kind}.in.pt", weights_only=False)
 mesh = M.make_mesh(MeshConfig(data=2 // model_axis, model=model_axis))
-out = C.parallel_steps(kind, dev, d["init"], d["batch"], mesh, dtype)
-torch.save(out, f"{work}/{kind}-{dtype}.rank{rank}.pt")
+tal = d["tal"] if mode == "replay" else ("record" if kind == "yolo" else None)
+out = C.parallel_steps(kind, dev, d["init"], d["batch"], mesh, dtype,
+                       tal=tal, plain_front=mode == "k2plain",
+                       perturb=mode == "perturb")
+torch.save(out, out_file)
 dist.destroy_process_group()
 """
+
+
+def par_bars(kind, dtype):
+    """PAR_BARS[dtype] for a two-process run; RT-DETR-L's bf16 weights are
+    printed only (PAR_BARS' comment)."""
+    bars = dict(PAR_BARS[dtype])
+    if dtype == "bfloat16" and kind == "rtdetr":
+        bars["weights"] = None
+    return bars
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (bit equality across processes)."""
+    import hashlib
+
+    import torch
+    t = t.detach().contiguous().reshape(-1).cpu()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
 
 
 def parallel_model(kind, dev, init=None, dtype="bfloat16"):
@@ -5635,16 +5698,35 @@ def parallel_model(kind, dev, init=None, dtype="bfloat16"):
 
 
 def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
-                   steps=PAR_STEPS):
+                   steps=PAR_STEPS, tal=None, order=None,
+                   plain_front=False, perturb=False):
     """PAR_STEPS data-parallel (mesh.model > 1 for RT-DETR: tensor-parallel
     decoder) steps in `dtype` (float32 with TF32 off) from `init` on this
     rank's rows of `batch` (images, boxes, classes on the CPU), augment and
-    HSV / flip on, draws from a generator on the card. Returns (metrics by
-    step, the state_dict on the CPU in the one-process layout)."""
+    HSV / flip on, draws from a generator on the card. tal (YOLO):
+    "record" keeps every TAL call's output; a list of such records, one
+    per step of the global batch's images (a one-process run's), is
+    replayed in place of TAL, this rank's rows. order (no mesh): the
+    batch's rows in this order, each image with its own draws (the step's
+    `draw_rows` then names them), so only the sums over the batch run in
+    another order. plain_front (YOLO): K2's plain version
+    (ops.yolo_front.front_fused_reference) in place of K2. perturb (the
+    decoder split): model index 1 adds 1e-3 to a replicated decoder
+    leaf's gradient as backward leaves it and swaps two queries of image
+    0 in every matching the matcher returns. Returns
+    (metrics by step,
+    the state_dict on the CPU in the one-process layout, extra): extra
+    "tal", the recorded TAL outputs by step; under the decoder split
+    "digests", by step, SHA-256s of what the model ranks must hold
+    bit-equal (PAR_TP_PARTS) and of the replicated gradients and the
+    matchings before the model-group broadcasts ("grad_reduced",
+    "matcher"), and "ms", PAR_TIMED steps' ms with the
+    model-group broadcasts, without them, and of the broadcasts alone."""
     import torch
     from robust_object_detection_tpu_torch.core.config import \
         CorruptionConfig
     from robust_object_detection_tpu_torch.parallel import mesh as M
+    from robust_object_detection_tpu_torch.train import detection as DL
     model, opt, lib = parallel_model(kind, dev, init, dtype)
     plan = None
     if mesh is not None and mesh.n_model > 1:
@@ -5658,7 +5740,84 @@ def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
                                base_augment=True, mesh=mesh)
     rows = M.shard_batch(mesh, batch)
     images, gb, gc = (t.to(dev) for t in rows)
+    first = M.local_rows(mesh, batch[0].shape[0]).start
+    n_local = images.shape[0]
+    index = list(range(first, first + n_local))
+    real = {}
+    if plain_front:
+        from robust_object_detection_tpu_torch.models import yolov8 as Y
+        from robust_object_detection_tpu_torch.ops import yolo_front as TF
+        real[(Y, "front_fused")] = Y.front_fused
+        Y.front_fused = TF.front_fused_reference
+    if order is not None:
+        index = list(order)
+        perm = torch.tensor(index, device=dev)
+        images, gb, gc = images[perm], gb[perm], gc[perm]
+        real[(M, "draw_rows")] = M.draw_rows
+        M.draw_rows = lambda n, ctx: (n, perm)
+    extra = {}
     metrics = []
+    # the probes: module functions the step calls by name, wrapped while
+    # the recorded steps run
+    calls = []
+    probe = {}
+    rep = []
+    swap = False
+    if tal is not None:
+        real[(DL, "task_aligned_assign")] = DL.task_aligned_assign
+
+        def tal_hook(*a, **k):
+            s, j = divmod(len(calls), n_local)
+            if isinstance(tal, list):
+                out = {n: v.to(dev) for n, v in tal[s][index[j]].items()}
+            else:
+                out = real[(DL, "task_aligned_assign")](*a, **k)
+            calls.append({n: v.detach().cpu() for n, v in out.items()})
+            return out
+        DL.task_aligned_assign = tal_hook
+    if plan is not None:
+        rep = [(n, p) for n, p in model.named_parameters()
+               if plan.get(n) is None and p.requires_grad]
+        real[(lib, "hungarian_match")] = lib.hungarian_match
+        real[(lib, "global_grad_norm")] = lib.global_grad_norm
+        real[(lib, "auction_assignment")] = lib.auction_assignment
+        real[(M, "all_reduce_grads")] = M.all_reduce_grads
+        swap = perturb and mesh.model_index == 1
+        if swap:
+            leaf = next(p for n, p in rep if ".decoder." in n)
+
+            def bump(p):
+                p.grad.add_(1e-3)
+            hook = leaf.register_post_accumulate_grad_hook(bump)
+
+        def matcher_hook(*a, **k):
+            gfq, capped = real[(lib, "auction_assignment")](*a, **k)
+            if swap:
+                row = gfq[0]
+                j = int((row != row[0]).nonzero()[0])
+                row[0], row[j] = row[j].clone(), row[0].clone()
+            probe["matcher"].append(digest(gfq) + digest(capped))
+            return gfq, capped
+
+        def reduce_hook(*a, **k):
+            real[(M, "all_reduce_grads")](*a, **k)
+            probe["grad_reduced"] = {n: digest(p.grad) for n, p in rep
+                                     if p.grad is not None}
+
+        def match_hook(*a, **k):
+            out = real[(lib, "hungarian_match")](*a, **k)
+            probe["match"].append(digest(out[0])
+                                  + digest(out[2]["capped"]))
+            return out
+
+        def norm_hook(*a, **k):
+            probe["grad"] = {n: digest(p.grad) for n, p in rep
+                             if p.grad is not None}
+            return real[(lib, "global_grad_norm")](*a, **k)
+        lib.hungarian_match, lib.global_grad_norm = match_hook, norm_hook
+        lib.auction_assignment, M.all_reduce_grads = matcher_hook, reduce_hook
+        extra["digests"] = []
+
     # f32 in f32: TF32 off in cuDNN and the matmuls while the steps run;
     # cuDNN's deterministic algorithms in every process, so that the ranks
     # (fresh worker processes) run the convolutions the one-process
@@ -5666,32 +5825,102 @@ def parallel_steps(kind, dev, init, batch, mesh, dtype="bfloat16",
     tf32 = torch.backends.cuda.matmul.allow_tf32
     f32 = dtype == "float32"
     torch.backends.cuda.matmul.allow_tf32 = tf32 and not f32
+
+    def run(i):
+        m = step(state, images, gb, gc,
+                 torch.Generator(dev).manual_seed(SEED + 70 + i))
+        return {k: float(v) for k, v in m.items()}
     try:
         with torch.backends.cudnn.flags(
                 enabled=True, benchmark=torch.backends.cudnn.benchmark,
                 deterministic=True,
                 allow_tf32=torch.backends.cudnn.allow_tf32 and not f32):
-            for i in range(steps):
-                m = step(state, images, gb, gc,
-                         torch.Generator(dev).manual_seed(SEED + 70 + i))
-                metrics.append({k: float(v) for k, v in m.items()})
+            try:
+                for i in range(steps):
+                    probe.update(match=[], matcher=[])
+                    metrics.append(run(i))
+                    if plan is None:
+                        continue
+                    ostate = state.optimizer.state
+                    extra["digests"].append(dict(
+                        probe, metrics=metrics[-1],
+                        params={n: digest(p) for n, p in rep},
+                        ema={n: digest(state.ema[n]) for n, _ in rep},
+                        moments={f"{n}.{k}": digest(ostate[p][k])
+                                 for n, p in rep if p in ostate
+                                 for k in ("exp_avg", "exp_avg_sq")},
+                        buffers={n: digest(b)
+                                 for n, b in model.named_buffers()}))
+            finally:
+                for (mod, name), fn in real.items():
+                    setattr(mod, name, fn)
+                if swap:
+                    hook.remove()
+            # a copy: the timed steps below go on changing the model
+            sd = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+            if plan is not None and hasattr(M, "broadcast_over_model"):
+                extra["ms"] = time_broadcasts(M, run, steps)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if tal is not None:
+        extra["tal"] = [calls[s * n_local:(s + 1) * n_local]
+                        for s in range(steps)]
+        extra["index"] = index
     if plan is not None:
         sd = {k: M.gather_shards(v, plan.get(k), mesh) for k, v in sd.items()}
-    return metrics, sd
+    return metrics, sd, extra
 
 
-def parallel_compare(tag, got, ref, init, bars):
+def time_broadcasts(M, run, start):
+    """ms of PAR_TIMED steps each with the model-group broadcasts
+    (M.broadcast_over_model), without them (a no-op in their place), and
+    with each broadcast call timed between two synchronizes, in turns;
+    ms of the broadcasts alone a step."""
+    import torch
+    real = M.broadcast_over_model
+    spent = []
+
+    def timed(tensors, ctx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(tensors, ctx)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+    out = {"with": [], "without": [], "broadcasts": []}
+    try:
+        for i in range(3 * PAR_TIMED):
+            variant = ("with", "without", "timed")[i % 3]
+            M.broadcast_over_model = {"with": real, "timed": timed}.get(
+                variant, lambda tensors, ctx: None)
+            spent.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(start + i)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            if variant == "timed":
+                out["broadcasts"].append(1e3 * sum(spent))
+            else:
+                out[variant].append(ms)
+    finally:
+        M.broadcast_over_model = real
+    return out
+
+
+def parallel_compare(tag, got, ref, init, bars, fails=None, front=()):
     """got's metrics and state against ref's: the worst metric's relative
     error (PAR_COUNTS apart: their largest absolute difference in a step),
     and the distance of got's state from ref's over the change ref made
     from `init` (relative L2 over all the weights together, and over all
     the running statistics: a leaf that barely moved would be noise
-    alone). bars None: only measured. Returns the numbers."""
-    gm, gs = got
-    rm, rs = ref
+    alone; and over the running statistics whose names start with one of
+    `front`); the three weights farthest from ref's over their own change
+    printed beside. bars None: only measured; a number over its bar
+    fails at once, or is added to `fails` when given. Returns the
+    numbers."""
+    gm, gs = got[:2]
+    rm, rs = ref[:2]
     metric = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-12)
                  for g, r in zip(gm, rm) for k in r
                  if k in g and k not in PAR_COUNTS)
@@ -5699,25 +5928,101 @@ def parallel_compare(tag, got, ref, init, bars):
                   for k in PAR_COUNTS if k in r and k in g), default=0.0)
     counts = {k: ([g[k] for g in gm], [r[k] for r in rm])
               for k in PAR_COUNTS if k in rm[0]}
-    sq = {"weights": [0.0, 0.0], "stats": [0.0, 0.0]}
+    sq = {"weights": [0.0, 0.0], "stats": [0.0, 0.0], "front": [0.0, 0.0]}
+    leaves = []
     for k, r in rs.items():
         if not r.is_floating_point():
             continue
-        part = sq["stats" if "running_" in k else "weights"]
-        part[0] += (gs[k].double() - r.double()).norm().item() ** 2
-        part[1] += (r.double() - init[k].double().cpu()).norm().item() ** 2
+        stat = "running_" in k
+        parts = [sq["stats" if stat else "weights"]]
+        if stat and k.startswith(tuple(front)):
+            parts.append(sq["front"])
+        e = (gs[k].double() - r.double()).norm().item()
+        d = (r.double() - init[k].double().cpu()).norm().item()
+        for part in parts:
+            part[0] += e ** 2
+            part[1] += d ** 2
+        if "running_" not in k and d > 0:
+            leaves.append((e / d, k))
     out = {"metric": metric}
     out.update({k: math.sqrt(e / max(d, 1e-300)) for k, (e, d) in sq.items()})
     out["capped"] = capped
     print(f"[parallel] {tag}: worst metric rel err {out['metric']}, weights' "
           f"change rel L2 {out['weights']}, running statistics' change rel "
-          f"L2 {out['stats']}, counts a step (got, ref) {counts}"
-          + (f" (bars {bars})" if bars else ""))
+          f"L2 {out['stats']} (of the kernels' front {out['front']}), "
+          f"counts a step (got, ref) {counts}, farthest "
+          f"weights {sorted(leaves)[-3:]}" + (f" (bars {bars})" if bars
+                                               else ""))
     if bars:
         for k, v in out.items():
-            require(bars[k] is None or v <= bars[k],
-                    f"{tag}: {k} {v} > {bars[k]}")
+            if bars[k] is not None and v > bars[k]:
+                msg = f"{tag}: {k} {v} > {bars[k]}"
+                require(fails is not None, msg)
+                fails.append(msg)
     return out
+
+
+def tp_parting(d0, d1):
+    """Where two model ranks' digests (parallel_steps' extra["digests"])
+    part: ({step: {part: leaves that differ}}, the first (step, part,
+    leaf) in the order a step makes them, or None)."""
+    parts, first = {}, None
+    for s, (a, b) in enumerate(zip(d0, d1)):
+        for part in PAR_TP_PARTS:
+            x, y = a[part], b[part]
+            if isinstance(x, dict):
+                bad = [k for k in x if x[k] != y.get(k)]
+                bad += [k for k in y if k not in x]
+            else:
+                bad = [f"#{i}" for i in range(max(len(x), len(y)))
+                       if x[i:i + 1] != y[i:i + 1]]
+            if bad:
+                parts.setdefault(s, {})[part] = bad
+                first = first or (s, part, bad[0])
+    return parts, first
+
+
+def tal_flips(got, ref):
+    """Anchors whose TAL assignment differs between a run's record and
+    the one process's for the same images (got, ref: parallel_steps'
+    extra): by step, (foreground differs, both foreground but another
+    GT, anchors compared)."""
+    out = []
+    for gs, rs in zip(got["tal"], ref["tal"]):
+        fg = other = n = 0
+        for j, g in enumerate(gs):
+            r = rs[got["index"][j]]
+            fg += int((g["fg_mask"] != r["fg_mask"]).sum())
+            both = g["fg_mask"] & r["fg_mask"]
+            other += int((both & (g["target_gt"] != r["target_gt"])).sum())
+            n += g["fg_mask"].numel()
+        out.append((fg, other, n))
+    return out
+
+
+def yolo_controls(dev, init, batch, ref, ref32):
+    """The one-process bf16 YOLOv8m step against itself, no parallel code
+    run: with the batch's rows reversed (each image with its own draws:
+    the sums over the batch in another order), also with `ref`'s TAL
+    assignment replayed; and `ref` against the f32 step `ref32`.
+    Printed only: the size of bf16's own spread beside the two-process
+    runs'."""
+    order = list(range(PAR_SHAPES["yolo"][0]))[::-1]
+    rev = parallel_steps("yolo", dev, init, batch, None, tal="record",
+                         order=order)
+    parallel_compare("yolo bfloat16 one process, rows reversed, vs one "
+                     "process", rev, ref, init, None, front=PAR_FRONT["yolo"])
+    print(f"[parallel] yolo bfloat16 one process, rows reversed: TAL "
+          f"anchors that differ a step (foreground, another GT, of) "
+          f"{tal_flips(rev[2], ref[2])}")
+    rev = parallel_steps("yolo", dev, init, batch, None, tal=ref[2]["tal"],
+                         order=order)
+    parallel_compare("yolo bfloat16 one process, rows reversed, TAL "
+                     "replayed, vs one process", rev, ref, init, None,
+                     front=PAR_FRONT["yolo"])
+    parallel_compare("yolo bfloat16 one process vs float32 one process "
+                     "(bf16's own spread)", ref, ref32, init, None,
+                     front=PAR_FRONT["yolo"])
 
 
 def phase_parallel(dev):
@@ -5729,10 +6034,15 @@ def phase_parallel(dev):
     PAR_WORLD1_FLOOR. Launch counters zeroed just before the group's steps
     and read just after. (b) Two processes on the one card over gloo
     (NCCL refuses two ranks on one card): a data-parallel YOLOv8m step,
-    and an RT-DETR-L step with mesh.model=2 (the decoder split over both),
-    in f32 and bf16 (PAR_RUNS), against the one-process step on the same
-    global batch (PAR_BARS). A gloo that refuses CUDA tensors is printed
-    and (b) skipped. Returns the launch counts of (a)."""
+    in bf16 also with the one process's TAL assignment replayed (TAL
+    flips counted), and an RT-DETR-L step with mesh.model=2 (the decoder
+    split over both), in f32 and bf16 (PAR_RUNS), against the one-process
+    step on the same global batch (par_bars); the two RT-DETR-L model
+    ranks' replicated state, matchings and metrics bit-equal after every
+    step (PAR_TP_PARTS; the first parting printed, all runs printed before
+    a failure), and the step's ms with and without the model-group
+    broadcasts. A gloo that refuses CUDA tensors is printed and (b)
+    skipped. Returns the launch counts of (a)."""
     import os
     import socket
     import tempfile
@@ -5766,11 +6076,13 @@ def phase_parallel(dev):
     refs = {}
     try:
         for kind in PAR_SHAPES:
-            a = parallel_steps(kind, dev, inits[kind], batches[kind], None)
+            a = parallel_steps(kind, dev, inits[kind], batches[kind], None,
+                               tal="record" if kind == "yolo" else None)
             b = parallel_steps(kind, dev, inits[kind], batches[kind], None)
-            refs[kind] = a
+            refs[(kind, "bfloat16")] = a
             spread = parallel_compare(f"{kind} no group, run to run", b, a,
-                                      inits[kind], None)
+                                      inits[kind], None,
+                                      front=PAR_FRONT[kind])
             dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                                     f"{free_port()}", world_size=1, rank=0)
             try:
@@ -5789,7 +6101,7 @@ def phase_parallel(dev):
             parallel_compare(f"{kind} world-1 NCCL group vs no group "
                              f"(bars: twice the run-to-run spread, at least "
                              f"{PAR_WORLD1_FLOOR[kind]})", got, a,
-                             inits[kind], bars)
+                             inits[kind], bars, front=PAR_FRONT[kind])
         print(f"[parallel] world-1 launches {launches}")
         require(launches["yolo_front_train"] == PAR_STEPS
                 and launches["hgstem_train"] == PAR_STEPS
@@ -5798,18 +6110,25 @@ def phase_parallel(dev):
     finally:
         torch.backends.cudnn.deterministic = det
 
+    parted = []
     with tempfile.TemporaryDirectory() as work:
         for kind in PAR_SHAPES:
-            torch.save({"init": inits[kind], "batch": batches[kind]},
+            torch.save({"init": inits[kind], "batch": batches[kind],
+                        "tal": refs[(kind, "bfloat16")][2].get("tal")},
                        f"{work}/{kind}.in.pt")
-        for kind, model_axis, dtype in PAR_RUNS:
-            ref = (refs[kind] if dtype == "bfloat16" else parallel_steps(
-                kind, dev, inits[kind], batches[kind], None, dtype))
+        for kind, model_axis, dtype, mode in PAR_RUNS:
+            key = (kind, dtype) + (("k2plain",) if mode == "k2plain" else ())
+            if key not in refs:
+                refs[key] = parallel_steps(
+                    kind, dev, inits[kind], batches[kind], None, dtype,
+                    tal="record" if kind == "yolo" else None,
+                    plain_front=mode == "k2plain")
+            ref = refs[key]
             port = free_port()
             t0 = time.perf_counter()
             procs = [subprocess.Popen(
                 [sys.executable, "-c", PAR_WORKER, str(ROOT), str(r),
-                 str(port), work, kind, str(model_axis), dtype],
+                 str(port), work, kind, str(model_axis), dtype, mode],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=dict(os.environ, OMP_NUM_THREADS="1"))
                 for r in range(2)]
@@ -5824,20 +6143,68 @@ def phase_parallel(dev):
             require(all(p.returncode == 0 for p in procs),
                     f"two-process {kind}: " + " | ".join(
                         e[-2000:] for e in errs))
-            outs = [torch.load(f"{work}/{kind}-{dtype}.rank{r}.pt",
+            outs = [torch.load(f"{work}/{kind}-{dtype}{mode}.rank{r}.pt",
                                weights_only=False) for r in range(2)]
             if "refused" in outs[0]:
                 print(f"[parallel] gloo refuses CUDA tensors in this build: "
                       f"{outs[0]['refused']}; the two-process phase is "
                       f"skipped, the world-1 NCCL phase stands")
                 return launches
-            print(f"[parallel] two processes on one card (gloo), {kind} "
-                  f"{dtype}, mesh.model {model_axis}: "
-                  f"{time.perf_counter() - t0} s")
+            tag = f"{kind} {dtype}" + (f" {mode}" if mode else "")
+            print(f"[parallel] two processes on one card (gloo), {tag}, "
+                  f"mesh.model {model_axis}: {time.perf_counter() - t0} s")
             for r in range(2):
-                parallel_compare(f"{kind} {dtype} rank {r} of 2 vs one "
-                                 f"process", outs[r], ref, inits[kind],
-                                 PAR_BARS[dtype])
+                parallel_compare(f"{tag} rank {r} of 2 vs one process",
+                                 outs[r], ref, inits[kind],
+                                 par_bars(kind, dtype), parted,
+                                 front=PAR_FRONT[kind])
+            if kind == "yolo" and mode != "replay":
+                for r in range(2):
+                    flips = tal_flips(outs[r][2], ref[2])
+                    print(f"[parallel] {tag} rank {r}: TAL anchors that "
+                          f"differ from the one process's a step "
+                          f"(foreground, another GT, of) {flips}")
+            if model_axis > 1:
+                d0, d1 = (o[2]["digests"] for o in outs)
+                parts, first = tp_parting(d0, d1)
+                counts = {s: {k: len(v) for k, v in p.items()}
+                          for s, p in parts.items()}
+                print(f"[parallel] {tag} model ranks: "
+                      + (f"first part at step {first[0]}, {first[1]} "
+                         f"{first[2]}; leaves that differ by step "
+                         f"{counts}" if first else
+                         f"bit-equal after each of {len(d0)} steps "
+                         f"({', '.join(PAR_TP_PARTS)}: "
+                         f"{len(d0[0]['params'])} replicated leaves, "
+                         f"{len(d0[0]['buffers'])} buffers, "
+                         f"{len(d0[0]['match'])} matchings a step)"))
+                if first:
+                    parted.append(f"{tag}: {first}")
+                before = {}
+                for s_, (a, b) in enumerate(zip(d0, d1)):
+                    before[s_] = (
+                        sum(a["grad_reduced"][k] != b["grad_reduced"][k]
+                            for k in a["grad_reduced"]),
+                        sum(x != y for x, y in zip(a["matcher"],
+                                                   b["matcher"])))
+                print(f"[parallel] {tag} model ranks before the broadcasts, "
+                      f"by step (replicated gradients that differ of "
+                      f"{len(d0[0]['grad_reduced'])}, matcher outputs that "
+                      f"differ of {len(d0[0]['matcher'])}): {before}")
+                if mode == "perturb" and not all(
+                        g and m for g, m in before.values()):
+                    parted.append(f"{tag}: the perturbation did not reach "
+                                  f"both parts {before}")
+                for r, o in enumerate(outs):
+                    ms = o[2].get("ms")
+                    if ms:
+                        print(f"[parallel] {tag} rank {r}: step ms with the "
+                              f"model-group broadcasts {ms['with']}, "
+                              f"without {ms['without']}; the broadcasts "
+                              f"alone {ms['broadcasts']} ms a step")
+        yolo_controls(dev, inits["yolo"], batches["yolo"],
+                      refs[("yolo", "bfloat16")], refs[("yolo", "float32")])
+    require(not parted, f"two processes: {parted}")
     return launches
 
 

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops.deform import ms_deform_attn_slots
 from ..ops.stem import stem_fused, stem_fused_inference
@@ -98,6 +99,15 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps)
 
 
+# scaled_dot_product_attention's backends but cuDNN's: in bf16 on an H100
+# cuDNN's attention gives one of two results for the same inputs in
+# different processes (tools/tp_determinism.py: the AIFI output of two
+# RT-DETR-L model ranks parted in 7 of 19 pairs, in none of 14 without
+# it), and every model rank computes the replicated layers for itself
+SDPA_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.MATH]
+
+
 def attention(mha: nn.MultiheadAttention, q, k, v, dtype: torch.dtype,
               mask: Optional[torch.Tensor] = None,
               tp_group=None) -> torch.Tensor:
@@ -126,8 +136,9 @@ def attention(mha: nn.MultiheadAttention, q, k, v, dtype: torch.dtype,
         return y.reshape(*y.shape[:2], heads, c // mha.num_heads
                          ).transpose(1, 2)
 
-    o = F.scaled_dot_product_attention(proj(q, 0), proj(k, 1), proj(v, 2),
-                                       attn_mask=mask)
+    with sdpa_kernel(SDPA_BACKENDS):
+        o = F.scaled_dot_product_attention(proj(q, 0), proj(k, 1),
+                                           proj(v, 2), attn_mask=mask)
     o = o.transpose(1, 2).reshape(q.shape[0], q.shape[1], width)
     if tp_group is None:
         return F.linear(o, mha.out_proj.weight.to(dtype),

@@ -17,7 +17,9 @@ train-mode BatchNorms take their statistics over the global batch
 the autograd graph) and the loss normalisers sum over it
 (:func:`global_sum`). The global loss is the sum of the ranks' losses, so
 gradients are summed over the data group (:func:`all_reduce_grads`), not
-averaged.
+averaged. Under the decoder split, what the reference holds as one
+replicated array (a replicated leaf's gradient, a matching) is model index
+0's value on every rank of the model group (:func:`broadcast_over_model`).
 """
 
 from __future__ import annotations
@@ -224,6 +226,28 @@ def all_reduce_grads(params, ctx: Optional[MeshContext]) -> None:
         for g in group:
             g.copy_(flat[off:off + g.numel()].view_as(g))
             off += g.numel()
+
+
+def broadcast_over_model(tensors, ctx: Optional[MeshContext]) -> None:
+    """Model index 0's values of `tensors` on every rank of ctx's model
+    group, in place, in one flat buffer per dtype (bool through uint8):
+    a leaf the reference holds as one replicated array has one value. A
+    no-op on a model axis of 1 or without a process group."""
+    if ctx is None or ctx.n_model == 1:
+        return
+    src = ctx.data_index * ctx.n_model      # global rank of model index 0
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, group in by_dtype.items():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        if dtype == torch.bool:
+            flat = flat.to(torch.uint8)
+        dist.broadcast(flat, src=src, group=ctx.model_group)
+        off = 0
+        for t in group:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
 
 
 def sum_over_data(metrics: Mapping[str, torch.Tensor],

@@ -207,7 +207,9 @@ def hungarian_match(logits: torch.Tensor, boxes: torch.Tensor,
     Returns (gt_for_query (B, Q) int32, -1 = unmatched; iou_q (B, Q), the
     IoU of each matched pair; {"cost": (B, Q, M), "capped": (B,) bool, True
     where the auction hit its round cap and was completed greedily; always
-    False for the greedy and Hungarian matchers})."""
+    False for the greedy and Hungarian matchers}). Under an active mesh
+    with a model axis (parallel/mesh.active), gt_for_query and capped are
+    model index 0's on every rank of the model group."""
     m = min(max_match, gt_boxes.shape[1])
     gtb = gt_boxes[:, :m]
     gtc = gt_classes[:, :m]
@@ -241,6 +243,11 @@ def hungarian_match(logits: torch.Tensor, boxes: torch.Tensor,
     else:
         raise ValueError(f"method {method!r}: 'auction', 'greedy' or "
                          f"'hungarian'")
+    # under the decoder split every model rank reads model index 0's
+    # matching: the reference makes one
+    ctx = mesh_lib.active()
+    if ctx is not None and ctx.n_model > 1:
+        mesh_lib.broadcast_over_model([gt_for_query, capped], ctx)
     tgt_x = _take_rows(gx, gt_for_query.clamp(min=0))
     iou_q = box_ops.iou_elementwise(qx, tgt_x)
     iou_q = torch.where(gt_for_query >= 0, iou_q, 0.0)
@@ -457,11 +464,22 @@ ADDITIVE = ("loss", "dec_cls", "dec_l1", "dec_giou", "enc_cls",
             "matcher_capped", "dn")
 
 
+def replicated_grads(state: "RtdetrTrainState") -> list:
+    """The gradients of the leaves the tensor-parallel plan replicates
+    (none without a plan)."""
+    plan = state.tp_plan
+    if not plan:
+        return []
+    return [p.grad for n, p in state.model.named_parameters()
+            if p.grad is not None and plan.get(n) is None]
+
+
 def global_grad_norm(state: "RtdetrTrainState",
                      mesh: Optional[mesh_lib.MeshContext]) -> torch.Tensor:
     """The global norm of the gradients with each element counted once:
     under tensor parallelism a sharded leaf's squares sum over the model
-    group, a replicated leaf (the same on every model rank) counts once."""
+    group, a replicated leaf (the same on every model rank: the step
+    broadcasts model index 0's gradient) counts once."""
     plan = state.tp_plan
     named = [(n, p.grad) for n, p in state.model.named_parameters()
              if p.grad is not None]
@@ -497,8 +515,11 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
     (the ranks of one model group hold the same rows); draws, BatchNorm
     statistics and the set losses' positive counts span the global batch,
     gradients and additive metrics are summed over the data group, and a
-    model holding decoder shards (parallel/mesh.apply_tp) clips by the
-    norm that counts each element once (:func:`global_grad_norm`)."""
+    model holding decoder shards (parallel/mesh.apply_tp) takes model
+    index 0's matchings and replicated leaves' gradients on every model
+    rank (the reference's one array: parallel/mesh.broadcast_over_model)
+    and clips by the norm that counts each element once
+    (:func:`global_grad_norm`)."""
 
     def step(state: RtdetrTrainState, images_u8: torch.Tensor,
              gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
@@ -541,6 +562,7 @@ def make_train_step(img_size: int, corruption: Optional[CorruptionConfig],
                 metrics = dict(metrics, dn=dn_total)
             loss.backward()
         mesh_lib.all_reduce_grads(model.parameters(), mesh)
+        mesh_lib.broadcast_over_model(replicated_grads(state), mesh)
         metrics = mesh_lib.sum_over_data(dict(metrics, loss=loss), mesh,
                                          ADDITIVE)
         loss = metrics.pop("loss")

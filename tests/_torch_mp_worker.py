@@ -9,11 +9,16 @@ reads its inputs from ``WORKDIR/NAME.in.pt`` (written by the test), runs
 the port's data- or tensor-parallel path, and writes
 ``NAME.rank{r}.pt``.
 ROD_TEST_MUTATE=grad drops the gradient all-reduce, =bn the BatchNorm
-statistics' all-reduce (the mutations the tests must see). The runners
-are plain functions, so the test runs the same code in one process for
-the reference side.
+statistics' all-reduce (the mutations the tests must see). Under the
+decoder split (``rtdetr_tp``), ROD_TEST_MUTATE=tp_grad,tp_match lets the
+runners ``rtdetr_tp-tp_grad`` and ``rtdetr_tp-tp_match`` of one launch
+each perturb model index 1: +1e-3 on one replicated leaf's gradient, or
+two queries' assignments swapped in its matchings. The runners are plain
+functions, so the test runs the same code in one process for the
+reference side.
 """
 
+import hashlib
 import json
 import os
 import sys
@@ -46,10 +51,16 @@ def _state_of(model, extra=None):
 
 def run_yolo(d, mesh):
     """`steps` YOLOv8n steps from d["state"] on this rank's rows of the
-    global batch d["images"], d["boxes"], d["classes"]."""
+    global batch d["images"], d["boxes"], d["classes"], computing in
+    d["dtype"] (f32 when absent; bf16 with bf16 BatchNorm outputs over f32
+    master weights, as ``yolov8.create(train=True)`` builds it). "grads":
+    SGD's momentum after the first step, that step's summed gradients plus
+    the weight decay of the unchanged weights."""
     from robust_object_detection_tpu_torch.models import yolov8 as TY
     from robust_object_detection_tpu_torch.train import detector as TD
-    model = TY.YoloV8(TY.YoloConfig(6, "n"))
+    dtype = d.get("dtype", torch.float32)
+    model = TY.YoloV8(TY.YoloConfig(6, "n"), dtype,
+                      param_dtype=torch.float32, bn_dtype=dtype)
     model.load_state_dict(d["state"])
     model.train()
     state = TD.init_state(model, TD.make_optimizer(warmup_steps=1,
@@ -59,12 +70,17 @@ def run_yolo(d, mesh):
                               base_augment=d["augment"], mesh=mesh)
     images, boxes, classes = mesh_lib.shard_batch(
         mesh, (d["images"], d["boxes"], d["classes"]))
-    metrics = []
+    metrics, grads = [], {}
     for s in range(d["steps"]):
         m = step(state, images, boxes, classes,
                  torch.Generator().manual_seed(s))
         metrics.append({k: float(v) for k, v in m.items()})
-    return _state_of(model, {"metrics": metrics, "ema": state.ema})
+        if s == 0:
+            grads = {n: state.optimizer.state[p]["momentum_buffer"].clone()
+                     for n, p in model.named_parameters()
+                     if p in state.optimizer.state}
+    return _state_of(model, {"metrics": metrics, "ema": state.ema,
+                             "grads": grads})
 
 
 def run_frcnn(d, mesh):
@@ -191,9 +207,104 @@ def run_rtdetr_train(d, mesh):
     return {"result": r, "tp_plans": len(calls)}
 
 
+def digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (bit equality across processes)."""
+    t = t.detach().cpu().contiguous().reshape(-1)
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+# the suffix of the runner being run (rtdetr_tp-<mutation>)
+_CURRENT = [""]
+
+
+def _mutating(kind: str) -> bool:
+    return (kind in os.environ.get("ROD_TEST_MUTATE", "").split(",")
+            and _CURRENT[0] == kind)
+
+
+def run_rtdetr_tp(d, mesh):
+    """d["steps"] RT-DETR steps (queries 24, 2 decoder layers, f32) with
+    the decoder split over a 2-way model axis, both ranks on the whole
+    batch. After each step, SHA-256 digests of every replicated leaf (the
+    plan's None leaves), its gradient as the global norm reads it and as
+    the gradient all-reduce left it, its EMA and AdamW moments, every
+    buffer, and each matching as the losses read it and as the matcher
+    returned it; and the metrics."""
+    from robust_object_detection_tpu_torch.models import rtdetr as TRM
+    from robust_object_detection_tpu_torch.train import rtdetr as TR
+    tp = mesh_lib.make_mesh(MeshConfig(data=1, model=2))
+    model = TRM.create(6, torch.float32, CPU,
+                       torch.Generator().manual_seed(0), train=True,
+                       queries=24, dec_layers=2)
+    plan = mesh_lib.rtdetr_decoder_tp(tp, model)
+    mesh_lib.apply_tp(tp, model, plan)
+    state = TR.init_state(model, TR.make_optimizer(warmup_steps=1,
+                                                   total_steps=10)[0])
+    state.tp_plan = plan
+    rep = [(n, p) for n, p in model.named_parameters()
+           if plan.get(n) is None and p.requires_grad]
+    if _mutating("tp_grad") and tp.model_index == 1:
+        leaf = next(p for n, p in rep if ".decoder." in f".{n}")
+
+        def perturb(p):
+            p.grad.add_(1e-3)
+        leaf.register_post_accumulate_grad_hook(perturb)
+    rec = {}
+    real = (TR.hungarian_match, TR.auction_assignment,
+            mesh_lib.all_reduce_grads, TR.global_grad_norm)
+
+    def grads():
+        return {n: digest(p.grad) for n, p in rep if p.grad is not None}
+
+    def match(*a, **k):
+        out = real[0](*a, **k)
+        rec["match"].append(digest(out[0]) + digest(out[2]["capped"]))
+        return out
+
+    def auction(*a, **k):
+        gfq, capped = real[1](*a, **k)
+        if _mutating("tp_match") and tp.model_index == 1:
+            row = gfq[0]
+            j = int((row != row[0]).nonzero()[0])
+            row[0], row[j] = row[j].clone(), row[0].clone()
+        rec["matcher"].append(digest(gfq) + digest(capped))
+        return gfq, capped
+
+    def reduce(*a, **k):
+        real[2](*a, **k)
+        rec["grad_reduced"] = grads()
+
+    def norm(*a, **k):
+        rec["grad"] = grads()
+        return real[3](*a, **k)
+    TR.hungarian_match, TR.auction_assignment = match, auction
+    mesh_lib.all_reduce_grads, TR.global_grad_norm = reduce, norm
+    step = TR.make_train_step(d["img"], CorruptionConfig(), augment=False,
+                              base_augment=True, mesh=tp)
+    out = []
+    try:
+        for s in range(d["steps"]):
+            rec.update(match=[], matcher=[])
+            m = step(state, d["images"], d["boxes"], d["classes"],
+                     torch.Generator().manual_seed(s))
+            opt = state.optimizer.state
+            rec.update(
+                metrics={k: float(v) for k, v in m.items()},
+                params={n: digest(p) for n, p in rep},
+                ema={n: digest(state.ema[n]) for n, _ in rep},
+                moments={f"{n}.{k}": digest(opt[p][k]) for n, p in rep
+                         if p in opt for k in ("exp_avg", "exp_avg_sq")},
+                buffers={n: digest(b) for n, b in model.named_buffers()})
+            out.append(dict(rec))
+    finally:
+        (TR.hungarian_match, TR.auction_assignment,
+         mesh_lib.all_reduce_grads, TR.global_grad_norm) = real
+    return {"steps": out, "model_index": tp.model_index}
+
+
 RUNNERS = {"yolo": run_yolo, "frcnn": run_frcnn, "unet": run_unet,
            "eval": run_eval, "detector_train": run_detector_train,
-           "rtdetr_train": run_rtdetr_train}
+           "rtdetr_train": run_rtdetr_train, "rtdetr_tp": run_rtdetr_tp}
 
 
 def _mutate(kind: str) -> None:
@@ -217,6 +328,7 @@ def main() -> int:
     mesh = mesh_lib.make_mesh(MeshConfig())
     for name in names:
         d = torch.load(work / f"{name}.in.pt", weights_only=False)
+        _CURRENT[0] = name.partition("-")[2]
         out = RUNNERS[name.split("-")[0]](d, mesh)
         torch.save(out, work / f"{name}.rank{rank}.pt")
     torch.distributed.destroy_process_group()

@@ -24,6 +24,13 @@ a group for the one-process side. Checks:
     against ``model=1``, queries 24 and 2 decoder layers at 64 px for 3
     steps: final_loss within rtol 1e-3 (the reference's bar,
     tests/test_rtdetr_tp.py), and the divisibility guard;
+  * under that split, one replicated state, as the reference's one array
+    of each replicated leaf: after each of 2 steps the two model ranks'
+    replicated leaves, the gradients the clip reads, the EMA, the AdamW
+    moments, every buffer, the 3 matchings and the metrics bit-equal,
+    also when model index 1 perturbs a replicated leaf's gradient
+    (ROD_TEST_MUTATE=tp_grad) or swaps two queries of its matchings
+    (tp_match), which the broadcasts from model index 0 undo;
   * sharded eval: mAP equal to the unsharded pass within 1e-9.
 
 Bars against one process (measured while writing this test): two ranks
@@ -107,9 +114,9 @@ def launch(names, work: Path, mutate: str = "", timeout: int = 240):
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
     try:
-        for p in procs:
-            _, err = p.communicate(timeout=timeout)
-            assert p.returncode == 0, err[-3000:]
+        errs = [p.communicate(timeout=timeout)[1] for p in procs]
+        assert all(p.returncode == 0 for p in procs), "\n".join(
+            f"rank {r}: {e[-3000:]}" for r, e in enumerate(errs))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -364,7 +371,16 @@ def train_runs(work, coco_roots):
     torch.save(dict(root=tp_root, out=work / "tp_run",
                     mesh=dict(data=1, model=2)),
                work / "rtdetr_train.in.pt")
-    return launch(["detector_train", "rtdetr_train"], work)
+    images, boxes, classes = yolo_batch(2)
+    for name in TP_RUNS:
+        torch.save(dict(img=IMG, steps=2,
+                        images=torch.from_numpy(images[:2]),
+                        boxes=torch.from_numpy(boxes[:2]),
+                        classes=torch.from_numpy(classes[:2])),
+                   work / f"{name}.in.pt")
+    runs = launch(["detector_train", "rtdetr_train", TP_RUNS[0]], work)
+    runs.update(launch(TP_RUNS[1:], work, "tp_grad,tp_match"))
+    return runs
 
 
 def test_detector_train_on_two_processes(train_runs, work):
@@ -405,6 +421,41 @@ def test_rtdetr_tp2_matches_tp1(train_runs, work, coco_roots):
     sa, sb = a.state_dict(), b.state_dict()
     assert sa.keys() == sb.keys()
     assert all(sa[k].shape == sb[k].shape for k in sa)
+
+
+# the decoder split as it is, and with model index 1 perturbed
+TP_RUNS = ("rtdetr_tp", "rtdetr_tp-tp_grad", "rtdetr_tp-tp_match")
+TP_PARTS = ("params", "grad", "ema", "moments", "buffers", "match",
+            "metrics")
+
+
+@pytest.mark.parametrize("name", TP_RUNS)
+def test_rtdetr_tp_ranks_hold_one_replicated_state(train_runs, name):
+    """After every step both model ranks hold the same replicated state
+    (digests of every replicated leaf, the gradient the global norm and
+    the clip read, its EMA and AdamW moments, every buffer), the same 3
+    matchings and the same metrics, bit for bit. Under a mutation, model
+    index 1's own gradient or matching differs (the mutation is live) and
+    the broadcasts from model index 0 make them one again."""
+    r0, r1 = train_runs[name]
+    assert (r0["model_index"], r1["model_index"]) == (0, 1)
+    assert len(r0["steps"]) == len(r1["steps"]) == 2
+    live = {"grad_reduced": False, "matcher": False}
+    for i, (a, b) in enumerate(zip(r0["steps"], r1["steps"])):
+        assert len(a["match"]) == 3
+        assert len(a["params"]) == len(a["grad"]) > 0
+        for part in TP_PARTS:
+            if isinstance(a[part], dict):
+                apart = [k for k in a[part] if a[part][k] != b[part].get(k)]
+                assert a[part].keys() == b[part].keys() and not apart, (
+                    name, i, part, apart[:3])
+            else:
+                assert a[part] == b[part], (name, i, part)
+        for part in live:
+            live[part] |= a[part] != b[part]
+    mutation = name.partition("-")[2]
+    assert live["grad_reduced"] == (mutation == "tp_grad")
+    assert live["matcher"] == (mutation == "tp_match")
 
 
 def test_rtdetr_tp_divisibility_guard(tmp_path, coco_roots):

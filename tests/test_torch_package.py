@@ -77,6 +77,7 @@ def test_no_module_imports_jax():
     files = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + list((ROOT / "tools").glob("profile_torch_*.py"))
              + [ROOT / "tools" / "smoke_phases.py",
+                ROOT / "tools" / "tp_determinism.py",
                 ROOT / "examples" / "full_pipeline_synthetic_torch.py"])
     assert len(files) > 20
     ref_import = re.compile(

@@ -99,3 +99,21 @@ mutate route_seed_offset robust_object_detection_tpu_torch/ops/corrupt.py \
   "                seed_list[i], part.shape[1:], x.device) for i in rows])" \
   "                seed_list[i] + 1, part.shape[1:], x.device) for i in rows])" \
   phase_corrupt_route
+# RT-DETR-L's model ranks without the broadcast of the replicated leaves'
+# gradients from model index 0: phase 29's bit-equality of the model ranks
+mutate tp_no_grad_broadcast robust_object_detection_tpu_torch/train/rtdetr.py \
+  "        mesh_lib.broadcast_over_model(replicated_grads(state), mesh)" \
+  "        pass" phase_parallel
+# each model rank reading its own matching: phase 29's bit-equality of the
+# model ranks (the perturbed run's swapped queries)
+mutate tp_no_match_broadcast robust_object_detection_tpu_torch/train/rtdetr.py \
+  "        mesh_lib.broadcast_over_model([gt_for_query, capped], ctx)" \
+  "        pass" phase_parallel
+# K2's tensor-core train forward without the data-parallel statistics
+# callback (BN1 / BN2 over each rank's rows): phase 29's bf16 YOLOv8m
+# front statistics
+mutate k2_tc_no_sync robust_object_detection_tpu_torch/ops/yolo_front.py \
+  '                    *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
+                    sync, sync_buf.data_ptr(), stream)' \
+  '                    *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
+                    None, sync_buf.data_ptr(), stream)' phase_parallel
