@@ -23,8 +23,9 @@ Phases:
   2. build: compiles the kernels of csrc/ with nvcc from this checkout;
      ptxas's registers and spills of every kernel, and the count of
      tensor-core instructions (HMMA / HGMMA), async copies (LDGSTS) and
-     f32 FMAs in the SASS of K3's, K2's and K4's bf16 kernels (every
-     instantiation); HMMA must be above 0 in each; the global loads of K5
+     f32 FMAs in the SASS of K3's, K2's and K4's bf16 kernels and of K3's
+     split-TF32 f32 kernels (every instantiation); HMMA must be above 0 in
+     each, TF32 HMMA in the f32 ones; the global loads of K5
      forward's, the deformable backward's (taps kernel and scatter) and
      K5-g1's kernels, with 128-bit value loads required in K5 forward's
      16-byte instantiations and the backward's bf16 taps kernels that read
@@ -33,8 +34,11 @@ Phases:
      versions at the sweep's shapes (f32 with TF32 off: max abs err <=
      1e-4 x max|ref|; bf16: <= 1e-2 x max|ref|), with CUDA-event timings
      (median of 10 calls after 3 warm-ups) of both and the profiler's
-     device ms of each bf16 K2-f sub-kernel (P1, P2); K3-f, K3-f as dX and
-     K3-b at odd shapes and on a misaligned x (conv3x3_edges); and the
+     device ms of each bf16 K2-f sub-kernel (P1, P2); f32 K3-f's device
+     ms by kernel (the split-TF32 kernel, no CUDA-core K3 kernel) and
+     F.conv2d with cuDNN's TF32 off beside its default (on); K3-f, K3-f as
+     dX and K3-b at odd shapes and on a misaligned x, and f32 K3-f on an
+     Inf, -Inf or NaN input against float64 (conv3x3_edges); and the
      kernels' refusal of CUDA tensors they do not take;
   4. model check: YOLOv8m f32 logits on the card (kernels, TF32 off)
      against the same weights on the CPU (plain versions) at 128 px;
@@ -45,9 +49,11 @@ Phases:
      mode, K2-b and K1 against their plain versions at the training
      shapes, in f32 with TF32 off and in bf16, timed the same way (with the
      device ms of each bf16 K2 sub-kernel: P1, P2, finalize; stat
-     cotangent, e2 prep, dA1, dk2, dk1, the chunk sums, bn chain), K2-b and
-     the train statistics bit-identical on a second run, and the kernels'
-     refusal of bad CUDA inputs (tolerances in phase_train_kernels);
+     cotangent, e2 prep, dA1, dk2, dk1, the chunk sums, bn chain; f32
+     K3-b's device ms by kernel and conv2d_weight with cuDNN's TF32 off),
+     K2-b and the train statistics bit-identical on a second run, and the
+     kernels' refusal of bad CUDA inputs (tolerances in
+     phase_train_kernels);
   7. train-step model check: one YOLOv8m f32 train step at 128 px, batch
      2, no corruption, on the card (kernels, TF32 off) and on the CPU
      (plain versions) from the same weights and batch: loss within 1e-4
@@ -87,7 +93,8 @@ Phases:
      profiler's device ms of each bf16 K4-f train and K4-b launch, and
      cuDNN's time for each stage of the stem's backward beside K4-b; and the
      kernels this step shares with earlier paths at its own shapes (K5
-     forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8); K5
+     forward at 428 queries, K3-b, K3-f as dX and K1 at batch 8, f32 K3-b
+     timed there with conv2d_weight, cuDNN's TF32 on and off); K5
      backward also on clustered samples, twice for identical bits and bit
      for bit K5-g2's d(values) on the same inputs, with the profiler's
      device ms of its two launches (taps kernel, owner scatter); K6 also
@@ -330,7 +337,10 @@ time the card could take for the same work: the larger of the bytes the
 function must move (inputs once, outputs once; for the gather of K5 the
 distinct rows this run's taps touch) over 3.35 TB/s and its operations
 over the card's peak for the type (989 TFLOP/s bf16 on the tensor cores,
-67 TFLOP/s f32), and ``library_ms``, the time of the one PyTorch call
+67 TFLOP/s f32; a row's ``float32`` key for K3, whose f32 route is
+split TF32, counts its three TF32 MMAs a product at 495 TFLOP/s and gives
+the f32 FFMA bound beside it as ``ffma_bound_ms``), and ``library_ms``,
+the time of the one PyTorch call
 that computes the same function where there is one (a cuDNN convolution
 or its filter gradient; ``scatter_add_`` for K5-g1), timed here and used
 nowhere in the port.
@@ -370,6 +380,7 @@ RTDETR_TRAIN_BATCH = 8  # bench.py's RT-DETR workload
 # the card's published peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
 
 
 def require(cond: bool, msg: str) -> None:
@@ -536,6 +547,29 @@ def bound(w: dict):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def f32_route_numbers(r: dict, tf32x3: bool) -> dict:
+    """The summary's numbers of a kernel's f32 route: events and (where
+    taken) device ms, error, plain and library ms, and its bounds. The
+    bound is the larger of the byte bound and the operations bound at the
+    rate of the units the route computes f32 on: the f32 FFMA peak
+    (67 TFLOP/s) for a CUDA-core route; for a split-TF32 route the three
+    TF32 MMAs it runs for every f32 product (3 x its operations at
+    495 TFLOP/s), the tighter bound the card reaches at f32 accuracy, with
+    the FFMA bound beside it."""
+    ffma_ms = r["flops"] / PEAK_FLOPS["float32"] * 1e3
+    if tf32x3:
+        r = dict(r, flops=3 * r["flops"], peak=PEAK_TF32)
+    bound_ms, bound_by = bound(r)
+    out = dict(ms=r["ms"], max_abs_err=r["max_abs_err"],
+               plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+               bytes_bound_ms=r["bytes"] / HBM_BYTES_PER_S * 1e3,
+               ffma_bound_ms=ffma_ms, library_ms=r["library_ms"])
+    for key in ("device_ms", "library_tf32_off_ms"):
+        if key in r:
+            out[key] = r[key]
+    return out
+
+
 def esize(dtype) -> int:
     import torch
     return torch.empty((), dtype=dtype).element_size()
@@ -586,9 +620,8 @@ def misaligned(t):
 def conv3x3_edges(C, g, dev, tag):
     """K3-f forward, K3-f as dX and K3-b on CONV3X3_EDGES and on a
     misaligned x, f32 (TF32 off) and bf16 against the plain versions in f32
-    on the same values: K3-f 1e-4 / 1e-2 x max|ref|, K3-b 1e-3 x max|ref|
-    in both dtypes (bf16 products are exact in f32; only the summation
-    order differs), K3-b bit-identical on a second run."""
+    on the same values: K3-f 1e-4 / 1e-2 x max|ref|, K3-b K3B_TOL x max|ref|
+    (1.5e-4 / 1e-3), K3-b bit-identical on a second run."""
     import torch
     from robust_object_detection_tpu_torch import kernels
     cases = [(s, False) for s in CONV3X3_EDGES] + [((2, 37, 45, 48, 48),
@@ -602,25 +635,71 @@ def conv3x3_edges(C, g, dev, tag):
             xd, dyd, kd = x.to(dtype), dy.to(dtype), k.to(dtype)
             if shifted:
                 xd, dyd = misaligned(xd), misaligned(dyd)
-                if dtype == torch.bfloat16:
-                    sm = kernels.sm_count(dev)
-                    plans = (kernels.conv3x3_tc_plan(
-                        b, h, w, cin, cout, (xd.data_ptr(), kd.data_ptr()),
-                        sm), kernels.wgrad_tc_plan(
-                        b, h, w, cin, cout, (xd.data_ptr(), dyd.data_ptr()),
-                        sm))
-                    require(all(p["vec"] == 0 for p in plans),
-                            "a misaligned x took 16-byte staging")
+                sm, name = kernels.sm_count(dev), str(dtype).split(".")[-1]
+                plans = (kernels.conv3x3_tc_plan(
+                    name, b, h, w, cin, cout, (xd.data_ptr(), kd.data_ptr()),
+                    sm), kernels.wgrad_tc_plan(
+                    name, b, h, w, cin, cout,
+                    (xd.data_ptr(), dyd.data_ptr()), sm))
+                require(all(p["vec"] == 0 for p in plans),
+                        "a misaligned x took 16-byte staging")
             log = []
             with torch.backends.cudnn.flags(allow_tf32=False):
                 check(f"conv3x3 {dtype} {(b, h, w, cin, cout)}",
                       C.conv3x3(xd, kd),
                       C.conv3x3_reference(xd.float(), kd.float()), tol, log)
-            check_conv3x3_backward(C, xd, dyd, kd, 1e-3, log)
+            check_conv3x3_backward(C, xd, dyd, kd, log)
             n += 1
     print(f"[{tag}] conv3x3 forward, dX and wgrad on {len(cases)} odd "
           f"shapes (one with a misaligned x and dy), f32 and bf16: {n} "
           f"cases passed")
+    # f32 with one non-finite input value, a random filter beside one of
+    # TF32 values (lo = 0): Inf, -Inf and NaN outputs exactly where the
+    # float64 conv has them (the split's guard; without it Inf - Inf in lo
+    # turns an Inf's outputs into NaN)
+    x = torch.randn(1, 9, 17, 8, device=dev, generator=g)
+    k = torch.randn(3, 3, 8, 16, device=dev, generator=g) * 0.1
+    k = torch.cat([k, (k.view(torch.int32) & -8192).view(torch.float32)],
+                  -1).contiguous()
+    for bad in (math.inf, -math.inf, math.nan):
+        xb = x.clone()
+        xb[0, 4, 5, 3] = bad
+        out = C.conv3x3(xb, k)
+        ref = C.conv3x3_reference(xb.double(), k.double())
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            require(torch.equal(test(out), test(ref)),
+                    f"conv3x3 float32 with an input {bad}: {test.__name__} "
+                    f"at {int(test(out).sum())} outputs, the float64 conv "
+                    f"at {int(test(ref).sum())}")
+    print(f"[{tag}] conv3x3 float32 with an Inf, -Inf or NaN input: "
+          f"non-finite outputs where the float64 conv has them")
+
+
+# K3's f32 route: the split-TF32 kernels of csrc/conv3x3_tf32.cuh; the
+# CUDA-core kernels K3 ran before (still K2's and K4's f32 route)
+K3_F32_OLD = ("conv3x3_tile_kernel", "wgrad_partial_kernel")
+
+
+def k3_f32_route(tag, what, fn, kernel, library):
+    """The f32 K3 call `fn` under the profiler: its device ms, which must
+    come from `kernel` and from none of K3's old CUDA-core kernels; and
+    the library call's events ms with cuDNN's TF32 off (PyTorch's default,
+    on, is timed beside the kernel as library_ms)."""
+    import torch
+    rows = device_ms_by_kernel(fn)
+    names = [short_kernel_name(k) for _, _, k in rows]
+    require(any(kernel in n for n in names),
+            f"{what}: no {kernel} launch under the profiler ({names})")
+    require(not any(o in n for n in names for o in K3_F32_OLD),
+            f"{what}: a CUDA-core kernel was launched ({names})")
+    dev_ms = sum(ms for ms, _, k in rows if kernel in k)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        off = time_ms(library)
+    print(f"[{tag}] {what}: device ms by kernel "
+          + "; ".join(f"{short_kernel_name(k)} x{n} {ms}"
+                      for ms, n, k in rows)
+          + f"; library with cuDNN's TF32 off {off} ms")
+    return dict(device_ms=dev_ms, library_tf32_off_ms=off)
 
 
 def phase_kernels(dev):
@@ -658,6 +737,11 @@ def phase_kernels(dev):
                           **work(name, (x.numel() * 2 + k.numel())
                                  * esize(dtype),
                                  2 * k.numel() * x.numel() // 48, lib_ms))
+        if dtype == torch.float32:
+            conv[name].update(k3_f32_route(
+                "kernels", "conv3x3 float32 (8,256,256,48)->48",
+                lambda: C.conv3x3(xd, kd), "conv3x3_tf32_kernel",
+                lambda: F.conv2d(xv, kv, padding=1)))
     results["conv3x3"] = conv
     conv3x3_edges(C, g, dev, "kernels")
 
@@ -862,17 +946,25 @@ def check(name, out, ref, tol, log):
     return err
 
 
-def check_conv3x3_backward(C, xd, dyd, kd, tol, log):
-    """K3-b and K3-f as dX on one (x, dy, k) against the plain versions in
-    f32 on the same values, and K3-b twice for the same bits; returns K3-b's
-    max abs error."""
+# K3-b's bar x max|ref| by dtype. f32: the split-TF32 kernel reads
+# 5.4e-5 at (16, 256, 256, 48) and one-pass TF32 2.6e-4 (1M-term sums), so
+# 1.5e-4 fails a filter gradient that drops the split's lo. bf16: products
+# of bf16 values are exact in f32 and only the order of the f32 sums
+# differs; 2e-2 would pass a kernel that drops 1% of its pixels.
+K3B_TOL = {"float32": 1.5e-4, "bfloat16": 1e-3}
+
+
+def check_conv3x3_backward(C, xd, dyd, kd, log):
+    """K3-b (within K3B_TOL) and K3-f as dX on one (x, dy, k) against the
+    plain versions in f32 on the same values, and K3-b twice for the same
+    bits; returns K3-b's max abs error."""
     import torch
     name = str(xd.dtype).split(".")[-1]
     shape = tuple(xd.shape)
     with torch.backends.cudnn.flags(allow_tf32=False):
         err = check(f"conv3x3_wgrad {name} {shape}", C.conv3x3_wgrad(xd, dyd),
                     C.conv3x3_wgrad_reference(xd.float(), dyd.float()),
-                    tol, log)
+                    K3B_TOL[name], log)
         kflip = kd.flip(0, 1).transpose(2, 3).contiguous()
         check(f"conv3x3 dX {name} {shape}", C.conv3x3(dyd, kflip),
               C.conv3x3_reference(dyd.float(), kflip.float()),
@@ -917,9 +1009,8 @@ def phase_train_kernels(dev):
     shapes. Tolerances: f32 outputs 1e-4 x max|ref| (f32 sums in another
     order); f32 sums over B x H x W (weight gradients, BN statistics and
     their gradients) 1e-3 x max|ref| (~1e6-term sums in another order);
-    bf16 2e-2 x max|ref|, but K3-b 1e-3 in both dtypes (a product of bf16
-    values is exact in f32, so only the order of the f32 sums differs, and
-    2e-2 would pass a kernel that drops 1% of its pixels). The bf16 K3
+    bf16 2e-2 x max|ref|, but K3-b K3B_TOL: 1.5e-4 in f32 (below one-pass
+    TF32's error) and 1e-3 in bf16. The bf16 K3
     kernels are held against the plain version in f32 on the same bf16
     values; the bf16 front against the
     plain front in bf16, which rounds y1, a1 and y2 where the kernels do:
@@ -951,7 +1042,7 @@ def phase_train_kernels(dev):
         name = str(dtype).split(".")[-1]
         xd, dyd, kd = x.to(dtype), dy.to(dtype), k.to(dtype)
         log = []
-        err = check_conv3x3_backward(C, xd, dyd, kd, 1e-3, log)
+        err = check_conv3x3_backward(C, xd, dyd, kd, log)
         ms = time_ms(lambda: C.conv3x3_wgrad(xd, dyd))
         plain_ms = time_ms(lambda: C.conv3x3_wgrad_reference(xd, dyd))
         xv, dyv = xd.permute(0, 3, 1, 2), dyd.permute(0, 3, 1, 2)
@@ -964,6 +1055,12 @@ def phase_train_kernels(dev):
                         **work(name, (x.numel() + dy.numel()) * esize(dtype)
                                + k.numel() * 4,
                                2 * k.numel() * x.numel() // 48, lib_ms))
+        if dtype == torch.float32:
+            wg[name].update(k3_f32_route(
+                "train-kernels", "conv3x3_wgrad float32 (16,256,256,48)",
+                lambda: C.conv3x3_wgrad(xd, dyd), "wgrad_tf32_kernel",
+                lambda: torch.nn.grad.conv2d_weight(
+                    xv, (48, 48, 3, 3), dyv, padding=1)))
     results["conv3x3_wgrad"] = wg
     del x, dy
 
@@ -1904,9 +2001,21 @@ def phase_rtdetr_train_kernels(dev):
     log = []
     for dtype in (torch.float32, torch.bfloat16):
         check_conv3x3_backward(C, x.to(dtype), dy.to(dtype), k.to(dtype),
-                               1e-3, log)
+                               log)
     print(f"[rtdetr-train-kernels] {'; '.join(log)}")
-    del x, dy
+    xv, dyv = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    f32 = k3_f32_route(
+        "rtdetr-train-kernels", "conv3x3_wgrad float32 (8,256,256,48)",
+        lambda: C.conv3x3_wgrad(x, dy), "wgrad_tf32_kernel",
+        lambda: torch.nn.grad.conv2d_weight(xv, (48, 48, 3, 3), dyv,
+                                            padding=1))
+    ms = time_ms(lambda: C.conv3x3_wgrad(x, dy))
+    lib_ms = time_ms(lambda: torch.nn.grad.conv2d_weight(
+        xv, (48, 48, 3, 3), dyv, padding=1))
+    print(f"[rtdetr-train-kernels] conv3x3_wgrad float32 (8,256,256,48): "
+          f"kernel {ms} ms, device {f32['device_ms']} ms; library {lib_ms} "
+          f"ms (cuDNN's TF32 on), {f32['library_tf32_off_ms']} ms (off)")
+    del x, dy, xv, dyv
     img, _, _, per_branch, nmean, nstd = check_corrupt(FC, g, dev,
                                                        RTDETR_TRAIN_BATCH)
     print(f"[rtdetr-train-kernels] corrupt f32 {tuple(img.shape)}: max abs "
@@ -2800,10 +2909,12 @@ def phase_deform_generations(dev):
     return total
 
 
-# the bf16 tensor-core kernels: K3's (csrc/conv3x3_tc.cuh), K2's and K4's
-# stride-2 convs (csrc/front_tc.cuh, each instantiated for both) and K4's
-# 2x2 convs (csrc/stem_tc.cuh)
-TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "front_p1_kernel",
+# the tensor-core kernels: K3's (csrc/conv3x3_tc.cuh for bf16,
+# csrc/conv3x3_tf32.cuh for f32 in split TF32), K2's and K4's bf16 stride-2
+# convs (csrc/front_tc.cuh, each instantiated for both) and K4's bf16 2x2
+# convs (csrc/stem_tc.cuh)
+TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "conv3x3_tf32_kernel",
+              "wgrad_tf32_kernel", "front_p1_kernel",
               "front_p2_kernel", "front_da1_tc_kernel", "front_dk2_tc_kernel",
               "front_dk1_tc_kernel", "stem2x2_tc_kernel",
               "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel")
@@ -6512,7 +6623,8 @@ def main() -> int:
         print(f"[build] {fn}: {line}")
     sass = sass_opcodes(so, TC_KERNELS)
     for fn, ops in sass.items():
-        print(f"[build] SASS of {fn}: HMMA {ops.get('HMMA', 0)} HGMMA "
+        print(f"[build] SASS of {fn}: HMMA {ops.get('HMMA', 0)} (TF32 "
+              f"{ops.get('HMMA.1688.F32.TF32', 0)}) HGMMA "
               f"{ops.get('HGMMA', 0)} LDSM {ops.get('LDSM', 0)} LDGSTS "
               f"{ops.get('LDGSTS', 0)} FFMA {ops.get('FFMA', 0)}")
     for name in TC_KERNELS:
@@ -6520,6 +6632,10 @@ def main() -> int:
         require(found and all(ops.get("HMMA", 0) + ops.get("HGMMA", 0) > 0
                               for ops in found),
                 f"{name}: no tensor-core instruction in its SASS")
+        if "tf32" in name:
+            require(all(ops.get("HMMA.1688.F32.TF32", 0) > 0
+                        for ops in found),
+                    f"{name}: no TF32 MMA in its SASS")
 
     # the gather's 16-byte instantiations (K5 and K5-g2 forward, bf16 8
     # and f32 4 channels a load), K5-g2's relayout and the backward's bf16
@@ -6644,10 +6760,15 @@ def main() -> int:
                     "yolo_front_train", "yolo_front_bwd", "hgstem",
                     "hgstem_train", "hgstem_bwd"):
             # K3's, K2's and K4's route by dtype: tensor cores
-            # (conv3x3_tc.cuh, front_tc.cuh, stem_tc.cuh) for bf16, the
-            # CUDA-core kernels for f32
-            summary[-1]["dtype_routes"] = {"bfloat16": "tc",
-                                           "float32": "cuda-core"}
+            # (conv3x3_tc.cuh, front_tc.cuh, stem_tc.cuh) for bf16; for f32
+            # K3's split-TF32 tensor-core kernels (conv3x3_tf32.cuh), K2's
+            # and K4's CUDA-core kernels; the f32 route's numbers beside
+            k3 = name in ("conv3x3", "conv3x3_wgrad")
+            summary[-1]["dtype_routes"] = {
+                "bfloat16": "tc", "float32": "tc-3xtf32" if k3
+                else "cuda-core"}
+            summary[-1]["float32"] = f32_route_numbers(kres[name]["float32"],
+                                                       k3)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,14 +23,18 @@
 //     tile's MMAs run, and the output leaves as 16-byte NHWC pieces. On an
 //     H100 it runs at about 2.5x the byte bound: 8 warps an SM do not hide
 //     the ldmatrix -> mma latency of a tile's 27 unrolled k16 steps.
-//   * f32: conv3x3_nhwc, the CUDA-core tile of conv_tile.cuh (each block
-//     stages an input patch and an 8-channel filter slice in shared memory
-//     and reuses them for 16 output channels or 16 x 16 pixels). f32 is on
-//     no timed path, and a TF32 tensor-core route would not hold the f32
-//     checks at 1e-4.
+//   * f32 (the models' float32 dtype, and every f32 card-vs-CPU check):
+//     conv3x3_tf32_nhwc, the tensor-core implicit GEMM of conv3x3_tf32.cuh
+//     in split ("3x") TF32, which keeps f32 accuracy (the f32 checks hold
+//     it at 1e-4 x max|ref|). At the same shape it does 65.2 GFLOP of TF32
+//     MMAs (0.132 ms at 495 TFLOP/s) against 201 MB (0.060 ms): operations
+//     bound it. On an H100 it runs in 0.39 ms, paced by the rate of its
+//     three mma.sync a product and by the split (cuDNN: 0.23 ms in one-pass
+//     TF32, 0.90 with TF32 off). It replaced the CUDA-core tile of
+//     conv_tile.cuh (0.92 ms), which K2's and K4's f32 routes still use.
 
 #include "conv3x3_tc.cuh"
-#include "conv_tile.cuh"
+#include "conv3x3_tf32.cuh"
 
 namespace rodt {
 namespace tc {
@@ -59,25 +63,50 @@ static int launch_conv_tc(const void* x, const void* w, void* y, int B, int H,
 }
 
 }  // namespace tc
-}  // namespace rodt
 
-extern "C" int conv3x3_nhwc(const void* x, const void* w, void* y, int B,
-                            int H, int W, int Cin, int Cout, int dtype,
-                            void* stream) {
-  // bf16 goes to conv3x3_tc_nhwc
-  if (dtype != rodt::DTYPE_F32 || B <= 0 || H <= 0 || W <= 0 || Cin <= 0 ||
-      Cout <= 0 || B > 65535 || (Cout + rodt::CO_T - 1) / rodt::CO_T > 65535)
+namespace tc32 {
+
+// The wrapper's plan: NT (2 or 6), VEC, blocks.
+static int launch_conv_tf32(const void* x, const void* w, void* y, int B,
+                            int H, int W, int Cin, int Cout, int NT, int vec,
+                            int blocks, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || blocks <= 0 ||
+      (vec && Cin % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  return rodt::launch_conv3x3<float, 1, rodt::ACT_SILU>(
-      x, w, y, rodt::ConvOpts(), B, H, W, Cin, Cout,
-      static_cast<cudaStream_t>(stream));
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+  if (NT == 6)
+    return vec ? launch_conv_tf32_t<6, true>(xf, wf, yf, B, H, W, Cin, Cout,
+                                             blocks, stream)
+               : launch_conv_tf32_t<6, false>(xf, wf, yf, B, H, W, Cin,
+                                              Cout, blocks, stream);
+  if (NT == 2)
+    return vec ? launch_conv_tf32_t<2, true>(xf, wf, yf, B, H, W, Cin, Cout,
+                                             blocks, stream)
+               : launch_conv_tf32_t<2, false>(xf, wf, yf, B, H, W, Cin,
+                                              Cout, blocks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+}  // namespace tc32
+}  // namespace rodt
+
 // bf16 only; nt, vec and blocks are the wrapper's launch plan
-// (kernels.conv3x3_tc_plan).
+// (kernels.conv3x3_tc_plan("bfloat16", ...)).
 extern "C" int conv3x3_tc_nhwc(const void* x, const void* w, void* y, int B,
                                int H, int W, int Cin, int Cout, int nt,
                                int vec, int blocks, void* stream) {
   return rodt::tc::launch_conv_tc(x, w, y, B, H, W, Cin, Cout, nt, vec,
                                   blocks, static_cast<cudaStream_t>(stream));
+}
+
+// f32 only; nt, vec and blocks are the wrapper's launch plan
+// (kernels.conv3x3_tc_plan("float32", ...)).
+extern "C" int conv3x3_tf32_nhwc(const void* x, const void* w, void* y,
+                                 int B, int H, int W, int Cin, int Cout,
+                                 int nt, int vec, int blocks, void* stream) {
+  return rodt::tc32::launch_conv_tf32(x, w, y, B, H, W, Cin, Cout, nt, vec,
+                                      blocks,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,8 @@
 // on the tensor cores: implicit GEMMs on mma.sync.m16n8k16 (bf16 x bf16 ->
 // f32), NHWC in, operands staged in shared memory by 16-byte cp.async and
 // read into fragments by ldmatrix. Used by conv3x3.cu and conv3x3_wgrad.cu
-// for bf16; their f32 route stays on the CUDA-core tiles of conv_tile.cuh
-// and conv_wgrad.cuh. front_tc.cuh (K2) builds on its PTX wrappers,
+// for bf16; their f32 route is the split-TF32 kernels of conv3x3_tf32.cuh.
+// front_tc.cuh (K2) and conv3x3_tf32.cuh build on its PTX wrappers,
 // stage_rows and sum_chunks_tc_kernel.
 //
 // Both kernels walk 8 x 16 output-pixel tiles (TH x TW) of an image and
@@ -91,22 +91,25 @@ __host__ __device__ constexpr int padded(int c) {
 }
 
 // Stages rows x `cols` channels (from channel c0 of a row of `C`) into a
-// shared [rows][stride] bf16 array; src_row(r) is the row's global element
-// offset or -1 outside the image; channels >= C are zero.
-template <bool VEC, typename RowFn>
-__device__ __forceinline__ void stage_rows(bf16* dst, int stride,
-                                           const bf16* __restrict__ src,
+// shared [rows][stride] array of T (bf16, or f32 for conv3x3_tf32.cuh);
+// src_row(r) is the row's global element offset or -1 outside the image;
+// channels >= C are zero. VEC: one cp.async a 16-byte piece (8 bf16 or 4
+// f32 channels).
+template <bool VEC, typename T, typename RowFn>
+__device__ __forceinline__ void stage_rows(T* dst, int stride,
+                                           const T* __restrict__ src,
                                            int rows, int cols, int c0, int C,
                                            RowFn src_row, int tid,
                                            int nthreads) {
+  constexpr int P = 16 / sizeof(T);  // channels a piece
   if (VEC) {
-    const int pieces = cols / 8;
+    const int pieces = cols / P;
     for (int i = tid; i < rows * pieces; i += nthreads) {
       const int r = i / pieces, j = i - r * pieces;
       const long long off = src_row(r);
-      const int c = c0 + 8 * j;
+      const int c = c0 + P * j;
       const bool valid = off >= 0 && c < C;
-      cp_async16(dst + r * stride + 8 * j, valid ? src + off + c : src,
+      cp_async16(dst + r * stride + P * j, valid ? src + off + c : src,
                  valid);
     }
   } else {
@@ -114,8 +117,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int stride,
       const int r = i / cols, j = i - r * cols;
       const long long off = src_row(r);
       const int c = c0 + j;
-      dst[r * stride + j] =
-          (off >= 0 && c < C) ? src[off + c] : __float2bfloat16(0.f);
+      dst[r * stride + j] = (off >= 0 && c < C) ? src[off + c] : T(0.f);
     }
   }
 }

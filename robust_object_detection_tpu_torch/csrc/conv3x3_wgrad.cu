@@ -20,13 +20,21 @@
 //     about 3x that bound, paced by shared-memory traffic (all nine warps
 //     read the same dy fragments) and mma.sync issue; wgmma, which reads B
 //     from shared memory once per warpgroup, would lift both.
-//   * f32: conv3x3_wgrad_nhwc, the CUDA-core kernel of conv_wgrad.cuh
-//     (blocks of 16 x 16 channels, 9 taps x 4 outputs a thread).
+//   * f32: conv3x3_wgrad_tf32_nhwc, conv3x3_tf32.cuh's tensor-core kernel
+//     in split ("3x") TF32 (f32 accuracy): at batch 16, 130 GFLOP of TF32
+//     MMAs (0.264 ms at 495 TFLOP/s) against 403 MB (0.120 ms), so
+//     operations bound it. Same block scheme as bf16 (all of dk a block),
+//     with 18 warps (tap x half the n8 tiles); each staged value is split
+//     once into shared memory and the fragments are 128-bit loads with
+//     permuted channel rows instead of ldmatrix.trans. On an H100 it runs
+//     in 0.88 ms (cuDNN: 1.27-1.32 in one-pass TF32, 2.63-2.81 with TF32
+//     off). It replaced the CUDA-core kernel of conv_wgrad.cuh (2.56 ms),
+//     which K2's and K4's f32 routes still use.
 // Both split the pixels into a fixed set of chunks, write per-chunk partials
 // and add them in a fixed order: deterministic, with no atomics.
 
 #include "conv3x3_tc.cuh"
-#include "conv_wgrad.cuh"
+#include "conv3x3_tf32.cuh"
 
 namespace rodt {
 namespace tc {
@@ -65,23 +73,47 @@ static int launch_wgrad_tc(const void* x, const void* dy, float* part,
 }
 
 }  // namespace tc
-}  // namespace rodt
 
-extern "C" int conv3x3_wgrad_nhwc(const void* x, const void* dy, void* part,
-                                  void* dk, int B, int H, int W, int Cin,
-                                  int Cout, int n_chunks, int dtype,
-                                  void* stream) {
-  if (dtype != rodt::DTYPE_F32)  // bf16 goes to conv3x3_wgrad_tc_nhwc
+namespace tc32 {
+
+// The wrapper's plan: MT (1 or 3), NT (2 or 6), VEC, n_chunks. dk (3, 3,
+// Cin, Cout) f32 = the in-order sum of the n_chunks partials in `part`.
+static int launch_wgrad_tf32(const void* x, const void* dy, float* part,
+                             float* dk, int B, int H, int W, int Cin,
+                             int Cout, int MT, int NT, int vec, int n_chunks,
+                             cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 ||
+      n_chunks <= 0 || (vec && (Cin % 4 != 0 || Cout % 4 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return rodt::launch_wgrad<float>(1, x, dy, rodt::WgradOpts(),
-                                   static_cast<float*>(part),
-                                   static_cast<float*>(dk), B, H, W, Cin,
-                                   Cout, n_chunks,
-                                   static_cast<cudaStream_t>(stream));
+  const float* xf = static_cast<const float*>(x);
+  const float* df = static_cast<const float*>(dy);
+  int err;
+  if (MT == 3 && NT == 6)
+    err = launch_wgrad_tf32_v<3, 6>(vec, xf, df, part, B, H, W, Cin, Cout,
+                                    n_chunks, stream);
+  else if (MT == 3 && NT == 2)
+    err = launch_wgrad_tf32_v<3, 2>(vec, xf, df, part, B, H, W, Cin, Cout,
+                                    n_chunks, stream);
+  else if (MT == 1 && NT == 6)
+    err = launch_wgrad_tf32_v<1, 6>(vec, xf, df, part, B, H, W, Cin, Cout,
+                                    n_chunks, stream);
+  else if (MT == 1 && NT == 2)
+    err = launch_wgrad_tf32_v<1, 2>(vec, xf, df, part, B, H, W, Cin, Cout,
+                                    n_chunks, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
+  const int n = 9 * Cin * Cout;
+  tc::sum_chunks_tc_kernel<<<(n + 31) / 32, 256, 0, stream>>>(
+      part, n_chunks, n, dk);
+  return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace tc32
+}  // namespace rodt
+
 // bf16 only; mt, nt, vec and n_chunks are the wrapper's launch plan
-// (kernels.wgrad_tc_plan); part holds n_chunks x 9 x Cin x Cout f32.
+// (kernels.wgrad_tc_plan("bfloat16", ...)); part holds n_chunks x 9 x Cin x Cout f32.
 extern "C" int conv3x3_wgrad_tc_nhwc(const void* x, const void* dy,
                                      void* part, void* dk, int B, int H,
                                      int W, int Cin, int Cout, int mt, int nt,
@@ -90,4 +122,17 @@ extern "C" int conv3x3_wgrad_tc_nhwc(const void* x, const void* dy,
                                    static_cast<float*>(dk), B, H, W, Cin,
                                    Cout, mt, nt, vec, n_chunks,
                                    static_cast<cudaStream_t>(stream));
+}
+
+// f32 only; mt, nt, vec and n_chunks are the wrapper's launch plan
+// (kernels.wgrad_tc_plan("float32", ...)); part holds n_chunks x 9 x Cin x Cout f32.
+extern "C" int conv3x3_wgrad_tf32_nhwc(const void* x, const void* dy,
+                                       void* part, void* dk, int B, int H,
+                                       int W, int Cin, int Cout, int mt,
+                                       int nt, int vec, int n_chunks,
+                                       void* stream) {
+  return rodt::tc32::launch_wgrad_tf32(x, dy, static_cast<float*>(part),
+                                       static_cast<float*>(dk), B, H, W, Cin,
+                                       Cout, mt, nt, vec, n_chunks,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -10,9 +10,10 @@
 //     of the STORED (rounded) outputs, as deterministic partials
 //     stats[2][P][Cout], P = B * tiles; finalize_partials_kernel reduces
 //     them.
-// Used by conv3x3.cu (K3-f, f32), yolo_front.cu (K2-f eval and train,
-// f32) and hgstem.cu (K4-f: stem1 and stem3, f32 and bf16); the bf16 K3-f
-// and K2-f run the tensor-core kernels of conv3x3_tc.cuh and front_tc.cuh,
+// Used by yolo_front.cu (K2-f eval and train, f32) and hgstem.cu (K4-f:
+// stem1 and stem3, f32 and bf16); K3-f runs the tensor-core kernels of
+// conv3x3_tc.cuh (bf16) and conv3x3_tf32.cuh (f32), the bf16 K2-f those of
+// front_tc.cuh,
 // and K2-f's bf16 route still reduces its statistics partials with
 // finalize_partials_kernel below.
 //

@@ -6,10 +6,10 @@
 // ReLU), and e = d or the statistics fold
 // round(d + dsum + 2 * y * dsq) of a train-mode BatchNorm that follows the
 // conv (the mean / sum-of-squares cotangents of its batch statistics).
-// Used by conv3x3_wgrad.cu (K3-b, f32), yolo_front_bwd.cu (K2-b, f32) and
-// hgstem_bwd.cu (K4-b, f32 and bf16; its 2x2 convs with zero pad
-// right/bottom are the taps ky, kx in {1, 2} of this 3x3 pad-1 gradient);
-// the bf16 K3-b and K2-b run the tensor-core kernels of conv3x3_tc.cuh and
+// Used by yolo_front_bwd.cu (K2-b, f32) and hgstem_bwd.cu (K4-b, f32 and
+// bf16; its 2x2 convs with zero pad right/bottom are the taps ky, kx in
+// {1, 2} of this 3x3 pad-1 gradient); K3-b runs the tensor-core kernels of
+// conv3x3_tc.cuh (bf16) and conv3x3_tf32.cuh (f32), the bf16 K2-b those of
 // front_tc.cuh. Also holds the two tiny per-channel kernels of a
 // train-mode BN's backward that K2-b (both routes) and K4-b share.
 //

@@ -41,16 +41,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument lists of the C entry points (pointers and the stream as void*,
 # or ctypes would pass them as 32-bit ints)
 SIGNATURES: Dict[str, List] = {
-    # x, w, y (f32), B, H, W, Cin, Cout, dtype, stream
-    "conv3x3_nhwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, y (bf16), B, H, W, Cin, Cout, nt, vec, blocks, stream (the plan
-    # of conv3x3_tc_plan)
+    # of conv3x3_tc_plan); the same in f32
     "conv3x3_tc_nhwc": [_P, _P, _P] + [_I] * 8 + [_P],
-    # x, dy, part (scratch), dk, B, H, W, Cin, Cout, n_chunks, dtype, stream
-    "conv3x3_wgrad_nhwc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv3x3_tf32_nhwc": [_P, _P, _P] + [_I] * 8 + [_P],
     # x, dy (bf16), part (scratch), dk, B, H, W, Cin, Cout, mt, nt, vec,
-    # n_chunks, stream (the plan of wgrad_tc_plan)
+    # n_chunks, stream (the plan of wgrad_tc_plan); the same in f32
     "conv3x3_wgrad_tc_nhwc": [_P] * 4 + [_I] * 9 + [_P],
+    "conv3x3_wgrad_tf32_nhwc": [_P] * 4 + [_I] * 9 + [_P],
     # x, k1, g1, b1, k2, a1 (scratch), y2, B, H, W, C1, C2, dtype, stream
     "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P],
@@ -264,76 +262,95 @@ def wgrad_chunks(cin: int, cout: int) -> int:
     return max(1, -(-512 // (-(-cin // 16) * -(-cout // 16))))
 
 
-# ---- K3's bf16 tensor-core kernels (csrc/conv3x3_tc.cuh) ----------------
-# Output pixel tiles are TC_TH x TC_TW; a launch's plan is computed here so
-# that the CPU tests can hold it.
+# ---- K3's tensor-core kernels -------------------------------------------
+# bf16: csrc/conv3x3_tc.cuh (m16n8k16); f32: csrc/conv3x3_tf32.cuh (split
+# TF32 on m16n8k8, three MMAs a product). A launch's plan is computed here
+# so that the CPU tests can hold it. K3-f walks th x TC_TW output tiles,
+# K3-b TC_TH x TC_TW pixel tiles. By dtype: K3-f's tile height th; blocks
+# an SM (per_sm, both kernels); the channels of a 16-byte piece; how many
+# of K3-f's operands are staged by 16-byte cp.async (x, then the filter);
+# the entry points. bf16 fits two blocks an SM (K3-f 4 warps, K3-b 9).
+# f32's halo stages and filter fill an SM's shared memory, one block an
+# SM: K3-f 8 warps of two tile rows each, K3-b 18 warps (9 taps x 2 halves
+# of the n8 tiles); K3-f f32 stages its filter transposed, element by
+# element, so only x's layout decides its 16-byte staging.
 TC_TH, TC_TW = 8, 16
-TC_BLOCKS_PER_SM = 2        # both kernels fit two blocks an SM
+K3_ROUTES = {
+    "bfloat16": dict(th=TC_TH, per_sm=2, piece=8, staged=2,
+                     fwd="conv3x3_tc_nhwc", wgrad="conv3x3_wgrad_tc_nhwc"),
+    "float32": dict(th=16, per_sm=1, piece=4, staged=1,
+                    fwd="conv3x3_tf32_nhwc",
+                    wgrad="conv3x3_wgrad_tf32_nhwc")}
 _INT_MAX = 2 ** 31 - 1
 
 
 def tc_tiles(b: int, h: int, w: int) -> int:
-    """Pixel tiles of a (b, h, w) tensor in the tensor-core kernels."""
-    return b * -(-h // TC_TH) * -(-w // TC_TW)
+    """K3-b's pixel tiles of a (b, h, w) tensor (K3-f's at bf16)."""
+    return _tiles(b, h, w, TC_TH, TC_TW)
 
 
 def _tc_shape_ok(name: str, b: int, h: int, w: int, cin: int,
-                 cout: int) -> None:
+                 cout: int, th: int = TC_TH) -> None:
     if min(b, h, w, cin, cout) <= 0:
         raise ValueError(f"{name} takes non-empty tensors, got B {b}, H {h}, "
                          f"W {w}, Cin {cin}, Cout {cout}")
-    if tc_tiles(b, h, w) > _INT_MAX or 9 * cin * cout > _INT_MAX:
+    if (_tiles(b, h, w, th, TC_TW) > _INT_MAX
+            or 9 * cin * cout > _INT_MAX):
         raise ValueError(f"{name}: B {b} x H {h} x W {w} with {cin} -> "
                          f"{cout} channels is beyond the kernel's int32 "
                          f"counts")
 
 
-def _vec(cin: int, cout: int, ptrs) -> int:
+def _vec(chans, ptrs, piece: int = 8) -> int:
     """1 if every staged row is whole 16-byte pieces: channel counts that
-    are multiples of 8 and 16-byte aligned base pointers."""
-    return int(cin % 8 == 0 and cout % 8 == 0
+    are multiples of `piece` (the channels of 16 bytes: 8 bf16, 4 f32) and
+    16-byte aligned base pointers."""
+    return int(all(c % piece == 0 for c in chans)
                and all(p % 16 == 0 for p in ptrs))
 
 
-def conv3x3_tc_plan(b: int, h: int, w: int, cin: int, cout: int, ptrs,
-                    n_sm: int) -> Dict[str, int]:
-    """Launch plan of K3-f's bf16 kernel on (b, h, w, cin) -> cout, with
-    base pointers `ptrs` (x, w) and `n_sm` SMs: nt n8 tiles a block (an
-    8 nt output-channel slice, blockIdx.y; the kernel takes 48 input
-    channels a pass), vec (16-byte staging), blocks (persistent, about two
-    an SM; block i takes the tiles of :func:`chunk_tiles`)."""
-    _tc_shape_ok("conv3x3", b, h, w, cin, cout)
+def conv3x3_tc_plan(dtype: str, b: int, h: int, w: int, cin: int,
+                    cout: int, ptrs, n_sm: int) -> Dict[str, int]:
+    """Launch plan of K3-f's `dtype` kernel ("bfloat16" or "float32") on
+    (b, h, w, cin) -> cout, with base pointers `ptrs` (x, w) and `n_sm`
+    SMs: nt n8 tiles a block (an 8 nt output-channel slice, blockIdx.y;
+    the kernel takes 48 input channels a pass), vec (16-byte staging),
+    tiles (th x TC_TW), blocks (persistent, per_sm an SM in all; block i
+    takes the tiles of :func:`chunk_tiles`)."""
+    route = K3_ROUTES[dtype]
+    _tc_shape_ok("conv3x3", b, h, w, cin, cout, route["th"])
     nt = 2 if cout <= 16 else 6
     co_chunks = -(-cout // (8 * nt))
     if co_chunks > 65535:
         raise ValueError(f"conv3x3: {cout} output channels are too many")
-    tiles = tc_tiles(b, h, w)
-    return dict(nt=nt, vec=_vec(cin, cout, ptrs), co_chunks=co_chunks,
-                tiles=tiles,
-                blocks=max(1, min(tiles, TC_BLOCKS_PER_SM * n_sm
-                                  // co_chunks)))
+    tiles = _tiles(b, h, w, route["th"], TC_TW)
+    n = route["staged"]
+    return dict(nt=nt, vec=_vec((cin, cout)[:n], ptrs[:n], route["piece"]),
+                co_chunks=co_chunks, tiles=tiles,
+                blocks=_spread(tiles, route["per_sm"], n_sm, co_chunks))
 
 
-def wgrad_tc_plan(b: int, h: int, w: int, cin: int, cout: int, ptrs,
-                  n_sm: int) -> Dict[str, int]:
-    """Launch plan of K3-b's bf16 kernel on x (b, h, w, cin), dy (b, h, w,
-    cout) with base pointers `ptrs` (x, dy) and `n_sm` SMs: mt m16 tiles
-    (16 mt input channels, blockIdx.y) and nt n8 tiles (8 nt output
+def wgrad_tc_plan(dtype: str, b: int, h: int, w: int, cin: int, cout: int,
+                  ptrs, n_sm: int) -> Dict[str, int]:
+    """Launch plan of K3-b's `dtype` kernel on x (b, h, w, cin), dy (b, h,
+    w, cout) with base pointers `ptrs` (x, dy) and `n_sm` SMs: mt m16
+    tiles (16 mt input channels, blockIdx.y) and nt n8 tiles (8 nt output
     channels, blockIdx.z) a block, vec, and n_chunks pixel chunks (chunk c
-    owns the tiles of :func:`chunk_tiles`): enough blocks for about two an
-    SM, fixed for a shape and a card, so a repeated run sums in the same
+    owns the tiles of :func:`chunk_tiles`): per_sm blocks an SM in all,
+    fixed for a shape and a card, so a repeated run sums in the same
     order."""
+    route = K3_ROUTES[dtype]
     _tc_shape_ok("conv3x3_wgrad", b, h, w, cin, cout)
     mt = 1 if cin <= 16 else 3
     nt = 2 if cout <= 16 else 6
-    slices = -(-cin // (16 * mt)) * -(-cout // (8 * nt))
     if max(-(-cin // (16 * mt)), -(-cout // (8 * nt))) > 65535:
         raise ValueError(f"conv3x3_wgrad: {cin} -> {cout} channels are too "
                          f"many")
+    slices = -(-cin // (16 * mt)) * -(-cout // (8 * nt))
     tiles = tc_tiles(b, h, w)
-    return dict(mt=mt, nt=nt, vec=_vec(cin, cout, ptrs), tiles=tiles,
-                n_chunks=max(1, min(tiles, TC_BLOCKS_PER_SM * n_sm
-                                    // slices)))
+    return dict(mt=mt, nt=nt, vec=_vec((cin, cout), ptrs, route["piece"]),
+                tiles=tiles,
+                n_chunks=_spread(tiles, route["per_sm"], n_sm, slices))
 
 
 # ---- K2's bf16 tensor-core kernels (csrc/front_tc.cuh) ------------------
@@ -391,7 +408,7 @@ def front_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
                 w % 8 == 0 and c1 % 8 == 0
                 and x % 16 == 0 and k1 % 16 == 0),
             p2=(FRONT_TH, h4, w4, P2_CH, c2, P2_PER_SM,
-                _vec(c1, c2, (k2,)))).items():
+                _vec((c1, c2), (k2,)))).items():
         tiles = _tiles(b, hh, ww, th, FRONT_TW)
         co_chunks = -(-cout // ch)
         plan[name] = dict(tiles=tiles, co_chunks=co_chunks, vec=int(vec),
@@ -414,7 +431,7 @@ def front_bwd_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
     x, *rest = ptrs
     h2, w2 = h // 2, w // 2
     h4, w4 = -(-h2 // 2), -(-w2 // 2)
-    vec = _vec(c1, c2, rest)
+    vec = _vec((c1, c2), rest)
     da_tiles = _tiles(b, h2, w2, DA_TH, DA_TW)
     dk2_tiles = _tiles(b, h4, w4, DK2_TH, FRONT_TW)
     dk1_tiles = _tiles(b, h2, w2, FRONT_TH, FRONT_TW)

@@ -3,20 +3,22 @@
 :func:`conv3x3` is the port of ``conv3x3_planes``, forward and backward,
 as a ``torch.autograd.Function``:
 
-  * forward: the hand-written kernel of ``csrc/conv3x3.cu`` (K3-f): for
-    bf16 the tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh``, for
-    f32 the CUDA-core tile of ``csrc/conv_tile.cuh`` (a route by dtype);
+  * forward: the hand-written kernel of ``csrc/conv3x3.cu`` (K3-f), a
+    tensor-core implicit GEMM either way, routed by dtype: for bf16 the
+    m16n8k16 kernel of ``csrc/conv3x3_tc.cuh``, for f32 the split-TF32
+    kernel of ``csrc/conv3x3_tf32.cuh`` (each f32 operand as a TF32 hi
+    plus a TF32 lo, three MMAs a product: f32 accuracy);
   * dX: the same forward kernel on dy with the filter flipped spatially
     and transposed (``k'[a, b, co, ci] = k[2-a, 2-b, ci, co]``), as the
     reference's ``_bwd`` does; these launches count as K3-f launches;
   * dW: :func:`conv3x3_wgrad`, the kernel of ``csrc/conv3x3_wgrad.cu``
-    (K3-b), f32 out; bf16 inputs on the tensor cores
-    (``csrc/conv3x3_tc.cuh``), f32 inputs on the CUDA cores
-    (``csrc/conv_wgrad.cuh``).
+    (K3-b), f32 out; bf16 inputs through ``csrc/conv3x3_tc.cuh``, f32
+    inputs through the split-TF32 kernel of ``csrc/conv3x3_tf32.cuh``.
 
-The bf16 launches take a plan computed in Python
-(``kernels.conv3x3_tc_plan``, ``kernels.wgrad_tc_plan``: tile split,
-chunk count, 16-byte or element staging), which the CPU tests hold.
+Every launch takes a plan computed in Python for its dtype
+(``kernels.conv3x3_tc_plan``, ``kernels.wgrad_tc_plan``: tile split, chunk
+count, 16-byte or element staging), which the CPU tests hold; a shape a
+plan refuses raises.
 
 On a CPU tensor each of the two kernels is replaced by its plain PyTorch
 version (:func:`conv3x3_reference`, :func:`conv3x3_wgrad_reference`), the
@@ -78,7 +80,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K3-f (or its plain version on the CPU); w already in x's dtype.
-    bf16 runs the tensor-core kernel, f32 the CUDA-core one."""
+    bf16 runs the m16n8k16 kernel, f32 the split-TF32 one."""
     if x.device.type == "cpu":
         return conv3x3_reference(x, w)
     b, h, wd, cin = x.shape
@@ -88,15 +90,13 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
         stream = kernels.stream_ptr(x.device)
-        if x.dtype == torch.bfloat16:
-            plan = kernels.conv3x3_tc_plan(b, h, wd, cin, cout, args[:2],
-                                           kernels.sm_count(x.device))
-            name = "conv3x3_tc_nhwc"
-            err = lib.conv3x3_tc_nhwc(*args, plan["nt"], plan["vec"],
-                                      plan["blocks"], stream)
-        else:
-            name = "conv3x3_nhwc"
-            err = lib.conv3x3_nhwc(*args, kernels.DTYPE_F32, stream)
+        n_sm = kernels.sm_count(x.device)
+        dtype = str(x.dtype).split(".")[-1]
+        plan = kernels.conv3x3_tc_plan(dtype, b, h, wd, cin, cout, args[:2],
+                                       n_sm)
+        name = kernels.K3_ROUTES[dtype]["fwd"]
+        err = getattr(lib, name)(*args, plan["nt"], plan["vec"],
+                                 plan["blocks"], stream)
     kernels.check(err, name)
     conv3x3.launches += 1
     return y
@@ -123,14 +123,12 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         return conv3x3_wgrad_reference(x, dy)
     b, h, wd, cin = x.shape
     cout = dy.shape[3]
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        plan = kernels.wgrad_tc_plan(b, h, wd, cin, cout,
-                                     (x.data_ptr(), dy.data_ptr()),
-                                     kernels.sm_count(x.device))
-        chunks = plan["n_chunks"]
-    else:
-        chunks = kernels.wgrad_chunks(cin, cout)
+    dtype = str(x.dtype).split(".")[-1]
+    plan = kernels.wgrad_tc_plan(dtype, b, h, wd, cin, cout,
+                                 (x.data_ptr(), dy.data_ptr()),
+                                 kernels.sm_count(x.device))
+    name = kernels.K3_ROUTES[dtype]["wgrad"]
+    chunks = plan["n_chunks"]
     part = torch.empty(chunks * 9 * cin * cout, dtype=torch.float32,
                        device=x.device)
     dk = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
@@ -139,14 +137,8 @@ def conv3x3_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         args = (x.data_ptr(), dy.data_ptr(), part.data_ptr(), dk.data_ptr(),
                 b, h, wd, cin, cout)
         stream = kernels.stream_ptr(x.device)
-        if bf16:
-            name = "conv3x3_wgrad_tc_nhwc"
-            err = lib.conv3x3_wgrad_tc_nhwc(*args, plan["mt"], plan["nt"],
-                                            plan["vec"], chunks, stream)
-        else:
-            name = "conv3x3_wgrad_nhwc"
-            err = lib.conv3x3_wgrad_nhwc(*args, chunks, kernels.DTYPE_F32,
-                                         stream)
+        err = getattr(lib, name)(*args, plan["mt"], plan["nt"], plan["vec"],
+                                 chunks, stream)
     kernels.check(err, name)
     conv3x3_wgrad.launches += 1
     return dk

@@ -117,11 +117,12 @@ def test_kernels_raise_on_cuda_tensors_they_do_not_take(cuda):
 
 # ── training kernels: K3-b, K2-f train, K2-b, K1 ─────────────────────────
 
-# K3-b: 1e-3 x max|ref| in both dtypes. A product of two bf16 values is
-# exact in f32, so the bf16 kernel differs from the f32 plain version on the
-# same values only by the order of its f32 sums (2e-2 would pass a kernel
-# that drops 1% of its pixels).
-WGRAD_DTYPES = [(torch.float32, 1e-3), (torch.bfloat16, 1e-3)]
+# K3-b x max|ref|. f32 1.5e-4, below one-pass TF32's error (the split
+# kernel must keep its lo terms). bf16 1e-3: a product of two bf16 values
+# is exact in f32, so the bf16 kernel differs from the f32 plain version on
+# the same values only by the order of its f32 sums (2e-2 would pass a
+# kernel that drops 1% of its pixels).
+WGRAD_DTYPES = [(torch.float32, 1.5e-4), (torch.bfloat16, 1e-3)]
 CONV3X3_EDGES = [(2, 37, 45, 24, 56), (1, 1, 17, 40, 20), (2, 9, 17, 40, 56)]
 
 
@@ -167,7 +168,7 @@ def _misaligned(t):
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_conv3x3_misaligned_inputs_stage_by_element(cuda, dtype, tol):
     """A contiguous x (and dy) whose data pointer breaks 16-byte alignment
-    takes the bf16 kernels' element staging (the plan says so) and still
+    takes the kernels' element staging (the plan says so) and still
     agrees with the plain versions: K3-f forward and dX, K3-b."""
     from robust_object_detection_tpu_torch import kernels
     b, h, w, cin, cout = 2, 37, 45, 48, 48
@@ -177,10 +178,12 @@ def test_conv3x3_misaligned_inputs_stage_by_element(cuda, dtype, tol):
     k = _rand(g, 3, 3, cin, cout, scale=0.1).to(cuda, dtype)
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     sm = kernels.sm_count(cuda)
-    assert kernels.conv3x3_tc_plan(b, h, w, cin, cout,
-                                   (x.data_ptr(), k.data_ptr()), sm)["vec"] == 0
-    assert kernels.wgrad_tc_plan(b, h, w, cin, cout,
-                                 (x.data_ptr(), dy.data_ptr()), sm)["vec"] == 0
+    name = str(dtype).split(".")[-1]
+    fw = kernels.conv3x3_tc_plan(name, b, h, w, cin, cout,
+                                 (x.data_ptr(), k.data_ptr()), sm)
+    wg = kernels.wgrad_tc_plan(name, b, h, w, cin, cout,
+                               (x.data_ptr(), dy.data_ptr()), sm)
+    assert fw["vec"] == 0 and wg["vec"] == 0
     kflip = k.flip(0, 1).transpose(2, 3).contiguous()
     with torch.backends.cudnn.flags(allow_tf32=False):
         assert _rel_err(C.conv3x3(x, k),
@@ -189,8 +192,54 @@ def test_conv3x3_misaligned_inputs_stage_by_element(cuda, dtype, tol):
             dy.float(), kflip.float())) <= tol
         dk = C.conv3x3_wgrad(x, dy)
         assert _rel_err(dk, C.conv3x3_wgrad_reference(x.float(),
-                                                      dy.float())) <= 1e-3
+                                                      dy.float())) <= (
+            1.5e-4 if dtype == torch.float32 else 1e-3)
     assert torch.equal(dk, C.conv3x3_wgrad(x, dy))
+
+
+# the f32 route's odd shapes: channel counts of 3 and 5 (element staging),
+# 24, 40 and 56 (two output-channel slices, two input-channel passes), H 1
+# and W 17 (ragged tiles)
+F32_EDGES = [(2, 37, 45, 5, 20), (1, 9, 30, 3, 17), (2, 37, 45, 24, 56),
+             (1, 1, 17, 40, 20), (2, 19, 17, 56, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_EDGES)
+def test_conv3x3_f32_split_tf32_holds_float64(cuda, shape):
+    """K3's f32 route (split TF32 on the tensor cores): K3-f, K3-f as dX
+    and K3-b against float64 on the same f32 values, at 1e-5 x max|ref|, a
+    tenth of the f32 checks' bar (one pass of TF32 is near 3e-4)."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(6)
+    x = _rand(g, b, h, w, cin).to(cuda)
+    dy = _rand(g, b, h, w, cout).to(cuda)
+    k = _rand(g, 3, 3, cin, cout, scale=0.1).to(cuda)
+    kflip = k.flip(0, 1).transpose(2, 3).contiguous()
+    assert _rel_err(C.conv3x3(x, k),
+                    C.conv3x3_reference(x.double(), k.double())) <= 1e-5
+    assert _rel_err(C.conv3x3(dy, kflip), C.conv3x3_reference(
+        dy.double(), kflip.double())) <= 1e-5
+    assert _rel_err(C.conv3x3_wgrad(x, dy), C.conv3x3_wgrad_reference(
+        x.double(), dy.double()).double()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [math.inf, -math.inf, math.nan])
+def test_conv3x3_f32_non_finite_input(cuda, bad):
+    """A non-finite x through the f32 route, with a random filter and one
+    of TF32 values: Inf, -Inf and NaN outputs exactly where the float64
+    conv has them (the split puts a non-finite value in lo with hi 0)."""
+    g = torch.Generator().manual_seed(7)
+    x = _rand(g, 1, 9, 17, 8)
+    x[0, 4, 5, 3] = bad
+    k = _rand(g, 3, 3, 8, 16, scale=0.1)
+    k = torch.cat([k, (k.view(torch.int32) & -8192).view(torch.float32)], -1)
+    out = C.conv3x3(x.to(cuda), k.contiguous().to(cuda)).cpu()
+    ref = C.conv3x3_reference(x.double(), k.double())
+    assert torch.isfinite(out).sum() == torch.isfinite(ref).sum() > 0
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(out), test(ref))
 
 
 def _front_inputs(g, b, h, w, c1, c2, device):

@@ -78,6 +78,8 @@ def test_no_module_imports_jax():
              + list((ROOT / "tools").glob("profile_torch_*.py"))
              + [ROOT / "tools" / "smoke_phases.py",
                 ROOT / "tools" / "tp_determinism.py",
+                ROOT / "tools" / "sass_compare.py",
+                ROOT / "tools" / "mma_tf32_rate.py",
                 ROOT / "examples" / "full_pipeline_synthetic_torch.py"])
     assert len(files) > 20
     ref_import = re.compile(

@@ -10,14 +10,17 @@ At the model paths' shapes (seeded random inputs as in chip_smoke.py):
      (``conv3x3``) at (8, 256, 256, 48) -> 48 and of K3-b
      (``conv3x3_wgrad``) at (16, 256, 256, 48) and (8, 256, 256, 48), bf16
      and f32, with the one library call beside each (``F.conv2d``,
-     ``torch.nn.grad.conv2d_weight``, PyTorch's default flags), and the
-     host's time to enqueue one call (100 calls, no synchronize);
-  2. under torch.profiler, the device time by kernel of 10 bf16 calls of
-     each (K3-b's main kernel and its ordered chunk sum apart);
+     ``torch.nn.grad.conv2d_weight``, PyTorch's default flags, and for f32
+     also with cuDNN's TF32 off: the default runs f32 convs in one-pass
+     TF32), and the host's time to enqueue one call (100 calls, no
+     synchronize);
+  2. under torch.profiler, the device time by kernel of 10 calls of each
+     (K3-b's main kernel and its ordered chunk sum apart);
   3. ptxas's registers and spills (when this process built the library) and
      an opcode count of the SASS (cuobjdump -sass) of every kernel whose
-     name holds ``conv3x3`` or ``wgrad``: tensor-core (HMMA), shared loads
-     (LDS, LDSM), global loads (LDG) and async copies (LDGSTS), FFMA.
+     name holds ``conv3x3`` or ``wgrad``: tensor-core (HMMA, and of them
+     TF32), shared loads (LDS, LDSM), global loads (LDG) and async copies
+     (LDGSTS), FFMA, and the split's FADD / LOP3 / SEL.
 
 --root names another checkout whose port package is measured instead of
 this one's (its kernels are built there), so that two trees can be timed
@@ -36,8 +39,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as S  # noqa: E402  (time_ms, device_ms_by_kernel, ...)
 
-OPS = ("HMMA", "HGMMA", "LDSM", "LDS", "LDG", "LDGSTS", "STS", "FFMA",
-       "BAR")
+OPS = ("HMMA", "HMMA.1688.F32.TF32", "HGMMA", "LDSM", "LDS", "LDG",
+       "LDGSTS", "STS", "FFMA", "FADD", "LOP3", "SEL", "BAR")
 
 
 def main() -> int:
@@ -75,6 +78,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return (t1 - t0) / calls * 1e6
 
+    def tf32_off(fn, dtype):
+        """For f32, the library call's events ms with cuDNN's TF32 off
+        (cudnn.flags(allow_tf32=False) alone would switch cuDNN off)."""
+        if dtype != torch.float32:
+            return ""
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return f" (default flags: cuDNN's TF32 on), {S.time_ms(fn)} ms " \
+                f"with cuDNN's TF32 off"
+
     g = torch.Generator(dev).manual_seed(S.SEED)
     k = torch.randn(3, 3, 48, 48, device=dev, generator=g) * 0.1
     for dtype in (torch.bfloat16, torch.float32):
@@ -85,13 +97,12 @@ def main() -> int:
         xv, kv = x.permute(0, 3, 1, 2), kd.permute(3, 2, 0, 1)
         ms = S.time_ms(lambda: C.conv3x3(x, kd))
         lib = S.time_ms(lambda: F.conv2d(xv, kv, padding=1))
+        off = tf32_off(lambda: F.conv2d(xv, kv, padding=1), dtype)
         print(f"[conv3x3] K3-f {name} (8, 256, 256, 48) -> 48: kernel {ms} "
-              f"ms; F.conv2d {lib} ms; enqueue "
+              f"ms; F.conv2d {lib} ms{off}; enqueue "
               f"{host_us(lambda: C.conv3x3(x, kd))} us a call")
-        if dtype == torch.bfloat16:
-            for kms, n, key in S.device_ms_by_kernel(
-                    lambda: C.conv3x3(x, kd)):
-                print(f"    {kms:9.4f}  x{n}  {key[:110]}")
+        for kms, n, key in S.device_ms_by_kernel(lambda: C.conv3x3(x, kd)):
+            print(f"    {kms:9.4f}  x{n}  {key[:110]}")
         for batch in (S.TRAIN_BATCH, S.RTDETR_TRAIN_BATCH):
             xb = torch.randn(batch, 256, 256, 48, device=dev,
                              generator=g).to(dtype)
@@ -101,10 +112,12 @@ def main() -> int:
             ms = S.time_ms(lambda: C.conv3x3_wgrad(xb, dy))
             lib = S.time_ms(lambda: torch.nn.grad.conv2d_weight(
                 xv, (48, 48, 3, 3), dyv, padding=1))
+            off = tf32_off(lambda: torch.nn.grad.conv2d_weight(
+                xv, (48, 48, 3, 3), dyv, padding=1), dtype)
             print(f"[conv3x3] K3-b {name} ({batch}, 256, 256, 48) -> 48: "
-                  f"kernel {ms} ms; conv2d_weight {lib} ms; enqueue "
+                  f"kernel {ms} ms; conv2d_weight {lib} ms{off}; enqueue "
                   f"{host_us(lambda: C.conv3x3_wgrad(xb, dy))} us a call")
-            if dtype == torch.bfloat16 and batch == S.TRAIN_BATCH:
+            if dtype == torch.float32 or batch == S.TRAIN_BATCH:
                 for kms, n, key in S.device_ms_by_kernel(
                         lambda: C.conv3x3_wgrad(xb, dy)):
                     print(f"    {kms:9.4f}  x{n}  {key[:110]}")

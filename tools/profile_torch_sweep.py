@@ -49,7 +49,7 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     weight gradients, the BN-chain kernels and the front_tc.cuh kernels
     belong to K4 (the HGNetv2 stem, whose bf16 stride-2 convs run them), not
     to K2 (the YOLO front's; no path runs both)."""
-    if "conv3x3_tc_kernel" in name:
+    if "conv3x3_tc_kernel" in name or "conv3x3_tf32_kernel" in name:
         return "K3-f conv3x3"
     if re.search(r"front_p[12]_kernel", name):
         return "K4-f hgstem" if rtdetr else "K2-f yolo_front"
@@ -61,7 +61,7 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     if re.search(r"stem2x2_(dx|wgrad)_tc_kernel|assemble_bwd_vec_kernel",
                  name):
         return "K4-b hgstem_bwd"
-    if "wgrad_tc_kernel" in name:
+    if "wgrad_tc_kernel" in name or "wgrad_tf32_kernel" in name:
         return "K3-b conv3x3_wgrad"
     m = re.search(r"conv3x3_tile_kernel<[^,>]+, (\d), [^,>]+, (\d)", name)
     if m:       # stride, then the activation (1: ReLU, the HGNetv2 stem)

@@ -2,13 +2,16 @@
 """Where the time of the PyTorch port's train step goes, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--model yolo|rtdetr] [--steps 5]
+                                         [--dtype bfloat16|float32]
                                          [--root DIR]
 
 Runs a training cell of chip_smoke.py (bench.py's workloads, seeded random
 weights, 1024 px, 80 GT boxes per image in 600 slots, augment + HSV/flip,
 bf16 convs and BatchNorm outputs: YOLOv8m at batch 16, or with --model
 rtdetr RT-DETR-L at batch 8 with contrastive denoising, AdamW and the
-auction matcher) and measures, in one process:
+auction matcher; --dtype float32 makes the model's convs and BatchNorm
+outputs f32, the trainers' and the CLI's other dtype) and measures, in one
+process:
 
   1. the unprofiled step, --steps steps after one warm-up: host wall ms
      per step (each ends in a synchronize), images/s, peak device memory;
@@ -35,15 +38,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (detection_batch, run_cmd)
-from tools.profile_torch_sweep import (LAUNCH_APIS, kernel_group,  # noqa: E402
-                                       union_us)
+import chip_smoke  # noqa: E402  (detection_batch, run_cmd, union_us)
+from tools.profile_torch_sweep import LAUNCH_APIS, kernel_group  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--model", choices=("yolo", "rtdetr"), default="yolo")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="the model's compute dtype")
     ap.add_argument("--out", type=Path, default=None,
                     help="write the per-kernel table here (default: its "
                          "first 30 lines to stdout)")
@@ -75,18 +79,18 @@ def main() -> int:
     print(f"[train] package {Path(kernels.__file__).resolve().parents[1]}")
     kernels.build()
     rtdetr = args.model == "rtdetr"
+    dtype = getattr(torch, args.dtype)
     seeded = torch.Generator().manual_seed(S.SEED)
     if rtdetr:
         n_batch = S.RTDETR_TRAIN_BATCH
-        model = R.create(6, torch.bfloat16, dev, seeded, train=True,
-                         bn_dtype=torch.bfloat16)
+        model = R.create(6, dtype, dev, seeded, train=True, bn_dtype=dtype)
         state = RT.init_state(model, RT.make_optimizer()[0])
         step = RT.make_train_step(S.IMG_SIZE, CorruptionConfig(),
                                   augment=True, base_augment=True)
     else:
         n_batch = S.TRAIN_BATCH
-        model = Y.create(6, "m", torch.bfloat16, dev, seeded, train=True,
-                         bn_dtype=torch.bfloat16)
+        model = Y.create(6, "m", dtype, dev, seeded, train=True,
+                         bn_dtype=dtype)
         state = D.init_state(model, D.make_optimizer()[0])
         step = D.make_train_step(S.IMG_SIZE, CorruptionConfig(),
                                  augment=True, base_augment=True)
@@ -107,7 +111,8 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     ms = statistics.median(walls)
-    print(f"[train] {args.model} batch {n_batch}: step ms {walls} median "
+    print(f"[train] {args.model} {args.dtype} batch {n_batch}: step ms "
+          f"{walls} median "
           f"{ms} = {n_batch / (ms / 1e3)} images/s; peak memory {peak} "
           f"bytes")
 
@@ -125,7 +130,7 @@ def main() -> int:
               and not getattr(e, "is_user_annotation", False)]
     if not dev_ev:
         raise RuntimeError("the profiler recorded no device events")
-    busy_ms = union_us((e.time_range.start, e.time_range.end)
+    busy_ms = S.union_us((e.time_range.start, e.time_range.end)
                        for e in dev_ev) / 1e3
     launches = [e for e in events if e.name in LAUNCH_APIS]
     launch_ms = sum(e.time_range.elapsed_us() for e in launches) / 1e3
@@ -154,7 +159,7 @@ def main() -> int:
         args.out.write_text("\n".join(table) + "\n")
     print(json.dumps({
         "step_ms": walls, "median_step_ms": ms,
-        "model": args.model, "batch": n_batch,
+        "model": args.model, "dtype": args.dtype, "batch": n_batch,
         "images_per_sec": n_batch / (ms / 1e3), "peak_bytes": peak,
         "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
         "kernel_launches": len(launches), "launch_api_ms": launch_ms,

@@ -117,3 +117,22 @@ mutate k2_tc_no_sync robust_object_detection_tpu_torch/ops/yolo_front.py \
                     sync, sync_buf.data_ptr(), stream)' \
   '                    *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
                     None, sync_buf.data_ptr(), stream)' phase_parallel
+# K3's f32 route in one pass of TF32 (the two correction products dropped):
+# phase 3's f32 K3-f at 1e-4 x max|ref| (one pass sits near 3e-4)
+mutate k3_f32_one_pass robust_object_detection_tpu_torch/csrc/conv3x3_tf32.cuh \
+  "constexpr int SPLIT_PASSES = 3;" "constexpr int SPLIT_PASSES = 1;" \
+  phase_kernels
+# the split without its guard (lo = tf32(Inf - Inf) = NaN): phase 3's f32
+# K3-f on an Inf input against float64
+mutate k3_f32_no_inf_guard robust_object_detection_tpu_torch/csrc/conv3x3_tf32.cuh \
+  "  hi = finite ? h : 0u;
+  lo = finite ? (__float_as_uint(l) + 0x1000u) & 0xffffe000u
+              : __float_as_uint(a);" \
+  "  hi = h;
+  lo = (__float_as_uint(l) + 0x1000u) & 0xffffe000u;" phase_kernels
+# K3-b's f32 kernel alone in one pass of TF32 (the staged x and dy split
+# with lo = 0; K3-f untouched): phase 6's f32 K3-b at 1.5e-4 x max|ref|
+# (one pass sits near 2.6e-4)
+mutate k3b_f32_no_lo robust_object_detection_tpu_torch/csrc/conv3x3_tf32.cuh \
+  "make_uint4(h0, h1, l0, l1);" "make_uint4(h0, h1, 0u, 0u);" \
+  phase_train_kernels
