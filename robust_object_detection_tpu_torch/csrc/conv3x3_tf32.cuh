@@ -97,14 +97,15 @@ constexpr int SPLIT_PASSES = 3;
 // acc[i][j] += a[i] * b[j] over an M x N grid of m16n8 tiles (b[j] = b0,
 // b1 of n8 tile j), pass by pass: consecutive MMAs go to different
 // accumulators, and an accumulator's next product is M x N MMAs later, so
-// no MMA waits on the one before it.
-template <int M, int N>
+// no MMA waits on the one before it. PASSES: the last PASSES products
+// (front_tf32.cuh keeps its own count for K2's forward).
+template <int M, int N, int PASSES = SPLIT_PASSES>
 __device__ __forceinline__ void mma_grid_3xtf32(
     float (&acc)[M][N][4], const uint32_t (&ah)[M][4],
     const uint32_t (&al)[M][4], const uint32_t (&bh)[N][2],
     const uint32_t (&bl)[N][2]) {
 #pragma unroll
-  for (int p = 3 - SPLIT_PASSES; p < 3; ++p)
+  for (int p = 3 - PASSES; p < 3; ++p)
 #pragma unroll
     for (int i = 0; i < M; ++i)
 #pragma unroll

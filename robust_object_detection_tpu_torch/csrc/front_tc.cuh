@@ -3,11 +3,12 @@
 // GEMMs on mma.sync.m16n8k16 (bf16 x bf16 -> f32), NHWC in, operands
 // staged in shared memory by 16-byte cp.async and read into fragments by
 // ldmatrix, with the primitives of conv3x3_tc.cuh. Used by yolo_front.cu,
-// yolo_front_bwd.cu, hgstem.cu and hgstem_bwd.cu for bf16; their f32 route
-// stays on the CUDA-core tiles of conv_tile.cuh and conv_wgrad.cuh. The
-// channel tiles, the activation (SiLU for the front, ReLU for the stem)
-// and the input transforms are template parameters; the launchers default
-// to the front's instantiation.
+// yolo_front_bwd.cu, hgstem.cu and hgstem_bwd.cu for bf16; K2's f32 route
+// is the split-TF32 kernels of front_tf32.cuh (which reuse this file's
+// stride-2 geometry), K4's the CUDA-core tiles of conv_tile.cuh and
+// conv_wgrad.cuh. The channel tiles, the activation (SiLU for the front,
+// ReLU for the stem) and the input transforms are template parameters;
+// the launchers default to the front's instantiation.
 //
 //   front_p1_kernel      P1: conv3x3/2, 3 -> C1, K = 27 taps x channels
 //                        (padded to 32) from an im2col tile built in shared
@@ -656,8 +657,7 @@ front_p2_kernel(const bf16* __restrict__ a, const bf16* __restrict__ k2,
 }
 
 // ---- K2-b: e2 = round(dy2 + ds2 + 2 y2 dss2) ------------------------------
-// The BN2 statistics cotangent folded into y2's, in bf16 (the rounding of
-// the CUDA-core route's front_da1_kernel and wgrad staging, same bits).
+// The BN2 statistics cotangent folded into y2's, rounded once to bf16.
 // VEC: 8 channels a thread with 16-byte loads and stores.
 template <bool VEC>
 __global__ void __launch_bounds__(256)

@@ -27,7 +27,7 @@
 // own partials, reduced to mean2, var2. As in _front_core.
 //
 // Two routes, by dtype:
-//   * bf16 (every model path): yolo_front_tc_nhwc and
+//   * bf16 (the bf16 model paths): yolo_front_tc_nhwc and
 //     yolo_front_train_tc_nhwc, the tensor-core implicit GEMMs of
 //     front_tc.cuh, with the launch plan of kernels.front_plan. What bounds
 //     it on the H100, at (16, 1024, 1024, 3) -> 48 -> 96: P1 does 2*27*48
@@ -45,78 +45,20 @@
 //     1.04; bound 0.099). P2's train route is held back by its in-place
 //     BN1 + SiLU pass over each staged halo, which the MMAs cannot overlap
 //     at one block an SM.
-//   * f32: yolo_front_nhwc and yolo_front_train_nhwc, the tiled CUDA-core
-//     kernel of conv_tile.cuh (the f32 model checks run through it).
+//   * f32: yolo_front_tf32_nhwc and yolo_front_train_tf32_nhwc, the same
+//     two GEMMs on the tensor cores in split TF32 (front_tf32.cuh: three
+//     m16n8k8 TF32 MMAs a product, f32 accuracy), with the launch plan of
+//     kernels.front_plan("float32", ...). P1 splits its im2col tile as it
+//     builds it; P2 keeps the whole filter in shared memory and stages the
+//     y1 halo 8 channels at a time (front_tf32.cuh says why). At batch 16
+//     P2 does 261 GFLOP of TF32 MMAs (0.53 ms at 495 TFLOP/s; 0.82 ms at
+//     the 319 that mma.sync reaches): operations bound it.
 // The partials are reduced in a fixed order, so a repeated run gives
 // identical bits.
 
 #include "conv_tile.cuh"
 #include "front_tc.cuh"
-
-// Eval forward, f32 only.
-extern "C" int yolo_front_nhwc(const void* x, const void* k1, const void* g1,
-                               const void* b1, const void* k2, void* a1,
-                               void* y2, int B, int H, int W, int C1, int C2,
-                               int dtype, void* stream) {
-  if (dtype != rodt::DTYPE_F32)  // bf16 goes to yolo_front_tc_nhwc
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rodt::ConvOpts p1;
-  p1.out_scale = static_cast<const float*>(g1);
-  p1.out_bias = static_cast<const float*>(b1);
-  int err = rodt::launch_conv3x3_dtype<2>(dtype, x, k1, a1, p1, B, H, W, 3,
-                                          C1, st);
-  if (err != 0) return err;
-  return rodt::launch_conv3x3_dtype<2>(dtype, a1, k2, y2, rodt::ConvOpts(),
-                                       B, rodt::out_size(H, 2),
-                                       rodt::out_size(W, 2), C1, C2, st);
-}
-
-// Train-mode forward, f32 only. stats1 / stats2 are scratch of 2 * P * C
-// floats with P = B * tile_count(Ho, Wo) of the respective conv output;
-// every other pointer is an output of C1 or C2 floats, or y1 / y2 in the
-// working dtype. sync (a rodt::SyncFn, or null) averages each BN's batch
-// sums over a data-parallel group before its statistics are taken;
-// sync_buf is its scratch of 2 * max(C1, C2) floats.
-extern "C" int yolo_front_train_nhwc(
-    const void* x, const void* k1, const void* sc1, const void* bi1,
-    const void* k2, void* y1, void* y2, void* stats1, void* stats2,
-    void* mean1, void* var1, void* g1, void* b1, void* mean2, void* var2,
-    int B, int H, int W, int C1, int C2, int dtype, void* sync,
-    void* sync_buf, void* stream) {
-  if (dtype != rodt::DTYPE_F32)  // bf16 goes to yolo_front_train_tc_nhwc
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H2 = rodt::out_size(H, 2), W2 = rodt::out_size(W, 2);
-  const int H4 = rodt::out_size(H2, 2), W4 = rodt::out_size(W2, 2);
-  const int P1 = B * rodt::tile_count(H2, W2);
-  const int P2 = B * rodt::tile_count(H4, W4);
-
-  rodt::ConvOpts p1;
-  p1.stats = static_cast<float*>(stats1);
-  int err = rodt::launch_conv3x3_dtype<2>(dtype, x, k1, y1, p1, B, H, W, 3,
-                                          C1, st);
-  if (err != 0) return err;
-  float* sb = static_cast<float*>(sync_buf);
-  err = rodt::launch_finalize_synced(
-      static_cast<const float*>(stats1), P1, C1, (float)B * H2 * W2, sync,
-      sb, static_cast<float*>(mean1), static_cast<float*>(var1),
-      static_cast<const float*>(sc1), static_cast<const float*>(bi1),
-      static_cast<float*>(g1), static_cast<float*>(b1), st);
-  if (err != 0) return err;
-
-  rodt::ConvOpts p2;
-  p2.in_scale = static_cast<const float*>(g1);
-  p2.in_bias = static_cast<const float*>(b1);
-  p2.stats = static_cast<float*>(stats2);
-  err = rodt::launch_conv3x3_dtype<2>(dtype, y1, k2, y2, p2, B, H2, W2, C1,
-                                      C2, st);
-  if (err != 0) return err;
-  return rodt::launch_finalize_synced(
-      static_cast<const float*>(stats2), P2, C2, (float)B * H4 * W4, sync,
-      sb, static_cast<float*>(mean2), static_cast<float*>(var2), nullptr,
-      nullptr, nullptr, nullptr, st);
-}
+#include "front_tf32.cuh"
 
 namespace {
 
@@ -127,6 +69,14 @@ bool tc_shape_ok(int B, int H, int W, int C1, int C2, int blocks1,
   return B > 0 && H >= 2 && W >= 2 && C1 > 0 && C2 > 0 && blocks1 > 0 &&
          blocks2 > 0 && !(vec1 && (W % 8 != 0 || C1 % 8 != 0)) &&
          !(vec2 && (C1 % 8 != 0 || C2 % 8 != 0));
+}
+
+// f32: 16-byte staging of x needs W a multiple of 4 (12-byte pixels), of
+// y1 / a1 C1 a multiple of 4; the filters are staged element by element
+bool tf32_shape_ok(int B, int H, int W, int C1, int C2, int blocks1,
+                   int blocks2, int vec1, int vec2) {
+  return B > 0 && H >= 2 && W >= 2 && C1 > 0 && C2 > 0 && blocks1 > 0 &&
+         blocks2 > 0 && !(vec1 && W % 4 != 0) && !(vec2 && C1 % 4 != 0);
 }
 
 }  // namespace
@@ -153,9 +103,13 @@ extern "C" int yolo_front_tc_nhwc(const void* x, const void* k1,
       rodt::out_size(W, 2), C1, C2, blocks2, vec2, st);
 }
 
-// bf16 train-mode forward: arguments as yolo_front_train_nhwc, with the
-// plan of kernels.front_plan; stats1 / stats2 hold 2 * blocks1 * C1 and
-// 2 * blocks2 * C2 floats (one partial row per persistent block).
+// bf16 train-mode forward: x, k1, k2, y1, y2 bf16, the rest f32 (sc1, bi1
+// the BN1 affine; mean1, var1, g1, b1 (the fold), mean2, var2 outputs of
+// C1 or C2 floats), with the plan of kernels.front_plan; stats1 / stats2
+// hold 2 * blocks1 * C1 and 2 * blocks2 * C2 floats (one partial row per
+// persistent block). sync (a rodt::SyncFn, or null) averages each BN's
+// batch sums over a data-parallel group before its statistics are taken;
+// sync_buf is its scratch of 2 * max(C1, C2) floats.
 extern "C" int yolo_front_train_tc_nhwc(
     const void* x, const void* k1, const void* sc1, const void* bi1,
     const void* k2, void* y1, void* y2, void* stats1, void* stats2,
@@ -183,6 +137,61 @@ extern "C" int yolo_front_train_tc_nhwc(
       static_cast<const bf16*>(y1), static_cast<const bf16*>(k2), f(g1),
       f(b1), static_cast<bf16*>(y2), m(stats2), B, H2, W2, C1, C2, blocks2,
       vec2, st);
+  if (err != 0) return err;
+  return rodt::launch_finalize_synced(f(stats2), blocks2, C2,
+                                      (float)B * H4 * W4, sync, m(sync_buf),
+                                      m(mean2), m(var2), nullptr, nullptr,
+                                      nullptr, nullptr, st);
+}
+
+// f32 eval front: arguments as yolo_front_tc_nhwc, every tensor f32, with
+// the plan of kernels.front_plan("float32", ...).
+extern "C" int yolo_front_tf32_nhwc(const void* x, const void* k1,
+                                    const void* g1, const void* b1,
+                                    const void* k2, void* a1, void* y2, int B,
+                                    int H, int W, int C1, int C2, int blocks1,
+                                    int blocks2, int vec1, int vec2,
+                                    void* stream) {
+  if (!tf32_shape_ok(B, H, W, C1, C2, blocks1, blocks2, vec1, vec2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  int err = rodt::ftf::launch_p1<false>(f(x), f(k1), f(g1), f(b1),
+                                        static_cast<float*>(a1), nullptr, B,
+                                        H, W, C1, blocks1, vec1, st);
+  if (err != 0) return err;
+  return rodt::ftf::launch_p2<false>(
+      f(a1), f(k2), nullptr, nullptr, static_cast<float*>(y2), nullptr, B,
+      rodt::out_size(H, 2), rodt::out_size(W, 2), C1, C2, blocks2, vec2, st);
+}
+
+// f32 train-mode forward: arguments as yolo_front_train_tc_nhwc, every
+// tensor f32, with the plan of kernels.front_plan("float32", ...).
+extern "C" int yolo_front_train_tf32_nhwc(
+    const void* x, const void* k1, const void* sc1, const void* bi1,
+    const void* k2, void* y1, void* y2, void* stats1, void* stats2,
+    void* mean1, void* var1, void* g1, void* b1, void* mean2, void* var2,
+    int B, int H, int W, int C1, int C2, int blocks1, int blocks2, int vec1,
+    int vec2, void* sync, void* sync_buf, void* stream) {
+  if (!tf32_shape_ok(B, H, W, C1, C2, blocks1, blocks2, vec1, vec2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  const int H2 = rodt::out_size(H, 2), W2 = rodt::out_size(W, 2);
+  const int H4 = rodt::out_size(H2, 2), W4 = rodt::out_size(W2, 2);
+  int err = rodt::ftf::launch_p1<true>(f(x), f(k1), nullptr, nullptr, m(y1),
+                                       m(stats1), B, H, W, C1, blocks1, vec1,
+                                       st);
+  if (err != 0) return err;
+  err = rodt::launch_finalize_synced(f(stats1), blocks1, C1,
+                                     (float)B * H2 * W2, sync, m(sync_buf),
+                                     m(mean1), m(var1), f(sc1), f(bi1),
+                                     m(g1), m(b1), st);
+  if (err != 0) return err;
+  err = rodt::ftf::launch_p2<true>(f(y1), f(k2), f(g1), f(b1), m(y2),
+                                   m(stats2), B, H2, W2, C1, C2, blocks2,
+                                   vec2, st);
   if (err != 0) return err;
   return rodt::launch_finalize_synced(f(stats2), blocks2, C2,
                                       (float)B * H4 * W4, sync, m(sync_buf),

@@ -49,28 +49,25 @@ SIGNATURES: Dict[str, List] = {
     # n_chunks, stream (the plan of wgrad_tc_plan); the same in f32
     "conv3x3_wgrad_tc_nhwc": [_P] * 4 + [_I] * 9 + [_P],
     "conv3x3_wgrad_tf32_nhwc": [_P] * 4 + [_I] * 9 + [_P],
-    # x, k1, g1, b1, k2, a1 (scratch), y2, B, H, W, C1, C2, dtype, stream
-    "yolo_front_nhwc": [_P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _P],
-    # x, k1, sc1, bi1, k2, y1, y2, stats1, stats2 (scratch), mean1, var1,
-    # g1, b1, mean2, var2, B, H, W, C1, C2, dtype, sync (a SyncFn or null:
-    # parallel/mesh.kernel_sync), sync_buf (scratch), stream
-    "yolo_front_train_nhwc": [_P] * 15 + [_I] * 6 + [_P] * 3,
-    # x, k2, y1, y2, dy2, sc1, mean1, var1, g1, b1, mean2, dmean1, dvar1,
-    # dmean2, dvar2, dy1, gpart, wpart, vecs (scratch), dk1, dk2, dsc1,
-    # dbi1, B, H, W, C1, C2, chunks1, chunks2, dtype, sync, stream
-    "yolo_front_bwd_nhwc": [_P] * 23 + [_I] * 8 + [_P] * 2,
-    # the bf16 front (csrc/front_tc.cuh) with the plan of front_plan: the
-    # arguments of yolo_front_nhwc without dtype, + blocks1, blocks2, vec1,
-    # vec2
+    # K2 (csrc/yolo_front.cu, yolo_front_bwd.cu) with the plan of
+    # front_plan / front_bwd_plan; bf16 (front_tc.cuh) and f32
+    # (front_tf32.cuh) take the same arguments. Eval: x, k1, g1, b1 (the
+    # BN1 fold), k2, a1 (scratch), y2, B, H, W, C1, C2, blocks1, blocks2,
+    # vec1, vec2, stream
     "yolo_front_tc_nhwc": [_P] * 7 + [_I] * 9 + [_P],
-    # yolo_front_train_nhwc's, without dtype, + blocks1, blocks2, vec1,
-    # vec2, sync, sync_buf
+    "yolo_front_tf32_nhwc": [_P] * 7 + [_I] * 9 + [_P],
+    # train: x, k1, sc1, bi1, k2, y1, y2, stats1, stats2 (scratch), mean1,
+    # var1, g1, b1, mean2, var2, B, H, W, C1, C2, blocks1, blocks2, vec1,
+    # vec2, sync (a SyncFn or null: parallel/mesh.kernel_sync), sync_buf
+    # (scratch), stream
     "yolo_front_train_tc_nhwc": [_P] * 15 + [_I] * 9 + [_P] * 3,
-    # yolo_front_bwd_nhwc's pointers with e2 (scratch) after dy1, B, H, W,
-    # C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec, vec_x (front_bwd_plan),
-    # sync
+    "yolo_front_train_tf32_nhwc": [_P] * 15 + [_I] * 9 + [_P] * 3,
+    # backward: x, k2, y1, y2, dy2, sc1, mean1, var1, g1, b1, mean2, dmean1,
+    # dvar1, dmean2, dvar2, dy1, e2, gpart, wpart, vecs (scratch), dk1, dk2,
+    # dsc1, dbi1, B, H, W, C1, C2, da_blocks, dk2_chunks, dk1_chunks, vec,
+    # vec_x, sync, stream
     "yolo_front_bwd_tc_nhwc": [_P] * 24 + [_I] * 10 + [_P] * 2,
+    "yolo_front_bwd_tf32_nhwc": [_P] * 24 + [_I] * 10 + [_P] * 2,
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, smem, vec (the
     # plan of corrupt_plan), stream
     "corrupt_nhwc": [_P] * 4 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
@@ -353,17 +350,37 @@ def wgrad_tc_plan(dtype: str, b: int, h: int, w: int, cin: int, cout: int,
                 n_chunks=_spread(tiles, route["per_sm"], n_sm, slices))
 
 
-# ---- K2's bf16 tensor-core kernels (csrc/front_tc.cuh) ------------------
-# P1, P2 and dk1 cut their output (or y1) pixels into FRONT_TH x FRONT_TW
-# tiles, dA1 its y1 pixels into DA_TH x DA_TW tiles (8 x 16 pixels of each
-# row / column parity class), dk2 its y2 pixels into DK2_TH x FRONT_TW.
-# Blocks an SM by each kernel's shared memory and registers: P1 34 KB, P2
-# 214 KB, dA1 164 KB, dk2 81 KB (288 threads), dk1 73 KB.
+# ---- K2's tensor-core kernels ---------------------------------------------
+# bf16: csrc/front_tc.cuh (m16n8k16); f32: csrc/front_tf32.cuh (split TF32
+# on m16n8k8, three MMAs a product). P1, P2 and dk1 cut their output (or
+# y1) pixels into FRONT_TH x FRONT_TW tiles, dA1 its y1 pixels into DA_TH x
+# DA_TW tiles (8 x 16 pixels of each row / column parity class), dk2 its y2
+# pixels into DK2_TH x FRONT_TW, in both routes. By dtype (FRONT_ROUTES):
+# blocks an SM of each kernel, by its shared memory and registers (bf16:
+# P1 34 KB, P2 214 KB, dA1 164 KB, dk2 81 KB (288 threads), dk1 73 KB;
+# f32: P1 64 KB, P2 224 KB, dA1 212 KB, dk2 225 KB (576 threads), dk1 202
+# KB); the channels of a 16-byte piece; whether the forward's filters are
+# staged by 16-byte cp.async (bf16) or element by element, transposed and
+# split (f32: then only x's layout decides P1's staging and only C1 P2's);
+# the entry points. f32's filter gradients (dk2, dk1) take four chunks'
+# worth of blocks an SM: the tensor cores' f32 accumulation loses more than
+# an IEEE sum along a long chain (at batch 16 dk2's error against the plain
+# f32 version halves with each doubling of the chunks: 1.2e-4 of max|ref|
+# at one an SM, 2.9e-5 at four; PERF.md), and the chunks are summed in
+# order by plain f32 adds (the partials: 44 MB at batch 16).
 FRONT_TH, FRONT_TW = 8, 16
 DA_TH, DA_TW = 16, 32
 DK2_TH = 4
-P1_PER_SM, P2_PER_SM, DA_PER_SM, DK2_PER_SM, DK1_PER_SM = 4, 1, 1, 2, 2
 P1_CH, P2_CH, DA_CH, DK_CH = 48, 96, 48, 48   # channels a block, each way
+FRONT_ROUTES = {
+    "bfloat16": dict(per_sm=dict(p1=4, p2=1, da=1, dk2=2, dk1=2), piece=8,
+                     filters_staged=True, eval="yolo_front_tc_nhwc",
+                     train="yolo_front_train_tc_nhwc",
+                     bwd="yolo_front_bwd_tc_nhwc"),
+    "float32": dict(per_sm=dict(p1=3, p2=1, da=1, dk2=4, dk1=4), piece=4,
+                    filters_staged=False, eval="yolo_front_tf32_nhwc",
+                    train="yolo_front_train_tf32_nhwc",
+                    bwd="yolo_front_bwd_tf32_nhwc")}
 
 
 def _tiles(b: int, h: int, w: int, th: int, tw: int) -> int:
@@ -388,61 +405,70 @@ def _front_shape_ok(name: str, b: int, h: int, w: int, c1: int,
                          f"{c2} is beyond the kernels' int32 counts")
 
 
-def front_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
+def front_plan(dtype: str, b: int, h: int, w: int, c1: int, c2: int, ptrs,
                n_sm: int) -> Dict[str, Dict[str, int]]:
-    """Launch plan of K2-f's bf16 kernels on x (b, h, w, 3) -> 48 -> 96
-    (or c1 -> c2), with base pointers `ptrs` (x, k1, k2) and `n_sm` SMs.
-    ``p1`` / ``p2``: tiles, co_chunks (output-channel slices, blockIdx.y),
-    blocks (persistent; block i takes the tiles of :func:`chunk_tiles`, and
-    in train mode writes row i of the statistics partials, so the wrapper
-    allocates 2 x blocks x C of them) and vec (16-byte staging: P1 needs W
-    and C1 multiples of 8 and x, k1 aligned; P2 C1, C2 multiples of 8 and k2
-    aligned, its input being the wrapper's own y1 / a1)."""
+    """Launch plan of K2-f's `dtype` kernels ("bfloat16" or "float32") on x
+    (b, h, w, 3) -> 48 -> 96 (or c1 -> c2), with base pointers `ptrs` (x,
+    k1, k2) and `n_sm` SMs. ``p1`` / ``p2``: tiles, co_chunks
+    (output-channel slices, blockIdx.y), blocks (persistent; block i takes
+    the tiles of :func:`chunk_tiles`, and in train mode writes row i of the
+    statistics partials, so the wrapper allocates 2 x blocks x C of them)
+    and vec (16-byte staging: P1 needs W a multiple of a piece and x
+    aligned, and where the filter is staged by cp.async (bf16) C1 a
+    multiple of a piece and k1 aligned; P2 C1 a multiple of a piece, and
+    bf16 also C2 and k2, its input being the wrapper's own y1 / a1)."""
+    route = FRONT_ROUTES[dtype]
     _front_shape_ok("yolo_front", b, h, w, c1, c2)
     x, k1, k2 = ptrs
+    piece, staged = route["piece"], route["filters_staged"]
     h2, w2 = h // 2, w // 2
     h4, w4 = -(-h2 // 2), -(-w2 // 2)
+    vec1 = w % piece == 0 and x % 16 == 0 and (
+        not staged or _vec((c1,), (k1,), piece))
+    vec2 = _vec((c1, c2), (k2,), piece) if staged else _vec((c1,), (), piece)
     plan = {}
-    for name, (th, hh, ww, ch, cout, per_sm, vec) in dict(
-            p1=(FRONT_TH, h2, w2, P1_CH, c1, P1_PER_SM,
-                w % 8 == 0 and c1 % 8 == 0
-                and x % 16 == 0 and k1 % 16 == 0),
-            p2=(FRONT_TH, h4, w4, P2_CH, c2, P2_PER_SM,
-                _vec((c1, c2), (k2,)))).items():
-        tiles = _tiles(b, hh, ww, th, FRONT_TW)
+    for name, (hh, ww, ch, cout, vec) in dict(
+            p1=(h2, w2, P1_CH, c1, vec1),
+            p2=(h4, w4, P2_CH, c2, vec2)).items():
+        tiles = _tiles(b, hh, ww, FRONT_TH, FRONT_TW)
         co_chunks = -(-cout // ch)
         plan[name] = dict(tiles=tiles, co_chunks=co_chunks, vec=int(vec),
-                          blocks=_spread(tiles, per_sm, n_sm, co_chunks))
+                          blocks=_spread(tiles, route["per_sm"][name], n_sm,
+                                         co_chunks))
     return plan
 
 
-def front_bwd_plan(b: int, h: int, w: int, c1: int, c2: int, ptrs,
-                   n_sm: int) -> Dict[str, int]:
-    """Launch plan of K2-b's bf16 kernels for x (b, h, w, 3), y1 (b, h/2,
-    w/2, c1), y2 (b, h/4, w/4, c2), with base pointers `ptrs` (x, k2, y1, y2,
-    dy2) and `n_sm` SMs: da_blocks (dA1's persistent blocks, each writing
-    one row of the BN1 partials: gpart holds 2 x da_blocks x c1),
+def front_bwd_plan(dtype: str, b: int, h: int, w: int, c1: int, c2: int,
+                   ptrs, n_sm: int) -> Dict[str, int]:
+    """Launch plan of K2-b's `dtype` kernels for x (b, h, w, 3), y1 (b,
+    h/2, w/2, c1), y2 (b, h/4, w/4, c2), with base pointers `ptrs` (x, k2,
+    y1, y2, dy2) and `n_sm` SMs: da_blocks (dA1's persistent blocks, each
+    writing one row of the BN1 partials: gpart holds 2 x da_blocks x c1),
     dk2_chunks and dk1_chunks (the filter gradients' pixel chunks: wpart
     holds max(dk2_chunks x 9 c1 c2, dk1_chunks x 27 c1)), vec (16-byte
-    staging of everything but x: c1, c2 multiples of 8, pointers aligned)
-    and vec_x (vec, W a multiple of 8 and x aligned), with each kernel's
-    tile count. Fixed for a shape and a card."""
+    staging of everything but x: c1, c2 multiples of a piece, pointers
+    aligned) and vec_x (vec, W a multiple of a piece and x aligned), with
+    each kernel's tile count. Fixed for a shape and a card."""
+    route = FRONT_ROUTES[dtype]
     _front_shape_ok("yolo_front_bwd", b, h, w, c1, c2)
     x, *rest = ptrs
+    per_sm, piece = route["per_sm"], route["piece"]
     h2, w2 = h // 2, w // 2
     h4, w4 = -(-h2 // 2), -(-w2 // 2)
-    vec = _vec((c1, c2), rest)
+    vec = _vec((c1, c2), rest, piece)
     da_tiles = _tiles(b, h2, w2, DA_TH, DA_TW)
     dk2_tiles = _tiles(b, h4, w4, DK2_TH, FRONT_TW)
     dk1_tiles = _tiles(b, h2, w2, FRONT_TH, FRONT_TW)
     c1s, c2s = -(-c1 // DK_CH), -(-c2 // DK_CH)
-    return dict(vec=int(vec), vec_x=int(vec and w % 8 == 0 and x % 16 == 0),
+    return dict(vec=int(vec),
+                vec_x=int(vec and w % piece == 0 and x % 16 == 0),
                 da_tiles=da_tiles, da_co_chunks=-(-c1 // DA_CH),
-                da_blocks=_spread(da_tiles, DA_PER_SM, n_sm, -(-c1 // DA_CH)),
+                da_blocks=_spread(da_tiles, per_sm["da"], n_sm,
+                                  -(-c1 // DA_CH)),
                 dk2_tiles=dk2_tiles,
-                dk2_chunks=_spread(dk2_tiles, DK2_PER_SM, n_sm, c1s * c2s),
+                dk2_chunks=_spread(dk2_tiles, per_sm["dk2"], n_sm, c1s * c2s),
                 dk1_tiles=dk1_tiles,
-                dk1_chunks=_spread(dk1_tiles, DK1_PER_SM, n_sm, c1s))
+                dk1_chunks=_spread(dk1_tiles, per_sm["dk1"], n_sm, c1s))
 
 
 # ---- K4's bf16 tensor-core kernels (csrc/front_tc.cuh, csrc/stem_tc.cuh) --

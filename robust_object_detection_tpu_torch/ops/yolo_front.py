@@ -14,14 +14,16 @@ as models/yolov8.py does.
     ``torch.autograd.Function``: forward K2-f, train, backward
     :func:`front_fused_backward` (``csrc/yolo_front_bwd.cu``, K2-b).
 
-Each kernel has two routes, by dtype: bf16 runs the tensor-core implicit
-GEMMs of ``csrc/front_tc.cuh`` (``yolo_front_tc_nhwc``,
-``yolo_front_train_tc_nhwc``, ``yolo_front_bwd_tc_nhwc``) with a launch
-plan computed in Python (``kernels.front_plan``,
-``kernels.front_bwd_plan``: persistent blocks, which fix the number of
-statistics partials the wrapper allocates, pixel chunks, 16-byte or
-element staging), which the CPU tests hold; f32 runs the CUDA-core tiles
-of ``csrc/conv_tile.cuh`` and ``csrc/conv_wgrad.cuh``.
+Each kernel runs on the tensor cores in both dtypes, with a launch plan
+computed in Python (``kernels.front_plan``, ``kernels.front_bwd_plan``:
+persistent blocks, which fix the number of statistics partials the
+wrapper allocates, pixel chunks, 16-byte or element staging), which the
+CPU tests hold: bf16 the implicit GEMMs of ``csrc/front_tc.cuh``
+(``yolo_front_tc_nhwc``, ``yolo_front_train_tc_nhwc``,
+``yolo_front_bwd_tc_nhwc``), f32 the same GEMMs in split TF32 of
+``csrc/front_tf32.cuh`` (``yolo_front_tf32_nhwc``,
+``yolo_front_train_tf32_nhwc``, ``yolo_front_bwd_tf32_nhwc``; three TF32
+MMAs a product, f32 accuracy); ``kernels.FRONT_ROUTES`` names them.
 
 On a CPU tensor each runs its plain PyTorch version
 (:func:`front_inference_reference`, :func:`front_fused_reference`, whose
@@ -40,6 +42,7 @@ from .. import kernels
 from ..parallel.mesh import kernel_sync, mean_over_data, sync_moments
 
 EPS = 1e-3   # flax BatchNorm epsilon (pallas_stem.EPS)
+_DTYPES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 def batch_stats(y: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,20 +126,17 @@ def front_inference(x, k1, sc1, bi1, k2, means: Sequence,
     y2 = torch.empty((b, h4, w4, c2), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), k1.data_ptr(), g1.data_ptr(), b1.data_ptr(),
             k2.data_ptr(), a1.data_ptr(), y2.data_ptr(), b, h, w, c1, c2)
+    route = _DTYPES[x.dtype]
+    plan = kernels.front_plan(route, b, h, w, c1, c2,
+                              (args[0], args[1], args[4]),
+                              kernels.sm_count(x.device))
+    name = kernels.FRONT_ROUTES[route]["eval"]
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
-        stream = kernels.stream_ptr(x.device)
-        if x.dtype == torch.bfloat16:
-            plan = kernels.front_plan(b, h, w, c1, c2, (args[0], args[1],
-                                                        args[4]),
-                                      kernels.sm_count(x.device))
-            name = "yolo_front_tc_nhwc"
-            err = lib.yolo_front_tc_nhwc(
-                *args, plan["p1"]["blocks"], plan["p2"]["blocks"],
-                plan["p1"]["vec"], plan["p2"]["vec"], stream)
-        else:
-            name = "yolo_front_nhwc"
-            err = lib.yolo_front_nhwc(*args, kernels.DTYPE_F32, stream)
+        err = getattr(lib, name)(
+            *args, plan["p1"]["blocks"], plan["p2"]["blocks"],
+            plan["p1"]["vec"], plan["p2"]["vec"],
+            kernels.stream_ptr(x.device))
     kernels.check(err, name)
     front_inference.launches += 1
     return y2
@@ -214,15 +214,12 @@ class _FrontFused(torch.autograd.Function):
         sc1f, bi1f = _f32(sc1), _f32(bi1)
         y1 = torch.empty((b, h2, w2, c1), dtype=dtype, device=dev)
         y2 = torch.empty((b, h4, w4, c2), dtype=dtype, device=dev)
-        bf16 = dtype == torch.bfloat16
-        if bf16:        # one partial row per persistent block
-            plan = kernels.front_plan(
-                b, h, w, c1, c2, (x.data_ptr(), k1d.data_ptr(),
-                                  k2d.data_ptr()), kernels.sm_count(dev))
-            p1, p2 = plan["p1"]["blocks"], plan["p2"]["blocks"]
-        else:           # one partial row per image and 16 x 16 tile
-            p1 = b * kernels.tile_count(h2, w2)
-            p2 = b * kernels.tile_count(h4, w4)
+        route = _DTYPES[dtype]
+        plan = kernels.front_plan(
+            route, b, h, w, c1, c2, (x.data_ptr(), k1d.data_ptr(),
+                                     k2d.data_ptr()), kernels.sm_count(dev))
+        # one partial row per persistent block
+        p1, p2 = plan["p1"]["blocks"], plan["p2"]["blocks"]
         st1 = torch.empty(2 * p1 * c1, dtype=torch.float32, device=dev)
         st2 = torch.empty(2 * p2 * c2, dtype=torch.float32, device=dev)
         mean1, var1, g1, b1 = (torch.empty(c1, device=dev) for _ in range(4))
@@ -238,19 +235,12 @@ class _FrontFused(torch.autograd.Function):
         sync_buf = torch.empty(2 * max(c1, c2), dtype=torch.float32,
                                device=dev)
         sync, keep = kernel_sync(sync_buf)
+        name = kernels.FRONT_ROUTES[route]["train"]
         lib = kernels.load()
         with torch.cuda.device(dev):
-            stream = kernels.stream_ptr(dev)
-            if bf16:
-                name = "yolo_front_train_tc_nhwc"
-                err = lib.yolo_front_train_tc_nhwc(
-                    *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
-                    sync, sync_buf.data_ptr(), stream)
-            else:
-                name = "yolo_front_train_nhwc"
-                err = lib.yolo_front_train_nhwc(*args, kernels.DTYPE_F32,
-                                                sync, sync_buf.data_ptr(),
-                                                stream)
+            err = getattr(lib, name)(
+                *args, p1, p2, plan["p1"]["vec"], plan["p2"]["vec"],
+                sync, sync_buf.data_ptr(), kernels.stream_ptr(dev))
         del keep
         kernels.check(err, name)
         front_fused.launches += 1
@@ -304,30 +294,25 @@ def front_fused_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2,
 
 def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
                      dmean1, dvar1, dmean2, dvar2):
-    """Scratch, outputs and the launch of K2-b (bf16: its plan's partial
-    counts size gpart and wpart); the body of :func:`front_fused_backward`."""
+    """Scratch, outputs and the launch of K2-b (its plan's partial counts
+    size gpart and wpart); the body of :func:`front_fused_backward`."""
     b, h, w, _ = x.shape
-    _, h2, w2, c1 = y1.shape
-    c2 = y2.shape[3]
+    c1, c2 = y1.shape[3], y2.shape[3]
     dev, dtype = x.device, x.dtype
     dy2 = dy2.to(dtype).contiguous()
     # the statistics are the global batch's under a data-parallel step:
     # their cotangents, averaged over the data group
     dmean1, dvar1, dmean2, dvar2 = (mean_over_data(_f32(t).clone())
                                     for t in (dmean1, dvar1, dmean2, dvar2))
-    bf16 = dtype == torch.bfloat16
-    if bf16:
-        plan = kernels.front_bwd_plan(
-            b, h, w, c1, c2, (x.data_ptr(), k2.data_ptr(), y1.data_ptr(),
-                              y2.data_ptr(), dy2.data_ptr()),
-            kernels.sm_count(dev))
-        p, chunks1, chunks2 = (plan["da_blocks"], plan["dk1_chunks"],
-                               plan["dk2_chunks"])
-    else:
-        p = b * kernels.tile_count(h2, w2)
-        chunks1 = kernels.wgrad_chunks(3, c1)
-        chunks2 = kernels.wgrad_chunks(c1, c2)
+    route = _DTYPES[dtype]
+    plan = kernels.front_bwd_plan(
+        route, b, h, w, c1, c2, (x.data_ptr(), k2.data_ptr(), y1.data_ptr(),
+                                 y2.data_ptr(), dy2.data_ptr()),
+        kernels.sm_count(dev))
+    p, chunks1, chunks2 = (plan["da_blocks"], plan["dk1_chunks"],
+                           plan["dk2_chunks"])
     dy1 = torch.empty_like(y1)
+    e2 = torch.empty_like(y2)           # dy2 with the BN2 stats fold
     gpart = torch.empty(2 * p * c1, dtype=torch.float32, device=dev)
     wpart = torch.empty(max(chunks1 * 27 * c1, chunks2 * 9 * c1 * c2),
                         dtype=torch.float32, device=dev)
@@ -335,25 +320,17 @@ def _launch_backward(x, k2, y1, y2, sc1, mean1, var1, g1, b1, mean2, dy2,
     dk1 = torch.empty((3, 3, 3, c1), dtype=torch.float32, device=dev)
     dk2 = torch.empty((3, 3, c1, c2), dtype=torch.float32, device=dev)
     dsc1, dbi1 = torch.empty(c1, device=dev), torch.empty(c1, device=dev)
-    head = [t.data_ptr() for t in (x, k2, y1, y2, dy2, sc1, mean1, var1,
+    ptrs = [t.data_ptr() for t in (x, k2, y1, y2, dy2, sc1, mean1, var1,
                                    g1, b1, mean2, dmean1, dvar1, dmean2,
-                                   dvar2, dy1)]
-    tail = [t.data_ptr() for t in (gpart, wpart, vecs, dk1, dk2, dsc1,
-                                   dbi1)] + [b, h, w, c1, c2]
+                                   dvar2, dy1, e2, gpart, wpart, vecs, dk1,
+                                   dk2, dsc1, dbi1)]
     sync, keep = kernel_sync(vecs)
+    name = kernels.FRONT_ROUTES[route]["bwd"]
     lib = kernels.load()
     with torch.cuda.device(dev):
-        stream = kernels.stream_ptr(dev)
-        if bf16:
-            e2 = torch.empty_like(y2)   # dy2 with the BN2 stats fold
-            name = "yolo_front_bwd_tc_nhwc"
-            err = lib.yolo_front_bwd_tc_nhwc(
-                *head, e2.data_ptr(), *tail, p, chunks2, chunks1,
-                plan["vec"], plan["vec_x"], sync, stream)
-        else:
-            name = "yolo_front_bwd_nhwc"
-            err = lib.yolo_front_bwd_nhwc(*head, *tail, chunks1, chunks2,
-                                          kernels.DTYPE_F32, sync, stream)
+        err = getattr(lib, name)(
+            *ptrs, b, h, w, c1, c2, p, chunks2, chunks1, plan["vec"],
+            plan["vec_x"], sync, kernels.stream_ptr(dev))
     del keep
     kernels.check(err, name)
     return dk1, dsc1, dbi1, dk2

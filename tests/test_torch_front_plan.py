@@ -1,6 +1,6 @@
-"""The launch plans of K2's bf16 tensor-core kernels
-(robust_object_detection_tpu_torch/kernels: front_plan, front_bwd_plan) and
-the parity decomposition of K2-b's dA1, held on the CPU:
+"""The launch plans of K2's tensor-core kernels, bf16 and f32
+(robust_object_detection_tpu_torch/kernels: front_plan, front_bwd_plan,
+FRONT_ROUTES) and the parity decomposition of K2-b's dA1, held on the CPU:
 
   * every pixel tile of P1, P2, dA1, dk2 and dk1 belongs to exactly one
     persistent block or pixel chunk;
@@ -35,6 +35,7 @@ SHAPES = [(16, 1024, 1024, 48, 96), (8, 1024, 1024, 48, 96),
           (2, 64, 64, 48, 96), (2, 34, 46, 16, 24), (1, 20, 36, 12, 20),
           (1, 16, 32, 64, 128), (3, 2, 2, 5, 7)]
 ALIGNED = (0, 256, 512, 768, 1024)
+DTYPES = ["bfloat16", "float32"]
 # The taps of a stride-2, pad-1 3x3 conv's input gradient by the parity of
 # the input row (or column), as front_da1_tc_kernel (csrc/front_tc.cuh)
 # indexes them, {tap: offset}: input row 2 i takes tap 1 from output row i;
@@ -46,13 +47,14 @@ def _owned(tiles, n):
     return sorted(t for c in range(n) for t in K.chunk_tiles(tiles, n, c))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_every_tile_belongs_to_one_block_or_chunk(shape):
+def test_every_tile_belongs_to_one_block_or_chunk(shape, dtype):
     b, h, w, c1, c2 = shape
     h2, w2 = h // 2, w // 2
     h4, w4 = -(-h2 // 2), -(-w2 // 2)
-    fw = K.front_plan(*shape, ALIGNED[:3], H100_SMS)
-    bw = K.front_bwd_plan(*shape, ALIGNED, H100_SMS)
+    fw = K.front_plan(dtype, *shape, ALIGNED[:3], H100_SMS)
+    bw = K.front_bwd_plan(dtype, *shape, ALIGNED, H100_SMS)
     def count(hh, ww, th, tw):
         return b * -(-hh // th) * -(-ww // tw)
     for tiles, n, want in (
@@ -65,11 +67,12 @@ def test_every_tile_belongs_to_one_block_or_chunk(shape):
         assert _owned(tiles, n) == list(range(tiles))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_plans_are_fixed_for_a_shape(shape):
+def test_plans_are_fixed_for_a_shape(shape, dtype):
     def counts(ptrs):
-        fw = K.front_plan(*shape, ptrs[:3], H100_SMS)
-        bw = K.front_bwd_plan(*shape, ptrs, H100_SMS)
+        fw = K.front_plan(dtype, *shape, ptrs[:3], H100_SMS)
+        bw = K.front_bwd_plan(dtype, *shape, ptrs, H100_SMS)
         return (fw["p1"]["blocks"], fw["p2"]["blocks"], bw["da_blocks"],
                 bw["dk2_chunks"], bw["dk1_chunks"])
     runs = {counts(p) for p in (ALIGNED, (2, 18, 32, 6, 4096), ALIGNED,
@@ -77,50 +80,82 @@ def test_plans_are_fixed_for_a_shape(shape):
     assert len(runs) == 1
 
 
-def test_path_shapes_fill_the_card():
+# blocks (or chunks) an SM of P1, P2, dA1, dk2 and dk1: what each kernel's
+# shared memory allows (bf16: 34, 214, 164, 81, 73 KB; f32: 64, 224, 212,
+# 225, 202 KB), f32's filter gradients four times that (shorter
+# tensor-core accumulation chains)
+PER_SM = {"bfloat16": (4, 1, 1, 2, 2), "float32": (3, 1, 1, 4, 4)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_path_shapes_fill_the_card(dtype):
     """At (16 or 8, 1024, 1024, 3) -> 48 -> 96 on 132 SMs: one
-    channel slice each, 16-byte staging everywhere, about the blocks an SM
-    that each kernel's shared memory allows."""
+    channel slice each (dk2: two of its 48 y2 channels), 16-byte staging
+    everywhere, about the blocks an SM that each kernel's shared memory
+    allows."""
+    p1, p2, da, dk2, dk1 = PER_SM[dtype]
+    assert tuple(K.FRONT_ROUTES[dtype]["per_sm"].values()) == PER_SM[dtype]
     for batch in (16, 8):
-        fw = K.front_plan(batch, 1024, 1024, 48, 96, ALIGNED[:3], H100_SMS)
+        fw = K.front_plan(dtype, batch, 1024, 1024, 48, 96, ALIGNED[:3],
+                          H100_SMS)
         assert fw["p1"] == dict(tiles=batch * 64 * 32, co_chunks=1, vec=1,
-                                blocks=4 * H100_SMS)
+                                blocks=p1 * H100_SMS)
         assert fw["p2"] == dict(tiles=batch * 32 * 16, co_chunks=1, vec=1,
-                                blocks=H100_SMS)
-        bw = K.front_bwd_plan(batch, 1024, 1024, 48, 96, ALIGNED, H100_SMS)
+                                blocks=p2 * H100_SMS)
+        bw = K.front_bwd_plan(dtype, batch, 1024, 1024, 48, 96, ALIGNED,
+                              H100_SMS)
         assert (bw["vec"], bw["vec_x"], bw["da_co_chunks"]) == (1, 1, 1)
-        assert bw["da_blocks"] == H100_SMS
-        assert bw["dk2_chunks"] == H100_SMS          # 2 x 132 over 2 slices
-        assert bw["dk1_chunks"] == 2 * H100_SMS
+        assert bw["da_blocks"] == da * H100_SMS
+        assert bw["dk2_chunks"] == dk2 * H100_SMS // 2   # over 2 slices
+        assert bw["dk1_chunks"] == dk1 * H100_SMS
 
 
-# ptrs: x, k1, k2, dy2 (the wrapper's own y1, y2 are aligned)
-@pytest.mark.parametrize("c1,c2,w,ptrs,p1,p2,vec,vec_x", [
-    (48, 96, 64, (0, 256, 512, 768), 1, 1, 1, 1),
-    (16, 24, 46, (0, 256, 512, 768), 0, 1, 1, 0),   # W not a multiple of 8
-    (12, 20, 64, (0, 256, 512, 768), 0, 0, 0, 0),   # channels not of 8
-    (48, 20, 64, (0, 256, 512, 768), 1, 0, 0, 0),
-    (48, 96, 64, (2, 256, 512, 768), 0, 1, 1, 0),   # misaligned x
-    (48, 96, 64, (0, 8, 8, 768), 0, 0, 0, 0),       # misaligned k1, k2
-    (48, 96, 64, (0, 256, 512, 24), 1, 1, 0, 0)])   # misaligned dy2
-def test_16_byte_staging_only_where_allowed(c1, c2, w, ptrs, p1, p2, vec,
-                                            vec_x):
+# ptrs: x, k1, k2, dy2 (the wrapper's own y1, y2 are aligned); the
+# expected (p1, p2, vec, vec_x) by dtype. bf16 stages 8 channels a piece
+# and the forward's filters by cp.async; f32 4 channels a piece (x: W a
+# multiple of 4) and the forward's filters element by element
+# (transposed and split), so k1 and k2 decide only K2-b's staging.
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c1,c2,w,ptrs,want", [
+    (48, 96, 64, (0, 256, 512, 768), dict(bfloat16=(1, 1, 1, 1),
+                                          float32=(1, 1, 1, 1))),
+    (16, 24, 46, (0, 256, 512, 768), dict(bfloat16=(0, 1, 1, 0),
+                                          float32=(0, 1, 1, 0))),  # W
+    (16, 24, 60, (0, 256, 512, 768), dict(bfloat16=(0, 1, 1, 0),
+                                          float32=(1, 1, 1, 1))),  # W 4k
+    (12, 20, 64, (0, 256, 512, 768), dict(bfloat16=(0, 0, 0, 0),
+                                          float32=(1, 1, 1, 1))),
+    (10, 20, 64, (0, 256, 512, 768), dict(bfloat16=(0, 0, 0, 0),
+                                          float32=(1, 0, 0, 0))),
+    (48, 20, 64, (0, 256, 512, 768), dict(bfloat16=(1, 0, 0, 0),
+                                          float32=(1, 1, 1, 1))),
+    (48, 96, 64, (2, 256, 512, 768), dict(bfloat16=(0, 1, 1, 0),
+                                          float32=(0, 1, 1, 0))),  # x
+    (48, 96, 64, (0, 8, 8, 768), dict(bfloat16=(0, 0, 0, 0),
+                                      float32=(1, 1, 0, 0))),  # k1, k2
+    (48, 96, 64, (0, 256, 512, 24), dict(bfloat16=(1, 1, 0, 0),
+                                         float32=(1, 1, 0, 0)))])  # dy2
+def test_16_byte_staging_only_where_allowed(c1, c2, w, ptrs, want, dtype):
     x, k1, k2, dy2 = ptrs
-    fw = K.front_plan(2, 32, w, c1, c2, (x, k1, k2), H100_SMS)
-    bw = K.front_bwd_plan(2, 32, w, c1, c2, (x, k2, 0, 0, dy2), H100_SMS)
-    assert (fw["p1"]["vec"], fw["p2"]["vec"]) == (p1, p2)
-    assert (bw["vec"], bw["vec_x"]) == (vec, vec_x)
+    fw = K.front_plan(dtype, 2, 32, w, c1, c2, (x, k1, k2), H100_SMS)
+    bw = K.front_bwd_plan(dtype, 2, 32, w, c1, c2, (x, k2, 0, 0, dy2),
+                          H100_SMS)
+    assert (fw["p1"]["vec"], fw["p2"]["vec"], bw["vec"],
+            bw["vec_x"]) == want[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(0, 8, 8, 4, 4), (1, 1, 8, 4, 4),
                                    (1, 8, 0, 4, 4), (1, 8, 8, 0, 4),
                                    (1, 8, 8, 4, 0),
                                    (2 ** 20, 2 ** 12, 2 ** 12, 48, 96)])
-def test_plans_refuse_shapes_the_kernels_cannot_take(shape):
+def test_plans_refuse_shapes_the_kernels_cannot_take(shape, dtype):
     with pytest.raises(ValueError):
-        K.front_plan(*shape, ALIGNED[:3], H100_SMS)
+        K.front_plan(dtype, *shape, ALIGNED[:3], H100_SMS)
     with pytest.raises(ValueError):
-        K.front_bwd_plan(*shape, ALIGNED, H100_SMS)
+        K.front_bwd_plan(dtype, *shape, ALIGNED, H100_SMS)
+    with pytest.raises(KeyError):
+        K.front_plan("float16", 1, 8, 8, 4, 4, ALIGNED[:3], H100_SMS)
 
 
 class _Recorder:
@@ -160,20 +195,25 @@ def recorder(monkeypatch):
     return lib, made
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 64, 64, 48, 96), (2, 34, 46, 16, 24),
                                    (1, 16, 32, 64, 128)])
-def test_wrappers_allocate_one_partial_row_per_block(recorder, shape):
+def test_wrappers_allocate_one_partial_row_per_block(recorder, shape,
+                                                     dtype):
     lib, made = recorder
     b, h, w, c1, c2 = shape
-    x = torch.rand(b, h, w, 3).bfloat16()
+    name = str(dtype).split(".")[-1]
+    route = K.FRONT_ROUTES[name]
+    x = torch.rand(b, h, w, 3).to(dtype)
     k1 = torch.randn(3, 3, 3, c1)
     k2 = torch.randn(3, 3, c1, c2)
     sc1, bi1 = torch.ones(c1), torch.zeros(c1)
     TF._FrontFused.apply(x, k1, sc1, bi1, k2)
-    args = lib.calls["yolo_front_train_tc_nhwc"]
+    assert set(lib.calls) == {route["train"]}
+    args = lib.calls[route["train"]]
     assert args[15:20] == (b, h, w, c1, c2)
     blocks1, blocks2 = args[20:22]
-    fw = K.front_plan(b, h, w, c1, c2, (args[0], args[1], args[4]),
+    fw = K.front_plan(name, b, h, w, c1, c2, (args[0], args[1], args[4]),
                       H100_SMS)
     assert (blocks1, blocks2) == (fw["p1"]["blocks"], fw["p2"]["blocks"])
     assert made[args[7]].numel() == 2 * blocks1 * c1     # stats1
@@ -181,16 +221,16 @@ def test_wrappers_allocate_one_partial_row_per_block(recorder, shape):
 
     h2, w2 = h // 2, w // 2
     h4, w4 = -(-h2 // 2), -(-w2 // 2)
-    y1 = torch.zeros(b, h2, w2, c1, dtype=torch.bfloat16)
-    y2 = torch.zeros(b, h4, w4, c2, dtype=torch.bfloat16)
+    y1 = torch.zeros(b, h2, w2, c1, dtype=dtype)
+    y2 = torch.zeros(b, h4, w4, c2, dtype=dtype)
     vec1, vec2 = torch.ones(c1), torch.ones(c2)
-    TF._launch_backward(x, k2.bfloat16(), y1, y2, vec1, vec1, vec1, vec1,
+    TF._launch_backward(x, k2.to(dtype), y1, y2, vec1, vec1, vec1, vec1,
                         vec1, vec2, torch.zeros_like(y2), vec1, vec1, vec2,
                         vec2)
-    args = lib.calls["yolo_front_bwd_tc_nhwc"]
+    args = lib.calls[route["bwd"]]
     assert args[24:29] == (b, h, w, c1, c2)
     da_blocks, dk2_chunks, dk1_chunks = args[29:32]
-    bw = K.front_bwd_plan(b, h, w, c1, c2, tuple(args[:5]), H100_SMS)
+    bw = K.front_bwd_plan(name, b, h, w, c1, c2, tuple(args[:5]), H100_SMS)
     assert (da_blocks, dk2_chunks, dk1_chunks) == (
         bw["da_blocks"], bw["dk2_chunks"], bw["dk1_chunks"])
     assert made[args[16]].shape == y2.shape              # e2

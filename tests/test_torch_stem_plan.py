@@ -141,8 +141,8 @@ def test_front_plans_are_unchanged(shape):
     """K2's plans on its path and card-test shapes are the values they had
     before its templates were shared with K4."""
     (b, h, w, c1, c2), (p1, p2), (da, dk2, dk1) = shape
-    fw = K.front_plan(b, h, w, c1, c2, ALIGNED[:3], H100_SMS)
-    bw = K.front_bwd_plan(b, h, w, c1, c2, ALIGNED, H100_SMS)
+    fw = K.front_plan("bfloat16", b, h, w, c1, c2, ALIGNED[:3], H100_SMS)
+    bw = K.front_bwd_plan("bfloat16", b, h, w, c1, c2, ALIGNED, H100_SMS)
     assert (fw["p1"]["blocks"], fw["p2"]["blocks"]) == (p1, p2)
     assert (bw["da_blocks"], bw["dk2_chunks"], bw["dk1_chunks"]) == (
         da, dk2, dk1)

@@ -55,6 +55,10 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
         return "K4-f hgstem" if rtdetr else "K2-f yolo_front"
     if re.search(r"e2_prep_kernel|front_d(a1|k1|k2)_tc_kernel", name):
         return "K4-b hgstem_bwd" if rtdetr else "K2-b yolo_front_bwd"
+    if re.search(r"front_p[12]_tf32_kernel", name):
+        return "K2-f yolo_front"
+    if re.search(r"e2_prep_f32_kernel|front_d(a1|k1|k2)_tf32_kernel", name):
+        return "K2-b yolo_front_bwd"
     if re.search(r"stem2x2_tc_kernel|pool2x2_vec_kernel|"
                  r"assemble_train_vec_kernel", name):
         return "K4-f hgstem"

@@ -136,3 +136,15 @@ mutate k3_f32_no_inf_guard robust_object_detection_tpu_torch/csrc/conv3x3_tf32.c
 mutate k3b_f32_no_lo robust_object_detection_tpu_torch/csrc/conv3x3_tf32.cuh \
   "make_uint4(h0, h1, l0, l1);" "make_uint4(h0, h1, 0u, 0u);" \
   phase_train_kernels
+# K2's f32 forward in one pass of TF32 (P1 and P2 without the two
+# correction products): phase 3's f32 K2-f at 1e-4 x max|ref| (one pass
+# sits near 4.5e-4 in tests/test_torch_front_tf32.py's emulation)
+mutate k2_f32_one_pass robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
+  "constexpr int FWD_PASSES = 3;" "constexpr int FWD_PASSES = 1;" \
+  phase_kernels
+# K2-b's filter gradients dk2 and dk1 in one pass of TF32 (their staged
+# operands split with lo = 0; dA1 untouched): phase 6's f32 K2-b bar
+mutate k2b_f32_no_lo robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
+  "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, l0, l1);" \
+  "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, 0u, 0u);" \
+  phase_train_kernels
