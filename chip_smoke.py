@@ -572,7 +572,8 @@ def f32_route_numbers(r: dict, tf32x3: bool) -> dict:
                plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
                bytes_bound_ms=r["bytes"] / HBM_BYTES_PER_S * 1e3,
                ffma_bound_ms=ffma_ms, library_ms=r["library_ms"])
-    for key in ("device_ms", "library_tf32_off_ms", "parts"):
+    for key in ("device_ms", "library_tf32_off_ms", "parts", "launch_ms",
+                "library_stages_ms", "library_stages_tf32_off_ms"):
         if key in r:
             out[key] = r[key]
     return out
@@ -683,13 +684,26 @@ def conv3x3_edges(C, g, dev, tag):
           f"non-finite outputs where the float64 conv has them")
 
 
-# The f32 routes of K3 and K2: the split-TF32 kernels of
-# csrc/conv3x3_tf32.cuh and csrc/front_tf32.cuh; the CUDA-core kernels
-# they ran before (K4's f32 route still runs the first two)
-F32_OLD = ("conv3x3_tile_kernel", "wgrad_partial_kernel", "front_da1_kernel")
+# The f32 routes of K3, K2 and K4: the split-TF32 kernels of
+# csrc/conv3x3_tf32.cuh, csrc/front_tf32.cuh and csrc/stem_tf32.cuh; the
+# CUDA-core kernels they ran before (since removed from the sources: a
+# launch of one would come from a stale build)
+F32_OLD = ("conv3x3_tile_kernel", "wgrad_partial_kernel", "front_da1_kernel",
+           "conv2x2_relu_kernel", "pool2x2_kernel", "assemble_train_kernel",
+           "stem3_dx_kernel", "assemble_bwd_kernel", "conv2x2_dx_kernel")
 K2F_TF32 = ("front_p1_tf32_kernel", "front_p2_tf32_kernel")
 K2B_TF32 = ("e2_prep_f32_kernel", "front_da1_tf32_kernel",
             "front_dk2_tf32_kernel", "front_dk1_tf32_kernel")
+# K4-f (eval: the pool, train: the pool + concat between stem2b and stem3)
+# and K4-b
+K4F_TF32 = ("front_p1_tf32_kernel", "stem2x2_tf32_kernel",
+            "front_p2_tf32_kernel")
+K4F_EVAL_TF32 = K4F_TF32 + ("pool2x2_f32_kernel",)
+K4F_TRAIN_TF32 = K4F_TF32 + ("assemble_train_f32_kernel",)
+K4B_TF32 = ("e2_prep_f32_kernel", "front_da1_tf32_kernel",
+            "front_dk2_tf32_kernel", "assemble_bwd_f32_kernel",
+            "stem2x2_wgrad_tf32_kernel", "stem2x2_dx_tf32_kernel",
+            "front_dk1_tf32_kernel")
 
 
 def f32_route(tag, what, fn, kernels, library=None):
@@ -715,6 +729,11 @@ def f32_route(tag, what, fn, kernels, library=None):
                 parts[part] = parts.get(part, 0.0) + ms
     if any("front_" in k for k in kernels):
         out["parts"] = parts
+    if any("stem2x2" in k for k in kernels):
+        # K4: each launch's device ms in launch order
+        seq = device_ms_by_launch(fn)
+        if seq is not None:
+            out["launch_ms"] = [(short_kernel_name(k), ms) for ms, k in seq]
     note = ""
     if library is not None:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -988,6 +1007,15 @@ K3B_TOL = {"float32": 1.5e-4, "bfloat16": 1e-3}
 # 2e-2: the plain front in bf16 rounds y1, a1 and y2 where the kernels do,
 # but not in the same order (phase_train_kernels).
 K2B_TOL = {"float32": 1.5e-4, "bfloat16": 2e-2}
+# K4-b's ten gradients x max|ref| by dtype (phase_rtdetr_train_kernels).
+# f32: K4-b on a forward's saved tensors against the same function in
+# float64 on them (stem_bwd_f64), which no mask flip separates from it;
+# 1.5e-4, the bar of K2-b and K3-b, under one pass of TF32 in the filter
+# gradients (tests/test_torch_stem_tf32.py: several percent at small
+# sizes, where the BN statistics' cotangents cancel). bf16 8e-2, against
+# the plain chain in bf16, which rounds the stored tensors where the
+# kernels do, in another order.
+K4B_TOL = {"float32": 1.5e-4, "bfloat16": 8e-2}
 
 
 def check_conv3x3_backward(C, xd, dyd, kd, log):
@@ -1498,9 +1526,10 @@ def phase_rtdetr_kernels(dev):
                 stem_parts(lambda: ST.stem_fused_inference(*args),
                            "rtdetr-kernels", f"K4-f eval {shape}")
             # cuDNN's time for each conv stage alone (channels-last views,
-            # default flags): there is no one call for the chain
+            # default flags, and for f32 with TF32 off too): there is no
+            # one call for the chain
             b, h, w = shape
-            stages = {}
+            stages, stages_off = {}, {}
             for stage, cin, k, side, stride, pad in (
                     ("stem1", 3, args[1], h, 2, 1),
                     ("stem2a", 32, args[4], h // 2 + 1, 1, 0),
@@ -1511,11 +1540,18 @@ def phase_rtdetr_kernels(dev):
                 kv = k.permute(3, 2, 0, 1)
                 stages[stage] = time_ms(lambda: F.conv2d(
                     xs, kv, stride=stride, padding=pad))
+                if dtype == torch.float32:
+                    with torch.backends.cudnn.flags(enabled=True,
+                                                    allow_tf32=False):
+                        stages_off[stage] = time_ms(lambda: F.conv2d(
+                            xs, kv, stride=stride, padding=pad))
             print(f"[rtdetr-kernels] {log[0]}; kernel {ms} ms plain "
                   f"{plain_ms} ms (cuDNN convs + elementwise, default "
                   f"flags); cuDNN alone per conv stage {stages} (sum "
-                  f"{sum(stages.values())} ms; no single library call "
-                  f"computes the chain)")
+                  f"{sum(stages.values())} ms"
+                  + (f"; TF32 off {stages_off} (sum "
+                     f"{sum(stages_off.values())} ms)" if stages_off else "")
+                  + "; no single library call computes the chain)")
             px2, px4 = b * (h // 2) * (w // 2), b * (h // 4) * (w // 4)
             flops = 2 * (27 * 32 + 128 * 16 + 64 * 32) * px2 \
                 + 2 * 576 * 32 * px4
@@ -1523,6 +1559,12 @@ def phase_rtdetr_kernels(dev):
                       + sum(k.numel() for k in raw[1])) * esize(dtype)
             stem[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               **work(name, nbytes, flops))
+            if dtype == torch.float32:
+                stem[name].update(f32_route(
+                    "rtdetr-kernels", f"K4-f eval float32 {shape}",
+                    lambda: ST.stem_fused_inference(*args), K4F_EVAL_TF32),
+                    library_stages_ms=sum(stages.values()),
+                    library_stages_tf32_off_ms=sum(stages_off.values()))
         del raw, args, out, ref
     results["hgstem"] = stem
 
@@ -1719,11 +1761,13 @@ STEM_PARAMS = ("k1", "sc1", "bi1", "k2a", "sc2a", "bi2a", "k2b", "sc2b",
 
 def stem_grads_f64(ST, x, params, cots):
     """The ten gradients of the train-mode stem's plain chain in float64 on
-    the card, on bf16 x and the bf16-rounded conv kernels the bf16 route
-    computes with (the chain's f32 casts widened to float64)."""
+    the card, on x as given and the conv kernels the route computes with
+    (rounded to bf16 for a bf16 x; the chain's f32 casts widened to
+    float64)."""
     import torch
-    ps = [(p.bfloat16() if p.dim() == 4 else p).double().requires_grad_()
-          for p in params]
+    bf16 = x.dtype == torch.bfloat16
+    ps = [(p.bfloat16() if bf16 and p.dim() == 4 else p).double()
+          .requires_grad_() for p in params]
     real_float = torch.Tensor.float
     torch.Tensor.float = lambda t, *a, **k: t.double()
     try:
@@ -1732,6 +1776,91 @@ def stem_grads_f64(ST, x, params, cots):
                                    [c.double() for c in cots])
     finally:
         torch.Tensor.float = real_float
+
+
+def stem_bwd_f64(ST, saved, dy3, dmeans, dvars):
+    """K4-b's function in float64 on the tensors a forward saved for it
+    (stem_fused's saved tensors: x, y1, y2a, y2b, the concat, y3, k2a, k2b,
+    k3, sc1, sc2a, sc2b and the statistics buffer), its ReLU masks and pool
+    routing taken from those tensors: the ten gradients (dk1, dsc1, dbi1,
+    dk2a, dsc2a, dbi2a, dk2b, dsc2b, dbi2b, dk3; filters HWIO). Independent
+    of the kernels: torch's float64 conv gradients and the folded-BN chain
+    rule, the pool's VJP by autograd of the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fv = (
+        t.double() for t in saved)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def col(v):
+        return v[:, None, None]
+
+    def hwio(k):
+        return k.permute(2, 3, 1, 0).contiguous()
+
+    def cot(v, c):
+        return (torch.zeros(c, dtype=torch.float64, device=x.device)
+                if v is None else v.double())
+    n1 = float(y1.shape[0] * y1.shape[1] * y1.shape[2])
+    n3 = float(y3.shape[0] * y3.shape[1] * y3.shape[2])
+    sizes = (32, 16, 32, 32)
+    dm = [cot(v, c) for v, c in zip(dmeans, sizes)]
+    dv = [cot(v, c) for v, c in zip(dvars, sizes)]
+
+    def slot(bn, which, c):
+        return fv[4 * bn + which, :c]
+
+    def chain(dg, db, sc, bn, c):
+        """dsc, dbi, ds, dss of BN `bn` (bn_chain_kernel's algebra)."""
+        mean, var = slot(bn, 0, c), slot(bn, 1, c)
+        r = torch.rsqrt(var + 1e-3)
+        dmi = -db * sc * r + dm[bn]
+        dvi = (dg - db * mean) * sc * -0.5 * r ** 3 + dv[bn]
+        return dg * r - db * mean * r, db, dmi / n1 - 2 * mean * dvi / n1, \
+            dvi / n1
+
+    with torch.no_grad():
+        m3 = fv[12]
+        ds3, dss3 = dm[3] / n3 - 2 * m3 * dv[3] / n3, dv[3] / n3
+        e3 = nchw(dy3.double() + ds3 + 2 * y3 * dss3)
+        cat_, k3_ = nchw(cat), k3.permute(3, 2, 0, 1)
+        dk3 = conv2d_weight(cat_, k3_.shape, e3, stride=2, padding=1)
+        dcat = conv2d_input(cat_.shape, k3_, e3, stride=2, padding=1)
+        g = [slot(i, 2, c) for i, c in enumerate(sizes[:3])]
+        b = [slot(i, 3, c) for i, c in enumerate(sizes[:3])]
+        y1_, y2a_, y2b_ = nchw(y1), nchw(y2a), nchw(y2b)
+        a1 = torch.relu(y1_ * col(g[0]) + col(b[0]))
+        a2a = torch.relu(y2a_ * col(g[1]) + col(b[1]))
+        # the concat's backward: BN2b's chain, the pool's routing
+        dpre = dcat[:, 32:] * (y2b_ * col(g[2]) + col(b[2]) > 0)
+        dsc2b, dbi2b, ds, dss = chain((dpre * y2b_).sum((0, 2, 3)),
+                                      dpre.sum((0, 2, 3)), sc2b, 2, 32)
+    with torch.enable_grad():
+        a1g = a1.clone().requires_grad_()
+        (da1p,) = torch.autograd.grad(ST._pool2x2(a1g), a1g, dcat[:, :32])
+    with torch.no_grad():
+        h, w = y1_.shape[2:]
+        e2b = dpre * col(g[2]) + col(ds) + 2 * y2b_ * col(dss)
+        pad2a, k2b_ = F.pad(a2a, (0, 1, 0, 1)), k2b.permute(3, 2, 0, 1)
+        dk2b = conv2d_weight(pad2a, k2b_.shape, e2b)
+        da = conv2d_input(pad2a.shape, k2b_, e2b)[:, :, :h, :w]
+        dpre = da * (y2a_ * col(g[1]) + col(b[1]) > 0)
+        dsc2a, dbi2a, ds, dss = chain((dpre * y2a_).sum((0, 2, 3)),
+                                      dpre.sum((0, 2, 3)), sc2a, 1, 16)
+        e2a = dpre * col(g[1]) + col(ds) + 2 * y2a_ * col(dss)
+        pad1, k2a_ = F.pad(a1, (0, 1, 0, 1)), k2a.permute(3, 2, 0, 1)
+        dk2a = conv2d_weight(pad1, k2a_.shape, e2a)
+        da = conv2d_input(pad1.shape, k2a_, e2a)[:, :, :h, :w]
+        dpre = (da + da1p) * (y1_ * col(g[0]) + col(b[0]) > 0)
+        dsc1, dbi1, ds, dss = chain((dpre * y1_).sum((0, 2, 3)),
+                                    dpre.sum((0, 2, 3)), sc1, 0, 32)
+        e1 = dpre * col(g[0]) + col(ds) + 2 * y1_ * col(dss)
+        dk1 = conv2d_weight(nchw(x), (32, 3, 3, 3), e1, stride=2, padding=1)
+    return (hwio(dk1), dsc1, dbi1, hwio(dk2a), dsc2a, dbi2a, hwio(dk2b),
+            dsc2b, dbi2b, hwio(dk3))
 
 
 def stem_f64_witness(ST, x, params, cots, grads, plain_grads, log):
@@ -1801,13 +1930,19 @@ def phase_rtdetr_train_kernels(dev):
     RT-DETR-L train step's shapes and at one odd shape each. Tolerances,
     each x max|ref|: K4-f train y3 1e-4 in f32 (TF32 off) and 2e-2 in bf16,
     its eight batch statistics 1e-3 and 2e-2 (sums over B x H x W); K4-b's
-    ten gradients 1e-3 in f32 and 8e-2 in bf16 (0.25 at the odd bf16
-    shape, whose sums run over 936 pixels only; its f32 check holds the
-    edges), against the autograd of the plain chain in the same dtype,
-    which rounds the stored tensors where the kernels do (a last-bit
-    difference of a stored bf16 y flips roundings four tensors down the
-    chain); at the odd bf16 shape also against the float64 chain on the
-    same bf16-rounded inputs, each gradient within 2x the plain bf16
+    ten gradients K4B_TOL: in f32 K4-b, called on the tensors its forward
+    saved (the autograd gradients' bits), against the same function in
+    float64 on the same tensors (stem_bwd_f64; end to end, f32 noise flips
+    ReLU masks and pool routings, each a whole term of a gradient: the
+    kernels' and the plain f32 chain's errors against the float64 chain,
+    up to 1.7e-3 of max|ref| at the train shape for either, are printed);
+    in bf16 8e-2 (0.25 at the odd bf16 shape, whose sums run over 936
+    pixels only;
+    its f32 check holds the edges) against the autograd of the plain chain
+    in bf16, which rounds the stored tensors where the kernels do (a
+    last-bit difference of a stored bf16 y flips roundings four tensors
+    down the chain); at the odd bf16 shape also against the float64 chain
+    on the same bf16-rounded inputs, each gradient within 2x the plain bf16
     chain's error (stem_f64_witness); K4-b twice gives identical bits. K5
     backward against the
     autograd of the plain gather version in f32 on the same values, on
@@ -1849,7 +1984,7 @@ def phase_rtdetr_train_kernels(dev):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             name = str(dtype).split(".")[-1]
             stol = 1e-3 if dtype == torch.float32 else tol
-            gtol = 1e-3 if dtype == torch.float32 else 8e-2
+            gtol = K4B_TOL[name]
             if dtype == torch.bfloat16 and not main:
                 gtol = 0.25      # 936 pixels: each flipped rounding shows
             xd = x.to(dtype)
@@ -1869,8 +2004,39 @@ def phase_rtdetr_train_kernels(dev):
                           flat[1 + i], rflat[1 + i], stol, log)
                 grads = torch.autograd.grad(flat, ps, cd, retain_graph=True)
                 rgrads = torch.autograd.grad(rflat, rs, cd)
-            gerr = max(check(f"d{n} {name}", a, r, gtol, log)
-                       for n, a, r in zip(STEM_PARAMS, grads, rgrads))
+            if dtype == torch.float32:
+                # K4-b alone, called on the tensors this forward saved: the
+                # autograd gradients' bits, and within the bar of the same
+                # function in float64 on the same tensors (stem_bwd_f64).
+                # End to end (the f32 forward and K4-b) the kernels' and
+                # the plain f32 chain's gradients against the float64 chain
+                # are printed: a ReLU mask or pool routing that f32 noise
+                # flips moves a gradient by a whole term, up to 1.7e-3 of
+                # max|ref| at the train shape for either
+                saved = out[0].grad_fn.saved_tensors
+                alone = ST.stem_fused_backward(*saved, cd[0], cd[1:5],
+                                               cd[5:9])
+                require(all(torch.equal(a, c) for a, c in zip(alone, grads)),
+                        "K4-b called alone differs from its autograd run")
+                ref64 = stem_bwd_f64(ST, saved, cd[0], cd[1:5], cd[5:9])
+                del saved
+                gerr = max(check(f"d{n} {name} alone vs float64", a, r,
+                                 gtol, log)
+                           for n, a, r in zip(STEM_PARAMS, alone, ref64))
+                f64 = stem_grads_f64(ST, xd, params, cd)
+
+                def rel(a, r):
+                    e, scale = max_err(a, r)
+                    return e / scale
+                log.append("end to end vs float64, kernels / plain f32: "
+                           + ", ".join(
+                               f"d{n} {rel(a, d):.3g} / {rel(r, d):.3g}"
+                               for n, a, r, d in zip(STEM_PARAMS, grads,
+                                                     rgrads, f64)))
+                del f64, alone, ref64
+            else:
+                gerr = max(check(f"d{n} {name}", a, r, gtol, log)
+                           for n, a, r in zip(STEM_PARAMS, grads, rgrads))
             again = torch.autograd.grad(flat, ps, cd)
             require(all(torch.equal(a, c) for a, c in zip(grads, again)),
                     "K4-b is not deterministic")
@@ -1880,12 +2046,17 @@ def phase_rtdetr_train_kernels(dev):
             if not main:
                 print(f"[rtdetr-train-kernels] {'; '.join(log)}")
                 continue
+            routes = {}
             with torch.no_grad():
                 ms = time_ms(lambda: ST.stem_fused(xd, *ps))
                 plain_ms = time_ms(lambda: ST.stem_train_reference(xd, *ps))
                 if dtype == torch.bfloat16:
                     stem_parts(lambda: ST.stem_fused(xd, *ps),
                                "rtdetr-train-kernels", f"K4-f train {shape}")
+                else:
+                    routes["forward"] = f32_route(
+                        "rtdetr-train-kernels", f"K4-f train float32 {shape}",
+                        lambda: ST.stem_fused(xd, *ps), K4F_TRAIN_TF32)
             out = ST.stem_fused(xd, *ps)
             flat = (out[0], *out[1], *out[2])
             bms = time_ms(lambda: torch.autograd.grad(flat, ps, cd,
@@ -1894,6 +2065,15 @@ def phase_rtdetr_train_kernels(dev):
                 stem_parts(lambda: torch.autograd.grad(flat, ps, cd,
                                                        retain_graph=True),
                            "rtdetr-train-kernels", f"K4-b {shape}")
+            else:
+                # K4-b called directly, on this thread, on the tensors the
+                # forward saved for it: the split-TF32 kernels only
+                saved = out[0].grad_fn.saved_tensors
+                routes["backward"] = f32_route(
+                    "rtdetr-train-kernels", f"K4-b float32 {shape}",
+                    lambda: ST.stem_fused_backward(*saved, cd[0], cd[1:5],
+                                                   cd[5:9]), K4B_TF32)
+                del saved
             del out, flat
             pout = ST.stem_train_reference(xd, *ps)
             pflat = (pout[0], *pout[1], *pout[2])
@@ -1901,8 +2081,9 @@ def phase_rtdetr_train_kernels(dev):
                                                          retain_graph=True))
             del pout, pflat
             # cuDNN alone, stage by stage (channels-last views, default
-            # flags): no one call computes the chain's backward
-            stages = {}
+            # flags, and for f32 with TF32 off too): no one call computes
+            # the chain's backward
+            stages, stages_off = {}, {}
             for stage, cin, cout, k, side, stride, pad, need_dx in (
                     ("stem1", 3, 32, 3, h, 2, 1, False),
                     ("stem2a", 32, 16, 2, h // 2 + 1, 1, 0, True),
@@ -1914,24 +2095,38 @@ def phase_rtdetr_train_kernels(dev):
                                  generator=g).to(dtype)
                 dys = torch.randn_like(F.conv2d(xs, kv, stride=stride,
                                                 padding=pad))
-                t = time_ms(lambda: torch.nn.grad.conv2d_weight(
-                    xs, kv.shape, dys, stride=stride, padding=pad))
-                if need_dx:
-                    t += time_ms(lambda: torch.nn.grad.conv2d_input(
-                        xs.shape, kv, dys, stride=stride, padding=pad))
-                stages[stage] = t
+                def stage_ms():
+                    t = time_ms(lambda: torch.nn.grad.conv2d_weight(
+                        xs, kv.shape, dys, stride=stride, padding=pad))
+                    if need_dx:
+                        t += time_ms(lambda: torch.nn.grad.conv2d_input(
+                            xs.shape, kv, dys, stride=stride, padding=pad))
+                    return t
+                stages[stage] = stage_ms()
+                if dtype == torch.float32:
+                    with torch.backends.cudnn.flags(enabled=True,
+                                                    allow_tf32=False):
+                        stages_off[stage] = stage_ms()
                 del xs, dys
             print(f"[rtdetr-train-kernels] {'; '.join(log)}; K4-f train "
                   f"kernel {ms} ms plain {plain_ms} ms (cuDNN convs + "
                   f"elementwise); K4-b kernel {bms} ms plain {bplain} ms "
                   f"(autograd of the plain chain); cuDNN alone per stage "
                   f"(conv2d_weight + conv2d_input) {stages} (sum "
-                  f"{sum(stages.values())} ms; no single library call "
-                  f"computes either)")
+                  f"{sum(stages.values())} ms"
+                  + (f"; TF32 off {stages_off} (sum "
+                     f"{sum(stages_off.values())} ms)" if stages_off else "")
+                  + "; no single library call computes either)")
             fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **stem_work(name, b, h, w, esize(dtype), False))
             bwd[name] = dict(max_abs_err=gerr, ms=bms, plain_ms=bplain,
                              **stem_work(name, b, h, w, esize(dtype), True))
+            if dtype == torch.float32:
+                fwd[name].update(routes["forward"])
+                bwd[name].update(routes["backward"],
+                                 library_stages_ms=sum(stages.values()),
+                                 library_stages_tf32_off_ms=sum(
+                                     stages_off.values()))
         del x, cots
     results["hgstem_train"] = fwd
     results["hgstem_bwd"] = bwd
@@ -2956,9 +3151,9 @@ def phase_deform_generations(dev):
 
 
 # the tensor-core kernels: K3's (csrc/conv3x3_tc.cuh for bf16,
-# csrc/conv3x3_tf32.cuh for f32 in split TF32), K2's and K4's bf16 stride-2
-# convs (csrc/front_tc.cuh, each instantiated for both) and K4's bf16 2x2
-# convs (csrc/stem_tc.cuh)
+# csrc/conv3x3_tf32.cuh for f32 in split TF32), K2's and K4's stride-2
+# convs (csrc/front_tc.cuh, csrc/front_tf32.cuh, each instantiated for
+# both) and K4's 2x2 convs (csrc/stem_tc.cuh, csrc/stem_tf32.cuh)
 TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "conv3x3_tf32_kernel",
               "wgrad_tf32_kernel", "front_p1_kernel",
               "front_p2_kernel", "front_da1_tc_kernel", "front_dk2_tc_kernel",
@@ -2966,7 +3161,8 @@ TC_KERNELS = ("conv3x3_tc_kernel", "wgrad_tc_kernel", "conv3x3_tf32_kernel",
               "stem2x2_dx_tc_kernel", "stem2x2_wgrad_tc_kernel",
               "front_p1_tf32_kernel", "front_p2_tf32_kernel",
               "front_da1_tf32_kernel", "front_dk2_tf32_kernel",
-              "front_dk1_tf32_kernel")
+              "front_dk1_tf32_kernel", "stem2x2_tf32_kernel",
+              "stem2x2_dx_tf32_kernel", "stem2x2_wgrad_tf32_kernel")
 
 
 # The gather's instantiations with 16-byte value loads (K5 forward and
@@ -6809,16 +7005,13 @@ def main() -> int:
                     "yolo_front_train", "yolo_front_bwd", "hgstem",
                     "hgstem_train", "hgstem_bwd"):
             # K3's, K2's and K4's route by dtype: tensor cores
-            # (conv3x3_tc.cuh, front_tc.cuh, stem_tc.cuh) for bf16; for f32
-            # K3's and K2's split-TF32 tensor-core kernels
-            # (conv3x3_tf32.cuh, front_tf32.cuh), K4's CUDA-core kernels;
-            # the f32 route's numbers beside
-            split = not name.startswith("hgstem")
-            summary[-1]["dtype_routes"] = {
-                "bfloat16": "tc", "float32": "tc-3xtf32" if split
-                else "cuda-core"}
+            # (conv3x3_tc.cuh, front_tc.cuh, stem_tc.cuh) for bf16, their
+            # split-TF32 kernels (conv3x3_tf32.cuh, front_tf32.cuh,
+            # stem_tf32.cuh) for f32; the f32 route's numbers beside
+            summary[-1]["dtype_routes"] = {"bfloat16": "tc",
+                                           "float32": "tc-3xtf32"}
             summary[-1]["float32"] = f32_route_numbers(kres[name]["float32"],
-                                                       split)
+                                                       True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

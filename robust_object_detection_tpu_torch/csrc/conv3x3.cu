@@ -30,8 +30,8 @@
 //     MMAs (0.132 ms at 495 TFLOP/s) against 201 MB (0.060 ms): operations
 //     bound it. On an H100 it runs in 0.39 ms, paced by the rate of its
 //     three mma.sync a product and by the split (cuDNN: 0.23 ms in one-pass
-//     TF32, 0.90 with TF32 off). It replaced the CUDA-core tile of
-//     conv_tile.cuh (0.92 ms), which K2's and K4's f32 routes still use.
+//     TF32, 0.90 with TF32 off). It replaced a CUDA-core tile (0.92
+//     ms), since removed.
 
 #include "conv3x3_tc.cuh"
 #include "conv3x3_tf32.cuh"

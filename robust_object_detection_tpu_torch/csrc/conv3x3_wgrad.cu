@@ -28,8 +28,8 @@
 //     once into shared memory and the fragments are 128-bit loads with
 //     permuted channel rows instead of ldmatrix.trans. On an H100 it runs
 //     in 0.88 ms (cuDNN: 1.27-1.32 in one-pass TF32, 2.63-2.81 with TF32
-//     off). It replaced the CUDA-core kernel of conv_wgrad.cuh (2.56 ms),
-//     which K2's and K4's f32 routes still use.
+//     off). It replaced a CUDA-core kernel (2.56 ms), since
+//     removed.
 // Both split the pixels into a fixed set of chunks, write per-chunk partials
 // and add them in a fixed order: deterministic, with no atomics.
 

@@ -4,11 +4,11 @@
 // staged in shared memory by 16-byte cp.async and read into fragments by
 // ldmatrix, with the primitives of conv3x3_tc.cuh. Used by yolo_front.cu,
 // yolo_front_bwd.cu, hgstem.cu and hgstem_bwd.cu for bf16; K2's f32 route
-// is the split-TF32 kernels of front_tf32.cuh (which reuse this file's
-// stride-2 geometry), K4's the CUDA-core tiles of conv_tile.cuh and
-// conv_wgrad.cuh. The channel tiles, the activation (SiLU for the front,
-// ReLU for the stem) and the input transforms are template parameters;
-// the launchers default to the front's instantiation.
+// and K4's stride-2 convs run the split-TF32 kernels of front_tf32.cuh
+// (which reuse this file's stride-2 geometry) for f32. The channel tiles,
+// the activation (SiLU for the front, ReLU for the stem) and the input
+// transforms are template parameters; the launchers default to the front's
+// instantiation.
 //
 //   front_p1_kernel      P1: conv3x3/2, 3 -> C1, K = 27 taps x channels
 //                        (padded to 32) from an im2col tile built in shared

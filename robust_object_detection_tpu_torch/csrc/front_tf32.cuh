@@ -1,11 +1,18 @@
-// f32 kernels of the YOLOv8 P1/P2 front (K2-f, K2-b) on the tensor cores
-// in split ("3x") TF32: implicit GEMMs on mma.sync.m16n8k8.tf32, NHWC in,
-// f32 out, with the split, the MMA grid and the fragment rules of
-// conv3x3_tf32.cuh (hi = tf32(a), lo = tf32(a - hi); lo*hi, hi*lo, hi*hi
-// into one f32 accumulator; the non-finite guard) and the stride-2
-// geometry of front_tc.cuh (column-parity planes, halo_offset, the parity
-// classes of dA1). Used by yolo_front.cu and yolo_front_bwd.cu for f32;
-// bf16 runs front_tc.cuh's m16n8k16 kernels.
+// f32 kernels of the YOLOv8 P1/P2 front (K2-f, K2-b) and of the stride-2
+// convs of the HGNetv2 stem (K4-f, K4-b) on the tensor cores in split
+// ("3x") TF32: implicit GEMMs on mma.sync.m16n8k8.tf32, NHWC in, f32 out,
+// with the split, the MMA grid and the fragment rules of conv3x3_tf32.cuh
+// (hi = tf32(a), lo = tf32(a - hi); lo*hi, hi*lo, hi*hi into one f32
+// accumulator; the non-finite guard) and the stride-2 geometry of
+// front_tc.cuh (column-parity planes, halo_offset, the parity classes of
+// dA1). Used by yolo_front.cu, yolo_front_bwd.cu, hgstem.cu and
+// hgstem_bwd.cu for f32; bf16 runs front_tc.cuh's m16n8k16 kernels. As
+// there, the channel tiles, the activation (SiLU for the front, ReLU for
+// the stem) and the input transforms are template parameters, and the
+// launchers default to the front's instantiation (whose code they keep).
+// The stem runs P1 as stem1 (3 -> 32), P2 as stem3 (64 -> 32, no
+// transform), dA1 as d(cat) (no chain), dk2 as dk3 (no transform) and dk1
+// at 32 channels.
 //
 //   front_p1_tf32_kernel   P1: conv3x3/2, 3 -> C1, K = 27 taps x channels
 //                          (padded to 32, four k8 steps) from an im2col
@@ -61,6 +68,18 @@
 //   * dk2: raw y1 halo and e2 (71 KB) beside their split quads (154 KB):
 //     225 KB, one block of 18 warps an SM. dk1: two raw stages (112 KB)
 //     beside the split tiles (90 KB), 202 KB.
+//   * K4's widths (32 output channels, 64 -> 32) are smaller, and each
+//     kernel takes its own tiles rather than masking MMA columns of K2's:
+//     stem1's P1 at 4 n8 tiles (60 KB, three blocks an SM); stem3's P2 at
+//     32 output channels with the whole 64-channel filter (74 KB) and two
+//     16-channel halo stages (46 KB each), 166 KB: a stage holds twice the
+//     MMAs of an 8-channel one between its barriers (the filter beside
+//     three stages, or two blocks an SM, would need 212 or 258 KB);
+//     d(cat)'s dA1 at 32 e3 channels a stage and a filter group, 32 concat
+//     channels a block (two slices): 81 KB, two blocks an SM, so one
+//     block's copies and epilogue run under the other's MMAs; dk3's dk2 at
+//     32 x 32 channels (the quads of 64 concat channels would take 252 KB),
+//     154 KB; dk1 at 32 channels, 154 KB.
 //
 // The train transform a1 = silu(g1 y1 + b1) is applied where each value is
 // staged once: in place on P2's 8-channel stage (one pass over 4.6 K
@@ -117,6 +136,37 @@ __device__ __forceinline__ void ldsm_x2(uint32_t r[2], uint32_t addr) {
       : "r"(addr));
 }
 
+// s += v, ss += v v in the statistics' sum type: f32 (K2's P1 and P2: one
+// FFMA) or f64 (K4's: a persistent block's thread adds a value of each of
+// its tiles, and the batch statistics' cotangents amplify the rounding of
+// a long f32 chain; the per-block partial is rounded to f32 once)
+template <typename SUM>
+__device__ __forceinline__ void add_stat(SUM& s, SUM& ss, float v) {
+  if constexpr (std::is_same<SUM, float>::value) {
+    s += v;
+    ss = fmaf(v, v, ss);
+  } else {
+    s += (double)v;
+    ss = fma((double)v, (double)v, ss);
+  }
+}
+
+// warp_sum_g in either sum type
+template <int NT, typename SUM>
+__device__ __forceinline__ void warp_sum_s(SUM s[NT][2]) {
+  if constexpr (std::is_same<SUM, float>::value) {
+    warp_sum_g<NT>(s);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], off);
+  }
+}
+
 // The channel pair (a, b) split into one 16-byte quad (hi a, hi b, lo a,
 // lo b): the shared layout that dk2 and dk1 read with 128-bit loads
 // (conv3x3_tf32.cuh, K3-b).
@@ -135,10 +185,22 @@ __device__ __forceinline__ int swz48(int row, int c) {
   return row * 48 + ((((c >> 2) ^ ((row >> 1) & 3))) << 2) + (c & 3);
 }
 
-// The same for rows of 96 floats (24 units, all in one bank group):
-// unit c / 4 XOR row % 8.
-__device__ __forceinline__ int swz96(int row, int c) {
-  return row * 96 + ((((c >> 2) ^ (row & 7))) << 2) + (c & 3);
+// The same for rows of N floats, N / 4 units a multiple of 8 (96: K2's
+// dA1 filter; 64 and 32: K4's stem3 and d(cat) filters): unit c / 4 XOR
+// row % 8.
+template <int N>
+__device__ __forceinline__ int swz_rows(int row, int c) {
+  static_assert(N % 32 == 0, "swz_rows: 8 units a group");
+  return row * N + ((((c >> 2) ^ (row & 7))) << 2) + (c & 3);
+}
+
+// A filter row of N floats swizzled by whichever of the two fits N
+template <int N>
+__device__ __forceinline__ int swz_filter(int row, int c) {
+  if constexpr (N == 48)
+    return swz48(row, c);
+  else
+    return swz_rows<N>(row, c);
 }
 
 // Stores the m16n8 f32 accumulator tile c (rows: the pixels g and g + 8
@@ -226,32 +288,35 @@ __device__ __forceinline__ void im2col_row(float v[KC1], const float* xs,
 
 // ---- P1: y1 = conv3x3/2(x, k1), 3 -> C1 ----------------------------------
 //
-// GEMM per 8 x 16 tile of y1: M = 128 pixels, N = 48 output channels (a
-// block owns one such slice, blockIdx.y), K = 32. 4 warps, warp w owns
-// tile rows 2w, 2w + 1 (two m16 tiles) x 6 n8 tiles. Persistent, the next
+// GEMM per 8 x 16 tile of y1: M = 128 pixels, N = 8 NT1 output channels
+// (48 for K2, 32 for K4's stem1; a block owns one such slice, blockIdx.y),
+// K = 32. 4 warps, warp w owns tile rows 2w, 2w + 1 (two m16 tiles) x NT1
+// n8 tiles. Persistent, the next
 // tile's x rows in flight while this one runs. The im2col tile is split
 // as it is built, into hi and lo tiles of rows padded to 9 units, and the
 // filter (transposed: output channels as rows) once a block, so the MMA
-// loop is ldmatrix and MMAs only. 64 KB: three blocks an SM. Eval: y =
-// silu(g1 acc + b1); train: y = acc and the block's per-channel sum and
-// sum of squares from the accumulator fragments, as front_tc.cuh's P1.
+// loop is ldmatrix and MMAs only. 64 KB (60 KB at 32 channels): three
+// blocks an SM. Eval: y = act(g1 acc + b1) (SiLU for K2, ReLU for K4);
+// train: y = acc and the block's per-channel sum and sum of squares from
+// the accumulator fragments, as front_tc.cuh's P1.
 constexpr int P1_THREADS = 128;
-constexpr int P1_NP = 48;          // output channels a block
 constexpr int P1_KS = KC1 + 4;     // im2col / filter row pitch: 9 units
 
+template <int NT1>
 __host__ __device__ constexpr size_t p1_smem() {
   return sizeof(float) * (size_t)(2 * XROWS * XRF + 2 * TH * TW * P1_KS +
-                                  2 * P1_NP * P1_KS);
+                                  2 * 8 * NT1 * P1_KS);
 }
 
-template <bool TRAIN, bool VEC>
+template <bool TRAIN, bool VEC, int NT1, int ACT, typename SUM>
 __global__ void __launch_bounds__(P1_THREADS, 3)
 front_p1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ k1,
                      const float* __restrict__ g1,
                      const float* __restrict__ b1, float* __restrict__ y,
                      float* __restrict__ stats, int H, int W, int Ho, int Wo,
                      int C1, int tiles_x, int tiles_per_img, int n_tiles) {
-  constexpr int NT = P1_NP / 8, KS = P1_KS, E = sizeof(float);
+  constexpr int NT = NT1, P1_NP = 8 * NT1, KS = P1_KS, E = sizeof(float);
+  static_assert(NT1 % 2 == 0, "P1: n8 tiles in pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);  // [2][XROWS][XRF]
   float* colh = xs + 2 * XROWS * XRF;              // [TH TW][KS]
@@ -293,7 +358,8 @@ front_p1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ k1,
   cp_async_commit();
 
   // this thread's channels 8 j + 2 t4 + e: the eval fold, the statistics
-  float gv[NT][2], bv[NT][2], s1[NT][2], s2[NT][2];
+  float gv[NT][2], bv[NT][2];
+  SUM s1[NT][2], s2[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -382,11 +448,10 @@ front_p1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ k1,
           const int e = q & 1;
           const float v = acc[i][j][q];
           if (!TRAIN) {
-            acc[i][j][q] = act_fast<ACT_SILU>(v * gv[j][e] + bv[j][e]);
+            acc[i][j][q] = act_fast<ACT>(v * gv[j][e] + bv[j][e]);
           } else if (row_ok && ox0 + g + 8 * (q >> 1) < Wo &&
                      co0 + 8 * j + 2 * t4 + e < C1) {
-            s1[j][e] += v;
-            s2[j][e] = fmaf(v, v, s2[j][e]);
+            add_stat<SUM>(s1[j][e], s2[j][e], v);
           }
         }
         store_tile(y, acc[i][j], pix0, row_ok, ox0, Wo, C1, co0 + 8 * j,
@@ -397,9 +462,9 @@ front_p1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ k1,
   }
 
   if (TRAIN) {
-    __shared__ float red[4][2][P1_NP];
-    warp_sum_g<NT>(s1);
-    warp_sum_g<NT>(s2);
+    __shared__ SUM red[4][2][P1_NP];
+    warp_sum_s<NT, SUM>(s1);
+    warp_sum_s<NT, SUM>(s2);
     if (g == 0)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -411,42 +476,44 @@ front_p1_tf32_kernel(const float* __restrict__ x, const float* __restrict__ k1,
     __syncthreads();
     if (tid < 2 * P1_NP) {
       const int which = tid / P1_NP, c = tid - which * P1_NP;
-      float t = 0.f;
+      SUM t = 0.f;
       for (int w = 0; w < 4; ++w) t += red[w][which][c];
       if (co0 + c < C1)
-        stats[((size_t)which * n_blk + blk) * C1 + co0 + c] = t;
+        stats[((size_t)which * n_blk + blk) * C1 + co0 + c] = (float)t;
     }
   }
 }
 
 // ---- P2: y2 = conv3x3/2(a1, k2), C1 -> C2 --------------------------------
 //
-// Per 8 x 16 tile of y2: M = 128 pixels, N = 96 output channels (a block
-// owns one 96-channel slice, blockIdx.y), K = 9 taps x Cin, taken 8 input
-// channels (one k8 step) a stage. 8 warps: warp w owns tile rows 2 (w & 3),
-// + 1 (two m16 tiles) x the 6 n8 tiles of channel half w >> 2, so a stage
-// is staged (and transformed) once for all 96 channels. A tap (ky, kx) is
-// a constant offset of the lanes' row addresses into the parity-plane halo
-// (pixel rows of 3 units: conflict-free). The filter, transposed ([tap]
-// [co][ci], 48 input channels: a group), is staged once a block when Cin
-// <= 48 and once a group otherwise; its rows of 12 units are swizzled
-// (swz48). Fragments split in registers after each ldmatrix. Persistent,
-// the next stage's copies in flight under this one's MMAs. TRANSFORM
-// (train): a1 = silu(g1 y1 + b1) in place on each landed stage for the
-// pixels inside the image, and the BN2 statistics of y2 from the
-// accumulators.
+// Per 8 x 16 tile of y2: M = 128 pixels, N = NP output channels (a block
+// owns one NP-channel slice, blockIdx.y), K = 9 taps x Cin, taken CK input
+// channels (CK / 8 k8 steps) a stage. 8 warps: warp w owns tile rows 2 (w
+// & 3), + 1 (two m16 tiles) x the NP / 16 n8 tiles of channel half w >> 2,
+// so a stage is staged (and transformed) once for all NP channels. A tap
+// (ky, kx) is a constant offset of the lanes' row addresses into the
+// parity-plane halo (pixel rows of CK / 4 + 1 units, odd: conflict-free).
+// The filter, transposed ([tap][co][ci], FCI input channels: a group), is
+// staged once a block when Cin <= FCI and once a group otherwise; its rows
+// are swizzled (swz_filter). Fragments split in registers after each
+// ldmatrix. Persistent, the next stage's copies in flight under this
+// one's MMAs. TRANSFORM (train): a1 = act(g1 y1 + b1) in place on each
+// landed stage for the pixels inside the image; STATS: the batch
+// statistics of y2 from the accumulators. K2: CK 8, FCI 48, NP 96 (one
+// block an SM, above). K4's stem3 (64 -> 32, the concat stored activated,
+// so no transform): CK 16, FCI 64, NP 32: the whole filter (74 KB) and two
+// 46 KB halo stages, 166 KB, one block an SM; a stage is 9 taps x 2 k8
+// steps x 12 MMAs a warp between barriers, twice K2's CK-8 stages would
+// give at this width.
 constexpr int P2_THREADS = 256;
-constexpr int P2_CK = 8;           // input channels a stage
-constexpr int P2_HS = P2_CK + 4;   // halo pixel pitch: 3 units
-constexpr int P2_FCI = 48;         // input channels of a filter group
-constexpr int P2_NP = 96;          // output channels a block
 
+template <int CK, int FCI, int NP>
 __host__ __device__ constexpr size_t p2_smem() {
-  return sizeof(float) *
-         (size_t)(2 * HALO2 * P2_HS + 9 * P2_NP * P2_FCI);
+  return sizeof(float) * (size_t)(2 * HALO2 * (CK + 4) + 9 * NP * FCI);
 }
 
-template <bool TRANSFORM, bool VEC>
+template <bool TRANSFORM, bool STATS, bool VEC, int CK, int FCI, int NP,
+          int ACT, typename SUM>
 __global__ void __launch_bounds__(P2_THREADS, 1)
 front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
                      const float* __restrict__ g1,
@@ -454,8 +521,12 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
                      float* __restrict__ stats, int H, int W, int Ho, int Wo,
                      int Cin, int Cout, int tiles_x, int tiles_per_img,
                      int n_tiles) {
+  constexpr int P2_CK = CK, P2_HS = CK + 4, P2_FCI = FCI, P2_NP = NP;
   constexpr int HALF = P2_NP / 2, NT = HALF / 8, E = sizeof(float);
   constexpr int PER_FG = P2_FCI / P2_CK;  // stages a filter group
+  static_assert(CK % 8 == 0 && FCI % CK == 0 && NP % 32 == 0, "P2 tiles");
+  static_assert(!TRANSFORM || CK == 8, "P2: the transform takes 8-channel "
+                "stages");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* halo = reinterpret_cast<float*>(smem_raw);  // [2][HALO2][P2_HS]
   float* filt = halo + 2 * HALO2 * P2_HS;            // [9][P2_NP][P2_FCI]
@@ -494,14 +565,15 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
       const int co = i % P2_NP, r = i / P2_NP;
       const int ci = r % P2_FCI, tap = r / P2_FCI;
       const int gci = fg * P2_FCI + ci, gco = co0 + co;
-      filt[tap * P2_NP * P2_FCI + swz48(co, ci)] =
+      filt[tap * P2_NP * P2_FCI + swz_filter<P2_FCI>(co, ci)] =
           (gci < Cin && gco < Cout)
               ? k2[((long long)tap * Cin + gci) * Cout + gco]
               : 0.f;
     }
   };
 
-  float acc[2][NT][4], s1[NT][2], s2[NT][2];
+  float acc[2][NT][4];
+  SUM s1[NT][2], s2[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -517,15 +589,15 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
   cp_async_commit();
 
   // A: lanes 0-15 halo slots of output columns 0-15 at channels 0-3 of the
-  // stage, lanes 16-31 at 4-7; output row 2 wm + i, tap ky reads halo row
-  // 4 wm + 2 i + ky. B: output channel rows 48 wn + 16 jj + b_n, the
+  // k8 step, lanes 16-31 at 4-7; output row 2 wm + i, tap ky reads halo row
+  // 4 wm + 2 i + ky. B: output channel rows HALF wn + 16 jj + b_n, the
   // swizzled unit of (stage channel / 4 + b_u), whose swizzle depends on
   // the row's low three bits only (lane & 7)
   const int a_px = lane & 15, a_u = lane >> 4;
   const uint32_t a_lane =
       smem_addr(halo + (4 * wm * HROW + a_px) * P2_HS + 4 * a_u);
   const int b_n = (lane & 7) + (lane >> 4) * 8, b_u = (lane >> 3) & 1;
-  const int b_sw = ((lane & 7) >> 1) & 3;
+  const int b_sw = P2_FCI == 48 ? ((lane & 7) >> 1) & 3 : lane & 7;
   const uint32_t b_row = smem_addr(filt + (HALF * wn + b_n) * P2_FCI);
   // TRANSFORM: bit k set where this thread's halo slot tid / 2 + 128 k of
   // the current tile lies inside the image
@@ -572,42 +644,46 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
         const int p = (tid >> 1) + k * (P2_THREADS / 2);
         float4* q = reinterpret_cast<float4*>(cur + p * P2_HS + 4 * hq);
         float4 v = *q;
-        v.x = act_fast<ACT_SILU>(v.x * gq[0] + bq[0]);
-        v.y = act_fast<ACT_SILU>(v.y * gq[1] + bq[1]);
-        v.z = act_fast<ACT_SILU>(v.z * gq[2] + bq[2]);
-        v.w = act_fast<ACT_SILU>(v.w * gq[3] + bq[3]);
+        v.x = act_fast<ACT>(v.x * gq[0] + bq[0]);
+        v.y = act_fast<ACT>(v.y * gq[1] + bq[1]);
+        v.z = act_fast<ACT>(v.z * gq[2] + bq[2]);
+        v.w = act_fast<ACT>(v.w * gq[3] + bq[3]);
         *q = v;
       }
       __syncthreads();
     }
 
-    const uint32_t a_base = a_lane + (s & 1) * HALO2 * P2_HS * E;
-    const uint32_t b_base =
-        b_row + ((((sc % PER_FG) * 2 + b_u) ^ b_sw) << 4);
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-      uint32_t ah[2][4], al[2][4];
+    for (int k8 = 0; k8 < P2_CK / 8; ++k8) {
+      const uint32_t a_base =
+          a_lane + ((s & 1) * HALO2 * P2_HS + 8 * k8) * E;
+      const int unit = (sc % PER_FG) * (P2_CK / 4) + 2 * k8 + b_u;
+      const uint32_t b_base = b_row + ((unit ^ b_sw) << 4);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint32_t r[4];
-        ldsm_x4(r, a_base + (((2 * i + ky) * HROW + (kx & 1) * PL +
-                              (kx >> 1)) * P2_HS) * E);
-        split4(r, ah[i], al[i]);
-      }
-      uint32_t bh[NT][2], bl[NT][2];
+      for (int tap = 0; tap < 9; ++tap) {
+        const int ky = tap / 3, kx = tap % 3;
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-      for (int jj = 0; jj < NT / 2; ++jj) {
-        uint32_t r[4], h[4], l[4];
-        ldsm_x4(r, b_base + ((tap * P2_NP + 16 * jj) * P2_FCI) * E);
-        split4(r, h, l);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          bh[2 * jj + e][0] = h[2 * e], bh[2 * jj + e][1] = h[2 * e + 1];
-          bl[2 * jj + e][0] = l[2 * e], bl[2 * jj + e][1] = l[2 * e + 1];
+        for (int i = 0; i < 2; ++i) {
+          uint32_t r[4];
+          ldsm_x4(r, a_base + (((2 * i + ky) * HROW + (kx & 1) * PL +
+                                (kx >> 1)) * P2_HS) * E);
+          split4(r, ah[i], al[i]);
         }
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int jj = 0; jj < NT / 2; ++jj) {
+          uint32_t r[4], h[4], l[4];
+          ldsm_x4(r, b_base + ((tap * P2_NP + 16 * jj) * P2_FCI) * E);
+          split4(r, h, l);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bh[2 * jj + e][0] = h[2 * e], bh[2 * jj + e][1] = h[2 * e + 1];
+            bl[2 * jj + e][0] = l[2 * e], bl[2 * jj + e][1] = l[2 * e + 1];
+          }
+        }
+        mma_grid_3xtf32<2, NT, FWD_PASSES>(acc, ah, al, bh, bl);
       }
-      mma_grid_3xtf32<2, NT, FWD_PASSES>(acc, ah, al, bh, bl);
     }
 
     if (sc == n_ci - 1) {  // the tile's last stage: store
@@ -618,14 +694,13 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
         const long long pix0 = ((long long)b * Ho + oy) * Wo + ox0;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          if (TRANSFORM) {
+          if (STATS) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               const int e = q & 1;
               if (row_ok && ox0 + g + 8 * (q >> 1) < Wo &&
                   cw0 + 8 * j + 2 * t4 + e < Cout) {
-                s1[j][e] += acc[i][j][q];
-                s2[j][e] = fmaf(acc[i][j][q], acc[i][j][q], s2[j][e]);
+                add_stat<SUM>(s1[j][e], s2[j][e], acc[i][j][q]);
               }
             }
           }
@@ -639,10 +714,10 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
     __syncthreads();  // stage buffer (and filter) free for the next copies
   }
 
-  if (TRANSFORM) {
-    __shared__ float red[8][2][HALF];
-    warp_sum_g<NT>(s1);
-    warp_sum_g<NT>(s2);
+  if (STATS) {
+    __shared__ SUM red[8][2][HALF];
+    warp_sum_s<NT, SUM>(s1);
+    warp_sum_s<NT, SUM>(s2);
     if (g == 0)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -655,10 +730,10 @@ front_p2_tf32_kernel(const float* __restrict__ a, const float* __restrict__ k2,
     if (tid < 2 * P2_NP) {
       const int which = tid / P2_NP, c = tid - which * P2_NP;
       const int h = c / HALF, cc = c - HALF * h;
-      float t = 0.f;
+      SUM t = 0.f;
       for (int w = 0; w < 4; ++w) t += red[4 * h + w][which][cc];
       if (co0 + c < Cout)
-        stats[((size_t)which * n_blk + blk) * Cout + co0 + c] = t;
+        stats[((size_t)which * n_blk + blk) * Cout + co0 + c] = (float)t;
     }
   }
 }
@@ -707,23 +782,32 @@ e2_prep_f32_kernel(const float* __restrict__ dy2, const float* __restrict__ y2,
 // and splits one A fragment a shift and row (4 of the 9 taps share shift
 // (0, 0)), and one B fragment (x4 for n8 tiles 0-1, x2 for tile 2) a tap.
 // B = k2 as stored ([tap][c1][c2], c2 contiguous), staged by cp.async in
-// groups of 96 c2 with rows swizzled (swz96): once a block when C2 <= 96.
+// groups of 96 c2 with rows swizzled (swz_rows): once a block when C2 <= 96.
 // Epilogue per class from the fragments: y1 at the lane's two channels
-// (8-byte loads when C1 is even), dpre = dA1 silu'(z1), z1 = g1 y1 + b1,
+// (8-byte loads when C1 is even), dpre = dA1 act'(z1), z1 = g1 y1 + b1,
 // dy1 = dpre g1, dgamma += dpre y1, dbeta += dpre over the pixels inside
-// the image, summed as P1's statistics into gpart[2][gridDim.x][C1].
+// the image, summed as P1's statistics into gpart[2][gridDim.x][C1]. The
+// template takes the stage (KD), the filter group (FK) and the block's
+// channels (ND): K2 32, 96, 48 (210 KB, one block an SM). CHAIN false
+// (K4's d(cat), the transposed stem3, 64 concat channels from 32 e3
+// channels): dA1 is stored as it is, no y1, no partials; 32, 32, 32, two
+// channel slices (81 KB: two blocks an SM, so one block's copies and
+// epilogue run under the other's MMAs).
 constexpr int DA_THREADS = 256;
-constexpr int DA_KD = 32;           // e2 channels a stage
-constexpr int DA_KS = DA_KD + 4;    // patch pixel pitch: 9 units
-constexpr int DA_FK = 96;           // e2 channels of a filter group
-constexpr int DA_ND = 48;           // y1 channels a block
 
+template <int KD, int FK, int ND>
 __host__ __device__ constexpr size_t da1_smem() {
-  return sizeof(float) * (size_t)(2 * PATCH * DA_KS + 9 * DA_ND * DA_FK);
+  return sizeof(float) * (size_t)(2 * PATCH * (KD + 4) + 9 * ND * FK);
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(DA_THREADS, 1)
+// blocks an SM that a kernel's shared memory leaves room for (one or two)
+__host__ __device__ constexpr int blocks_for(size_t smem) {
+  return smem <= 113 * 1024 ? 2 : 1;
+}
+
+template <bool CHAIN, bool VEC, int KD, int FK, int ND, int ACT>
+__global__ void __launch_bounds__(DA_THREADS,
+                                  blocks_for(da1_smem<KD, FK, ND>()))
 front_da1_tf32_kernel(const float* __restrict__ e2,
                       const float* __restrict__ k2,
                       const float* __restrict__ y1,
@@ -732,8 +816,11 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
                       float* __restrict__ gpart, int H2, int W2, int H4,
                       int W4, int C1, int C2, int tiles_x, int tiles_per_img,
                       int n_tiles) {
-  constexpr int NW = 24, NT = NW / 8, E = sizeof(float);  // a warp's channels
+  constexpr int DA_KD = KD, DA_KS = KD + 4, DA_FK = FK, DA_ND = ND;
+  // a warp's channels: half the block's
+  constexpr int NW = ND / 2, NT = NW / 8, E = sizeof(float);
   constexpr int PER_FG = DA_FK / DA_KD;  // stages a filter group
+  static_assert(KD % 8 == 0 && FK % KD == 0 && ND % 16 == 0, "dA1 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* patch = reinterpret_cast<float*>(smem_raw);  // [2][PATCH][DA_KS]
   float* filt = patch + 2 * PATCH * DA_KS;            // [9][DA_ND][DA_FK]
@@ -778,7 +865,7 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
         const int r = i / (DA_FK / 4), j = i - r * (DA_FK / 4);
         const int tap = r / DA_ND, c1 = c10 + r % DA_ND, c = f0 + 4 * j;
         const bool valid = c1 < C1 && c < C2;
-        cp_async16(filt + swz96(r, 4 * j),
+        cp_async16(filt + swz_rows<DA_FK>(r, 4 * j),
                    valid ? k2 + ((long long)tap * C1 + c1) * C2 + c : k2,
                    valid);
       }
@@ -786,7 +873,7 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
       for (int i = tid; i < 9 * DA_ND * DA_FK; i += DA_THREADS) {
         const int r = i / DA_FK, j = i - r * DA_FK;
         const int tap = r / DA_ND, c1 = c10 + r % DA_ND, c = f0 + j;
-        filt[swz96(r, j)] =
+        filt[swz_rows<DA_FK>(r, j)] =
             (c1 < C1 && c < C2) ? k2[((long long)tap * C1 + c1) * C2 + c]
                                 : 0.f;
       }
@@ -810,15 +897,15 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
     }
   };
 
-  // this thread's channels 8 j + 2 t4 + e of the warp's 24
+  // this thread's channels 8 j + 2 t4 + e of the warp's NW
   float gv[NT][2], bv[NT][2], dg[NT][2], db[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = cw0 + 8 * j + 2 * t4 + e;
-      gv[j][e] = c < C1 ? g1[c] : 0.f;
-      bv[j][e] = c < C1 ? b1[c] : 0.f;
+      gv[j][e] = CHAIN && c < C1 ? g1[c] : 0.f;
+      bv[j][e] = CHAIN && c < C1 ? b1[c] : 0.f;
       dg[j][e] = db[j][e] = 0.f;
     }
   float acc[4][2][NT][4];  // [class][class row][n8 tile]
@@ -845,10 +932,11 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
   const int b_n = (lane & 7) + (lane >> 4) * 8, b_u = (lane >> 3) & 1;
   const int b_sw = lane & 7;
   const uint32_t b_row = smem_addr(filt + (NW * wn + b_n) * DA_FK);
-  // the x2 of n8 tile 2 (rows 24 wn + 16 + lane % 8; lanes 16-31 repeat
-  // lanes 0-15's rows, which ldmatrix .x2 does not read)
+  // for an odd NT (K2: 3), the x2 of the last n8 tile (rows NW wn + 16
+  // (NT / 2) + lane % 8; lanes 16-31 repeat lanes 0-15's rows, which
+  // ldmatrix .x2 does not read)
   const uint32_t b_row2 =
-      smem_addr(filt + (NW * wn + 16 + (lane & 7)) * DA_FK);
+      smem_addr(filt + (NW * wn + 16 * (NT / 2) + (lane & 7)) * DA_FK);
 
   for (int s = 0; s < stages; ++s) {
     const int sc = s % n_c2;
@@ -856,7 +944,7 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
     cp_async_commit();
     if (s + 1 < stages) load_patch(s + 1);
     cp_async_commit();
-    if (sc == 0) prefetch_y1(s);
+    if (CHAIN && sc == 0) prefetch_y1(s);
     cp_async_wait_prev();
     __syncthreads();
 
@@ -881,24 +969,60 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
           if ((ky == 0) != dr || (kx == 0) != dc) continue;
           const int cls = (ky != 1) * 2 + (kx != 1);  // (row, col) parity
           uint32_t bh[NT][2], bl[NT][2];
-          uint32_t r[4], h[4], l[4];
-          ldsm_x4(r, b_row + b_off + (tap * DA_ND * DA_FK) * E);
-          split4(r, h, l);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {  // n8 tiles 0, 1
-            bh[e][0] = h[2 * e], bh[e][1] = h[2 * e + 1];
-            bl[e][0] = l[2 * e], bl[e][1] = l[2 * e + 1];
+          for (int jj = 0; jj < NT / 2; ++jj) {  // n8 tiles 2 jj, 2 jj + 1
+            uint32_t r[4], h[4], l[4];
+            ldsm_x4(r, b_row + b_off +
+                           (tap * DA_ND * DA_FK + 16 * jj * DA_FK) * E);
+            split4(r, h, l);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              bh[2 * jj + e][0] = h[2 * e], bh[2 * jj + e][1] = h[2 * e + 1];
+              bl[2 * jj + e][0] = l[2 * e], bl[2 * jj + e][1] = l[2 * e + 1];
+            }
           }
-          uint32_t r2[2];
-          ldsm_x2(r2, b_row2 + b_off + (tap * DA_ND * DA_FK) * E);
-          split_tf32(__uint_as_float(r2[0]), bh[2][0], bl[2][0]);
-          split_tf32(__uint_as_float(r2[1]), bh[2][1], bl[2][1]);
+          if constexpr (NT % 2 == 1) {
+            uint32_t r2[2];
+            ldsm_x2(r2, b_row2 + b_off + (tap * DA_ND * DA_FK) * E);
+            split_tf32(__uint_as_float(r2[0]), bh[NT - 1][0], bl[NT - 1][0]);
+            split_tf32(__uint_as_float(r2[1]), bh[NT - 1][1], bl[NT - 1][1]);
+          }
           mma_grid_3xtf32(acc[cls], ah, al, bh, bl);
         }
       }
     }
 
-    if (sc == n_c2 - 1) {  // the tile's last stage: the epilogue
+    if (!CHAIN && sc == n_c2 - 1) {  // the tile's last stage: store dA1
+      int b, iy0, ix0;
+      tile_of(s, b, iy0, ix0);
+#pragma unroll
+      for (int cls = 0; cls < 4; ++cls)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int iy = iy0 + 2 * (2 * wm + i) + (cls >> 1);
+              const int ix = ix0 + 2 * (g + 8 * h) + (cls & 1);
+              const int c = cw0 + 8 * j + 2 * t4;
+              const long long off =
+                  (((long long)b * H2 + iy) * W2 + ix) * C1 + c;
+              float* a = &acc[cls][i][j][2 * h];
+              if (iy < H2 && ix < W2) {
+                if (C1 % 2 == 0 && c < C1) {
+                  *reinterpret_cast<float2*>(dy1 + off) =
+                      make_float2(a[0], a[1]);
+                } else if (C1 % 2 != 0) {
+#pragma unroll
+                  for (int e = 0; e < 2; ++e)
+                    if (c + e < C1) dy1[off + e] = a[e];
+                }
+              }
+              a[0] = a[1] = 0.f;
+            }
+    }
+    if (CHAIN && sc == n_c2 - 1) {  // the tile's last stage: the epilogue
       int b, iy0, ix0;
       tile_of(s, b, iy0, ix0);
 #pragma unroll
@@ -951,7 +1075,7 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
               for (int e = 0; e < 2; ++e) {
                 const float y = yv[i][j][h][e];
                 const float dpre =
-                    a[e] * act_grad<ACT_SILU>(y * gv[j][e] + bv[j][e]);
+                    a[e] * act_grad<ACT>(y * gv[j][e] + bv[j][e]);
                 d[e] = dpre * gv[j][e];
                 if (ok && c + e < C1) {
                   dg[j][e] = fmaf(dpre, y, dg[j][e]);
@@ -972,6 +1096,7 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
     __syncthreads();  // patch buffer (and filter) free for the next copies
   }
 
+  if (!CHAIN) return;
   __shared__ float red[8][2][NW];
   warp_sum_g<NT>(dg);
   warp_sum_g<NT>(db);
@@ -1007,18 +1132,21 @@ front_da1_tf32_kernel(const float* __restrict__ e2,
 // channel of a pair (no 32-bit ldmatrix.trans exists; rows of 26 units put
 // an 8-lane phase in 8 bank groups). Each block writes its partial to
 // part[chunk][tap][c1][c2]; sum_chunks_tc_kernel adds them in a fixed
-// order.
+// order. The block's channels each way (MC y1 channels, NC y2 channels):
+// K2 48 x 48 (225 KB); K4's dk3 (the concat (x) e3, no transform) 32 x 32,
+// two slices of the concat's 64 channels (154 KB; 64 x 32 would take 252
+// KB with the split quads), one block of 18 warps an SM either way.
 constexpr int DK_THREADS = 18 * 32;
-constexpr int DK_C = 48;               // channels a block, each way
-constexpr int DK_XS = 2 * DK_C + 8;    // split row (floats)
 constexpr int DK_PIX = DK_TH * TW;     // y2 pixels a tile
 
+template <int MC, int NC>
 __host__ __device__ constexpr size_t dk2_smem() {
-  return sizeof(float) *
-         (size_t)((DK_HALO + DK_PIX) * DK_C + (DK_HALO + DK_PIX) * DK_XS);
+  return sizeof(float) * (size_t)(DK_HALO * MC + DK_PIX * NC +
+                                  DK_HALO * (2 * MC + 8) +
+                                  DK_PIX * (2 * NC + 8));
 }
 
-template <bool VEC>
+template <bool TRANSFORM, bool VEC, int MC, int NC, int ACT>
 __global__ void __launch_bounds__(DK_THREADS, 1)
 front_dk2_tf32_kernel(const float* __restrict__ y1,
                       const float* __restrict__ e2,
@@ -1027,19 +1155,21 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
                       int H2, int W2, int H4, int W4, int C1, int C2,
                       int tiles_x, int tiles_per_img, int n_tiles,
                       int n_chunks) {
-  constexpr int MT = DK_C / 16, NH = DK_C / 16;  // m16 tiles; n8 tiles a warp
-  constexpr int XS = DK_XS;
+  // m16 tiles; n8 tiles a warp (half the block's)
+  constexpr int MT = MC / 16, NH = NC / 16;
+  constexpr int XS = 2 * MC + 8, DS = 2 * NC + 8;  // split rows (floats)
+  static_assert(MC % 16 == 0 && NC % 16 == 0, "dk2 tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* raw_x = reinterpret_cast<float*>(smem_raw);  // [DK_HALO][DK_C]
-  float* raw_d = raw_x + DK_HALO * DK_C;              // [DK_PIX][DK_C]
-  float* sx = raw_d + DK_PIX * DK_C;                  // [DK_HALO][XS]
-  float* sd = sx + DK_HALO * XS;                      // [DK_PIX][XS]
+  float* raw_x = reinterpret_cast<float*>(smem_raw);  // [DK_HALO][MC]
+  float* raw_d = raw_x + DK_HALO * MC;                // [DK_PIX][NC]
+  float* sx = raw_d + DK_PIX * NC;                    // [DK_HALO][XS]
+  float* sd = sx + DK_HALO * XS;                      // [DK_PIX][DS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tap = warp % 9, half = warp / 9;
   const int ky = tap / 3, kx = tap % 3;
   const int chunk = blockIdx.x;
-  const int ci0 = blockIdx.y * DK_C, co0 = blockIdx.z * DK_C;
+  const int ci0 = blockIdx.y * MC, co0 = blockIdx.z * NC;
   const int my_tiles =
       chunk < n_tiles ? (n_tiles - 1 - chunk) / n_chunks + 1 : 0;
 
@@ -1054,11 +1184,11 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
     int b, oy0, ox0;
     tile_of(s, b, oy0, ox0);
     stage_rows<VEC>(
-        raw_x, DK_C, y1, DK_HALO, DK_C, ci0, C1,
+        raw_x, MC, y1, DK_HALO, MC, ci0, C1,
         [&](int p) { return halo_offset(p, b, oy0, ox0, H2, W2, C1); }, tid,
         DK_THREADS);
     stage_rows<VEC>(
-        raw_d, DK_C, e2, DK_PIX, DK_C, co0, C2,
+        raw_d, NC, e2, DK_PIX, NC, co0, C2,
         [&](int p) -> long long {
           const int oy = oy0 + p / TW, ox = ox0 + p % TW;
           if (oy >= H4 || ox >= W4) return -1;
@@ -1082,14 +1212,15 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
   // k = t4 + 4 is 4 slots on) and its channel pair g of each 16 channels
   // the split pass: this thread's channel pair pq of every staged pixel
   // (DK_THREADS is a multiple of the pairs a row)
-  constexpr int PAIRS = DK_C / 2;
-  static_assert(DK_THREADS % PAIRS == 0, "dk2 split pass");
-  const int pq = tid % PAIRS;
+  constexpr int PAIRS = MC / 2, DPAIRS = NC / 2;
+  static_assert(DK_THREADS % PAIRS == 0 && DK_THREADS % DPAIRS == 0,
+                "dk2 split pass");
+  const int pq = tid % PAIRS, pd = tid % DPAIRS;
 
   const int g = lane >> 2, t4 = lane & 3;
   const float* xa0 =
       sx + (ky * HROW + (kx & 1) * PL + (kx >> 1) + t4) * XS + 4 * g;
-  const float* db0 = sd + t4 * XS + 4 * g;
+  const float* db0 = sd + t4 * DS + 4 * g;
 
   for (int s = 0; s < my_tiles; ++s) {
     cp_async_wait_all();
@@ -1100,22 +1231,22 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int c = ci0 + 2 * pq + e;
-      gq[e] = c < C1 ? __ldg(g1 + c) : 0.f;
-      bq[e] = c < C1 ? __ldg(b1 + c) : 0.f;
+      gq[e] = TRANSFORM && c < C1 ? __ldg(g1 + c) : 0.f;
+      bq[e] = TRANSFORM && c < C1 ? __ldg(b1 + c) : 0.f;
     }
 #pragma unroll 4
     for (int p = tid / PAIRS; p < DK_HALO; p += DK_THREADS / PAIRS) {
-      float2 v = *reinterpret_cast<const float2*>(raw_x + p * DK_C + 2 * pq);
-      if (halo_offset(p, b, oy0, ox0, H2, W2, 1) >= 0) {
-        v.x = act_fast<ACT_SILU>(v.x * gq[0] + bq[0]);
-        v.y = act_fast<ACT_SILU>(v.y * gq[1] + bq[1]);
+      float2 v = *reinterpret_cast<const float2*>(raw_x + p * MC + 2 * pq);
+      if (TRANSFORM && halo_offset(p, b, oy0, ox0, H2, W2, 1) >= 0) {
+        v.x = act_fast<ACT>(v.x * gq[0] + bq[0]);
+        v.y = act_fast<ACT>(v.y * gq[1] + bq[1]);
       }
       put_quad(sx + p * XS + 4 * pq, v.x, v.y);
     }
-    for (int p = tid / PAIRS; p < DK_PIX; p += DK_THREADS / PAIRS) {
+    for (int p = tid / DPAIRS; p < DK_PIX; p += DK_THREADS / DPAIRS) {
       const float2 v =
-          *reinterpret_cast<const float2*>(raw_d + p * DK_C + 2 * pq);
-      put_quad(sd + p * XS + 4 * pq, v.x, v.y);
+          *reinterpret_cast<const float2*>(raw_d + p * NC + 2 * pd);
+      put_quad(sd + p * DS + 4 * pd, v.x, v.y);
     }
     __syncthreads();  // split buffers ready, raw stage free
     if (s + 1 < my_tiles) load_tile(s + 1);
@@ -1131,7 +1262,7 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // one k8 step: columns 8h .. 8h + 7
           const float* xa = xa0 + (2 * r * HROW + 8 * h) * XS;
-          const float* db = db0 + (r * TW + 8 * h) * XS;
+          const float* db = db0 + (r * TW + 8 * h) * DS;
           uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
@@ -1150,7 +1281,7 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
             const int jt = J0 + j, quad = jt >> 1;
             const uint4 u0 = *reinterpret_cast<const uint4*>(db + 32 * quad);
             const uint4 u1 =
-                *reinterpret_cast<const uint4*>(db + 4 * XS + 32 * quad);
+                *reinterpret_cast<const uint4*>(db + 4 * DS + 32 * quad);
             const bool odd = jt & 1;
             bh[j][0] = odd ? u0.y : u0.x, bh[j][1] = odd ? u1.y : u1.x;
             bl[j][0] = odd ? u0.w : u0.z, bl[j][1] = odd ? u1.w : u1.z;
@@ -1193,21 +1324,24 @@ front_dk2_tf32_kernel(const float* __restrict__ y1,
 // as dk2's. 202 KB, one block an SM. 8 warps,
 // warp w takes tile row w (two k8 steps) and keeps 2 x 6 m16n8 tiles of f32
 // sums; at the end the eight warps' sums are added in order and the block
-// writes part[chunk][27][C1], summed by sum_chunks_tc_kernel.
+// writes part[chunk][27][C1], summed by sum_chunks_tc_kernel. NC y1
+// channels a block: 48 for K2 (202 KB), 32 for K4 (154 KB).
 constexpr int K1_THREADS = 256;
-constexpr int K1_NC = 48;              // y1 channels a block
 constexpr int K1_PIX = TH * TW;        // y1 pixels a tile
 constexpr int K1_CS = 2 * KC1 + 8;     // split im2col row (floats)
-constexpr int K1_ES = 2 * K1_NC + 8;   // split e1 row (floats)
 
-constexpr int K1_RAW = XROWS * XRF + 2 * K1_PIX * K1_NC;  // a raw stage
-
-__host__ __device__ constexpr size_t dk1_smem() {
-  return sizeof(float) *
-         (size_t)(2 * K1_RAW + K1_PIX * K1_CS + K1_PIX * K1_ES);
+template <int NC>  // a raw stage
+__host__ __device__ constexpr int k1_raw() {
+  return XROWS * XRF + 2 * K1_PIX * NC;
 }
 
-template <bool VEC>
+template <int NC>
+__host__ __device__ constexpr size_t dk1_smem() {
+  return sizeof(float) * (size_t)(2 * k1_raw<NC>() + K1_PIX * K1_CS +
+                                  K1_PIX * (2 * NC + 8));
+}
+
+template <bool VEC, int K1_NC>
 __global__ void __launch_bounds__(K1_THREADS, 1)
 front_dk1_tf32_kernel(const float* __restrict__ x,
                       const float* __restrict__ dy1,
@@ -1218,6 +1352,9 @@ front_dk1_tf32_kernel(const float* __restrict__ x,
                       int C1, int tiles_x, int tiles_per_img, int n_tiles,
                       int n_chunks) {
   constexpr int NT = K1_NC / 8, NC = K1_NC, PIX = K1_PIX;
+  constexpr int K1_ES = 2 * NC + 8;      // split e1 row (floats)
+  constexpr int K1_RAW = k1_raw<NC>();
+  static_assert(NC % 16 == 0, "dk1 tiles");
   static_assert(8 * 32 * NC <= PIX * (K1_CS + K1_ES), "dk1 reduction");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // raw stage: x rows [XROWS][XRF], dy1 [PIX][NC], y1 [PIX][NC]
@@ -1366,17 +1503,18 @@ front_dk1_tf32_kernel(const float* __restrict__ x,
 
 // ---- launchers: the wrapper's plan in, cudaGetLastError() out ------------
 
-template <bool TRAIN>
+// Template arguments default to the YOLOv8 front's instantiation.
+template <bool TRAIN, int NT1 = 6, int ACT = ACT_SILU, typename SUM = float>
 inline int launch_p1(const float* x, const float* k1, const float* g1,
                      const float* b1, float* y, float* stats, int B, int H,
                      int W, int C1, int blocks, int vec, cudaStream_t st) {
   const int Ho = out_size(H, 2), Wo = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(Ho, Wo, TH, TW, tiles_x);
-  dim3 grid(blocks, (C1 + P1_NP - 1) / P1_NP);
-  auto kern = vec ? front_p1_tf32_kernel<TRAIN, true>
-                  : front_p1_tf32_kernel<TRAIN, false>;
-  constexpr size_t smem = p1_smem();
+  dim3 grid(blocks, (C1 + 8 * NT1 - 1) / (8 * NT1));
+  auto kern = vec ? front_p1_tf32_kernel<TRAIN, true, NT1, ACT, SUM>
+                  : front_p1_tf32_kernel<TRAIN, false, NT1, ACT, SUM>;
+  constexpr size_t smem = p1_smem<NT1>();
   int err = set_smem(kern, smem);
   if (err != 0) return err;
   kern<<<grid, P1_THREADS, smem, st>>>(x, k1, g1, b1, y, stats, H, W, Ho, Wo,
@@ -1384,7 +1522,8 @@ inline int launch_p1(const float* x, const float* k1, const float* g1,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool TRANSFORM>
+template <bool TRANSFORM, bool STATS = TRANSFORM, int CK = 8, int FCI = 48,
+          int NP = 96, int ACT = ACT_SILU, typename SUM = float>
 inline int launch_p2(const float* a, const float* k2, const float* g1,
                      const float* b1, float* y, float* stats, int B, int H,
                      int W, int Cin, int Cout, int blocks, int vec,
@@ -1392,10 +1531,12 @@ inline int launch_p2(const float* a, const float* k2, const float* g1,
   const int Ho = out_size(H, 2), Wo = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(Ho, Wo, TH, TW, tiles_x);
-  dim3 grid(blocks, (Cout + P2_NP - 1) / P2_NP);
-  auto kern = vec ? front_p2_tf32_kernel<TRANSFORM, true>
-                  : front_p2_tf32_kernel<TRANSFORM, false>;
-  constexpr size_t smem = p2_smem();
+  dim3 grid(blocks, (Cout + NP - 1) / NP);
+  auto kern = vec ? front_p2_tf32_kernel<TRANSFORM, STATS, true, CK, FCI, NP,
+                                         ACT, SUM>
+                  : front_p2_tf32_kernel<TRANSFORM, STATS, false, CK, FCI, NP,
+                                         ACT, SUM>;
+  constexpr size_t smem = p2_smem<CK, FCI, NP>();
   int err = set_smem(kern, smem);
   if (err != 0) return err;
   kern<<<grid, P2_THREADS, smem, st>>>(a, k2, g1, b1, y, stats, H, W, Ho, Wo,
@@ -1419,6 +1560,8 @@ inline int launch_e2(const float* dy2, const float* y2, const float* ds2,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool CHAIN = true, int KD = 32, int FK = 96, int ND = 48,
+          int ACT = ACT_SILU>
 inline int launch_da1(const float* e2, const float* k2, const float* y1,
                       const float* g1, const float* b1, float* dy1,
                       float* gpart, int B, int H2, int W2, int C1, int C2,
@@ -1426,9 +1569,10 @@ inline int launch_da1(const float* e2, const float* k2, const float* y1,
   const int H4 = out_size(H2, 2), W4 = out_size(W2, 2);
   int tiles_x;
   const int per_img = tiles_of(H2, W2, 2 * DU, 2 * DV, tiles_x);
-  dim3 grid(blocks, (C1 + DA_ND - 1) / DA_ND);
-  auto kern = vec ? front_da1_tf32_kernel<true> : front_da1_tf32_kernel<false>;
-  constexpr size_t smem = da1_smem();
+  dim3 grid(blocks, (C1 + ND - 1) / ND);
+  auto kern = vec ? front_da1_tf32_kernel<CHAIN, true, KD, FK, ND, ACT>
+                  : front_da1_tf32_kernel<CHAIN, false, KD, FK, ND, ACT>;
+  constexpr size_t smem = da1_smem<KD, FK, ND>();
   int err = set_smem(kern, smem);
   if (err != 0) return err;
   kern<<<grid, DA_THREADS, smem, st>>>(e2, k2, y1, g1, b1, dy1, gpart, H2, W2,
@@ -1438,6 +1582,8 @@ inline int launch_da1(const float* e2, const float* k2, const float* y1,
 }
 
 // dk2 (3, 3, C1, C2) = the in-order sum of n_chunks partials in part
+template <bool TRANSFORM = true, int MC = 48, int NC = 48,
+          int ACT = ACT_SILU>
 inline int launch_dk2(const float* y1, const float* e2, const float* g1,
                       const float* b1, float* part, float* dk2, int B, int H2,
                       int W2, int C1, int C2, int n_chunks, int vec,
@@ -1445,9 +1591,10 @@ inline int launch_dk2(const float* y1, const float* e2, const float* g1,
   const int H4 = out_size(H2, 2), W4 = out_size(W2, 2);
   int tiles_x;
   const int per_img = tiles_of(H4, W4, DK_TH, TW, tiles_x);
-  dim3 grid(n_chunks, (C1 + DK_C - 1) / DK_C, (C2 + DK_C - 1) / DK_C);
-  auto kern = vec ? front_dk2_tf32_kernel<true> : front_dk2_tf32_kernel<false>;
-  constexpr size_t smem = dk2_smem();
+  dim3 grid(n_chunks, (C1 + MC - 1) / MC, (C2 + NC - 1) / NC);
+  auto kern = vec ? front_dk2_tf32_kernel<TRANSFORM, true, MC, NC, ACT>
+                  : front_dk2_tf32_kernel<TRANSFORM, false, MC, NC, ACT>;
+  constexpr size_t smem = dk2_smem<MC, NC>();
   int err = set_smem(kern, smem);
   if (err != 0) return err;
   kern<<<grid, DK_THREADS, smem, st>>>(y1, e2, g1, b1, part, H2, W2, H4, W4,
@@ -1462,6 +1609,7 @@ inline int launch_dk2(const float* y1, const float* e2, const float* g1,
 }
 
 // dk1 (3, 3, 3, C1) = the in-order sum of n_chunks partials in part
+template <int NC = 48>
 inline int launch_dk1(const float* x, const float* dy1, const float* y1,
                       const float* ds1, const float* dss1, float* part,
                       float* dk1, int B, int H, int W, int C1, int n_chunks,
@@ -1469,9 +1617,10 @@ inline int launch_dk1(const float* x, const float* dy1, const float* y1,
   const int H2 = out_size(H, 2), W2 = out_size(W, 2);
   int tiles_x;
   const int per_img = tiles_of(H2, W2, TH, TW, tiles_x);
-  dim3 grid(n_chunks, (C1 + K1_NC - 1) / K1_NC);
-  auto kern = vec ? front_dk1_tf32_kernel<true> : front_dk1_tf32_kernel<false>;
-  constexpr size_t smem = dk1_smem();
+  dim3 grid(n_chunks, (C1 + NC - 1) / NC);
+  auto kern = vec ? front_dk1_tf32_kernel<true, NC>
+                  : front_dk1_tf32_kernel<false, NC>;
+  constexpr size_t smem = dk1_smem<NC>();
   int err = set_smem(kern, smem);
   if (err != 0) return err;
   kern<<<grid, K1_THREADS, smem, st>>>(x, dy1, y1, ds1, dss1, part, H, W, H2,

@@ -2,8 +2,8 @@
 // stem2b, 16 -> 32; zero pad right/bottom, stride 1) and of its elementwise
 // stages, for the tensor-core route of hgstem.cu (K4-f) and hgstem_bwd.cu
 // (K4-b). The stride-2 convs (stem1, stem3) and their gradients run the
-// kernels of front_tc.cuh; the f32 route stays on the CUDA-core kernels of
-// hgstem.cu, hgstem_bwd.cu, conv_tile.cuh and conv_wgrad.cuh.
+// kernels of front_tc.cuh; the f32 route runs the split-TF32 kernels of
+// front_tf32.cuh and stem_tf32.cuh.
 //
 //   stem2x2_tc_kernel        y = conv2x2(x, k): an implicit GEMM over 4
 //                            taps, M = 128 pixels (an 8 x 16 tile), N = Cout,
@@ -30,8 +30,8 @@
 //                            the pool / concat of eval and train mode and
 //                            the concat's backward (pool routing, BN2b
 //                            chain), 8 channels a thread by 16-byte loads;
-//                            the same arithmetic as the CUDA-core kernels of
-//                            hgstem.cu and hgstem_bwd.cu.
+//                            the same arithmetic as the f32 ones of
+//                            stem_tf32.cuh.
 //
 // Every cross-block sum goes through per-block or per-chunk partials
 // whose counts the Python plan fixes for a shape and a card

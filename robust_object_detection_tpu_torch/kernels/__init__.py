@@ -33,9 +33,8 @@ BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# dtype codes and the conv output tile side, shared with csrc/conv_tile.cuh
+# dtype codes, shared with csrc/conv_tile.cuh
 DTYPE_F32, DTYPE_BF16 = 0, 1
-TILE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument lists of the C entry points (pointers and the stream as void*,
@@ -71,30 +70,25 @@ SIGNATURES: Dict[str, List] = {
     # x, y, choice, seeds, B, H, W, C, sigma, blur_k, inv_k, smem, vec (the
     # plan of corrupt_plan), stream
     "corrupt_nhwc": [_P] * 4 + [_I] * 4 + [_F, _I, _F, _I, _I, _P],
-    # x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat
-    # (scratch), y3, B, H, W, dtype (f32 only), stream
-    "hgstem_nhwc": [_P] * 15 + [_I] * 4 + [_P],
-    # x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3, y1, y2a, y2b,
-    # cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, dtype (f32
-    # only), sync, sync_buf (scratch), stream
-    "hgstem_train_nhwc": [_P] * 18 + [_I] * 4 + [_P] * 3,
-    # x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
-    # dstat, dcat, da1p, dy2b, dy2a, dy1, gpart, wpart, work (scratch), dk1,
-    # dk2a9, dk2b9, dk3, dvec, B, H, W, chunks x 4, dtype (f32 only), sync,
-    # stream
-    "hgstem_bwd_nhwc": [_P] * 28 + [_I] * 8 + [_P] * 2,
-    # the bf16 stem (csrc/front_tc.cuh, csrc/stem_tc.cuh) with the plan of
-    # stem_plan: hgstem_nhwc's pointers, B, H, W, then blocks and vec of
-    # stem1, stem2a, stem2b, stem3
+    # K4 (csrc/hgstem.cu, hgstem_bwd.cu) with the plan of stem_plan /
+    # stem_bwd_plan; bf16 (front_tc.cuh, stem_tc.cuh) and f32 (split TF32:
+    # front_tf32.cuh, stem_tf32.cuh) take the same arguments. Eval: x, k1,
+    # g1, b1, k2a, g2a, b2a, k2b, g2b, b2b, k3, a1, a2a, cat (scratch), y3,
+    # B, H, W, then blocks and vec of stem1, stem2a, stem2b, stem3, stream
     "hgstem_tc_nhwc": [_P] * 15 + [_I] * 11 + [_P],
-    # hgstem_train_nhwc's pointers, B, H, W, then the plan as above, sync,
-    # sync_buf
+    "hgstem_tf32_nhwc": [_P] * 15 + [_I] * 11 + [_P],
+    # train: x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3, y1, y2a,
+    # y2b, cat, y3, stats (scratch), vecs (14 x 32 f32 out), B, H, W, the
+    # plan as above, sync, sync_buf (scratch), stream
     "hgstem_train_tc_nhwc": [_P] * 18 + [_I] * 11 + [_P] * 3,
-    # hgstem_bwd_nhwc's pointers with e3 (scratch) after dy1 and dk2a, dk2b
-    # (2, 2, ., .) in place of dk2a9, dk2b9; B, H, W, then the plan of
-    # stem_bwd_plan: da_blocks, dk3_chunks, asm_blocks, wg2b_chunks,
-    # dx2b_blocks, wg2a_chunks, dx2a_blocks, dk1_chunks, vec, vec_x, sync
+    "hgstem_train_tf32_nhwc": [_P] * 18 + [_I] * 11 + [_P] * 3,
+    # backward: x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b,
+    # fvecs, dy3, dstat, dcat, da1p, dy2b, dy2a, dy1, e3, gpart, wpart,
+    # work (scratch), dk1, dk2a, dk2b, dk3, dvec, B, H, W, then da_blocks,
+    # dk3_chunks, asm_blocks, wg2b_chunks, dx2b_blocks, wg2a_chunks,
+    # dx2a_blocks, dk1_chunks, vec, vec_x, sync, stream
     "hgstem_bwd_tc_nhwc": [_P] * 29 + [_I] * 13 + [_P] * 2,
+    "hgstem_bwd_tf32_nhwc": [_P] * 29 + [_I] * 13 + [_P] * 2,
     # values, loc, attn, out, levels (host int[3 L]: H, W, start), B, HW, Q,
     # NH, DH, L, P, dtype, vec, row_lanes, fixed (deform_fwd_plan), stream
     "ms_deform_attn_fwd": [_P] * 5 + [_I] * 11 + [_P],
@@ -245,18 +239,6 @@ def dtype_code(dtype) -> int:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def tile_count(h: int, w: int) -> int:
-    """TILE x TILE output tiles of an h x w conv output (conv_tile.cuh)."""
-    return -(-h // TILE) * -(-w // TILE)
-
-
-def wgrad_chunks(cin: int, cout: int) -> int:
-    """Pixel chunks of a weight-gradient launch (conv_wgrad.cuh): enough
-    blocks (chunks x 16-wide channel tiles) to fill the card's SMs a few
-    times. Fixed for a shape, so a repeated run sums in the same order."""
-    return max(1, -(-512 // (-(-cin // 16) * -(-cout // 16))))
 
 
 # ---- K3's tensor-core kernels -------------------------------------------
@@ -471,21 +453,45 @@ def front_bwd_plan(dtype: str, b: int, h: int, w: int, c1: int, c2: int,
                 dk1_chunks=_spread(dk1_tiles, per_sm["dk1"], n_sm, c1s))
 
 
-# ---- K4's bf16 tensor-core kernels (csrc/front_tc.cuh, csrc/stem_tc.cuh) --
-# stem1 and stem3 run K2's P1 and P2 kernels (FRONT_TH x FRONT_TW output
-# tiles), d(cat) its dA1 (DA_TH x DA_TW tiles of the concat, two 32-channel
-# slices), dk3 its dk2 (DK2_TH x FRONT_TW tiles of y3, one 64 x 32 slice),
-# dk1 its dk1 at 32 channels; the 2x2 convs, their input and filter
-# gradients take STEM_TH x STEM_TW tiles of the stem2 maps; the concat's
-# backward is persistent over (pixel, 8 channels) items. Blocks an SM by
-# each kernel's shared memory and registers: P1 30 KB, P2 208 KB, the
-# 2x2 forward 30-37 KB, its dX 42-62 KB, its filter gradient 35-37 KB, dA1
-# 57 KB, dk2 98 KB (288 threads), dk1 57 KB.
+# ---- K4's tensor-core kernels --------------------------------------------
+# bf16: csrc/front_tc.cuh, csrc/stem_tc.cuh (m16n8k16); f32: csrc/
+# front_tf32.cuh, csrc/stem_tf32.cuh (split TF32 on m16n8k8, three MMAs a
+# product). stem1 and stem3 run K2's P1 and P2 kernels (FRONT_TH x FRONT_TW
+# output tiles), d(cat) its dA1 (DA_TH x DA_TW tiles of the concat, two
+# 32-channel slices), dk3 its dk2 (DK2_TH x FRONT_TW tiles of y3; one 64 x
+# 32 slice in bf16, two 32 x 32 in f32), dk1 its dk1 at 32 channels; the
+# 2x2 convs, their input and filter gradients take STEM_TH x STEM_TW tiles
+# of the stem2 maps; the concat's backward is persistent over (pixel,
+# piece) items. By dtype (STEM_ROUTES): blocks (or pixel chunks) an SM of
+# each kernel, by its shared memory and registers (bf16: P1 30 KB, P2 208
+# KB, the 2x2 forward 30-37 KB, its dX 42-62 KB, its filter gradient 35-37
+# KB, dA1 57 KB, dk2 98 KB (288 threads), dk1 57 KB; f32: P1 60 KB, P2
+# 166 KB, the 2x2 forward 106 KB (stem2a) and 69 KB (stem2b), its dX 107
+# and 69 KB, its filter gradient 111-120 KB (256 threads), dA1 81 KB, dk2
+# 154 KB (576 threads), dk1 154 KB); the channel slices of d(cat) and dk3;
+# the channels of a 16-byte piece; whether the filters are staged by
+# 16-byte cp.async (bf16) or element by element, transposed and split
+# (f32: then only x's layout decides stem1's staging, and k3's and dy3's
+# the backward's); the partials each filter-gradient chunk writes (f32's
+# 2x2 filter gradient: one a row half of its 8 warps); the entry points.
+# f32's filter gradients take four chunks an SM, as K2's: the tensor
+# cores' f32 accumulation loses more than an IEEE sum along a long chain,
+# and the chunks are summed in order by plain f32 adds.
 STEM_CM = 32                  # the kernels' width (HGNetv2-L)
 STEM_TH, STEM_TW = 8, 16
-STEM_P1_PER_SM, STEM_C2_PER_SM, STEM_P3_PER_SM = 4, 4, 1
-STEM_DA_PER_SM, STEM_DK3_PER_SM, STEM_ASM_PER_SM = 2, 2, 4
-STEM_WG_PER_SM, STEM_DX_PER_SM, STEM_DK1_PER_SM = 4, 3, 2
+STEM_ROUTES = {
+    "bfloat16": dict(
+        per_sm=dict(p1=4, c2a=4, c2b=4, p3=1, da=2, dk3=2, asm=4, wg2b=4,
+                    wg2a=4, dx2b=3, dx2a=3, dk1=2),
+        slices=dict(da=2, dk3=1), piece=8, filters_staged=True, wg_parts=1,
+        eval="hgstem_tc_nhwc", train="hgstem_train_tc_nhwc",
+        bwd="hgstem_bwd_tc_nhwc"),
+    "float32": dict(
+        per_sm=dict(p1=3, c2a=2, c2b=3, p3=1, da=2, dk3=4, asm=4, wg2b=4,
+                    wg2a=4, dx2b=2, dx2a=3, dk1=4),
+        slices=dict(da=2, dk3=2), piece=4, filters_staged=False, wg_parts=2,
+        eval="hgstem_tf32_nhwc", train="hgstem_train_tf32_nhwc",
+        bwd="hgstem_bwd_tf32_nhwc")}
 
 
 def _stem_shape_ok(name: str, b: int, h: int, w: int) -> None:
@@ -497,73 +503,87 @@ def _stem_shape_ok(name: str, b: int, h: int, w: int) -> None:
                          f"kernels' int32 counts")
 
 
-def stem_plan(b: int, h: int, w: int, ptrs,
+def stem_plan(dtype: str, b: int, h: int, w: int, ptrs,
               n_sm: int) -> Dict[str, Dict[str, int]]:
-    """Launch plan of K4-f's bf16 kernels on x (b, h, w, 3), with base
-    pointers `ptrs` (x, k1, k2a, k2b, k3) and `n_sm` SMs. ``p1`` (stem1),
-    ``c2a``, ``c2b`` (the 2x2 convs), ``p3`` (stem3): tiles, blocks
-    (persistent; block i takes the tiles of :func:`chunk_tiles`, and in
-    train mode writes row i of that conv's statistics partials) and vec
-    (16-byte staging: stem1 needs W a multiple of 8 and x, k1 aligned, the
-    others their filter aligned, their inputs being the wrapper's own
-    buffers). ``stats``: the floats of the train mode's partials buffer,
-    2 x the largest blocks x channels of the four convs."""
+    """Launch plan of K4-f's `dtype` kernels ("bfloat16" or "float32") on x
+    (b, h, w, 3), with base pointers `ptrs` (x, k1, k2a, k2b, k3) and
+    `n_sm` SMs. ``p1`` (stem1), ``c2a``, ``c2b`` (the 2x2 convs), ``p3``
+    (stem3): tiles, blocks (persistent; block i takes the tiles of
+    :func:`chunk_tiles`, and in train mode writes row i of that conv's
+    statistics partials) and vec (16-byte staging: stem1 needs W a
+    multiple of a piece and x aligned, and where the filters are staged by
+    cp.async (bf16) k1 aligned; the others, whose inputs are the wrapper's
+    own buffers, their filter aligned where it is staged so, else always).
+    ``stats``: the floats of the train mode's partials buffer, 2 x the
+    largest blocks x channels of the four convs."""
+    route = STEM_ROUTES[dtype]
     _stem_shape_ok("stem", b, h, w)
     x, k1, k2a, k2b, k3 = ptrs
+    per_sm, piece = route["per_sm"], route["piece"]
+    staged = route["filters_staged"]
+
+    def aligned(k):
+        return not staged or k % 16 == 0
     h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
     plan = {}
-    for name, (hh, ww, per_sm, vec) in dict(
-            p1=(h2, w2, STEM_P1_PER_SM,
-                w % 8 == 0 and x % 16 == 0 and k1 % 16 == 0),
-            c2a=(h2, w2, STEM_C2_PER_SM, k2a % 16 == 0),
-            c2b=(h2, w2, STEM_C2_PER_SM, k2b % 16 == 0),
-            p3=(h4, w4, STEM_P3_PER_SM, k3 % 16 == 0)).items():
+    for name, (hh, ww, vec) in dict(
+            p1=(h2, w2, w % piece == 0 and x % 16 == 0 and aligned(k1)),
+            c2a=(h2, w2, aligned(k2a)), c2b=(h2, w2, aligned(k2b)),
+            p3=(h4, w4, aligned(k3))).items():
         tiles = _tiles(b, hh, ww, STEM_TH, STEM_TW)
         plan[name] = dict(tiles=tiles, vec=int(vec),
-                          blocks=_spread(tiles, per_sm, n_sm, 1))
+                          blocks=_spread(tiles, per_sm[name], n_sm, 1))
     widths = dict(p1=STEM_CM, c2a=STEM_CM // 2, c2b=STEM_CM, p3=STEM_CM)
     plan["stats"] = 2 * max(plan[k]["blocks"] * c for k, c in widths.items())
     return plan
 
 
-def stem_bwd_plan(b: int, h: int, w: int, ptrs, n_sm: int) -> Dict[str, int]:
-    """Launch plan of K4-b's bf16 kernels for x (b, h, w, 3) and the stem's
-    saved tensors, with base pointers `ptrs` (x, k2a, k2b, k3, dy3) and
-    `n_sm` SMs: da_blocks (d(cat)'s persistent blocks, two channel slices),
-    dk3_chunks, wg2b_chunks, wg2a_chunks and dk1_chunks (the filter
-    gradients' pixel chunks), asm_blocks, dx2b_blocks and dx2a_blocks (the
-    concat's backward and the two 2x2 input gradients, each block one row
-    of dgamma / dbeta partials), each with its tile (or item) count; vec
-    (16-byte staging of the filters and dy3: pointers aligned) and vec_x
-    (vec, W a multiple of 8 and x aligned); ``gpart`` and ``wpart``, the
-    floats of the partials buffers. Fixed for a shape and a card."""
+def stem_bwd_plan(dtype: str, b: int, h: int, w: int, ptrs,
+                  n_sm: int) -> Dict[str, int]:
+    """Launch plan of K4-b's `dtype` kernels for x (b, h, w, 3) and the
+    stem's saved tensors, with base pointers `ptrs` (x, k2a, k2b, k3, dy3)
+    and `n_sm` SMs: da_blocks (d(cat)'s persistent blocks, two channel
+    slices), dk3_chunks, wg2b_chunks, wg2a_chunks and dk1_chunks (the
+    filter gradients' pixel chunks), asm_blocks, dx2b_blocks and
+    dx2a_blocks (the concat's backward and the two 2x2 input gradients,
+    each block one row of dgamma / dbeta partials), each with its tile (or
+    item) count; vec (16-byte staging of dy3 and of the filters staged by
+    cp.async: bf16 all three, f32 k3; pointers aligned) and vec_x (vec, W a
+    multiple of a piece and x aligned); ``gpart`` and ``wpart``, the floats
+    of the partials buffers. Fixed for a shape and a card."""
+    route = STEM_ROUTES[dtype]
     _stem_shape_ok("stem_bwd", b, h, w)
-    x, *rest = ptrs
+    x, k2a, k2b, k3, dy3 = ptrs
+    per_sm, slices, piece = route["per_sm"], route["slices"], route["piece"]
     cm = STEM_CM
     h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
-    vec = int(all(p % 16 == 0 for p in rest))
+    staged = (k2a, k2b, k3) if route["filters_staged"] else (k3,)
+    vec = int(all(p % 16 == 0 for p in (*staged, dy3)))
     t2 = _tiles(b, h2, w2, STEM_TH, STEM_TW)
-    plan = dict(vec=vec, vec_x=int(vec and w % 8 == 0 and x % 16 == 0),
+    plan = dict(vec=vec, vec_x=int(vec and w % piece == 0 and x % 16 == 0),
                 da_tiles=_tiles(b, h2, w2, DA_TH, DA_TW),
                 dk3_tiles=_tiles(b, h4, w4, DK2_TH, FRONT_TW),
-                asm_items=b * h2 * w2 * (cm // 8),
+                asm_items=b * h2 * w2 * (cm // piece),
                 wg2b_tiles=t2, dx2b_tiles=t2, wg2a_tiles=t2, dx2a_tiles=t2,
                 dk1_tiles=_tiles(b, h2, w2, FRONT_TH, FRONT_TW))
-    plan["da_blocks"] = _spread(plan["da_tiles"], STEM_DA_PER_SM, n_sm, 2)
-    plan["dk3_chunks"] = _spread(plan["dk3_tiles"], STEM_DK3_PER_SM, n_sm, 1)
+    plan["da_blocks"] = _spread(plan["da_tiles"], per_sm["da"], n_sm,
+                                slices["da"])
+    plan["dk3_chunks"] = _spread(plan["dk3_tiles"], per_sm["dk3"], n_sm,
+                                 slices["dk3"])
     plan["asm_blocks"] = _spread(-(-plan["asm_items"] // 256),
-                                 STEM_ASM_PER_SM, n_sm, 1)
+                                 per_sm["asm"], n_sm, 1)
     for k in ("wg2b", "wg2a"):
-        plan[f"{k}_chunks"] = _spread(t2, STEM_WG_PER_SM, n_sm, 1)
+        plan[f"{k}_chunks"] = _spread(t2, per_sm[k], n_sm, 1)
     for k in ("dx2b", "dx2a"):
-        plan[f"{k}_blocks"] = _spread(t2, STEM_DX_PER_SM, n_sm, 1)
-    plan["dk1_chunks"] = _spread(plan["dk1_tiles"], STEM_DK1_PER_SM, n_sm, 1)
+        plan[f"{k}_blocks"] = _spread(t2, per_sm[k], n_sm, 1)
+    plan["dk1_chunks"] = _spread(plan["dk1_tiles"], per_sm["dk1"], n_sm, 1)
     plan["gpart"] = 2 * max(plan["asm_blocks"] * cm,
                             plan["dx2b_blocks"] * (cm // 2),
                             plan["dx2a_blocks"] * cm)
+    parts = route["wg_parts"]
     plan["wpart"] = max(plan["dk3_chunks"] * 9 * 2 * cm * cm,
-                        plan["wg2b_chunks"] * 4 * (cm // 2) * cm,
-                        plan["wg2a_chunks"] * 4 * cm * (cm // 2),
+                        plan["wg2b_chunks"] * parts * 4 * (cm // 2) * cm,
+                        plan["wg2a_chunks"] * parts * 4 * cm * (cm // 2),
                         plan["dk1_chunks"] * 27 * cm)
     return plan
 

@@ -17,15 +17,17 @@ statistics (eps 1e-3), computed in f32.
 tensor and runs :func:`stem_reference`, the plain PyTorch version, on a CPU
 tensor. Any other device, dtype, layout or shape raises.
 
-Each kernel has two routes, by dtype: bf16 runs the tensor-core implicit
-GEMMs of ``csrc/front_tc.cuh`` and ``csrc/stem_tc.cuh``
-(``hgstem_tc_nhwc``, ``hgstem_train_tc_nhwc``, ``hgstem_bwd_tc_nhwc``) with
-a launch plan computed in Python (``kernels.stem_plan``,
-``kernels.stem_bwd_plan``: persistent blocks, which fix the number of
-statistics and dgamma / dbeta partials the wrapper allocates, pixel chunks,
-16-byte or element staging), which the CPU tests hold; f32 runs the
-CUDA-core kernels (``hgstem_nhwc``, ``hgstem_train_nhwc``,
-``hgstem_bwd_nhwc``).
+Each kernel has two routes, by dtype, both tensor-core implicit GEMMs
+with a launch plan computed in Python (``kernels.stem_plan``,
+``kernels.stem_bwd_plan`` and their ``kernels.STEM_ROUTES``: persistent
+blocks, which fix the number of statistics and dgamma / dbeta partials the
+wrapper allocates, pixel chunks, 16-byte or element staging), which the
+CPU tests hold: bf16 runs ``csrc/front_tc.cuh`` and ``csrc/stem_tc.cuh``
+(``hgstem_tc_nhwc``, ``hgstem_train_tc_nhwc``, ``hgstem_bwd_tc_nhwc``), f32
+the split-TF32 kernels of ``csrc/front_tf32.cuh`` and
+``csrc/stem_tf32.cuh`` (``hgstem_tf32_nhwc``, ``hgstem_train_tf32_nhwc``,
+``hgstem_bwd_tf32_nhwc``). A build or launch failure raises; no route gives
+way to another or to the plain version.
 
 Rounding: both versions store a1, a2a, a2b (hence the concat) and y3 in
 the working dtype and apply BN + ReLU in f32. The kernel applies BN + ReLU
@@ -37,7 +39,7 @@ f32 mean and clamped fast variance of the stored, rounded conv output) and
 the function returns ``(y3, means, variances)`` of the four convs, y3 still
 before BN3, so the caller normalises y3 and updates the running statistics.
 On a CUDA tensor it is a ``torch.autograd.Function``: forward
-``hgstem_train_nhwc`` (K4-f, train), backward :func:`stem_fused_backward`
+K4-f in train mode, backward :func:`stem_fused_backward`
 (``csrc/hgstem_bwd.cu``, K4-b). On a CPU tensor it runs
 :func:`stem_train_reference`, whose backward is autograd.
 """
@@ -167,18 +169,15 @@ def stem_fused_inference(x, k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b,
     y3 = torch.empty((b, h // 4, w // 4, cm), dtype=x.dtype, device=x.device)
     args = [t.data_ptr() for t in (x, k1, g1, b1, k2a, g2a, b2a, k2b, g2b,
                                    b2b, k3, a1, a2a, cat, y3)] + [b, h, w]
+    dtype = str(x.dtype).split(".")[-1]
+    plan = kernels.stem_plan(dtype, b, h, w, (args[0], args[1], args[4],
+                                              args[7], args[10]),
+                             kernels.sm_count(x.device))
+    name = kernels.STEM_ROUTES[dtype]["eval"]
     lib = kernels.load()
     with torch.cuda.device(x.device):       # launch on x's card and stream
-        stream = kernels.stream_ptr(x.device)
-        if x.dtype == torch.bfloat16:
-            name = "hgstem_tc_nhwc"
-            plan = kernels.stem_plan(b, h, w, (args[0], args[1], args[4],
-                                               args[7], args[10]),
-                                     kernels.sm_count(x.device))
-            err = lib.hgstem_tc_nhwc(*args, *_plan_args(plan), stream)
-        else:
-            name = "hgstem_nhwc"
-            err = lib.hgstem_nhwc(*args, kernels.DTYPE_F32, stream)
+        err = getattr(lib, name)(*args, *_plan_args(plan),
+                                 kernels.stream_ptr(x.device))
     kernels.check(err, name)
     stem_fused_inference.launches += 1
     return y3
@@ -249,14 +248,11 @@ class _StemFused(torch.autograd.Function):
 
         y1, y2a, y2b, cat = half(cm), half(cm // 2), half(cm), half(2 * cm)
         y3 = torch.empty((b, h // 4, w // 4, cm), dtype=dtype, device=dev)
-        bf16 = dtype == torch.bfloat16
-        if bf16:        # one partial row per persistent block of each conv
-            plan = kernels.stem_plan(b, h, w, tuple(
-                t.data_ptr() for t in (x, *kd)), kernels.sm_count(dev))
-            n_stats = plan["stats"]
-        else:           # one partial row per image and 16 x 16 tile
-            n_stats = 2 * b * kernels.tile_count(h2, w2) * cm
-        stats = torch.empty(n_stats, dtype=torch.float32, device=dev)
+        route = str(dtype).split(".")[-1]
+        # one partial row per persistent block of each conv
+        plan = kernels.stem_plan(route, b, h, w, tuple(
+            t.data_ptr() for t in (x, *kd)), kernels.sm_count(dev))
+        stats = torch.empty(plan["stats"], dtype=torch.float32, device=dev)
         fvecs = torch.zeros((14, SLOT), dtype=torch.float32, device=dev)
         args = [t.data_ptr() for t in (
             x, kd[0], vf[0], vf[1], kd[1], vf[2], vf[3], kd[2], vf[4],
@@ -265,18 +261,12 @@ class _StemFused(torch.autograd.Function):
         # data group inside the launch (parallel/mesh.kernel_sync)
         sync_buf = torch.empty(2 * SLOT, dtype=torch.float32, device=dev)
         sync, keep = kernel_sync(sync_buf)
+        name = kernels.STEM_ROUTES[route]["train"]
         lib = kernels.load()
         with torch.cuda.device(dev):
-            stream = kernels.stream_ptr(dev)
-            if bf16:
-                name = "hgstem_train_tc_nhwc"
-                err = lib.hgstem_train_tc_nhwc(*args, *_plan_args(plan),
-                                               sync, sync_buf.data_ptr(),
-                                               stream)
-            else:
-                name = "hgstem_train_nhwc"
-                err = lib.hgstem_train_nhwc(*args, kernels.DTYPE_F32, sync,
-                                            sync_buf.data_ptr(), stream)
+            err = getattr(lib, name)(*args, *_plan_args(plan), sync,
+                                     sync_buf.data_ptr(),
+                                     kernels.stream_ptr(dev))
         del keep
         kernels.check(err, name)
         stem_fused.launches += 1
@@ -344,8 +334,8 @@ def stem_fused_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
 
 def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
                      sc2b, fvecs, dy3, dmeans, dvars):
-    """Scratch, outputs and the launch of K4-b (bf16: its plan's partial
-    counts size gpart and wpart); the body of :func:`stem_fused_backward`."""
+    """Scratch, outputs and the launch of K4-b (its plan's partial counts
+    size gpart and wpart); the body of :func:`stem_fused_backward`."""
     b, h, w, _ = x.shape
     h2, w2 = h // 2, w // 2
     cm = y1.shape[3]
@@ -367,51 +357,26 @@ def _launch_backward(x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a,
 
     dcat, da1p, dy2b, dy2a, dy1 = (half(2 * cm), half(cm), half(cm),
                                    half(cm // 2), half(cm))
-    bf16 = dtype == torch.bfloat16
-    if bf16:
-        plan = kernels.stem_bwd_plan(b, h, w, tuple(
-            t.data_ptr() for t in (x, k2a, k2b, k3, dy3)),
-            kernels.sm_count(dev))
-        n_gpart, n_wpart = plan["gpart"], plan["wpart"]
-    else:
-        chunks = [kernels.wgrad_chunks(ci, co) for ci, co in
-                  ((3, cm), (cm, cm // 2), (cm // 2, cm), (2 * cm, cm))]
-        sizes = (27 * cm, 9 * cm * (cm // 2), 9 * (cm // 2) * cm,
-                 9 * 2 * cm * cm)
-        n_gpart = 2 * b * kernels.tile_count(h2, w2) * cm
-        n_wpart = max(c * n for c, n in zip(chunks, sizes))
-    gpart, wpart, work = f32(n_gpart), f32(n_wpart), f32(4 * SLOT)
+    route = str(dtype).split(".")[-1]
+    plan = kernels.stem_bwd_plan(route, b, h, w, tuple(
+        t.data_ptr() for t in (x, k2a, k2b, k3, dy3)), kernels.sm_count(dev))
+    gpart, wpart, work = f32(plan["gpart"]), f32(plan["wpart"]), f32(4 * SLOT)
     dk1, dk3 = f32(3, 3, 3, cm), f32(3, 3, 2 * cm, cm)
-    taps = 2 if bf16 else 3     # f32: the 2x2 gradients as 3x3 corners
-    dk2a = f32(taps, taps, cm, cm // 2)
-    dk2b = f32(taps, taps, cm // 2, cm)
+    dk2a, dk2b = f32(2, 2, cm, cm // 2), f32(2, 2, cm // 2, cm)
     dvec = f32(6, SLOT)
-    head = [t.data_ptr() for t in (
+    e3 = torch.empty_like(y3)   # dy3 with the BN3 statistics fold
+    args = [t.data_ptr() for t in (
         x, y1, y2a, y2b, cat, y3, k2a, k2b, k3, sc1, sc2a, sc2b, fvecs, dy3,
-        dstat, dcat, da1p, dy2b, dy2a, dy1)]
-    tail = [t.data_ptr() for t in (gpart, wpart, work, dk1, dk2a, dk2b, dk3,
-                                   dvec)] + [b, h, w]
+        dstat, dcat, da1p, dy2b, dy2a, dy1, e3, gpart, wpart, work, dk1,
+        dk2a, dk2b, dk3, dvec)] + [b, h, w]
     sync, keep = kernel_sync(work)
+    name = kernels.STEM_ROUTES[route]["bwd"]
     lib = kernels.load()
     with torch.cuda.device(dev):
-        stream = kernels.stream_ptr(dev)
-        if bf16:
-            e3 = torch.empty_like(y3)   # dy3 with the BN3 statistics fold
-            name = "hgstem_bwd_tc_nhwc"
-            err = lib.hgstem_bwd_tc_nhwc(
-                *head, e3.data_ptr(), *tail,
-                *(plan[k] for k in STEM_BWD_PLAN), sync, stream)
-        else:
-            name = "hgstem_bwd_nhwc"
-            err = lib.hgstem_bwd_nhwc(*head, *tail, *chunks,
-                                      kernels.DTYPE_F32, sync, stream)
+        err = getattr(lib, name)(*args, *(plan[k] for k in STEM_BWD_PLAN),
+                                 sync, kernels.stream_ptr(dev))
     del keep
     kernels.check(err, name)
-    if not bf16:
-        # a 2x2 conv with zero pad right/bottom is the taps ky, kx in {1, 2}
-        # of the 3x3 pad-1 gradient the CUDA-core kernel computed
-        dk2a = dk2a[1:, 1:].contiguous()
-        dk2b = dk2b[1:, 1:].contiguous()
     ch = cm // 2
     return (dk1, dvec[0, :cm], dvec[1, :cm], dk2a, dvec[2, :ch],
             dvec[3, :ch], dk2b, dvec[4, :cm], dvec[5, :cm], dk3)

@@ -848,7 +848,7 @@ def test_stem_bf16_odd_shapes(cuda, shape):
     x, params = _stem_train_inputs(torch.Generator().manual_seed(15), b, h,
                                    w, cuda)
     x = x.bfloat16()
-    plan = kernels.stem_plan(b, h, w, tuple(
+    plan = kernels.stem_plan("bfloat16", b, h, w, tuple(
         t.data_ptr() for t in (x, *(p.bfloat16() for p in params
                                     if p.dim() == 4))), kernels.sm_count(cuda))
     assert plan["p1"]["vec"] == int(w % 8 == 0)
@@ -907,14 +907,151 @@ def test_stem_misaligned_x_stages_by_element(cuda):
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     kb = [p.bfloat16() for p in params if p.dim() == 4]
     sm = kernels.sm_count(cuda)
-    fw = kernels.stem_plan(b, h, w, tuple(t.data_ptr() for t in (x, *kb)), sm)
+    fw = kernels.stem_plan("bfloat16", b, h, w,
+                           tuple(t.data_ptr() for t in (x, *kb)), sm)
     assert [fw[k]["vec"] for k in ("p1", "c2a", "c2b", "p3")] == [0, 1, 1, 1]
     dy3 = torch.zeros(b, h // 4, w // 4, 32, dtype=torch.bfloat16,
                       device=cuda)
-    bw = kernels.stem_bwd_plan(b, h, w, tuple(t.data_ptr() for t in (
-        x, kb[1], kb[2], kb[3], dy3)), sm)
+    bw = kernels.stem_bwd_plan("bfloat16", b, h, w, tuple(
+        t.data_ptr() for t in (x, kb[1], kb[2], kb[3], dy3)), sm)
     assert (bw["vec"], bw["vec_x"]) == (1, 0)
     _stem_bf16_all_modes(x, params, cuda, 8e-2)
+
+
+def _stem64(x, params, train=True, running=None):
+    """The stem in float64 (flax's fast variance in train mode; BN1, BN2a,
+    BN2b from `running` (means, variances) in eval mode), differentiable:
+    y3 (NHWC) and, in train mode, the four means and four variances."""
+    F = torch.nn.functional
+    k1, sc1, bi1, k2a, sc2a, bi2a, k2b, sc2b, bi2b, k3 = (
+        t.double() for t in params)
+
+    def conv(a, k, stride, pad):
+        return F.conv2d(a, k.permute(3, 2, 0, 1), stride=stride,
+                        padding=pad)
+
+    def stats(y):
+        m = y.mean((0, 2, 3))
+        return m, torch.clamp((y * y).mean((0, 2, 3)) - m * m, min=0.0)
+    ms, vs = [], []
+
+    def bn_relu(y, sc, bi, i):
+        m, v = stats(y) if train else (running[0][i].double(),
+                                       running[1][i].double())
+        ms.append(m)
+        vs.append(v)
+        g = sc * torch.rsqrt(v + 1e-3)
+        return torch.relu(y * g[:, None, None] + (bi - m * g)[:, None, None])
+    a1 = bn_relu(conv(x.double().permute(0, 3, 1, 2), k1, 2, 1), sc1, bi1, 0)
+    a2a = bn_relu(conv(F.pad(a1, (0, 1, 0, 1)), k2a, 1, 0), sc2a, bi2a, 1)
+    a2b = bn_relu(conv(F.pad(a2a, (0, 1, 0, 1)), k2b, 1, 0), sc2b, bi2b, 2)
+    y3 = conv(torch.cat([ST._pool2x2(a1), a2b], 1), k3, 2, 1)
+    if not train:
+        return y3.permute(0, 2, 3, 1)
+    m3, v3 = stats(y3)
+    return y3.permute(0, 2, 3, 1), (*ms, m3), (*vs, v3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 20, 44), (3, 12, 28), (2, 44, 20),
+                                   (2, 36, 52)])
+def test_stem_f32_matches_float64(cuda, shape):
+    """K4's f32 route (split TF32) against the stem in float64 at odd
+    shapes (H != W, H/4 and W/4 odd, ragged tiles, small B): eval and
+    train y3 and the eight statistics within 1e-5 x max|ref|, K4-b's ten
+    gradients for the loss's cotangents within chip_smoke.K4B_TOL's
+    1.5e-4 (one pass of TF32 puts the 2x2 filter gradients several percent
+    off at these sizes: tests/test_torch_stem_tf32.py); K4-f train and K4-b
+    the same bits twice."""
+    b, h, w = shape
+    g = torch.Generator().manual_seed(17)
+    x, params = _stem_train_inputs(g, b, h, w, cuda)
+    sizes = (32, 16, 32)
+    running = ([_rand(g, c, scale=0.1).to(cuda) for c in sizes],
+               [(torch.rand(c, generator=g) + 0.5).to(cuda) for c in sizes])
+    ev = [x, *params, *running]
+    out = ST.stem_fused_inference(*ev)
+    assert out.dtype == torch.float32
+    assert _rel_err(out.double(), _stem64(x, params, False, running)) <= 1e-5
+    runs = []
+    for _ in range(2):
+        ps = [p.clone().requires_grad_() for p in params]
+        y3, ms, vs = ST.stem_fused(x, *ps)
+        _stem_loss((y3, ms, vs)).backward()
+        runs.append([y3.detach(), *ms, *vs] + [p.grad for p in ps])
+    assert all(torch.equal(a, r) for a, r in zip(*runs))
+    ds = [p.double().requires_grad_() for p in params]
+    ry3, rms, rvs = _stem64(x, ds)
+    _stem_loss((ry3, rms, rvs)).backward()
+    for i, (o, r) in enumerate(zip(runs[0][:9], (ry3, *rms, *rvs))):
+        assert _rel_err(o.double(), r.detach()) <= 1e-5, i
+    for i, (o, d) in enumerate(zip(runs[0][9:], ds)):
+        assert _rel_err(o.double(), d.grad) <= 1.5e-4, i
+
+
+@pytest.mark.gpu
+def test_stem_f32_misaligned_x_stages_by_element(cuda):
+    """An f32 x one element past a 16-byte line takes element staging in
+    stem1 and dk1 (the plans say so) and the f32 stem still holds float64:
+    eval, train forward and K4-b."""
+    from robust_object_detection_tpu_torch import kernels
+    b, h, w = 2, 36, 52
+    g = torch.Generator().manual_seed(18)
+    x, params = _stem_train_inputs(g, b, h, w, cuda)
+    x = _misaligned(x)
+    sm = kernels.sm_count(cuda)
+    kf = [p for p in params if p.dim() == 4]
+    fw = kernels.stem_plan("float32", b, h, w,
+                           tuple(t.data_ptr() for t in (x, *kf)), sm)
+    assert [fw[k]["vec"] for k in ("p1", "c2a", "c2b", "p3")] == [0, 1, 1, 1]
+    dy3 = torch.zeros(b, h // 4, w // 4, 32, device=cuda)
+    bw = kernels.stem_bwd_plan("float32", b, h, w, tuple(
+        t.data_ptr() for t in (x, kf[1], kf[2], kf[3], dy3)), sm)
+    assert (bw["vec"], bw["vec_x"]) == (1, 0)
+    sizes = (32, 16, 32)
+    running = ([torch.zeros(c, device=cuda) for c in sizes],
+               [torch.ones(c, device=cuda) for c in sizes])
+    out = ST.stem_fused_inference(x, *params, *running)
+    assert _rel_err(out.double(), _stem64(x, params, False, running)) <= 1e-5
+    ps = [p.clone().requires_grad_() for p in params]
+    y3, ms, vs = ST.stem_fused(x, *ps)
+    _stem_loss((y3, ms, vs)).backward()
+    ds = [p.double().requires_grad_() for p in params]
+    ry3, rms, rvs = _stem64(x, ds)
+    _stem_loss((ry3, rms, rvs)).backward()
+    assert _rel_err(y3.double(), ry3.detach()) <= 1e-5
+    for i, (p, d) in enumerate(zip(ps, ds)):
+        assert _rel_err(p.grad.double(), d.grad) <= 1.5e-4, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [math.inf, -math.inf])
+def test_stem_f32_non_finite_input_gives_float64_pattern(cuda, bad):
+    """An Inf or -Inf in x gives +Inf outputs of f32 K4-f (eval) exactly
+    where the float64 stem has them, and finite values elsewhere: the
+    split's guard (hi = 0, lo = the value) keeps Inf x (a TF32 weight's lo,
+    0) from turning into NaN. stem2a, stem2b and stem3 take non-negative
+    filters, one of them of TF32 values (lo = 0), so that no sum meets Inf
+    - Inf: a NaN would meet ReLU, which is fmaxf in the kernels (NaN -> 0)
+    and torch.relu in float64 (NaN)."""
+    g = torch.Generator().manual_seed(19)
+    b, h, w = 1, 20, 44
+    x, params = _stem_train_inputs(g, b, h, w, cuda)
+    params = [p.abs() if p.dim() == 4 and i > 0 else p
+              for i, p in enumerate(params)]
+    params[9] = (params[9].view(torch.int32) & -8192).view(torch.float32)
+    x = x.clone()
+    x[0, 9, 21, 1] = bad
+    sizes = (32, 16, 32)
+    running = ([torch.zeros(c, device=cuda) for c in sizes],
+               [torch.ones(c, device=cuda) for c in sizes])
+    out = ST.stem_fused_inference(x, *params, *running)
+    ref = _stem64(x, params, False, running)
+    assert int(torch.isposinf(ref).sum()) > 0
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(out), test(ref)), test.__name__
+    fin = torch.isfinite(ref)
+    assert _rel_err(out[fin].double(), ref[fin]) <= 1e-5
 
 
 @pytest.mark.gpu

@@ -147,7 +147,8 @@ def test_kernel_sources_and_hash():
             "hgstem_bwd.cu", "auction.cu", "stamp_scatter.cu",
             "ms_deform_attn_sorted.cu", "deform_bwd.cu", "owner_scatter.cuh",
             "deform_rows.cuh", "deform_levels.cuh", "conv3x3_tc.cuh",
-            "front_tc.cuh", "deform_fwd.cuh"} <= set(names)
+            "front_tc.cuh", "deform_fwd.cuh", "front_tf32.cuh",
+            "stem_tc.cuh", "stem_tf32.cuh"} <= set(names)
     assert "segment_sum.cuh" not in names
     assert kernels.source_hash() == kernels.source_hash()
     for p in kernels.sources():
@@ -179,11 +180,12 @@ def test_every_c_entry_point_has_a_signature():
     for p in kernels.sources():
         found |= set(re.findall(r'extern "C" int (\w+)\(', p.read_text()))
     assert found == set(kernels.SIGNATURES)
-    assert {"hgstem_train_nhwc", "hgstem_bwd_nhwc", "ms_deform_attn_bwd",
-            "auction_assign", "stamp_scatter",
+    assert {"hgstem_train_tf32_nhwc", "hgstem_bwd_tf32_nhwc",
+            "ms_deform_attn_bwd", "auction_assign", "stamp_scatter",
             "ms_deform_attn_sorted_fwd"} <= found
-    assert not {"ms_deform_attn_sorted_taps",
-                "ms_deform_attn_sorted_dvalues"} & found
+    assert not {"ms_deform_attn_sorted_taps", "ms_deform_attn_sorted_dvalues",
+                "hgstem_nhwc", "hgstem_train_nhwc",
+                "hgstem_bwd_nhwc"} & found
 
 
 @pytest.mark.parametrize("train", [False, True])

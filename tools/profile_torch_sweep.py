@@ -46,9 +46,11 @@ LAUNCH_APIS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 def kernel_group(name: str, rtdetr: bool = False) -> str:
     """The group of a device kernel by its name. `rtdetr`: the stride-2
-    weight gradients, the BN-chain kernels and the front_tc.cuh kernels
-    belong to K4 (the HGNetv2 stem, whose bf16 stride-2 convs run them), not
-    to K2 (the YOLO front's; no path runs both)."""
+    weight gradients, the BN-chain kernels and the front_tc.cuh /
+    front_tf32.cuh kernels belong to K4 (the HGNetv2 stem, whose stride-2
+    convs run them), not to K2 (the YOLO front's; no path runs both). The
+    CUDA-core kernels that the f32 routes ran before their split-TF32
+    kernels are kept by name, for measuring an older checkout (--root)."""
     if "conv3x3_tc_kernel" in name or "conv3x3_tf32_kernel" in name:
         return "K3-f conv3x3"
     if re.search(r"front_p[12]_kernel", name):
@@ -56,14 +58,14 @@ def kernel_group(name: str, rtdetr: bool = False) -> str:
     if re.search(r"e2_prep_kernel|front_d(a1|k1|k2)_tc_kernel", name):
         return "K4-b hgstem_bwd" if rtdetr else "K2-b yolo_front_bwd"
     if re.search(r"front_p[12]_tf32_kernel", name):
-        return "K2-f yolo_front"
+        return "K4-f hgstem" if rtdetr else "K2-f yolo_front"
     if re.search(r"e2_prep_f32_kernel|front_d(a1|k1|k2)_tf32_kernel", name):
-        return "K2-b yolo_front_bwd"
-    if re.search(r"stem2x2_tc_kernel|pool2x2_vec_kernel|"
-                 r"assemble_train_vec_kernel", name):
+        return "K4-b hgstem_bwd" if rtdetr else "K2-b yolo_front_bwd"
+    if re.search(r"stem2x2_t(c|f32)_kernel|pool2x2_(vec|f32)_kernel|"
+                 r"assemble_train_(vec|f32)_kernel", name):
         return "K4-f hgstem"
-    if re.search(r"stem2x2_(dx|wgrad)_tc_kernel|assemble_bwd_vec_kernel",
-                 name):
+    if re.search(r"stem2x2_(dx|wgrad)_t(c|f32)_kernel|"
+                 r"assemble_bwd_(vec|f32)_kernel", name):
         return "K4-b hgstem_bwd"
     if "wgrad_tc_kernel" in name or "wgrad_tf32_kernel" in name:
         return "K3-b conv3x3_wgrad"

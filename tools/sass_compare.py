@@ -11,8 +11,10 @@ included (a run of blanks counts as one). A kernel compiled into several
 objects is compared as the set of its distinct bodies; the hash of a
 file-local (anonymous) namespace, which depends on the file's path, is
 taken out of the names. Prints one line a kernel that differs (how many
-lines differ, and the first) or is in one library only, then the counts:
-kernels in both, identical, differing.
+lines differ, and the first) or is in one library only, and for a kernel
+in the old library only the new-only kernel whose bodies are identical (a
+template that gained parameters keeps its code under a new name), then
+the counts: kernels in both, identical, differing, renamed.
 --only keeps the kernels whose mangled name holds one of the NAMEs.
 Needs nvcc (the card's machine); exits 1 if a build or cuobjdump fails.
 """
@@ -96,9 +98,19 @@ def main() -> int:
             differ += 1
             print(f"[sass] differs: {fn}: "
                   f"{first_difference(old[fn], new[fn])}")
+    # a kernel whose name changed (a template that gained parameters) is
+    # matched to a new-only kernel with the same bodies
+    new_only = {fn: new[fn] for fn in set(new) - set(old)}
+    renamed = 0
+    for fn in sorted(set(old) - set(new)):
+        twins = [n for n, body in new_only.items() if body == old[fn]]
+        if twins:
+            renamed += 1
+            print(f"[sass] renamed, identical: {fn} -> {twins[0]}")
     print(f"[sass] {len(set(old) & set(new))} kernels in both: {same} "
           f"identical, {differ} differ; {len(set(old) - set(new))} only in "
-          f"old, {len(set(new) - set(old))} only in new")
+          f"old ({renamed} of them identical to a kernel only in new), "
+          f"{len(set(new) - set(old))} only in new")
     return 0
 
 

@@ -148,3 +148,16 @@ mutate k2b_f32_no_lo robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
   "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, l0, l1);" \
   "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, 0u, 0u);" \
   phase_train_kernels
+# K4's f32 forward in one pass of TF32 (stem1, the 2x2 convs and stem3
+# without the two correction products): phase 9's f32 K4-f y3 at 1e-4 x
+# max|ref| (one pass sits near 6e-4 in tests/test_torch_stem_tf32.py's
+# emulation)
+mutate k4_f32_one_pass robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
+  "constexpr int FWD_PASSES = 3;" "constexpr int FWD_PASSES = 1;" \
+  phase_rtdetr_kernels
+# K4-b's filter gradients (dk3, dk2b, dk2a, dk1) in one pass of TF32 (their
+# staged operands split with lo = 0): phase 12's f32 K4-b bar
+mutate k4b_f32_no_lo robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
+  "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, l0, l1);" \
+  "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, 0u, 0u);" \
+  phase_rtdetr_train_kernels
