@@ -1,0 +1,7 @@
+"""The hand kernels' share of their roofline in the profiled sweep call (%)."""
+
+from benchmark.harness import readers
+
+
+def read(record):
+    return readers.kernel_roofline(record, "sweep")
