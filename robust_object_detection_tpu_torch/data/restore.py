@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.profiling import StageTimer
+from ..core.profiling import span
 from ..models import unet as unet_lib
 from . import imageio
 from .testsets import VARIANTS, list_images
@@ -33,20 +33,20 @@ RESTORE_VARIANTS = ("Test_Noise", "Test_Blur", "Test_LowRes")
 
 def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
                    out_dir: Path, batch_size: int = 8,
-                   num_threads: int = 8,
-                   timer: Optional[StageTimer] = None) -> int:
+                   num_threads: int = 8) -> int:
     """Restore `paths` into `out_dir` (same names) with `model` on its own
     device; returns the count. Every batch is full (a trailing chunk is
-    padded with zeros and its rows dropped after the fetch)."""
+    padded with zeros and its rows dropped after the fetch). Spans
+    (core/profiling.span): ``restore/index_sizes``, ``restore/decode_pad``,
+    ``restore/dispatch``, ``restore/fetch``, ``restore/encode``."""
     from concurrent.futures import ThreadPoolExecutor
 
-    timer = timer if timer is not None else StageTimer()
     device = next(model.parameters()).device
     out_dir.mkdir(parents=True, exist_ok=True)
     groups: Dict[Tuple[int, int], List[Path]] = defaultdict(list)
     shapes: Dict[Path, Tuple[int, int]] = {}
     with ThreadPoolExecutor(num_threads) as pool:
-        with timer.stage("restore/index_sizes"):
+        with span("restore/index_sizes"):
             sizes = list(pool.map(imageio.image_size, paths))
     for p, (w, h) in zip(paths, sizes):
         groups[(h + (-h) % 16, w + (-w) % 16)].append(p)
@@ -58,9 +58,9 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
         def drain(inflight) -> None:
             nonlocal n
             chunk, out_dev = inflight
-            with timer.stage("restore/fetch"):
+            with span("restore/fetch"):
                 out = out_dev[:len(chunk)].cpu().numpy()
-            with timer.stage("restore/encode"):
+            with span("restore/encode"):
                 writes = [pool.submit(imageio.write_rgb, out_dir / p.name,
                                       out[i, :shapes[p][0], :shapes[p][1]])
                           for i, p in enumerate(chunk)]
@@ -72,14 +72,14 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
         for (ph, pw), group in sorted(groups.items()):
             for start in range(0, len(group), batch_size):
                 chunk = group[start:start + batch_size]
-                with timer.stage("restore/decode_pad"):
+                with span("restore/decode_pad"):
                     batch = np.zeros((batch_size, ph, pw, 3), np.uint8)
                     for i, im in enumerate(pool.map(imageio.read_rgb, chunk)):
                         h, w = im.shape[:2]
                         batch[i] = np.pad(
                             im, ((0, ph - h), (0, pw - w), (0, 0)),
                             mode="reflect")
-                with timer.stage("restore/dispatch"):
+                with span("restore/dispatch"):
                     out_dev = unet_lib.apply_u8(
                         model, torch.from_numpy(batch).to(device))
                 if inflight is not None:
@@ -92,7 +92,6 @@ def restore_images(model: unet_lib.RestorationUNet, paths: List[Path],
 
 def restore_testsets(testset_root: str | Path, unet_dir: str | Path,
                      channels=(32, 64, 128, 256), batch_size: int = 8,
-                     timer: Optional[StageTimer] = None,
                      device: Optional[torch.device] = None) -> dict:
     """Build ``{coco6,yolo6}_restored`` next to the frozen testsets with
     the best U-Net under `unet_dir` on `device` (None: the CUDA card);
@@ -131,7 +130,7 @@ def restore_testsets(testset_root: str | Path, unet_dir: str | Path,
             paths = list_images(img_src)
             if variant in RESTORE_VARIANTS:
                 counts[f"{fmt}/{variant}"] = restore_images(
-                    model, paths, img_dst, batch_size, timer=timer)
+                    model, paths, img_dst, batch_size)
             else:
                 img_dst.mkdir(parents=True, exist_ok=True)
                 for p in paths:

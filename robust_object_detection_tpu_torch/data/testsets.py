@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.config import CorruptionConfig
-from ..core.profiling import StageTimer
+from ..core.profiling import span
 from ..models.layers import resolve_device
 from ..ops import corrupt as corrupt_ops
 from ..ops import image as image_ops
@@ -65,30 +65,28 @@ def lowres_u8(img: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def make_corruptors(cfg: CorruptionConfig, rng: np.random.RandomState,
-                    timer: Optional[StageTimer] = None,
                     device: Optional[torch.device] = None,
                     ) -> Dict[str, Callable[[np.ndarray], np.ndarray]]:
     """Variant name -> (uint8 HWC -> uint8 HWC) corruption fn. Blur and
-    lowres run on `device` (None: the CUDA card); the timer's stages split
-    their upload + launch ("build/dispatch") from the fetch
-    ("build/fetch")."""
-    timer = timer if timer is not None else StageTimer()
+    lowres run on `device` (None: the CUDA card); their spans
+    (core/profiling.span) split the upload + launch ("build/dispatch")
+    from the fetch ("build/fetch"); the host noise is "build/host_noise"."""
     device = resolve_device(device)
 
     def clean(img: np.ndarray) -> np.ndarray:
         return img
 
     def noise(img: np.ndarray) -> np.ndarray:
-        with timer.stage("build/host_noise"):
+        with span("build/host_noise"):
             n = rng.normal(0.0, cfg.noise_sigma, img.shape).astype(np.float32)
             x = img.astype(np.float32) + n[..., ::-1]
             return np.clip(x, 0, 255).astype(np.uint8)
 
     def on_device(fn):
         def run(img: np.ndarray) -> np.ndarray:
-            with timer.stage("build/dispatch"):
+            with span("build/dispatch"):
                 r = fn(torch.from_numpy(img.copy()).to(device))
-            with timer.stage("build/fetch"):
+            with span("build/fetch"):
                 return r.cpu().numpy()
         return run
 
@@ -171,14 +169,13 @@ def build_coco_testsets(coco_root: str | Path, out_root: str | Path,
                         cfg: CorruptionConfig = CorruptionConfig(),
                         seed: int = SEED,
                         rng: Optional[np.random.RandomState] = None,
-                        timer: Optional[StageTimer] = None,
                         device: Optional[torch.device] = None) -> None:
     """COCO-layout frozen testsets."""
     coco_root, out_root = Path(coco_root), Path(out_root)
     src_imgs = list_images(coco_root / "images" / "val")
     ann = coco_root / "annotations" / "instances_val.json"
     rng = np.random.RandomState(seed) if rng is None else rng
-    fns = make_corruptors(cfg, rng, timer=timer, device=device)
+    fns = make_corruptors(cfg, rng, device=device)
     for variant in VARIANTS:
         vdir = out_root / "coco6" / variant
         img_out = vdir / "images" / "val"

@@ -17,7 +17,6 @@ resolution through :class:`BucketedPredict`.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import time
 from pathlib import Path
@@ -27,17 +26,13 @@ import numpy as np
 import torch
 
 from ..core import artifacts
+from ..core.profiling import span
 from ..data import pipeline as pipe
 from ..data.visdrone import CLASS_NAMES
 from ..parallel import mesh as mesh_lib
 from . import coco_map
 
 TESTSET_VARIANTS = ("Test_Clean", "Test_Noise", "Test_Blur", "Test_LowRes")
-
-
-def _stage(timer, name: str, fence=None):
-    return (timer.stage(name, fence) if timer is not None
-            else contextlib.nullcontext())
 
 
 def _device_of(state, device) -> torch.device:
@@ -51,7 +46,7 @@ def _device_of(state, device) -> torch.device:
 def evaluate_on_samples(predict_fn: Callable, state, samples,
                         img_size: int, batch_size: int,
                         device: Optional[torch.device] = None,
-                        max_boxes: int = 600, timer=None,
+                        max_boxes: int = 600,
                         load_image: Callable = pipe.load_image_rgb,
                         mesh: Optional[mesh_lib.MeshContext] = None) -> Dict:
     """Run a predict fn over samples; score the detections.
@@ -62,29 +57,28 @@ def evaluate_on_samples(predict_fn: Callable, state, samples,
     rank scores the same set, so the summary is the unsharded one.
 
     state: the model module (it is what the predict fn runs); device: where
-    the images go (default: the model's). With `timer` (a
-    core.profiling.StageTimer) each stage synchronizes the card before its
-    clock is read, so wall-clock goes to decode / H2D / device compute /
-    D2H / scoring; that serialises the pipeline, so pass a timer only on
-    decomposition runs."""
+    the images go (default: the model's). Spans (core/profiling.span):
+    ``eval/decode_wait``, ``eval/h2d``, ``eval/device_compute`` (the
+    launch; the card's time is in a device trace), ``eval/postprocess``
+    with ``eval/d2h`` (the host waiting for each batch's detections), and
+    ``eval/score``."""
     if isinstance(predict_fn, BucketedPredict):
         return evaluate_bucketed(
             predict_fn.factory, state, samples, batch_size, device,
             max_boxes, predict_fn.min_side, predict_fn.max_side,
-            predict_fn.bucket_mult, timer, predict_fn.pad_value, load_image,
-            mesh)
+            predict_fn.bucket_mult, predict_fn.pad_value, load_image, mesh)
     t0 = time.time()
     detections, ground_truth, n_images = _collect_detections(
         predict_fn, state, samples, img_size, batch_size, device, max_boxes,
-        timer, load_image=load_image, mesh=mesh)
+        load_image=load_image, mesh=mesh)
     elapsed = time.time() - t0
-    return _score(detections, ground_truth, n_images, elapsed, timer)
+    return _score(detections, ground_truth, n_images, elapsed)
 
 
 def _collect_detections(predict_fn: Callable, state, samples,
                         img_size, batch_size: int,
                         device: Optional[torch.device], max_boxes: int,
-                        timer=None, scale_fn=None, pad_value=114,
+                        scale_fn=None, pad_value=114,
                         load_image: Callable = pipe.load_image_rgb,
                         mesh: Optional[mesh_lib.MeshContext] = None):
     """The predict half of evaluate_on_samples: (detections, gt, n_images).
@@ -102,28 +96,23 @@ def _collect_detections(predict_fn: Callable, state, samples,
         samples, batch_size, img_size, max_boxes=max_boxes,
         scale_fn=scale_fn, pad_value=pad_value, load_image=load_image)))
     while True:
-        with _stage(timer, "eval/decode_wait"):
+        with span("eval/decode_wait"):
             batch = next(it, None)
         if batch is None:
             break
-        images = []
-        with _stage(timer, "eval/h2d", images):
+        with span("eval/h2d"):
             # a data rank predicts its rows; the outputs are gathered
-            images.append(torch.from_numpy(np.ascontiguousarray(
-                mesh_lib.shard_batch(mesh, batch.images))).to(device))
-        outputs = []
-        with _stage(timer, "eval/device_compute", outputs):
-            outputs.append(mesh_lib.gather_rows(
-                mesh, predict_fn(state, images[0])))
-        if timer is not None:
-            with timer.stage("eval/d2h"):
-                outputs[0] = tuple(t.cpu() for t in outputs[0])
+            images = torch.from_numpy(np.ascontiguousarray(
+                mesh_lib.shard_batch(mesh, batch.images))).to(device)
+        with span("eval/device_compute"):
+            outputs = mesh_lib.gather_rows(mesh, predict_fn(state, images))
         meta = (batch.image_ids, batch.scales, batch.num_valid)
-        pending.append((meta, outputs[0]))
-    with _stage(timer, "eval/postprocess"):
+        pending.append((meta, outputs))
+    with span("eval/postprocess"):
         for (image_ids, scales, num_valid), outputs in pending:
-            boxes, scores, classes, valid = (t.cpu().numpy()
-                                             for t in outputs)
+            with span("eval/d2h"):
+                boxes, scores, classes, valid = (t.cpu().numpy()
+                                                 for t in outputs)
             for i in range(num_valid):
                 img_id = int(image_ids[i])
                 v = valid[i]
@@ -145,9 +134,8 @@ def _collect_detections(predict_fn: Callable, state, samples,
     return detections, ground_truth, n_images
 
 
-def _score(detections, ground_truth, n_images: int, elapsed: float,
-           timer=None) -> Dict:
-    with _stage(timer, "eval/score"):
+def _score(detections, ground_truth, n_images: int, elapsed: float) -> Dict:
+    with span("eval/score"):
         result = coco_map.evaluate(detections, ground_truth,
                                    categories=list(range(1, 7)))
     summary = coco_map.summarize(result)
@@ -193,7 +181,7 @@ def evaluate_bucketed(predict_factory: Callable, state, samples,
                       device: Optional[torch.device] = None,
                       max_boxes: int = 600, min_side: float = 800.0,
                       max_side: float = 1333.0, bucket_mult: int = 64,
-                      timer=None, pad_value=(124, 116, 104),
+                      pad_value=(124, 116, 104),
                       load_image: Callable = pipe.load_image_rgb,
                       mesh: Optional[mesh_lib.MeshContext] = None) -> Dict:
     """Aspect-bucket eval at torchvision-native resolution (FRCNN parity).
@@ -220,13 +208,13 @@ def evaluate_bucketed(predict_factory: Callable, state, samples,
         group = groups[bucket]
         d, g, m = _collect_detections(
             predict_factory(bucket), state, group, bucket, batch_size,
-            device, max_boxes, timer, scale_fn=lambda s: scales[s.image_id],
+            device, max_boxes, scale_fn=lambda s: scales[s.image_id],
             pad_value=pad_value, load_image=load_image, mesh=mesh)
         detections.update(d)
         ground_truth.update(g)
         n_images += m
     elapsed = time.time() - t0
-    summary = _score(detections, ground_truth, n_images, elapsed, timer)
+    summary = _score(detections, ground_truth, n_images, elapsed)
     summary["buckets"] = {f"{bh}x{bw}": len(groups[(bh, bw)])
                           for bh, bw in sorted(groups)}
     return summary
@@ -236,8 +224,7 @@ def evaluate_testsets(predict_fn: Callable, state, testset_root: str | Path,
                       img_size: int, batch_size: int,
                       device: Optional[torch.device] = None,
                       variants: Sequence[str] = TESTSET_VARIANTS,
-                      layout: str = "coco6",
-                      timer=None) -> Dict[str, Dict]:
+                      layout: str = "coco6") -> Dict[str, Dict]:
     """One model over the 4 frozen testsets -> {variant: summary}."""
     root = Path(testset_root) / layout
     out = {}
@@ -247,8 +234,7 @@ def evaluate_testsets(predict_fn: Callable, state, testset_root: str | Path,
                    if layout.startswith("coco6")
                    else pipe.index_yolo(vdir, "val"))
         out[variant] = evaluate_on_samples(
-            predict_fn, state, samples, img_size, batch_size, device,
-            timer=timer)
+            predict_fn, state, samples, img_size, batch_size, device)
     return out
 
 

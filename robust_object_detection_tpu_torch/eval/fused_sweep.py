@@ -25,6 +25,7 @@ builder draws them, so the port and the reference see identical inputs.
 
 from __future__ import annotations
 
+import itertools
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.config import CorruptionConfig
+from ..core.profiling import span
 from ..data.pipeline import load_image_rgb
 from ..data.visdrone import CLASS_NAMES
 from ..models import unet as unet_lib
@@ -72,29 +74,36 @@ def make_fused_step(predict_fn: Callable, unet_model,
         unet_model.eval()
 
     def restore(img: torch.Tensor) -> torch.Tensor:
-        x = image_ops.pad_to_multiple(img.to(torch.uint8), 16)
-        return unet_lib.apply_u8(unet_model, x)[:, :h, :w].float()
+        with span("sweep.restore"):
+            x = image_ops.pad_to_multiple(img.to(torch.uint8), 16)
+            return unet_lib.apply_u8(unet_model, x)[:, :h, :w].float()
 
     def step(det_state, unet_vars, clean_u8: torch.Tensor, key):
-        x = clean_u8.float()
-        if host_noise:
-            noised = image_ops.quantize_trunc(x + key)
-        else:
-            noised = corrupt_ops.apply_noise(x, key, cfg.noise_sigma)
-        blurred = corrupt_ops.apply_motion_blur(x, cfg.blur_kernel,
-                                                cfg.blur_angle_deg)
-        low = corrupt_ops.apply_lowres(x, cfg.downscale_factor)
+        with span("sweep.corrupt"):
+            x = clean_u8.float()
+            if host_noise:
+                noised = image_ops.quantize_trunc(x + key)
+            else:
+                noised = corrupt_ops.apply_noise(x, key, cfg.noise_sigma)
+            blurred = corrupt_ops.apply_motion_blur(x, cfg.blur_kernel,
+                                                    cfg.blur_angle_deg)
+            low = corrupt_ops.apply_lowres(x, cfg.downscale_factor)
         variants = (x, noised, blurred, low)
 
-        def detect(img):
-            canvas, _, _ = image_ops.letterbox(img, img_size)
-            return predict_fn(det_state, canvas)
+        def detect(p: int, img, restored: bool = False):
+            with span("sweep.pass", pass_=p):
+                if restored:
+                    img = restore(img)
+                with span("sweep.letterbox"):
+                    canvas, _, _ = image_ops.letterbox(img, img_size)
+                return predict_fn(det_state, canvas)
         # one pass at a time: peak memory is one detector forward (plus
         # one U-Net forward on the restored stream)
-        outs = [detect(img) for img in variants]
+        outs = [detect(p, img) for p, img in enumerate(variants)]
         if unet_model is not None:
-            outs.append(detect(x))
-            outs += [detect(restore(img)) for img in variants[1:]]
+            outs.append(detect(4, x))
+            outs += [detect(p, img, restored=True)
+                     for p, img in enumerate(variants[1:], start=5)]
         return tuple(torch.stack(parts) for parts in zip(*outs))
 
     return step
@@ -164,7 +173,27 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
     Returns {"corrupted": {variant: summary}, ["restored": {variant:
     summary},] "images_per_sec", "images_evaluated", "wall_seconds"};
     summaries as detector_eval's. images_evaluated counts image-passes.
+
+    Spans (core/profiling.span): ``sweep.call`` (``call=``, a count of the
+    process's calls) around the call; in it, batch by batch
+    (``batch=``), ``sweep.load`` (host batch assembly), ``sweep.batch``
+    (``sweep.upload``, ``sweep.corrupt``, then each ``sweep.pass``
+    (``pass_=``) with ``sweep.restore``, ``sweep.letterbox`` and the
+    predict step's spans), then ``sweep.fetch`` (the host waiting for a
+    batch's outputs) and ``sweep.collect`` (their COCO records), and last
+    ``sweep.score``.
     """
+    with span("sweep.call", call=next(_CALLS)):
+        return _sweep(predict_fn, det_state, unet_model, unet_vars, samples,
+                      img_size, batch_size, cfg, seed, num_threads,
+                      mt19937_rng, load_image)
+
+
+_CALLS = itertools.count()
+
+
+def _sweep(predict_fn, det_state, unet_model, unet_vars, samples, img_size,
+           batch_size, cfg, seed, num_threads, mt19937_rng, load_image):
     from concurrent.futures import ThreadPoolExecutor
 
     device = next(det_state.parameters()).device
@@ -191,48 +220,59 @@ def run_fused_sweep(predict_fn: Callable, det_state, unet_model, unet_vars,
                                    cfg, host_noise=noise_states is not None)
             scale = min(img_size / h, img_size / w)
             for start in range(0, len(group), batch_size):
+                j = len(pending)
                 chunk = group[start:start + batch_size]
-                batch = np.zeros((batch_size, h, w, 3), np.uint8)
-                for i, im in enumerate(pool.map(load_image, chunk)):
-                    batch[i] = im
-                if noise_states is None:
-                    key = gen
-                else:
-                    nb = np.zeros((batch_size, h, w, 3), np.float32)
-                    planes = pool.map(
-                        lambda s: _draw_noise(noise_states[int(s.image_id)],
-                                              cfg.noise_sigma, h, w), chunk)
-                    for i, p in enumerate(planes):
-                        nb[i] = p
-                    key = torch.from_numpy(nb).to(device)
-                outs = step(det_state, unet_vars,
-                            torch.from_numpy(batch).to(device), key)
+                with span("sweep.load", batch=j):
+                    batch = np.zeros((batch_size, h, w, 3), np.uint8)
+                    for i, im in enumerate(pool.map(load_image, chunk)):
+                        batch[i] = im
+                    if noise_states is not None:
+                        nb = np.zeros((batch_size, h, w, 3), np.float32)
+                        planes = pool.map(
+                            lambda s: _draw_noise(
+                                noise_states[int(s.image_id)],
+                                cfg.noise_sigma, h, w), chunk)
+                        for i, p in enumerate(planes):
+                            nb[i] = p
+                with span("sweep.batch", batch=j):
+                    with span("sweep.upload"):
+                        clean = torch.from_numpy(batch).to(device)
+                        key = (gen if noise_states is None
+                               else torch.from_numpy(nb).to(device))
+                    outs = step(det_state, unet_vars, clean, key)
                 pending.append((chunk, scale, outs))
-        for chunk, scale, outs in pending:
-            boxes, scores, classes, valid = (t.cpu().numpy() for t in outs)
-            for i, sample in enumerate(chunk):
-                img_id = int(sample.image_id)
-                gb = sample.boxes_xyxy
-                gt_xywh = (np.concatenate(
-                    [gb[:, :2], gb[:, 2:] - gb[:, :2]], 1)
-                    if len(gb) else np.zeros((0, 4), np.float32))
-                gts[img_id] = coco_map.GroundTruth(
-                    boxes=gt_xywh, classes=sample.classes.astype(np.int64) + 1)
-                for p in range(n_passes):
-                    v = valid[p, i]
-                    b = boxes[p, i][v] / scale
-                    b[:, 0::2] = b[:, 0::2].clip(0, sample.width)
-                    b[:, 1::2] = b[:, 1::2].clip(0, sample.height)
-                    xywh = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]], 1)
-                    dets[strategies[p // 4]][TESTSET_VARIANTS[p % 4]][
-                        img_id] = coco_map.Detections(
-                        boxes=xywh, scores=scores[p, i][v],
-                        classes=classes[p, i][v].astype(np.int64) + 1)
+        for j, (chunk, scale, outs) in enumerate(pending):
+            with span("sweep.fetch", batch=j):
+                boxes, scores, classes, valid = (t.cpu().numpy()
+                                                 for t in outs)
+            with span("sweep.collect", batch=j):
+                for i, sample in enumerate(chunk):
+                    img_id = int(sample.image_id)
+                    gb = sample.boxes_xyxy
+                    gt_xywh = (np.concatenate(
+                        [gb[:, :2], gb[:, 2:] - gb[:, :2]], 1)
+                        if len(gb) else np.zeros((0, 4), np.float32))
+                    gts[img_id] = coco_map.GroundTruth(
+                        boxes=gt_xywh,
+                        classes=sample.classes.astype(np.int64) + 1)
+                    for p in range(n_passes):
+                        v = valid[p, i]
+                        b = boxes[p, i][v] / scale
+                        b[:, 0::2] = b[:, 0::2].clip(0, sample.width)
+                        b[:, 1::2] = b[:, 1::2].clip(0, sample.height)
+                        xywh = np.concatenate([b[:, :2], b[:, 2:] - b[:, :2]],
+                                              1)
+                        dets[strategies[p // 4]][TESTSET_VARIANTS[p % 4]][
+                            img_id] = coco_map.Detections(
+                            boxes=xywh, scores=scores[p, i][v],
+                            classes=classes[p, i][v].astype(np.int64) + 1)
             n_images += len(chunk)
 
     predict_elapsed = time.time() - t0
-    scored = {st: {v: _score(dets[st][v], gts, n_images, predict_elapsed)
-                   for v in TESTSET_VARIANTS} for st in strategies}
+    with span("sweep.score"):
+        scored = {st: {v: _score(dets[st][v], gts, n_images,
+                                 predict_elapsed)
+                       for v in TESTSET_VARIANTS} for st in strategies}
     elapsed = time.time() - t0
     out: Dict = {"images_evaluated": n_images * n_passes,
                  "wall_seconds": round(elapsed, 2),

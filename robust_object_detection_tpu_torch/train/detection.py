@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.profiling import span
 from ..models import yolov8 as yolo_lib
 from ..ops import boxes as box_ops
 from ..parallel.mesh import global_sum
@@ -132,7 +133,7 @@ def yolo_loss(outs, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
     """Full YOLOv8 loss from the raw head outputs (the port's NCHW
     per-level (box_logits, cls_logits)); gt_boxes (B, M, 4) xyxy pixels,
     gt_classes (B, M) with -1 padding. Returns (total, {"box", "cls",
-    "dfl", "num_fg"})."""
+    "dfl", "num_fg"}). The assignment runs in the span ``train.assign``."""
     box_logits, cls_logits = yolo_lib.flatten_outputs(outs)
     dev = box_logits.device
     anchors_np, strides_np = yolo_lib.anchor_points(img_size)
@@ -146,12 +147,12 @@ def yolo_loss(outs, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
     scores = torch.sigmoid(cls_logits)
 
     # one image at a time: the same math, 1/B of the (B, M, N) memory
-    with torch.no_grad():
+    with span("train.assign"), torch.no_grad():
         parts = [task_aligned_assign(scores[i:i + 1], pred_boxes[i:i + 1],
                                      anchors_px, gt_boxes[i:i + 1],
                                      gt_classes[i:i + 1], topk=topk)
                  for i in range(scores.shape[0])]
-    assign = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        assign = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
     ts = assign["target_scores"]
     fg = assign["fg_mask"]
     # the global batch's sum under a data-parallel step, as the

@@ -35,6 +35,7 @@ from ..core import artifacts
 from ..core import checkpoint as ckpt_lib
 from ..core.checkpoint import CheckpointManager
 from ..core.config import CorruptionConfig, ExperimentConfig
+from ..core.profiling import span
 from ..data import pipeline as pipe
 from ..models import yolov8 as yolo_lib
 from ..models.layers import resolve_device
@@ -129,50 +130,66 @@ def make_train_step(img_size: int, corruption: CorruptionConfig,
     statistics and TAL's normaliser span the global batch, gradients are
     summed over the data group and the additive metrics too, so every
     rank holds the one-process step's state and metrics.
+
+    Spans (core/profiling.span): ``train.step`` (``step=``) around the call,
+    and inside it ``train.augment``, ``train.forward``, ``train.loss``,
+    ``train.backward``, ``train.optimizer``, ``train.ema``.
     """
+
+    def body(state, images_u8, gt_boxes, gt_classes, generator):
+        model = state.model
+        model.train()
+        n, rows = mesh_lib.draw_rows(images_u8.shape[0], mesh)
+        with span("train.augment"):
+            # the augmentation chain runs in bf16, as the reference's does
+            x = images_u8.to(torch.bfloat16)
+            if base_augment:
+                x = aug.random_hsv(x, generator, total=n, rows=rows)
+                x, gt_boxes = aug.random_flip_lr(x, gt_boxes, gt_classes,
+                                                 generator, total=n,
+                                                 rows=rows)
+            x = x.float()
+            if augment:
+                choice, seeds = draw_choice(n, generator, corruption)
+                x, _ = random_corruption_fast(x.contiguous(), None,
+                                              corruption, choice=choice[rows],
+                                              seeds=seeds[rows])
+            x = x / 255.0
+
+        state.optimizer.zero_grad(set_to_none=True)
+        with mesh_lib.data_parallel(mesh):
+            with span("train.forward"):
+                outs = model(x)
+            with span("train.loss"):
+                loss, metrics = det_loss.yolo_loss(outs, gt_boxes,
+                                                   gt_classes, img_size)
+            with span("train.backward"):
+                loss.backward()
+        with span("train.optimizer"):
+            mesh_lib.all_reduce_grads(model.parameters(), mesh)
+            metrics = mesh_lib.sum_over_data(dict(metrics, loss=loss), mesh,
+                                             ADDITIVE)
+            loss = metrics.pop("loss")
+            grad_norm = torch.nn.utils.get_total_norm(
+                [p.grad for p in model.parameters() if p.grad is not None])
+            state.optimizer.step()
+            state.scheduler.step()
+
+        with span("train.ema"):
+            d = ema_decay * (1.0 - math.exp(-(state.step + 1) / 2000.0))
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name in state.ema:
+                        state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
+        state.step += 1
+        return dict({k: v.detach() for k, v in metrics.items()},
+                    loss=loss.detach(), grad_norm=grad_norm)
 
     def step(state: TrainState, images_u8: torch.Tensor,
              gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        model = state.model
-        model.train()
-        n, rows = mesh_lib.draw_rows(images_u8.shape[0], mesh)
-        # the augmentation chain runs in bf16, as the reference's does
-        x = images_u8.to(torch.bfloat16)
-        if base_augment:
-            x = aug.random_hsv(x, generator, total=n, rows=rows)
-            x, gt_boxes = aug.random_flip_lr(x, gt_boxes, gt_classes,
-                                             generator, total=n, rows=rows)
-        x = x.float()
-        if augment:
-            choice, seeds = draw_choice(n, generator, corruption)
-            x, _ = random_corruption_fast(x.contiguous(), None, corruption,
-                                          choice=choice[rows],
-                                          seeds=seeds[rows])
-        x = x / 255.0
-
-        state.optimizer.zero_grad(set_to_none=True)
-        with mesh_lib.data_parallel(mesh):
-            loss, metrics = det_loss.yolo_loss(model(x), gt_boxes,
-                                               gt_classes, img_size)
-            loss.backward()
-        mesh_lib.all_reduce_grads(model.parameters(), mesh)
-        metrics = mesh_lib.sum_over_data(dict(metrics, loss=loss), mesh,
-                                         ADDITIVE)
-        loss = metrics.pop("loss")
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in model.parameters() if p.grad is not None])
-        state.optimizer.step()
-        state.scheduler.step()
-
-        d = ema_decay * (1.0 - math.exp(-(state.step + 1) / 2000.0))
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name in state.ema:
-                    state.ema[name].mul_(d).add_(p, alpha=1.0 - d)
-        state.step += 1
-        return dict({k: v.detach() for k, v in metrics.items()},
-                    loss=loss.detach(), grad_norm=grad_norm)
+        with span("train.step", step=state.step):
+            return body(state, images_u8, gt_boxes, gt_classes, generator)
 
     return step
 
@@ -211,20 +228,23 @@ def make_predict_step(img_size: int, conf: float = 0.001, iou: float = 0.7,
 
     @torch.inference_mode()
     def step(model, images: torch.Tensor):
-        x = images.float() / 255.0
-        outs = ema_forward(model, x) if use_ema else model(x)
-        boxes, scores = yolo_lib.decode(outs, img_size)
-        if multi_label:
-            return nms_ops.multilabel_nms(
-                boxes, scores,
-                num_candidates=min(num_candidates,
-                                   scores.shape[1] * scores.shape[2]),
+        with span("predict.forward"):
+            x = images.float() / 255.0
+            outs = ema_forward(model, x) if use_ema else model(x)
+        with span("predict.decode"):
+            boxes, scores = yolo_lib.decode(outs, img_size)
+        with span("predict.nms"):
+            if multi_label:
+                return nms_ops.multilabel_nms(
+                    boxes, scores,
+                    num_candidates=min(num_candidates,
+                                       scores.shape[1] * scores.shape[2]),
+                    max_outputs=max_det, iou_thresh=iou, score_thresh=conf)
+            best_score, best_cls = scores.max(-1)
+            return nms_ops.batched_nms(
+                boxes, best_score, best_cls,
+                num_candidates=min(num_candidates, boxes.shape[1]),
                 max_outputs=max_det, iou_thresh=iou, score_thresh=conf)
-        best_score, best_cls = scores.max(-1)
-        return nms_ops.batched_nms(
-            boxes, best_score, best_cls,
-            num_candidates=min(num_candidates, boxes.shape[1]),
-            max_outputs=max_det, iou_thresh=iou, score_thresh=conf)
 
     return step
 

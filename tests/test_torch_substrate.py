@@ -2,7 +2,7 @@
 core/checkpoint.py, core/profiling.py) against the reference's: config
 JSON written by either package loads in the other; override; the
 artifact formats; checkpoints (rolling, best, an interrupted write);
-the stage timer."""
+the trace with the program's spans."""
 
 import dataclasses
 import json
@@ -161,20 +161,25 @@ def test_interrupted_write_keeps_the_previous_checkpoint(tmp_path,
 
 
 def test_stage_timer_and_trace(tmp_path):
-    timer = TP.StageTimer()
-    for _ in range(3):
-        with timer.stage("a", fence={"x": [torch.ones(2)]}):
-            pass
-    with timer.stage("b"):
-        pass
-    s = timer.summary()
-    assert s["a"]["count"] == 3 and s["b"]["count"] == 1
-    assert s["a"]["total_s"] >= 0 and "a" in timer.report()
+    """The stage timer's successor: trace() records the program's spans
+    while it profiles and writes them into its Chrome trace beside the
+    profiler's events, on the profiler's timeline."""
     with TP.trace(tmp_path / "tr"):
-        with TP.annotate("span"):
-            torch.ones(4).sum()
+        with TP.span("stage.outer", step=2):
+            with TP.span("stage.inner"):
+                torch.ones(4).sum()
     trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
-    assert any(e.get("name") == "span" for e in trace["traceEvents"])
+    spans = {e["name"]: e for e in trace["traceEvents"]
+             if e.get("cat") == "program_span"}
+    assert set(spans) == {"stage.outer", "stage.inner"}
+    outer, inner = spans["stage.outer"], spans["stage.inner"]
+    assert outer["ph"] == "X" and outer["args"] == {"step": 2}
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    ops = [e for e in trace["traceEvents"] if e.get("name") == "aten::sum"]
+    assert ops and all(inner["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                       <= inner["ts"] + inner["dur"] for e in ops)
     with TP.trace(tmp_path / "off", enabled=False):
-        pass
+        with TP.span("unrecorded"):
+            pass
     assert not (tmp_path / "off").exists()
