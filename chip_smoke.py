@@ -44,8 +44,8 @@ Phases:
   4. model check: YOLOv8m f32 logits on the card (kernels, TF32 off)
      against the same weights on the CPU (plain versions) at 128 px;
   5. the sweep: launch counters zeroed just before it and read just after
-     (front 1 and conv3x3 4 per forward, x 4 passes x batches), finite
-     per-variant mAPs, detections per image, images/sec;
+     (front 1, conv3x3 4 and NMS 1 per forward, x 4 passes x batches),
+     finite per-variant mAPs, detections per image, images/sec;
   6. training kernels: K3-b (conv3x3 wgrad) and K3-f as dX, K2-f in train
      mode, K2-b and K1 against their plain versions at the training
      shapes, in f32 with TF32 off and in bf16, timed the same way (with the
@@ -154,15 +154,15 @@ Phases:
      the CPU, on an image near 0.9 with small noise (SSIM within 1e-6),
      beside the same SSIM through an f32 cuDNN window in TF32;
  18. the 8-pass sweep (``bench.py``'s ``bench_sweep`` path): phase 5's 64
-     images with the f32 U-Net restoring the three corrupted variants,
-     launch counters zeroed just before and read just after (front 1 and
-     conv3x3 4 per forward, x 8 passes x batches), finite mAPs of both
-     strategies, images/s and peak memory; for one batch the restored
-     passes equal the U-Net's u8 apply run alone and then detected, the
-     restored Clean pass the corrupted one; the U-Net's ms for a batch of
-     8 at 768x1024 by CUDA events with the process's flags and with TF32
-     off, beside its FLOP bound (2 x 122,560 MACs a pixel over 67 TFLOP/s
-     f32 and 494 TFLOP/s TF32);
+     images with the f32 U-Net restoring the three corrupted variants, launch
+     counters zeroed just before and read just after (front 1, conv3x3 4 and
+     NMS 1 per forward, x 8 passes x batches), finite mAPs of both
+     strategies, images/s and peak memory; for one batch the restored passes
+     equal the U-Net's u8 apply run alone and then detected, the restored
+     Clean pass the corrupted one; the U-Net's ms for a batch of 8 at
+     768x1024 by CUDA events with the process's flags and with TF32 off,
+     beside its FLOP bound (2 x 122,560 MACs a pixel over 67 TFLOP/s f32 and
+     494 TFLOP/s TF32);
  19. U-Net training at ``RestorationConfig``'s defaults (patch 256, batch
      8): 1 warm-up + 5 timed steps, finite loss / psnr / grad_norm, moved
      running statistics, step ms, patches/s, peak memory, the loss's own
@@ -186,8 +186,9 @@ Phases:
      against a float64 RoI-by-RoI version (tolerances in
      phase_frcnn_model_check);
  21. the 4-pass sweep with Faster R-CNN (f32 under the process's flags,
-     phase 5's 64 images, 1024 canvas, batch 8): no hand kernel launched
-     (every counter zeroed just before, read just after), image-passes/s,
+     phase 5's 64 images, 1024 canvas, batch 8): NMS 2 per forward
+     (proposals, detections) and no other hand kernel launched (every
+     counter zeroed just before, read just after), image-passes/s,
      peak memory, the event ms a batch of backbone + FPN, RPN head,
      proposals, RoIAlign, box head and final NMS beside the FLOP bound of
      the convs and linears (counted by hooks), RoIAlign's peak memory, the
@@ -212,8 +213,9 @@ Phases:
      (batch 2, 1024 px, 80 GT boxes an image in 600 slots, augment, f32
      under the process's flags): K1 at this shape against its plain
      version (all four branches), then 1 warm-up + 5 timed steps with the
-     launch counters zeroed just before and read just after (K1 1 a step,
-     every other hand kernel 0); finite metrics; step ms, images/s, peak
+     launch counters zeroed just before and read just after (K1 1 and
+     NMS 1 a step, every other hand kernel 0); finite metrics; step ms,
+     images/s, peak
      memory; the CUDA-event ms of each stage (K1, backbone + FPN + RPN
      forward, RPN targets + loss, proposals, RoI targets, RoIAlign + box
      head forward, head loss, backward, SGD); the FLOP bound of the convs
@@ -334,6 +336,21 @@ Phases:
      valid rows equal field by field (shuffled too, at 0 workers); the short
      last batch padded by its last record with image_id -1; numpy uint8;
      the parent's CUDA context intact; ms a batch each way.
+ 33. greedy NMS (``csrc/nms.cu``, ``ops/nms._greedy_walk``) against the
+     eager loop (``_greedy_loop``) on the card, at the 8-pass sweep's
+     shape (32 x 30,000 candidates, 6 classes, 300 outputs, IoU 0.7; also
+     a long walk through few objects) and at Faster R-CNN's (proposals:
+     8 x 4,096 over 5 levels, 512 outputs, IoU 0.7, and the train step's
+     batch 2; detections: 8 x 2,048, 100 outputs, IoU 0.5), on scores
+     with exact ties and on IoUs an ulp around the threshold
+     (``tests/_torch_nms_cases.py``): the same positions and scores slot
+     for slot, one launch a call, each image's walk length from ``stats``
+     against the loop's picks, kept and suppressed second boxes in the ulp
+     case; the walk's CUDA-event and device ms beside the loop's, and
+     ``multilabel_nms`` (top-k included) both ways at the sweep's decode
+     shape (32 x 21,504 anchors x 6 classes). The NMS launches of the
+     sweeps and the Faster R-CNN train steps are counted in phases 5, 18,
+     21, 24 and 28.
 
 Every kernel's line in the summary also carries ``bound_ms``, the least
 time the card could take for the same work: the larger of the bytes the
@@ -970,6 +987,7 @@ def phase_sweep(dev):
     import torch
     from robust_object_detection_tpu_torch.models import yolov8 as Y
     from robust_object_detection_tpu_torch.ops import conv3x3 as C
+    from robust_object_detection_tpu_torch.ops import nms as NM
     from robust_object_detection_tpu_torch.ops import yolo_front as TF
     from robust_object_detection_tpu_torch.train import detector as D
 
@@ -977,8 +995,9 @@ def phase_sweep(dev):
                      torch.Generator().manual_seed(SEED))
     launches, (_, _, _, valid) = run_sweep(
         dev, "sweep", "YOLOv8m", model, D.make_predict_step(IMG_SIZE),
-        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference},
-        {"conv3x3": 4, "yolo_front": 1})
+        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference,
+         "nms": NM._nms_core},
+        {"conv3x3": 4, "yolo_front": 1, "nms": 1})
     per_img = valid.sum(-1).float().mean(-1).tolist()
     print(f"[sweep] detections per image by pass (Clean, Noise, Blur, "
           f"LowRes): {per_img}")
@@ -3312,6 +3331,7 @@ def phase_restored_sweep(dev):
     from robust_object_detection_tpu_torch.ops import conv3x3 as C
     from robust_object_detection_tpu_torch.ops import corrupt as CO
     from robust_object_detection_tpu_torch.ops import image as IM
+    from robust_object_detection_tpu_torch.ops import nms as NM
     from robust_object_detection_tpu_torch.ops import yolo_front as TF
     from robust_object_detection_tpu_torch.train import detector as D
 
@@ -3321,8 +3341,9 @@ def phase_restored_sweep(dev):
     predict = D.make_predict_step(IMG_SIZE)
     launches, dets = run_sweep(
         dev, "sweep8", "YOLOv8m + U-Net", model, predict,
-        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference},
-        {"conv3x3": 4, "yolo_front": 1}, unet=unet)
+        {"conv3x3": C.conv3x3, "yolo_front": TF.front_inference,
+         "nms": NM._nms_core},
+        {"conv3x3": 4, "yolo_front": 1, "nms": 1}, unet=unet)
     per_img = dets[3].sum(-1).float().mean(-1).tolist()
     print(f"[sweep8] detections per image by pass (corrupted, then "
           f"restored: Clean, Noise, Blur, LowRes): {per_img}")
@@ -3885,25 +3906,28 @@ def all_kernel_counters():
 
 def phase_frcnn_sweep(dev):
     """The 4-pass sweep with Faster R-CNN (full width, f32 under the
-    process's flags, 1024 canvas, batch 8, phase 5's 64 images): no hand
-    kernel launches (every counter zeroed just before, read just after);
+    process's flags, 1024 canvas, batch 8, phase 5's 64 images): two NMS
+    launches a forward (proposals, detections) and no other hand kernel
+    launch (every counter zeroed just before, read just after);
     image-passes/s and peak memory; the event ms a batch of each part of
     the predict step, beside the FLOP bound of its convs and linears; the
     idle share of one profiled batch; RoIAlign's peak memory. Then the
-    8-pass sweep with the U-Net over 16 images."""
+    8-pass sweep with the U-Net over 16 images. Returns both sweeps'
+    launch counts, summed."""
     import numpy as np
     import torch
     from robust_object_detection_tpu_torch.models import fpn as FP
     from robust_object_detection_tpu_torch.models import frcnn as FR
     from robust_object_detection_tpu_torch.ops import image as IM
+    from robust_object_detection_tpu_torch.ops import nms as NM
     from robust_object_detection_tpu_torch.train import frcnn as TFR
 
     model = frcnn_pair(dev)[1]
     predict = TFR.make_predict_step(model, IMG_SIZE)
-    counters = all_kernel_counters()
-    none = dict.fromkeys(counters, 0)
-    _, dets = run_sweep(dev, "frcnn-sweep", "Faster R-CNN", model, predict,
-                        counters, none, dtype="f32")
+    counters = dict(all_kernel_counters(), nms=NM._nms_core)
+    per_forward = dict(dict.fromkeys(counters, 0), nms=2)
+    launches, dets = run_sweep(dev, "frcnn-sweep", "Faster R-CNN", model,
+                               predict, counters, per_forward, dtype="f32")
     per_img = dets[3].sum(-1).float().mean(-1).tolist()
     print(f"[frcnn-sweep] detections per image by pass (Clean, Noise, "
           f"Blur, LowRes): {per_img}")
@@ -3955,12 +3979,13 @@ def phase_frcnn_sweep(dev):
           f"{busy} ms, idle share {idle}")
 
     unet = unet_pair(dev)[1]
-    _, dets8 = run_sweep(dev, "frcnn-sweep8", "Faster R-CNN + U-Net", model,
-                         predict, counters, none, unet=unet, n_images=16,
-                         dtype="f32")
+    launches8, dets8 = run_sweep(dev, "frcnn-sweep8", "Faster R-CNN + U-Net",
+                                 model, predict, counters, per_forward,
+                                 unet=unet, n_images=16, dtype="f32")
     per_img = dets8[3].sum(-1).float().mean(-1).tolist()
     print(f"[frcnn-sweep8] detections per image by pass (corrupted, then "
           f"restored): {per_img}")
+    return {k: n + launches8[k] for k, n in launches.items()}
 
 
 def phase_frcnn_bucketed(dev):
@@ -4269,19 +4294,19 @@ def check_k1_frcnn_batch(dev, tag):
 def frcnn_step_timing(dev, model, tag):
     """1 + 5 steps of `model` (its compute dtype) on one seeded batch at
     bench_frcnn's configuration through make_train_step, draws from
-    step_generator on the card. Launch counters zeroed just before the
-    timed steps and read just after (K1 1 a step, every other hand kernel
-    0); finite metrics; step ms, images/s, peak memory; CUDA-event ms of
-    each stage (wrappers around the step's own calls); the idle share of
-    one profiled step; the FLOP bound beside the step; the peak memory
-    RoIAlign + the box head's forward and backward add. Returns the launch
-    counts."""
+    step_generator on the card. Launch counters zeroed just before the timed
+    steps and read just after (K1 1 and NMS 1 a step, every other hand kernel
+    0); finite metrics; step ms, images/s, peak memory; CUDA-event ms of each
+    stage (wrappers around the step's own calls); the idle share of one
+    profiled step; the FLOP bound beside the step; the peak memory RoIAlign +
+    the box head's forward and backward add. Returns the launch counts."""
     import functools
     import numpy as np
     import torch
     from robust_object_detection_tpu_torch.core.config import \
         CorruptionConfig
     from robust_object_detection_tpu_torch.models import frcnn as FR
+    from robust_object_detection_tpu_torch.ops import nms as NM
     from robust_object_detection_tpu_torch.train import frcnn as TFR
 
     g = torch.Generator(dev).manual_seed(SEED + 13)
@@ -4327,7 +4352,7 @@ def frcnn_step_timing(dev, model, tag):
     model.roi_forward = timed(real["roi_forward"], "roi_forward")
     state.optimizer.step = timed(real["opt"], "sgd")
 
-    counters = all_kernel_counters()
+    counters = dict(all_kernel_counters(), nms=NM._nms_core)
     for f in counters.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4354,7 +4379,7 @@ def frcnn_step_timing(dev, model, tag):
     launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     expect = dict.fromkeys(counters, 0)
-    expect["fused_random_corruption"] = TRAIN_STEPS
+    expect["fused_random_corruption"] = expect["nms"] = TRAIN_STEPS
     print(f"[{tag}] launches {launches}")
     require(launches == expect, f"launch counts {launches} != {expect}")
 
@@ -6802,6 +6827,126 @@ def phase_worker_loader(dev):
     print(f"[loader] ms ({card}; host CPU {host_cpu()}): {json.dumps(ms)}")
 
 
+NMS_SHAPES = (
+    # tag, B, K, classes, P, IoU, the crowd's arguments
+    ("sweep", 32, 30000, 6, 300, 0.7, {}),
+    ("sweep_long", 32, 30000, 6, 300, 0.7, dict(objects=8, levels=256)),
+    ("frcnn_rpn_predict", 8, 4096, 5, 512, 0.7, {}),
+    ("frcnn_box_predict", 8, 2048, 6, 100, 0.5, dict(levels=100)),
+    ("frcnn_rpn_train", 2, 4096, 5, 512, 0.7, {}),
+)
+
+
+def nms_cases():
+    """tests/_torch_nms_cases.py, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_torch_nms_cases", ROOT / "tests" / "_torch_nms_cases.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nms_held(NM, tag, boxes, scores, classes, p, thr, aware):
+    """One walk against the loop on the same candidates, by equality, one
+    launch; returns each image's walk length (stats, held against the
+    loop's picks) and the picked scores."""
+    import torch
+    ref_idx, ref_sval = NM._greedy_loop(boxes, scores, classes, p, thr,
+                                        aware)
+    stats = torch.zeros(boxes.shape[0], dtype=torch.int32,
+                        device=boxes.device)
+    before = NM._nms_core.launches
+    idx, sval = NM._greedy_walk(boxes, scores, classes, p, thr, aware, stats)
+    torch.cuda.synchronize()
+    require(NM._nms_core.launches == before + 1,
+            f"{tag}: {NM._nms_core.launches - before} NMS launches, not 1")
+    require(torch.equal(idx, ref_idx) and torch.equal(sval, ref_sval),
+            f"{tag}: the walk's picks differ from the loop's in "
+            f"{int((idx != ref_idx).sum())} positions and "
+            f"{int((sval != ref_sval).sum())} scores")
+    require(torch.equal(stats, NM.walk_lengths(ref_idx, ref_sval, scores)),
+            f"{tag}: walk lengths {stats.tolist()} against the picks' "
+            f"{NM.walk_lengths(ref_idx, ref_sval, scores).tolist()}")
+    return stats, sval
+
+
+def phase_nms(dev):
+    """Phase 33 (see the module docstring). Returns {"nms": {"float32":
+    the summary's numbers at the sweep's shape}}."""
+    import torch
+    from robust_object_detection_tpu_torch import kernels
+    from robust_object_detection_tpu_torch.ops import nms as NM
+    NC = nms_cases()
+    res = {}
+    for seed, (tag, b, k, n_cls, p, thr, kw) in enumerate(NMS_SHAPES):
+        boxes, scores, classes = NC.crowd(b, k, n_cls, seed=seed, **kw)
+        if tag.startswith("frcnn_rpn"):     # sigmoid scores, int64 levels
+            scores, classes = torch.sigmoid(scores * 8 - 4), classes.long()
+        boxes, scores, classes = (t.to(dev) for t in (boxes, scores, classes))
+        walked, sval = nms_held(NM, tag, boxes, scores, classes, p, thr,
+                                True)
+        picks = (sval > 0).sum(1)
+        walk_ms = time_ms(lambda: NM._greedy_walk(boxes, scores, classes, p,
+                                                  thr, True))
+        loop_ms = time_ms(lambda: NM._greedy_loop(boxes, scores, classes, p,
+                                                  thr, True), 5, 1)
+        device = sum(ms for ms, _, key in device_ms_by_kernel(
+            lambda: NM._greedy_walk(boxes, scores, classes, p, thr, True))
+            if "nms_walk" in key)
+        nbytes = float(walked.sum()) * (16 + 4 + classes.element_size()) \
+            + b * p * 12
+        print(f"[nms] {tag}: B {b} K {k} P {p} IoU {thr} chunk "
+              f"{kernels.nms_plan(b, k, p)['threads']}: walk events "
+              f"{walk_ms} ms, device {device} ms (bytes bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3} ms); loop {loop_ms} ms; "
+              f"picks {picks.tolist()}; walk lengths {walked.tolist()}",
+              flush=True)
+        if tag == "sweep":
+            res = {"nms": {"float32": dict(
+                max_abs_err=0.0, ms=walk_ms, plain_ms=loop_ms,
+                device_ms=device, bytes=nbytes, flops=0.0,
+                peak=PEAK_FLOPS["float32"], library_ms=None,
+                walk_lengths=walked.tolist())}}
+    # exact ties (64 score levels) and IoUs an ulp around the threshold on
+    # boxes whose products and sums round
+    boxes, scores, classes = (t.to(dev) for t in NC.crowd(
+        32, 30000, 6, seed=11, levels=64))
+    nms_held(NM, "ties", boxes, scores, classes, 300, 0.7, True)
+    boxes, scores, iou = NC.ulp_pairs(4096, seed=0)
+    thr = NC.densest_iou(iou)
+    _, sval = nms_held(NM, "ulp", boxes.to(dev), scores.to(dev),
+                       torch.zeros(scores.shape, dtype=torch.int32,
+                                   device=dev), 2, thr, False)
+    kept = int((sval[:, 1] > 0).sum())
+    print(f"[nms] ulp: {int((iou == thr).sum())} of 4096 IoUs at the "
+          f"threshold {thr}, {kept} second boxes kept", flush=True)
+    require(0 < kept < 4096, f"ulp: {kept} of 4096 second boxes kept; the "
+            f"case needs both kept and suppressed ones")
+    # multilabel_nms at the sweep's decode shape, top-k included, both ways
+    g = torch.Generator().manual_seed(12)
+    anchors, _, _ = NC.crowd(32, 21504, 1, seed=12, objects=4000)
+    anchors = anchors.to(dev)
+    logits = (torch.randn(32, 21504, 6, generator=g) * 2 - 3).to(dev)
+    scores = torch.sigmoid(logits)
+    walk = NM.multilabel_nms(anchors, scores)
+    walk_ms = time_ms(lambda: NM.multilabel_nms(anchors, scores))
+    real = NM._greedy_walk
+    NM._greedy_walk = lambda b_, s_, c_, p_, t_, a_, st=None: \
+        NM._greedy_loop(b_, s_, c_, p_, t_, a_)
+    try:
+        loop = NM.multilabel_nms(anchors, scores)
+        loop_ms = time_ms(lambda: NM.multilabel_nms(anchors, scores), 5, 1)
+    finally:
+        NM._greedy_walk = real
+    require(all(torch.equal(x, y) for x, y in zip(walk, loop)),
+            "multilabel_nms: the walk's detections differ from the loop's")
+    print(f"[nms] multilabel_nms 32 x 21504 x 6 -> 30000 -> 300: walk "
+          f"{walk_ms} ms, loop {loop_ms} ms (events, top-k included); "
+          f"detections an image {walk[3].sum(1).tolist()}", flush=True)
+    return res
+
+
 def ptxas_report(log: str):
     """(entry function, resource line) pairs from nvcc's -Xptxas=-v output:
     the stack / spill line and the registers line of each kernel."""
@@ -6926,7 +7071,7 @@ def main() -> int:
     restored_launches = timed(phase_restored_sweep)
     timed(phase_unet_training)
     timed(phase_frcnn_model_check)
-    timed(phase_frcnn_sweep)
+    frcnn_launches = timed(phase_frcnn_sweep)
     timed(phase_frcnn_bucketed)
     timed(phase_frcnn_train_model_check)
     frcnn_train_launches = timed(phase_frcnn_training)
@@ -6938,11 +7083,12 @@ def main() -> int:
     codec_launches = timed(phase_codec)
     route_launches = timed(phase_corrupt_route)
     timed(phase_worker_loader)
+    kres.update(timed(phase_nms))
     print(f"[phase] seconds: {json.dumps(phase_s)}")
     # a kernel may run on several paths; each count comes from its own
     # path's run, zeroed just before it
     for path in (train_launches, rtdetr_launches, rtdetr_train_launches,
-                 generation_launches, restored_launches,
+                 generation_launches, restored_launches, frcnn_launches,
                  frcnn_train_launches, yolo_trainer_launches,
                  rtdetr_trainer_launches, cli_launches, frcnn_bf16_launches,
                  parallel_launches, codec_launches, route_launches):
@@ -6977,7 +7123,8 @@ def main() -> int:
             ("ms_deform_attn_sorted_bwd", "deform_bwd.cu",
              "deform.py:524", "bfloat16"),
             ("stamp_scatter", "stamp_scatter.cu", "deform.py:170",
-             "float32")):
+             "float32"),
+            ("nms", "nms.cu", "nms.py:50", "float32")):
         r = kres[name][dtype]
         bound_ms, bound_by = bound(r)
         summary.append({"name": name, "route": "cuda", "source": src + source,
@@ -7001,6 +7148,10 @@ def main() -> int:
             summary[-1]["capped"] = r["capped_ms"]
         if name == "corrupt":
             summary[-1]["by_branch"] = kres["corrupt_by_branch"]
+        if name == "nms":
+            # the sweep's shape: device ms, each image's walk length
+            summary[-1]["device_ms"] = r["device_ms"]
+            summary[-1]["walk_lengths"] = r["walk_lengths"]
         if name in ("conv3x3", "conv3x3_wgrad", "yolo_front",
                     "yolo_front_train", "yolo_front_bwd", "hgstem",
                     "hgstem_train", "hgstem_bwd"):

@@ -108,6 +108,11 @@ SIGNATURES: Dict[str, List] = {
     # row_lanes, fixed (deform_fwd_plan of the rows the gather reads),
     # ld_vec, st_vec (deform_relayout_plan; 0 for values), stream
     "ms_deform_attn_sorted_fwd": [_P] * 6 + [_I] * 14 + [_P],
+    # boxes, scores, classes (or null), class kind (NMS_CLASS_KINDS), f64,
+    # B, K, P, iou_thresh, threads, kp_smem, smem (the plan of nms_plan),
+    # spill (or null), idx, sval, stats (or null), stream
+    "nms_walk": [_P] * 3 + [_I] * 5 + [ctypes.c_double] + [_I] * 3
+                + [_P] * 5,
 }
 
 _lock = threading.Lock()
@@ -969,3 +974,51 @@ def sm_count(device) -> int:
 def _sm_count(index: int) -> int:
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---- greedy NMS (csrc/nms.cu) ------------------------------------------
+# One block an image walks its sorted candidates a chunk (== the block's
+# threads) at a time: NMS_CHUNK for long candidate lists, the candidates
+# rounded up to a warp for short ones. Boxes and scores share one type,
+# float32 or float64 (4- or 8-byte elements).
+# Shared bytes mirror nms.cu's `layout`; the kept boxes live in shared
+# memory unless they do not fit beside the chunk, then in a global `spill`
+# of spill_rows boxes an image.
+NMS_CHUNK = 512
+NMS_CLASS_KINDS = {"none": 0, "int32": 1, "int64": 2}
+NMS_SMEM_LIMIT = 232448 - 1024
+
+
+def _nms_smem(kp: int, chunk: int, eb: int) -> int:
+    off = kp * 4 * eb + chunk * 4 * eb + kp * eb
+    off = _round16(off) + chunk * eb
+    off = _round16(off) + chunk * eb
+    off = _round16(off) + chunk * 4
+    off = _round16(off) + chunk * (chunk // 32) * 4
+    return _round16(off)
+
+
+def nms_spill_rows(kp: int) -> int:
+    """Kept boxes an image holds in the global spill (kp rounded up to 4)."""
+    return -(-kp // 4) * 4
+
+
+def nms_plan(b: int, k: int, p: int, elem_bytes: int = 4) -> Dict[str, int]:
+    """The walk's launch plan for (B, K) candidates and P outputs, boxes and
+    scores of `elem_bytes` (4 or 8): threads, the chunk a step (a multiple
+    of 32, at most NMS_CHUNK); kp_smem, the kept boxes in shared memory
+    (min(K, P), or 0 when they spill to global memory); smem, the dynamic
+    shared bytes; spill, the spill's elements (0 without)."""
+    if b <= 0 or k <= 0 or p <= 0:
+        raise ValueError(f"nms takes B, K, P > 0, got {b}, {k}, {p}")
+    if elem_bytes not in (4, 8):
+        raise ValueError(f"nms takes 4- or 8-byte boxes and scores, got "
+                         f"{elem_bytes}")
+    threads = min(NMS_CHUNK, -(-k // 32) * 32)
+    kp = min(k, p)
+    smem = _nms_smem(kp, threads, elem_bytes)
+    if smem <= NMS_SMEM_LIMIT:
+        return dict(threads=threads, kp_smem=kp, smem=smem, spill=0)
+    return dict(threads=threads, kp_smem=0,
+                smem=_nms_smem(0, threads, elem_bytes),
+                spill=b * nms_spill_rows(kp) * 5)

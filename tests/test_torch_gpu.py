@@ -23,8 +23,11 @@ from robust_object_detection_tpu_torch.ops import assignment as AS
 from robust_object_detection_tpu_torch.ops import conv3x3 as C
 from robust_object_detection_tpu_torch.ops import deform as DF
 from robust_object_detection_tpu_torch.ops import fused_corrupt as FC
+from robust_object_detection_tpu_torch.ops import nms as NM
 from robust_object_detection_tpu_torch.ops import stem as ST
 from robust_object_detection_tpu_torch.ops import yolo_front as TF
+
+import _torch_nms_cases as NC  # noqa: E402
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)]
 # K2's odd shapes (B, H, W, C1, C2): odd H/4 and W/4 with channel counts
@@ -2075,3 +2078,110 @@ def test_ema_predict_card_matches_cpu(cuda):
     for got, ref, r in zip(outs["cuda"], outs["cpu"], raw):
         assert _rel_err(got, ref) <= 1e-4
         assert _rel_err(r, ref) > 1e-3
+
+
+def _nms_case(name):
+    """(boxes, scores, classes, P, thr, class_aware) of a card NMS case,
+    sorted candidates on the CPU."""
+    if name == "sweep":           # multilabel_nms in the 8-pass sweep
+        return NC.crowd(32, 30000, 6, seed=1) + (300, 0.7, True)
+    if name == "sweep_ties":      # scores on 64 levels: long exact ties
+        return NC.crowd(32, 30000, 6, seed=2, levels=64) + (300, 0.7, True)
+    if name == "sweep_long":      # few objects: walks past most candidates
+        return NC.crowd(32, 30000, 6, seed=3, objects=8, levels=256) \
+            + (300, 0.7, True)
+    if name in ("rpn", "rpn_train"):  # Faster R-CNN proposals, class-aware
+        b = 8 if name == "rpn" else 2  # over 5 levels (int64), predict and
+        bx, s, c = NC.crowd(b, 4096, 5, seed=4)      # train batches
+        return bx, torch.sigmoid(s * 8 - 4), c.long(), 512, 0.7, True
+    if name == "box":             # Faster R-CNN's detections
+        return NC.crowd(8, 2048, 6, seed=5, levels=100) + (100, 0.5, True)
+    if name == "agnostic":
+        return NC.crowd(4, 5000, 1, seed=6, objects=50) + (300, 0.6, False)
+    if name == "ulp":             # IoUs an ulp around thr, rounding boxes
+        bx, s, iou = NC.ulp_pairs(4096, seed=7)
+        return bx, s, torch.zeros(s.shape, dtype=torch.int32), 2, \
+            NC.densest_iou(iou), False
+    if name == "float64":         # Faster R-CNN's float64 step
+        bx, s, c = NC.crowd(8, 4096, 5, seed=8, dtype="float64")
+        return bx, s, c.long(), 512, 0.7, True
+    # "spill": more kept boxes than shared memory holds beside a chunk
+    bx, s, c = NC.crowd(1, 12000, 2, seed=10, objects=6000, jitter=0.0)
+    return bx, s, c, 10000, 0.5, True
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sweep", "sweep_ties", "sweep_long", "rpn",
+                                  "rpn_train", "box", "agnostic", "ulp",
+                                  "float64", "spill"])
+def test_nms_walk_equals_the_loop(cuda, name):
+    """One launch of nms_walk against the eager loop on the card, same
+    sorted candidates: the same positions and scores slot for slot, the
+    same detections, walk lengths as walk_lengths reads them from the
+    loop's picks; one launch a call."""
+    boxes, scores, classes, p, thr, aware = (
+        t.to(cuda) if torch.is_tensor(t) else t for t in _nms_case(name))
+    if name == "spill":
+        assert NM.kernels.nms_plan(1, 12000, p)["kp_smem"] == 0
+    ref_idx, ref_sval = NM._greedy_loop(boxes, scores, classes, p, thr,
+                                        aware)
+    before = NM._nms_core.launches
+    stats = torch.zeros(boxes.shape[0], dtype=torch.int32, device=cuda)
+    out = NM._nms_core(boxes, scores, classes, p, thr, aware, stats)
+    idx, sval = NM._greedy_walk(boxes, scores, classes, p, thr, aware)
+    torch.cuda.synchronize()
+    assert NM._nms_core.launches == before + 2
+    assert idx.dtype == torch.int64 and sval.dtype == scores.dtype
+    assert torch.equal(idx, ref_idx) and torch.equal(sval, ref_sval)
+    assert torch.equal(stats, NM.walk_lengths(ref_idx, ref_sval, scores))
+    valid = ref_sval > 0
+    assert torch.equal(out[3], valid)
+    assert torch.equal(out[1], torch.where(valid, ref_sval, 0.0))
+    assert torch.equal(out[0], torch.where(
+        valid[..., None], torch.gather(boxes, 1, ref_idx[..., None].expand(
+            -1, -1, 4)), 0.0))
+    assert valid.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("box_t,score_t,class_t,aware", [
+    (torch.bfloat16, torch.bfloat16, torch.int32, True),
+    (torch.bfloat16, torch.float32, torch.int32, False),
+    (torch.float32, torch.float64, torch.int32, True),
+    (torch.float32, torch.float32, torch.float32, True)])
+def test_nms_refuses_what_it_cannot_match(cuda, box_t, score_t, class_t,
+                                          aware):
+    """The walk takes float32 or float64 boxes and scores of one type and
+    int32 or int64 classes (what every caller passes); anything else is
+    refused before any launch."""
+    boxes, scores, classes = NC.crowd(2, 100, 3)
+    before = NM._nms_core.launches
+    with pytest.raises(ValueError):
+        NM._nms_core(boxes.to(cuda, box_t), scores.to(cuda, score_t),
+                     classes.to(cuda, class_t), 10, 0.5, aware)
+    assert NM._nms_core.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("multi_label", [True, False])
+def test_predict_step_runs_the_nms_walk(cuda, multi_label, monkeypatch):
+    """The YOLO predict step's NMS is one nms_walk launch a call, and its
+    detections equal those of the same step with the eager loop."""
+    from robust_object_detection_tpu_torch.models import yolov8 as Y
+    from robust_object_detection_tpu_torch.train import detector as D
+    model = Y.create(6, "n", torch.float32, cuda,
+                     torch.Generator().manual_seed(0))
+    x = (torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(
+        1)) * 255).to(cuda)
+    step = D.make_predict_step(128, multi_label=multi_label)
+    before = NM._nms_core.launches
+    got = step(model, x)
+    torch.cuda.synchronize()
+    assert NM._nms_core.launches == before + 1
+    monkeypatch.setattr(NM, "_greedy_walk", lambda b, s, c, p, t, a, st=None:
+                        NM._greedy_loop(b, s, c, p, t, a))
+    ref = step(model, x)
+    assert NM._nms_core.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert ref[3].any()

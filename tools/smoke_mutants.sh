@@ -161,3 +161,9 @@ mutate k4b_f32_no_lo robust_object_detection_tpu_torch/csrc/front_tf32.cuh \
   "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, l0, l1);" \
   "  *reinterpret_cast<uint4*>(dst) = make_uint4(h0, h1, 0u, 0u);" \
   phase_rtdetr_train_kernels
+# the walk's IoU denominator contracted into an FMA ((ka + ca) - iw * ih in
+# one rounding): phase 33's IoUs an ulp around the threshold
+mutate nms_fma robust_object_detection_tpu_torch/csrc/nms.cu \
+  "  const T den = clamp_lo(sub_rn(add_rn(ka, ca), inter), den_floor<T>());" \
+  "  const T den = clamp_lo(fma(-iw, ih, add_rn(ka, ca)), den_floor<T>());" \
+  phase_nms
